@@ -5,28 +5,56 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions; TF32 off.
-  2. build: nvcc builds csrc/flash_fwd.cu for sm_90a from this checkout.
+  2. build: nvcc builds csrc/flash_fwd.cu and csrc/flash_bwd.cu for sm_90a
+     from this checkout, both at once.
   3. kernel_check: the flash-forward kernel against its plain PyTorch version
      on the card in bf16 (padding with a fully masked row, ragged and sub-tile
      lengths, the multi-tile regime at 4096/8192, causal S != T, window,
-     segments, GQA, D=128).
-  4. main_path: a full-width nomic-bert-2048 BiEncoder (bf16, random weights
+     segments, GQA, D=128, and the training step's two shapes, B=512 S=32
+     and B=16 S=256).
+  4. kernel_check_bwd: the two backward kernels (dq; dk/dv) against the
+     plain backward on the same O and LSE, with a strided dO, in 13 of those
+     cases (the training shapes included); dq must be 0 on the fully masked
+     row.
+  5. main_path: a full-width nomic-bert-2048 BiEncoder (bf16, random weights
      from a seed) answers encode requests through the port's Encoder at
      batch 256 / seq_len 512, then one long-context NTK batch at S=4096. Each
      of the two runs has its own launch count, set to 0 just before it, which
      must equal n_layer x its batches; embeddings must be finite, unit-norm
      and agree with the same weights under attn_impl="sdpa".
-  5. timing: encode throughput at 256 x 512, and the kernel's time beside its
-     bound, its plain version and torch's scaled_dot_product_attention (a
-     yardstick only; the port never calls it), at B=256 S=512 and B=16 S=4096.
+  6. timing: encode throughput at 256 x 512, and the forward kernel's time
+     beside its bound, its plain version and torch's
+     scaled_dot_product_attention (a yardstick only; the port never calls
+     it), at B=256 S=512 and B=16 S=4096.
+  7. train_step: the text GradCache step at full width (the JAX headline
+     geometry: 512 pairs, query 32 / document 256 tokens, chunk 16, every
+     query chunk direct, document chunks cached, AdamW lr 2e-4 wd 0.01 clip
+     1.0, LogitScale(50) fixed) takes 5 steps on one batch whose documents
+     start with their query's tokens. Each step's launch counts, set to 0
+     before it, must be n_layer x its forwards (780) and backwards (396, dq
+     and dk/dv each); losses finite and falling. Then, at 64 pairs: the
+     grad-cache grads against the standard step's, and the flash step's
+     against attn_impl="sdpa"'s, per tensor; two faulty steps (the backward
+     kernels given delta = 0; pass 2 replaying each document chunk with its
+     rows rotated) must fall outside those bounds.
+  8. train_timing and kernel_timing_bwd: step time, pairs/s and tokens/s;
+     one profiled step split into its phases (the profiler ranges of
+     grad_cache.py and the trainer); each backward kernel at the two
+     main-path shapes (B=512 S=32, B=16 S=256), checked once more against
+     its plain version, beside its bound, the plain backward and torch
+     SDPA's backward (autograd, forward+backward minus forward).
+Every timing line carries the card's SM clock, power draw and temperature.
 The line before the last holds the kernels' summary, and the last line is
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
 
+import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -38,11 +66,20 @@ def emit(**kw):
     print(json.dumps(kw), flush=True)
 
 
-def card_line():
+def _smi(fields):
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def card_line():
+    return _smi("name,power.limit")
+
+
+def gpu_state():
+    """SM clock, its maximum, power draw and temperature, read beside a timing."""
+    return _smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu")
 
 
 def make_texts(rng, n, lo, hi, lognormal=True):
@@ -53,7 +90,24 @@ def make_texts(rng, n, lo, hi, lognormal=True):
     return [" ".join(map(str, rng.integers(1000, 30000, size=L - 1))) for L in lens]
 
 
-def median_ms(fn, runs=10, warmup=3):
+def ptxas_usage(log):
+    """{kernel<D>: "R registers, S bytes spilled"} from nvcc -Xptxas=-v output."""
+    usage, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d+)E", line)
+        if m:
+            fn, spill = f"{m.group(1)}<{m.group(2)}>", "?"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn] = f"{m.group(1)} registers, {spill} bytes spilled"
+    return usage
+
+
+def event_ms(fn, runs=10, warmup=3):
+    """CUDA-event times of `runs` calls after `warmup` untimed ones."""
     import torch
 
     for _ in range(warmup):
@@ -66,7 +120,11 @@ def median_ms(fn, runs=10, warmup=3):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    return times
+
+
+def median_ms(fn, runs=10, warmup=3):
+    return float(np.median(event_ms(fn, runs, warmup)))
 
 
 def attention_bound(B, S, T, H, Hkv, D, mask=None):
@@ -84,8 +142,127 @@ def attention_bound(B, S, T, H, Hkv, D, mask=None):
     nbytes = 2 * (2 * B * S * H * D + 2 * B * T * Hkv * D) + 4 * B * H * S
     if mask is not None:
         nbytes += 4 * (B * S + B * T)
+    return _bound(flops, nbytes)
+
+
+def _bound(flops, nbytes):
     bound_s = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)
     return bound_s * 1e3, "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes", flops, nbytes
+
+
+def backward_bound(kernel, B, S, T, H, Hkv, D, masked=True):
+    """Least time for one backward kernel on this card, all (row, col) pairs
+    live: dq runs 3 products (q k^T, dO v^T, ds k), dk/dv 4 (q k^T, dO v^T,
+    p^T dO, ds^T q), each 2*D FLOP per pair and q head; bytes are q, k, v,
+    dO, LSE and delta (and the ids) read once and dq, or dk and dv, written
+    once."""
+    products, out_bytes = (3, 2 * B * S * H * D) if kernel == "dq" else (4, 4 * B * T * Hkv * D)
+    flops = products * 2.0 * D * H * B * S * T
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * T * Hkv * D) + 8 * B * H * S + out_bytes
+    if masked:
+        nbytes += 4 * (B * S + B * T)
+    return _bound(flops, nbytes)
+
+
+# the JAX headline step's geometry (bench.py: build_headline_step and its batches)
+PAIRS, Q_LEN, D_LEN, CHUNK = 512, 32, 256, 16
+
+
+def train_modules(impl, dev, lr=2e-4, max_grad_norm=1.0):
+    """BiEncoder(nomic-bert-2048, mean pooling, bf16 compute) with random
+    weights from seed 0, a fixed LogitScale(50) and AdamW (the headline's:
+    lr 2e-4, wd 0.01, clip 1.0)."""
+    import torch
+
+    from contrastors_tpu_torch.models import BiEncoder, LogitScale, init_weights
+    from contrastors_tpu_torch.models.presets import nomic_bert_2048
+    from contrastors_tpu_torch.utils.optim import make_optimizer
+
+    model = init_weights(BiEncoder(nomic_bert_2048(attn_impl=impl), pooling="mean",
+                                   dtype=torch.bfloat16, device=dev), seed=0)
+    scale = LogitScale(50.0, trainable=False, device=dev)
+    named = [("model." + n, p) for n, p in model.named_parameters()]
+    named += [("logit_scale." + n, p) for n, p in scale.named_parameters()]
+    return model, scale, make_optimizer(named, lr, weight_decay=0.01, max_grad_norm=max_grad_norm)
+
+
+def token_batches(pairs, dev, seed=0):
+    """Query and document token batches from numpy; each document starts
+    with its query's tokens, which gives the model something to learn."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    q = rng.integers(5, 30000, size=(pairs, Q_LEN))
+    d = rng.integers(5, 30000, size=(pairs, D_LEN))
+    d[:, :Q_LEN] = q
+
+    def batch(ids):
+        t = torch.from_numpy(ids).to(dev)
+        return {"input_ids": t, "attention_mask": torch.ones_like(t)}
+
+    return batch(q), batch(d)
+
+
+def step_grads(impl, grad_cache, dev, qb, db):
+    """The gradients of one train step at the headline settings, read after
+    a step whose optimizer (lr 0, no clip) leaves the weights and the
+    gradients as they were."""
+    import torch
+
+    from contrastors_tpu_torch.trainers.text_text import make_train_step
+
+    model, scale, opt = train_modules(impl, dev, lr=0.0, max_grad_norm=None)
+    step = make_train_step(model, scale, opt, grad_cache=grad_cache, chunk_size=CHUNK,
+                           direct_chunks_q=-1, direct_chunks_d=0)
+    step(qb, db, torch.Generator().manual_seed(0))
+    return {n: p.grad.float().clone() for n, p in model.named_parameters() if p.grad is not None}
+
+
+@contextlib.contextmanager
+def planted_fault(kind):
+    """A fault planted in the step, to show that the agreement bounds reject
+    it: "no_delta" gives the backward kernels delta = 0; "rolled_replay"
+    makes pass 2 replay each document chunk with its rows rotated by one,
+    so each row's embedding receives another row's cotangent."""
+    import torch
+
+    from contrastors_tpu_torch.ops import flash_attention as fa
+    from contrastors_tpu_torch.trainers import text_text
+
+    if kind == "no_delta":
+        module, name = fa, "prepare_backward"
+
+        def patched(*args, orig=fa.prepare_backward):
+            inputs = orig(*args)
+            return (*inputs[:5], torch.zeros_like(inputs[5]), *inputs[6:])
+    else:
+        module, name = text_text, "encode_batch"
+
+        def patched(model, batch, generator=None, orig=text_text.encode_batch):
+            if torch.is_grad_enabled() and batch["input_ids"].shape[1] == D_LEN:
+                batch = {k: v.roll(1, 0) for k, v in batch.items()}
+            return orig(model, batch, generator)
+    orig = getattr(module, name)
+    setattr(module, name, patched)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def compare_grads(got, ref):
+    """Per-tensor cosine and relative L2 distance of got against ref."""
+    cos, rel = {}, {}
+    for n, y in ref.items():
+        x, y = got[n].flatten().double(), y.flatten().double()
+        ny = y.norm().item()
+        if ny == 0:
+            continue
+        cos[n] = (x @ y).item() / max(x.norm().item() * ny, 1e-300)
+        rel[n] = (x - y).norm().item() / ny
+    worst_cos, worst_rel = min(cos, key=cos.get), max(rel, key=rel.get)
+    return dict(tensors=len(cos), min_cosine=cos[worst_cos], min_cosine_tensor=worst_cos,
+                max_rel_l2=rel[worst_rel], max_rel_l2_tensor=worst_rel)
 
 
 def main():
@@ -102,6 +279,7 @@ def main():
         from contrastors_tpu_torch.models.presets import nomic_bert_2048
         from contrastors_tpu_torch.ops import _build
         from contrastors_tpu_torch.ops import flash_attention as fa
+        from contrastors_tpu_torch.trainers.text_text import make_train_step
     except ImportError as e:
         print(f"chip_smoke: the contrastors_tpu_torch package is missing ({e}); "
               "run from the root of a checkout", file=sys.stderr)
@@ -116,12 +294,17 @@ def main():
          device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          allow_tf32_matmul=False, allow_tf32_cudnn=False)
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    lib_path = _build.build("flash_fwd")
-    _build.load_library("flash_fwd")
-    emit(phase="build", kernel="flash_fwd", seconds=time.perf_counter() - t0,
-         nvcc_seconds=_build.build_seconds.get("flash_fwd"), library=lib_path.name)
+    libs = ("flash_fwd", "flash_bwd")
+    with ThreadPoolExecutor(len(libs)) as pool:
+        paths = dict(zip(libs, pool.map(_build.build, libs)))
+    for name in libs:
+        _build.load_library(name)
+    emit(phase="build", seconds=time.perf_counter() - t0,
+         nvcc_seconds={n: _build.build_seconds.get(n) for n in libs},
+         libraries={n: p.name for n, p in paths.items()},
+         ptxas={n: ptxas_usage(_build.build_logs.get(n, "")) for n in libs})
 
     # 3. kernel against its plain version
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -154,6 +337,9 @@ def main():
         ("segments_s512", dict(B=2, S=512, T=512, H=12, Hkv=12, D=64), dict(segments=True)),
         ("gqa_hkv4_s512", dict(B=2, S=512, T=512, H=12, Hkv=4, D=64), dict(mask=(1, 0))),
         ("d128_s384", dict(B=2, S=384, T=384, H=8, Hkv=8, D=128), dict(mask=(1, 0))),
+        # the training step's shapes: the direct query tower and a document chunk
+        ("train_q_b512_s32", dict(B=512, S=32, T=32, H=12, Hkv=12, D=64), dict(mask=(512, 0))),
+        ("train_d_b16_s256", dict(B=16, S=256, T=256, H=12, Hkv=12, D=64), dict(mask=(16, 0))),
     ]
     o_errs = {}
     for name, shp, opt in cases:
@@ -186,7 +372,46 @@ def main():
         del q, k, v, out, lse, ref_out, ref_lse
     torch.cuda.empty_cache()
 
-    # 4. the slice at full width: encode requests through the port's Encoder
+    # 4. backward kernels against the plain backward, on the same O and LSE
+    bwd_cases = [c for c in cases if c[0] not in ("pad_b256_s512", "s8192")]
+    grad_errs = {"dq": {}, "dk": {}, "dv": {}}
+    for name, shp, opt in bwd_cases:
+        q, k, v = qkv(**{n: shp[n] for n in ("B", "S", "T", "H", "Hkv", "D")})
+        kw = dict(causal=opt.get("causal", False), window=opt.get("window", 0))
+        if "mask" in opt:
+            kw["attention_mask"] = pad_mask(shp["B"], shp["T"], *opt["mask"])
+        if opt.get("segments"):
+            seg = torch.zeros(shp["B"], shp["S"], dtype=torch.int32, device=dev)
+            seg[:, :100], seg[:, 100:300], seg[:, 300:450] = 1, 2, 3
+            kw["segment_ids"] = seg
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        # a strided dO, as a view of a wider buffer
+        dout = torch.randn(*out.shape[:3], out.shape[3] + 8, generator=gen, device=dev).bfloat16()
+        dout = dout[..., : out.shape[3]]
+        grads = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        refs = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        line, ok = {}, True
+        for g, r, gname in zip(grads, refs, ("dq", "dk", "dv")):
+            err = (g.float() - r.float()).abs().max().item()
+            ratio = fa.grad_error_ratio(g, r, gname)
+            grad_errs[gname][name] = err
+            line.update({f"{gname}_max_abs_err": err, f"{gname}_ref_abs_max": r.float().abs().max().item(),
+                         f"{gname}_err_over_tol": ratio})
+            ok = ok and ratio <= 1.0 and bool(torch.isfinite(g.float()).all())
+        if name.endswith("empty_row"):
+            line["dq_empty_row_zero"] = bool((grads[0][-1] == 0).all())
+            ok = ok and line["dq_empty_row_zero"]
+        emit(phase="kernel_check_bwd", case=name, **shp, **line,
+             tol={n: f"{fa.GRAD_REL:g}*|ref| + {fa.GRAD_ABS_FRAC[n]:g}*max|ref|" for n in grad_errs},
+             ok=ok)
+        if not ok:
+            raise AssertionError(f"flash backward kernels disagree with their plain version in case {name}")
+        del q, k, v, out, lse, dout, grads, refs
+    torch.cuda.empty_cache()
+
+    # 5. the slice at full width: encode requests through the port's Encoder
     cfg = nomic_bert_2048(attn_impl="flash")
     model = init_weights(BiEncoder(cfg, pooling="mean", dtype=torch.bfloat16, device=dev), seed=0)
     n_params = sum(p.numel() for p in model.parameters())
@@ -248,7 +473,7 @@ def main():
     del model_sdpa, model_sdpa_long, model_long, enc_long
     torch.cuda.empty_cache()
 
-    # 5. timing
+    # 6. timing
     texts_512 = make_texts(rng, 256, 512, 512, lognormal=False)
     enc.query_prefix = enc.document_prefix = None
     host_ms = []
@@ -263,7 +488,7 @@ def main():
     with torch.inference_mode():
         fwd_ms = median_ms(lambda: model(ids, full, normalize=False), runs=7)
     enc_ms = float(np.median(host_ms))
-    emit(phase="encode_throughput", card=card, batch=256, seq_len=512, encode_ms=enc_ms,
+    emit(phase="encode_throughput", card=card, gpu_state=gpu_state(), batch=256, seq_len=512, encode_ms=enc_ms,
          texts_per_s=256 / enc_ms * 1e3, tokens_per_s=256 * 512 / enc_ms * 1e3,
          forward_ms=fwd_ms, forward_tokens_per_s=256 * 512 / fwd_ms * 1e3)
     del model, enc
@@ -282,31 +507,239 @@ def main():
         bound_ms, bound_by, flops, nbytes = attention_bound(B, S, S, H, H, D, mask)
         timings[label] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                               bound_ms=bound_ms, bound_by=bound_by)
-        emit(phase="kernel_timing", card=card, shape=label, B=B, S=S, T=S, H=H, D=D,
+        emit(phase="kernel_timing", card=card, gpu_state=gpu_state(), shape=label, B=B, S=S, T=S, H=H, D=D,
              flops=flops, bytes=nbytes, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
              bound_ms=bound_ms, bound_by=bound_by, tflops=flops / kernel_ms / 1e9,
              roofline_share=bound_ms / kernel_ms)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
 
+    # 7. training at full width: the text GradCache step
+    import gc
+
+    tcfg = nomic_bert_2048(attn_impl="flash")
+    torch.cuda.reset_peak_memory_stats()
+    t_model, t_scale, t_opt = train_modules("flash", dev)
+    step = make_train_step(t_model, t_scale, t_opt, grad_cache=True, chunk_size=CHUNK,
+                           direct_chunks_q=-1, direct_chunks_d=0)
+    qb, db = token_batches(PAIRS, dev)
+    n_chunks = PAIRS // CHUNK
+    # forwards: the direct query batch, and each document chunk in pass 1 and
+    # pass 2; backwards: the direct query batch and each document chunk
+    expected = dict(fwd=tcfg.n_layer * (1 + 2 * n_chunks), dq=tcfg.n_layer * (1 + n_chunks),
+                    dkv=tcfg.n_layer * (1 + n_chunks))
+    train_gen = torch.Generator().manual_seed(0)
+    steps = []
+    for _ in range(5):
+        fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+        t0 = time.perf_counter()
+        m = step(qb, db, train_gen)
+        loss = m["loss"].item()
+        steps.append(dict(loss=loss, grad_norm=m["grad_norm"].item(), accuracy=m["accuracy"].item(),
+                          seconds=time.perf_counter() - t0,
+                          launches=dict(fwd=fa.launches, dq=fa.launches_bwd_dq, dkv=fa.launches_bwd_dkv)))
+    launches_train = steps[0]["launches"]
+    losses = [x["loss"] for x in steps]
+    train_ok = (all(x["launches"] == expected for x in steps)
+                and bool(np.isfinite(losses).all()) and losses[-1] < losses[0])
+    emit(phase="train_step", params=sum(p.numel() for p in t_model.parameters()), pairs=PAIRS,
+         q_len=Q_LEN, d_len=D_LEN, chunk=CHUNK, expected_launches=expected, steps=steps,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30, ok=train_ok)
+    if not train_ok:
+        raise AssertionError("train step: launch counts, finiteness or falling loss failed")
+
+    # the step's time on the host clock
+    host_ms, enqueue_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step(qb, db, train_gen)
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3)  # step() returned
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms = float(np.median(host_ms))
+    emit(phase="train_timing", card=card, gpu_state=gpu_state(), pairs=PAIRS, runs=len(host_ms),
+         step_ms=step_ms, step_ms_min=min(host_ms), step_ms_max=max(host_ms),
+         enqueue_ms=float(np.median(enqueue_ms)),
+         pairs_per_s=PAIRS / step_ms * 1e3, tokens_per_s=PAIRS * (Q_LEN + D_LEN) / step_ms * 1e3,
+         note="enqueue_ms = host time until step() returns, before the final synchronize")
+
+    # one step under torch.profiler: the device's busy time by kernel, and
+    # the step split at its profiler ranges
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(qb, db, train_gen)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]  # ranges are not kernels
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    phases = ("grad_cache/direct", "grad_cache/pass1", "grad_cache/loss", "grad_cache/pass2",
+              "train_step/optimizer")
+    split = {name: {} for name in phases}
+    for e in prof.events():
+        if e.name in split:
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                split[e.name]["host_ms"] = e.cpu_time_total / 1e3
+            else:
+                split[e.name]["device_span_ms"] = e.device_time_total / 1e3
+
+    def group(name):
+        m = re.search(r"flash_\w+_kernel<\d+>", name)
+        if m:
+            return m.group(0)
+        if "gemm" in name or "nvjet" in name or "cutlass" in name or "sm90" in name:
+            return "matmul"
+        return "other (elementwise, reductions, copies)"
+
+    by_group = {}
+    for e in kernels:
+        g = by_group.setdefault(group(e.key), [0.0, 0])
+        g[0] += e.self_device_time_total / 1e3
+        g[1] += e.count
+    emit(phase="train_profile", card=card, device_busy_ms=busy_ms, kernel_launches=sum(e.count for e in kernels),
+         idle_share_of_step=1.0 - busy_ms / step_ms, profiled_step_ms=profiled_ms, split=split,
+         by_group={k: dict(ms=v[0], launches=v[1]) for k, v in sorted(by_group.items(), key=lambda kv: -kv[1][0])},
+         note="one profiled step: busy time of its kernels (idle share against the unprofiled median "
+              "step_ms); split: host time of each profiler range and, where the trace has it, the "
+              "device span of the kernels launched in it; the profiler slows the host")
+    del t_model, t_scale, t_opt, step, qb, db, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # grad-cache grads against the standard step's, and flash against sdpa,
+    # at 64 pairs with the same weights; then two planted faults, which the
+    # bounds must reject
+    sq, sd = token_batches(64, dev, seed=1)
+    grads = {}
+    for label, impl, grad_cache, fault in (("gc", "flash", True, None), ("std", "flash", False, None),
+                                           ("sdpa", "sdpa", True, None),
+                                           ("no_delta", "flash", True, "no_delta"),
+                                           ("rolled_replay", "flash", True, "rolled_replay")):
+        with planted_fault(fault) if fault else contextlib.nullcontext():
+            grads[label] = step_grads(impl, grad_cache, dev, sq, sd)
+        gc.collect()
+        torch.cuda.empty_cache()
+    bounds = dict(gc_vs_std_min_cosine=0.9999, gc_vs_std_max_rel_l2=0.01, flash_vs_sdpa_min_cosine=0.999)
+
+    def gc_ok(r):
+        return r["min_cosine"] >= bounds["gc_vs_std_min_cosine"] and r["max_rel_l2"] <= bounds["gc_vs_std_max_rel_l2"]
+
+    def flash_ok(r):
+        return r["min_cosine"] >= bounds["flash_vs_sdpa_min_cosine"]
+
+    gc_vs_std = compare_grads(grads["gc"], grads["std"])
+    flash_vs_sdpa = compare_grads(grads["gc"], grads["sdpa"])
+    # each fault is read against the comparison that must catch it
+    faults = dict(no_delta_vs_sdpa=compare_grads(grads["no_delta"], grads["sdpa"]),
+                  rolled_replay_vs_std=compare_grads(grads["rolled_replay"], grads["std"]))
+    agree_ok = (gc_ok(gc_vs_std) and flash_ok(flash_vs_sdpa)
+                and not flash_ok(faults["no_delta_vs_sdpa"]) and not gc_ok(faults["rolled_replay_vs_std"]))
+    emit(phase="train_grad_agreement", pairs=64, gc_vs_standard=gc_vs_std, flash_vs_sdpa=flash_vs_sdpa,
+         planted_faults=faults, bounds=bounds, ok=agree_ok)
+    if not agree_ok:
+        raise AssertionError("train step gradients: a sound step is outside its bounds, "
+                             "or a planted fault is inside them")
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. the backward kernels at the main-path shapes
+    bwd_timings = {}
+    for label, B, S in (("b512_s32", PAIRS, Q_LEN), ("b16_s256", CHUNK, D_LEN)):
+        H, D = 12, 64
+        q, k, v = qkv(B, S, S, H, H, D)
+        mask = torch.ones(B, S, dtype=torch.int32, device=dev)
+        out, lse = fa.flash_attention_fwd(q, k, v, attention_mask=mask)
+        dout = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
+        seg_q, seg_kv = fa.merge_segments(B, S, S, mask, None, None, dev)
+        inputs = fa.prepare_backward(q, k, v, out, lse, dout, seg_q, seg_kv)
+        args = (False, 0, 0, 1.0 / D**0.5)
+        dq_ms = median_ms(lambda: fa.launch_bwd_dq(*inputs, *args))
+        dkv_ms = median_ms(lambda: fa.launch_bwd_dkv(*inputs, *args))
+        # the timed inputs against the plain forward and backward
+        ref_out, _ = fa.flash_attention_reference(q, k, v, attention_mask=mask)
+        ratios = dict(o=fa.output_error_ratio(out, ref_out))
+        refs = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, attention_mask=mask)
+        for gname, g, r in zip(("dq", "dk", "dv"), (fa.launch_bwd_dq(*inputs, *args),
+                                                    *fa.launch_bwd_dkv(*inputs, *args)), refs):
+            ratios[gname] = fa.grad_error_ratio(g, r, gname)
+        delta_ms = median_ms(lambda: (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous())
+        total_ms = median_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout, attention_mask=mask))
+        plain_ms = median_ms(lambda: fa.flash_attention_backward_reference(
+            q, k, v, out, lse, dout, attention_mask=mask), runs=5)
+        # the yardstick: autograd of torch SDPA (all rows valid, so no mask),
+        # forward + backward minus forward
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        dot = dout.transpose(1, 2)
+        sdpa_fwd_ms = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt), dot)
+
+        library_ms = median_ms(sdpa_fwd_bwd) - sdpa_fwd_ms
+        row = dict(dq_ms=dq_ms, dkv_ms=dkv_ms, delta_ms=delta_ms, backward_ms=total_ms,
+                   plain_ms=plain_ms, library_ms=library_ms, err_over_tol=ratios)
+        for kname, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
+            b_ms, b_by, flops, nbytes = backward_bound(kname, B, S, S, H, H, D)
+            row[kname] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+                              tflops=flops / ms / 1e9, roofline_share=b_ms / ms)
+        bwd_timings[label] = row
+        emit(phase="kernel_timing_bwd", card=card, gpu_state=gpu_state(), shape=label, B=B, S=S, T=S,
+             H=H, D=D, **row,
+             note="plain_ms and library_ms are whole backwards (dq, dk, dv), to set against "
+                  "backward_ms = delta + dq + dk/dv")
+        if max(ratios.values()) > 1.0:
+            raise AssertionError(f"flash kernels disagree with their plain versions at {label}")
+        del q, k, v, out, lse, dout, inputs, qt, kt, vt, dot, ref_out, refs
+        torch.cuda.empty_cache()
+
     main = timings["b256_s512"]
     print(card, flush=True)
-    emit(kernels=[dict(
-        name="flash_fwd",
-        route="cuda",
-        source="contrastors_tpu_torch/ops/csrc/flash_fwd.cu",
-        replaces="contrastors_tpu/ops/flash_attention.py:225",
-        also_replaces="contrastors_tpu/ops/flash_attention.py:115",
-        launches=launches_docs,
-        max_abs_err=max(o_errs.values()),
-        ms=main["ms"],
-        plain_ms=main["plain_ms"],
-        bound_ms=main["bound_ms"],
-        bound_by=main["bound_by"],
-        library_ms=main["library_ms"],
-        long_context=dict(timings["b16_s4096"], launches=launches_long,
-                          max_abs_err=max(o_errs["s4096"], o_errs["s8192"])),
-    )])
+
+    def bwd_entry(kname, replaces):
+        doc, query = bwd_timings["b16_s256"], bwd_timings["b512_s32"]
+        return dict(
+            name=f"flash_bwd_{kname}",
+            route="cuda",
+            source="contrastors_tpu_torch/ops/csrc/flash_bwd.cu",
+            replaces=replaces,
+            launches=launches_train[kname],
+            max_abs_err=max(max(grad_errs[g].values()) for g in (("dq",) if kname == "dq" else ("dk", "dv"))),
+            ms=doc[kname]["ms"],
+            plain_ms=doc["plain_ms"],
+            bound_ms=doc[kname]["bound_ms"],
+            bound_by=doc[kname]["bound_by"],
+            library_ms=doc["library_ms"],
+            shape="B=16 S=T=256 H=12 D=64 (document chunk)",
+            query_tower=dict(shape="B=512 S=T=32 H=12 D=64", ms=query[kname]["ms"],
+                             plain_ms=query["plain_ms"], bound_ms=query[kname]["bound_ms"],
+                             bound_by=query[kname]["bound_by"], library_ms=query["library_ms"]),
+            note="plain_ms and library_ms time a whole backward (dq, dk and dv)",
+        )
+
+    emit(kernels=[
+        dict(
+            name="flash_fwd",
+            route="cuda",
+            source="contrastors_tpu_torch/ops/csrc/flash_fwd.cu",
+            replaces="contrastors_tpu/ops/flash_attention.py:225",
+            also_replaces="contrastors_tpu/ops/flash_attention.py:115",
+            launches=launches_docs,
+            train_launches=launches_train["fwd"],
+            max_abs_err=max(o_errs.values()),
+            ms=main["ms"],
+            plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"],
+            bound_by=main["bound_by"],
+            library_ms=main["library_ms"],
+            long_context=dict(timings["b16_s4096"], launches=launches_long,
+                              max_abs_err=max(o_errs["s4096"], o_errs["s8192"])),
+        ),
+        bwd_entry("dq", "contrastors_tpu/ops/flash_attention.py:422"),
+        bwd_entry("dkv", "contrastors_tpu/ops/flash_attention.py:512"),
+    ])
     emit(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                               count=torch.cuda.device_count()))
     return 0

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from contrastors_tpu_torch._device import resolve_device
+from contrastors_tpu_torch.layers.dense import Dense
 from contrastors_tpu_torch.layers.rotary import apply_rotary, rotary_cos_sin
 from contrastors_tpu_torch.ops import attention_core
 
@@ -27,8 +28,8 @@ class MultiHeadAttention(nn.Module):
         self.config, self.window, self.rotary_base_override = config, window, rotary_base_override
         H, Hkv, D = config.n_head, config.num_heads_kv, config.head_dim
         kw = dict(dtype=dtype, device=device)
-        self.Wqkv = nn.Linear(config.n_embd, D * (H + 2 * Hkv), bias=config.qkv_proj_bias, **kw)
-        self.out_proj = nn.Linear(H * D, config.n_embd, bias=config.qkv_proj_bias, **kw)
+        self.Wqkv = Dense(config.n_embd, D * (H + 2 * Hkv), bias=config.qkv_proj_bias, **kw)
+        self.out_proj = Dense(H * D, config.n_embd, bias=config.qkv_proj_bias, **kw)
         self._tables: Dict[Tuple[int, str], Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def _rotary_tables(self, length: int, device: torch.device):

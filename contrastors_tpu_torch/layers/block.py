@@ -4,9 +4,10 @@ Postnorm (BERT) and the shifted prenorm layout: a prenorm Block receives
 the un-added output of the previous block plus the running residual, adds
 and normalises first, and returns its own un-added output; the model closes
 the carry after the last block. The residual stream is kept in fp32 when
-`residual_in_fp32`. This slice is inference-only: dropout and drop-path
-are identities here, and `NomicBertModel` refuses training mode with any of
-them on. MoE blocks and the parallel block wait for later slices.
+`residual_in_fp32`. Dropout and drop-path are not ported yet: they are
+identities here, and `NomicBertModel` refuses training mode with any of
+them on (every configuration in the repo sets them to 0). MoE blocks and
+the parallel block wait for later slices.
 """
 
 from typing import Optional, Tuple

@@ -8,6 +8,7 @@ import torch
 from torch import nn
 
 from contrastors_tpu_torch._device import resolve_device
+from contrastors_tpu_torch.layers.dense import Embed
 
 
 def pad_aware_position_ids(input_ids: torch.Tensor, pad_token_id: int) -> torch.Tensor:
@@ -22,13 +23,13 @@ class BertEmbeddings(nn.Module):
         super().__init__()
         self.config = config
         kw = dict(dtype=dtype, device=resolve_device(device))
-        self.word_embeddings = nn.Embedding(config.vocab_size, config.n_embd, **kw)
+        self.word_embeddings = Embed(config.vocab_size, config.n_embd, **kw)
         self.use_abs_pos = config.n_positions > 0 and config.rotary_emb_fraction <= 0
         self.position_embeddings = (
-            nn.Embedding(config.n_positions, config.n_embd, **kw) if self.use_abs_pos else None
+            Embed(config.n_positions, config.n_embd, **kw) if self.use_abs_pos else None
         )
         self.token_type_embeddings = (
-            nn.Embedding(config.type_vocab_size, config.n_embd, **kw)
+            Embed(config.type_vocab_size, config.n_embd, **kw)
             if config.type_vocab_size > 0 else None
         )
 

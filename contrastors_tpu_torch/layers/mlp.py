@@ -1,8 +1,8 @@
 """Dense and gated MLPs, counterpart of `contrastors_tpu/layers/mlp.py`.
 
 Parameter names (fc1/fc2, fc11/fc12) match the JAX modules so that
-`convert.flax_to_torch` maps them one to one. Linear weights are stored in
-the compute dtype.
+`convert.flax_to_torch` maps them one to one. Weights are stored in fp32
+and cast to the compute dtype where they are used (layers/dense.py).
 """
 
 from typing import Optional
@@ -12,6 +12,7 @@ from torch import nn
 
 from contrastors_tpu_torch._device import resolve_device
 from contrastors_tpu_torch.layers.activations import ACT2FN, is_gated
+from contrastors_tpu_torch.layers.dense import Dense
 
 
 def round_hidden(in_features: int, hidden_features: Optional[int], multiple_of: int = 256) -> int:
@@ -28,8 +29,8 @@ class MLP(nn.Module):
         super().__init__()
         kw = dict(dtype=dtype, device=resolve_device(device))
         self.act = ACT2FN[config.activation_function]
-        self.fc1 = nn.Linear(config.n_embd, config.n_inner, bias=config.mlp_fc1_bias, **kw)
-        self.fc2 = nn.Linear(config.n_inner, config.n_embd, bias=config.mlp_fc2_bias, **kw)
+        self.fc1 = Dense(config.n_embd, config.n_inner, bias=config.mlp_fc1_bias, **kw)
+        self.fc2 = Dense(config.n_inner, config.n_embd, bias=config.mlp_fc2_bias, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(self.act(self.fc1(x)))
@@ -46,9 +47,9 @@ class GatedMLP(nn.Module):
             config.n_embd, hidden_features if hidden_features is not None else config.n_inner
         )
         self.act = ACT2FN[config.activation_function]
-        self.fc11 = nn.Linear(config.n_embd, hidden, bias=config.mlp_fc1_bias, **kw)
-        self.fc12 = nn.Linear(config.n_embd, hidden, bias=config.mlp_fc1_bias, **kw)
-        self.fc2 = nn.Linear(hidden, config.n_embd, bias=config.mlp_fc2_bias, **kw)
+        self.fc11 = Dense(config.n_embd, hidden, bias=config.mlp_fc1_bias, **kw)
+        self.fc12 = Dense(config.n_embd, hidden, bias=config.mlp_fc1_bias, **kw)
+        self.fc2 = Dense(hidden, config.n_embd, bias=config.mlp_fc2_bias, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(self.fc11(x) * self.act(self.fc12(x)))

@@ -1,0 +1,76 @@
+"""Contrastive losses: InfoNCE/CLIP and Matryoshka, on one device.
+
+Counterpart of `contrastors_tpu/losses.py` (`_ce`, `clip_loss`,
+`matryoshka_clip_loss`), in its single-device form: there is no
+`axis_name`, so labels are plain row indices. The sharded form (an
+all-gather of the document side over the data-parallel group) comes with
+the distributed slice; `clip_loss_symmetric` and `router_aux_loss` come
+with the slices that use them (ROADMAP, Queue 1).
+"""
+
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, 1, labels[:, None])[:, 0]
+    return (logz - gold).mean()
+
+
+def clip_loss(
+    query: torch.Tensor,
+    document: torch.Tensor,
+    logit_scale: Callable[[torch.Tensor], torch.Tensor],
+    bidirectional: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """InfoNCE over q @ D.T in fp32 with hard-negative support: the document
+    rows may be a multiple `mult` of the query rows, and query i's positive
+    is document i * mult. Returns (loss, accuracy); accuracy is the share of
+    queries whose highest-scoring document is their positive (first index
+    on ties, as jnp.argmax)."""
+    query, document = query.float(), document.float()
+    n = query.shape[0]
+    mult = document.shape[0] // n
+    labels = torch.arange(n, device=query.device) * mult
+    sim_qd = logit_scale(query @ document.T)
+    loss = _ce(sim_qd, labels)
+    accuracy = (sim_qd.argmax(dim=-1) == labels).float().mean()
+    if bidirectional:
+        # document -> query direction; square similarity only, as in JAX
+        if mult != 1:
+            raise ValueError("bidirectional clip_loss requires square similarity")
+        d_labels = torch.arange(document.shape[0], device=query.device)
+        loss = loss + _ce(logit_scale(document @ query.T), d_labels)
+    return loss, accuracy
+
+
+def matryoshka_clip_loss(
+    query: torch.Tensor,
+    document: torch.Tensor,
+    logit_scale: Callable[[torch.Tensor], torch.Tensor],
+    dims: Sequence[int],
+    weights: Optional[Sequence[float]] = None,
+    bidirectional: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weighted mean of clip losses on re-normalised prefix slices of the
+    embeddings. Returns (loss, accuracy at the largest dim)."""
+    if weights is None:
+        weights = [1.0] * len(dims)
+
+    def renorm(x, d):
+        x = x[..., :d].float()
+        return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(1e-12)
+
+    total = 0.0
+    full_acc = torch.zeros((), device=query.device)
+    max_dim = max(dims)
+    for dim, w in zip(dims, weights):
+        loss, acc = clip_loss(renorm(query, dim), renorm(document, dim), logit_scale,
+                              bidirectional=bidirectional)
+        total = total + w * loss
+        if dim == max_dim:
+            full_acc = acc
+    return total / sum(weights), full_acc

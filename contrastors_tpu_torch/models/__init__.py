@@ -1,3 +1,3 @@
 from contrastors_tpu_torch.models.model_config import TrunkConfig  # noqa: F401
 from contrastors_tpu_torch.models.nomic_bert import NomicBertModel, init_weights  # noqa: F401
-from contrastors_tpu_torch.models.biencoder import BiEncoder  # noqa: F401
+from contrastors_tpu_torch.models.biencoder import BiEncoder, LogitScale  # noqa: F401

@@ -3,16 +3,19 @@
 
 Mean / cls / last / none pooling, the hamming LayerNorm, the projection,
 normalisation with the clamp inside the sqrt, and binarisation keep the JAX
-semantics. The decoder and vision trunks, the MAP pooling head and packed
+semantics. `LogitScale` is the contrastive loss's exp-parameterised
+temperature. The decoder and vision trunks, the MAP pooling head and packed
 mode raise until their slices are ported.
 """
 
+import math
 from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
 
 from contrastors_tpu_torch._device import resolve_device
+from contrastors_tpu_torch.layers.dense import Dense
 from contrastors_tpu_torch.layers.norms import LayerNorm
 from contrastors_tpu_torch.models.model_config import TrunkConfig
 from contrastors_tpu_torch.models.nomic_bert import NomicBertModel
@@ -38,6 +41,24 @@ def last_token_pool(hidden: torch.Tensor, attention_mask: torch.Tensor) -> torch
 
 def cls_pool(hidden: torch.Tensor, attention_mask=None) -> torch.Tensor:
     return hidden[:, 0]
+
+
+class LogitScale(nn.Module):
+    """x * exp(s), s an fp32 scalar initialised to log(logit_scale_init)
+    (`contrastors_tpu/models/biencoder.py:LogitScale`). With
+    trainable=False, s is detached, standing for JAX's stop_gradient: it
+    gets no gradient and AdamW leaves it unchanged."""
+
+    def __init__(self, logit_scale_init: float = 1 / 0.07, trainable: bool = True, device="cuda"):
+        super().__init__()
+        self.trainable = trainable
+        self.logit_scale = nn.Parameter(
+            torch.tensor(math.log(logit_scale_init), dtype=torch.float32, device=resolve_device(device))
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.logit_scale if self.trainable else self.logit_scale.detach()
+        return x * torch.exp(s)
 
 
 class BiEncoder(nn.Module):
@@ -68,7 +89,7 @@ class BiEncoder(nn.Module):
             if hamming else None
         )
         self.proj = (
-            nn.Linear(config.n_embd, projection_dim, dtype=dtype, device=device)
+            Dense(config.n_embd, projection_dim, dtype=dtype, device=device)
             if projection_dim else None
         )
 

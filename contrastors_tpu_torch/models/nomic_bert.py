@@ -99,7 +99,7 @@ class NomicBertModel(nn.Module):
             cfg.embd_pdrop, cfg.resid_pdrop, cfg.attn_pdrop, cfg.drop_path_rate,
             cfg.moe_resid_pdrop or 0.0,
         ) > 0.0:
-            raise NotImplementedError("training with dropout: next slice, see ROADMAP")
+            raise NotImplementedError("training with dropout is not ported yet (ROADMAP, Queue 1)")
         hidden = self.emb_ln(self.embeddings(input_ids, position_ids, token_type_ids))
         residual = None
         for block in self.layers:

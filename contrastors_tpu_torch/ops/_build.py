@@ -4,7 +4,7 @@ Each kernel source `csrc/<name>.cu` compiles, at first use, into a shared
 library with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas=-v -o _build/<name>-<hash>.so csrc/<name>.cu
 
 The library name carries a hash of the sources and flags, so an edit
 rebuilds and an unchanged source is reused. The build directory
@@ -29,6 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",  # registers, shared memory and spills of each kernel, in build_logs
 )
 
 _P = ctypes.c_void_p
@@ -45,11 +46,26 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             _I,
         ),
     },
+    "flash_bwd": {
+        # q, k, v, dout, lse, delta, dq, seg_q, seg_kv, B, S, T, H, Hkv, D,
+        # q/k/v/dout strides (batch, seq, head) x 4, causal, causal_offset,
+        # window, c = softmax_scale * log2(e), softmax_scale, stream
+        "flash_bwd_dq_bf16": (
+            [_P] * 9 + [_I] * 6 + [_L] * 12 + [_I] * 3 + [ctypes.c_float] * 2 + [_P],
+            _I,
+        ),
+        # the same with dk, dv in place of dq
+        "flash_bwd_dkv_bf16": (
+            [_P] * 10 + [_I] * 6 + [_L] * 12 + [_I] * 3 + [ctypes.c_float] * 2 + [_P],
+            _I,
+        ),
+    },
 }
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}  # nvcc wall time of builds in this process
+build_logs: Dict[str, str] = {}  # nvcc's messages (ptxas resource usage) of those builds
 
 
 def _nvcc() -> str:
@@ -90,6 +106,7 @@ def build(name: str) -> Path:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed ({proc.returncode}) for {name}:\n{proc.stderr}")
     build_seconds[name] = time.perf_counter() - t0
+    build_logs[name] = proc.stderr
     os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
     return out
 

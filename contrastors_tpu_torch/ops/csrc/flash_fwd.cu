@@ -30,17 +30,14 @@
 //   window |row - col| <= window/2; GQA kv head = h / (H / Hkv);
 //   O = acc / l (0 where l == 0), LSE = m*c + log2(l) (-1e30 where l == 0).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;  // q rows per block: 4 warps x 16 rows
-constexpr int kBlockN = 64;  // kv rows per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;
+using namespace flash;
+
+constexpr int kBlockM = kTile;  // q rows per block: 4 warps x 16 rows
+constexpr int kBlockN = kTile;  // kv rows per tile
 
 struct Params {
   const __nv_bfloat16* q;
@@ -56,43 +53,7 @@ struct Params {
   float c;  // softmax_scale * log2(e)
 };
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a * b for one m16n8k16 tile: a 16x16 row-major bf16, b 16x8 col-major
-// bf16, d 16x8 fp32.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4):
-//   A regs 0..3: (row g, cols 2t..2t+1), (row g+8, 2t..), (row g, 2t+8..),
-//                (row g+8, 2t+8..)
-//   B regs 0..1: (k 2t..2t+1, col g), (k 2t+8..2t+9, col g)
-//   C floats 0..3: (row g, cols 2t, 2t+1), (row g+8, cols 2t, 2t+1)
-// Each thread thus holds two query rows: r0 = g and r1 = g + 8 of its warp's
-// 16, and the four threads of a quad share those rows.
+// The fragment layout is described in flash_common.cuh.
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   constexpr int kStride = D + 8;  // padded smem row: conflict-free fragment reads

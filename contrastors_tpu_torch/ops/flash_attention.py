@@ -1,11 +1,13 @@
-"""Flash-attention forward: the Hopper CUDA kernel, its wrapper and its plain
-PyTorch version.
+"""Flash attention: the Hopper CUDA kernels, their wrappers and their plain
+PyTorch versions, forward and backward.
 
 Counterpart of `contrastors_tpu/ops/flash_attention.py`. One CUDA kernel,
 `csrc/flash_fwd.cu`, stands for both Pallas forward kernels there
 (`_fwd_kernel_single` for T <= block_kv and the multi-block `_fwd_kernel`):
 it loops over 64-wide kv tiles inside the block with an online softmax, so
-T within one tile is simply a loop that runs once.
+T within one tile is simply a loop that runs once. `csrc/flash_bwd.cu`
+holds the two backward kernels, `flash_bwd_dq` (for `_bwd_dq_kernel`) and
+`flash_bwd_dkv` (for `_bwd_dkv_kernel`).
 
 Semantics kept from the JAX wrapper:
   - logits s = q k^T in fp32, unscaled; c = softmax_scale * log2(e) enters
@@ -19,10 +21,16 @@ Semantics kept from the JAX wrapper:
   - GQA: q head h reads kv head h // (H / Hkv);
   - O = acc / l with O = 0 where l == 0, and a base-2 LSE m*c + log2(l) that
     is -1e30 on fully masked rows.
+Backward (JAX `_bwd`): delta = rowsum(dO * O) in fp32 outside the kernels;
+p = exp2(s*c - lse) from the saved base-2 LSE, p = 0 on rows whose LSE is
+-1e30; ds = p * (dp - delta) * softmax_scale with dp = dO v^T;
+dq = ds k, dk = ds^T q (ds cast to q's dtype), dv = p^T dO; GQA sums dk/dv
+over the q heads of each kv head.
 
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor to the
-kernel, or the call raises. The call is a `torch.autograd.Function` whose
-backward raises until the backward kernels are ported.
+kernels, or the call raises. The call is a `torch.autograd.Function` whose
+backward runs the backward kernels (or, on a CPU tensor, their plain
+version).
 """
 
 from typing import Optional, Tuple
@@ -43,9 +51,20 @@ O_REL = 2.0**-7
 O_ABS_FRAC = 2.0**-8
 # LSE is fp32 on both sides; only summation order and exp2 rounding differ.
 LSE_ATOL = 1e-3
+# How far the backward kernels' bf16 dq, dk, dv may lie from the plain
+# version's, per element: GRAD_REL * |ref| + GRAD_ABS_FRAC[name] * max |ref|
+# over the call. GRAD_REL is one bf16 ulp of the value (both sides round
+# their fp32 sum to bf16). The absolute part covers summation order, ds
+# values that round to neighbouring bf16 values on the two sides (dq, dk),
+# and, for dv only, the kernel's bf16 p in p^T dO, where the plain version
+# keeps JAX's fp32 p: a relative error <= 2^-9 on every term of the sum.
+GRAD_REL = 2.0**-7
+GRAD_ABS_FRAC = {"dq": 2.0**-8, "dk": 2.0**-8, "dv": 2.0**-7}
 
 # kernel launches made by this process (read and reset by chip_smoke.py)
-launches = 0
+launches = 0  # flash_fwd
+launches_bwd_dq = 0
+launches_bwd_dkv = 0
 
 
 def flash_shape_ok(q: torch.Tensor, k: torch.Tensor) -> bool:
@@ -60,6 +79,15 @@ def output_error_ratio(out: torch.Tensor, ref: torch.Tensor) -> float:
     out, ref = out.float(), ref.float()
     tol = O_REL * ref.abs() + O_ABS_FRAC * ref.abs().max()
     return ((out - ref).abs() / tol.clamp_min(1e-30)).max().item()
+
+
+def grad_error_ratio(grad: torch.Tensor, ref: torch.Tensor, name: str) -> float:
+    """Largest |grad - ref| over its per-element tolerance (GRAD_REL,
+    GRAD_ABS_FRAC[name]) for name in ("dq", "dk", "dv"); the backward kernels
+    agree with their plain version when this is <= 1."""
+    grad, ref = grad.float(), ref.float()
+    tol = GRAD_REL * ref.abs() + GRAD_ABS_FRAC[name] * ref.abs().max()
+    return ((grad - ref).abs() / tol.clamp_min(1e-30)).max().item()
 
 
 def merge_segments(
@@ -133,11 +161,40 @@ def _reference_core(q, k, v, seg_q, seg_kv, causal, causal_offset, window, softm
     return out, lse
 
 
-def _launch_kernel(q, k, v, seg_q, seg_kv, causal, causal_offset, window, softmax_scale):
-    """Launch csrc/flash_fwd.cu on the current stream. Returns (O, LSE)."""
-    global launches
+def _reference_backward_core(q, k, v, out, lse, dout, seg_q, seg_kv, causal, causal_offset,
+                             window, softmax_scale):
+    """Plain PyTorch backward on merged ids, with JAX `_bwd`'s arithmetic
+    (fp32 throughout; ds cast to q's dtype before dq and dk, p kept fp32 for
+    dv). Not autograd of `_reference_core`, which updates in place. Returns
+    (dq [B,S,H,D], dk [B,T,Hkv,D], dv [B,T,Hkv,D]) in q/k/v's dtypes."""
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    gq = H // Hkv
+    kr, vr = (x.repeat_interleave(gq, dim=2) if gq > 1 else x for x in (k, v))
+    c = softmax_scale * LOG2E
+    delta = (out.float() * dout.float()).sum(-1).transpose(1, 2)[..., None]  # [B,H,S,1]
+    lse = lse.float()[..., None]
+    s = torch.einsum("bshd,bthd->bhst", q.float(), kr.float()).mul_(c)
+    valid = _valid(seg_q, seg_kv, S, T, causal_offset, causal, window, q.device)
+    if valid is not None:
+        s.masked_fill_(~valid, NEG_INF)
+    p = s.sub_(lse).exp2_()  # p = exp2(s*c - lse), in place of s
+    p.masked_fill_(lse <= NEG_INF / 2, 0.0)  # fully masked rows: O = 0, no gradient
+    dp = torch.einsum("bshd,bthd->bhst", dout.float(), vr.float())
+    ds = dp.sub_(delta).mul_(p).mul_(softmax_scale)  # in place of dp
+    ds = ds.to(q.dtype).float()
+    dq = torch.einsum("bhst,bthd->bshd", ds, kr.float())
+    dk = torch.einsum("bhst,bshd->bthd", ds, q.float())
+    dv = torch.einsum("bhst,bshd->bthd", p, dout.float())
+    if gq > 1:  # sum over the q heads that read each kv head
+        dk = dk.view(B, T, Hkv, gq, D).sum(3)
+        dv = dv.view(B, T, Hkv, gq, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_kernel_inputs(q, k, v):
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
     if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
         raise TypeError(f"flash kernel takes bfloat16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
     if D not in KERNEL_HEAD_DIMS or k.shape[3] != D or v.shape[3] != D:
@@ -147,32 +204,45 @@ def _launch_kernel(q, k, v, seg_q, seg_kv, causal, causal_offset, window, softma
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
 
-    def aligned(x):
-        # 16-byte vector loads: unit stride over D, other strides and the
-        # base pointer multiples of 8 elements
-        return x.stride(3) == 1 and all(s % 8 == 0 for s in x.stride()[:3]) and x.data_ptr() % 16 == 0
 
-    q, k, v = (x if aligned(x) else x.contiguous() for x in (q, k, v))
+def _aligned(x):
+    # 16-byte vector loads: unit stride over D, other strides and the base
+    # pointer multiples of 8 elements
+    return x.stride(3) == 1 and all(s % 8 == 0 for s in x.stride()[:3]) and x.data_ptr() % 16 == 0
+
+
+def _kernel_ids(seg_q, seg_kv, device):
+    if seg_q is None:
+        return None, None
+    return (seg_q.to(device=device, dtype=torch.int32).contiguous(),
+            seg_kv.to(device=device, dtype=torch.int32).contiguous())
+
+
+def _ptr(x):
+    return ctypes.c_void_p(0 if x is None else x.data_ptr())
+
+
+def _launch_kernel(q, k, v, seg_q, seg_kv, causal, causal_offset, window, softmax_scale):
+    """Launch csrc/flash_fwd.cu on the current stream. Returns (O, LSE)."""
+    global launches
+    _check_kernel_inputs(q, k, v)
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    q, k, v = (x if _aligned(x) else x.contiguous() for x in (q, k, v))
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    if seg_q is not None:
-        seg_q = seg_q.to(device=q.device, dtype=torch.int32).contiguous()
-        seg_kv = seg_kv.to(device=q.device, dtype=torch.int32).contiguous()
+    seg_q, seg_kv = _kernel_ids(seg_q, seg_kv, q.device)
 
     from contrastors_tpu_torch.ops._build import load_library
 
     lib = load_library("flash_fwd")
-    vp = ctypes.c_void_p
     err = lib.flash_fwd_bf16(
-        vp(q.data_ptr()), vp(k.data_ptr()), vp(v.data_ptr()),
-        vp(out.data_ptr()), vp(lse.data_ptr()),
-        vp(seg_q.data_ptr() if seg_q is not None else 0),
-        vp(seg_kv.data_ptr() if seg_kv is not None else 0),
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(seg_q), _ptr(seg_kv),
         B, S, T, H, Hkv, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         int(causal), int(causal_offset), int(window),
         ctypes.c_float(softmax_scale * LOG2E),
-        vp(torch.cuda.current_stream(q.device).cuda_stream),
+        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
@@ -180,24 +250,109 @@ def _launch_kernel(q, k, v, seg_q, seg_kv, causal, causal_offset, window, softma
     return out, lse
 
 
-def _forward(q, k, v, seg_q, seg_kv, causal, causal_offset, window, softmax_scale):
+def _bwd_call(q, k, v, dout, lse, delta, seg_q, seg_kv, causal, causal_offset, window,
+              softmax_scale):
+    """The C arguments the two backward kernels share, after the first ones."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    return (
+        B, S, T, H, Hkv, D,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3],
+        int(causal), int(causal_offset), int(window),
+        ctypes.c_float(softmax_scale * LOG2E), ctypes.c_float(softmax_scale),
+        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+    )
+
+
+def launch_bwd_dq(q, k, v, dout, lse, delta, seg_q, seg_kv, causal, causal_offset, window,
+                  softmax_scale):
+    """Launch flash_bwd_dq of csrc/flash_bwd.cu on prepared inputs (as
+    `_launch_backward` prepares them: aligned bf16 q/k/v/dout, contiguous
+    fp32 lse and delta [B, H, S], contiguous int32 ids or None). Returns dq."""
+    global launches_bwd_dq
+    from contrastors_tpu_torch.ops._build import load_library
+
+    B, S, H, D = q.shape
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    err = load_library("flash_bwd").flash_bwd_dq_bf16(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(delta), _ptr(dq),
+        _ptr(seg_q), _ptr(seg_kv),
+        *_bwd_call(q, k, v, dout, lse, delta, seg_q, seg_kv, causal, causal_offset, window,
+                   softmax_scale),
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {err}")
+    launches_bwd_dq += 1
+    return dq
+
+
+def launch_bwd_dkv(q, k, v, dout, lse, delta, seg_q, seg_kv, causal, causal_offset, window,
+                   softmax_scale):
+    """Launch flash_bwd_dkv of csrc/flash_bwd.cu on prepared inputs (see
+    `launch_bwd_dq`). Returns (dk, dv)."""
+    global launches_bwd_dkv
+    from contrastors_tpu_torch.ops._build import load_library
+
+    B, T, Hkv, D = k.shape
+    dk = torch.empty((B, T, Hkv, D), dtype=k.dtype, device=k.device)
+    dv = torch.empty((B, T, Hkv, D), dtype=v.dtype, device=v.device)
+    err = load_library("flash_bwd").flash_bwd_dkv_bf16(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv),
+        _ptr(seg_q), _ptr(seg_kv),
+        *_bwd_call(q, k, v, dout, lse, delta, seg_q, seg_kv, causal, causal_offset, window,
+                   softmax_scale),
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
+    launches_bwd_dkv += 1
+    return dk, dv
+
+
+def prepare_backward(q, k, v, out, lse, dout, seg_q, seg_kv):
+    """Check and lay out the backward kernels' inputs; delta = rowsum(dO * O)
+    is computed here in fp32, as JAX computes it outside Pallas. Returns
+    (q, k, v, dout, lse, delta, seg_q, seg_kv) for the two launchers."""
+    _check_kernel_inputs(q, k, v)
+    if dout.dtype != torch.bfloat16 or dout.shape != q.shape or dout.device != q.device:
+        raise ValueError(f"dout must be bfloat16 {tuple(q.shape)} on {q.device}, "
+                         f"got {dout.dtype} {tuple(dout.shape)} on {dout.device}")
+    q, k, v, dout = (x if _aligned(x) else x.contiguous() for x in (q, k, v, dout))
+    delta = (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()  # [B, H, S]
+    lse = lse.to(torch.float32).contiguous()
+    return (q, k, v, dout, lse, delta, *_kernel_ids(seg_q, seg_kv, q.device))
+
+
+def _launch_backward(q, k, v, out, lse, dout, seg_q, seg_kv, *args):
+    """Both backward kernels on the current stream. Returns (dq, dk, dv)."""
+    inputs = prepare_backward(q, k, v, out, lse, dout, seg_q, seg_kv)
+    dq = launch_bwd_dq(*inputs, *args)
+    return (dq, *launch_bwd_dkv(*inputs, *args))
+
+
+def _on_device(q, cpu_fn, cuda_fn, *args):
     if q.device.type == "cpu":
-        return _reference_core(q, k, v, seg_q, seg_kv, causal, causal_offset, window, softmax_scale)
+        return cpu_fn(*args)
     if q.device.type == "cuda":
-        return _launch_kernel(q, k, v, seg_q, seg_kv, causal, causal_offset, window, softmax_scale)
+        return cuda_fn(*args)
     raise ValueError(f"flash attention runs on cpu (plain) or cuda (kernel), got {q.device}")
 
 
 class _FlashForward(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, seg_q, seg_kv, causal, causal_offset, window, softmax_scale):
-        out, lse = _forward(q, k, v, seg_q, seg_kv, causal, causal_offset, window, softmax_scale)
+        args = (causal, causal_offset, window, softmax_scale)
+        out, lse = _on_device(q, _reference_core, _launch_kernel, q, k, v, seg_q, seg_kv, *args)
         ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, out, lse, seg_q, seg_kv)
+        ctx.args = args
         return out, lse
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError("flash backward: next slice, see ROADMAP")
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse, seg_q, seg_kv = ctx.saved_tensors
+        dq, dk, dv = _on_device(q, _reference_backward_core, _launch_backward,
+                                q, k, v, out, lse, dout, seg_q, seg_kv, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def _prepare(q, k, attention_mask, segment_ids, kv_segment_ids, causal, softmax_scale, rotary):
@@ -261,3 +416,50 @@ def flash_attention_reference(
         q, k, attention_mask, segment_ids, kv_segment_ids, causal, softmax_scale, ()
     )
     return _reference_core(q, k, v, seg_q, seg_kv, causal, offset, window, scale)
+
+
+def flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    attention_mask: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    window: int = 0,
+    softmax_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) for the forward's (O, LSE) and the gradient dout of O:
+    the backward kernels on a CUDA tensor, the plain version on a CPU
+    tensor. This is what the autograd backward of `flash_attention` runs."""
+    seg_q, seg_kv, offset, scale = _prepare(
+        q, k, attention_mask, segment_ids, kv_segment_ids, causal, softmax_scale, ()
+    )
+    return _on_device(q, _reference_backward_core, _launch_backward,
+                      q, k, v, out, lse, dout, seg_q, seg_kv, causal, offset, window, scale)
+
+
+def flash_attention_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    attention_mask: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    window: int = 0,
+    softmax_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' plain PyTorch version on any device: (dq, dk,
+    dv) with JAX `_bwd`'s arithmetic, dq = 0 on fully masked rows."""
+    seg_q, seg_kv, offset, scale = _prepare(
+        q, k, attention_mask, segment_ids, kv_segment_ids, causal, softmax_scale, ()
+    )
+    return _reference_backward_core(q, k, v, out, lse, dout, seg_q, seg_kv, causal, offset,
+                                    window, scale)

@@ -7,7 +7,8 @@ mode). The file imports no JAX, so it also runs on a machine without it:
 
 Tolerances are the module's own: O per element within
 O_REL * |ref| + O_ABS_FRAC * max |ref| (`output_error_ratio` <= 1), LSE
-within LSE_ATOL (fp32 on both sides).
+within LSE_ATOL (fp32 on both sides); dq, dk, dv per element within
+GRAD_REL * |ref| + GRAD_ABS_FRAC[name] * max |ref| (`grad_error_ratio` <= 1).
 """
 
 import pytest
@@ -43,6 +44,38 @@ def test_kernel_matches_plain_version_on_card(cuda, B, S, T, H, Hkv, D, causal, 
     ref_out, ref_lse = tfa.flash_attention_reference(q, k, v, **kw)
     assert tfa.output_error_ratio(out, ref_out) <= 1.0
     assert (lse - ref_lse).abs().max().item() <= tfa.LSE_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,Hkv,D,causal,window", [
+    (2, 200, 200, 4, 4, 64, False, 0),
+    (2, 100, 300, 6, 2, 64, True, 0),
+    (1, 700, 700, 2, 2, 128, False, 256),
+])
+def test_backward_kernels_match_plain_version_on_card(cuda, B, S, T, H, Hkv, D, causal, window):
+    """Autograd through the wrapper launches dq and dk/dv once each, with a
+    strided dO, and matches the plain backward; the fully masked batch row
+    gets dq = 0."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(B, S, H, D, generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn(B, T, Hkv, D, generator=gen, device=cuda).bfloat16() for _ in range(2))
+    mask = torch.ones(B, T, dtype=torch.int32, device=cuda)
+    mask[-1, T // 2:] = 0
+    if S == T:
+        mask[0] = 0
+    kw = dict(attention_mask=mask, causal=causal, window=window)
+    dout = torch.randn(B, S, H, D + 8, generator=gen, device=cuda).bfloat16()[..., :D]
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (tfa.launches_bwd_dq, tfa.launches_bwd_dkv)
+    grads = torch.autograd.grad(tfa.flash_attention(*leaves, **kw), leaves, dout)
+    torch.cuda.synchronize()
+    assert (tfa.launches_bwd_dq, tfa.launches_bwd_dkv) == (before[0] + 1, before[1] + 1)
+    out, lse = tfa.flash_attention_fwd(q, k, v, **kw)  # the O and LSE the backward saw
+    refs = tfa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw)
+    for g, r, name in zip(grads, refs, ("dq", "dk", "dv")):
+        assert tfa.grad_error_ratio(g, r, name) <= 1.0, name
+    if S == T:
+        assert bool((grads[0][0] == 0).all())
 
 
 @pytest.mark.cuda
