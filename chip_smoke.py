@@ -5,8 +5,8 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions; TF32 off.
-  2. build: nvcc builds csrc/flash_fwd.cu and csrc/flash_bwd.cu for sm_90a
-     from this checkout, both at once.
+  2. build: nvcc builds csrc/flash_fwd.cu, csrc/flash_bwd.cu and
+     csrc/gmm.cu for sm_90a from this checkout, all at once.
   3. kernel_check: the flash-forward kernel against its plain PyTorch version
      on the card in bf16 (padding with a fully masked row, ragged and sub-tile
      lengths, the multi-tile regime at 4096/8192, causal S != T, window,
@@ -43,6 +43,38 @@ Phases, each printing one JSON line; any failure exits non-zero:
      main-path shapes (B=512 S=32, B=16 S=256), checked once more against
      its plain version, beside its bound, the plain backward and torch
      SDPA's backward (autograd, forward+backward minus forward).
+The dropless MoE path (nomic-bert-2048 with 8 experts, top-2, MoE on every
+second layer: 6 MoE layers, ~435M parameters):
+  9. kernel_check_gmm and moe_kernel_timing (after phase 4): gmm (also on
+     the transposed-rhs view dlhs uses) and tgmm against their plain
+     versions, per element, on the layouts of the MoE step's document and
+     query chunks (A = 16384 and 2048 assignments from skewed random
+     routing, one expert empty, one of exactly 128 rows, trailing inactive
+     blocks) at (K, N) = (768, 3072) and (3072, 768), and gmm on one encode
+     batch's layout; padding rows and the empty expert exactly 0. Then each
+     kernel's time on those inputs beside its bound, its plain version and
+     torch._grouped_mm (a yardstick only; a per-expert matmul loop where
+     the installed torch lacks it).
+ 10. moe_main_path: a full-width MoE BiEncoder (bf16, seed weights) encodes
+     512 requests at batch 256 / seq_len 512 through Encoder; launches
+     flash = 12 and gmm = 18 per batch, no tgmm; embeddings finite,
+     unit-norm, cosine >= 0.999 against the same weights under
+     attn_impl="sdpa" and the plain grouped matmul; the share of tokens
+     routed to another expert pair by that switch is recorded.
+ 11. moe_train_step: the JAX MoE benchmark step (bench.py:908-956): 512
+     pairs, 32/256 tokens, chunk 32, every chunk cached, router aux 0.001,
+     AdamW lr 2e-4 wd 0.01 clip 1.0, LogitScale(50) fixed, 5 steps; per
+     step 768 / 384 / 384 flash fwd / dq / dk-dv launches, 1728 gmm and
+     576 tgmm; losses finite and falling, each chunk's aux near top_k = 2.
+     At 64 pairs with aux 0: grad cache against the standard step and the
+     kernels against sdpa with the plain grouped matmul (replaying the
+     kernel run's expert choices), per tensor; the same comparison with
+     each run routing on its own, at three data seeds, beside the gmm
+     kernels' and the attention's share of it; a tgmm writing expert e's
+     gradient into expert e+1 must fall outside.
+ 12. moe_timing: MoE encode texts/s, step ms (median of 5), one profiled
+     step with gmm and tgmm as their own groups and its device-to-host
+     copies counted.
 Every timing line carries the card's SM clock, power draw and temperature.
 The line before the last holds the kernels' summary, and the last line is
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -94,9 +126,12 @@ def ptxas_usage(log):
     """{kernel<D>: "R registers, S bytes spilled"} from nvcc -Xptxas=-v output."""
     usage, fn = {}, None
     for line in log.splitlines():
-        m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d+)E", line)
-        if m:
+        m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d+)E|(t?gmm_kernel)(?:ILb([01])E)?", line)
+        if m and m.group(1):
             fn, spill = f"{m.group(1)}<{m.group(2)}>", "?"
+        elif m:
+            layout = {"1": "<rhs unit stride N>", "0": "<rhs unit stride K>", None: ""}[m.group(4)]
+            fn, spill = m.group(3) + layout, "?"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and fn:
             spill = m.group(1)
@@ -166,20 +201,33 @@ def backward_bound(kernel, B, S, T, H, Hkv, D, masked=True):
 
 # the JAX headline step's geometry (bench.py: build_headline_step and its batches)
 PAIRS, Q_LEN, D_LEN, CHUNK = 512, 32, 256, 16
+# the JAX MoE benchmark step (bench.py:886-980): chunk 32, every chunk
+# cached, router aux 0.001
+MOE_CHUNK, MOE_AUX = 32, 0.001
 
 
-def train_modules(impl, dev, lr=2e-4, max_grad_norm=1.0):
-    """BiEncoder(nomic-bert-2048, mean pooling, bf16 compute) with random
-    weights from seed 0, a fixed LogitScale(50) and AdamW (the headline's:
-    lr 2e-4, wd 0.01, clip 1.0)."""
+def moe_config(impl="flash"):
+    """nomic-bert-2048 with the MoE recipe's experts
+    (configs/train/contrastive_finetune_moe.yaml): 8 experts, top-2, MoE on
+    every second layer, dropless."""
+    from contrastors_tpu_torch.models.presets import nomic_bert_2048
+
+    return nomic_bert_2048(attn_impl=impl, num_experts=8, moe_top_k=2, moe_every_n_layers=2,
+                           moe_impl="dropless")
+
+
+def train_modules(impl, dev, lr=2e-4, max_grad_norm=1.0, moe=False):
+    """BiEncoder(nomic-bert-2048, or its MoE form, mean pooling, bf16
+    compute) with random weights from seed 0, a fixed LogitScale(50) and
+    AdamW (the headline's: lr 2e-4, wd 0.01, clip 1.0)."""
     import torch
 
     from contrastors_tpu_torch.models import BiEncoder, LogitScale, init_weights
     from contrastors_tpu_torch.models.presets import nomic_bert_2048
     from contrastors_tpu_torch.utils.optim import make_optimizer
 
-    model = init_weights(BiEncoder(nomic_bert_2048(attn_impl=impl), pooling="mean",
-                                   dtype=torch.bfloat16, device=dev), seed=0)
+    cfg = moe_config(impl) if moe else nomic_bert_2048(attn_impl=impl)
+    model = init_weights(BiEncoder(cfg, pooling="mean", dtype=torch.bfloat16, device=dev), seed=0)
     scale = LogitScale(50.0, trainable=False, device=dev)
     named = [("model." + n, p) for n, p in model.named_parameters()]
     named += [("logit_scale." + n, p) for n, p in scale.named_parameters()]
@@ -203,17 +251,17 @@ def token_batches(pairs, dev, seed=0):
     return batch(q), batch(d)
 
 
-def step_grads(impl, grad_cache, dev, qb, db):
-    """The gradients of one train step at the headline settings, read after
-    a step whose optimizer (lr 0, no clip) leaves the weights and the
-    gradients as they were."""
+def step_grads(impl, grad_cache, dev, qb, db, moe=False):
+    """The gradients of one train step at the headline settings (the MoE
+    benchmark's with moe, router aux 0), read after a step whose optimizer
+    (lr 0, no clip) leaves the weights and the gradients as they were."""
     import torch
 
     from contrastors_tpu_torch.trainers.text_text import make_train_step
 
-    model, scale, opt = train_modules(impl, dev, lr=0.0, max_grad_norm=None)
-    step = make_train_step(model, scale, opt, grad_cache=grad_cache, chunk_size=CHUNK,
-                           direct_chunks_q=-1, direct_chunks_d=0)
+    model, scale, opt = train_modules(impl, dev, lr=0.0, max_grad_norm=None, moe=moe)
+    kw = dict(chunk_size=MOE_CHUNK, direct_chunks_q=0) if moe else dict(chunk_size=CHUNK, direct_chunks_q=-1)
+    step = make_train_step(model, scale, opt, grad_cache=grad_cache, direct_chunks_d=0, **kw)
     step(qb, db, torch.Generator().manual_seed(0))
     return {n: p.grad.float().clone() for n, p in model.named_parameters() if p.grad is not None}
 
@@ -223,13 +271,20 @@ def planted_fault(kind):
     """A fault planted in the step, to show that the agreement bounds reject
     it: "no_delta" gives the backward kernels delta = 0; "rolled_replay"
     makes pass 2 replay each document chunk with its rows rotated by one,
-    so each row's embedding receives another row's cotangent."""
+    so each row's embedding receives another row's cotangent; "tgmm_roll"
+    makes tgmm write expert e's gradient into expert (e + 1) mod E."""
     import torch
 
     from contrastors_tpu_torch.ops import flash_attention as fa
+    from contrastors_tpu_torch.ops import grouped_matmul as gm
     from contrastors_tpu_torch.trainers import text_text
 
-    if kind == "no_delta":
+    if kind == "tgmm_roll":
+        module, name = gm, "launch_tgmm"
+
+        def patched(*args, orig=gm.launch_tgmm):
+            return torch.roll(orig(*args), 1, 0)
+    elif kind == "no_delta":
         module, name = fa, "prepare_backward"
 
         def patched(*args, orig=fa.prepare_backward):
@@ -265,6 +320,526 @@ def compare_grads(got, ref):
                 max_rel_l2=rel[worst_rel], max_rel_l2_tensor=worst_rel)
 
 
+@contextlib.contextmanager
+def plain_grouped_matmul():
+    """The comparison side of the MoE checks: gmm's and tgmm's wrappers run
+    their plain versions on CUDA tensors (the package has no such switch)."""
+    from contrastors_tpu_torch.ops import grouped_matmul as gm
+
+    saved = gm.launch_gmm, gm.launch_tgmm
+    gm.launch_gmm = lambda lhs, rhs, blk_e, act, block_m=128: gm._gmm_plain(lhs, rhs, blk_e, act, block_m)
+    gm.launch_tgmm = lambda lhs, dout, gs, block_m=128: gm.tgmm_reference(lhs, dout, gs, block_m)
+    try:
+        yield
+    finally:
+        gm.launch_gmm, gm.launch_tgmm = saved
+
+
+@contextlib.contextmanager
+def shared_routing(decisions, replay):
+    """Record each MoE layer's expert choices and token validity in call
+    order (replay=False), or route by the recorded choices (replay=True):
+    the weights are then the run's own probabilities at those experts. A
+    reference run that replays the kernel run's choices differs from it only
+    in arithmetic, not in the discrete top-k, which a bf16 rounding can flip
+    for a near-tie token."""
+    from contrastors_tpu_torch.layers.moe import MoEMLP
+
+    orig = MoEMLP.route
+
+    def route(self, probs, valid):
+        if not replay:
+            top_w, top_e = orig(self, probs, valid)
+            decisions.append((top_e.detach().clone(), valid.detach().clone()))
+            return top_w, top_e
+        top_e = decisions.pop(0)[0]
+        top_w = probs.gather(-1, top_e)
+        if self.config.moe_normalize_expert_weights:
+            top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+        return top_w * valid.to(top_w.dtype), top_e
+
+    MoEMLP.route = route
+    try:
+        yield
+    finally:
+        MoEMLP.route = orig
+
+
+def reset_counts():
+    from contrastors_tpu_torch.ops import flash_attention as fa
+    from contrastors_tpu_torch.ops import grouped_matmul as gm
+
+    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    gm.launches_gmm = gm.launches_tgmm = 0
+
+
+def read_counts():
+    from contrastors_tpu_torch.ops import flash_attention as fa
+    from contrastors_tpu_torch.ops import grouped_matmul as gm
+
+    return dict(fwd=fa.launches, dq=fa.launches_bwd_dq, dkv=fa.launches_bwd_dkv,
+                gmm=gm.launches_gmm, tgmm=gm.launches_tgmm)
+
+
+def moe_layout(dev, A, E=8, seed=0):
+    """The MoE layer's own layout call (aligned_group_layout) on A skewed
+    random assignments: expert 2 gets none, expert 5 exactly 128 rows (a
+    group with no padding), the rest a cubed-uniform share; the sentinel
+    marks padding rows. Returns (group_sizes, P, pad row mask, blk_e, act)."""
+    import torch
+
+    from contrastors_tpu_torch.ops import grouped_matmul as gm
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = torch.rand(E, generator=gen, device=dev) ** 3 + 0.01
+    p[2] = p[5] = 0.0
+    flat_e = torch.multinomial(p, A - 128, replacement=True, generator=gen)
+    flat_e = torch.cat([flat_e, torch.full((128,), 5, device=dev)])
+    flat_e = flat_e[torch.randperm(A, generator=gen, device=dev)]
+    _, gs, P, src = gm.aligned_group_layout(flat_e, E, 128, src_of=torch.arange(A, device=dev), sentinel=A)
+    blk_e, act = gm.block_experts(gs, P // 128, 128)
+    return gs, P, src == A, blk_e, act
+
+
+# (name, assignments): the MoE step's document chunk (32 x 256 tokens,
+# top-2) and query chunk (32 x 32), and one encode batch (256 x 512)
+MOE_LAYOUTS = (("doc_chunk", 32 * 256 * 2), ("query_chunk", 32 * 32 * 2), ("encode", 256 * 512 * 2))
+
+
+def gmm_operands(dev, P, K, N, pad, seed):
+    """Random bf16 lhs [P, K], rhs [8, K, N] and dout [P, N], with lhs and
+    dout zero on padding rows, as the MoE layer's gather and its gradient
+    leave them."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lhs = torch.randn(P, K, generator=gen, device=dev).bfloat16().masked_fill(pad[:, None], 0)
+    rhs = torch.randn(8, K, N, generator=gen, device=dev).bfloat16()
+    dout = torch.randn(P, N, generator=gen, device=dev).bfloat16().masked_fill(pad[:, None], 0)
+    return lhs, rhs, dout
+
+
+def differing_choices(a, b):
+    """(tokens routed differently, tokens routed) between two shared_routing
+    recordings of the same calls, over valid tokens only (padding tokens
+    carry weight 0); a token counts once if its expert set differs."""
+    diff = sum(int(((x.sort(-1).values != y.sort(-1).values).any(-1) & v[:, 0]).sum())
+               for (x, v), (y, _) in zip(a, b))
+    return diff, sum(int(v.sum()) for _, v in a)
+
+
+def moe_serving(dev, card, tok, rng, gen):
+    """Phases moe_main_path, moe_sdpa_agreement and moe_encode_throughput.
+    Returns (launches of the encode run, its batches)."""
+    import torch
+
+    from contrastors_tpu_torch.eval.encoder import Encoder
+    from contrastors_tpu_torch.models import BiEncoder, init_weights
+
+    cfg = moe_config()
+    model = init_weights(BiEncoder(cfg, pooling="mean", dtype=torch.bfloat16, device=dev), seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    docs = [{"title": "", "text": t} for t in make_texts(rng, 512, 8, 511)]
+    enc = Encoder(model, tok, seq_len=512, batch_size=256)
+    reset_counts()
+    t0 = time.perf_counter()
+    emb = enc.encode_corpus(docs)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    batches = -(-len(docs) // 256)
+    n_moe = sum(1 for b in model.trunk.layers if b.moe)
+    expected = dict(fwd=cfg.n_layer * batches, dq=0, dkv=0, gmm=3 * n_moe * batches, tgmm=0)
+    norms = np.linalg.norm(emb, axis=-1)
+    ok = (launches == expected and emb.shape == (len(docs), cfg.n_embd) and bool(np.isfinite(emb).all())
+          and float(np.abs(norms - 1).max()) < 1e-4)
+    emit(phase="moe_main_path", params=n_params, moe_layers=n_moe, experts=cfg.num_experts,
+         top_k=cfg.moe_top_k, requests=len(docs), batches=batches, launches=launches,
+         expected_launches=expected, seconds=seconds, max_norm_dev=float(np.abs(norms - 1).max()), ok=ok)
+    if not ok:
+        raise AssertionError("MoE main path: launch counts, shape, finiteness or norm check failed")
+
+    # the same weights under attn_impl="sdpa" and the plain grouped matmul;
+    # both encodes run again with their expert choices recorded, to count
+    # the tokens that the switch routes to another expert pair
+    model_ref = BiEncoder(moe_config("sdpa"), pooling="mean", dtype=torch.bfloat16, device=dev)
+    model_ref.load_state_dict(model.state_dict())
+    kernel_choices, ref_choices = [], []
+    with shared_routing(kernel_choices, replay=False):
+        enc.encode_corpus(docs)
+    with plain_grouped_matmul(), shared_routing(ref_choices, replay=False):
+        ref = Encoder(model_ref, tok, seq_len=512, batch_size=256).encode_corpus(docs)
+    cos = (emb * ref).sum(-1)
+    flipped, routed = differing_choices(kernel_choices, ref_choices)
+    ok = float(cos.min()) >= 0.999
+    emit(phase="moe_sdpa_agreement", min_cosine=float(cos.min()), mean_cosine=float(cos.mean()),
+         threshold=0.999, tokens_routed=routed, tokens_routed_differently=flipped,
+         note="reference: attn_impl='sdpa' and the plain grouped matmul, same weights, each "
+              "routing on its own; valid tokens counted once per MoE layer", ok=ok)
+    if not ok:
+        raise AssertionError("MoE embeddings: kernels and sdpa + plain grouped matmul disagree")
+    del model_ref, ref, kernel_choices, ref_choices
+
+    texts_512 = make_texts(rng, 256, 512, 512, lognormal=False)
+    enc.query_prefix = enc.document_prefix = None
+    host_ms = []
+    for i in range(6):
+        t0 = time.perf_counter()
+        e = enc.encode(texts_512)
+        if i >= 1:
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+    assert e.shape == (256, cfg.n_embd) and np.isfinite(e).all()
+    ids = torch.randint(1000, 30000, (256, 512), generator=gen, device=dev)
+    with torch.inference_mode():
+        fwd_ms = median_ms(lambda: model(ids, torch.ones_like(ids), normalize=False), runs=5, warmup=2)
+    enc_ms = float(np.median(host_ms))
+    emit(phase="moe_encode_throughput", card=card, gpu_state=gpu_state(), batch=256, seq_len=512,
+         encode_ms=enc_ms, encode_ms_min=min(host_ms), encode_ms_max=max(host_ms),
+         texts_per_s=256 / enc_ms * 1e3, tokens_per_s=256 * 512 / enc_ms * 1e3,
+         forward_ms=fwd_ms, forward_tokens_per_s=256 * 512 / fwd_ms * 1e3)
+    del model, enc
+    torch.cuda.empty_cache()
+    return launches, batches
+
+
+@contextlib.contextmanager
+def chunk_aux_recorder(into):
+    """Record each chunk's router aux that pass 2 backpropagates."""
+    import torch
+
+    from contrastors_tpu_torch.trainers import text_text
+
+    orig = text_text.encode_batch
+
+    def recording(model, batch, generator=None):
+        out = orig(model, batch, generator)
+        if torch.is_grad_enabled() and "router_aux" in out:
+            into.append(out["router_aux"].detach())
+        return out
+
+    text_text.encode_batch = recording
+    try:
+        yield
+    finally:
+        text_text.encode_batch = orig
+
+
+def profile_step(step, qb, db, train_gen, step_ms):
+    """One step under torch.profiler: busy time by kernel group, the split
+    at the profiler ranges, and the device-to-host copies and host syncs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(qb, db, train_gen)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]  # ranges are not kernels
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    phases = ("grad_cache/direct", "grad_cache/pass1", "grad_cache/loss", "grad_cache/pass2",
+              "train_step/optimizer")
+    split = {name: {} for name in phases}
+    for e in prof.events():
+        if e.name in split:
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                split[e.name]["host_ms"] = e.cpu_time_total / 1e3
+            else:
+                split[e.name]["device_span_ms"] = e.device_time_total / 1e3
+
+    def group(name):
+        m = re.search(r"flash_\w+_kernel<\d+>|tgmm_kernel|gmm_kernel", name)
+        if m:
+            return m.group(0)
+        if "gemm" in name or "nvjet" in name or "cutlass" in name or "sm90" in name:
+            return "matmul"
+        return "other (elementwise, reductions, copies)"
+
+    by_group = {}
+    for e in kernels:
+        g = by_group.setdefault(group(e.key), [0.0, 0])
+        g[0] += e.self_device_time_total / 1e3
+        g[1] += e.count
+    dtoh = sum(e.count for e in events if "DtoH" in e.key)
+    items = sum(e.count for e in events if e.key == "aten::item")
+    return dict(device_busy_ms=busy_ms, kernel_launches=sum(e.count for e in kernels),
+                idle_share_of_step=1.0 - busy_ms / step_ms, profiled_step_ms=profiled_ms, split=split,
+                by_group={k: dict(ms=v[0], launches=v[1])
+                          for k, v in sorted(by_group.items(), key=lambda kv: -kv[1][0])},
+                device_to_host_copies=dtoh, item_calls=items)
+
+
+def moe_training(dev, card):
+    """Phases moe_train_step, moe_train_timing, moe_train_profile and
+    moe_train_grad_agreement. Returns the launches of one step."""
+    import gc
+
+    import torch
+
+    from contrastors_tpu_torch.trainers.text_text import make_train_step
+
+    cfg = moe_config()
+    torch.cuda.reset_peak_memory_stats()
+    model, scale, opt = train_modules("flash", dev, moe=True)
+    step = make_train_step(model, scale, opt, grad_cache=True, chunk_size=MOE_CHUNK, direct_chunks_q=0,
+                           direct_chunks_d=0, router_aux_coef=MOE_AUX)
+    qb, db = token_batches(PAIRS, dev)
+    n_chunks = 2 * PAIRS // MOE_CHUNK  # query and document chunks
+    n_moe = sum(1 for b in model.trunk.layers if b.moe)
+    # forwards: every chunk in pass 1 and pass 2; backwards: every chunk;
+    # gmm: 3 per MoE layer per forward, and one dlhs per backward of each
+    expected = dict(fwd=cfg.n_layer * 2 * n_chunks, dq=cfg.n_layer * n_chunks, dkv=cfg.n_layer * n_chunks,
+                    gmm=3 * n_moe * 2 * n_chunks + 3 * n_moe * n_chunks, tgmm=3 * n_moe * n_chunks)
+    train_gen = torch.Generator().manual_seed(0)
+    steps, chunk_aux = [], []
+    for i in range(5):
+        reset_counts()
+        t0 = time.perf_counter()
+        with chunk_aux_recorder(chunk_aux) if i == 0 else contextlib.nullcontext():
+            m = step(qb, db, train_gen)
+        loss = m["loss"].item()
+        steps.append(dict(loss=loss, router_aux=m["router_aux"].item(), grad_norm=m["grad_norm"].item(),
+                          accuracy=m["accuracy"].item(), seconds=time.perf_counter() - t0,
+                          launches=read_counts()))
+    launches = steps[0]["launches"]
+    losses = [x["loss"] for x in steps]
+    chunk_aux = [float(a) for a in chunk_aux]
+    aux_ok = (len(chunk_aux) == n_chunks and all(np.isfinite(x["router_aux"]) for x in steps)
+              and 1.9 <= min(chunk_aux) and max(chunk_aux) <= 3.0)
+    ok = (all(x["launches"] == expected for x in steps) and bool(np.isfinite(losses).all())
+          and losses[-1] < losses[0] and aux_ok)
+    emit(phase="moe_train_step", params=sum(p.numel() for p in model.parameters()), pairs=PAIRS,
+         q_len=Q_LEN, d_len=D_LEN, chunk=MOE_CHUNK, router_aux_coef=MOE_AUX, expected_launches=expected,
+         steps=steps, first_step_chunk_aux=dict(n=len(chunk_aux), min=min(chunk_aux), max=max(chunk_aux),
+                                                mean=float(np.mean(chunk_aux)), balanced=2.0),
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30, ok=ok)
+    if not ok:
+        raise AssertionError("MoE train step: launch counts, finiteness, falling loss or router aux failed")
+
+    host_ms, enqueue_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step(qb, db, train_gen)
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms = float(np.median(host_ms))
+    emit(phase="moe_train_timing", card=card, gpu_state=gpu_state(), pairs=PAIRS, runs=len(host_ms),
+         step_ms=step_ms, step_ms_min=min(host_ms), step_ms_max=max(host_ms),
+         enqueue_ms=float(np.median(enqueue_ms)), pairs_per_s=PAIRS / step_ms * 1e3,
+         tokens_per_s=PAIRS * (Q_LEN + D_LEN) / step_ms * 1e3)
+    emit(phase="moe_train_profile", card=card, gpu_state=gpu_state(),
+         **profile_step(step, qb, db, train_gen, step_ms),
+         note="one profiled step: busy time of its kernels (idle share against the unprofiled median "
+              "step_ms); device_to_host_copies counts the step's device-to-host memcpys (host syncs); "
+              "item_calls counts Tensor.item, including those on CPU tensors (AdamW's step counters)")
+    del model, scale, opt, step, qb, db
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_grad_agreement(dev)
+    return launches
+
+
+def moe_grad_agreement(dev):
+    """Phase moe_train_grad_agreement."""
+    import gc
+
+    import torch
+
+    # at 64 pairs, router aux 0: grad cache against the standard step, the
+    # kernels against sdpa with the plain grouped matmul, and a planted tgmm
+    # fault that the bounds must reject. The sdpa run replays the kernel
+    # run's expert choices (shared_routing), so the two differ only in
+    # arithmetic; the same comparison with each run routing on its own is
+    # bounded apart, at three data seeds, beside its two halves (the gmm
+    # kernels alone, flash on both sides; the attention alone, the plain
+    # grouped matmul on both sides), with the tokens each switch reroutes.
+    sq, sd = token_batches(64, dev, seed=1)
+    grads, kernel_choices = {}, []
+    runs = (  # label, attention, grad cache, what the run is given
+        ("gc", "flash", True, lambda: shared_routing(kernel_choices, replay=False)),
+        ("std", "flash", False, contextlib.nullcontext),
+        ("sdpa_plain", "sdpa", True, lambda: shared_routing(list(kernel_choices), replay=True)),
+        ("tgmm_roll", "flash", True, lambda: planted_fault("tgmm_roll")),
+    )
+    for label, impl, grad_cache, ctx in runs:
+        plain = plain_grouped_matmul() if impl == "sdpa" else contextlib.nullcontext()
+        with ctx(), plain:
+            grads[label] = step_grads(impl, grad_cache, dev, sq, sd, moe=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    bounds = dict(gc_vs_std_min_cosine=0.9999, gc_vs_std_max_rel_l2=0.01, kernels_vs_plain_min_cosine=0.999,
+                  own_routing_min_cosine=0.995)
+    gc_vs_std = compare_grads(grads["gc"], grads["std"])
+    kernels_vs_plain = compare_grads(grads["gc"], grads["sdpa_plain"])
+    fault = compare_grads(grads["tgmm_roll"], grads["sdpa_plain"])
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    own_routing = {}
+    for seed in (1, 2, 3):
+        wq, wd = token_batches(64, dev, seed=seed)
+        wg, choices = {}, {}
+        for label, impl, plain in (("kernels", "flash", False), ("flash_plain_gmm", "flash", True),
+                                   ("sdpa_plain_gmm", "sdpa", True)):
+            choices[label] = []
+            with shared_routing(choices[label], replay=False), \
+                    plain_grouped_matmul() if plain else contextlib.nullcontext():
+                wg[label] = step_grads(impl, True, dev, wq, wd, moe=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+        reading = {}
+        for name, a, b in (("kernels_vs_sdpa_plain_gmm", "kernels", "sdpa_plain_gmm"),
+                           ("gmm_kernels_alone", "kernels", "flash_plain_gmm"),
+                           ("attention_alone", "flash_plain_gmm", "sdpa_plain_gmm")):
+            flipped, routed = differing_choices(choices[a], choices[b])
+            reading[name] = dict(compare_grads(wg[a], wg[b]), tokens_routed=routed,
+                                 tokens_routed_differently=flipped)
+        reading["margin"] = reading["kernels_vs_sdpa_plain_gmm"]["min_cosine"] - bounds["own_routing_min_cosine"]
+        own_routing[f"seed{seed}"] = reading
+        del wg, choices
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def within(r, c):
+        return r["min_cosine"] >= c
+
+    ok = (within(gc_vs_std, bounds["gc_vs_std_min_cosine"])
+          and gc_vs_std["max_rel_l2"] <= bounds["gc_vs_std_max_rel_l2"]
+          and within(kernels_vs_plain, bounds["kernels_vs_plain_min_cosine"])
+          and all(r["margin"] >= 0 for r in own_routing.values())
+          and not within(fault, bounds["own_routing_min_cosine"]))
+    emit(phase="moe_train_grad_agreement", pairs=64, chunk=MOE_CHUNK, router_aux_coef=0.0,
+         gc_vs_standard=gc_vs_std, kernels_vs_sdpa_plain_gmm=kernels_vs_plain,
+         own_routing=own_routing, planted_fault=dict(tgmm_roll_vs_sdpa_plain_gmm=fault), bounds=bounds,
+         note="kernels_vs_sdpa_plain_gmm replays the kernel run's expert choices; own_routing: each run "
+              "routes on its own (kernels_vs_sdpa_plain_gmm bounded by own_routing_min_cosine; its halves "
+              "read, not bounded); tokens counted once per MoE layer when valid", ok=ok)
+    if not ok:
+        raise AssertionError("MoE train step gradients: a sound step is outside its bounds, "
+                             "or the planted fault is inside them")
+
+
+def gmm_bound(kernel, rows, P, K, N, nonempty, E=8):
+    """Least time on this card: 2*K*N FLOP per active (padded) row, against
+    the bf16 bytes each kernel must move once. gmm reads the active rows of
+    lhs and the panels of the experts that own rows, and writes all P rows
+    of out (inactive blocks as 0); tgmm reads the active rows of lhs and
+    dout and writes all E panels (an empty expert's as 0)."""
+    flops = 2.0 * rows * K * N
+    if kernel == "gmm":
+        nbytes = 2 * (rows * K + nonempty * K * N + P * N)
+    else:
+        nbytes = 2 * (rows * (K + N) + E * K * N)
+    return _bound(flops, nbytes)
+
+
+def library_grouped_mm(kernel, lhs, rhs_or_dout, gs):
+    """(callable, label): torch._grouped_mm on the same layout where the
+    installed torch has it and it takes these operands, else a per-expert
+    torch.matmul loop over the groups. A yardstick only."""
+    import torch
+
+    offs = torch.cumsum(gs, 0).to(torch.int32)
+    if hasattr(torch, "_grouped_mm"):
+        try:
+            if kernel == "gmm":
+                fn = lambda: torch._grouped_mm(lhs, rhs_or_dout, offs=offs)  # noqa: E731
+            else:
+                fn = lambda: torch._grouped_mm(lhs.t(), rhs_or_dout, offs=offs)  # noqa: E731
+            fn()
+            torch.cuda.synchronize()
+            return fn, "torch._grouped_mm"
+        except (RuntimeError, TypeError) as e:
+            label = f"per-expert torch.matmul loop (torch._grouped_mm refused: {str(e).splitlines()[0][:120]})"
+    else:
+        label = "per-expert torch.matmul loop (no torch._grouped_mm)"
+    ends = offs.tolist()
+    starts = [0] + ends[:-1]
+    groups = [(e, a, b) for e, (a, b) in enumerate(zip(starts, ends)) if b > a]
+    if kernel == "gmm":
+        def loop():
+            out = torch.zeros(lhs.shape[0], rhs_or_dout.shape[2], dtype=lhs.dtype, device=lhs.device)
+            for e, a, b in groups:
+                out[a:b] = lhs[a:b] @ rhs_or_dout[e]
+            return out
+    else:
+        def loop():
+            out = torch.zeros(gs.shape[0], lhs.shape[1], rhs_or_dout.shape[1], dtype=lhs.dtype, device=lhs.device)
+            for e, a, b in groups:
+                out[e] = lhs[a:b].t() @ rhs_or_dout[a:b]
+            return out
+    return loop, label
+
+
+def moe_kernels(dev, card):
+    """Phases kernel_check_gmm and moe_kernel_timing, per layout and (K, N):
+    gmm (also on the transposed-rhs view dlhs uses) and tgmm against their
+    plain versions, per element, padding rows and the empty expert exactly
+    0; then each kernel's time beside its bound, its plain version and the
+    library's. Returns ({kernel: max abs error}, {(kernel, layout, K, N): row})."""
+    import torch
+
+    from contrastors_tpu_torch.ops import grouped_matmul as gm
+
+    errs, rows_out = {"gmm": 0.0, "tgmm": 0.0}, {}
+    for layout, A in MOE_LAYOUTS:
+        gs, P, pad, blk_e, act = moe_layout(dev, A, seed=1)
+        active_rows, nonempty = int(gs.sum()), int((gs > 0).sum())
+        shapes = ((768, 3072), (3072, 768)) if layout != "encode" else ((768, 3072),)
+        for K, N in shapes:
+            lhs, rhs, dout = gmm_operands(dev, P, K, N, pad, seed=K + 1)
+            rhs_t = rhs.transpose(1, 2)
+            kernels = {  # name: (kernel, plain, the library's second operand)
+                "gmm": (lambda: gm.launch_gmm(lhs, rhs, blk_e, act),
+                        lambda: gm._gmm_plain(lhs, rhs, blk_e, act, 128), rhs),
+                "gmm_rhs_transposed": (lambda: gm.launch_gmm(dout, rhs_t, blk_e, act),
+                                       lambda: gm._gmm_plain(dout, rhs_t, blk_e, act, 128), None),
+            }
+            if layout != "encode":  # serving runs no backward
+                kernels["tgmm"] = (lambda: gm.launch_tgmm(lhs, dout, gs),
+                                   lambda: gm.tgmm_reference(lhs, dout, gs, 128), dout)
+            line, ok = {}, True
+            for name, (run, plain, _) in kernels.items():
+                out, ref = run(), plain()
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                ratio = gm.error_ratio(out, ref)
+                zero = bool((out[2] == 0).all()) if name == "tgmm" else bool((out[pad] == 0).all())
+                key = "tgmm" if name == "tgmm" else "gmm"
+                errs[key] = max(errs[key], err)
+                line[name] = dict(max_abs_err=err, ref_abs_max=ref.float().abs().max().item(),
+                                  err_over_tol=ratio, padding_exactly_zero=zero)
+                ok = ok and ratio <= 1.0 and zero and bool(torch.isfinite(out.float()).all())
+                del out, ref
+            emit(phase="kernel_check_gmm", layout=layout, assignments=A, P=P, K=K, N=N,
+                 group_sizes=gs.tolist(), active_blocks=int(act.sum()), blocks=P // 128, **line,
+                 tol=f"{gm.REL:g}*|ref| + {gm.ABS_FRAC:g}*max|ref|", ok=ok)
+            if not ok:
+                raise AssertionError(f"grouped-matmul kernels disagree with their plain versions ({layout} K={K} N={N})")
+            for kname in ("gmm", "tgmm"):
+                if kname not in kernels:
+                    continue
+                run, plain, other = kernels[kname]
+                ms = median_ms(run)
+                plain_ms = median_ms(plain, runs=3, warmup=1)
+                lib_fn, lib_label = library_grouped_mm(kname, lhs, other, gs)
+                library_ms = median_ms(lib_fn, runs=5, warmup=2)
+                b_ms, b_by, flops, nbytes = gmm_bound(kname, active_rows, P, K, N, nonempty)
+                row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, library=lib_label,
+                           bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+                           tflops=flops / ms / 1e9, roofline_share=b_ms / ms,
+                           err_over_tol=line[kname]["err_over_tol"])
+                rows_out[(kname, layout, K, N)] = row
+                emit(phase="moe_kernel_timing", card=card, gpu_state=gpu_state(), kernel=kname, layout=layout,
+                     assignments=A, P=P, active_rows=active_rows, nonempty_experts=nonempty, K=K, N=N, **row)
+            del lhs, rhs, rhs_t, dout, kernels
+            torch.cuda.empty_cache()
+    return errs, rows_out
+
+
 def main():
     import torch
 
@@ -296,7 +871,7 @@ def main():
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = ("flash_fwd", "flash_bwd")
+    libs = _build.LIBRARIES
     with ThreadPoolExecutor(len(libs)) as pool:
         paths = dict(zip(libs, pool.map(_build.build, libs)))
     for name in libs:
@@ -410,6 +985,9 @@ def main():
             raise AssertionError(f"flash backward kernels disagree with their plain version in case {name}")
         del q, k, v, out, lse, dout, grads, refs
     torch.cuda.empty_cache()
+
+    # 9. the grouped-matmul kernels against their plain versions, and timed
+    gmm_errs, moe_times = moe_kernels(dev, card)
 
     # 5. the slice at full width: encode requests through the port's Encoder
     cfg = nomic_bert_2048(attn_impl="flash")
@@ -527,17 +1105,16 @@ def main():
     # forwards: the direct query batch, and each document chunk in pass 1 and
     # pass 2; backwards: the direct query batch and each document chunk
     expected = dict(fwd=tcfg.n_layer * (1 + 2 * n_chunks), dq=tcfg.n_layer * (1 + n_chunks),
-                    dkv=tcfg.n_layer * (1 + n_chunks))
+                    dkv=tcfg.n_layer * (1 + n_chunks), gmm=0, tgmm=0)
     train_gen = torch.Generator().manual_seed(0)
     steps = []
     for _ in range(5):
-        fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+        reset_counts()
         t0 = time.perf_counter()
         m = step(qb, db, train_gen)
         loss = m["loss"].item()
         steps.append(dict(loss=loss, grad_norm=m["grad_norm"].item(), accuracy=m["accuracy"].item(),
-                          seconds=time.perf_counter() - t0,
-                          launches=dict(fwd=fa.launches, dq=fa.launches_bwd_dq, dkv=fa.launches_bwd_dkv)))
+                          seconds=time.perf_counter() - t0, launches=read_counts()))
     launches_train = steps[0]["launches"]
     losses = [x["loss"] for x in steps]
     train_ok = (all(x["launches"] == expected for x in steps)
@@ -565,46 +1142,12 @@ def main():
 
     # one step under torch.profiler: the device's busy time by kernel, and
     # the step split at its profiler ranges
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(qb, db, train_gen)
-        torch.cuda.synchronize()
-        profiled_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]  # ranges are not kernels
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    phases = ("grad_cache/direct", "grad_cache/pass1", "grad_cache/loss", "grad_cache/pass2",
-              "train_step/optimizer")
-    split = {name: {} for name in phases}
-    for e in prof.events():
-        if e.name in split:
-            if e.device_type == torch.autograd.DeviceType.CPU:
-                split[e.name]["host_ms"] = e.cpu_time_total / 1e3
-            else:
-                split[e.name]["device_span_ms"] = e.device_time_total / 1e3
-
-    def group(name):
-        m = re.search(r"flash_\w+_kernel<\d+>", name)
-        if m:
-            return m.group(0)
-        if "gemm" in name or "nvjet" in name or "cutlass" in name or "sm90" in name:
-            return "matmul"
-        return "other (elementwise, reductions, copies)"
-
-    by_group = {}
-    for e in kernels:
-        g = by_group.setdefault(group(e.key), [0.0, 0])
-        g[0] += e.self_device_time_total / 1e3
-        g[1] += e.count
-    emit(phase="train_profile", card=card, device_busy_ms=busy_ms, kernel_launches=sum(e.count for e in kernels),
-         idle_share_of_step=1.0 - busy_ms / step_ms, profiled_step_ms=profiled_ms, split=split,
-         by_group={k: dict(ms=v[0], launches=v[1]) for k, v in sorted(by_group.items(), key=lambda kv: -kv[1][0])},
+    emit(phase="train_profile", card=card, gpu_state=gpu_state(),
+         **profile_step(step, qb, db, train_gen, step_ms),
          note="one profiled step: busy time of its kernels (idle share against the unprofiled median "
               "step_ms); split: host time of each profiler range and, where the trace has it, the "
               "device span of the kernels launched in it; the profiler slows the host")
-    del t_model, t_scale, t_opt, step, qb, db, prof
+    del t_model, t_scale, t_opt, step, qb, db
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -695,8 +1238,29 @@ def main():
         del q, k, v, out, lse, dout, inputs, qt, kt, vt, dot, ref_out, refs
         torch.cuda.empty_cache()
 
+    # 10-12. the dropless MoE path: serving and training
+    moe_enc_launches, moe_batches = moe_serving(dev, card, tok, rng, gen)
+    moe_train_launches = moe_training(dev, card)
+
     main = timings["b256_s512"]
     print(card, flush=True)
+
+    def gmm_entry(kname, replaces):
+        doc, query = moe_times[(kname, "doc_chunk", 768, 3072)], moe_times[(kname, "query_chunk", 768, 3072)]
+        pick = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library")
+        entry = dict(
+            name=kname, route="cuda", source="contrastors_tpu_torch/ops/csrc/gmm.cu", replaces=replaces,
+            launches=moe_train_launches[kname], max_abs_err=gmm_errs[kname],
+            **{k: doc[k] for k in pick},
+            shape="document chunk: 16384 assignments, P=17408, K=768 N=3072, 8 experts",
+            query_chunk={k: query[k] for k in pick},
+            down_projection=dict(doc_chunk={k: moe_times[(kname, "doc_chunk", 3072, 768)][k] for k in pick}),
+        )
+        if kname == "gmm":
+            entry["encode_launches"] = moe_enc_launches["gmm"]
+            entry["encode"] = dict({k: moe_times[("gmm", "encode", 768, 3072)][k] for k in pick},
+                                   batches=moe_batches)
+        return entry
 
     def bwd_entry(kname, replaces):
         doc, query = bwd_timings["b16_s256"], bwd_timings["b512_s32"]
@@ -739,6 +1303,8 @@ def main():
         ),
         bwd_entry("dq", "contrastors_tpu/ops/flash_attention.py:422"),
         bwd_entry("dkv", "contrastors_tpu/ops/flash_attention.py:512"),
+        gmm_entry("gmm", "contrastors_tpu/ops/grouped_matmul.py:75"),
+        gmm_entry("tgmm", "contrastors_tpu/ops/grouped_matmul.py:125"),
     ])
     emit(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                               count=torch.cuda.device_count()))

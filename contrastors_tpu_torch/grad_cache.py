@@ -24,8 +24,15 @@ What differs from the JAX function, and why:
     index n_total, as JAX's fold_in(rng, n_total). `encode(params, chunk,
     generator)` receives it.
   - Single device: no shard_map, so there is no data axis inside.
-  - `embed_parallel > 1` and `router_aux_coef != 0` raise
-    NotImplementedError until the slices that need them (ROADMAP).
+  - `embed_parallel > 1` raises NotImplementedError until the slice that
+    needs it (ROADMAP).
+MoE router aux (router_aux_coef != 0, an encoder that returns
+"router_aux"): pass 2 backpropagates <emb, cot> + coef * aux for each
+chunk. The direct part then runs one forward per chunk, with the cached
+path's generator for each, so that the aux is a sum of per-chunk values as
+in JAX's per-chunk vmap. The returned loss includes coef * total_aux, and
+metrics["router_aux"] is total_aux (the cached chunks' aux is summed even
+at coef 0, as in JAX).
 Each phase runs inside a profiler range ("grad_cache/direct", "/pass1",
 "/loss", "/pass2"), so a `torch.profiler` trace splits the step's host and
 device time by phase.
@@ -86,8 +93,6 @@ def grad_cache_loss_and_grads(
     """
     if embed_parallel != 1 or (embed_parallel_d or 1) != 1:
         raise NotImplementedError("embed_parallel > 1 is not ported yet (ROADMAP, Queue 1)")
-    if router_aux_coef:
-        raise NotImplementedError("router_aux_coef != 0 (MoE) is not ported yet (ROADMAP, Queue 1)")
     base = 0 if rng is None else int(rng)
     device = next(iter(q_batch.values())).device
 
@@ -105,17 +110,26 @@ def grad_cache_loss_and_grads(
     k_q = norm_k(direct_chunks, n_q)
     k_d = norm_k(direct_chunks if direct_chunks_d is None else direct_chunks_d, n_d)
 
-    # ---- direct part: one forward of the leading chunks, graph held --------
+    # ---- direct part: the leading chunks' forward, graph held ---------------
     def direct_embed(encode, tower, batch, c, k, n_total, trainable):
+        """(embeddings, summed router aux or None)."""
         if k == 0:
-            return None
-        gen = chunk_generator(base, tower, n_total, device)
+            return None, None
         with torch.set_grad_enabled(trainable and torch.is_grad_enabled()):
-            return encode(params, _slice(batch, 0, k * c), gen)["embedding"]
+            if not router_aux_coef:
+                # one forward; a generator one past the cached chunk indices
+                gen = chunk_generator(base, tower, n_total, device)
+                return encode(params, _slice(batch, 0, k * c), gen)["embedding"], None
+            # one forward per chunk, with the cached path's generators
+            outs = [encode(params, _slice(batch, i * c, (i + 1) * c),
+                           chunk_generator(base, tower, i, device)) for i in range(k)]
+            auxes = [o["router_aux"].float() for o in outs if "router_aux" in o]
+            aux = torch.stack(auxes).sum() if auxes else None
+            return torch.cat([o["embedding"] for o in outs]), aux
 
     with record_function("grad_cache/direct"):
-        q_direct = direct_embed(encode_q, 0, q_batch, cq, k_q, n_q, True)
-        d_direct = direct_embed(encode_d, 1, d_batch, cd, k_d, n_d, d_trainable)
+        q_direct, q_direct_aux = direct_embed(encode_q, 0, q_batch, cq, k_q, n_q, True)
+        d_direct, d_direct_aux = direct_embed(encode_d, 1, d_batch, cd, k_d, n_d, d_trainable)
 
     # ---- pass 1: cached chunks without grad ---------------------------------
     def tower_embs(encode, tower, batch, c, k, n, direct):
@@ -139,25 +153,44 @@ def grad_cache_loss_and_grads(
         gq, gd = q_embs.grad, d_embs.grad
 
     # ---- pass 2: direct cotangents, then replay of the cached chunks --------
-    def accumulate(encode, tower, batch, c, k, n, direct, cot):
+    def backward(emb, cot, aux):
+        """Backpropagate <emb, cot> (+ coef * aux when the aux is on)."""
+        if aux is not None and router_aux_coef:
+            torch.autograd.backward([emb, aux], [cot.to(emb.dtype), aux.new_tensor(router_aux_coef)])
+        else:
+            emb.backward(cot.to(emb.dtype))
+
+    def accumulate(encode, tower, batch, c, k, n, direct, direct_aux, cot):
+        """Returns the tower's summed router aux."""
+        total = torch.zeros((), device=device)
         n_direct = 0 if direct is None else direct.shape[0]
         if direct is not None:
-            direct.backward(cot[:n_direct].to(direct.dtype))
+            backward(direct, cot[:n_direct], direct_aux)
+            if direct_aux is not None:
+                total = total + direct_aux.detach()
         per_chunk = (cot.shape[0] - n_direct) // max(n - k, 1)
         for j, i in enumerate(range(k, n)):
             gen = chunk_generator(base, tower, i, device)
-            emb = encode(params, _slice(batch, i * c, (i + 1) * c), gen)["embedding"]
+            out = encode(params, _slice(batch, i * c, (i + 1) * c), gen)
+            aux = out["router_aux"].float() if "router_aux" in out else None
             lo = n_direct + j * per_chunk
-            emb.backward(cot[lo:lo + per_chunk].to(emb.dtype))
+            backward(out["embedding"], cot[lo:lo + per_chunk], aux)
+            if aux is not None:
+                total = total + aux.detach()
+        return total
 
     with record_function("grad_cache/pass2"):
-        accumulate(encode_q, 0, q_batch, cq, k_q, n_q, q_direct, gq)
+        total_aux = accumulate(encode_q, 0, q_batch, cq, k_q, n_q, q_direct, q_direct_aux, gq)
         if d_trainable:
-            accumulate(encode_d, 1, d_batch, cd, k_d, n_d, d_direct, gd)
+            total_aux = total_aux + accumulate(encode_d, 1, d_batch, cd, k_d, n_d, d_direct,
+                                               d_direct_aux, gd)
 
     loss = loss.detach()
+    if router_aux_coef:
+        # the objective whose gradient was accumulated
+        loss = loss + router_aux_coef * total_aux
     if return_metrics:
         metrics = {k: v.detach() if torch.is_tensor(v) else v for k, v in loss_aux.items()}
-        metrics["router_aux"] = torch.zeros((), device=loss.device)
+        metrics["router_aux"] = total_aux
         return loss, metrics
     return loss

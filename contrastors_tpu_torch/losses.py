@@ -1,14 +1,14 @@
 """Contrastive losses: InfoNCE/CLIP and Matryoshka, on one device.
 
 Counterpart of `contrastors_tpu/losses.py` (`_ce`, `clip_loss`,
-`matryoshka_clip_loss`), in its single-device form: there is no
-`axis_name`, so labels are plain row indices. The sharded form (an
-all-gather of the document side over the data-parallel group) comes with
-the distributed slice; `clip_loss_symmetric` and `router_aux_loss` come
-with the slices that use them (ROADMAP, Queue 1).
+`matryoshka_clip_loss`, `router_aux_loss`), in its single-device form:
+there is no `axis_name`, so labels are plain row indices. The sharded form
+(an all-gather of the document side over the data-parallel group) comes
+with the distributed slice; `clip_loss_symmetric` comes with the slice that
+uses it (ROADMAP, Queue 1).
 """
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -74,3 +74,29 @@ def matryoshka_clip_loss(
         if dim == max_dim:
             full_acc = acc
     return total / sum(weights), full_acc
+
+
+def router_aux_loss(
+    router_logits: List[torch.Tensor],
+    num_experts: int,
+    top_k: int,
+    attention_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Switch-style load-balance loss over the MoE layers' concatenated
+    [L*N, E] router logits, with the attention-mask correction, times
+    num_experts: 2.0 for top-2 routing that is exactly balanced."""
+    logits = torch.cat([r.float() for r in router_logits], dim=0)
+    weights = torch.softmax(logits, dim=-1)
+    _, selected = torch.topk(weights, top_k, dim=-1)  # [L*N, k]
+    # one-hot [L*N, k, E] by scatter: no host sync on the card
+    expert_mask = logits.new_zeros((*selected.shape, num_experts)).scatter_(2, selected[..., None], 1.0)
+    if attention_mask is not None:
+        n_layers = logits.shape[0] // attention_mask.numel()
+        m = attention_mask.reshape(-1).float().repeat(n_layers)  # [L*N]
+        denom = m.sum().clamp_min(1.0)
+        tokens_per_expert = torch.einsum("nke,n->ke", expert_mask, m) / denom
+        router_prob_per_expert = torch.einsum("ne,n->e", weights, m) / denom
+    else:
+        tokens_per_expert = expert_mask.mean(dim=0)
+        router_prob_per_expert = weights.mean(dim=0)
+    return (tokens_per_expert * router_prob_per_expert[None, :]).sum() * num_experts

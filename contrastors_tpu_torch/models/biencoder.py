@@ -3,7 +3,9 @@
 
 Mean / cls / last / none pooling, the hamming LayerNorm, the projection,
 normalisation with the clamp inside the sqrt, and binarisation keep the JAX
-semantics. `LogitScale` is the contrastive loss's exp-parameterised
+semantics. The output carries the MoE layers' masked router logits under
+"router_logits" (None for a dense trunk), for the router load-balance
+loss. `LogitScale` is the contrastive loss's exp-parameterised
 temperature. The decoder and vision trunks, the MAP pooling head and packed
 mode raise until their slices are ported.
 """
@@ -106,13 +108,14 @@ class BiEncoder(nn.Module):
     ) -> Dict[str, Any]:
         if segment_ids is not None and max_segments is not None:
             raise NotImplementedError("packed mode is not ported yet (ROADMAP, Queue 1: packed path)")
-        hidden = self.trunk(
+        trunk_out = self.trunk(
             input_ids,
             attention_mask=attention_mask,
             position_ids=position_ids,
             token_type_ids=token_type_ids,
             segment_ids=segment_ids,
-        )["last_hidden_state"]
+        )
+        hidden = trunk_out["last_hidden_state"]
 
         if self.pooling == "mean":
             embedding = mean_pool(hidden, attention_mask)
@@ -134,4 +137,4 @@ class BiEncoder(nn.Module):
             e32 = embedding.float()
             norm = torch.sqrt((e32 * e32).sum(dim=-1, keepdim=True).clamp_min(1e-24))
             embedding = (e32 / norm).to(embedding.dtype)
-        return {"embedding": embedding}
+        return {"embedding": embedding, "router_logits": trunk_out["router_logits"] or None}

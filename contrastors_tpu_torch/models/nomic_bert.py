@@ -4,7 +4,10 @@
 Postnorm blocks, the embedding LayerNorm, optional rotary (nomic-bert-2048),
 ModernBERT-style local/global alternation and prenorm trunks. Padding is
 handled by static-shape masks, as on the JAX side. The MLM and
-classification heads wait for a later slice.
+classification heads wait for a later slice. MoE layers (every
+`moe_every_n_layers`-th, from layer 1) run the dropless MoEMLP; the output
+carries their masked router logits, in layer order, under "router_logits"
+(an empty list for a dense trunk).
 """
 
 from typing import Any, Dict, Optional
@@ -43,8 +46,10 @@ def _layer_is_moe(config: TrunkConfig, i: int) -> bool:
 
 def init_weights(module: nn.Module, seed: int, std: float = 0.02) -> nn.Module:
     """Random weights from a seeded CPU torch.Generator, copied to the
-    module's device: Linear/Embedding weights ~ N(0, std), biases 0, norm
-    weights 1. The same seed gives the same weights on every device."""
+    module's device: Linear/Embedding weights, MoE routers and expert
+    tensors ~ N(0, std), biases (the MoE output bias too) 0, norm weights
+    1, the kinds of the JAX initialisers. The same seed gives the same
+    weights on every device."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in module.named_parameters():
@@ -101,13 +106,15 @@ class NomicBertModel(nn.Module):
         ) > 0.0:
             raise NotImplementedError("training with dropout is not ported yet (ROADMAP, Queue 1)")
         hidden = self.emb_ln(self.embeddings(input_ids, position_ids, token_type_ids))
-        residual = None
+        residual, router_logits = None, []
         for block in self.layers:
-            hidden, residual = block(hidden, residual, attention_mask, segment_ids, position_ids)
+            hidden, residual, rl = block(hidden, residual, attention_mask, segment_ids, position_ids)
+            if rl is not None:
+                router_logits.append(rl)
         if self.final_norm is not None:
             # the final add-norm closes the shifted-prenorm carry
             resid_dtype = torch.float32 if cfg.residual_in_fp32 else hidden.dtype
             h = hidden.to(resid_dtype)
             residual = h if residual is None else residual + h
             hidden = self.final_norm(residual).to(self.dtype)
-        return {"last_hidden_state": hidden}
+        return {"last_hidden_state": hidden, "router_logits": router_logits}

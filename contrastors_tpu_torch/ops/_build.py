@@ -60,7 +60,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             _I,
         ),
     },
+    "gmm": {
+        # lhs, rhs, blk_e, act, out, M, K, N, lhs row stride,
+        # rhs strides (expert, k, n), stream
+        "gmm_bf16": ([_P] * 5 + [_I] * 3 + [_L] * 4 + [_P], _I),
+        # lhs, dout, group_sizes, out, M, K, N, E, lhs and dout row strides, stream
+        "tgmm_bf16": ([_P] * 4 + [_I] * 4 + [_L] * 2 + [_P], _I),
+    },
 }
+# every library, in the order chip_smoke.py builds them (all at once)
+LIBRARIES = tuple(SIGNATURES)
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -109,6 +118,18 @@ def build(name: str) -> Path:
     build_logs[name] = proc.stderr
     os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
     return out
+
+
+def ptr(x) -> ctypes.c_void_p:
+    """A tensor's data pointer for a C argument; NULL for None."""
+    return ctypes.c_void_p(0 if x is None else x.data_ptr())
+
+
+def stream(x) -> ctypes.c_void_p:
+    """The current CUDA stream of x's device, for a C argument."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -40,6 +40,9 @@ import math
 
 import torch
 
+from contrastors_tpu_torch._device import on_device
+from contrastors_tpu_torch.ops._build import load_library, ptr, stream
+
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634  # log2(e)
 KERNEL_HEAD_DIMS = (64, 128)
@@ -218,10 +221,6 @@ def _kernel_ids(seg_q, seg_kv, device):
             seg_kv.to(device=device, dtype=torch.int32).contiguous())
 
 
-def _ptr(x):
-    return ctypes.c_void_p(0 if x is None else x.data_ptr())
-
-
 def _launch_kernel(q, k, v, seg_q, seg_kv, causal, causal_offset, window, softmax_scale):
     """Launch csrc/flash_fwd.cu on the current stream. Returns (O, LSE)."""
     global launches
@@ -232,17 +231,12 @@ def _launch_kernel(q, k, v, seg_q, seg_kv, causal, causal_offset, window, softma
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     seg_q, seg_kv = _kernel_ids(seg_q, seg_kv, q.device)
-
-    from contrastors_tpu_torch.ops._build import load_library
-
-    lib = load_library("flash_fwd")
-    err = lib.flash_fwd_bf16(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(seg_q), _ptr(seg_kv),
+    err = load_library("flash_fwd").flash_fwd_bf16(
+        ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), ptr(seg_q), ptr(seg_kv),
         B, S, T, H, Hkv, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         int(causal), int(causal_offset), int(window),
-        ctypes.c_float(softmax_scale * LOG2E),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+        ctypes.c_float(softmax_scale * LOG2E), stream(q),
     )
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
@@ -259,8 +253,7 @@ def _bwd_call(q, k, v, dout, lse, delta, seg_q, seg_kv, causal, causal_offset, w
         B, S, T, H, Hkv, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3],
         int(causal), int(causal_offset), int(window),
-        ctypes.c_float(softmax_scale * LOG2E), ctypes.c_float(softmax_scale),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+        ctypes.c_float(softmax_scale * LOG2E), ctypes.c_float(softmax_scale), stream(q),
     )
 
 
@@ -270,13 +263,11 @@ def launch_bwd_dq(q, k, v, dout, lse, delta, seg_q, seg_kv, causal, causal_offse
     `_launch_backward` prepares them: aligned bf16 q/k/v/dout, contiguous
     fp32 lse and delta [B, H, S], contiguous int32 ids or None). Returns dq."""
     global launches_bwd_dq
-    from contrastors_tpu_torch.ops._build import load_library
-
     B, S, H, D = q.shape
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     err = load_library("flash_bwd").flash_bwd_dq_bf16(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(delta), _ptr(dq),
-        _ptr(seg_q), _ptr(seg_kv),
+        ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), ptr(dq),
+        ptr(seg_q), ptr(seg_kv),
         *_bwd_call(q, k, v, dout, lse, delta, seg_q, seg_kv, causal, causal_offset, window,
                    softmax_scale),
     )
@@ -291,14 +282,12 @@ def launch_bwd_dkv(q, k, v, dout, lse, delta, seg_q, seg_kv, causal, causal_offs
     """Launch flash_bwd_dkv of csrc/flash_bwd.cu on prepared inputs (see
     `launch_bwd_dq`). Returns (dk, dv)."""
     global launches_bwd_dkv
-    from contrastors_tpu_torch.ops._build import load_library
-
     B, T, Hkv, D = k.shape
     dk = torch.empty((B, T, Hkv, D), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, T, Hkv, D), dtype=v.dtype, device=v.device)
     err = load_library("flash_bwd").flash_bwd_dkv_bf16(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv),
-        _ptr(seg_q), _ptr(seg_kv),
+        ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), ptr(dk), ptr(dv),
+        ptr(seg_q), ptr(seg_kv),
         *_bwd_call(q, k, v, dout, lse, delta, seg_q, seg_kv, causal, causal_offset, window,
                    softmax_scale),
     )
@@ -329,19 +318,11 @@ def _launch_backward(q, k, v, out, lse, dout, seg_q, seg_kv, *args):
     return (dq, *launch_bwd_dkv(*inputs, *args))
 
 
-def _on_device(q, cpu_fn, cuda_fn, *args):
-    if q.device.type == "cpu":
-        return cpu_fn(*args)
-    if q.device.type == "cuda":
-        return cuda_fn(*args)
-    raise ValueError(f"flash attention runs on cpu (plain) or cuda (kernel), got {q.device}")
-
-
 class _FlashForward(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, seg_q, seg_kv, causal, causal_offset, window, softmax_scale):
         args = (causal, causal_offset, window, softmax_scale)
-        out, lse = _on_device(q, _reference_core, _launch_kernel, q, k, v, seg_q, seg_kv, *args)
+        out, lse = on_device(q, _reference_core, _launch_kernel, q, k, v, seg_q, seg_kv, *args)
         ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, out, lse, seg_q, seg_kv)
         ctx.args = args
@@ -350,7 +331,7 @@ class _FlashForward(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse, seg_q, seg_kv = ctx.saved_tensors
-        dq, dk, dv = _on_device(q, _reference_backward_core, _launch_backward,
+        dq, dk, dv = on_device(q, _reference_backward_core, _launch_backward,
                                 q, k, v, out, lse, dout, seg_q, seg_kv, *ctx.args)
         return dq, dk, dv, None, None, None, None, None, None
 
@@ -438,7 +419,7 @@ def flash_attention_backward(
     seg_q, seg_kv, offset, scale = _prepare(
         q, k, attention_mask, segment_ids, kv_segment_ids, causal, softmax_scale, ()
     )
-    return _on_device(q, _reference_backward_core, _launch_backward,
+    return on_device(q, _reference_backward_core, _launch_backward,
                       q, k, v, out, lse, dout, seg_q, seg_kv, causal, offset, window, scale)
 
 

@@ -12,8 +12,12 @@ batches on one device, without gradient accumulation:
     honoured here and Matryoshka dims are not used on the grad-cache path
     (ROADMAP, Queue 3).
 The logit scale is clamped to log(logit_max) after the update when it is
-trainable and clamp_logits is set. The trainer loop, data, packed batches,
-MoE and the data-parallel form wait for later slices (ROADMAP, Queue 1).
+trainable and clamp_logits is set. With MoE layers the encoder also returns
+the router load-balance loss, and router_aux_coef weighs it: grad cache
+sums it over the chunks (`grad_cache_loss_and_grads`), the standard branch
+adds one aux per tower over its whole batch, as the JAX trainer does. The
+trainer loop, data, packed batches and the data-parallel form wait for
+later slices (ROADMAP, Queue 1).
 """
 
 import math
@@ -23,7 +27,7 @@ import torch
 from torch.profiler import record_function
 
 from contrastors_tpu_torch.grad_cache import grad_cache_loss_and_grads
-from contrastors_tpu_torch.losses import clip_loss, matryoshka_clip_loss
+from contrastors_tpu_torch.losses import clip_loss, matryoshka_clip_loss, router_aux_loss
 from contrastors_tpu_torch.models.biencoder import BiEncoder, LogitScale
 from contrastors_tpu_torch.utils.optim import AdamW
 
@@ -41,9 +45,17 @@ def divisor_chunk(chunk: int, rows: int) -> int:
 
 
 def encode_batch(model: BiEncoder, batch: Batch, generator: Optional[torch.Generator] = None):
-    """Embed one {"input_ids", "attention_mask"} batch. The generator is
-    the chunk's dropout stream; the trunks have no dropout yet (ROADMAP)."""
-    return {"embedding": model(batch["input_ids"], batch["attention_mask"])["embedding"]}
+    """Embed one {"input_ids", "attention_mask"} batch: {"embedding"}, and
+    "router_aux" (the load-balance loss over this batch's valid tokens) when
+    the model has MoE layers. The generator is the chunk's dropout stream;
+    the trunks have no dropout yet (ROADMAP)."""
+    out = model(batch["input_ids"], batch["attention_mask"])
+    res = {"embedding": out["embedding"]}
+    if out["router_logits"]:
+        cfg = model.config
+        res["router_aux"] = router_aux_loss(out["router_logits"], cfg.num_experts, cfg.moe_top_k,
+                                            attention_mask=batch["attention_mask"])
+    return res
 
 
 def make_train_step(
@@ -61,9 +73,11 @@ def make_train_step(
     matryoshka_loss_weights: Optional[Sequence[float]] = None,
     clamp_logits: bool = False,
     logit_max: float = 100.0,
+    router_aux_coef: float = 0.0,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns step(q_batch, d_batch, generator=None) -> {"loss",
-    "grad_norm", "accuracy"}, which updates the modules in place. The
+    "grad_norm", "accuracy", "router_aux"}, which updates the modules in
+    place; router_aux is 0 for a dense model. The
     optimizer is `make_optimizer`'s AdamW; grad_norm is the global norm of
     the gradients before its clip. The generator (default: seed 0) gives
     the step's base seed for the chunks' generators. The step's phases are
@@ -92,18 +106,25 @@ def make_train_step(
                 biencoder, q_batch, d_batch, encode_batch, encode_batch, gc_loss,
                 chunk_size=cq, chunk_size_d=cd, rng=seed, extra_params=logit_scale,
                 direct_chunks=direct_chunks_q, direct_chunks_d=direct_chunks_d,
-                return_metrics=True, loss_has_aux=True,
+                return_metrics=True, loss_has_aux=True, router_aux_coef=router_aux_coef,
             )
-            accuracy = metrics["accuracy"]
+            accuracy, router_aux = metrics["accuracy"], metrics["router_aux"]
         else:
             with record_function("train_step/forward"):
-                q = encode_batch(biencoder, q_batch)["embedding"]
-                d = encode_batch(biencoder, d_batch)["embedding"]
+                q_out = encode_batch(biencoder, q_batch)
+                d_out = encode_batch(biencoder, d_batch)
+                q, d = q_out["embedding"], d_out["embedding"]
                 if matryoshka_dims:
                     loss, accuracy = matryoshka_clip_loss(
                         q, d, logit_scale, dims=matryoshka_dims, weights=matryoshka_loss_weights)
                 else:
                     loss, accuracy = clip_loss(q, d, logit_scale)
+                # one aux per tower, over its whole batch
+                auxes = [o["router_aux"] for o in (q_out, d_out) if "router_aux" in o]
+                router_aux = sum(auxes) if auxes else torch.zeros((), device=q.device)
+                if auxes:
+                    loss = loss + router_aux_coef * router_aux
+                router_aux = router_aux.detach()
             with record_function("train_step/backward"):
                 loss.backward()
             loss = loss.detach()
@@ -114,6 +135,7 @@ def make_train_step(
             if log_max is not None:
                 with torch.no_grad():
                     logit_scale.logit_scale.clamp_(max=log_max)
-        return {"loss": loss, "grad_norm": optimizer.grad_norm, "accuracy": accuracy}
+        return {"loss": loss, "grad_norm": optimizer.grad_norm, "accuracy": accuracy,
+                "router_aux": router_aux}
 
     return step

@@ -92,7 +92,7 @@ def test_encoder_bucketed_equals_fixed_pad_and_matches_jax():
 
 
 @pytest.mark.parametrize("over", [dict(layer_scale=True), dict(rotary_head_dim=True),
-                                  dict(num_experts=4, moe_every_n_layers=2)])
+                                  dict(num_experts=4, moe_every_n_layers=2, moe_impl="capacity")])
 def test_unported_trunk_features_raise(over):
     with pytest.raises(NotImplementedError):
         BiEncoder(t_preset(**SMALL, **over), device="cpu")

@@ -153,7 +153,7 @@ def test_grad_cache_matches_jax():
 def test_unported_options_raise():
     model, scale = _port_model()
     qb, db = map(_torch, _batches())
-    for kw in (dict(embed_parallel=2), dict(router_aux_coef=0.01)):
+    for kw in (dict(embed_parallel=2), dict(embed_parallel_d=2)):
         with pytest.raises(NotImplementedError):
             grad_cache_loss_and_grads(model, qb, db, encode_batch, encode_batch, _loss, chunk_size=2,
                                       extra_params=scale, **kw)

@@ -39,7 +39,8 @@ def test_importing_every_port_module_loads_no_jax():
     modules = sorted(
         m.name for m in pkgutil.walk_packages([str(PORT)], prefix="contrastors_tpu_torch.")
     )
-    assert "contrastors_tpu_torch.ops.flash_attention" in modules
+    for m in ("ops.flash_attention", "ops.grouped_matmul", "layers.moe"):
+        assert "contrastors_tpu_torch." + m in modules
     code = (
         "import importlib, sys\n"
         "def bad():\n"

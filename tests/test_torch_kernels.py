@@ -8,13 +8,17 @@ mode). The file imports no JAX, so it also runs on a machine without it:
 Tolerances are the module's own: O per element within
 O_REL * |ref| + O_ABS_FRAC * max |ref| (`output_error_ratio` <= 1), LSE
 within LSE_ATOL (fp32 on both sides); dq, dk, dv per element within
-GRAD_REL * |ref| + GRAD_ABS_FRAC[name] * max |ref| (`grad_error_ratio` <= 1).
+GRAD_REL * |ref| + GRAD_ABS_FRAC[name] * max |ref| (`grad_error_ratio` <= 1);
+gmm and tgmm per element within REL * |ref| + ABS_FRAC * max |ref|
+(`grouped_matmul.error_ratio` <= 1), with padding rows and empty experts
+exactly 0.
 """
 
 import pytest
 import torch
 
 from contrastors_tpu_torch.ops import flash_attention as tfa
+from contrastors_tpu_torch.ops import grouped_matmul as tgm
 
 
 @pytest.fixture
@@ -86,3 +90,52 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.randn(1, 16, 2, 64, device=cuda)
     with pytest.raises(TypeError, match="bfloat16"):
         tfa.flash_attention(q, q, q)
+
+
+def _moe_layout(cuda, A, E=8):
+    """aligned_group_layout of A skewed assignments: expert 2 gets none,
+    expert 5 exactly 128, so one group is empty, one needs no padding, and
+    the last blocks are inactive."""
+    gen = torch.Generator(device=cuda).manual_seed(A)
+    p = torch.rand(E, generator=gen, device=cuda) ** 3 + 0.01
+    p[2], p[5] = 0.0, 0.0
+    flat_e = torch.multinomial(p, A - 128, replacement=True, generator=gen)
+    flat_e = torch.cat([flat_e, torch.full((128,), 5, device=cuda)])
+    flat_e = flat_e[torch.randperm(A, generator=gen, device=cuda)]
+    src_of = torch.arange(A, device=cuda) // 2
+    return tgm.aligned_group_layout(flat_e, E, 128, src_of=src_of, sentinel=A // 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(768, 3072), (3072, 768)])
+def test_gmm_kernels_match_plain_versions_on_card(cuda, K, N):
+    """Autograd through gmm launches gmm once forward, then gmm (dlhs, on
+    the transposed view) and tgmm once each; all three agree with the plain
+    versions, padding rows of the output and the empty expert's drhs are 0."""
+    dest, gs, P, src = _moe_layout(cuda, 2048)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    pad = src == 1024
+    lhs = torch.randn(P, K, generator=gen, device=cuda).bfloat16().masked_fill(pad[:, None], 0)
+    rhs = torch.randn(8, K, N, generator=gen, device=cuda).bfloat16()
+    dout = torch.randn(P, N, generator=gen, device=cuda).bfloat16()
+    leaves = [lhs.clone().requires_grad_(), rhs.clone().requires_grad_()]
+    before = (tgm.launches_gmm, tgm.launches_tgmm)
+    out = tgm.gmm(*leaves, gs)
+    dlhs, drhs = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert (tgm.launches_gmm, tgm.launches_tgmm) == (before[0] + 2, before[1] + 1)
+    assert tgm.error_ratio(out, tgm.gmm_reference(lhs, rhs, gs)) <= 1.0
+    assert tgm.error_ratio(dlhs, tgm.gmm_reference(dout, rhs.transpose(1, 2), gs)) <= 1.0
+    assert tgm.error_ratio(drhs, tgm.tgmm_reference(lhs, dout, gs)) <= 1.0
+    assert bool((out[pad] == 0).all()) and bool((drhs[2] == 0).all())
+
+
+@pytest.mark.cuda
+def test_gmm_kernel_refuses_what_it_does_not_take(cuda):
+    lhs = torch.randn(256, 96, device=cuda).bfloat16()
+    rhs = torch.randn(2, 96, 128, device=cuda).bfloat16()
+    gs = torch.tensor([128, 0], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        tgm.gmm(lhs, rhs, gs)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tgm.gmm(lhs.float()[:, :64], rhs.float()[:, :64], gs)

@@ -146,7 +146,8 @@ def test_block(prenorm):
     jm, tm = JBlock(config=jcfg), Block(tcfg, device="cpu")
     params = _load(jm, tm, jnp.asarray(x), None, jnp.asarray(mask))
     jh, jres, _ = jm.apply(params, jnp.asarray(x), None, jnp.asarray(mask))
-    th, tres = tm(torch.from_numpy(x), None, torch.from_numpy(mask))
+    th, tres, trl = tm(torch.from_numpy(x), None, torch.from_numpy(mask))
+    assert trl is None  # a dense block has no router logits
     _close(th, jh)
     if prenorm:
         _close(tres, jres)
