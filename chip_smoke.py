@@ -75,9 +75,38 @@ second layer: 6 MoE layers, ~435M parameters):
  12. moe_timing: MoE encode texts/s, step ms (median of 5), one profiled
      step with gmm and tgmm as their own groups and its device-to-host
      copies counted.
-Every timing line carries the card's SM clock, power draw and temperature.
-The line before the last holds the kernels' summary, and the last line is
-{"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
+The fused-rotary kernels (q and k rotated inside the flash kernels) and the
+MLM pretraining step:
+ 13. fused_kernel_check (after phase 4): the fused forward, dq and dk/dv
+     kernels against their plain versions, per element, at the MLM shape
+     (B=8 S=2048 H=12 D=64, NeoX), an encode batch with padding (256 x
+     512), packed rows (B=4 S=2048, three segments per row, positions
+     restarting: per-batch tables), interleaved rotary over 32 of 64
+     features, GQA (Hkv=4), S=300 and D=128; at the MLM shape the backward
+     kernels given negated sin tables (the wrong adjoint) must fall outside.
+ 14. fused_encode (after phase 6): the encode batch of 256 x 512 with
+     fused_rotary=True, 12 fused launches, cosine >= 0.999 against the
+     outside rotation.
+ 15. fused_kernel_timing and rotary_ablation (after the forward timing):
+     each fused kernel at the MLM shape beside its bound, the unfused kernel
+     on pre-rotated q/k, the plain versions and the nearest library
+     composite; the port of scripts/ablate_rotary_fusion.py (rotary outside,
+     pre-rotated, fused; forward and forward+backward).
+ 16. mlm_*: the JAX MLM benchmark step (bench.py:837-884) at full width,
+     NomicBertForPreTraining(nomic-bert-2048, flash, fused_rotary=True) in
+     bf16 with fp32 parameters, B=8 x 2048 with 30% masked and
+     dense_seq_output (768 positions per row), AdamW lr 5e-4 wd 0.01 clip
+     1.0: 5 steps, each with exactly 12 fused forward, dq and dk/dv
+     launches and no unfused one, loss falling; the same step with
+     fused_rotary=False timed in turns with it; one profiled step; one
+     update at gradient_accumulation_steps=4; at B=2 the gradients per
+     tensor against the unfused kernels and against sdpa (cosine >= 0.999),
+     with the negated-sin fault outside.
+Every timing line carries the card's SM clock, power draw and temperature,
+and every phase line the seconds since the start (t); the command_time line
+gives the whole run's. The line before the last holds the kernels'
+summary, and the last line is {"ok": true, "device": {...}}. Exits
+non-zero without a CUDA device.
 """
 
 import contextlib
@@ -94,8 +123,12 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 
+T0 = time.perf_counter()
+
+
 def emit(**kw):
-    print(json.dumps(kw), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps(dict(kw, t=round(time.perf_counter() - T0, 1))), flush=True)
 
 
 def _smi(fields):
@@ -126,12 +159,14 @@ def ptxas_usage(log):
     """{kernel<D>: "R registers, S bytes spilled"} from nvcc -Xptxas=-v output."""
     usage, fn = {}, None
     for line in log.splitlines():
-        m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d+)E|(t?gmm_kernel)(?:ILb([01])E)?", line)
+        m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv))(_rot)?_kernelILi(\d+)E(?:Lb([01])E)?|(t?gmm_kernel)(?:ILb([01])E)?",
+                      line)
         if m and m.group(1):
-            fn, spill = f"{m.group(1)}<{m.group(2)}>", "?"
+            rotary = ", rotary" if m.group(2) or m.group(4) == "1" else ""
+            fn, spill = f"{m.group(1)}_kernel<{m.group(3)}{rotary}>", "?"
         elif m:
-            layout = {"1": "<rhs unit stride N>", "0": "<rhs unit stride K>", None: ""}[m.group(4)]
-            fn, spill = m.group(3) + layout, "?"
+            layout = {"1": "<rhs unit stride N>", "0": "<rhs unit stride K>", None: ""}[m.group(6)]
+            fn, spill = m.group(5) + layout, "?"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and fn:
             spill = m.group(1)
@@ -216,18 +251,37 @@ def moe_config(impl="flash"):
                            moe_impl="dropless")
 
 
+# the seed-0 weights of each model, drawn once and kept on the host
+SEED_WEIGHTS = {}
+
+
+def seed_weights(model, key):
+    """Load the seed-0 weights (`init_weights`) of the model family `key`
+    into model, drawing them on first use; every later model of the family
+    gets the same values by copy, without drawing them again."""
+    from contrastors_tpu_torch.models import init_weights
+
+    if key in SEED_WEIGHTS:
+        model.load_state_dict(SEED_WEIGHTS[key])
+    else:
+        init_weights(model, seed=0)
+        SEED_WEIGHTS[key] = {n: t.detach().to("cpu", copy=True) for n, t in model.state_dict().items()}
+    return model
+
+
 def train_modules(impl, dev, lr=2e-4, max_grad_norm=1.0, moe=False):
     """BiEncoder(nomic-bert-2048, or its MoE form, mean pooling, bf16
     compute) with random weights from seed 0, a fixed LogitScale(50) and
     AdamW (the headline's: lr 2e-4, wd 0.01, clip 1.0)."""
     import torch
 
-    from contrastors_tpu_torch.models import BiEncoder, LogitScale, init_weights
+    from contrastors_tpu_torch.models import BiEncoder, LogitScale
     from contrastors_tpu_torch.models.presets import nomic_bert_2048
     from contrastors_tpu_torch.utils.optim import make_optimizer
 
     cfg = moe_config(impl) if moe else nomic_bert_2048(attn_impl=impl)
-    model = init_weights(BiEncoder(cfg, pooling="mean", dtype=torch.bfloat16, device=dev), seed=0)
+    model = seed_weights(BiEncoder(cfg, pooling="mean", dtype=torch.bfloat16, device=dev),
+                         "moe" if moe else "dense")
     scale = LogitScale(50.0, trainable=False, device=dev)
     named = [("model." + n, p) for n, p in model.named_parameters()]
     named += [("logit_scale." + n, p) for n, p in scale.named_parameters()]
@@ -272,7 +326,10 @@ def planted_fault(kind):
     it: "no_delta" gives the backward kernels delta = 0; "rolled_replay"
     makes pass 2 replay each document chunk with its rows rotated by one,
     so each row's embedding receives another row's cotangent; "tgmm_roll"
-    makes tgmm write expert e's gradient into expert (e + 1) mod E."""
+    makes tgmm write expert e's gradient into expert (e + 1) mod E;
+    "negated_sin" gives the fused-rotary backward kernels negated sin
+    tables, so they recompute the inverse rotation and apply the wrong
+    adjoint."""
     import torch
 
     from contrastors_tpu_torch.ops import flash_attention as fa
@@ -280,29 +337,34 @@ def planted_fault(kind):
     from contrastors_tpu_torch.trainers import text_text
 
     if kind == "tgmm_roll":
-        module, name = gm, "launch_tgmm"
-
         def patched(*args, orig=gm.launch_tgmm):
             return torch.roll(orig(*args), 1, 0)
+        patches = [(gm, "launch_tgmm", patched)]
     elif kind == "no_delta":
-        module, name = fa, "prepare_backward"
-
         def patched(*args, orig=fa.prepare_backward):
             inputs = orig(*args)
             return (*inputs[:5], torch.zeros_like(inputs[5]), *inputs[6:])
+        patches = [(fa, "prepare_backward", patched)]
+    elif kind == "negated_sin":
+        def negated(orig):
+            def launch(*args, rot=None):
+                return orig(*args, rot=rot._replace(sin=-rot.sin) if rot is not None else None)
+            return launch
+        patches = [(fa, name, negated(getattr(fa, name))) for name in ("launch_bwd_dq", "launch_bwd_dkv")]
     else:
-        module, name = text_text, "encode_batch"
-
         def patched(model, batch, generator=None, orig=text_text.encode_batch):
             if torch.is_grad_enabled() and batch["input_ids"].shape[1] == D_LEN:
                 batch = {k: v.roll(1, 0) for k, v in batch.items()}
             return orig(model, batch, generator)
-    orig = getattr(module, name)
-    setattr(module, name, patched)
+        patches = [(text_text, "encode_batch", patched)]
+    saved = [(module, name, getattr(module, name)) for module, name, _ in patches]
+    for module, name, fn in patches:
+        setattr(module, name, fn)
     try:
         yield
     finally:
-        setattr(module, name, orig)
+        for module, name, fn in saved:
+            setattr(module, name, fn)
 
 
 def compare_grads(got, ref):
@@ -365,20 +427,34 @@ def shared_routing(decisions, replay):
         MoEMLP.route = orig
 
 
-def reset_counts():
+# every launch counter: name in the counts -> (module, attribute)
+COUNTERS = dict(fwd=("fa", "launches"), dq=("fa", "launches_bwd_dq"), dkv=("fa", "launches_bwd_dkv"),
+                fwd_rot=("fa", "launches_rot"), dq_rot=("fa", "launches_bwd_dq_rot"),
+                dkv_rot=("fa", "launches_bwd_dkv_rot"), gmm=("gm", "launches_gmm"),
+                tgmm=("gm", "launches_tgmm"))
+
+
+def _counter_modules():
     from contrastors_tpu_torch.ops import flash_attention as fa
     from contrastors_tpu_torch.ops import grouped_matmul as gm
 
-    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
-    gm.launches_gmm = gm.launches_tgmm = 0
+    return dict(fa=fa, gm=gm)
+
+
+def reset_counts():
+    mods = _counter_modules()
+    for mod, attr in COUNTERS.values():
+        setattr(mods[mod], attr, 0)
 
 
 def read_counts():
-    from contrastors_tpu_torch.ops import flash_attention as fa
-    from contrastors_tpu_torch.ops import grouped_matmul as gm
+    mods = _counter_modules()
+    return {name: getattr(mods[mod], attr) for name, (mod, attr) in COUNTERS.items()}
 
-    return dict(fwd=fa.launches, dq=fa.launches_bwd_dq, dkv=fa.launches_bwd_dkv,
-                gmm=gm.launches_gmm, tgmm=gm.launches_tgmm)
+
+def expect(**counts):
+    """Expected counts: the ones given, every other counter 0."""
+    return dict(dict.fromkeys(COUNTERS, 0), **counts)
 
 
 def moe_layout(dev, A, E=8, seed=0):
@@ -434,10 +510,10 @@ def moe_serving(dev, card, tok, rng, gen):
     import torch
 
     from contrastors_tpu_torch.eval.encoder import Encoder
-    from contrastors_tpu_torch.models import BiEncoder, init_weights
+    from contrastors_tpu_torch.models import BiEncoder
 
     cfg = moe_config()
-    model = init_weights(BiEncoder(cfg, pooling="mean", dtype=torch.bfloat16, device=dev), seed=0)
+    model = seed_weights(BiEncoder(cfg, pooling="mean", dtype=torch.bfloat16, device=dev), "moe")
     n_params = sum(p.numel() for p in model.parameters())
     docs = [{"title": "", "text": t} for t in make_texts(rng, 512, 8, 511)]
     enc = Encoder(model, tok, seq_len=512, batch_size=256)
@@ -448,7 +524,7 @@ def moe_serving(dev, card, tok, rng, gen):
     launches = read_counts()
     batches = -(-len(docs) // 256)
     n_moe = sum(1 for b in model.trunk.layers if b.moe)
-    expected = dict(fwd=cfg.n_layer * batches, dq=0, dkv=0, gmm=3 * n_moe * batches, tgmm=0)
+    expected = expect(fwd=cfg.n_layer * batches, gmm=3 * n_moe * batches)
     norms = np.linalg.norm(emb, axis=-1)
     ok = (launches == expected and emb.shape == (len(docs), cfg.n_embd) and bool(np.isfinite(emb).all())
           and float(np.abs(norms - 1).max()) < 1e-4)
@@ -523,51 +599,61 @@ def chunk_aux_recorder(into):
         text_text.encode_batch = orig
 
 
-def profile_step(step, qb, db, train_gen, step_ms):
-    """One step under torch.profiler: busy time by kernel group, the split
-    at the profiler ranges, and the device-to-host copies and host syncs."""
+GC_PHASES = ("grad_cache/direct", "grad_cache/pass1", "grad_cache/loss", "grad_cache/pass2",
+             "train_step/optimizer")
+STD_PHASES = ("train_step/forward", "train_step/backward", "train_step/optimizer")
+
+
+def profile_step(run, step_ms, phases=GC_PHASES):
+    """One step, run(), under torch.profiler: busy time by kernel group, the
+    split at the profiler ranges, and the device-to-host copies and host
+    syncs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(qb, db, train_gen)
+        run()
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]  # ranges are not kernels
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    phases = ("grad_cache/direct", "grad_cache/pass1", "grad_cache/loss", "grad_cache/pass2",
-              "train_step/optimizer")
+    # one pass over the events: key_averages() takes minutes on a step's
+    # ~1M host events, this loop about a second
     split = {name: {} for name in phases}
+    by_group, busy_ms, launches, dtoh, items = {}, 0.0, 0, 0, 0
     for e in prof.events():
+        on_device = e.device_type == torch.autograd.DeviceType.CUDA
         if e.name in split:
-            if e.device_type == torch.autograd.DeviceType.CPU:
-                split[e.name]["host_ms"] = e.cpu_time_total / 1e3
-            else:
+            if on_device:
                 split[e.name]["device_span_ms"] = e.device_time_total / 1e3
-
-    def group(name):
-        m = re.search(r"flash_\w+_kernel<\d+>|tgmm_kernel|gmm_kernel", name)
-        if m:
-            return m.group(0)
-        if "gemm" in name or "nvjet" in name or "cutlass" in name or "sm90" in name:
-            return "matmul"
-        return "other (elementwise, reductions, copies)"
-
-    by_group = {}
-    for e in kernels:
-        g = by_group.setdefault(group(e.key), [0.0, 0])
-        g[0] += e.self_device_time_total / 1e3
-        g[1] += e.count
-    dtoh = sum(e.count for e in events if "DtoH" in e.key)
-    items = sum(e.count for e in events if e.key == "aten::item")
-    return dict(device_busy_ms=busy_ms, kernel_launches=sum(e.count for e in kernels),
+            else:
+                split[e.name]["host_ms"] = e.cpu_time_total / 1e3
+        elif on_device and not getattr(e, "is_user_annotation", False):  # ranges are not kernels
+            ms = e.self_device_time_total / 1e3
+            busy_ms += ms
+            launches += 1
+            g = by_group.setdefault(kernel_group(e.name), [0.0, 0])
+            g[0] += ms
+            g[1] += 1
+        if "DtoH" in e.name:
+            dtoh += 1
+        elif e.name == "aten::item":
+            items += 1
+    return dict(device_busy_ms=busy_ms, kernel_launches=launches,
                 idle_share_of_step=1.0 - busy_ms / step_ms, profiled_step_ms=profiled_ms, split=split,
                 by_group={k: dict(ms=v[0], launches=v[1])
                           for k, v in sorted(by_group.items(), key=lambda kv: -kv[1][0])},
                 device_to_host_copies=dtoh, item_calls=items)
+
+
+def kernel_group(name):
+    """The profile's group of a device event: each kernel of the port by
+    name, cuBLAS products, and the rest."""
+    m = re.search(r"flash_\w+_kernel<\d+(?:, (?:true|false))?>|tgmm_kernel|gmm_kernel", name)
+    if m:
+        return m.group(0)
+    if "gemm" in name or "nvjet" in name or "cutlass" in name or "sm90" in name:
+        return "matmul"
+    return "other (elementwise, reductions, copies)"
 
 
 def moe_training(dev, card):
@@ -589,8 +675,8 @@ def moe_training(dev, card):
     n_moe = sum(1 for b in model.trunk.layers if b.moe)
     # forwards: every chunk in pass 1 and pass 2; backwards: every chunk;
     # gmm: 3 per MoE layer per forward, and one dlhs per backward of each
-    expected = dict(fwd=cfg.n_layer * 2 * n_chunks, dq=cfg.n_layer * n_chunks, dkv=cfg.n_layer * n_chunks,
-                    gmm=3 * n_moe * 2 * n_chunks + 3 * n_moe * n_chunks, tgmm=3 * n_moe * n_chunks)
+    expected = expect(fwd=cfg.n_layer * 2 * n_chunks, dq=cfg.n_layer * n_chunks, dkv=cfg.n_layer * n_chunks,
+                      gmm=3 * n_moe * 2 * n_chunks + 3 * n_moe * n_chunks, tgmm=3 * n_moe * n_chunks)
     train_gen = torch.Generator().manual_seed(0)
     steps, chunk_aux = [], []
     for i in range(5):
@@ -630,7 +716,7 @@ def moe_training(dev, card):
          enqueue_ms=float(np.median(enqueue_ms)), pairs_per_s=PAIRS / step_ms * 1e3,
          tokens_per_s=PAIRS * (Q_LEN + D_LEN) / step_ms * 1e3)
     emit(phase="moe_train_profile", card=card, gpu_state=gpu_state(),
-         **profile_step(step, qb, db, train_gen, step_ms),
+         **profile_step(lambda: step(qb, db, train_gen), step_ms),
          note="one profiled step: busy time of its kernels (idle share against the unprofiled median "
               "step_ms); device_to_host_copies counts the step's device-to-host memcpys (host syncs); "
               "item_calls counts Tensor.item, including those on CPU tensors (AdamW's step counters)")
@@ -839,6 +925,352 @@ def moe_kernels(dev, card):
             torch.cuda.empty_cache()
     return errs, rows_out
 
+# The fused-rotary kernels' check cases: (name, shape, options). The MLM
+# step's shape; an encode batch with padding; packed rows (three segments
+# per row, positions restarting at each: per-batch tables); interleaved
+# rotary over 32 of 64 features; GQA; a length off the 64-row tile; D=128.
+FUSED_CASES = [
+    ("mlm_b8_s2048", dict(B=8, S=2048, H=12, Hkv=12, D=64), dict()),
+    ("encode_b256_s512_pad", dict(B=256, S=512, H=12, Hkv=12, D=64), dict(mask=True)),
+    ("packed_b4_s2048_3seg", dict(B=4, S=2048, H=12, Hkv=12, D=64), dict(packed=True)),
+    ("interleaved_rot32_s512", dict(B=2, S=512, H=12, Hkv=12, D=64), dict(rot_dim=32, interleaved=True, mask=True)),
+    ("gqa_hkv4_s512", dict(B=2, S=512, H=12, Hkv=4, D=64), dict(mask=True)),
+    ("unaligned_s300", dict(B=4, S=300, H=12, Hkv=12, D=64), dict(mask=True)),
+    ("d128_s384", dict(B=2, S=384, H=8, Hkv=8, D=128), dict(mask=True)),
+]
+
+
+def rotary_case(dev, gen, B, S, H, Hkv, D, rot_dim=None, interleaved=False, mask=False, packed=False):
+    """bf16 q, k, v (views of one fused projection when H == Hkv, as the
+    model gives them) and the rotary keyword arguments of one case, with
+    nomic-bert's rotary base 1000."""
+    import torch
+
+    from contrastors_tpu_torch.layers.rotary import rotary_cos_sin
+
+    if H == Hkv:
+        x = torch.randn(B, S, 3, H, D, generator=gen, device=dev).bfloat16()
+        q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    else:
+        q, k, v = (torch.randn(B, S, h, D, generator=gen, device=dev).bfloat16() for h in (H, Hkv, Hkv))
+    cos, sin = rotary_cos_sin(S, rot_dim or D, base=1000.0, device=dev)
+    kw = dict(rotary_cos=cos, rotary_sin=sin, rotary_interleaved=interleaved)
+    idx = torch.arange(S, device=dev)
+    if mask:  # random lengths, the first row full
+        lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+        lens[0] = S
+        kw["attention_mask"] = (idx[None] < lens[:, None]).int()
+    if packed:  # three segments per row at random cuts, positions restarting at each
+        cuts = torch.sort(torch.randint(1, S, (B, 2), generator=gen, device=dev), dim=1).values
+        seg = (idx[None] >= cuts[:, :1]).int() + (idx[None] >= cuts[:, 1:]).int()
+        start = torch.where(seg == 0, 0, torch.where(seg == 1, cuts[:, :1], cuts[:, 1:]))
+        kw["segment_ids"] = (seg + 1).contiguous()
+        kw["rotary_position_ids"] = (idx[None] - start).contiguous()
+    return q, k, v, kw
+
+
+def fused_kernel_checks(dev, gen):
+    """Phase fused_kernel_check: the fused-rotary forward, dq and dk/dv
+    kernels against their plain versions in FUSED_CASES, with a strided dO;
+    at the MLM shape the backward kernels given negated sin tables must fall
+    outside the rule. Returns {"fwd"|"dq"|"dk"|"dv": max abs error}."""
+    import torch
+
+    from contrastors_tpu_torch.ops import flash_attention as fa
+
+    errs = dict(fwd=0.0, dq=0.0, dk=0.0, dv=0.0)
+    for name, shp, opt in FUSED_CASES:
+        q, k, v, kw = rotary_case(dev, gen, **shp, **opt)
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        dout = torch.randn(*out.shape[:3], out.shape[3] + 8, generator=gen, device=dev).bfloat16()
+        dout = dout[..., : out.shape[3]]
+        grads = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+        refs = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        line = dict(o_max_abs_err=(out.float() - ref_out.float()).abs().max().item(),
+                    o_err_over_tol=fa.output_error_ratio(out, ref_out),
+                    lse_max_abs_err=(lse - ref_lse).abs().max().item())
+        ok = (line["o_err_over_tol"] <= 1.0 and line["lse_max_abs_err"] <= fa.LSE_ATOL
+              and bool(torch.isfinite(out.float()).all()))
+        errs["fwd"] = max(errs["fwd"], line["o_max_abs_err"])
+        for g, r, gname in zip(grads, refs, ("dq", "dk", "dv")):
+            err = (g.float() - r.float()).abs().max().item()
+            errs[gname] = max(errs[gname], err)
+            line[f"{gname}_max_abs_err"], line[f"{gname}_err_over_tol"] = err, fa.grad_error_ratio(g, r, gname)
+            ok = ok and line[f"{gname}_err_over_tol"] <= 1.0 and bool(torch.isfinite(g.float()).all())
+        if name == "mlm_b8_s2048":
+            with planted_fault("negated_sin"):
+                bad = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+            line["negated_sin_err_over_tol"] = {gname: fa.grad_error_ratio(g, r, gname)
+                                                for g, r, gname in zip(bad, refs, ("dq", "dk", "dv"))}
+            ok = ok and min(line["negated_sin_err_over_tol"][g] for g in ("dq", "dk")) > 1.0
+            del bad
+        emit(phase="fused_kernel_check", case=name, **shp, rot_dim=opt.get("rot_dim", shp["D"]),
+             interleaved=opt.get("interleaved", False), tables="per batch row" if opt.get("packed") else "shared",
+             **line, ok=ok)
+        if not ok:
+            raise AssertionError(f"fused-rotary kernels disagree with their plain versions in case {name}, "
+                                 "or the planted fault is inside the bound")
+        del q, k, v, kw, out, lse, dout, grads, ref_out, ref_lse, refs
+    torch.cuda.empty_cache()
+    return errs
+
+
+def fused_kernel_timing(dev, card, gen):
+    """Phase fused_kernel_timing at the MLM shape (B=8 S=T=2048 H=12 D=64,
+    NeoX over the whole head, tables shared by the batch): each fused kernel
+    alone beside its bound (the flash FLOP; bytes plus the two fp32 tables),
+    the unfused kernel on pre-rotated q/k, the plain versions, and the
+    nearest library composite (no one PyTorch call computes fused-rotary
+    attention): SDPA on pre-rotated q/k plus apply_rotary on q and k (their
+    autograd backward for dq, dk/dv)."""
+    import torch
+    import torch.nn.functional as F
+
+    from contrastors_tpu_torch.layers.rotary import apply_rotary, expanded_tables
+    from contrastors_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, D = MLM_B, MLM_S, 12, 64
+    q, k, v, kw = rotary_case(dev, gen, B, S, H, H, D)
+    cos, sin = kw["rotary_cos"], kw["rotary_sin"]
+    cos_d, sin_d = expanded_tables(cos, sin, D, False, S, pad_to=fa.KERNEL_TILE)
+    rot = fa.RotaryTables(cos_d, sin_d, D, False)
+    qr, kr = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
+    args = (False, 0, 0, 1.0 / D**0.5)
+    out, lse = fa._launch_kernel(q, k, v, None, None, rot, *args)
+    dout = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
+    inputs = fa.prepare_backward(q, k, v, out, lse, dout, None, None)
+    inputs_r = fa.prepare_backward(qr, kr, v, out, lse, dout, None, None)
+    ms = dict(
+        fwd=median_ms(lambda: fa._launch_kernel(q, k, v, None, None, rot, *args)),
+        dq=median_ms(lambda: fa.launch_bwd_dq(*inputs, *args, rot=rot)),
+        dkv=median_ms(lambda: fa.launch_bwd_dkv(*inputs, *args, rot=rot)),
+    )
+    unfused_ms = dict(
+        fwd=median_ms(lambda: fa._launch_kernel(qr, kr, v, None, None, None, *args)),
+        dq=median_ms(lambda: fa.launch_bwd_dq(*inputs_r, *args)),
+        dkv=median_ms(lambda: fa.launch_bwd_dkv(*inputs_r, *args)),
+    )
+    plain_ms = dict(fwd=median_ms(lambda: fa.flash_attention_reference(q, k, v, **kw), runs=3, warmup=1),
+                    bwd=median_ms(lambda: fa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw),
+                                  runs=3, warmup=1))
+    qt, kt, vt = (x.transpose(1, 2) for x in (qr, kr, v))
+    sdpa_fwd = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    dot = dout.transpose(1, 2)
+    sdpa_bwd = median_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(*leaves), leaves, dot)) - sdpa_fwd
+    rotary_fwd = median_ms(lambda: (apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)))
+    ql, kl = (x.detach().requires_grad_() for x in (q, k))
+    rotary_bwd = median_ms(lambda: torch.autograd.grad(
+        (apply_rotary(ql, cos, sin), apply_rotary(kl, cos, sin)), (ql, kl), (dout, dout))) - rotary_fwd
+    table_bytes = 2 * cos_d.numel() * 4
+    rows = {}
+    for kname in ("fwd", "dq", "dkv"):
+        if kname == "fwd":
+            _, _, flops, nbytes = attention_bound(B, S, S, H, H, D)
+            plain, composite = plain_ms["fwd"], sdpa_fwd + rotary_fwd
+        else:
+            _, _, flops, nbytes = backward_bound(kname, B, S, S, H, H, D, masked=False)
+            plain, composite = plain_ms["bwd"], sdpa_bwd + rotary_bwd
+        b_ms, b_by, _, nbytes = _bound(flops, nbytes + table_bytes)
+        rows[kname] = dict(ms=ms[kname], unfused_ms=unfused_ms[kname], plain_ms=plain, bound_ms=b_ms,
+                           bound_by=b_by, flops=flops, bytes=nbytes, tflops=flops / ms[kname] / 1e9,
+                           roofline_share=b_ms / ms[kname], library_ms=None, library_composite_ms=composite)
+    emit(phase="fused_kernel_timing", card=card, gpu_state=gpu_state(), B=B, S=S, T=S, H=H, D=D, rot_dim=D,
+         **rows, sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_bwd, rotary_fwd_ms=rotary_fwd, rotary_bwd_ms=rotary_bwd,
+         note="ms: each fused kernel alone; unfused_ms: the same kernel on pre-rotated q/k; plain_ms for "
+              "dq and dkv is the whole plain backward; library_composite_ms: SDPA on pre-rotated q/k + "
+              "apply_rotary on q and k (no single PyTorch call computes fused-rotary attention)")
+    del q, k, v, qr, kr, out, lse, dout, inputs, inputs_r, qt, kt, vt, leaves, dot, ql, kl
+    torch.cuda.empty_cache()
+    return rows
+
+
+# the MLM pretraining step of the JAX benchmark (bench.py:837-884):
+# nomic-bert-2048, B=8 x S=2048, 30% masked, dense_seq_output, AdamW lr 5e-4
+# wd 0.01 clip 1.0; gradient accumulation as the recipe sets it
+# (configs/train/mlm.yaml:13)
+MLM_B, MLM_S, MLM_P, MLM_GA = 8, 2048, 0.30, 4
+
+
+def mlm_batch(dev, seed, rows=MLM_B):
+    """One MLM micro-batch: random ids masked by the port's mlm_mask at 30%
+    (bert-base-uncased's [MASK] and special ids), dense_seq_output positions
+    at k = dense_budget(2048, 0.30) = 768 per row."""
+    import torch
+
+    from contrastors_tpu_torch.trainers.mlm import dense_budget, masked_positions_static, mlm_mask
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1000, 30000, size=(rows, MLM_S))
+    masked, labels = mlm_mask(ids, MLM_P, 103, 30522, {0, 101, 102, 103}, rng)
+    pos, lab = masked_positions_static(labels, dense_budget(MLM_S, MLM_P))
+
+    def dev_tensor(x):
+        return torch.from_numpy(np.asarray(x, np.int64)).to(dev)
+
+    return dict(input_ids=dev_tensor(masked), attention_mask=torch.ones(rows, MLM_S, dtype=torch.int64, device=dev),
+                labels=dev_tensor(lab), masked_positions=dev_tensor(pos))
+
+
+def mlm_model(dev, fused=True, impl="flash"):
+    """NomicBertForPreTraining(nomic-bert-2048) in bf16 with fp32 parameters
+    and random weights from seed 0."""
+    import torch
+
+    from contrastors_tpu_torch.models import NomicBertForPreTraining
+    from contrastors_tpu_torch.models.presets import nomic_bert_2048
+
+    model = NomicBertForPreTraining(nomic_bert_2048(attn_impl=impl, fused_rotary=fused), dtype=torch.bfloat16,
+                                    device=dev)
+    return seed_weights(model, "mlm")
+
+
+def mlm_training(dev, card):
+    """Phases mlm_train_step, mlm_train_timing, mlm_train_profile,
+    mlm_grad_accumulation and mlm_grad_agreement. Returns the launches of
+    one micro-step."""
+    import gc
+
+    import torch
+
+    from contrastors_tpu_torch.trainers.mlm import make_mlm_train_step
+    from contrastors_tpu_torch.utils.optim import make_optimizer
+
+    def optimizer(model):
+        return make_optimizer(model.named_parameters(), 5e-4, weight_decay=0.01, max_grad_norm=1.0)
+
+    torch.cuda.reset_peak_memory_stats()
+    model = mlm_model(dev)
+    opt = optimizer(model)
+    step = make_mlm_train_step(model, opt)
+    batch = mlm_batch(dev, 0)
+    n = model.config.n_layer
+    expected = expect(fwd_rot=n, dq_rot=n, dkv_rot=n)
+    steps = []
+    for _ in range(5):
+        reset_counts()
+        t0 = time.perf_counter()
+        m = step(batch)
+        loss = m["loss"].item()
+        steps.append(dict(loss=loss, grad_norm=m["grad_norm"].item(), seconds=time.perf_counter() - t0,
+                          launches=read_counts()))
+    losses = [x["loss"] for x in steps]
+    ok = (all(x["launches"] == expected for x in steps) and bool(np.isfinite(losses).all())
+          and losses[-1] < losses[0])
+    emit(phase="mlm_train_step", params=sum(p.numel() for p in model.parameters()), batch=MLM_B, seq_len=MLM_S,
+         mlm_prob=MLM_P, masked_budget=batch["labels"].shape[1],
+         masked_tokens=int((batch["labels"] >= 0).sum().item()), fused_rotary=True, expected_launches=expected,
+         steps=steps, peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30, ok=ok)
+    if not ok:
+        raise AssertionError("MLM step: launch counts, finiteness or falling loss failed")
+
+    # the same step with fused_rotary=False (rotary outside, the unfused
+    # kernels), from the same initial weights, timed in turns with the fused one
+    model_o = mlm_model(dev, fused=False)
+    step_o = make_mlm_train_step(model_o, optimizer(model_o))
+    reset_counts()
+    step_o(batch)
+    launches_o = read_counts()
+    times = dict(fused=[], outside=[])
+    runs = (("fused", step), ("outside", step_o))
+    for i in range(6):
+        for label, run in runs if i % 2 == 0 else runs[::-1]:
+            t0 = time.perf_counter()
+            run(batch)
+            torch.cuda.synchronize()
+            times[label].append((time.perf_counter() - t0) * 1e3)
+    tokens = MLM_B * MLM_S
+    timing = {label: dict(step_ms=float(np.median(t)), step_ms_min=min(t), step_ms_max=max(t),
+                          tokens_per_s=tokens / float(np.median(t)) * 1e3) for label, t in times.items()}
+    ok = launches_o == expect(fwd=n, dq=n, dkv=n)
+    emit(phase="mlm_train_timing", card=card, gpu_state=gpu_state(), runs=6, tokens_per_step=tokens, **timing,
+         fused_over_outside=timing["fused"]["step_ms"] / timing["outside"]["step_ms"],
+         outside_launches=launches_o, ok=ok,
+         note="host clock around each step and a synchronize; the two steps run in turns "
+              "(fused, outside, outside, fused, ...)")
+    if not ok:
+        raise AssertionError("MLM step with fused_rotary=False: launch counts failed")
+    del model_o, step_o
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    emit(phase="mlm_train_profile", card=card, gpu_state=gpu_state(),
+         **profile_step(lambda: step(batch), timing["fused"]["step_ms"], STD_PHASES),
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
+         note="one profiled fused-rotary step: busy time of its kernels (idle share against the "
+              "unprofiled median step_ms); split: host time of each profiler range")
+
+    # the recipe's form: one update over gradient_accumulation_steps = 4
+    step_ga = make_mlm_train_step(model, opt, gradient_accumulation_steps=MLM_GA)
+    micro = []
+    t0 = time.perf_counter()
+    for i in range(MLM_GA):
+        reset_counts()
+        m = step_ga(mlm_batch(dev, 1 + i))
+        micro.append(dict(loss=m["loss"].item(), launches=read_counts(),
+                          grad_norm=m["grad_norm"].item() if "grad_norm" in m else None))
+    torch.cuda.synchronize()
+    ok = (all(x["launches"] == expected for x in micro) and all(np.isfinite(x["loss"]) for x in micro)
+          and [x["grad_norm"] is not None for x in micro] == [False] * (MLM_GA - 1) + [True]
+          and bool(np.isfinite(micro[-1]["grad_norm"])))
+    emit(phase="mlm_grad_accumulation", gradient_accumulation_steps=MLM_GA, micro_steps=micro,
+         update_seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise AssertionError("MLM gradient accumulation: launches, losses or the update's grad_norm failed")
+    del model, opt, step, step_ga, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    mlm_grad_agreement(dev)
+    return steps[0]["launches"], timing
+
+
+def mlm_grad_agreement(dev):
+    """Phase mlm_grad_agreement: the MLM loss's gradients at B=2 x 2048, per
+    tensor, fused-rotary kernels against the unfused kernels with rotary
+    outside and against attn_impl="sdpa"; the fused backward kernels given
+    negated sin tables must fall outside the bound."""
+    import gc
+
+    import torch
+
+    batch = {n: t[:2] for n, t in mlm_batch(dev, 7, rows=2).items()}
+
+    def grads(fused, impl, fault=None):
+        model = mlm_model(dev, fused=fused, impl=impl)
+        with planted_fault(fault) if fault else contextlib.nullcontext():
+            model(**batch)["loss"].backward()
+        out = {n: p.grad.float().clone() for n, p in model.named_parameters() if p.grad is not None}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    reset_counts()
+    fused = grads(True, "flash")
+    launches = read_counts()
+    outside = grads(False, "flash")
+    sdpa = grads(False, "sdpa")
+    fault = grads(True, "flash", "negated_sin")
+    bound = 0.999
+    readings = dict(fused_vs_outside=compare_grads(fused, outside), fused_vs_sdpa=compare_grads(fused, sdpa),
+                    outside_vs_sdpa=compare_grads(outside, sdpa),
+                    planted_fault=dict(negated_sin_vs_sdpa=compare_grads(fault, sdpa)))
+    ok = (readings["fused_vs_outside"]["min_cosine"] >= bound and readings["fused_vs_sdpa"]["min_cosine"] >= bound
+          and readings["planted_fault"]["negated_sin_vs_sdpa"]["min_cosine"] < bound
+          and launches == expect(fwd_rot=12, dq_rot=12, dkv_rot=12))
+    emit(phase="mlm_grad_agreement", batch=2, seq_len=MLM_S, **readings, fused_launches=launches,
+         bound_min_cosine=bound, ok=ok)
+    if not ok:
+        raise AssertionError("MLM gradients: the fused kernels are outside the bound against the outside "
+                             "rotation or sdpa, or the planted fault is inside it")
+    del fused, outside, sdpa, fault
+    gc.collect()
+    torch.cuda.empty_cache()
+
 
 def main():
     import torch
@@ -850,10 +1282,11 @@ def main():
     try:
         from contrastors_tpu_torch.eval.encoder import Encoder
         from contrastors_tpu_torch.eval.stub_tokenizer import StubTokenizer
-        from contrastors_tpu_torch.models import BiEncoder, init_weights
+        from contrastors_tpu_torch.models import BiEncoder
         from contrastors_tpu_torch.models.presets import nomic_bert_2048
         from contrastors_tpu_torch.ops import _build
         from contrastors_tpu_torch.ops import flash_attention as fa
+        from contrastors_tpu_torch.scripts import ablate_rotary_fusion
         from contrastors_tpu_torch.trainers.text_text import make_train_step
     except ImportError as e:
         print(f"chip_smoke: the contrastors_tpu_torch package is missing ({e}); "
@@ -986,12 +1419,15 @@ def main():
         del q, k, v, out, lse, dout, grads, refs
     torch.cuda.empty_cache()
 
+    # 13. the fused-rotary kernels against their plain versions
+    fused_errs = fused_kernel_checks(dev, gen)
+
     # 9. the grouped-matmul kernels against their plain versions, and timed
     gmm_errs, moe_times = moe_kernels(dev, card)
 
     # 5. the slice at full width: encode requests through the port's Encoder
     cfg = nomic_bert_2048(attn_impl="flash")
-    model = init_weights(BiEncoder(cfg, pooling="mean", dtype=torch.bfloat16, device=dev), seed=0)
+    model = seed_weights(BiEncoder(cfg, pooling="mean", dtype=torch.bfloat16, device=dev), "dense")
     n_params = sum(p.numel() for p in model.parameters())
     tok = StubTokenizer(cfg.vocab_size)
     rng = np.random.default_rng(0)
@@ -1069,7 +1505,25 @@ def main():
     emit(phase="encode_throughput", card=card, gpu_state=gpu_state(), batch=256, seq_len=512, encode_ms=enc_ms,
          texts_per_s=256 / enc_ms * 1e3, tokens_per_s=256 * 512 / enc_ms * 1e3,
          forward_ms=fwd_ms, forward_tokens_per_s=256 * 512 / fwd_ms * 1e3)
-    del model, enc
+
+    # 14. fused-rotary encode: the same weights and texts with fused_rotary=True
+    model_f = BiEncoder(nomic_bert_2048(attn_impl="flash", fused_rotary=True), pooling="mean",
+                        dtype=torch.bfloat16, device=dev)
+    model_f.load_state_dict(model.state_dict())
+    enc_f = Encoder(model_f, tok, seq_len=512, batch_size=256)
+    enc_f.query_prefix = enc_f.document_prefix = None
+    reset_counts()
+    e_f = enc_f.encode(texts_512)
+    launches_fused_enc = read_counts()
+    cos_f = (e_f * e).sum(-1)
+    ok = (launches_fused_enc == expect(fwd_rot=cfg.n_layer) and e_f.shape == e.shape
+          and bool(np.isfinite(e_f).all()) and float(cos_f.min()) >= 0.999)
+    emit(phase="fused_encode", batch=256, seq_len=512, launches=launches_fused_enc,
+         expected_launches=expect(fwd_rot=cfg.n_layer), min_cosine_vs_outside=float(cos_f.min()),
+         mean_cosine_vs_outside=float(cos_f.mean()), threshold=0.999, ok=ok)
+    if not ok:
+        raise AssertionError("fused-rotary encode: launch counts or agreement with the outside rotation failed")
+    del model, enc, model_f, enc_f
     torch.cuda.empty_cache()
 
     timings = {}
@@ -1092,6 +1546,11 @@ def main():
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
 
+    # 15. the fused-rotary kernels timed at the MLM shape, and the ported
+    # rotary-fusion ablation (rotary outside, pre-rotated, fused)
+    fused_times = fused_kernel_timing(dev, card, gen)
+    emit(phase="rotary_ablation", card=card, gpu_state=gpu_state(), **ablate_rotary_fusion.run())
+
     # 7. training at full width: the text GradCache step
     import gc
 
@@ -1104,8 +1563,8 @@ def main():
     n_chunks = PAIRS // CHUNK
     # forwards: the direct query batch, and each document chunk in pass 1 and
     # pass 2; backwards: the direct query batch and each document chunk
-    expected = dict(fwd=tcfg.n_layer * (1 + 2 * n_chunks), dq=tcfg.n_layer * (1 + n_chunks),
-                    dkv=tcfg.n_layer * (1 + n_chunks), gmm=0, tgmm=0)
+    expected = expect(fwd=tcfg.n_layer * (1 + 2 * n_chunks), dq=tcfg.n_layer * (1 + n_chunks),
+                      dkv=tcfg.n_layer * (1 + n_chunks))
     train_gen = torch.Generator().manual_seed(0)
     steps = []
     for _ in range(5):
@@ -1143,7 +1602,7 @@ def main():
     # one step under torch.profiler: the device's busy time by kernel, and
     # the step split at its profiler ranges
     emit(phase="train_profile", card=card, gpu_state=gpu_state(),
-         **profile_step(step, qb, db, train_gen, step_ms),
+         **profile_step(lambda: step(qb, db, train_gen), step_ms),
          note="one profiled step: busy time of its kernels (idle share against the unprofiled median "
               "step_ms); split: host time of each profiler range and, where the trace has it, the "
               "device span of the kernels launched in it; the profiler slows the host")
@@ -1238,11 +1697,15 @@ def main():
         del q, k, v, out, lse, dout, inputs, qt, kt, vt, dot, ref_out, refs
         torch.cuda.empty_cache()
 
+    # 16. the MLM pretraining step with fused rotary at full width
+    mlm_launches, mlm_timing = mlm_training(dev, card)
+
     # 10-12. the dropless MoE path: serving and training
     moe_enc_launches, moe_batches = moe_serving(dev, card, tok, rng, gen)
     moe_train_launches = moe_training(dev, card)
 
     main = timings["b256_s512"]
+    emit(phase="command_time", seconds=time.perf_counter() - T0)
     print(card, flush=True)
 
     def gmm_entry(kname, replaces):
@@ -1283,7 +1746,28 @@ def main():
             note="plain_ms and library_ms time a whole backward (dq, dk and dv)",
         )
 
-    emit(kernels=[
+    def fused_entry(kname, replaces, also):
+        row = fused_times[kname]
+        errs = ("fwd",) if kname == "fwd" else ("dq",) if kname == "dq" else ("dk", "dv")
+        return dict(
+            name=f"flash_{'fwd' if kname == 'fwd' else 'bwd_' + kname}_rot",
+            route="cuda",
+            source=f"contrastors_tpu_torch/ops/csrc/{'flash_fwd' if kname == 'fwd' else 'flash_bwd'}.cu",
+            replaces=replaces,
+            also_replaces=also,
+            launches=mlm_launches[f"{kname}_rot"],
+            max_abs_err=max(fused_errs[g] for g in errs),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            library_composite_ms=row["library_composite_ms"],
+            unfused_ms=row["unfused_ms"],
+            shape="B=8 S=T=2048 H=12 D=64, NeoX over the whole head (the MLM step); launches per micro-step",
+            note="no single PyTorch call computes fused-rotary attention: library_ms is null, and "
+                 "library_composite_ms is SDPA on pre-rotated q/k plus apply_rotary on q and k"
+                 + ("" if kname == "fwd" else "; plain_ms and the composite are whole backwards"),
+        )
+
+    # the summary and the last line are printed as the contract gives them, without t
+    print(json.dumps(dict(kernels=[
         dict(
             name="flash_fwd",
             route="cuda",
@@ -1305,9 +1789,15 @@ def main():
         bwd_entry("dkv", "contrastors_tpu/ops/flash_attention.py:512"),
         gmm_entry("gmm", "contrastors_tpu/ops/grouped_matmul.py:75"),
         gmm_entry("tgmm", "contrastors_tpu/ops/grouped_matmul.py:125"),
-    ])
-    emit(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
-                              count=torch.cuda.device_count()))
+        dict(fused_entry("fwd", "contrastors_tpu/ops/flash_attention.py:225",
+                         ["contrastors_tpu/ops/flash_attention.py:115",
+                          "contrastors_tpu/scripts/ablate_rotary_fusion.py:42"]),
+             encode_launches=launches_fused_enc["fwd_rot"]),
+        fused_entry("dq", "contrastors_tpu/ops/flash_attention.py:422", []),
+        fused_entry("dkv", "contrastors_tpu/ops/flash_attention.py:512", []),
+    ])), flush=True)
+    print(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
+                                               count=torch.cuda.device_count()))), flush=True)
     return 0
 
 

@@ -11,7 +11,10 @@ and returns a flat state dict for the port module of the same structure:
   - everything else (norm `weight`/`bias`, Dense `bias`) is copied as is.
 
 The fused Wqkv output order q | k | v is the same on both sides, so the
-transpose is all it needs. Values come out as fp32 tensors on the CPU;
+transpose is all it needs. The MLM tree (`bert/...`, `transform_dense`,
+`transform_layer_norm` and the top-level `decoder_bias`) maps onto
+`NomicBertForPreTraining` by the same rules; its tied decoder is the word
+embedding table and has no parameter of its own. Values come out as fp32 tensors on the CPU;
 `load_state_dict` casts them to each parameter's dtype and device.
 """
 

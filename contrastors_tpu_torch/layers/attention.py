@@ -3,10 +3,11 @@
 
 One fused Wqkv projection whose output features are ordered q | k | v, as
 on the JAX side. q/k/v are views of that output (row stride 3*H*D), which
-the flash kernel takes as they are. Rotary is applied outside attention
-(the JAX default, `fused_rotary=False`); with `fused_rotary=True` the port
-does the same, which is numerically identical, since the fused kernel
-variants are not ported yet. The pooling heads wait for a later slice.
+the flash kernel takes as they are. Rotary is applied outside attention by
+default (`fused_rotary=False`, as in JAX); with `fused_rotary=True` the
+tables go to `attention_core`, whose flash path rotates q/k inside the
+kernels and whose SDPA path rotates outside. The pooling heads wait for a
+later slice.
 """
 
 from typing import Dict, Optional, Tuple
@@ -61,11 +62,17 @@ class MultiHeadAttention(nn.Module):
         q, k, v = torch.split(qkv, [H * D, Hkv * D, Hkv * D], dim=-1)
         q, k, v = q.view(B, S, H, D), k.view(B, S, Hkv, D), v.view(B, S, Hkv, D)
 
+        rotary_kw = {}
         if cfg.rotary_emb_dim > 0:
             # DynamicNTK scaling engages only past the trained context
             cos, sin = self._rotary_tables(S, q.device)
-            q = apply_rotary(q, cos, sin, cfg.rotary_emb_interleaved, position_ids)
-            k = apply_rotary(k, cos, sin, cfg.rotary_emb_interleaved, position_ids)
+            if cfg.fused_rotary:
+                rotary_kw = dict(rotary_cos=cos, rotary_sin=sin,
+                                 rotary_interleaved=cfg.rotary_emb_interleaved,
+                                 rotary_position_ids=position_ids)
+            else:
+                q = apply_rotary(q, cos, sin, cfg.rotary_emb_interleaved, position_ids)
+                k = apply_rotary(k, cos, sin, cfg.rotary_emb_interleaved, position_ids)
 
         out = attention_core(
             q,
@@ -77,5 +84,6 @@ class MultiHeadAttention(nn.Module):
             causal=cfg.causal,
             window=self.window,
             softmax_scale=1.0 / (D**0.5),
+            **rotary_kw,
         )
         return self.out_proj(out.reshape(B, S, H * D))

@@ -4,6 +4,12 @@ Counterpart of `contrastors_tpu/layers/rotary.py`. The cos/sin tables are
 built in numpy fp32 with the same code as the JAX package, so their bits
 match; `apply_rotary` rotates in fp32 and casts back to the input dtype, as
 the JAX version does. The 2-D ViT rope is not ported yet.
+
+The fused-rotary flash kernels take the tables expanded to full-D fp32 rows
+(`expanded_tables`, JAX `flash_attention.py:876-899`), padded with identity
+rows (`_pad_tables`, `:759-768`); `rotate` is the rotation with those
+tables and `rotate_adjoint` its exact adjoint, which the kernels apply to
+the fp32 dq and dk before their one cast.
 """
 
 import math
@@ -97,6 +103,62 @@ def _rotate(x: torch.Tensor, rot_dim: int, interleaved: bool) -> torch.Tensor:
     return torch.cat([rot, tail], dim=-1)
 
 
+def _pad_tables(cos: torch.Tensor, sin: torch.Tensor, to_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pad expanded [..., L, D] tables to L == to_len with identity rows
+    (cos=1, sin=0)."""
+    pad = to_len - cos.shape[-2]
+    if pad:
+        cos = torch.nn.functional.pad(cos, (0, 0, 0, pad), value=1.0)
+        sin = torch.nn.functional.pad(sin, (0, 0, 0, pad), value=0.0)
+    return cos, sin
+
+
+def expanded_tables(
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    dim: int,
+    interleaved: bool,
+    seqlen: int,
+    position_ids: Optional[torch.Tensor] = None,
+    pad_to: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[max_seq, rot/2] tables -> contiguous fp32 rows of `dim` columns, one
+    per sequence position: [L, dim] for positions 0..seqlen-1, or [B, L, dim]
+    gathered at position_ids [B, seqlen] (packed rows). L is seqlen rounded
+    up to a multiple of pad_to; the rows past seqlen are identity rows."""
+    if position_ids is None:
+        cos_d, sin_d = _expand_tables(cos[:seqlen], sin[:seqlen], dim, interleaved)
+    else:
+        cos_d, sin_d = _expand_tables(cos, sin, dim, interleaved)
+        cos_d, sin_d = cos_d[position_ids], sin_d[position_ids]
+    cos_d, sin_d = _pad_tables(cos_d, sin_d, -(-seqlen // pad_to) * pad_to)
+    return cos_d.contiguous(), sin_d.contiguous()
+
+
+def _per_row(table: torch.Tensor, seqlen: int) -> torch.Tensor:
+    # [L, D] -> [S, 1, D]; [B, L, D] -> [B, S, 1, D]: broadcasts over heads
+    return table[..., :seqlen, :].unsqueeze(-2)
+
+
+def rotate(x: torch.Tensor, cos_d: torch.Tensor, sin_d: torch.Tensor, rot_dim: int,
+           interleaved: bool) -> torch.Tensor:
+    """x * cos + rotate_half(x) * sin with expanded tables (`expanded_tables`),
+    combined in fp32 and cast once to x.dtype. x: [B, S, H, D]."""
+    S = x.shape[1]
+    out = x.float() * _per_row(cos_d, S) + _rotate(x, rot_dim, interleaved).float() * _per_row(sin_d, S)
+    return out.to(x.dtype)
+
+
+def rotate_adjoint(g: torch.Tensor, cos_d: torch.Tensor, sin_d: torch.Tensor, rot_dim: int,
+                   interleaved: bool) -> torch.Tensor:
+    """The exact adjoint of `rotate` on an fp32 gradient g [B, S, H, D]:
+    g * cos + rotate_half^T(g * sin). The rotate-half matrix R is a signed
+    permutation with R^T = -R, so rotate_half^T(y) = -rotate_half(y) in index
+    form, equal to JAX's (g * sin) @ R^T (`_rot_adjoint`)."""
+    S = g.shape[1]
+    return g * _per_row(cos_d, S) - _rotate(g * _per_row(sin_d, S), rot_dim, interleaved)
+
+
 def apply_rotary(
     x: torch.Tensor,
     cos: torch.Tensor,
@@ -110,13 +172,5 @@ def apply_rotary(
     position_ids: optional [batch, seq] gather indices into the tables
     (packed sequences, where positions restart at segment starts).
     """
-    S, Dh = x.shape[1], x.shape[-1]
-    rot_dim = cos.shape[-1] * 2
-    if position_ids is None:
-        cos_d, sin_d = _expand_tables(cos[:S], sin[:S], Dh, interleaved)
-        cos_b, sin_b = cos_d[None, :, None, :], sin_d[None, :, None, :]
-    else:
-        cos_d, sin_d = _expand_tables(cos, sin, Dh, interleaved)
-        cos_b, sin_b = cos_d[position_ids][:, :, None, :], sin_d[position_ids][:, :, None, :]
-    out = x.float() * cos_b + _rotate(x, rot_dim, interleaved).float() * sin_b
-    return out.to(x.dtype)
+    cos_d, sin_d = expanded_tables(cos, sin, x.shape[-1], interleaved, x.shape[1], position_ids)
+    return rotate(x, cos_d, sin_d, cos.shape[-1] * 2, interleaved)

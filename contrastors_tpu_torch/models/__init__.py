@@ -1,3 +1,8 @@
 from contrastors_tpu_torch.models.model_config import TrunkConfig  # noqa: F401
-from contrastors_tpu_torch.models.nomic_bert import NomicBertModel, init_weights  # noqa: F401
+from contrastors_tpu_torch.models.nomic_bert import (  # noqa: F401
+    NomicBertForPreTraining,
+    NomicBertModel,
+    init_weights,
+    masked_cross_entropy,
+)
 from contrastors_tpu_torch.models.biencoder import BiEncoder, LogitScale  # noqa: F401

@@ -10,6 +10,10 @@ import torch
 from contrastors_tpu_torch.ops import flash_attention as _flash  # the module; keeps its name
 from contrastors_tpu_torch.ops.sdpa import sdpa
 
+# JAX attention_core's flash_min_seq: below it JAX runs SDPA, whose padded
+# query rows attend to the valid keys
+FLASH_MIN_SEQ = 512
+
 
 def attention_core(
     q: torch.Tensor,
@@ -37,15 +41,25 @@ def attention_core(
     kernel on a CUDA tensor, its plain version on a CPU tensor. Unlike the
     JAX package there is no minimum-length gate (JAX's `flash_min_seq=512`
     came from TPU v5e measurements); every length goes to the kernel, and
-    whether a gate returns is for H100 measurements to decide. The JAX
-    `block_q`/`block_kv`/`flash_min_seq` arguments therefore have no
+    whether a gate returns is for H100 measurements to decide. Below JAX's
+    gate, impl="flash" keeps the row convention of the SDPA path JAX takes
+    there: with an attention_mask only, padded query rows attend to the
+    valid keys (the kernel gets seg_q = 1, seg_kv = mask) instead of being
+    zeroed; "flash_always" and longer kv keep the kernel's zeroed rows, as
+    in JAX. The JAX `block_q`/`block_kv`/`flash_min_seq` arguments have no
     counterpart here, and `dropout_generator` (a torch.Generator) stands for
     `dropout_rng`. Otherwise the plain `sdpa` runs, on any device.
 
-    Rotary tables are applied outside the kernel (layers/rotary.py); the
-    fused-rotary kernel variants are not ported yet.
+    rotary_cos/rotary_sin make this the single rotary application point: the
+    flash path rotates q/k inside the kernels (their fused-rotary variants),
+    the SDPA path applies layers/rotary.py's apply_rotary outside, which is
+    numerically identical.
     """
     if impl in ("flash", "flash_always") and dropout_p == 0.0 and _flash.flash_shape_ok(q, k):
+        if (impl == "flash" and attention_mask is not None and segment_ids is None
+                and k.shape[1] < FLASH_MIN_SEQ):
+            segment_ids = torch.ones(q.shape[:2], dtype=torch.int32, device=q.device)
+            attention_mask, kv_segment_ids = None, attention_mask
         return _flash.flash_attention(
             q,
             k,

@@ -35,28 +35,30 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_ROTARY = [_P, _P, _L, _I, _I]  # the flash kernels' fused-rotary arguments
 # C signature of each library's entry points: name -> (argtypes, restype)
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "flash_fwd": {
         # q, k, v, o, lse, seg_q, seg_kv, B, S, T, H, Hkv, D,
         # q/k/v strides (batch, seq, head) x 3, causal, causal_offset,
-        # window, c = softmax_scale * log2(e), stream
+        # window, c = softmax_scale * log2(e), rotary (cos, sin, batch
+        # stride, rot_dim / 2, interleaved; NULL cos = no rotary), stream
         "flash_fwd_bf16": (
-            [_P] * 7 + [_I] * 6 + [_L] * 9 + [_I] * 3 + [ctypes.c_float, _P],
+            [_P] * 7 + [_I] * 6 + [_L] * 9 + [_I] * 3 + [ctypes.c_float] + _ROTARY + [_P],
             _I,
         ),
     },
     "flash_bwd": {
         # q, k, v, dout, lse, delta, dq, seg_q, seg_kv, B, S, T, H, Hkv, D,
         # q/k/v/dout strides (batch, seq, head) x 4, causal, causal_offset,
-        # window, c = softmax_scale * log2(e), softmax_scale, stream
+        # window, c = softmax_scale * log2(e), softmax_scale, rotary, stream
         "flash_bwd_dq_bf16": (
-            [_P] * 9 + [_I] * 6 + [_L] * 12 + [_I] * 3 + [ctypes.c_float] * 2 + [_P],
+            [_P] * 9 + [_I] * 6 + [_L] * 12 + [_I] * 3 + [ctypes.c_float] * 2 + _ROTARY + [_P],
             _I,
         ),
         # the same with dk, dv in place of dq
         "flash_bwd_dkv_bf16": (
-            [_P] * 10 + [_I] * 6 + [_L] * 12 + [_I] * 3 + [ctypes.c_float] * 2 + [_P],
+            [_P] * 10 + [_I] * 6 + [_L] * 12 + [_I] * 3 + [ctypes.c_float] * 2 + _ROTARY + [_P],
             _I,
         ),
     },

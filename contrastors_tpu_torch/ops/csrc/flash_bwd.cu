@@ -30,6 +30,16 @@
 // expected to stay well short of both bounds. Dead tiles under causal or
 // window masking are skipped, as the JAX kernels skip them.
 //
+// Fused rotary (flash_bwd_dq_rot / flash_bwd_dkv_rot, the template flag kRot
+// of one body each; the JAX kernels' fused_rot=True,
+// :426-446 and :516-545): both kernels recompute rotated q and k exactly as
+// flash_fwd.cu does (q fragments rotated in registers, tiles rotated as they
+// are staged), accumulate dq (dk) with respect to the rotated operand in
+// fp32, and apply the rotation's adjoint g*cos + rot^T(g*sin) to the fp32
+// accumulator before the single bf16 cast (JAX :502-509, :600-604). The
+// partner column of every accumulator element lives in the same thread, so
+// the adjoint needs no shared memory. dv is unchanged; delta stays outside.
+//
 // Semantics follow JAX _bwd: s = q.k^T * c (c = softmax_scale*log2(e)) with
 // the forward's masks; p = exp2(s - lse), and p = 0 on rows whose LSE is
 // -1e30 (fully masked rows have O = 0 and no gradient); dp = dO.v^T;
@@ -61,13 +71,14 @@ struct BwdParams {
   int causal, causal_offset, window;
   float c;         // softmax_scale * log2(e)
   float sm_scale;  // softmax_scale
+  Rotary rot;      // fused-rotary tables (kRot only)
 };
 
 __device__ __forceinline__ bool lse_dead(float lse) { return lse <= 0.5f * kNegInf; }
 
 // dq for 64 query rows of one (batch, head); warp w owns rows 16w..16w+15.
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams p) {
+template <int D, bool kRot>
+__device__ __forceinline__ void bwd_dq(const BwdParams& p) {
   constexpr int kStride = D + 8, kKc = D / 16, kDn = D / 8;
   __shared__ __align__(16) __nv_bfloat16 k_s[kTile * kStride];
   __shared__ __align__(16) __nv_bfloat16 v_s[kTile * kStride];
@@ -88,8 +99,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams 
 
   // q and dO fragments of this warp's rows stay in registers
   uint32_t qa[kKc][4], da[kKc][4];
-  load_a_global<D>(qa, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, r0, p.S, t);
+  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
+  load_a_global<D>(qa, qb, p.q_ss, r0, p.S, t);
   load_a_global<D>(da, p.dout + b * p.o_sb + h * p.o_sh, p.o_ss, r0, p.S, t);
+  const float* tcos = nullptr;
+  const float* tsin = nullptr;
+  if constexpr (kRot) {
+    tcos = p.rot.cos + b * p.rot.sb;
+    tsin = p.rot.sin + b * p.rot.sb;
+    rotate_a<D>(qa, qb, p.q_ss, r0, p.S, t, tcos, tsin, p.rot);
+  }
   const int64_t row0 = (int64_t(b) * p.H + h) * p.S;
   const float lse0 = r0 < p.S ? p.lse[row0 + r0] : kNegInf;
   const float lse1 = r1 < p.S ? p.lse[row0 + r1] : kNegInf;
@@ -115,7 +134,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams 
   for (int dn = 0; dn < kDn; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
 
   for (int kv0 = kv_begin; kv0 < kv_end; kv0 += kTile) {
-    stage_pair<D>(k_s, kb, p.k_ss, v_s, vb, p.v_ss, kv0, p.T, tid);
+    if constexpr (kRot)
+      stage_pair_rot<D>(k_s, kb, p.k_ss, v_s, vb, p.v_ss, kv0, p.T, tid, tcos, tsin, p.rot);
+    else
+      stage_pair<D>(k_s, kb, p.k_ss, v_s, vb, p.v_ss, kv0, p.T, tid);
     if (has_seg && tid < kTile) {
       const int col = kv0 + tid;
       segkv_s[tid] = col < p.T ? p.seg_kv[b * p.T + col] : 0;
@@ -150,6 +172,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams 
     __syncthreads();                // the next tile overwrites k_s / v_s
   }
 
+  if constexpr (kRot) rotate_adjoint<D>(acc, tcos, tsin, r0, t, p.rot);  // dq wrt the unrotated q
   const int64_t row_stride = int64_t(p.H) * D;
   store_rows<D>(p.dq + int64_t(b) * p.S * row_stride + int64_t(h) * D, row_stride, acc, r0,
                 p.S, t);
@@ -166,8 +189,8 @@ constexpr int dkv_smem_bytes() {
 // dk, dv for 64 kv rows of one (batch, kv head); warp w owns kv rows
 // 16w..16w+15. The loop covers every (q head of the GQA group, q tile)
 // pair that has a live column.
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdParams p) {
+template <int D, bool kRot>
+__device__ __forceinline__ void bwd_dkv(const BwdParams& p) {
   constexpr int kStride = D + 8, kKc = D / 16, kDn = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -189,8 +212,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdParams
   const int w2 = p.window > 0 ? p.window / 2 : -1;
 
   // the k/v tile is fixed for the whole loop; rows past T are zero
-  stage_pair<D>(k_s, p.k + b * p.k_sb + hk * p.k_sh, p.k_ss, v_s, p.v + b * p.v_sb + hk * p.v_sh,
-                p.v_ss, kv_lo, p.T, tid);
+  const float* tcos = nullptr;
+  const float* tsin = nullptr;
+  if constexpr (kRot) {
+    tcos = p.rot.cos + b * p.rot.sb;
+    tsin = p.rot.sin + b * p.rot.sb;
+    stage_pair_rot<D>(k_s, p.k + b * p.k_sb + hk * p.k_sh, p.k_ss, v_s,
+                      p.v + b * p.v_sb + hk * p.v_sh, p.v_ss, kv_lo, p.T, tid, tcos, tsin, p.rot);
+  } else {
+    stage_pair<D>(k_s, p.k + b * p.k_sb + hk * p.k_sh, p.k_ss, v_s, p.v + b * p.v_sb + hk * p.v_sh,
+                  p.v_ss, kv_lo, p.T, tid);
+  }
   int skv0 = 0, skv1 = 0;
   if (has_seg) {
     if (r0 < p.T) skv0 = p.seg_kv[b * p.T + r0];
@@ -219,7 +251,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdParams
     const __nv_bfloat16* ob = p.dout + b * p.o_sb + h * p.o_sh;
     const int64_t row0 = (int64_t(b) * p.H + h) * p.S;
     for (int q0 = q_begin; q0 < q_end; q0 += kTile) {
-      stage_pair<D>(q_s, qb, p.q_ss, do_s, ob, p.o_ss, q0, p.S, tid);
+      if constexpr (kRot)
+        stage_pair_rot<D>(q_s, qb, p.q_ss, do_s, ob, p.o_ss, q0, p.S, tid, tcos, tsin, p.rot);
+      else
+        stage_pair<D>(q_s, qb, p.q_ss, do_s, ob, p.o_ss, q0, p.S, tid);
       if (tid < kTile) {
         const int qr = q0 + tid;
         lse_s[tid] = qr < p.S ? p.lse[row0 + qr] : kNegInf;  // rows past S are dead
@@ -265,14 +300,42 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdParams
 
   const int64_t row_stride = int64_t(p.Hkv) * D;
   const int64_t base = int64_t(b) * p.T * row_stride + int64_t(hk) * D;
-  store_rows<D>(p.dk + base, row_stride, dk, r0, p.T, t);
   store_rows<D>(p.dv + base, row_stride, dv, r0, p.T, t);
+  if constexpr (kRot) rotate_adjoint<D>(dk, tcos, tsin, r0, t, p.rot);  // dk wrt the unrotated k
+  store_rows<D>(p.dk + base, row_stride, dk, r0, p.T, t);
+}
+
+// The kernels. The fused-rotary ones at D = 64 are held to three blocks per
+// SM, which 128-thread blocks reach at <= 170 registers a thread: left
+// free, the fused dk/dv kernel took 176 and fit two blocks per SM, 1.8x
+// slower than the unfused one at the MLM shape (PERF.md, PR 4). The plain
+// ones keep the compiler's choice (a stated minimum of 1 block moved the
+// plain dk/dv kernel from 167 to 204 registers, two blocks per SM).
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams p) {
+  bwd_dq<D, false>(p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1) flash_bwd_dq_rot_kernel(const BwdParams p) {
+  bwd_dq<D, true>(p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdParams p) {
+  bwd_dkv<D, false>(p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1) flash_bwd_dkv_rot_kernel(const BwdParams p) {
+  bwd_dkv<D, true>(p);
 }
 
 BwdParams make_params(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, const void* seg_q, const void* seg_kv,
                       int B, int S, int T, int H, int Hkv, const int64_t (&st)[12], int causal,
-                      int causal_offset, int window, float c, float sm_scale) {
+                      int causal_offset, int window, float c, float sm_scale, const void* rot_cos,
+                      const void* rot_sin, int64_t rot_sb, int rot_half, int rot_interleaved) {
   BwdParams p = {};
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -290,18 +353,21 @@ BwdParams make_params(const void* q, const void* k, const void* v, const void* d
   p.causal = causal; p.causal_offset = causal_offset; p.window = window;
   p.c = c;
   p.sm_scale = sm_scale;
+  p.rot = Rotary{static_cast<const float*>(rot_cos), static_cast<const float*>(rot_sin), rot_sb,
+                 rot_half, rot_interleaved};
   return p;
 }
 
-template <int D>
+template <int D, bool kRot>
 cudaError_t launch_dkv(const BwdParams& p, cudaStream_t st) {
   constexpr int bytes = dkv_smem_bytes<D>();
+  void (*kernel)(BwdParams) = kRot ? flash_bwd_dkv_rot_kernel<D> : flash_bwd_dkv_kernel<D>;
   // above 48 KB (D = 128) dynamic shared memory must be allowed explicitly
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.T + kTile - 1) / kTile, p.Hkv, p.B);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, bytes, st>>>(p);
+  kernel<<<grid, kThreads, bytes, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -310,6 +376,8 @@ cudaError_t launch_dkv(const BwdParams& p, cudaStream_t st) {
 // C entry points, loaded with ctypes. Each launches on `stream`, does not
 // synchronise and allocates nothing; each returns cudaGetLastError() so the
 // caller sees a refused launch (bad shape, too many resources) at once.
+// rot_cos == NULL runs the plain variant; otherwise the fused-rotary one,
+// with the tables and rules of flash_fwd_bf16 (S == T, rot_half % 8 == 0).
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, const void* seg_q,
                                  const void* seg_kv, int B, int S, int T, int H, int Hkv, int D,
@@ -317,19 +385,24 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, co
                                  int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
                                  int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
                                  int causal, int causal_offset, int window, float c,
-                                 float sm_scale, void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0) return int(cudaErrorInvalidValue);
+                                 float sm_scale, const void* rot_cos, const void* rot_sin,
+                                 int64_t rot_sb, int rot_half, int rot_interleaved, void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0 || !rot_ok(rot_cos, rot_half, D)) return int(cudaErrorInvalidValue);
   if (B == 0 || S == 0 || H == 0) return int(cudaSuccess);
   const int64_t st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
   BwdParams p = make_params(q, k, v, dout, lse, delta, seg_q, seg_kv, B, S, T, H, Hkv, st,
-                            causal, causal_offset, window, c, sm_scale);
+                            causal, causal_offset, window, c, sm_scale, rot_cos, rot_sin, rot_sb,
+                            rot_half, rot_interleaved);
   p.dq = static_cast<__nv_bfloat16*>(dq);
   const dim3 grid((S + kTile - 1) / kTile, H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool fused = rot_cos != nullptr;
   if (D == 64) {
-    flash_bwd_dq_kernel<64><<<grid, kThreads, 0, s>>>(p);
+    if (fused) flash_bwd_dq_rot_kernel<64><<<grid, kThreads, 0, s>>>(p);
+    else flash_bwd_dq_kernel<64><<<grid, kThreads, 0, s>>>(p);
   } else if (D == 128) {
-    flash_bwd_dq_kernel<128><<<grid, kThreads, 0, s>>>(p);
+    if (fused) flash_bwd_dq_rot_kernel<128><<<grid, kThreads, 0, s>>>(p);
+    else flash_bwd_dq_kernel<128><<<grid, kThreads, 0, s>>>(p);
   } else {
     return int(cudaErrorInvalidValue);
   }
@@ -343,17 +416,21 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
                                   int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
                                   int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
                                   int64_t o_sh, int causal, int causal_offset, int window,
-                                  float c, float sm_scale, void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0) return int(cudaErrorInvalidValue);
+                                  float c, float sm_scale, const void* rot_cos,
+                                  const void* rot_sin, int64_t rot_sb, int rot_half,
+                                  int rot_interleaved, void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0 || !rot_ok(rot_cos, rot_half, D)) return int(cudaErrorInvalidValue);
   // S == 0 still runs: every kv row then gets dk = dv = 0
   if (B == 0 || T == 0 || Hkv == 0) return int(cudaSuccess);
   const int64_t st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
   BwdParams p = make_params(q, k, v, dout, lse, delta, seg_q, seg_kv, B, S, T, H, Hkv, st,
-                            causal, causal_offset, window, c, sm_scale);
+                            causal, causal_offset, window, c, sm_scale, rot_cos, rot_sin, rot_sb,
+                            rot_half, rot_interleaved);
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return int(launch_dkv<64>(p, s));
-  if (D == 128) return int(launch_dkv<128>(p, s));
+  const bool fused = rot_cos != nullptr;
+  if (D == 64) return int(fused ? launch_dkv<64, true>(p, s) : launch_dkv<64, false>(p, s));
+  if (D == 128) return int(fused ? launch_dkv<128, true>(p, s) : launch_dkv<128, false>(p, s));
   return int(cudaErrorInvalidValue);
 }

@@ -22,6 +22,17 @@
 // It is the simple first design: no wgmma, TMA, cp.async pipelining or warp
 // specialisation, so it is expected to stay well short of both bounds.
 //
+// Fused rotary (template flag kRot; the JAX kernels' fused_rot=True, and the
+// ablation script's prototype _fused_fwd_kernel,
+// scripts/ablate_rotary_fusion.py:42): q fragments are rotated as they are
+// read into registers and each k tile as it is staged into shared memory,
+// in fp32 with one bf16 cast (flash_common.cuh, Rotary), so q and k never
+// make the round trip through device memory that an outside rotation costs
+// (a read and a write of each). The price: each k tile is rotated again for
+// every q tile that meets it, with 2*64*D*4 bytes of fp32 table reads per
+// staged tile (through L1/L2); at the MLM shape the fused kernel takes 1.45x
+// the time of the unfused one, still less than rotating outside (PERF.md).
+//
 // Semantics follow the JAX kernels exactly:
 //   s = q.k^T in fp32, unscaled; c = softmax_scale*log2(e) enters only as
 //   p = exp2(s*c - m*c); the row max is floored at -1e20/c so a fully masked
@@ -51,10 +62,11 @@ struct Params {
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   int causal, causal_offset, window;
   float c;  // softmax_scale * log2(e)
+  Rotary rot;  // fused-rotary tables (kRot only)
 };
 
 // The fragment layout is described in flash_common.cuh.
-template <int D>
+template <int D, bool kRot>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   constexpr int kStride = D + 8;  // padded smem row: conflict-free fragment reads
   constexpr int kKc = D / 16;     // k-steps of the QK^T product
@@ -87,6 +99,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
     qa[kc][1] = r1 < p.S ? ld32(qb + r1 * p.q_ss + col) : 0u;
     qa[kc][2] = r0 < p.S ? ld32(qb + r0 * p.q_ss + col + 8) : 0u;
     qa[kc][3] = r1 < p.S ? ld32(qb + r1 * p.q_ss + col + 8) : 0u;
+  }
+  const float* tcos = nullptr;
+  const float* tsin = nullptr;
+  if constexpr (kRot) {
+    tcos = p.rot.cos + b * p.rot.sb;
+    tsin = p.rot.sin + b * p.rot.sb;
+    rotate_a<D>(qa, qb, p.q_ss, r0, p.S, t, tcos, tsin, p.rot);
   }
   int sq0 = 0, sq1 = 0;
   if (has_seg) {
@@ -121,6 +140,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
       if (col < p.T) {
         kval = *reinterpret_cast<const uint4*>(kb + col * p.k_ss + ch * 8);
         vval = *reinterpret_cast<const uint4*>(vb + col * p.v_ss + ch * 8);
+        if constexpr (kRot)
+          kval = rotate_chunk(kval, kb + col * p.k_ss, tcos + col * D, tsin + col * D, ch * 8, p.rot);
       }
       *reinterpret_cast<uint4*>(&k_s[row * kStride + ch * 8]) = kval;
       *reinterpret_cast<uint4*>(&v_s[row * kStride + ch * 8]) = vval;
@@ -242,14 +263,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
 
 // C entry point, loaded with ctypes. Launches on `stream`, does not
 // synchronise and allocates nothing; returns cudaGetLastError() so the caller
-// sees a refused launch (bad shape, too many resources) at once.
+// sees a refused launch (bad shape, too many resources) at once. rot_cos ==
+// NULL runs the plain variant; otherwise q and k are rotated with the fp32
+// tables (rows of D, at least round_up(S, 64) of them, batch stride rot_sb),
+// rot_half = rot_dim / 2 a multiple of 8, and S must equal T.
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
                               const void* seg_q, const void* seg_kv, int B, int S, int T, int H,
                               int Hkv, int D, int64_t q_sb, int64_t q_ss, int64_t q_sh,
                               int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
                               int64_t v_ss, int64_t v_sh, int causal, int causal_offset,
-                              int window, float c, void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0) return int(cudaErrorInvalidValue);
+                              int window, float c, const void* rot_cos, const void* rot_sin,
+                              int64_t rot_sb, int rot_half, int rot_interleaved, void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0 || !rot_ok(rot_cos, rot_half, D)) return int(cudaErrorInvalidValue);
   if (B == 0 || S == 0 || H == 0) return int(cudaSuccess);
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -265,12 +290,17 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void*
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.causal = causal; p.causal_offset = causal_offset; p.window = window;
   p.c = c;
+  p.rot = Rotary{static_cast<const float*>(rot_cos), static_cast<const float*>(rot_sin), rot_sb,
+                 rot_half, rot_interleaved};
+  const bool fused = rot_cos != nullptr;
   const dim3 grid((S + kBlockM - 1) / kBlockM, H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64) {
-    flash_fwd_kernel<64><<<grid, kThreads, 0, st>>>(p);
+    if (fused) flash_fwd_kernel<64, true><<<grid, kThreads, 0, st>>>(p);
+    else flash_fwd_kernel<64, false><<<grid, kThreads, 0, st>>>(p);
   } else if (D == 128) {
-    flash_fwd_kernel<128><<<grid, kThreads, 0, st>>>(p);
+    if (fused) flash_fwd_kernel<128, true><<<grid, kThreads, 0, st>>>(p);
+    else flash_fwd_kernel<128, false><<<grid, kThreads, 0, st>>>(p);
   } else {
     return int(cudaErrorInvalidValue);
   }

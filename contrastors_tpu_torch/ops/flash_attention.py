@@ -27,13 +27,25 @@ p = exp2(s*c - lse) from the saved base-2 LSE, p = 0 on rows whose LSE is
 dq = ds k, dk = ds^T q (ds cast to q's dtype), dv = p^T dO; GQA sums dk/dv
 over the q heads of each kv head.
 
+Fused rotary (JAX `rotary_cos/rotary_sin/rotary_interleaved/
+rotary_position_ids`, `:802-909`): with S == T the kernels' fused variants
+rotate q and k as they load them (`_rot_block`: fp32 combine, one cast) and
+the backward applies the rotation's adjoint to the fp32 dq and dk before
+their cast (`_rot_adjoint`); the tables are expanded to full-D fp32 rows,
+gathered per batch row for position_ids and padded with identity rows to a
+multiple of the 64-row tile (`layers/rotary.py:expanded_tables`). With
+S != T the wrapper rotates outside (position_ids then raise ValueError, as
+in JAX). The plain versions follow the same arithmetic: rotate, then the
+plain forward; the plain backward on the rotated operands in fp32, the
+adjoint, then the cast.
+
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor to the
 kernels, or the call raises. The call is a `torch.autograd.Function` whose
 backward runs the backward kernels (or, on a CPU tensor, their plain
-version).
+version). It saves q and k un-rotated, with the tables.
 """
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import ctypes
 import math
@@ -64,10 +76,26 @@ LSE_ATOL = 1e-3
 GRAD_REL = 2.0**-7
 GRAD_ABS_FRAC = {"dq": 2.0**-8, "dk": 2.0**-8, "dv": 2.0**-7}
 
+KERNEL_TILE = 64  # rows of the kernels' q and kv tiles
+
 # kernel launches made by this process (read and reset by chip_smoke.py)
 launches = 0  # flash_fwd
 launches_bwd_dq = 0
 launches_bwd_dkv = 0
+launches_rot = 0  # their fused-rotary variants
+launches_bwd_dq_rot = 0
+launches_bwd_dkv_rot = 0
+
+
+class RotaryTables(NamedTuple):
+    """The fused variants' rotary: expanded fp32 tables [L, D] (shared by the
+    batch) or [B, L, D] (packed position_ids), L >= S a multiple of
+    KERNEL_TILE, from `layers.rotary.expanded_tables`."""
+
+    cos: torch.Tensor
+    sin: torch.Tensor
+    rot_dim: int
+    interleaved: bool
 
 
 def flash_shape_ok(q: torch.Tensor, k: torch.Tensor) -> bool:
@@ -165,11 +193,12 @@ def _reference_core(q, k, v, seg_q, seg_kv, causal, causal_offset, window, softm
 
 
 def _reference_backward_core(q, k, v, out, lse, dout, seg_q, seg_kv, causal, causal_offset,
-                             window, softmax_scale):
+                             window, softmax_scale, cast=True):
     """Plain PyTorch backward on merged ids, with JAX `_bwd`'s arithmetic
     (fp32 throughout; ds cast to q's dtype before dq and dk, p kept fp32 for
     dv). Not autograd of `_reference_core`, which updates in place. Returns
-    (dq [B,S,H,D], dk [B,T,Hkv,D], dv [B,T,Hkv,D]) in q/k/v's dtypes."""
+    (dq [B,S,H,D], dk [B,T,Hkv,D], dv [B,T,Hkv,D]) in q/k/v's dtypes, or in
+    fp32 when not cast."""
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     gq = H // Hkv
@@ -192,6 +221,37 @@ def _reference_backward_core(q, k, v, out, lse, dout, seg_q, seg_kv, causal, cau
     if gq > 1:  # sum over the q heads that read each kv head
         dk = dk.view(B, T, Hkv, gq, D).sum(3)
         dv = dv.view(B, T, Hkv, gq, D).sum(3)
+    if not cast:
+        return dq, dk, dv
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _rotated(rot, *xs):
+    from contrastors_tpu_torch.layers.rotary import rotate  # layers imports ops: import at call
+
+    return [rotate(x, rot.cos, rot.sin, rot.rot_dim, rot.interleaved) for x in xs]
+
+
+def _reference_forward(q, k, v, seg_q, seg_kv, rot, *args):
+    """The forward kernel's plain version: q and k rotated (fp32 combine, one
+    cast) when rot is given, then `_reference_core`."""
+    if rot is not None:
+        q, k = _rotated(rot, q, k)
+    return _reference_core(q, k, v, seg_q, seg_kv, *args)
+
+
+def _reference_backward(q, k, v, out, lse, dout, seg_q, seg_kv, rot, *args):
+    """The backward kernels' plain version. With rot: the plain backward on
+    the rotated q and k, in fp32, then the rotation's adjoint on dq and dk,
+    then one cast (JAX `_bwd_dq_kernel`/`_bwd_dkv_kernel` finalize), not
+    autograd through the rotation, which would cast twice."""
+    if rot is None:
+        return _reference_backward_core(q, k, v, out, lse, dout, seg_q, seg_kv, *args)
+    from contrastors_tpu_torch.layers.rotary import rotate_adjoint
+
+    qr, kr = _rotated(rot, q, k)
+    dq, dk, dv = _reference_backward_core(qr, kr, v, out, lse, dout, seg_q, seg_kv, *args, cast=False)
+    dq, dk = (rotate_adjoint(g, rot.cos, rot.sin, rot.rot_dim, rot.interleaved) for g in (dq, dk))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -221,10 +281,34 @@ def _kernel_ids(seg_q, seg_kv, device):
             seg_kv.to(device=device, dtype=torch.int32).contiguous())
 
 
-def _launch_kernel(q, k, v, seg_q, seg_kv, causal, causal_offset, window, softmax_scale):
-    """Launch csrc/flash_fwd.cu on the current stream. Returns (O, LSE)."""
-    global launches
+def _rot_args(rot, q, k):
+    """The kernels' C rotary arguments (cos, sin, batch stride, rot_dim / 2,
+    interleaved); a NULL cos selects the variant without rotary."""
+    if rot is None:
+        return ptr(None), ptr(None), 0, 0, 0
+    B, S, _, D = q.shape
+    if k.shape[1] != S:
+        raise ValueError(f"the fused-rotary kernels need S == T, got {S} and {k.shape[1]}")
+    if rot.rot_dim % 16 or not 0 < rot.rot_dim <= D:
+        raise ValueError(f"the fused-rotary kernels take a rotary dim that is a multiple of 16 "
+                         f"and at most head_dim {D}, got {rot.rot_dim}")
+    rows = -(-S // KERNEL_TILE) * KERNEL_TILE
+    for t in (rot.cos, rot.sin):
+        if (t.dtype != torch.float32 or not t.is_contiguous() or t.device != q.device
+                or t.shape[-1] != D or t.shape[-2] < rows or t.shape[:-2] not in ((), (B,))):
+            raise ValueError(f"rotary tables must be contiguous fp32 [L, {D}] or [{B}, L, {D}] "
+                             f"with L >= {rows} on {q.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+    sb = rot.cos.shape[1] * D if rot.cos.dim() == 3 else 0
+    return ptr(rot.cos), ptr(rot.sin), sb, rot.rot_dim // 2, int(rot.interleaved)
+
+
+def _launch_kernel(q, k, v, seg_q, seg_kv, rot, causal, causal_offset, window, softmax_scale):
+    """Launch csrc/flash_fwd.cu (its fused-rotary variant when rot is given)
+    on the current stream. Returns (O, LSE)."""
+    global launches, launches_rot
     _check_kernel_inputs(q, k, v)
+    rot_args = _rot_args(rot, q, k)
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     q, k, v = (x if _aligned(x) else x.contiguous() for x in (q, k, v))
@@ -236,16 +320,18 @@ def _launch_kernel(q, k, v, seg_q, seg_kv, causal, causal_offset, window, softma
         B, S, T, H, Hkv, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         int(causal), int(causal_offset), int(window),
-        ctypes.c_float(softmax_scale * LOG2E), stream(q),
+        ctypes.c_float(softmax_scale * LOG2E), *rot_args, stream(q),
     )
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
-    launches += 1
+    if rot is None:
+        launches += 1
+    else:
+        launches_rot += 1
     return out, lse
 
 
-def _bwd_call(q, k, v, dout, lse, delta, seg_q, seg_kv, causal, causal_offset, window,
-              softmax_scale):
+def _bwd_call(q, k, v, dout, causal, causal_offset, window, softmax_scale, rot):
     """The C arguments the two backward kernels share, after the first ones."""
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
@@ -253,47 +339,54 @@ def _bwd_call(q, k, v, dout, lse, delta, seg_q, seg_kv, causal, causal_offset, w
         B, S, T, H, Hkv, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3],
         int(causal), int(causal_offset), int(window),
-        ctypes.c_float(softmax_scale * LOG2E), ctypes.c_float(softmax_scale), stream(q),
+        ctypes.c_float(softmax_scale * LOG2E), ctypes.c_float(softmax_scale),
+        *_rot_args(rot, q, k), stream(q),
     )
 
 
 def launch_bwd_dq(q, k, v, dout, lse, delta, seg_q, seg_kv, causal, causal_offset, window,
-                  softmax_scale):
-    """Launch flash_bwd_dq of csrc/flash_bwd.cu on prepared inputs (as
-    `_launch_backward` prepares them: aligned bf16 q/k/v/dout, contiguous
-    fp32 lse and delta [B, H, S], contiguous int32 ids or None). Returns dq."""
-    global launches_bwd_dq
+                  softmax_scale, rot=None):
+    """Launch flash_bwd_dq of csrc/flash_bwd.cu (its fused-rotary variant
+    when rot is given) on prepared inputs (as `_launch_backward` prepares
+    them: aligned bf16 q/k/v/dout, contiguous fp32 lse and delta [B, H, S],
+    contiguous int32 ids or None). Returns dq."""
+    global launches_bwd_dq, launches_bwd_dq_rot
     B, S, H, D = q.shape
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     err = load_library("flash_bwd").flash_bwd_dq_bf16(
         ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), ptr(dq),
         ptr(seg_q), ptr(seg_kv),
-        *_bwd_call(q, k, v, dout, lse, delta, seg_q, seg_kv, causal, causal_offset, window,
-                   softmax_scale),
+        *_bwd_call(q, k, v, dout, causal, causal_offset, window, softmax_scale, rot),
     )
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {err}")
-    launches_bwd_dq += 1
+    if rot is None:
+        launches_bwd_dq += 1
+    else:
+        launches_bwd_dq_rot += 1
     return dq
 
 
 def launch_bwd_dkv(q, k, v, dout, lse, delta, seg_q, seg_kv, causal, causal_offset, window,
-                   softmax_scale):
-    """Launch flash_bwd_dkv of csrc/flash_bwd.cu on prepared inputs (see
-    `launch_bwd_dq`). Returns (dk, dv)."""
-    global launches_bwd_dkv
+                   softmax_scale, rot=None):
+    """Launch flash_bwd_dkv of csrc/flash_bwd.cu (its fused-rotary variant
+    when rot is given) on prepared inputs (see `launch_bwd_dq`). Returns
+    (dk, dv)."""
+    global launches_bwd_dkv, launches_bwd_dkv_rot
     B, T, Hkv, D = k.shape
     dk = torch.empty((B, T, Hkv, D), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, T, Hkv, D), dtype=v.dtype, device=v.device)
     err = load_library("flash_bwd").flash_bwd_dkv_bf16(
         ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), ptr(dk), ptr(dv),
         ptr(seg_q), ptr(seg_kv),
-        *_bwd_call(q, k, v, dout, lse, delta, seg_q, seg_kv, causal, causal_offset, window,
-                   softmax_scale),
+        *_bwd_call(q, k, v, dout, causal, causal_offset, window, softmax_scale, rot),
     )
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
-    launches_bwd_dkv += 1
+    if rot is None:
+        launches_bwd_dkv += 1
+    else:
+        launches_bwd_dkv_rot += 1
     return dk, dv
 
 
@@ -311,42 +404,64 @@ def prepare_backward(q, k, v, out, lse, dout, seg_q, seg_kv):
     return (q, k, v, dout, lse, delta, *_kernel_ids(seg_q, seg_kv, q.device))
 
 
-def _launch_backward(q, k, v, out, lse, dout, seg_q, seg_kv, *args):
+def _launch_backward(q, k, v, out, lse, dout, seg_q, seg_kv, rot, *args):
     """Both backward kernels on the current stream. Returns (dq, dk, dv)."""
     inputs = prepare_backward(q, k, v, out, lse, dout, seg_q, seg_kv)
-    dq = launch_bwd_dq(*inputs, *args)
-    return (dq, *launch_bwd_dkv(*inputs, *args))
+    dq = launch_bwd_dq(*inputs, *args, rot=rot)
+    return (dq, *launch_bwd_dkv(*inputs, *args, rot=rot))
 
 
 class _FlashForward(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, seg_q, seg_kv, causal, causal_offset, window, softmax_scale):
+    def forward(ctx, q, k, v, seg_q, seg_kv, rot_cos, rot_sin, rot_dim, rot_interleaved, causal,
+                causal_offset, window, softmax_scale):
+        rot = None if rot_cos is None else RotaryTables(rot_cos, rot_sin, rot_dim, rot_interleaved)
         args = (causal, causal_offset, window, softmax_scale)
-        out, lse = on_device(q, _reference_core, _launch_kernel, q, k, v, seg_q, seg_kv, *args)
+        out, lse = on_device(q, _reference_forward, _launch_kernel, q, k, v, seg_q, seg_kv, rot, *args)
         ctx.mark_non_differentiable(lse)
-        ctx.save_for_backward(q, k, v, out, lse, seg_q, seg_kv)
-        ctx.args = args
+        ctx.save_for_backward(q, k, v, out, lse, seg_q, seg_kv, rot_cos, rot_sin)
+        ctx.rot, ctx.args = (rot_dim, rot_interleaved), args
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        q, k, v, out, lse, seg_q, seg_kv = ctx.saved_tensors
-        dq, dk, dv = on_device(q, _reference_backward_core, _launch_backward,
-                                q, k, v, out, lse, dout, seg_q, seg_kv, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None, None
+        q, k, v, out, lse, seg_q, seg_kv, rot_cos, rot_sin = ctx.saved_tensors
+        rot = None if rot_cos is None else RotaryTables(rot_cos, rot_sin, *ctx.rot)
+        dq, dk, dv = on_device(q, _reference_backward, _launch_backward,
+                                q, k, v, out, lse, dout, seg_q, seg_kv, rot, *ctx.args)
+        return (dq, dk, dv) + (None,) * 10
 
 
-def _prepare(q, k, attention_mask, segment_ids, kv_segment_ids, causal, softmax_scale, rotary):
-    if any(r is not None for r in rotary):
-        raise NotImplementedError(
-            "fused rotary inside the flash kernel is not ported yet (see ROADMAP); "
-            "apply layers.rotary.apply_rotary before the call"
-        )
+def _prepare(q, k, attention_mask, segment_ids, kv_segment_ids, causal, softmax_scale):
     B, S, _, D = q.shape
     T = k.shape[1]
     seg_q, seg_kv = merge_segments(B, S, T, attention_mask, segment_ids, kv_segment_ids, q.device)
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
     return seg_q, seg_kv, (T - S) if causal else 0, scale
+
+
+def _rotary(q, k, cos, sin, interleaved, position_ids, outside_ok=True):
+    """(q, k, rot) for the rotary arguments: rot = RotaryTables for the fused
+    variants (S == T), or None with q and k rotated here (S != T, the JAX
+    wrapper's rule, `:808-821`) or without rotary. The backward entry points
+    take S == T only (outside_ok=False): their gradients are those of the
+    un-rotated q and k."""
+    if cos is None:
+        return q, k, None
+    S, T, D = q.shape[1], k.shape[1], q.shape[3]
+    if S != T:
+        if position_ids is not None or not outside_ok:
+            raise ValueError(
+                f"rotary_position_ids is a [B, S] q-side table and cannot rotate a length-{T} k "
+                f"(S={S} != T); fused rotary needs S == T, rotate q/k outside the kernel")
+        from contrastors_tpu_torch.layers.rotary import apply_rotary
+
+        return apply_rotary(q, cos, sin, interleaved), apply_rotary(k, cos, sin, interleaved), None
+    from contrastors_tpu_torch.layers.rotary import expanded_tables
+
+    cos_d, sin_d = expanded_tables(cos.to(q.device), sin.to(q.device), D, interleaved, S,
+                                   position_ids, pad_to=KERNEL_TILE)
+    return q, k, RotaryTables(cos_d, sin_d, 2 * cos.shape[-1], bool(interleaved))
 
 
 def flash_attention_fwd(
@@ -365,12 +480,17 @@ def flash_attention_fwd(
     rotary_position_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward returning (O [B,S,H,D], base-2 LSE [B,H,S] fp32): the kernel
-    on a CUDA tensor, the plain version on a CPU tensor."""
+    on a CUDA tensor, the plain version on a CPU tensor. rotary_cos/sin
+    ([L >= S, rot_dim/2] fp32, layers/rotary.py conventions) select the
+    fused-rotary variants; rotary_position_ids [B, S] gathers per-row
+    positions (packed rows)."""
+    q, k, rot = _rotary(q, k, rotary_cos, rotary_sin, rotary_interleaved, rotary_position_ids)
     seg_q, seg_kv, offset, scale = _prepare(
-        q, k, attention_mask, segment_ids, kv_segment_ids, causal, softmax_scale,
-        (rotary_cos, rotary_sin, rotary_position_ids),
+        q, k, attention_mask, segment_ids, kv_segment_ids, causal, softmax_scale
     )
-    return _FlashForward.apply(q, k, v, seg_q, seg_kv, causal, offset, window, scale)
+    cos_d, sin_d, rot_dim, interleaved = rot if rot is not None else (None, None, 0, False)
+    return _FlashForward.apply(q, k, v, seg_q, seg_kv, cos_d, sin_d, rot_dim, interleaved,
+                               causal, offset, window, scale)
 
 
 def flash_attention(*args, **kwargs) -> torch.Tensor:
@@ -390,13 +510,19 @@ def flash_attention_reference(
     causal: bool = False,
     window: int = 0,
     softmax_scale: Optional[float] = None,
+    rotary_cos: Optional[torch.Tensor] = None,
+    rotary_sin: Optional[torch.Tensor] = None,
+    rotary_interleaved: bool = False,
+    rotary_position_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's plain PyTorch version on any device: (O, LSE) with the
-    same semantics, including O = 0 and LSE = -1e30 on fully masked rows."""
+    same semantics, including O = 0 and LSE = -1e30 on fully masked rows;
+    with rotary tables, that of the fused-rotary variant."""
+    q, k, rot = _rotary(q, k, rotary_cos, rotary_sin, rotary_interleaved, rotary_position_ids)
     seg_q, seg_kv, offset, scale = _prepare(
-        q, k, attention_mask, segment_ids, kv_segment_ids, causal, softmax_scale, ()
+        q, k, attention_mask, segment_ids, kv_segment_ids, causal, softmax_scale
     )
-    return _reference_core(q, k, v, seg_q, seg_kv, causal, offset, window, scale)
+    return _reference_forward(q, k, v, seg_q, seg_kv, rot, causal, offset, window, scale)
 
 
 def flash_attention_backward(
@@ -412,15 +538,22 @@ def flash_attention_backward(
     causal: bool = False,
     window: int = 0,
     softmax_scale: Optional[float] = None,
+    rotary_cos: Optional[torch.Tensor] = None,
+    rotary_sin: Optional[torch.Tensor] = None,
+    rotary_interleaved: bool = False,
+    rotary_position_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) for the forward's (O, LSE) and the gradient dout of O:
     the backward kernels on a CUDA tensor, the plain version on a CPU
-    tensor. This is what the autograd backward of `flash_attention` runs."""
+    tensor. This is what the autograd backward of `flash_attention` runs.
+    q and k are un-rotated; rotary needs S == T."""
+    q, k, rot = _rotary(q, k, rotary_cos, rotary_sin, rotary_interleaved, rotary_position_ids,
+                        outside_ok=False)
     seg_q, seg_kv, offset, scale = _prepare(
-        q, k, attention_mask, segment_ids, kv_segment_ids, causal, softmax_scale, ()
+        q, k, attention_mask, segment_ids, kv_segment_ids, causal, softmax_scale
     )
-    return on_device(q, _reference_backward_core, _launch_backward,
-                      q, k, v, out, lse, dout, seg_q, seg_kv, causal, offset, window, scale)
+    return on_device(q, _reference_backward, _launch_backward,
+                      q, k, v, out, lse, dout, seg_q, seg_kv, rot, causal, offset, window, scale)
 
 
 def flash_attention_backward_reference(
@@ -436,11 +569,18 @@ def flash_attention_backward_reference(
     causal: bool = False,
     window: int = 0,
     softmax_scale: Optional[float] = None,
+    rotary_cos: Optional[torch.Tensor] = None,
+    rotary_sin: Optional[torch.Tensor] = None,
+    rotary_interleaved: bool = False,
+    rotary_position_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels' plain PyTorch version on any device: (dq, dk,
-    dv) with JAX `_bwd`'s arithmetic, dq = 0 on fully masked rows."""
+    dv) with JAX `_bwd`'s arithmetic, dq = 0 on fully masked rows; with
+    rotary tables (S == T), that of the fused-rotary variants."""
+    q, k, rot = _rotary(q, k, rotary_cos, rotary_sin, rotary_interleaved, rotary_position_ids,
+                        outside_ok=False)
     seg_q, seg_kv, offset, scale = _prepare(
-        q, k, attention_mask, segment_ids, kv_segment_ids, causal, softmax_scale, ()
+        q, k, attention_mask, segment_ids, kv_segment_ids, causal, softmax_scale
     )
-    return _reference_backward_core(q, k, v, out, lse, dout, seg_q, seg_kv, causal, offset,
-                                    window, scale)
+    return _reference_backward(q, k, v, out, lse, dout, seg_q, seg_kv, rot, causal, offset,
+                               window, scale)

@@ -3,10 +3,13 @@
 A 2-layer, n_embd=128, 2-head (D=64) swiglu trunk with rotary base 1000,
 the same parameters on both sides (converted by `convert.flax_to_torch`).
 The JAX side runs attn_impl="sdpa"; the port runs attn_impl="flash", which
-on CPU tensors is the plain flash version. Padded query rows differ by
-design (flash zeroes them), so hidden states are compared on valid rows
-only: fp32 atol 1e-4. Pooled embeddings: cosine >= 0.99999 in fp32 and
->= 0.999 in bf16.
+on CPU tensors is the plain flash version. Hidden states, padded rows
+included, agree within fp32 atol 1e-4: below JAX's flash_min_seq (512) the
+port's dispatch keeps the SDPA row convention, where padded query rows
+attend to the valid keys. Pooled embeddings: cosine >= 0.99999 in fp32 and
+>= 0.999 in bf16. The last test holds that dispatch to JAX's on both sides
+of 512: SDPA's rows at S=128, and at S=512 the flash kernel's zeroed padded
+rows (JAX's Pallas kernel in interpret mode).
 """
 
 import numpy as np
@@ -23,7 +26,7 @@ from contrastors_tpu.models.presets import nomic_bert_2048 as j_preset
 from contrastors_tpu_torch.convert import flax_to_torch
 from contrastors_tpu_torch.eval.encoder import Encoder
 from contrastors_tpu_torch.eval.stub_tokenizer import StubTokenizer
-from contrastors_tpu_torch.models import BiEncoder
+from contrastors_tpu_torch.models import BiEncoder, NomicBertModel
 from contrastors_tpu_torch.models.presets import nomic_bert_2048 as t_preset
 
 SMALL = dict(n_layer=2, n_embd=128, n_head=2, n_inner=256, vocab_size=512)
@@ -67,8 +70,27 @@ def test_biencoder_matches_jax(dtype):
         )["last_hidden_state"]
         with torch.no_grad():
             th = tm.trunk(torch.from_numpy(ids), torch.from_numpy(mask))["last_hidden_state"]
-        valid = mask.astype(bool)
-        np.testing.assert_allclose(th.numpy()[valid], np.asarray(jt)[valid], atol=1e-4, rtol=0)
+        np.testing.assert_allclose(th.numpy(), np.asarray(jt), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("S", [128, 512])
+def test_padded_rows_follow_jax_dispatch(S, monkeypatch):
+    """Full last_hidden_state, padded rows included, against the JAX trunk
+    with attn_impl="flash": at S=128 JAX runs SDPA, at S=512 its flash
+    kernel (interpreted)."""
+    monkeypatch.setenv("CONTRASTORS_TPU_FLASH_INTERPRET", "1")
+    cfg = dict(SMALL, n_layer=1)
+    jt = JNomicBert(config=j_preset(attn_impl="flash", **cfg))
+    ids, mask = _inputs(seed=S, B=2, S=S)
+    mask[1, S // 3:] = 0
+    ids = ids * mask
+    params = jt.init(jax.random.PRNGKey(0), jnp.asarray(ids), attention_mask=jnp.asarray(mask))
+    j_hidden = np.asarray(jt.apply(params, jnp.asarray(ids), attention_mask=jnp.asarray(mask))["last_hidden_state"])
+    tm = NomicBertModel(t_preset(attn_impl="flash", **cfg), device="cpu")
+    tm.load_state_dict(flax_to_torch(params), strict=True)
+    with torch.no_grad():
+        t_hidden = tm(torch.from_numpy(ids), torch.from_numpy(mask))["last_hidden_state"].numpy()
+    np.testing.assert_allclose(t_hidden, j_hidden, atol=1e-4, rtol=0)
 
 
 def test_encoder_bucketed_equals_fixed_pad_and_matches_jax():

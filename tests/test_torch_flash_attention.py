@@ -141,24 +141,46 @@ def test_kernel_tolerance_rejects_online_softmax_faults(fault, S):
 
 def test_padded_query_rows_are_zero_and_sdpa_agrees_on_valid_rows():
     """With a mask only and S == T, padded query rows output 0 on the flash
-    path; the SDPA path lets them attend. Valid rows agree."""
+    kernel's path (impl="flash_always", and impl="flash" at kv lengths of
+    JAX's flash_min_seq and above); the SDPA path lets them attend, and so
+    does impl="flash" below that length, as JAX's dispatch runs SDPA there.
+    Valid rows agree."""
     q, k, v, kw = _case("padding")
     q, k, v = map(torch.from_numpy, (q, k, v))
     mask = torch.from_numpy(kw["attention_mask"])
-    flash = attention_core(q, k, v, impl="flash", attention_mask=mask)
+    flash = attention_core(q, k, v, impl="flash_always", attention_mask=mask)
     plain = attention_core(q, k, v, impl="sdpa", attention_mask=mask)
     valid = mask.bool()[:, :, None, None]
     torch.testing.assert_close(flash * valid, plain * valid, atol=O_ATOL, rtol=0)
     assert torch.all(flash[1, 70:] == 0) and not torch.all(plain[1, 70:] == 0)
+    short = attention_core(q, k, v, impl="flash", attention_mask=mask)  # T = 128 < 512
+    torch.testing.assert_close(short, plain, atol=O_ATOL, rtol=0)
 
 
 def test_flash_wrapper_rejects_fused_rotary_and_backward():
-    """Fused rotary still raises; the backward now runs (the plain backward
-    on CPU tensors) and gives what `flash_attention_backward_reference`
-    gives, the gradient of q summed over its three uses."""
+    """Fused rotary runs: on CPU tensors it is the plain version of the
+    fused kernels, equal to rotating outside and calling the plain flash:
+    bit for bit forward, and within 1e-6 backward in fp32 (the adjoint does
+    autograd's operations on the rotation; the three uses of q are summed in
+    another order). It rejects packed position_ids with S != T. The backward runs (the plain backward on CPU
+    tensors) and gives what `flash_attention_backward_reference` gives, the
+    gradient of q summed over its three uses."""
+    from contrastors_tpu_torch.layers.rotary import apply_rotary, rotary_cos_sin
+
+    cos, sin = rotary_cos_sin(16, 32, device="cpu")
+    x = torch.randn(1, 16, 2, 64)
+    leaves = [x.clone().requires_grad_() for _ in range(2)]
+    fused = tfa.flash_attention(leaves[0], leaves[0], leaves[0], rotary_cos=cos, rotary_sin=sin)
+    xr = apply_rotary(leaves[1], cos, sin)
+    outside = tfa.flash_attention(xr, apply_rotary(leaves[1], cos, sin), leaves[1])
+    assert torch.equal(fused, outside)
+    fused.sum().backward()
+    outside.sum().backward()
+    torch.testing.assert_close(leaves[0].grad, leaves[1].grad, atol=1e-6, rtol=0)
+    with pytest.raises(ValueError, match="rotary_position_ids"):
+        tfa.flash_attention(x[:, :8], x, x, rotary_cos=cos, rotary_sin=sin,
+                            rotary_position_ids=torch.arange(8)[None])
     q = torch.randn(1, 16, 2, 64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="fused rotary"):
-        tfa.flash_attention(q, q, q, rotary_cos=torch.ones(16, 32), rotary_sin=torch.zeros(16, 32))
     out = tfa.flash_attention(q, q, q)
     out.sum().backward()
     with torch.no_grad():

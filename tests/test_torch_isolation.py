@@ -39,7 +39,8 @@ def test_importing_every_port_module_loads_no_jax():
     modules = sorted(
         m.name for m in pkgutil.walk_packages([str(PORT)], prefix="contrastors_tpu_torch.")
     )
-    for m in ("ops.flash_attention", "ops.grouped_matmul", "layers.moe"):
+    for m in ("ops.flash_attention", "ops.grouped_matmul", "layers.moe", "trainers.base",
+              "trainers.mlm", "scripts.ablate_rotary_fusion"):
         assert "contrastors_tpu_torch." + m in modules
     code = (
         "import importlib, sys\n"
@@ -67,11 +68,14 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
     from contrastors_tpu_torch.layers.rotary import rotary_cos_sin
-    from contrastors_tpu_torch.models import BiEncoder, NomicBertModel
+    from contrastors_tpu_torch.models import BiEncoder, NomicBertForPreTraining, NomicBertModel
     from contrastors_tpu_torch.models.presets import nomic_bert_2048
+    from contrastors_tpu_torch.scripts import ablate_rotary_fusion
 
     cfg = nomic_bert_2048(n_layer=1, n_embd=64, n_head=1, n_inner=128, vocab_size=64)
-    for entry in (BiEncoder, NomicBertModel):
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        ablate_rotary_fusion.run()
+    for entry in (BiEncoder, NomicBertModel, NomicBertForPreTraining):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):

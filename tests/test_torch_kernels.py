@@ -11,7 +11,9 @@ within LSE_ATOL (fp32 on both sides); dq, dk, dv per element within
 GRAD_REL * |ref| + GRAD_ABS_FRAC[name] * max |ref| (`grad_error_ratio` <= 1);
 gmm and tgmm per element within REL * |ref| + ABS_FRAC * max |ref|
 (`grouped_matmul.error_ratio` <= 1), with padding rows and empty experts
-exactly 0.
+exactly 0. The fused-rotary variants are held to their plain versions by
+the same rules, and with negated sin tables in the backward (the wrong
+adjoint) they must fall outside them.
 """
 
 import pytest
@@ -82,6 +84,70 @@ def test_backward_kernels_match_plain_version_on_card(cuda, B, S, T, H, Hkv, D, 
         assert bool((grads[0][0] == 0).all())
 
 
+def _rotary_inputs(cuda, B, S, H, Hkv, D, rot_dim, interleaved, packed, seed=2):
+    from contrastors_tpu_torch.layers.rotary import rotary_cos_sin
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, S, H, D, generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=cuda).bfloat16() for _ in range(2))
+    cos, sin = rotary_cos_sin(S, rot_dim, base=1000.0, device=cuda)
+    kw = dict(rotary_cos=cos, rotary_sin=sin, rotary_interleaved=interleaved)
+    if packed:  # three segments per row, positions restarting at each
+        bounds = torch.tensor([0, S // 4, S // 2 + 7, S], device=cuda)
+        idx = torch.arange(S, device=cuda)
+        seg = torch.bucketize(idx, bounds[1:-1], right=True)
+        kw["segment_ids"] = (seg + 1).int()[None].expand(B, S).contiguous()
+        kw["rotary_position_ids"] = (idx - bounds[seg])[None].expand(B, S).contiguous()
+    else:
+        mask = torch.ones(B, S, dtype=torch.int32, device=cuda)
+        mask[-1, S // 3:] = 0
+        kw["attention_mask"] = mask
+    dout = torch.randn(B, S, H, D, generator=gen, device=cuda).bfloat16()
+    return q, k, v, dout, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,D,rot_dim,interleaved,packed", [
+    (2, 256, 4, 4, 64, 64, False, False),
+    (2, 300, 6, 2, 64, 32, True, False),
+    (1, 512, 2, 2, 128, 128, False, True),
+])
+def test_fused_rotary_kernels_match_plain_versions_on_card(cuda, B, S, H, Hkv, D, rot_dim, interleaved,
+                                                           packed):
+    """The fused-rotary forward, dq and dk/dv kernels (one launch each,
+    through autograd) against the fused plain versions; no unfused launch."""
+    q, k, v, dout, kw = _rotary_inputs(cuda, B, S, H, Hkv, D, rot_dim, interleaved, packed)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    counters = ("launches", "launches_bwd_dq", "launches_bwd_dkv",
+                "launches_rot", "launches_bwd_dq_rot", "launches_bwd_dkv_rot")
+    before = [getattr(tfa, c) for c in counters]
+    out = tfa.flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert [getattr(tfa, c) - b for c, b in zip(counters, before)] == [0, 0, 0, 1, 1, 1]
+    ref_out, ref_lse = tfa.flash_attention_reference(q, k, v, **kw)
+    assert tfa.output_error_ratio(out, ref_out) <= 1.0
+    _, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    assert (lse - ref_lse).abs().max().item() <= tfa.LSE_ATOL
+    refs = tfa.flash_attention_backward_reference(q, k, v, out.detach(), lse, dout, **kw)
+    for g, r, name in zip(grads, refs, ("dq", "dk", "dv")):
+        assert tfa.grad_error_ratio(g, r, name) <= 1.0, name
+
+
+@pytest.mark.cuda
+def test_fused_rotary_backward_rejects_the_wrong_adjoint(cuda):
+    """The backward kernels given negated sin tables (the inverse rotation and
+    the wrong adjoint) fall outside the rule for dq and dk; dv is unaffected
+    by the adjoint but not by the recomputed rotation."""
+    q, k, v, dout, kw = _rotary_inputs(cuda, 2, 256, 4, 4, 64, 64, False, False)
+    out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    refs = tfa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw)
+    bad = dict(kw, rotary_sin=-kw["rotary_sin"])
+    grads = tfa.flash_attention_backward(q, k, v, out, lse, dout, **bad)
+    for g, r, name in zip(grads[:2], refs[:2], ("dq", "dk")):
+        assert tfa.grad_error_ratio(g, r, name) > 1.0, name
+
+
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.randn(1, 16, 2, 96, device=cuda).bfloat16()
@@ -90,6 +156,11 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.randn(1, 16, 2, 64, device=cuda)
     with pytest.raises(TypeError, match="bfloat16"):
         tfa.flash_attention(q, q, q)
+    from contrastors_tpu_torch.layers.rotary import rotary_cos_sin
+
+    cos, sin = rotary_cos_sin(16, 24, device=cuda)  # rot_dim 24: not a multiple of 16
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tfa.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(), rotary_cos=cos, rotary_sin=sin)
 
 
 def _moe_layout(cuda, A, E=8):
