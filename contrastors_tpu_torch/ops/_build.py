@@ -63,9 +63,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         ),
     },
     "gmm": {
-        # lhs, rhs, blk_e, act, out, M, K, N, lhs row stride,
+        # lhs, rhs, blk_e, act, out, M, K, N, E, lhs row stride,
         # rhs strides (expert, k, n), stream
-        "gmm_bf16": ([_P] * 5 + [_I] * 3 + [_L] * 4 + [_P], _I),
+        "gmm_bf16": ([_P] * 5 + [_I] * 4 + [_L] * 4 + [_P], _I),
         # lhs, dout, group_sizes, out, M, K, N, E, lhs and dout row strides, stream
         "tgmm_bf16": ([_P] * 4 + [_I] * 4 + [_L] * 2 + [_P], _I),
     },

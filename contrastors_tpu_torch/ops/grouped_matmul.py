@@ -14,8 +14,10 @@ expert (`aligned_group_layout`). Then:
   - tgmm: drhs[e] = sum over e's blocks of lhs_b^T @ dout_b, 0 for an
     expert with no rows.
 `csrc/gmm.cu` holds both kernels (`gmm_bf16` for `_gmm_kernel`, `tgmm_bf16`
-for `_tgmm_kernel`); they take bf16 operands, accumulate in fp32 and write
-bf16, with block_m = 128 and K, N multiples of 64.
+for `_tgmm_kernel`): TMA loads into a ring of shared-memory stages guarded
+by mbarriers, products by wgmma. They take bf16 operands, accumulate in
+fp32 and write bf16, with block_m = 128 and K, N multiples of 64. tgmm's
+blocks take the experts largest first, all tiles of one expert together.
 
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor to the
 kernel, or the call raises. The plain versions compute what the Pallas
@@ -141,14 +143,20 @@ def gmm_reference(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tenso
 
 
 def _aligned_rows(x):
-    # 16-byte vector loads: unit stride over the last dim, row stride and
-    # base pointer multiples of 8 elements
-    return x.stride(1) == 1 and x.stride(0) % 8 == 0 and x.data_ptr() % 16 == 0
+    # TMA: unit stride over the last dim, row stride and base pointer
+    # multiples of 16 bytes (8 elements), rows that do not overlap
+    return (x.stride(1) == 1 and x.stride(0) % 8 == 0 and x.stride(0) >= x.shape[1]
+            and x.data_ptr() % 16 == 0)
 
 
 def _rhs_ok(rhs):
+    # the same for rhs [E, K, N] with unit stride over N or over K
+    E, K, N = rhs.shape
     se, sk, sn = rhs.stride()
-    unit = sn == 1 and sk % 8 == 0 or sk == 1 and sn % 8 == 0
+    if sn == 1:
+        unit = sk % 8 == 0 and sk >= N and se >= sk * K
+    else:
+        unit = sk == 1 and sn % 8 == 0 and sn >= K and se >= sn * N
     return unit and se % 8 == 0 and rhs.data_ptr() % 16 == 0
 
 
@@ -163,8 +171,8 @@ def _check(name, block_m, *tensors):
 
 def launch_gmm(lhs, rhs, blk_e, act, block_m=KERNEL_BLOCK_M):
     """Launch gmm_bf16 of csrc/gmm.cu on the current stream: lhs [M, K], rhs
-    [E, K, N] with unit stride over N or over K, blk_e/act int32 [M / 128].
-    Returns out [M, N] bf16."""
+    [E, K, N] with unit stride over N or over K (other layouts are copied
+    first), blk_e/act int32 [M / 128]. Returns out [M, N] bf16."""
     global launches_gmm
     _check("gmm", block_m, lhs, rhs)
     M, K = lhs.shape
@@ -178,7 +186,7 @@ def launch_gmm(lhs, rhs, blk_e, act, block_m=KERNEL_BLOCK_M):
     act = act.to(device=lhs.device, dtype=torch.int32).contiguous()
     out = torch.empty((M, N), dtype=lhs.dtype, device=lhs.device)
     err = load_library("gmm").gmm_bf16(
-        ptr(lhs), ptr(rhs), ptr(blk_e), ptr(act), ptr(out), M, K, N,
+        ptr(lhs), ptr(rhs), ptr(blk_e), ptr(act), ptr(out), M, K, N, E,
         lhs.stride(0), *rhs.stride(), stream(lhs),
     )
     if err != 0:
@@ -189,8 +197,9 @@ def launch_gmm(lhs, rhs, blk_e, act, block_m=KERNEL_BLOCK_M):
 
 def launch_tgmm(lhs, dout, group_sizes, block_m=KERNEL_BLOCK_M):
     """Launch tgmm_bf16 of csrc/gmm.cu on the current stream: lhs [M, K],
-    dout [M, N], group_sizes int32 [E] (128-aligned). Returns [E, K, N]
-    bf16, zeros for an expert with no rows."""
+    dout [M, N], group_sizes int32 [E] (128-aligned, summing to at most M).
+    Returns [E, K, N] bf16, zeros for an expert with no rows. One kernel
+    launch; the kernel orders the experts itself, from group_sizes."""
     global launches_tgmm
     _check("tgmm", block_m, lhs, dout)
     M, K = lhs.shape

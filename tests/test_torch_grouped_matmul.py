@@ -9,9 +9,10 @@ another order); for bf16 operands the per-element rule that holds the CUDA
 kernels to the plain versions on the card (`error_ratio` <= 1: both round
 an fp32 sum to bf16). The port's gmm gradients are held to jax.grad of the
 JAX gmm (the Pallas custom VJP, interpreted) at 1e-5, and the layout
-helpers to JAX's element for element. The last test shows that the
+helpers to JAX's element for element. The fault test shows that the
 per-element rule accepts the kernels' tiled bf16 arithmetic and rejects
-three faults.
+planted faults (among them the ring's: a stale stage, a row slice dropped
+or summed twice).
 """
 
 import numpy as np
@@ -160,9 +161,15 @@ def test_gmm_dispatch_and_shape_checks():
         tgm.gmm(tl.to("meta"), tr.to("meta"), tg.to("meta"), BM)
 
 
+STAGES = 4  # the kernels' ring of 64-deep stages (csrc/gmm.cu kStages, kDepth)
+
+
 def _tiled_gmm(lhs, rhs, blk_e, act, fault):
     """gmm in the kernel's arithmetic: bf16 operands, fp32 sums of 64-deep
-    slices per 128-row block, bf16 out, with an optional fault."""
+    slices per 128-row block, bf16 out, with an optional fault.
+    `stale_ring_stage` multiplies lhs slice j with the rhs slice of the
+    stage loaded STAGES steps earlier (a ring stage reused before it was
+    refilled)."""
     blk_e, act = blk_e.clone(), act.clone()
     if fault == "blk_e_off_by_one":  # the table read one block late
         blk_e = torch.roll(blk_e, 1)
@@ -172,37 +179,50 @@ def _tiled_gmm(lhs, rhs, blk_e, act, fault):
     for i in range(blk_e.shape[0]):
         if act[i]:
             rows = slice(i * 128, (i + 1) * 128)
-            for k0 in range(0, lhs.shape[1], 64):
-                out[rows] += lhs[rows, k0:k0 + 64].float() @ rhs[blk_e[i], k0:k0 + 64].float()
+            for j, k0 in enumerate(range(0, lhs.shape[1], 64)):
+                kb = k0 - 64 * STAGES if fault == "stale_ring_stage" and j >= STAGES else k0
+                out[rows] += lhs[rows, k0:k0 + 64].float() @ rhs[blk_e[i], kb:kb + 64].float()
     return out.bfloat16()
 
 
 def _tiled_tgmm(lhs, dout, group_sizes, fault):
     """tgmm in the kernel's arithmetic: fp32 sums of 64-row slices of each
-    expert's rows; `no_reset` carries the sum across expert boundaries."""
+    expert's rows; `no_reset` carries the sum across expert boundaries;
+    `stale_ring_stage` pairs lhs slice j with the dout slice STAGES steps
+    earlier; `dropped_row_slice` skips the last slice of the largest
+    expert; `row_slice_twice` adds its first slice twice."""
     E = group_sizes.shape[0]
     out = torch.zeros(E, lhs.shape[1], dout.shape[1])
     acc = torch.zeros(lhs.shape[1], dout.shape[1])
+    largest = int(torch.argmax(group_sizes))
     start = 0
     for e in range(E):
         if fault != "tgmm_no_reset":
             acc = torch.zeros_like(acc)
-        for r0 in range(start, start + int(group_sizes[e]), 64):
-            acc = acc + lhs[r0:r0 + 64].float().T @ dout[r0:r0 + 64].float()
+        slices = list(range(start, start + int(group_sizes[e]), 64))
+        for j, r0 in enumerate(slices):
+            if fault == "dropped_row_slice" and e == largest and j == len(slices) - 1:
+                continue
+            rb = r0 - 64 * STAGES if fault == "stale_ring_stage" and j >= STAGES else r0
+            times = 2 if fault == "row_slice_twice" and e == largest and j == 0 else 1
+            for _ in range(times):
+                acc = acc + lhs[r0:r0 + 64].float().T @ dout[rb:rb + 64].float()
         out[e] = acc
         start += int(group_sizes[e])
     return out.bfloat16()
 
 
-@pytest.mark.parametrize("fault", ["none", "blk_e_off_by_one", "dropped_last_block", "tgmm_no_reset"])
+@pytest.mark.parametrize("fault", ["none", "blk_e_off_by_one", "dropped_last_block", "tgmm_no_reset",
+                                   "stale_ring_stage", "dropped_row_slice", "row_slice_twice"])
 def test_error_rule_rejects_gmm_faults(fault):
     """The rule that holds gmm and tgmm to their plain versions on the card
     (`error_ratio` <= 1) accepts the tiled bf16 arithmetic and rejects a
-    block -> expert table off by one block, a dropped last active block and
-    a tgmm that does not reset its sum at an expert boundary."""
+    block -> expert table off by one block, a dropped last active block, a
+    tgmm that does not reset its sum at an expert boundary, a stale ring
+    stage, and a 64-row slice of tgmm's sum dropped or added twice."""
     gen = torch.Generator().manual_seed(0)
     gs = torch.tensor([256, 0, 128, 384], dtype=torch.int32)  # one empty group, one of 128 rows
-    Mk, Kk, Nk = 1024, 256, 192  # two trailing inactive blocks
+    Mk, Kk, Nk = 1024, 384, 192  # two trailing inactive blocks; six 64-deep slices
     lhs = torch.randn(Mk, Kk, generator=gen).bfloat16()
     lhs[int(gs.sum()):] = 0
     rhs = torch.randn(4, Kk, Nk, generator=gen).bfloat16()

@@ -177,19 +177,54 @@ def _moe_layout(cuda, A, E=8):
     return tgm.aligned_group_layout(flat_e, E, 128, src_of=src_of, sentinel=A // 2)
 
 
+def _assignments(cuda, layout, A, E=8):
+    """The expert of each assignment for a named layout: all A on one
+    expert, every expert exactly 128 rows, or 128 on one expert (a single
+    128-row M)."""
+    if layout == "one_expert":
+        return torch.full((A,), 3, device=cuda)
+    if layout == "all_128":
+        gen = torch.Generator(device=cuda).manual_seed(A)
+        flat_e = torch.arange(E, device=cuda).repeat_interleave(128)
+        return flat_e[torch.randperm(E * 128, generator=gen, device=cuda)]
+    return torch.full((128,), 6, device=cuda)  # single_block
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("K,N", [(768, 3072), (3072, 768)])
-def test_gmm_kernels_match_plain_versions_on_card(cuda, K, N):
+@pytest.mark.parametrize("layout,K,N", [
+    ("skewed", 768, 3072), ("skewed", 3072, 768), ("one_expert", 768, 3072), ("all_128", 768, 3072),
+    ("single_block", 768, 3072), ("skewed", 768, 192), ("strided_lhs", 768, 3072),
+])
+def test_gmm_kernels_match_plain_versions_on_card(cuda, layout, K, N):
     """Autograd through gmm launches gmm once forward, then gmm (dlhs, on
     the transposed view) and tgmm once each; all three agree with the plain
-    versions, padding rows of the output and the empty expert's drhs are 0."""
-    dest, gs, P, src = _moe_layout(cuda, 2048)
+    versions, padding rows of the output and the empty experts' drhs are 0.
+    Layouts: skewed routing (an empty expert, one of exactly 128 rows,
+    trailing inactive blocks), every assignment on one expert, every expert
+    exactly 128 rows, a single 128-row M; N = 192 (a tile past the last 64
+    columns); an lhs whose row stride exceeds K."""
+    if layout in ("skewed", "strided_lhs"):
+        dest, gs, P, src = _moe_layout(cuda, 2048)
+        sentinel = 1024
+    else:
+        flat_e = _assignments(cuda, layout, 1000)
+        A = flat_e.shape[0]
+        sentinel = A
+        _, gs, P, src = tgm.aligned_group_layout(flat_e, 8, 128, src_of=torch.arange(A, device=cuda),
+                                                 sentinel=sentinel)
+        if layout == "single_block":
+            P = 128  # no worst-case padding: M is one block
+            src = src[:P]
     gen = torch.Generator(device=cuda).manual_seed(1)
-    pad = src == 1024
+    pad = src == sentinel
     lhs = torch.randn(P, K, generator=gen, device=cuda).bfloat16().masked_fill(pad[:, None], 0)
     rhs = torch.randn(8, K, N, generator=gen, device=cuda).bfloat16()
     dout = torch.randn(P, N, generator=gen, device=cuda).bfloat16()
-    leaves = [lhs.clone().requires_grad_(), rhs.clone().requires_grad_()]
+    if layout == "strided_lhs":  # the same values in rows of K + 64
+        base = torch.zeros(P, K + 64, device=cuda).bfloat16()
+        base[:, :K] = lhs
+        lhs = base[:, :K]
+    leaves = [lhs.detach().requires_grad_(), rhs.clone().requires_grad_()]
     before = (tgm.launches_gmm, tgm.launches_tgmm)
     out = tgm.gmm(*leaves, gs)
     dlhs, drhs = torch.autograd.grad(out, leaves, dout)
@@ -198,7 +233,8 @@ def test_gmm_kernels_match_plain_versions_on_card(cuda, K, N):
     assert tgm.error_ratio(out, tgm.gmm_reference(lhs, rhs, gs)) <= 1.0
     assert tgm.error_ratio(dlhs, tgm.gmm_reference(dout, rhs.transpose(1, 2), gs)) <= 1.0
     assert tgm.error_ratio(drhs, tgm.tgmm_reference(lhs, dout, gs)) <= 1.0
-    assert bool((out[pad] == 0).all()) and bool((drhs[2] == 0).all())
+    assert bool((out[pad] == 0).all()) and bool((dlhs[int(gs.sum()):] == 0).all())  # inactive blocks
+    assert all(bool((drhs[e] == 0).all()) for e in range(8) if int(gs[e]) == 0)
 
 
 @pytest.mark.cuda
