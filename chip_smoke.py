@@ -2,13 +2,17 @@
 """Drive the PyTorch / CUDA port (contrastors_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only {moe_kernels,moe} [--tree DIR]
+    python3 chip_smoke.py --only {moe_kernels,moe,flash_bwd,dense} [--tree DIR]
 
 The second form runs phases 1, 2 and 9 (moe_kernels), or 1, 2 and 9-12
 without the gradient agreement (moe: the kernels, MoE serving and the MoE
-step's timing and profile), on this checkout's package or on the one
-under DIR (another checkout, e.g. the parent commit unpacked by `git
-archive`), so that two versions can be timed in turns on one card.
+step's timing and profile), or (flash_bwd) 1, 2, the backward checks of 4
+and 13, the backward timing of 8 (the whole backward only) and the MLM
+step's timing, fused and outside in turns, or (dense) 1, 2 and the dense
+step of 7-8 (launches, timing, profile; no gradient agreement), on this
+checkout's package or on the one under DIR (another checkout, e.g. the
+parent commit unpacked by `git archive`), so that two versions can be
+timed in turns on one card.
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions; TF32 off.
@@ -19,10 +23,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
      lengths, the multi-tile regime at 4096/8192, causal S != T, window,
      segments, GQA, D=128, and the training step's two shapes, B=512 S=32
      and B=16 S=256).
-  4. kernel_check_bwd: the two backward kernels (dq; dk/dv) against the
-     plain backward on the same O and LSE, with a strided dO, in 13 of those
-     cases (the training shapes included); dq must be 0 on the fully masked
-     row.
+  4. kernel_check_bwd: the two backward kernels (dq, which also computes
+     delta; dk/dv) against the plain backward on the same O and LSE, with a
+     strided dO, in 13 of those cases (the training shapes included) and in
+     the edges of the kernels' persistent walk (S = T = 1, 65, 129 at D = 64
+     and 128, B * H = 143, GQA with Hkv = 4 at S = 2048); dq must be 0 on
+     the fully masked row, and a second run bit-identical to the first.
   5. main_path: a full-width nomic-bert-2048 BiEncoder (bf16, random weights
      from a seed) answers encode requests through the port's Encoder at
      batch 256 / seq_len 512, then one long-context NTK batch at S=4096. Each
@@ -33,23 +39,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
      beside its bound, its plain version and torch's
      scaled_dot_product_attention (a yardstick only; the port never calls
      it), at B=256 S=512 and B=16 S=4096.
-  7. train_step: the text GradCache step at full width (the JAX headline
-     geometry: 512 pairs, query 32 / document 256 tokens, chunk 16, every
-     query chunk direct, document chunks cached, AdamW lr 2e-4 wd 0.01 clip
-     1.0, LogitScale(50) fixed) takes 5 steps on one batch whose documents
-     start with their query's tokens. Each step's launch counts, set to 0
+  7. dead_row_check and train_step: attention_core(impl="flash") with a
+     mask only at kv 256, as the step's document chunks call it (and with
+     GQA and fused rotary), on a batch whose last row has no valid key:
+     output and q/k/v gradients against fp32 SDPA, the dead row (SDPA's
+     uniform softmax) within 2^-6 max |ref| and 2^-7 relative L2, the live
+     rows at cosine >= 0.9999. Then the text GradCache step at full width
+     (the JAX headline geometry: 512 pairs, query 32 / document 256 tokens,
+     chunk 16, every query chunk direct, document chunks cached, AdamW lr
+     2e-4 wd 0.01 clip 1.0, LogitScale(50) fixed) takes 5 steps on one
+     batch whose documents start with their query's tokens. Each step's launch counts, set to 0
      before it, must be n_layer x its forwards (780) and backwards (396, dq
      and dk/dv each); losses finite and falling. Then, at 64 pairs: the
      grad-cache grads against the standard step's, and the flash step's
      against attn_impl="sdpa"'s, per tensor; two faulty steps (the backward
-     kernels given delta = 0; pass 2 replaying each document chunk with its
-     rows rotated) must fall outside those bounds.
+     kernels given O = 0, so delta = 0; pass 2 replaying each document chunk
+     with its rows rotated) must fall outside those bounds.
   8. train_timing and kernel_timing_bwd: step time, pairs/s and tokens/s;
      one profiled step split into its phases (the profiler ranges of
-     grad_cache.py and the trainer); each backward kernel at the two
-     main-path shapes (B=512 S=32, B=16 S=256), checked once more against
-     its plain version, beside its bound, the plain backward and torch
-     SDPA's backward (autograd, forward+backward minus forward).
+     grad_cache.py and the trainer); the whole backward and each backward
+     kernel at the main-path shapes (B=512 S=32, B=16 S=256, and the MLM
+     step's B=8 S=2048 plain and with fused rotary, all with the steps'
+     all-ones mask), checked once more against the plain version, as ms,
+     device_ms and enqueue us, beside its bound, the plain backward and
+     torch SDPA's backward (autograd, forward+backward minus forward).
 The dropless MoE path (nomic-bert-2048 with 8 experts, top-2, MoE on every
 second layer: 6 MoE layers, ~435M parameters):
   9. kernel_check_gmm and moe_kernel_timing (after phase 4): gmm, dlhs
@@ -92,8 +105,10 @@ MLM pretraining step:
      (B=8 S=2048 H=12 D=64, NeoX), an encode batch with padding (256 x
      512), packed rows (B=4 S=2048, three segments per row, positions
      restarting: per-batch tables), interleaved rotary over 32 of 64
-     features, GQA (Hkv=4), S=300 and D=128; at the MLM shape the backward
-     kernels given negated sin tables (the wrong adjoint) must fall outside.
+     features, GQA (Hkv=4), S=300 and D=128, and the walk's edges (S = 1,
+     65, 129 at D = 128, B * H = 143, GQA at S = 2048); every backward
+     bit-identical on a second run; at the MLM shape the backward kernels
+     given negated sin tables (the wrong adjoint) must fall outside.
  14. fused_encode (after phase 6): the encode batch of 256 x 512 with
      fused_rotary=True, 12 fused launches, cosine >= 0.999 against the
      outside rotation.
@@ -113,8 +128,8 @@ MLM pretraining step:
      tensor against the unfused kernels and against sdpa (cosine >= 0.999),
      with the negated-sin fault outside.
 Kernel times (ms) are CUDA-event times of calls made on an idle card, so a
-short kernel's time holds the host's enqueue; phase 9 gives beside them
-the device's work alone (device_ms: each call queued behind a device
+short kernel's time holds the host's enqueue; phases 8 and 9 give beside
+them the device's work alone (device_ms: each call queued behind a device
 sleep) and the host's enqueue per call, for the kernels and the library.
 Every timing line carries the card's SM clock, power draw and temperature,
 and every phase line the seconds since the start (t); the command_time line
@@ -175,11 +190,12 @@ def ptxas_usage(log):
     nvcc -Xptxas=-v output (dynamic shared memory is set at the launch)."""
     usage, fn = {}, None
     for line in log.splitlines():
-        m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv))(_rot)?_kernelILi(\d+)E(?:Lb([01])E)?|(t?gmm_kernel)(?:ILb([01])E)?",
-                      line)
-        if m and m.group(1):
-            rotary = ", rotary" if m.group(2) or m.group(4) == "1" else ""
-            fn, spill = f"{m.group(1)}_kernel<{m.group(3)}{rotary}>", "?"
+        m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv))_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?"
+                      r"|(t?gmm_kernel)(?:ILb([01])E)?", line)
+        if m and m.group(1):  # <D[, consumer warpgroups][, rotary]>
+            groups = f", {m.group(3)} warpgroups" if m.group(3) else ""
+            rotary = ", rotary" if m.group(4) == "1" else ""
+            fn, spill = f"{m.group(1)}_kernel<{m.group(2)}{groups}{rotary}>", "?"
         elif m:
             layout = {"0": "<false>", "1": "<true>", None: ""}[m.group(6)]
             fn, spill = m.group(5) + layout, "?"
@@ -247,12 +263,16 @@ def _bound(flops, nbytes):
 def backward_bound(kernel, B, S, T, H, Hkv, D, masked=True):
     """Least time for one backward kernel on this card, all (row, col) pairs
     live: dq runs 3 products (q k^T, dO v^T, ds k), dk/dv 4 (q k^T, dO v^T,
-    p^T dO, ds^T q), each 2*D FLOP per pair and q head; bytes are q, k, v,
-    dO, LSE and delta (and the ids) read once and dq, or dk and dv, written
-    once."""
-    products, out_bytes = (3, 2 * B * S * H * D) if kernel == "dq" else (4, 4 * B * T * Hkv * D)
+    p^T dO, ds^T q), each 2*D FLOP per pair and q head. Bytes are what each
+    kernel must move once: dq reads q, k, v, dO, O and LSE (and the ids) and
+    writes dq and delta; dk/dv reads q, k, v, dO, LSE and delta (and the ids)
+    and writes dk and dv."""
+    qkv = 2 * (B * S * H * D + 2 * B * T * Hkv * D)
+    if kernel == "dq":
+        products, nbytes = 3, qkv + 2 * 2 * B * S * H * D + 4 * B * H * S + 2 * B * S * H * D + 4 * B * H * S
+    else:
+        products, nbytes = 4, qkv + 2 * B * S * H * D + 8 * B * H * S + 4 * B * T * Hkv * D
     flops = products * 2.0 * D * H * B * S * T
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * T * Hkv * D) + 8 * B * H * S + out_bytes
     if masked:
         nbytes += 4 * (B * S + B * T)
     return _bound(flops, nbytes)
@@ -347,7 +367,8 @@ def step_grads(impl, grad_cache, dev, qb, db, moe=False):
 @contextlib.contextmanager
 def planted_fault(kind):
     """A fault planted in the step, to show that the agreement bounds reject
-    it: "no_delta" gives the backward kernels delta = 0; "rolled_replay"
+    it: "no_delta" hands the backward kernels O = 0, so the dq kernel
+    computes delta = 0 for both; "rolled_replay"
     makes pass 2 replay each document chunk with its rows rotated by one,
     so each row's embedding receives another row's cotangent; "tgmm_roll"
     makes tgmm write expert e's gradient into expert (e + 1) mod E;
@@ -365,9 +386,9 @@ def planted_fault(kind):
             return torch.roll(orig(*args), 1, 0)
         patches = [(gm, "launch_tgmm", patched)]
     elif kind == "no_delta":
-        def patched(*args, orig=fa.prepare_backward):
+        def patched(*args, orig=fa.prepare_backward):  # O = 0: the dq kernel computes delta = 0
             inputs = orig(*args)
-            return (*inputs[:5], torch.zeros_like(inputs[5]), *inputs[6:])
+            return (*inputs[:4], torch.zeros_like(inputs[4]), *inputs[5:])
         patches = [(fa, "prepare_backward", patched)]
     elif kind == "negated_sin":
         def negated(orig):
@@ -629,9 +650,9 @@ STD_PHASES = ("train_step/forward", "train_step/backward", "train_step/optimizer
 
 
 def profile_step(run, step_ms, phases=GC_PHASES):
-    """One step, run(), under torch.profiler: busy time by kernel group, the
-    split at the profiler ranges, and the device-to-host copies and host
-    syncs."""
+    """One step, run(), under torch.profiler: busy time by kernel group and
+    of the 12 largest kernels outside the named groups, the split at the
+    profiler ranges, and the device-to-host copies and host syncs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -643,7 +664,7 @@ def profile_step(run, step_ms, phases=GC_PHASES):
     # one pass over the events: key_averages() takes minutes on a step's
     # ~1M host events, this loop about a second
     split = {name: {} for name in phases}
-    by_group, busy_ms, launches, dtoh, items = {}, 0.0, 0, 0, 0
+    by_group, other, busy_ms, launches, dtoh, items = {}, {}, 0.0, 0, 0, 0
     for e in prof.events():
         on_device = e.device_type == torch.autograd.DeviceType.CUDA
         if e.name in split:
@@ -655,9 +676,14 @@ def profile_step(run, step_ms, phases=GC_PHASES):
             ms = e.self_device_time_total / 1e3
             busy_ms += ms
             launches += 1
-            g = by_group.setdefault(kernel_group(e.name), [0.0, 0])
+            group = kernel_group(e.name)
+            g = by_group.setdefault(group, [0.0, 0])
             g[0] += ms
             g[1] += 1
+            if group == OTHER:
+                g = other.setdefault(e.name[:120], [0.0, 0])
+                g[0] += ms
+                g[1] += 1
         if "DtoH" in e.name:
             dtoh += 1
         elif e.name == "aten::item":
@@ -666,18 +692,23 @@ def profile_step(run, step_ms, phases=GC_PHASES):
                 idle_share_of_step=1.0 - busy_ms / step_ms, profiled_step_ms=profiled_ms, split=split,
                 by_group={k: dict(ms=v[0], launches=v[1])
                           for k, v in sorted(by_group.items(), key=lambda kv: -kv[1][0])},
+                top_other={k: dict(ms=v[0], launches=v[1])
+                           for k, v in sorted(other.items(), key=lambda kv: -kv[1][0])[:12]},
                 device_to_host_copies=dtoh, item_calls=items)
+
+
+OTHER = "other (elementwise, reductions, copies)"
 
 
 def kernel_group(name):
     """The profile's group of a device event: each kernel of the port by
     name, cuBLAS products, and the rest."""
-    m = re.search(r"flash_\w+_kernel<\d+(?:, (?:true|false))?>|tgmm_kernel|gmm_kernel", name)
+    m = re.search(r"flash_\w+_kernel<\d+(?:, \d+)?(?:, (?:true|false))?>|tgmm_kernel|gmm_kernel", name)
     if m:
         return m.group(0)
     if "gemm" in name or "nvjet" in name or "cutlass" in name or "sm90" in name:
         return "matmul"
-    return "other (elementwise, reductions, copies)"
+    return OTHER
 
 
 def moe_training(dev, card, agreement=True):
@@ -967,6 +998,216 @@ def moe_kernels(dev, card):
     return errs, rows_out
 
 
+# The flash kernels' check cases: (name, shape, options). mask=(full, empty)
+# gives random lengths with `full` rows whole and `empty` rows fully masked.
+FWD_CASES = [
+    ("pad_b8_s512_empty_row", dict(B=8, S=512, T=512, H=12, Hkv=12, D=64), dict(mask=(1, 1))),
+    ("pad_b256_s512", dict(B=256, S=512, T=512, H=12, Hkv=12, D=64), dict(mask=(1, 0))),
+    ("s16", dict(B=4, S=16, T=16, H=12, Hkv=12, D=64), dict(mask=(1, 0))),
+    ("s32", dict(B=4, S=32, T=32, H=12, Hkv=12, D=64), dict(mask=(1, 0))),
+    ("s200", dict(B=4, S=200, T=200, H=12, Hkv=12, D=64), dict(mask=(1, 0))),
+    ("s256", dict(B=4, S=256, T=256, H=12, Hkv=12, D=64), dict(mask=(1, 0))),
+    ("s4096", dict(B=1, S=4096, T=4096, H=12, Hkv=12, D=64), dict(mask=(1, 0))),
+    ("s8192", dict(B=1, S=8192, T=8192, H=12, Hkv=12, D=64), dict()),
+    ("causal_s200_t700", dict(B=2, S=200, T=700, H=12, Hkv=12, D=64), dict(causal=True)),
+    ("window128_s1000", dict(B=2, S=1000, T=1000, H=12, Hkv=12, D=64), dict(window=128)),
+    ("segments_s512", dict(B=2, S=512, T=512, H=12, Hkv=12, D=64), dict(segments=True)),
+    ("gqa_hkv4_s512", dict(B=2, S=512, T=512, H=12, Hkv=4, D=64), dict(mask=(1, 0))),
+    ("d128_s384", dict(B=2, S=384, T=384, H=8, Hkv=8, D=128), dict(mask=(1, 0))),
+    # the training step's shapes: the direct query tower and a document chunk
+    ("train_q_b512_s32", dict(B=512, S=32, T=32, H=12, Hkv=12, D=64), dict(mask=(512, 0))),
+    ("train_d_b16_s256", dict(B=16, S=256, T=256, H=12, Hkv=12, D=64), dict(mask=(16, 0))),
+]
+# the backward kernels: the forward's cases but the two largest, and the
+# edges of the persistent walk: one row, partial last tiles (65, 129; the
+# kernels' items are 128 rows at D = 64, 64 at D = 128), B * H = 143 items
+# (not a multiple of the 132 SMs), GQA at the MLM length
+BWD_CASES = [c for c in FWD_CASES if c[0] not in ("pad_b256_s512", "s8192")] + [
+    ("s1", dict(B=4, S=1, T=1, H=12, Hkv=12, D=64), dict(mask=(4, 0))),
+    ("s65", dict(B=3, S=65, T=65, H=12, Hkv=12, D=64), dict(mask=(1, 0))),
+    ("s129_gqa", dict(B=3, S=129, T=129, H=12, Hkv=4, D=64), dict(mask=(1, 0))),
+    ("d128_s129", dict(B=2, S=129, T=129, H=8, Hkv=8, D=128), dict(mask=(1, 0))),
+    ("bh143_s96", dict(B=11, S=96, T=96, H=13, Hkv=13, D=64), dict(mask=(1, 0))),
+    ("gqa_hkv4_s2048", dict(B=1, S=2048, T=2048, H=12, Hkv=4, D=64), dict(mask=(1, 0))),
+]
+
+
+def make_qkv(gen, dev, B, S, T, H, Hkv, D):
+    """bf16 q, k, v: views of one fused projection when S == T and H == Hkv,
+    as the model gives them."""
+    import torch
+
+    if S == T and H == Hkv:
+        x = torch.randn(B, S, 3, H, D, generator=gen, device=dev).bfloat16()
+        return x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    return tuple(torch.randn(B, L, h, D, generator=gen, device=dev).bfloat16()
+                 for L, h in ((S, H), (T, Hkv), (T, Hkv)))
+
+
+def case_inputs(gen, dev, shp, opt):
+    """q, k, v and the keyword arguments of one FWD_CASES / BWD_CASES case."""
+    import torch
+
+    q, k, v = make_qkv(gen, dev, *(shp[n] for n in ("B", "S", "T", "H", "Hkv", "D")))
+    kw = dict(causal=opt.get("causal", False), window=opt.get("window", 0))
+    if "mask" in opt:
+        B, T = shp["B"], shp["T"]
+        full_rows, empty_rows = opt["mask"]
+        lens = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
+        lens[:full_rows] = T
+        if empty_rows:
+            lens[B - empty_rows:] = 0
+        kw["attention_mask"] = (torch.arange(T, device=dev)[None] < lens[:, None]).int()
+    if opt.get("segments"):
+        seg = torch.zeros(shp["B"], shp["S"], dtype=torch.int32, device=dev)
+        seg[:, :100], seg[:, 100:300], seg[:, 300:450] = 1, 2, 3  # 450.. is padding
+        kw["segment_ids"] = seg
+    return q, k, v, kw
+
+
+def forward_checks(dev, gen):
+    """Phase kernel_check: the forward kernel against its plain version in
+    FWD_CASES. Returns {case: max abs error of O}."""
+    import torch
+
+    from contrastors_tpu_torch.ops import flash_attention as fa
+
+    o_errs = {}
+    for name, shp, opt in FWD_CASES:
+        q, k, v, kw = case_inputs(gen, dev, shp, opt)
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        o_err = (out.float() - ref_out.float()).abs().max().item()
+        o_ratio = fa.output_error_ratio(out, ref_out)
+        lse_err = (lse - ref_lse).abs().max().item()
+        ok = o_ratio <= 1.0 and lse_err <= fa.LSE_ATOL and bool(torch.isfinite(out.float()).all())
+        if name.endswith("empty_row"):
+            ok = ok and bool((out[-1] == 0).all()) and bool((lse[-1] == fa.NEG_INF).all())
+        o_errs[name] = o_err
+        emit(phase="kernel_check", case=name, **shp, o_max_abs_err=o_err,
+             o_ref_abs_max=ref_out.float().abs().max().item(),
+             o_ref_abs_mean=ref_out.float().abs().mean().item(),
+             o_tol=f"{fa.O_REL:g}*|ref| + {fa.O_ABS_FRAC:g}*max|ref|", o_err_over_tol=o_ratio,
+             lse_max_abs_err=lse_err, lse_tol=fa.LSE_ATOL, ok=ok)
+        if not ok:
+            raise AssertionError(f"flash kernel disagrees with its plain version in case {name}")
+        del q, k, v, out, lse, ref_out, ref_lse
+    torch.cuda.empty_cache()
+    return o_errs
+
+
+def grad_check(grad, ref, name, dv_ref, single_key):
+    """(max abs error, error over tolerance) of one backward output: the
+    per-element rule (`grad_error_ratio`), except for dq and dk with a
+    single key, where p = 1 makes ds = dp - delta zero in exact arithmetic
+    and both sides hold rounding noise: there |grad| <= 2^-8 * max |dv|."""
+    from contrastors_tpu_torch.ops import flash_attention as fa
+
+    err = (grad.float() - ref.float()).abs().max().item()
+    if single_key and name != "dv":
+        return err, grad.float().abs().max().item() / (2.0**-8 * dv_ref.float().abs().max().item())
+    return err, fa.grad_error_ratio(grad, ref, name)
+
+
+def backward_checks(dev, gen):
+    """Phase kernel_check_bwd: the two backward kernels (dq; dk/dv) against
+    the plain backward on the same O and LSE, with a strided dO, in
+    BWD_CASES; dq exactly 0 on a fully masked row; a second run bit-identical
+    to the first. Returns {"dq"|"dk"|"dv": {case: max abs error}}."""
+    import torch
+
+    from contrastors_tpu_torch.ops import flash_attention as fa
+
+    grad_errs = {"dq": {}, "dk": {}, "dv": {}}
+    for name, shp, opt in BWD_CASES:
+        q, k, v, kw = case_inputs(gen, dev, shp, opt)
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        # a strided dO, as a view of a wider buffer
+        dout = torch.randn(*out.shape[:3], out.shape[3] + 8, generator=gen, device=dev).bfloat16()
+        dout = dout[..., : out.shape[3]]
+        grads = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+        again = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        refs = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        line = dict(deterministic=all(bool(torch.equal(a, b)) for a, b in zip(grads, again)))
+        ok = line["deterministic"]
+        for g, r, gname in zip(grads, refs, ("dq", "dk", "dv")):
+            err, ratio = grad_check(g, r, gname, refs[2], shp["T"] == 1)
+            grad_errs[gname][name] = err
+            line.update({f"{gname}_max_abs_err": err, f"{gname}_ref_abs_max": r.float().abs().max().item(),
+                         f"{gname}_err_over_tol": ratio})
+            ok = ok and ratio <= 1.0 and bool(torch.isfinite(g.float()).all())
+        if name.endswith("empty_row"):
+            line["dq_empty_row_zero"] = bool((grads[0][-1] == 0).all())
+            ok = ok and line["dq_empty_row_zero"]
+        emit(phase="kernel_check_bwd", case=name, **shp, **line,
+             tol={n: f"{fa.GRAD_REL:g}*|ref| + {fa.GRAD_ABS_FRAC[n]:g}*max|ref|" for n in grad_errs},
+             ok=ok)
+        if not ok:
+            raise AssertionError(f"flash backward kernels disagree with their plain version, or are not "
+                                 f"deterministic, in case {name}")
+        del q, k, v, out, lse, dout, grads, again, refs
+    torch.cuda.empty_cache()
+    return grad_errs
+
+
+# attention_core(impl="flash") with a mask only below kv 512, where a batch
+# row with no valid key takes SDPA's mean(v) and its gradient: the dense
+# step's document chunk, and GQA with fused rotary
+DEAD_ROW_CASES = [
+    ("doc_b16_s256", dict(B=16, S=256, H=12, Hkv=12, D=64), False),
+    ("gqa_rot_b4_s256", dict(B=4, S=256, H=12, Hkv=4, D=64), True),
+]
+
+
+def dead_row_check(dev, gen):
+    """Phase dead_row_check: attention_core(impl="flash") on the card, bf16,
+    with the last batch row's mask all 0, output and q/k/v gradients against
+    attention_core(impl="sdpa") in fp32 on the same values. In the dead row
+    (batch rows are independent, so all of its dq, dk and dv come from the
+    uniform softmax, which the kernels compute on the row's scaled k) each
+    tensor's max |err| must stay within 2^-6 max |ref| and its relative L2
+    error within 2^-7; in the live rows, cosine >= 0.9999 (bf16 kernels
+    against fp32 SDPA)."""
+    import torch
+
+    from contrastors_tpu_torch.layers.rotary import rotary_cos_sin
+    from contrastors_tpu_torch.ops import attention_core
+
+    for name, shp, rotary in DEAD_ROW_CASES:
+        B, S, H, Hkv, D = (shp[n] for n in ("B", "S", "H", "Hkv", "D"))
+        q, k, v, kw = case_inputs(gen, dev, dict(shp, T=S), dict(mask=(1, 1)))
+        if rotary:
+            kw["rotary_cos"], kw["rotary_sin"] = rotary_cos_sin(S, D, device=dev)
+        dout = torch.randn(q.shape, generator=gen, device=dev)
+        runs = {}
+        for impl, dtype in (("flash", torch.bfloat16), ("sdpa", torch.float32)):
+            leaves = [x.detach().to(dtype).requires_grad_() for x in (q, k, v)]
+            out = attention_core(*leaves, impl=impl, **kw)
+            out.backward(dout.to(dtype))
+            runs[impl] = [out.detach()] + [x.grad for x in leaves]
+        torch.cuda.synchronize()
+        line, ok = {}, True
+        for tname, got, ref in zip(("out", "dq", "dk", "dv"), runs["flash"], runs["sdpa"]):
+            got, ref = got.double(), ref.double()
+            err, dead = (got[-1] - ref[-1]).abs(), ref[-1].abs()
+            cos = torch.nn.functional.cosine_similarity(got[:-1].flatten(), ref[:-1].flatten(), dim=0).item()
+            line[tname] = dict(dead_max_err_over_max_ref=(err.max() / dead.max()).item(),
+                               dead_rel_l2=(err.norm() / dead.norm()).item(), live_cosine=cos)
+            ok = (ok and line[tname]["dead_max_err_over_max_ref"] <= 2**-6 and line[tname]["dead_rel_l2"] <= 2**-7
+                  and cos >= 0.9999 and bool(torch.isfinite(got).all()))
+        emit(phase="dead_row_check", case=name, **shp, rotary=rotary, **line,
+             bounds=dict(dead_max_err_over_max_ref=2**-6, dead_rel_l2=2**-7, live_min_cosine=0.9999), ok=ok)
+        if not ok:
+            raise AssertionError(f"attention_core(impl='flash') disagrees with sdpa on a batch row "
+                                 f"with no valid key, or on the live rows, in case {name}")
+        del q, k, v, dout, runs
+    torch.cuda.empty_cache()
+
+
 # The fused-rotary kernels' check cases: (name, shape, options). The MLM
 # step's shape; an encode batch with padding; packed rows (three segments
 # per row, positions restarting at each: per-batch tables); interleaved
@@ -979,6 +1220,12 @@ FUSED_CASES = [
     ("gqa_hkv4_s512", dict(B=2, S=512, H=12, Hkv=4, D=64), dict(mask=True)),
     ("unaligned_s300", dict(B=4, S=300, H=12, Hkv=12, D=64), dict(mask=True)),
     ("d128_s384", dict(B=2, S=384, H=8, Hkv=8, D=128), dict(mask=True)),
+    # the edges of the backward kernels' persistent walk, as in BWD_CASES
+    ("s1", dict(B=4, S=1, H=12, Hkv=12, D=64), dict()),
+    ("s65", dict(B=3, S=65, H=12, Hkv=12, D=64), dict(mask=True)),
+    ("d128_s129", dict(B=2, S=129, H=8, Hkv=8, D=128), dict(mask=True)),
+    ("bh143_s96", dict(B=11, S=96, H=13, Hkv=13, D=64), dict(mask=True)),
+    ("gqa_hkv4_s2048", dict(B=1, S=2048, H=12, Hkv=4, D=64), dict()),
 ]
 
 
@@ -1013,7 +1260,8 @@ def rotary_case(dev, gen, B, S, H, Hkv, D, rot_dim=None, interleaved=False, mask
 
 def fused_kernel_checks(dev, gen):
     """Phase fused_kernel_check: the fused-rotary forward, dq and dk/dv
-    kernels against their plain versions in FUSED_CASES, with a strided dO;
+    kernels against their plain versions in FUSED_CASES, with a strided dO,
+    a second backward bit-identical to the first;
     at the MLM shape the backward kernels given negated sin tables must fall
     outside the rule. Returns {"fwd"|"dq"|"dk"|"dv": max abs error}."""
     import torch
@@ -1027,20 +1275,22 @@ def fused_kernel_checks(dev, gen):
         dout = torch.randn(*out.shape[:3], out.shape[3] + 8, generator=gen, device=dev).bfloat16()
         dout = dout[..., : out.shape[3]]
         grads = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+        again = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
         refs = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw)
         torch.cuda.synchronize()
         line = dict(o_max_abs_err=(out.float() - ref_out.float()).abs().max().item(),
                     o_err_over_tol=fa.output_error_ratio(out, ref_out),
-                    lse_max_abs_err=(lse - ref_lse).abs().max().item())
+                    lse_max_abs_err=(lse - ref_lse).abs().max().item(),
+                    deterministic=all(bool(torch.equal(a, b)) for a, b in zip(grads, again)))
         ok = (line["o_err_over_tol"] <= 1.0 and line["lse_max_abs_err"] <= fa.LSE_ATOL
-              and bool(torch.isfinite(out.float()).all()))
+              and bool(torch.isfinite(out.float()).all()) and line["deterministic"])
         errs["fwd"] = max(errs["fwd"], line["o_max_abs_err"])
         for g, r, gname in zip(grads, refs, ("dq", "dk", "dv")):
-            err = (g.float() - r.float()).abs().max().item()
+            err, ratio = grad_check(g, r, gname, refs[2], shp["S"] == 1)
             errs[gname] = max(errs[gname], err)
-            line[f"{gname}_max_abs_err"], line[f"{gname}_err_over_tol"] = err, fa.grad_error_ratio(g, r, gname)
+            line[f"{gname}_max_abs_err"], line[f"{gname}_err_over_tol"] = err, ratio
             ok = ok and line[f"{gname}_err_over_tol"] <= 1.0 and bool(torch.isfinite(g.float()).all())
         if name == "mlm_b8_s2048":
             with planted_fault("negated_sin"):
@@ -1055,7 +1305,7 @@ def fused_kernel_checks(dev, gen):
         if not ok:
             raise AssertionError(f"fused-rotary kernels disagree with their plain versions in case {name}, "
                                  "or the planted fault is inside the bound")
-        del q, k, v, kw, out, lse, dout, grads, ref_out, ref_lse, refs
+        del q, k, v, kw, out, lse, dout, grads, again, ref_out, ref_lse, refs
     torch.cuda.empty_cache()
     return errs
 
@@ -1130,6 +1380,94 @@ def fused_kernel_timing(dev, card, gen):
     return rows
 
 
+# The backward's timed shapes: the contrastive step's query tower and
+# document chunk, and the MLM step's shape, plain and with fused rotary;
+# each with the all-ones attention mask the steps pass.
+BWD_TIMING_SHAPES = (("b512_s32", 512, 32, False), ("b16_s256", 16, 256, False),
+                     ("mlm_b8_s2048", 8, 2048, False), ("mlm_b8_s2048_fused", 8, 2048, True))
+
+
+def backward_timing(dev, card, gen, per_kernel=True):
+    """Phase kernel_timing_bwd at BWD_TIMING_SHAPES (H=12, D=64): the whole
+    backward through `flash_attention_backward` (this package's: dq, which
+    computes delta, and dk/dv; an earlier one's may compute delta outside),
+    checked once more against its plain version, as ms, device_ms and the
+    host's enqueue per call, beside the plain backward and torch SDPA's
+    backward (autograd, forward + backward minus forward; on pre-rotated q/k
+    for the fused shape), each the same three ways. per_kernel (this
+    package's launchers only) adds dq and dk/dv alone, each beside its
+    bound. Returns {shape: row}."""
+    import torch
+    import torch.nn.functional as F
+
+    from contrastors_tpu_torch.layers.rotary import apply_rotary, rotary_cos_sin
+    from contrastors_tpu_torch.ops import flash_attention as fa
+
+    rows = {}
+    for label, B, S, fused in BWD_TIMING_SHAPES:
+        H, D = 12, 64
+        q, k, v = make_qkv(gen, dev, B, S, S, H, H, D)
+        mask = torch.ones(B, S, dtype=torch.int32, device=dev)
+        kw = dict(attention_mask=mask)
+        if fused:
+            cos, sin = rotary_cos_sin(S, D, base=1000.0, device=dev)
+            kw.update(rotary_cos=cos, rotary_sin=sin)
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        dout = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
+
+        def run():
+            return fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+
+        refs = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw)
+        ratios = {n: fa.grad_error_ratio(g, r, n) for g, r, n in zip(run(), refs, ("dq", "dk", "dv"))}
+        row = dict(ms=median_ms(run), device_ms=median_ms(run, queued=True), enqueue_us=host_enqueue_us(run),
+                   plain_ms=median_ms(lambda: fa.flash_attention_backward_reference(
+                       q, k, v, out, lse, dout, **kw), runs=3, warmup=1),
+                   err_over_tol=ratios)
+        del refs
+        # the yardstick: autograd of torch SDPA (all rows valid, so no mask)
+        qs, ks = (apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)) if fused else (q, k)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (qs, ks, v))
+        dot = dout.transpose(1, 2)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt), dot)
+
+        row.update(library_ms=median_ms(sdpa_fwd_bwd) - median_ms(sdpa_fwd),
+                   library_device_ms=median_ms(sdpa_fwd_bwd, queued=True) - median_ms(sdpa_fwd, queued=True),
+                   library_enqueue_us=host_enqueue_us(sdpa_fwd_bwd) - host_enqueue_us(sdpa_fwd))
+        if per_kernel:
+            qk, kk, rot = fa._rotary(q, k, kw.get("rotary_cos"), kw.get("rotary_sin"), False, None)
+            seg_q, seg_kv = fa.merge_segments(B, S, S, mask, None, None, dev)
+            inputs = fa.prepare_backward(qk, kk, v, out, lse, dout, seg_q, seg_kv)
+            args = (False, 0, 0, 1.0 / D**0.5)
+            launchers = dict(dq=lambda: fa.launch_bwd_dq(*inputs, *args, rot=rot),
+                             dkv=lambda: fa.launch_bwd_dkv(*inputs, *args, rot=rot))
+            launchers["dq"]()  # delta for dk/dv
+            for kname, launch in launchers.items():
+                b_ms, b_by, flops, nbytes = backward_bound(kname, B, S, S, H, H, D)
+                if fused:  # + the two fp32 tables
+                    b_ms, b_by, _, nbytes = _bound(flops, nbytes + 2 * rot.cos.numel() * 4)
+                k_ms, k_dev = median_ms(launch), median_ms(launch, queued=True)
+                row[kname] = dict(ms=k_ms, device_ms=k_dev, enqueue_us=host_enqueue_us(launch), bound_ms=b_ms,
+                                  bound_by=b_by, flops=flops, bytes=nbytes, tflops=flops / k_ms / 1e9,
+                                  roofline_share=b_ms / k_ms, device_roofline_share=b_ms / k_dev)
+            del inputs
+        rows[label] = row
+        emit(phase="kernel_timing_bwd", card=card, gpu_state=gpu_state(), shape=label, B=B, S=S, T=S, H=H, D=D,
+             fused_rotary=fused, **row,
+             note="ms, device_ms, enqueue_us: the whole backward (flash_attention_backward); plain_ms and "
+                  "library_ms are whole backwards too (library: SDPA, on pre-rotated q/k where fused)")
+        if max(ratios.values()) > 1.0:
+            raise AssertionError(f"flash backward kernels disagree with their plain version at {label}")
+        del q, k, v, out, lse, dout, qs, ks, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+    return rows
+
+
 # the MLM pretraining step of the JAX benchmark (bench.py:837-884):
 # nomic-bert-2048, B=8 x S=2048, 30% masked, dense_seq_output, AdamW lr 5e-4
 # wd 0.01 clip 1.0; gradient accumulation as the recipe sets it
@@ -1170,10 +1508,10 @@ def mlm_model(dev, fused=True, impl="flash"):
     return seed_weights(model, "mlm")
 
 
-def mlm_training(dev, card):
+def mlm_training(dev, card, agreement=True):
     """Phases mlm_train_step, mlm_train_timing, mlm_train_profile,
-    mlm_grad_accumulation and mlm_grad_agreement. Returns the launches of
-    one micro-step."""
+    mlm_grad_accumulation and mlm_grad_agreement (the last three only with
+    agreement). Returns the launches of one micro-step and the timing."""
     import gc
 
     import torch
@@ -1238,6 +1576,11 @@ def mlm_training(dev, card):
     del model_o, step_o
     gc.collect()
     torch.cuda.empty_cache()
+    if not agreement:
+        del model, opt, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        return steps[0]["launches"], timing
 
     torch.cuda.reset_peak_memory_stats()
     emit(phase="mlm_train_profile", card=card, gpu_state=gpu_state(),
@@ -1314,13 +1657,143 @@ def mlm_grad_agreement(dev):
     torch.cuda.empty_cache()
 
 
+def dense_training(dev, card, agreement=True):
+    """Phases train_step, train_timing, train_profile and (with agreement)
+    train_grad_agreement: the dense GradCache step at full width. Returns
+    the launches of one step and its timing (host-clock step ms, busy ms by
+    kernel group from the profiled step)."""
+    import gc
+
+    import torch
+
+    from contrastors_tpu_torch.models.presets import nomic_bert_2048
+    from contrastors_tpu_torch.trainers.text_text import make_train_step
+
+    tcfg = nomic_bert_2048(attn_impl="flash")
+    torch.cuda.reset_peak_memory_stats()
+    t_model, t_scale, t_opt = train_modules("flash", dev)
+    step = make_train_step(t_model, t_scale, t_opt, grad_cache=True, chunk_size=CHUNK,
+                           direct_chunks_q=-1, direct_chunks_d=0)
+    qb, db = token_batches(PAIRS, dev)
+    n_chunks = PAIRS // CHUNK
+    # forwards: the direct query batch, and each document chunk in pass 1 and
+    # pass 2; backwards: the direct query batch and each document chunk
+    expected = expect(fwd=tcfg.n_layer * (1 + 2 * n_chunks), dq=tcfg.n_layer * (1 + n_chunks),
+                      dkv=tcfg.n_layer * (1 + n_chunks))
+    train_gen = torch.Generator().manual_seed(0)
+    steps = []
+    for _ in range(5):
+        reset_counts()
+        t0 = time.perf_counter()
+        m = step(qb, db, train_gen)
+        loss = m["loss"].item()
+        steps.append(dict(loss=loss, grad_norm=m["grad_norm"].item(), accuracy=m["accuracy"].item(),
+                          seconds=time.perf_counter() - t0, launches=read_counts()))
+    losses = [x["loss"] for x in steps]
+    train_ok = (all(x["launches"] == expected for x in steps)
+                and bool(np.isfinite(losses).all()) and losses[-1] < losses[0])
+    emit(phase="train_step", params=sum(p.numel() for p in t_model.parameters()), pairs=PAIRS,
+         q_len=Q_LEN, d_len=D_LEN, chunk=CHUNK, expected_launches=expected, steps=steps,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30, ok=train_ok)
+    if not train_ok:
+        raise AssertionError("train step: launch counts, finiteness or falling loss failed")
+    launches_train = steps[0]["launches"]
+
+    # the step's time on the host clock
+    host_ms, enqueue_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step(qb, db, train_gen)
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3)  # step() returned
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms = float(np.median(host_ms))
+    emit(phase="train_timing", card=card, gpu_state=gpu_state(), pairs=PAIRS, runs=len(host_ms),
+         step_ms=step_ms, step_ms_min=min(host_ms), step_ms_max=max(host_ms),
+         enqueue_ms=float(np.median(enqueue_ms)),
+         pairs_per_s=PAIRS / step_ms * 1e3, tokens_per_s=PAIRS * (Q_LEN + D_LEN) / step_ms * 1e3,
+         note="enqueue_ms = host time until step() returns, before the final synchronize")
+
+    # one step under torch.profiler: the device's busy time by kernel, and
+    # the step split at its profiler ranges
+    profile = profile_step(lambda: step(qb, db, train_gen), step_ms)
+    emit(phase="train_profile", card=card, gpu_state=gpu_state(), **profile,
+         note="one profiled step: busy time of its kernels (idle share against the unprofiled median "
+              "step_ms); split: host time of each profiler range and, where the trace has it, the "
+              "device span of the kernels launched in it; the profiler slows the host")
+    del t_model, t_scale, t_opt, step, qb, db
+    gc.collect()
+    torch.cuda.empty_cache()
+    timing = dict(step_ms=step_ms, step_ms_min=min(host_ms), step_ms_max=max(host_ms),
+                  pairs_per_s=PAIRS / step_ms * 1e3, enqueue_ms=float(np.median(enqueue_ms)),
+                  device_busy_ms=profile["device_busy_ms"], idle_share=profile["idle_share_of_step"],
+                  busy_by_group={g: v["ms"] for g, v in profile["by_group"].items()})
+    if not agreement:
+        return launches_train, timing
+
+    # grad-cache grads against the standard step's, and flash against sdpa,
+    # at 64 pairs with the same weights; then two planted faults, which the
+    # bounds must reject
+    sq, sd = token_batches(64, dev, seed=1)
+    grads = {}
+    for label, impl, grad_cache, fault in (("gc", "flash", True, None), ("std", "flash", False, None),
+                                           ("sdpa", "sdpa", True, None),
+                                           ("no_delta", "flash", True, "no_delta"),
+                                           ("rolled_replay", "flash", True, "rolled_replay")):
+        with planted_fault(fault) if fault else contextlib.nullcontext():
+            grads[label] = step_grads(impl, grad_cache, dev, sq, sd)
+        gc.collect()
+        torch.cuda.empty_cache()
+    bounds = dict(gc_vs_std_min_cosine=0.9999, gc_vs_std_max_rel_l2=0.01, flash_vs_sdpa_min_cosine=0.999)
+
+    def gc_ok(r):
+        return r["min_cosine"] >= bounds["gc_vs_std_min_cosine"] and r["max_rel_l2"] <= bounds["gc_vs_std_max_rel_l2"]
+
+    def flash_ok(r):
+        return r["min_cosine"] >= bounds["flash_vs_sdpa_min_cosine"]
+
+    gc_vs_std = compare_grads(grads["gc"], grads["std"])
+    flash_vs_sdpa = compare_grads(grads["gc"], grads["sdpa"])
+    # each fault is read against the comparison that must catch it
+    faults = dict(no_delta_vs_sdpa=compare_grads(grads["no_delta"], grads["sdpa"]),
+                  rolled_replay_vs_std=compare_grads(grads["rolled_replay"], grads["std"]))
+    agree_ok = (gc_ok(gc_vs_std) and flash_ok(flash_vs_sdpa)
+                and not flash_ok(faults["no_delta_vs_sdpa"]) and not gc_ok(faults["rolled_replay_vs_std"]))
+    emit(phase="train_grad_agreement", pairs=64, gc_vs_standard=gc_vs_std, flash_vs_sdpa=flash_vs_sdpa,
+         planted_faults=faults, bounds=bounds, ok=agree_ok)
+    if not agree_ok:
+        raise AssertionError("train step gradients: a sound step is outside its bounds, "
+                             "or a planted fault is inside them")
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches_train, timing
+
+
+def finish(card, summary):
+    """The run's ending: the command_time line, the card's line, the summary
+    and the last line, these three as the contract gives them, without t."""
+    import torch
+
+    emit(phase="command_time", seconds=time.perf_counter() - T0)
+    print(card, flush=True)
+    print(json.dumps(summary), flush=True)
+    print(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
+                                               count=torch.cuda.device_count()))), flush=True)
+    return 0
+
+
 def main(argv=None):
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the PyTorch / CUDA port on one NVIDIA GPU.")
-    ap.add_argument("--only", choices=["moe_kernels", "moe"],
+    ap.add_argument("--only", choices=["moe_kernels", "moe", "flash_bwd", "dense"],
                     help="run only the card, build and grouped-matmul phases (9), or (moe) also MoE "
-                         "serving and the MoE step's timing and profile (10-12, no gradient agreement)")
+                         "serving and the MoE step's timing and profile (10-12, no gradient agreement); "
+                         "flash_bwd: the card, build, the backward checks (4, 13), the backward timing "
+                         "(8, the whole backward only) and the MLM step's timing, fused and outside; "
+                         "dense: the card, build and the dense step's timing and profile (7-8, no "
+                         "gradient agreement)")
     ap.add_argument("--tree", help="with --only: the root of another checkout whose contrastors_tpu_torch "
                                    "package is built and timed (an earlier commit, for old against new)")
     args = ap.parse_args(argv)
@@ -1342,7 +1815,6 @@ def main(argv=None):
         from contrastors_tpu_torch.ops import _build
         from contrastors_tpu_torch.ops import flash_attention as fa
         from contrastors_tpu_torch.scripts import ablate_rotary_fusion
-        from contrastors_tpu_torch.trainers.text_text import make_train_step
     except ImportError as e:
         print(f"chip_smoke: the contrastors_tpu_torch package is missing ({e}); "
               "run from the root of a checkout", file=sys.stderr)
@@ -1359,7 +1831,8 @@ def main(argv=None):
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = ("gmm",) if args.only == "moe_kernels" else _build.LIBRARIES
+    libs = dict(moe_kernels=("gmm",), flash_bwd=("flash_fwd", "flash_bwd"),
+                dense=("flash_fwd", "flash_bwd")).get(args.only, _build.LIBRARIES)
     with ThreadPoolExecutor(len(libs)) as pool:
         paths = dict(zip(libs, pool.map(_build.build, libs)))
     for name in libs:
@@ -1370,125 +1843,29 @@ def main(argv=None):
          ptxas={n: ptxas_usage(_build.build_logs.get(n, "")) for n in libs},
          ptxas_warnings=[x for n in libs for x in _build.build_logs.get(n, "").splitlines() if "arning" in x])
     if args.only:
-        gmm_errs, moe_times = moe_kernels(dev, card)
-        summary = dict(moe_kernels={f"{k[0]} {k[1]} K={k[2]} N={k[3]}": v for k, v in moe_times.items()},
-                       max_abs_err=gmm_errs, package=str(_build.CSRC.parents[2]))
-        if args.only == "moe":
-            rng, gen = np.random.default_rng(0), torch.Generator(device=dev).manual_seed(0)
-            summary["moe_encode_launches"], _ = moe_serving(dev, card, StubTokenizer(moe_config().vocab_size),
-                                                            rng, gen)
-            summary["moe_train_launches"] = moe_training(dev, card, agreement=False)
-        emit(phase="command_time", seconds=time.perf_counter() - T0)
-        print(card, flush=True)
-        print(json.dumps(summary), flush=True)
-        print(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
-                                                   count=torch.cuda.device_count()))), flush=True)
-        return 0
+        summary = dict(package=str(_build.CSRC.parents[2]))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        if args.only == "flash_bwd":
+            grad_errs = backward_checks(dev, gen)
+            fused_errs = fused_kernel_checks(dev, gen)
+            summary["flash_bwd"] = backward_timing(dev, card, gen, per_kernel=False)
+            summary["mlm_launches"], summary["mlm_step"] = mlm_training(dev, card, agreement=False)
+            summary["max_abs_err"] = dict({g: max(e.values()) for g, e in grad_errs.items()}, fused=fused_errs)
+        elif args.only == "dense":
+            summary["dense_launches"], summary["dense_step"] = dense_training(dev, card, agreement=False)
+        else:
+            summary["max_abs_err"], moe_times = moe_kernels(dev, card)
+            summary["moe_kernels"] = {f"{k[0]} {k[1]} K={k[2]} N={k[3]}": v for k, v in moe_times.items()}
+            if args.only == "moe":
+                summary["moe_encode_launches"], _ = moe_serving(
+                    dev, card, StubTokenizer(moe_config().vocab_size), np.random.default_rng(0), gen)
+                summary["moe_train_launches"] = moe_training(dev, card, agreement=False)
+        return finish(card, summary)
 
-    # 3. kernel against its plain version
+    # 3-4. the flash kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
-
-    def qkv(B, S, T, H, Hkv, D):
-        if S == T and H == Hkv:  # views of one fused projection, as the model gives them
-            x = torch.randn(B, S, 3, H, D, generator=gen, device=dev).bfloat16()
-            return x[:, :, 0], x[:, :, 1], x[:, :, 2]
-        return (torch.randn(B, L, h, D, generator=gen, device=dev).bfloat16()
-                for L, h in ((S, H), (T, Hkv), (T, Hkv)))
-
-    def pad_mask(B, T, full_rows=0, empty_rows=0):
-        lens = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
-        lens[:full_rows] = T
-        if empty_rows:
-            lens[B - empty_rows:] = 0
-        return (torch.arange(T, device=dev)[None] < lens[:, None]).int()
-
-    cases = [
-        ("pad_b8_s512_empty_row", dict(B=8, S=512, T=512, H=12, Hkv=12, D=64), dict(mask=(1, 1))),
-        ("pad_b256_s512", dict(B=256, S=512, T=512, H=12, Hkv=12, D=64), dict(mask=(1, 0))),
-        ("s16", dict(B=4, S=16, T=16, H=12, Hkv=12, D=64), dict(mask=(1, 0))),
-        ("s32", dict(B=4, S=32, T=32, H=12, Hkv=12, D=64), dict(mask=(1, 0))),
-        ("s200", dict(B=4, S=200, T=200, H=12, Hkv=12, D=64), dict(mask=(1, 0))),
-        ("s256", dict(B=4, S=256, T=256, H=12, Hkv=12, D=64), dict(mask=(1, 0))),
-        ("s4096", dict(B=1, S=4096, T=4096, H=12, Hkv=12, D=64), dict(mask=(1, 0))),
-        ("s8192", dict(B=1, S=8192, T=8192, H=12, Hkv=12, D=64), dict()),
-        ("causal_s200_t700", dict(B=2, S=200, T=700, H=12, Hkv=12, D=64), dict(causal=True)),
-        ("window128_s1000", dict(B=2, S=1000, T=1000, H=12, Hkv=12, D=64), dict(window=128)),
-        ("segments_s512", dict(B=2, S=512, T=512, H=12, Hkv=12, D=64), dict(segments=True)),
-        ("gqa_hkv4_s512", dict(B=2, S=512, T=512, H=12, Hkv=4, D=64), dict(mask=(1, 0))),
-        ("d128_s384", dict(B=2, S=384, T=384, H=8, Hkv=8, D=128), dict(mask=(1, 0))),
-        # the training step's shapes: the direct query tower and a document chunk
-        ("train_q_b512_s32", dict(B=512, S=32, T=32, H=12, Hkv=12, D=64), dict(mask=(512, 0))),
-        ("train_d_b16_s256", dict(B=16, S=256, T=256, H=12, Hkv=12, D=64), dict(mask=(16, 0))),
-    ]
-    o_errs = {}
-    for name, shp, opt in cases:
-        q, k, v = qkv(**{n: shp[n] for n in ("B", "S", "T", "H", "Hkv", "D")})
-        kw = dict(causal=opt.get("causal", False), window=opt.get("window", 0))
-        if "mask" in opt:
-            kw["attention_mask"] = pad_mask(shp["B"], shp["T"], *opt["mask"])
-        if opt.get("segments"):
-            seg = torch.zeros(shp["B"], shp["S"], dtype=torch.int32, device=dev)
-            seg[:, :100], seg[:, 100:300], seg[:, 300:450] = 1, 2, 3  # 450.. is padding
-            kw["segment_ids"] = seg
-        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
-        torch.cuda.synchronize()
-        ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
-        torch.cuda.synchronize()
-        o_err = (out.float() - ref_out.float()).abs().max().item()
-        o_ratio = fa.output_error_ratio(out, ref_out)
-        lse_err = (lse - ref_lse).abs().max().item()
-        ok = o_ratio <= 1.0 and lse_err <= fa.LSE_ATOL and bool(torch.isfinite(out.float()).all())
-        if name.endswith("empty_row"):
-            ok = ok and bool((out[-1] == 0).all()) and bool((lse[-1] == fa.NEG_INF).all())
-        o_errs[name] = o_err
-        emit(phase="kernel_check", case=name, **shp, o_max_abs_err=o_err,
-             o_ref_abs_max=ref_out.float().abs().max().item(),
-             o_ref_abs_mean=ref_out.float().abs().mean().item(),
-             o_tol=f"{fa.O_REL:g}*|ref| + {fa.O_ABS_FRAC:g}*max|ref|", o_err_over_tol=o_ratio,
-             lse_max_abs_err=lse_err, lse_tol=fa.LSE_ATOL, ok=ok)
-        if not ok:
-            raise AssertionError(f"flash kernel disagrees with its plain version in case {name}")
-        del q, k, v, out, lse, ref_out, ref_lse
-    torch.cuda.empty_cache()
-
-    # 4. backward kernels against the plain backward, on the same O and LSE
-    bwd_cases = [c for c in cases if c[0] not in ("pad_b256_s512", "s8192")]
-    grad_errs = {"dq": {}, "dk": {}, "dv": {}}
-    for name, shp, opt in bwd_cases:
-        q, k, v = qkv(**{n: shp[n] for n in ("B", "S", "T", "H", "Hkv", "D")})
-        kw = dict(causal=opt.get("causal", False), window=opt.get("window", 0))
-        if "mask" in opt:
-            kw["attention_mask"] = pad_mask(shp["B"], shp["T"], *opt["mask"])
-        if opt.get("segments"):
-            seg = torch.zeros(shp["B"], shp["S"], dtype=torch.int32, device=dev)
-            seg[:, :100], seg[:, 100:300], seg[:, 300:450] = 1, 2, 3
-            kw["segment_ids"] = seg
-        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
-        # a strided dO, as a view of a wider buffer
-        dout = torch.randn(*out.shape[:3], out.shape[3] + 8, generator=gen, device=dev).bfloat16()
-        dout = dout[..., : out.shape[3]]
-        grads = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
-        torch.cuda.synchronize()
-        refs = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw)
-        torch.cuda.synchronize()
-        line, ok = {}, True
-        for g, r, gname in zip(grads, refs, ("dq", "dk", "dv")):
-            err = (g.float() - r.float()).abs().max().item()
-            ratio = fa.grad_error_ratio(g, r, gname)
-            grad_errs[gname][name] = err
-            line.update({f"{gname}_max_abs_err": err, f"{gname}_ref_abs_max": r.float().abs().max().item(),
-                         f"{gname}_err_over_tol": ratio})
-            ok = ok and ratio <= 1.0 and bool(torch.isfinite(g.float()).all())
-        if name.endswith("empty_row"):
-            line["dq_empty_row_zero"] = bool((grads[0][-1] == 0).all())
-            ok = ok and line["dq_empty_row_zero"]
-        emit(phase="kernel_check_bwd", case=name, **shp, **line,
-             tol={n: f"{fa.GRAD_REL:g}*|ref| + {fa.GRAD_ABS_FRAC[n]:g}*max|ref|" for n in grad_errs},
-             ok=ok)
-        if not ok:
-            raise AssertionError(f"flash backward kernels disagree with their plain version in case {name}")
-        del q, k, v, out, lse, dout, grads, refs
-    torch.cuda.empty_cache()
+    o_errs = forward_checks(dev, gen)
+    grad_errs = backward_checks(dev, gen)
 
     # 13. the fused-rotary kernels against their plain versions
     fused_errs = fused_kernel_checks(dev, gen)
@@ -1600,7 +1977,7 @@ def main(argv=None):
     timings = {}
     for label, B, S in (("b256_s512", 256, 512), ("b16_s4096", 16, 4096)):
         H, D = 12, 64
-        q, k, v = qkv(B, S, S, H, H, D)
+        q, k, v = make_qkv(gen, dev, B, S, S, H, H, D)
         mask = torch.ones(B, S, dtype=torch.int32, device=dev)
         kernel_ms = median_ms(lambda: fa.flash_attention_fwd(q, k, v, attention_mask=mask))
         plain_ms = median_ms(lambda: fa.flash_attention_reference(q, k, v, attention_mask=mask), runs=5)
@@ -1622,151 +1999,13 @@ def main(argv=None):
     fused_times = fused_kernel_timing(dev, card, gen)
     emit(phase="rotary_ablation", card=card, gpu_state=gpu_state(), **ablate_rotary_fusion.run())
 
-    # 7. training at full width: the text GradCache step
-    import gc
-
-    tcfg = nomic_bert_2048(attn_impl="flash")
-    torch.cuda.reset_peak_memory_stats()
-    t_model, t_scale, t_opt = train_modules("flash", dev)
-    step = make_train_step(t_model, t_scale, t_opt, grad_cache=True, chunk_size=CHUNK,
-                           direct_chunks_q=-1, direct_chunks_d=0)
-    qb, db = token_batches(PAIRS, dev)
-    n_chunks = PAIRS // CHUNK
-    # forwards: the direct query batch, and each document chunk in pass 1 and
-    # pass 2; backwards: the direct query batch and each document chunk
-    expected = expect(fwd=tcfg.n_layer * (1 + 2 * n_chunks), dq=tcfg.n_layer * (1 + n_chunks),
-                      dkv=tcfg.n_layer * (1 + n_chunks))
-    train_gen = torch.Generator().manual_seed(0)
-    steps = []
-    for _ in range(5):
-        reset_counts()
-        t0 = time.perf_counter()
-        m = step(qb, db, train_gen)
-        loss = m["loss"].item()
-        steps.append(dict(loss=loss, grad_norm=m["grad_norm"].item(), accuracy=m["accuracy"].item(),
-                          seconds=time.perf_counter() - t0, launches=read_counts()))
-    launches_train = steps[0]["launches"]
-    losses = [x["loss"] for x in steps]
-    train_ok = (all(x["launches"] == expected for x in steps)
-                and bool(np.isfinite(losses).all()) and losses[-1] < losses[0])
-    emit(phase="train_step", params=sum(p.numel() for p in t_model.parameters()), pairs=PAIRS,
-         q_len=Q_LEN, d_len=D_LEN, chunk=CHUNK, expected_launches=expected, steps=steps,
-         peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30, ok=train_ok)
-    if not train_ok:
-        raise AssertionError("train step: launch counts, finiteness or falling loss failed")
-
-    # the step's time on the host clock
-    host_ms, enqueue_ms = [], []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        step(qb, db, train_gen)
-        enqueue_ms.append((time.perf_counter() - t0) * 1e3)  # step() returned
-        torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-    step_ms = float(np.median(host_ms))
-    emit(phase="train_timing", card=card, gpu_state=gpu_state(), pairs=PAIRS, runs=len(host_ms),
-         step_ms=step_ms, step_ms_min=min(host_ms), step_ms_max=max(host_ms),
-         enqueue_ms=float(np.median(enqueue_ms)),
-         pairs_per_s=PAIRS / step_ms * 1e3, tokens_per_s=PAIRS * (Q_LEN + D_LEN) / step_ms * 1e3,
-         note="enqueue_ms = host time until step() returns, before the final synchronize")
-
-    # one step under torch.profiler: the device's busy time by kernel, and
-    # the step split at its profiler ranges
-    emit(phase="train_profile", card=card, gpu_state=gpu_state(),
-         **profile_step(lambda: step(qb, db, train_gen), step_ms),
-         note="one profiled step: busy time of its kernels (idle share against the unprofiled median "
-              "step_ms); split: host time of each profiler range and, where the trace has it, the "
-              "device span of the kernels launched in it; the profiler slows the host")
-    del t_model, t_scale, t_opt, step, qb, db
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # grad-cache grads against the standard step's, and flash against sdpa,
-    # at 64 pairs with the same weights; then two planted faults, which the
-    # bounds must reject
-    sq, sd = token_batches(64, dev, seed=1)
-    grads = {}
-    for label, impl, grad_cache, fault in (("gc", "flash", True, None), ("std", "flash", False, None),
-                                           ("sdpa", "sdpa", True, None),
-                                           ("no_delta", "flash", True, "no_delta"),
-                                           ("rolled_replay", "flash", True, "rolled_replay")):
-        with planted_fault(fault) if fault else contextlib.nullcontext():
-            grads[label] = step_grads(impl, grad_cache, dev, sq, sd)
-        gc.collect()
-        torch.cuda.empty_cache()
-    bounds = dict(gc_vs_std_min_cosine=0.9999, gc_vs_std_max_rel_l2=0.01, flash_vs_sdpa_min_cosine=0.999)
-
-    def gc_ok(r):
-        return r["min_cosine"] >= bounds["gc_vs_std_min_cosine"] and r["max_rel_l2"] <= bounds["gc_vs_std_max_rel_l2"]
-
-    def flash_ok(r):
-        return r["min_cosine"] >= bounds["flash_vs_sdpa_min_cosine"]
-
-    gc_vs_std = compare_grads(grads["gc"], grads["std"])
-    flash_vs_sdpa = compare_grads(grads["gc"], grads["sdpa"])
-    # each fault is read against the comparison that must catch it
-    faults = dict(no_delta_vs_sdpa=compare_grads(grads["no_delta"], grads["sdpa"]),
-                  rolled_replay_vs_std=compare_grads(grads["rolled_replay"], grads["std"]))
-    agree_ok = (gc_ok(gc_vs_std) and flash_ok(flash_vs_sdpa)
-                and not flash_ok(faults["no_delta_vs_sdpa"]) and not gc_ok(faults["rolled_replay_vs_std"]))
-    emit(phase="train_grad_agreement", pairs=64, gc_vs_standard=gc_vs_std, flash_vs_sdpa=flash_vs_sdpa,
-         planted_faults=faults, bounds=bounds, ok=agree_ok)
-    if not agree_ok:
-        raise AssertionError("train step gradients: a sound step is outside its bounds, "
-                             "or a planted fault is inside them")
-    del grads
-    gc.collect()
-    torch.cuda.empty_cache()
+    # 7. training at full width: the text GradCache step, after the dead-row
+    # dispatch it runs through
+    dead_row_check(dev, gen)
+    launches_train, _ = dense_training(dev, card)
 
     # 8. the backward kernels at the main-path shapes
-    bwd_timings = {}
-    for label, B, S in (("b512_s32", PAIRS, Q_LEN), ("b16_s256", CHUNK, D_LEN)):
-        H, D = 12, 64
-        q, k, v = qkv(B, S, S, H, H, D)
-        mask = torch.ones(B, S, dtype=torch.int32, device=dev)
-        out, lse = fa.flash_attention_fwd(q, k, v, attention_mask=mask)
-        dout = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
-        seg_q, seg_kv = fa.merge_segments(B, S, S, mask, None, None, dev)
-        inputs = fa.prepare_backward(q, k, v, out, lse, dout, seg_q, seg_kv)
-        args = (False, 0, 0, 1.0 / D**0.5)
-        dq_ms = median_ms(lambda: fa.launch_bwd_dq(*inputs, *args))
-        dkv_ms = median_ms(lambda: fa.launch_bwd_dkv(*inputs, *args))
-        # the timed inputs against the plain forward and backward
-        ref_out, _ = fa.flash_attention_reference(q, k, v, attention_mask=mask)
-        ratios = dict(o=fa.output_error_ratio(out, ref_out))
-        refs = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, attention_mask=mask)
-        for gname, g, r in zip(("dq", "dk", "dv"), (fa.launch_bwd_dq(*inputs, *args),
-                                                    *fa.launch_bwd_dkv(*inputs, *args)), refs):
-            ratios[gname] = fa.grad_error_ratio(g, r, gname)
-        delta_ms = median_ms(lambda: (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous())
-        total_ms = median_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout, attention_mask=mask))
-        plain_ms = median_ms(lambda: fa.flash_attention_backward_reference(
-            q, k, v, out, lse, dout, attention_mask=mask), runs=5)
-        # the yardstick: autograd of torch SDPA (all rows valid, so no mask),
-        # forward + backward minus forward
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        dot = dout.transpose(1, 2)
-        sdpa_fwd_ms = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-
-        def sdpa_fwd_bwd():
-            torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt), dot)
-
-        library_ms = median_ms(sdpa_fwd_bwd) - sdpa_fwd_ms
-        row = dict(dq_ms=dq_ms, dkv_ms=dkv_ms, delta_ms=delta_ms, backward_ms=total_ms,
-                   plain_ms=plain_ms, library_ms=library_ms, err_over_tol=ratios)
-        for kname, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
-            b_ms, b_by, flops, nbytes = backward_bound(kname, B, S, S, H, H, D)
-            row[kname] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
-                              tflops=flops / ms / 1e9, roofline_share=b_ms / ms)
-        bwd_timings[label] = row
-        emit(phase="kernel_timing_bwd", card=card, gpu_state=gpu_state(), shape=label, B=B, S=S, T=S,
-             H=H, D=D, **row,
-             note="plain_ms and library_ms are whole backwards (dq, dk, dv), to set against "
-                  "backward_ms = delta + dq + dk/dv")
-        if max(ratios.values()) > 1.0:
-            raise AssertionError(f"flash kernels disagree with their plain versions at {label}")
-        del q, k, v, out, lse, dout, inputs, qt, kt, vt, dot, ref_out, refs
-        torch.cuda.empty_cache()
+    bwd_timings = backward_timing(dev, card, gen)
 
     # 16. the MLM pretraining step with fused rotary at full width
     mlm_launches, mlm_timing = mlm_training(dev, card)
@@ -1776,8 +2015,6 @@ def main(argv=None):
     moe_train_launches = moe_training(dev, card)
 
     main = timings["b256_s512"]
-    emit(phase="command_time", seconds=time.perf_counter() - T0)
-    print(card, flush=True)
 
     def gmm_entry(kname, replaces):
         pick = ("ms", "device_ms", "enqueue_us", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -1799,7 +2036,15 @@ def main(argv=None):
         return entry
 
     def bwd_entry(kname, replaces):
-        doc, query = bwd_timings["b16_s256"], bwd_timings["b512_s32"]
+        doc, query, mlm = bwd_timings["b16_s256"], bwd_timings["b512_s32"], bwd_timings["mlm_b8_s2048"]
+
+        def at(row, shape):
+            return dict(shape=shape, ms=row[kname]["ms"], device_ms=row[kname]["device_ms"],
+                        enqueue_us=row[kname]["enqueue_us"], bound_ms=row[kname]["bound_ms"],
+                        bound_by=row[kname]["bound_by"], plain_ms=row["plain_ms"], library_ms=row["library_ms"],
+                        library_device_ms=row["library_device_ms"], backward_ms=row["ms"],
+                        backward_device_ms=row["device_ms"])
+
         return dict(
             name=f"flash_bwd_{kname}",
             route="cuda",
@@ -1807,16 +2052,11 @@ def main(argv=None):
             replaces=replaces,
             launches=launches_train[kname],
             max_abs_err=max(max(grad_errs[g].values()) for g in (("dq",) if kname == "dq" else ("dk", "dv"))),
-            ms=doc[kname]["ms"],
-            plain_ms=doc["plain_ms"],
-            bound_ms=doc[kname]["bound_ms"],
-            bound_by=doc[kname]["bound_by"],
-            library_ms=doc["library_ms"],
-            shape="B=16 S=T=256 H=12 D=64 (document chunk)",
-            query_tower=dict(shape="B=512 S=T=32 H=12 D=64", ms=query[kname]["ms"],
-                             plain_ms=query["plain_ms"], bound_ms=query[kname]["bound_ms"],
-                             bound_by=query[kname]["bound_by"], library_ms=query["library_ms"]),
-            note="plain_ms and library_ms time a whole backward (dq, dk and dv)",
+            **{k: v for k, v in at(doc, "B=16 S=T=256 H=12 D=64 (document chunk)").items()},
+            query_tower=at(query, "B=512 S=T=32 H=12 D=64"),
+            mlm_unfused=at(mlm, "B=8 S=T=2048 H=12 D=64, rotary outside"),
+            note="plain_ms and library_ms time a whole backward (dq, dk and dv); backward_ms is the whole "
+                 "flash_attention_backward (dq, with delta, then dk/dv)",
         )
 
     def fused_entry(kname, replaces, also):
@@ -1839,8 +2079,7 @@ def main(argv=None):
                  + ("" if kname == "fwd" else "; plain_ms and the composite are whole backwards"),
         )
 
-    # the summary and the last line are printed as the contract gives them, without t
-    print(json.dumps(dict(kernels=[
+    return finish(card, dict(kernels=[
         dict(
             name="flash_fwd",
             route="cuda",
@@ -1868,10 +2107,7 @@ def main(argv=None):
              encode_launches=launches_fused_enc["fwd_rot"]),
         fused_entry("dq", "contrastors_tpu/ops/flash_attention.py:422", []),
         fused_entry("dkv", "contrastors_tpu/ops/flash_attention.py:512", []),
-    ])), flush=True)
-    print(json.dumps(dict(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
-                                               count=torch.cuda.device_count()))), flush=True)
-    return 0
+    ]))
 
 
 if __name__ == "__main__":

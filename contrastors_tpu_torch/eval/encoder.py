@@ -8,6 +8,7 @@ binarisation and matryoshka slicing are kept. The model runs on the device
 its parameters live on.
 """
 
+import contextlib
 from typing import List, Optional
 
 import numpy as np
@@ -36,7 +37,7 @@ class Encoder:
         matryoshka_dim: Optional[int] = None,
         bucketed: bool = True,
     ):
-        self.module = module.eval()
+        self.module = module
         self.device = next(module.parameters()).device
         self.tokenizer = tokenizer
         self.seq_len = seq_len
@@ -61,8 +62,20 @@ class Encoder:
             emb = emb / np.maximum(np.linalg.norm(emb, axis=-1, keepdims=True), 1e-12)
         return emb
 
+    @contextlib.contextmanager
+    def _eval_mode(self):
+        """Eval mode for one call (JAX passes deterministic=True per call);
+        every submodule's training flag is restored after it."""
+        modes = [(m, m.training) for m in self.module.modules()]
+        self.module.eval()
+        try:
+            yield
+        finally:
+            for m, training in modes:
+                m.training = training
+
     def _run_batch(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
-        with torch.inference_mode():
+        with self._eval_mode(), torch.inference_mode():
             out = self.module(
                 input_ids=torch.from_numpy(ids).to(self.device),
                 attention_mask=torch.from_numpy(mask).to(self.device),

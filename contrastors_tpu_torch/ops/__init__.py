@@ -15,6 +15,35 @@ from contrastors_tpu_torch.ops.sdpa import sdpa
 FLASH_MIN_SEQ = 512
 
 
+# a dead row's k is scaled by this so that its logits are 0 to fp32
+# precision; a power of two, so bf16 and fp32 values of |k| > 2^-62 stay exact
+DEAD_ROW_K_SCALE = 2.0**-64
+
+
+class _DeadRows(torch.autograd.Function):
+    """SDPA on the batch rows whose mask is all 0 (`dead` [B], bool), by the
+    flash kernel itself. SDPA adds -1e30 to every logit of such a row, so its
+    softmax is uniform over all T keys: the output is mean(v) of each kv
+    head (JAX `ops/sdpa.py`), and autograd's gradient is the ordinary softmax
+    backward with p = 1/T, dq and dk included, since q.k still receives the
+    logits' gradient. The kernel computes that when the row's keys are all
+    valid and its k is scaled by DEAD_ROW_K_SCALE, which makes every logit
+    0: O, dk and dv come out as SDPA's, and dq comes out DEAD_ROW_K_SCALE
+    times SDPA's. So the forward scales k (live rows by 1), and the backward
+    passes dk through and divides dq by the same scale."""
+
+    @staticmethod
+    def forward(ctx, q, k, dead):
+        scale = torch.where(dead, DEAD_ROW_K_SCALE, 1.0).to(k.dtype)[:, None, None, None]
+        ctx.save_for_backward(scale)
+        return q.view_as(q), k * scale
+
+    @staticmethod
+    def backward(ctx, dq, dk):
+        (scale,) = ctx.saved_tensors
+        return dq / scale, dk, None
+
+
 def attention_core(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -46,7 +75,10 @@ def attention_core(
     there: with an attention_mask only, padded query rows attend to the
     valid keys (the kernel gets seg_q = 1, seg_kv = mask) instead of being
     zeroed; "flash_always" and longer kv keep the kernel's zeroed rows, as
-    in JAX. The JAX `block_q`/`block_kv`/`flash_min_seq` arguments have no
+    in JAX. A batch row whose mask is all 0 gets SDPA's result there too:
+    mean(v) over all T keys, with its gradient, from the kernel with that
+    row's keys all valid and its k scaled (`_DeadRows`), with no host sync.
+    The JAX `block_q`/`block_kv`/`flash_min_seq` arguments have no
     counterpart here, and `dropout_generator` (a torch.Generator) stands for
     `dropout_rng`. Otherwise the plain `sdpa` runs, on any device.
 
@@ -58,8 +90,10 @@ def attention_core(
     if impl in ("flash", "flash_always") and dropout_p == 0.0 and _flash.flash_shape_ok(q, k):
         if (impl == "flash" and attention_mask is not None and segment_ids is None
                 and k.shape[1] < FLASH_MIN_SEQ):
+            dead = attention_mask.sum(-1) == 0
+            q, k = _DeadRows.apply(q, k, dead)
             segment_ids = torch.ones(q.shape[:2], dtype=torch.int32, device=q.device)
-            attention_mask, kv_segment_ids = None, attention_mask
+            attention_mask, kv_segment_ids = None, torch.where(dead[:, None], 1, attention_mask)
         return _flash.flash_attention(
             q,
             k,

@@ -49,14 +49,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         ),
     },
     "flash_bwd": {
-        # q, k, v, dout, lse, delta, dq, seg_q, seg_kv, B, S, T, H, Hkv, D,
-        # q/k/v/dout strides (batch, seq, head) x 4, causal, causal_offset,
-        # window, c = softmax_scale * log2(e), softmax_scale, rotary, stream
+        # q, k, v, dout, o, lse, delta (written), dq, seg_q, seg_kv, B, S,
+        # T, H, Hkv, D, q/k/v/o/dout strides (batch, seq, head) x 5, causal,
+        # causal_offset, window, c = softmax_scale * log2(e),
+        # softmax_scale, rotary, stream
         "flash_bwd_dq_bf16": (
-            [_P] * 9 + [_I] * 6 + [_L] * 12 + [_I] * 3 + [ctypes.c_float] * 2 + _ROTARY + [_P],
+            [_P] * 10 + [_I] * 6 + [_L] * 15 + [_I] * 3 + [ctypes.c_float] * 2 + _ROTARY + [_P],
             _I,
         ),
-        # the same with dk, dv in place of dq
+        # q, k, v, dout, lse, delta (read), dk, dv, seg_q, seg_kv, B, S, T,
+        # H, Hkv, D, q/k/v/dout strides x 4, and the rest as above
         "flash_bwd_dkv_bf16": (
             [_P] * 10 + [_I] * 6 + [_L] * 12 + [_I] * 3 + [ctypes.c_float] * 2 + _ROTARY + [_P],
             _I,

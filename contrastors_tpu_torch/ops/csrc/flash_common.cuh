@@ -1,10 +1,8 @@
-// Building blocks of the flash-attention kernels: bf16 mma.sync m16n8k16
-// with fp32 accumulation on 64-row tiles, four warps of 16 rows each, tiles
-// staged synchronously through shared memory with a padded row stride
-// (D + 8) so that fragment reads are free of bank conflicts.
-// flash_fwd.cu uses the primitives only and keeps its tile loop inline: the
-// same loop assembled from the tile helpers below compiled to more registers
-// and ran slower on an H100 (see PERF.md). The helpers serve flash_bwd.cu.
+// Building blocks of the flash-attention kernels. flash_fwd.cu: bf16
+// mma.sync m16n8k16 with fp32 accumulation on 64-row tiles, four warps of
+// 16 rows each, and the fused-rotary loads of its q fragments and k tiles.
+// flash_bwd.cu (wgmma, whose accumulator holds the same per-warp layout):
+// the masks, the rotary arithmetic and rule, the adjoint and the row stores.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A regs 0..3: (row g, cols 2t..2t+1), (row g+8, 2t..), (row g, 2t+8..),
@@ -60,103 +58,6 @@ __device__ __forceinline__ float quad_sum(float x) {
 // means no window.
 __device__ __forceinline__ bool in_band(int q, int kv, int causal, int causal_offset, int w2) {
   return (!causal || q + causal_offset >= kv) && (w2 < 0 || abs(q - kv) <= w2);
-}
-
-// Copy rows [row_lo, row_lo + 64) of two [n_rows x D] bf16 matrices (row
-// strides in elements, unit stride over D) into two padded shared tiles,
-// with 16-byte vector loads; rows past n_rows are zero. Both loads of an
-// iteration are issued before either store, so each thread keeps two
-// loads in flight.
-template <int D>
-__device__ __forceinline__ void stage_pair(__nv_bfloat16* dst_a, const __nv_bfloat16* src_a,
-                                           int64_t stride_a, __nv_bfloat16* dst_b,
-                                           const __nv_bfloat16* src_b, int64_t stride_b,
-                                           int row_lo, int n_rows, int tid) {
-  constexpr int kStride = D + 8, kChunks = D / 8;
-  for (int i = tid; i < kTile * kChunks; i += kThreads) {
-    const int row = i / kChunks, ch = i % kChunks;
-    const int r = row_lo + row;
-    uint4 a = make_uint4(0u, 0u, 0u, 0u), b = a;
-    if (r < n_rows) {
-      a = *reinterpret_cast<const uint4*>(src_a + r * stride_a + ch * 8);
-      b = *reinterpret_cast<const uint4*>(src_b + r * stride_b + ch * 8);
-    }
-    *reinterpret_cast<uint4*>(dst_a + row * kStride + ch * 8) = a;
-    *reinterpret_cast<uint4*>(dst_b + row * kStride + ch * 8) = b;
-  }
-}
-
-// A fragments (16 rows x D) of rows r0 and r1 = r0 + 8 of a bf16 matrix in
-// device memory; rows at or past n_rows read as zero.
-template <int D>
-__device__ __forceinline__ void load_a_global(uint32_t (&a)[D / 16][4], const __nv_bfloat16* base,
-                                              int64_t row_stride, int r0, int n_rows, int t) {
-  const int r1 = r0 + 8;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const int col = kc * 16 + t * 2;
-    a[kc][0] = r0 < n_rows ? ld32(base + r0 * row_stride + col) : 0u;
-    a[kc][1] = r1 < n_rows ? ld32(base + r1 * row_stride + col) : 0u;
-    a[kc][2] = r0 < n_rows ? ld32(base + r0 * row_stride + col + 8) : 0u;
-    a[kc][3] = r1 < n_rows ? ld32(base + r1 * row_stride + col + 8) : 0u;
-  }
-}
-
-// A fragments of tile rows row0 + g and row0 + g + 8 of a padded shared tile.
-template <int D>
-__device__ __forceinline__ void load_a_shared(uint32_t (&a)[D / 16][4], const __nv_bfloat16* s,
-                                              int row0, int g, int t) {
-  constexpr int kStride = D + 8;
-  const __nv_bfloat16* p0 = s + (row0 + g) * kStride + t * 2;
-  const __nv_bfloat16* p1 = p0 + 8 * kStride;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    a[kc][0] = ld32(p0 + kc * 16);
-    a[kc][1] = ld32(p1 + kc * 16);
-    a[kc][2] = ld32(p0 + kc * 16 + 8);
-    a[kc][3] = ld32(p1 + kc * 16 + 8);
-  }
-}
-
-// c[16 x 64] = A[16 x D] * B^T, B a padded shared tile of 64 rows x D.
-template <int D>
-__device__ __forceinline__ void gemm_abt(float (&c)[8][4], const uint32_t (&a)[D / 16][4],
-                                         const __nv_bfloat16* b_s, int g, int t) {
-  constexpr int kStride = D + 8;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-    const __nv_bfloat16* br = b_s + (nt * 8 + g) * kStride + t * 2;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      mma_16816(c[nt], a[kc], ld32(br + kc * 16), ld32(br + kc * 16 + 8));
-    }
-  }
-}
-
-// acc[16 x D] += bf16(p)[16 x 64] * B, B a padded shared tile of 64 rows x D.
-// The C fragments of two adjacent n-tiles of p are the A fragment of one
-// 16-deep k-step.
-template <int D>
-__device__ __forceinline__ void gemm_pb(float (&acc)[D / 8][4], const float (&p)[8][4],
-                                        const __nv_bfloat16* b_s, int g, int t) {
-  constexpr int kStride = D + 8;
-  const uint16_t* bs = reinterpret_cast<const uint16_t*>(b_s);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a[4] = {
-        pack_bf16(p[2 * kk][0], p[2 * kk][1]), pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-        pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-        pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-    const uint16_t* br = bs + (kk * 16 + t * 2) * kStride + g;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      const uint16_t* x = br + dn * 8;
-      const uint32_t b0 = uint32_t(x[0]) | (uint32_t(x[kStride]) << 16);
-      const uint32_t b1 = uint32_t(x[8 * kStride]) | (uint32_t(x[9 * kStride]) << 16);
-      mma_16816(acc[dn], a, b0, b1);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -268,24 +169,26 @@ __device__ __forceinline__ float pick(const float (&y)[N][4], int i, int e) {
 
 // g -> g * cos + rot^T(g * sin) on an fp32 C-fragment accumulator of rows
 // r0 (elements 0, 1) and r0 + 8 (elements 2, 3), in place: the adjoint of
-// the rotation (rot^T = -rot), applied before the single bf16 cast.
+// the rotation (rot^T = -rot), applied before the single bf16 cast. Rows
+// at or past n_rows (never stored) read the last row's tables.
 template <int D>
 __device__ __forceinline__ void rotate_adjoint(float (&g)[D / 8][4], const float* tcos,
-                                               const float* tsin, int r0, int t, const Rotary& r) {
+                                               const float* tsin, int r0, int t, const Rotary& r,
+                                               int n_rows) {
   constexpr int kDn = D / 8;
   float y[kDn][4];
 #pragma unroll
   for (int dn = 0; dn < kDn; ++dn)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int row = r0 + (e >> 1) * 8, c = dn * 8 + t * 2 + (e & 1);
+      const int row = min(r0 + (e >> 1) * 8, n_rows - 1), c = dn * 8 + t * 2 + (e & 1);
       y[dn][e] = __fmul_rn(g[dn][e], tsin[row * D + c]);
     }
 #pragma unroll
   for (int dn = 0; dn < kDn; ++dn)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int row = r0 + (e >> 1) * 8, c = dn * 8 + t * 2 + (e & 1);
+      const int row = min(r0 + (e >> 1) * 8, n_rows - 1), c = dn * 8 + t * 2 + (e & 1);
       if (c >= 2 * r.half) continue;
       // the partner column is in this thread: the other element of the
       // pair (interleaved) or column block dn +- half / 8 (NeoX)
@@ -293,30 +196,6 @@ __device__ __forceinline__ void rotate_adjoint(float (&g)[D / 8][4], const float
                                      : pick(y, c < r.half ? dn + r.half / 8 : dn - r.half / 8, e);
       g[dn][e] = __fadd_rn(__fmul_rn(g[dn][e], tcos[row * D + c]), -rot_sign(c, r) * yp);
     }
-}
-
-// stage_pair with the first matrix rotated on load (its rows' table rows
-// at tcos / tsin + row * D).
-template <int D>
-__device__ __forceinline__ void stage_pair_rot(__nv_bfloat16* dst_a, const __nv_bfloat16* src_a,
-                                               int64_t stride_a, __nv_bfloat16* dst_b,
-                                               const __nv_bfloat16* src_b, int64_t stride_b,
-                                               int row_lo, int n_rows, int tid, const float* tcos,
-                                               const float* tsin, const Rotary& r) {
-  constexpr int kStride = D + 8, kChunks = D / 8;
-  for (int i = tid; i < kTile * kChunks; i += kThreads) {
-    const int row = i / kChunks, ch = i % kChunks;
-    const int rr = row_lo + row;
-    uint4 a = make_uint4(0u, 0u, 0u, 0u), b = a;
-    if (rr < n_rows) {
-      const __nv_bfloat16* ra = src_a + rr * stride_a;
-      a = *reinterpret_cast<const uint4*>(ra + ch * 8);
-      b = *reinterpret_cast<const uint4*>(src_b + rr * stride_b + ch * 8);
-      a = rotate_chunk(a, ra, tcos + rr * D, tsin + rr * D, ch * 8, r);
-    }
-    *reinterpret_cast<uint4*>(dst_a + row * kStride + ch * 8) = a;
-    *reinterpret_cast<uint4*>(dst_b + row * kStride + ch * 8) = b;
-  }
 }
 
 // Write this thread's part of rows r0 and r0 + 8 of a 16 x D fp32

@@ -21,7 +21,8 @@ Semantics kept from the JAX wrapper:
   - GQA: q head h reads kv head h // (H / Hkv);
   - O = acc / l with O = 0 where l == 0, and a base-2 LSE m*c + log2(l) that
     is -1e30 on fully masked rows.
-Backward (JAX `_bwd`): delta = rowsum(dO * O) in fp32 outside the kernels;
+Backward (JAX `_bwd`): delta = rowsum(dO * O) in fp32 (inside the dq
+kernel, which writes it for the dk/dv kernel; JAX computes it outside);
 p = exp2(s*c - lse) from the saved base-2 LSE, p = 0 on rows whose LSE is
 -1e30; ds = p * (dp - delta) * softmax_scale with dp = dO v^T;
 dq = ds k, dk = ds^T q (ds cast to q's dtype), dv = p^T dO; GQA sums dk/dv
@@ -269,9 +270,11 @@ def _check_kernel_inputs(q, k, v):
 
 
 def _aligned(x):
-    # 16-byte vector loads: unit stride over D, other strides and the base
-    # pointer multiples of 8 elements
-    return x.stride(3) == 1 and all(s % 8 == 0 for s in x.stride()[:3]) and x.data_ptr() % 16 == 0
+    # 16-byte vector loads (forward) and TMA tensor maps (backward): unit
+    # stride over D, other strides positive multiples of 8 elements, the base
+    # pointer a multiple of 16 bytes
+    return (x.stride(3) == 1 and all(s > 0 and s % 8 == 0 for s in x.stride()[:3])
+            and x.data_ptr() % 16 == 0)
 
 
 def _kernel_ids(seg_q, seg_kv, device):
@@ -331,32 +334,35 @@ def _launch_kernel(q, k, v, seg_q, seg_kv, rot, causal, causal_offset, window, s
     return out, lse
 
 
-def _bwd_call(q, k, v, dout, causal, causal_offset, window, softmax_scale, rot):
-    """The C arguments the two backward kernels share, after the first ones."""
+def _bwd_call(q, k, v, dout, causal, causal_offset, window, softmax_scale, rot, out=None):
+    """The C arguments the two backward kernels share, after the pointers:
+    shapes, the strides of q, k, v (and O, for dq) and dO, the options."""
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    strided = (q, k, v, dout) if out is None else (q, k, v, out, dout)
     return (
         B, S, T, H, Hkv, D,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3],
+        *(st for x in strided for st in x.stride()[:3]),
         int(causal), int(causal_offset), int(window),
         ctypes.c_float(softmax_scale * LOG2E), ctypes.c_float(softmax_scale),
         *_rot_args(rot, q, k), stream(q),
     )
 
 
-def launch_bwd_dq(q, k, v, dout, lse, delta, seg_q, seg_kv, causal, causal_offset, window,
+def launch_bwd_dq(q, k, v, dout, out, lse, delta, seg_q, seg_kv, causal, causal_offset, window,
                   softmax_scale, rot=None):
     """Launch flash_bwd_dq of csrc/flash_bwd.cu (its fused-rotary variant
-    when rot is given) on prepared inputs (as `_launch_backward` prepares
-    them: aligned bf16 q/k/v/dout, contiguous fp32 lse and delta [B, H, S],
-    contiguous int32 ids or None). Returns dq."""
+    when rot is given) on prepared inputs (as `prepare_backward` prepares
+    them: aligned bf16 q/k/v/dout/out, contiguous fp32 lse and the delta
+    buffer [B, H, S], contiguous int32 ids or None). Writes delta =
+    rowsum(dO * O) into `delta`, for `launch_bwd_dkv`. Returns dq."""
     global launches_bwd_dq, launches_bwd_dq_rot
     B, S, H, D = q.shape
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     err = load_library("flash_bwd").flash_bwd_dq_bf16(
-        ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), ptr(dq),
+        ptr(q), ptr(k), ptr(v), ptr(dout), ptr(out), ptr(lse), ptr(delta), ptr(dq),
         ptr(seg_q), ptr(seg_kv),
-        *_bwd_call(q, k, v, dout, causal, causal_offset, window, softmax_scale, rot),
+        *_bwd_call(q, k, v, dout, causal, causal_offset, window, softmax_scale, rot, out),
     )
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {err}")
@@ -367,11 +373,12 @@ def launch_bwd_dq(q, k, v, dout, lse, delta, seg_q, seg_kv, causal, causal_offse
     return dq
 
 
-def launch_bwd_dkv(q, k, v, dout, lse, delta, seg_q, seg_kv, causal, causal_offset, window,
+def launch_bwd_dkv(q, k, v, dout, out, lse, delta, seg_q, seg_kv, causal, causal_offset, window,
                    softmax_scale, rot=None):
     """Launch flash_bwd_dkv of csrc/flash_bwd.cu (its fused-rotary variant
-    when rot is given) on prepared inputs (see `launch_bwd_dq`). Returns
-    (dk, dv)."""
+    when rot is given) on prepared inputs (see `launch_bwd_dq`, which must
+    have written delta first, on the same stream; out is not read).
+    Returns (dk, dv)."""
     global launches_bwd_dkv, launches_bwd_dkv_rot
     B, T, Hkv, D = k.shape
     dk = torch.empty((B, T, Hkv, D), dtype=k.dtype, device=k.device)
@@ -391,17 +398,20 @@ def launch_bwd_dkv(q, k, v, dout, lse, delta, seg_q, seg_kv, causal, causal_offs
 
 
 def prepare_backward(q, k, v, out, lse, dout, seg_q, seg_kv):
-    """Check and lay out the backward kernels' inputs; delta = rowsum(dO * O)
-    is computed here in fp32, as JAX computes it outside Pallas. Returns
-    (q, k, v, dout, lse, delta, seg_q, seg_kv) for the two launchers."""
+    """Check and lay out the backward kernels' inputs, with no elementwise
+    work: delta = rowsum(dO * O) is computed by the dq kernel into the
+    [B, H, S] fp32 buffer allocated here. Returns (q, k, v, dout, out, lse,
+    delta, seg_q, seg_kv) for the two launchers."""
     _check_kernel_inputs(q, k, v)
-    if dout.dtype != torch.bfloat16 or dout.shape != q.shape or dout.device != q.device:
-        raise ValueError(f"dout must be bfloat16 {tuple(q.shape)} on {q.device}, "
-                         f"got {dout.dtype} {tuple(dout.shape)} on {dout.device}")
-    q, k, v, dout = (x if _aligned(x) else x.contiguous() for x in (q, k, v, dout))
-    delta = (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()  # [B, H, S]
+    for name, x in (("dout", dout), ("out", out)):
+        if x.dtype != torch.bfloat16 or x.shape != q.shape or x.device != q.device:
+            raise ValueError(f"{name} must be bfloat16 {tuple(q.shape)} on {q.device}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    q, k, v, dout, out = (x if _aligned(x) else x.contiguous() for x in (q, k, v, dout, out))
+    B, S, H, _ = q.shape
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lse = lse.to(torch.float32).contiguous()
-    return (q, k, v, dout, lse, delta, *_kernel_ids(seg_q, seg_kv, q.device))
+    return (q, k, v, dout, out, lse, delta, *_kernel_ids(seg_q, seg_kv, q.device))
 
 
 def _launch_backward(q, k, v, out, lse, dout, seg_q, seg_kv, rot, *args):

@@ -74,7 +74,9 @@ def sdpa(
     dropout_generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Returns [B, S, H, D] in q.dtype. Softmax in fp32; probabilities are
-    cast to v.dtype before the PV product, as on the JAX side."""
+    cast to v.dtype before the PV product, as on the JAX side. Attention
+    dropout is drawn only from `dropout_generator` (JAX's `dropout_rng`):
+    without one, dropout_p has no effect."""
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     if softmax_scale is None:
@@ -90,7 +92,7 @@ def sdpa(
     if bias is not None:
         logits = logits + bias
     probs = torch.softmax(logits, dim=-1)
-    if dropout_p > 0.0:
+    if dropout_p > 0.0 and dropout_generator is not None:  # JAX: only with a dropout_rng
         keep = torch.rand(probs.shape, generator=dropout_generator, device=probs.device) >= dropout_p
         probs = probs * keep / (1.0 - dropout_p)
     out = torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v)

@@ -73,16 +73,20 @@ def test_biencoder_matches_jax(dtype):
         np.testing.assert_allclose(th.numpy(), np.asarray(jt), atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("empty_row", [False, True])
 @pytest.mark.parametrize("S", [128, 512])
-def test_padded_rows_follow_jax_dispatch(S, monkeypatch):
+def test_padded_rows_follow_jax_dispatch(S, empty_row, monkeypatch):
     """Full last_hidden_state, padded rows included, against the JAX trunk
     with attn_impl="flash": at S=128 JAX runs SDPA, at S=512 its flash
-    kernel (interpreted)."""
+    kernel (interpreted). With empty_row, a third batch row has no valid
+    token: SDPA makes its attention mean(v) over all keys, the kernel 0."""
     monkeypatch.setenv("CONTRASTORS_TPU_FLASH_INTERPRET", "1")
     cfg = dict(SMALL, n_layer=1)
     jt = JNomicBert(config=j_preset(attn_impl="flash", **cfg))
-    ids, mask = _inputs(seed=S, B=2, S=S)
+    ids, mask = _inputs(seed=S, B=3 if empty_row else 2, S=S)
     mask[1, S // 3:] = 0
+    if empty_row:
+        mask[2] = 0
     ids = ids * mask
     params = jt.init(jax.random.PRNGKey(0), jnp.asarray(ids), attention_mask=jnp.asarray(mask))
     j_hidden = np.asarray(jt.apply(params, jnp.asarray(ids), attention_mask=jnp.asarray(mask))["last_hidden_state"])
@@ -111,6 +115,26 @@ def test_encoder_bucketed_equals_fixed_pad_and_matches_jax():
     np.testing.assert_allclose(np.linalg.norm(m, axis=-1), 1.0, atol=1e-5)
     b = Encoder(tm, tok, binarize=True, **kw).encode(texts[:3])
     assert set(np.unique(b)) <= {0.0, 1.0}
+
+
+def test_encoder_restores_the_callers_training_flags():
+    """Encoder runs the module in eval mode for each call and hands it back
+    as it found it (JAX passes deterministic=True per call instead of
+    changing the module): a module in training mode stays so, and a
+    submodule the caller left in eval mode stays in eval mode."""
+    _, _, tm = _models(jnp.float32, torch.float32)
+    tm.train()
+    next(tm.trunk.children()).eval()
+    before = {n: m.training for n, m in tm.named_modules()}
+    seen = []
+    hook = tm.register_forward_pre_hook(lambda m, args: seen.append(m.training))
+    enc = Encoder(tm, StubTokenizer(512), seq_len=32, batch_size=2)
+    assert {n: m.training for n, m in tm.named_modules()} == before
+    enc.encode(["1 2 3", "4 5"])
+    hook.remove()
+    assert seen == [False]
+    assert {n: m.training for n, m in tm.named_modules()} == before
+    assert tm.training and not all(before.values())
 
 
 @pytest.mark.parametrize("over", [dict(layer_scale=True), dict(rotary_head_dim=True),

@@ -187,3 +187,61 @@ def test_flash_wrapper_rejects_fused_rotary_and_backward():
         o, lse = tfa.flash_attention_reference(q, q, q)
         dq, dk, dv = tfa.flash_attention_backward_reference(q, q, q, o, lse, torch.ones_like(o))
     torch.testing.assert_close(q.grad, dq + dk + dv, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("Hkv,rotary", [(4, False), (2, False), (4, True)])
+def test_fully_masked_batch_row_below_512_matches_jax(Hkv, rotary):
+    """attention_core(impl="flash") with a mask only at kv < 512, where JAX
+    runs SDPA: a batch row with no valid key comes out as mean(v) over all T
+    keys (uniform softmax), and its gradients are those of that softmax,
+    dq and dk nonzero; output and q/k/v gradients against JAX's
+    attention_core in fp32, atol 1e-5 (GQA: Hkv = 2; rotary: NeoX tables
+    over the whole head, applied to q and k on both sides)."""
+    import jax
+
+    from contrastors_tpu.ops import attention_core as j_attention_core
+
+    rng = np.random.default_rng(7)
+    B, S, H, D = 3, 40, 4, 64
+    q = rng.normal(size=(B, S, H, D)).astype(np.float32)
+    k, v = (rng.normal(size=(B, S, Hkv, D)).astype(np.float32) for _ in range(2))
+    do = rng.normal(size=(B, S, H, D)).astype(np.float32)
+    mask = (np.arange(S)[None] < np.array([S, 23, 0])[:, None]).astype(np.int32)
+    rot = {}
+    if rotary:
+        angles = np.outer(np.arange(S), 1.0 / 10000 ** (np.arange(0, D, 2) / D)).astype(np.float32)
+        rot = dict(rotary_cos=np.cos(angles), rotary_sin=np.sin(angles))
+
+    def j_loss(q, k, v):
+        out = j_attention_core(q, k, v, impl="flash", attention_mask=jnp.asarray(mask),
+                               **{n: jnp.asarray(t) for n, t in rot.items()})
+        return (out * do).sum(), out
+
+    (_, j_out), j_grads = jax.value_and_grad(j_loss, argnums=(0, 1, 2), has_aux=True)(q, k, v)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = attention_core(*leaves, impl="flash", attention_mask=torch.from_numpy(mask),
+                         **{n: torch.from_numpy(t) for n, t in rot.items()})
+    (out * torch.from_numpy(do)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(out[2].detach().numpy(), np.broadcast_to(
+        v[2].mean(0).repeat(H // Hkv, axis=0), (S, H, D)), atol=1e-6, rtol=0)
+    for leaf, g in zip(leaves, j_grads):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(g), atol=1e-5, rtol=0)
+    assert leaves[0].grad[2].abs().max() > 1e-3 and leaves[1].grad[2].abs().max() > 1e-3
+
+
+def test_sdpa_dropout_needs_a_generator_as_jax_needs_a_rng():
+    """sdpa(dropout_p > 0) draws dropout only from a generator, as JAX's sdpa
+    only from a dropout_rng: without one it equals JAX's sdpa without a rng
+    (no dropout); with one it drops."""
+    from contrastors_tpu.ops.sdpa import sdpa as j_sdpa
+    from contrastors_tpu_torch.ops.sdpa import sdpa
+
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.normal(size=(2, 16, 2, 64)).astype(np.float32) for _ in range(3))
+    j_out = np.asarray(j_sdpa(q, k, v, dropout_p=0.5))
+    out = sdpa(*map(torch.from_numpy, (q, k, v)), dropout_p=0.5)
+    np.testing.assert_allclose(out.numpy(), j_out, atol=1e-6, rtol=0)
+    dropped = sdpa(*map(torch.from_numpy, (q, k, v)), dropout_p=0.5,
+                   dropout_generator=torch.Generator().manual_seed(0))
+    assert not torch.allclose(dropped, out, atol=1e-3)

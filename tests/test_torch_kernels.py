@@ -57,6 +57,16 @@ def test_kernel_matches_plain_version_on_card(cuda, B, S, T, H, Hkv, D, causal, 
     (2, 200, 200, 4, 4, 64, False, 0),
     (2, 100, 300, 6, 2, 64, True, 0),
     (1, 700, 700, 2, 2, 128, False, 256),
+    # one row; partial last tiles of a persistent walk (65, 129)
+    (2, 1, 1, 2, 2, 64, False, 0),
+    (3, 65, 65, 4, 4, 64, False, 0),
+    (2, 129, 129, 4, 2, 64, False, 0),
+    (2, 129, 129, 2, 2, 128, False, 0),
+    # B * H = 143 items: not a multiple of the 132 SMs
+    (11, 96, 96, 13, 13, 64, False, 0),
+    (2, 200, 700, 4, 4, 64, True, 0),
+    # GQA at the MLM length
+    (1, 2048, 2048, 12, 4, 64, False, 0),
 ])
 def test_backward_kernels_match_plain_version_on_card(cuda, B, S, T, H, Hkv, D, causal, window):
     """Autograd through the wrapper launches dq and dk/dv once each, with a
@@ -111,6 +121,8 @@ def _rotary_inputs(cuda, B, S, H, Hkv, D, rot_dim, interleaved, packed, seed=2):
     (2, 256, 4, 4, 64, 64, False, False),
     (2, 300, 6, 2, 64, 32, True, False),
     (1, 512, 2, 2, 128, 128, False, True),
+    (2, 129, 4, 4, 128, 128, False, False),
+    (3, 65, 4, 4, 64, 64, True, False),
 ])
 def test_fused_rotary_kernels_match_plain_versions_on_card(cuda, B, S, H, Hkv, D, rot_dim, interleaved,
                                                            packed):
@@ -132,6 +144,22 @@ def test_fused_rotary_kernels_match_plain_versions_on_card(cuda, B, S, H, Hkv, D
     refs = tfa.flash_attention_backward_reference(q, k, v, out.detach(), lse, dout, **kw)
     for g, r, name in zip(grads, refs, ("dq", "dk", "dv")):
         assert tfa.grad_error_ratio(g, r, name) <= 1.0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_backward_kernels_are_deterministic(cuda, fused):
+    """Each output tile has one owner and sums in a fixed order: two runs on
+    the same inputs give the same bits (dq, dk, dv)."""
+    q, k, v, dout, kw = _rotary_inputs(cuda, 2, 300, 4, 2, 64, 64, False, False, seed=3)
+    if not fused:
+        kw = dict(attention_mask=kw["attention_mask"])
+    out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    first = tfa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    second = tfa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
