@@ -2,17 +2,19 @@
 """Drive the PyTorch / CUDA port (contrastors_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only {moe_kernels,moe,flash_bwd,dense} [--tree DIR]
+    python3 chip_smoke.py --only {moe_kernels,moe,flash_fwd,flash_bwd,dense} [--tree DIR]
 
 The second form runs phases 1, 2 and 9 (moe_kernels), or 1, 2 and 9-12
 without the gradient agreement (moe: the kernels, MoE serving and the MoE
-step's timing and profile), or (flash_bwd) 1, 2, the backward checks of 4
-and 13, the backward timing of 8 (the whole backward only) and the MLM
-step's timing, fused and outside in turns, or (dense) 1, 2 and the dense
-step of 7-8 (launches, timing, profile; no gradient agreement), on this
-checkout's package or on the one under DIR (another checkout, e.g. the
-parent commit unpacked by `git archive`), so that two versions can be
-timed in turns on one card.
+step's timing and profile), or (flash_fwd) 1, 2, the forward checks of 3
+and 13, the forward timing of 6, the fused encode of 14 and the MLM step's
+timing, fused and outside in turns, or (flash_bwd) 1, 2, the backward
+checks of 4 and 13, the backward timing of 8 (the whole backward only) and
+the MLM step's timing, or (dense) 1, 2 and the dense step of 7-8
+(launches, timing, profile; no gradient agreement), on this checkout's
+package or on the one under DIR (another checkout, e.g. the parent commit
+unpacked by `git archive`), so that two versions can be timed in turns on
+one card.
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions; TF32 off.
@@ -21,8 +23,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
   3. kernel_check: the flash-forward kernel against its plain PyTorch version
      on the card in bf16 (padding with a fully masked row, ragged and sub-tile
      lengths, the multi-tile regime at 4096/8192, causal S != T, window,
-     segments, GQA, D=128, and the training step's two shapes, B=512 S=32
-     and B=16 S=256).
+     segments, GQA, D=128, the training step's two shapes, B=512 S=32
+     and B=16 S=256, and the edges of the persistent walk: S = T = 1, 65,
+     129 with GQA, D = 128 at 129, B * H = 143, GQA at S = 2048); a second
+     run bit-identical to the first.
   4. kernel_check_bwd: the two backward kernels (dq, which also computes
      delta; dk/dv) against the plain backward on the same O and LSE, with a
      strided dO, in 13 of those cases (the training shapes included) and in
@@ -36,9 +40,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
      must equal n_layer x its batches; embeddings must be finite, unit-norm
      and agree with the same weights under attn_impl="sdpa".
   6. timing: encode throughput at 256 x 512, and the forward kernel's time
-     beside its bound, its plain version and torch's
-     scaled_dot_product_attention (a yardstick only; the port never calls
-     it), at B=256 S=512 and B=16 S=4096.
+     (ms, device_ms, enqueue us) beside its bound, its plain version and
+     torch's scaled_dot_product_attention (a yardstick only; the port never
+     calls it) the same three ways, at B=256 S=512, B=16 S=4096, the
+     contrastive step's B=512 S=32 and B=16 S=256, and the MLM shape B=8
+     S=2048 plain and with fused rotary (against SDPA plus apply_rotary),
+     all with the all-ones mask.
   7. dead_row_check and train_step: attention_core(impl="flash") with a
      mask only at kv 256, as the step's document chunks call it (and with
      GQA and fused rotary), on a batch whose last row has no valid key:
@@ -89,7 +96,9 @@ second layer: 6 MoE layers, ~435M parameters):
      AdamW lr 2e-4 wd 0.01 clip 1.0, LogitScale(50) fixed, 5 steps; per
      step 768 / 384 / 384 flash fwd / dq / dk-dv launches, 1728 gmm and
      576 tgmm; losses finite and falling, each chunk's aux near top_k = 2.
-     At 64 pairs with aux 0: grad cache against the standard step and the
+     At 64 pairs with aux 0: grad cache against the standard step (with
+     the tokens the two route differently, and read beside it with the
+     standard step replaying the grad-cache run's choices) and the
      kernels against sdpa with the plain grouped matmul (replaying the
      kernel run's expert choices), per tensor; the same comparison with
      each run routing on its own, at three data seeds, beside the gmm
@@ -106,12 +115,13 @@ MLM pretraining step:
      512), packed rows (B=4 S=2048, three segments per row, positions
      restarting: per-batch tables), interleaved rotary over 32 of 64
      features, GQA (Hkv=4), S=300 and D=128, and the walk's edges (S = 1,
-     65, 129 at D = 128, B * H = 143, GQA at S = 2048); every backward
-     bit-identical on a second run; at the MLM shape the backward kernels
-     given negated sin tables (the wrong adjoint) must fall outside.
+     65, 129 with GQA and at D = 128, B * H = 143, GQA at S = 2048); every
+     forward and backward bit-identical on a second run; at the MLM shape
+     the backward kernels given negated sin tables (the wrong adjoint) must
+     fall outside.
  14. fused_encode (after phase 6): the encode batch of 256 x 512 with
      fused_rotary=True, 12 fused launches, cosine >= 0.999 against the
-     outside rotation.
+     outside rotation; both models' forward timed in turns.
  15. fused_kernel_timing and rotary_ablation (after the forward timing):
      each fused kernel at the MLM shape beside its bound, the unfused kernel
      on pre-rotated q/k, the plain versions and the nearest library
@@ -549,6 +559,24 @@ def differing_choices(a, b):
     return diff, sum(int(v.sum()) for _, v in a)
 
 
+def standard_order(decisions, chunks):
+    """A grad-cache run's recorded expert choices (shared_routing) in the
+    call order of the standard step, which encodes each tower in one batch:
+    the pass-2 half of the recording (each tower's `chunks` chunks in order,
+    queries first, one call per MoE layer and chunk) joined over each
+    tower's chunks, layer by layer."""
+    import torch
+
+    pass2 = decisions[len(decisions) // 2:]
+    n_moe = len(pass2) // (2 * chunks)
+    joined = []
+    for tower in range(2):
+        for layer in range(n_moe):
+            parts = [pass2[(tower * chunks + c) * n_moe + layer] for c in range(chunks)]
+            joined.append((torch.cat([e for e, _ in parts]), torch.cat([v for _, v in parts])))
+    return joined
+
+
 def moe_serving(dev, card, tok, rng, gen):
     """Phases moe_main_path, moe_sdpa_agreement and moe_encode_throughput.
     Returns (launches of the encode run, its batches)."""
@@ -797,11 +825,15 @@ def moe_grad_agreement(dev):
     # bounded apart, at three data seeds, beside its two halves (the gmm
     # kernels alone, flash on both sides; the attention alone, the plain
     # grouped matmul on both sides), with the tokens each switch reroutes.
+    # The grad-cache run and the standard step each route on their own; the
+    # tokens they route differently are counted, and a third reading has the
+    # standard step replay the grad-cache run's choices (read, not bounded).
     sq, sd = token_batches(64, dev, seed=1)
-    grads, kernel_choices = {}, []
+    grads, kernel_choices, std_choices, gc_in_std_order = {}, [], [], []
     runs = (  # label, attention, grad cache, what the run is given
         ("gc", "flash", True, lambda: shared_routing(kernel_choices, replay=False)),
-        ("std", "flash", False, contextlib.nullcontext),
+        ("std", "flash", False, lambda: shared_routing(std_choices, replay=False)),
+        ("std_shared", "flash", False, lambda: shared_routing(list(gc_in_std_order), replay=True)),
         ("sdpa_plain", "sdpa", True, lambda: shared_routing(list(kernel_choices), replay=True)),
         ("tgmm_roll", "flash", True, lambda: planted_fault("tgmm_roll")),
     )
@@ -809,11 +841,16 @@ def moe_grad_agreement(dev):
         plain = plain_grouped_matmul() if impl == "sdpa" else contextlib.nullcontext()
         with ctx(), plain:
             grads[label] = step_grads(impl, grad_cache, dev, sq, sd, moe=True)
+        if label == "gc":
+            gc_in_std_order = standard_order(kernel_choices, 64 // MOE_CHUNK)
         gc.collect()
         torch.cuda.empty_cache()
     bounds = dict(gc_vs_std_min_cosine=0.9999, gc_vs_std_max_rel_l2=0.01, kernels_vs_plain_min_cosine=0.999,
                   own_routing_min_cosine=0.995)
-    gc_vs_std = compare_grads(grads["gc"], grads["std"])
+    flipped, routed = differing_choices(gc_in_std_order, std_choices)
+    gc_vs_std = dict(compare_grads(grads["gc"], grads["std"]), tokens_routed=routed,
+                     tokens_routed_differently=flipped)
+    gc_vs_std_shared = compare_grads(grads["gc"], grads["std_shared"])
     kernels_vs_plain = compare_grads(grads["gc"], grads["sdpa_plain"])
     fault = compare_grads(grads["tgmm_roll"], grads["sdpa_plain"])
     del grads
@@ -854,9 +891,13 @@ def moe_grad_agreement(dev):
           and all(r["margin"] >= 0 for r in own_routing.values())
           and not within(fault, bounds["own_routing_min_cosine"]))
     emit(phase="moe_train_grad_agreement", pairs=64, chunk=MOE_CHUNK, router_aux_coef=0.0,
-         gc_vs_standard=gc_vs_std, kernels_vs_sdpa_plain_gmm=kernels_vs_plain,
+         gc_vs_standard=gc_vs_std, gc_vs_standard_shared_routing=gc_vs_std_shared,
+         kernels_vs_sdpa_plain_gmm=kernels_vs_plain,
          own_routing=own_routing, planted_fault=dict(tgmm_roll_vs_sdpa_plain_gmm=fault), bounds=bounds,
-         note="kernels_vs_sdpa_plain_gmm replays the kernel run's expert choices; own_routing: each run "
+         note="gc_vs_standard: each step routes on its own (tokens_routed_differently counts the "
+              "tokens whose expert pair differs); gc_vs_standard_shared_routing: the standard step "
+              "replays the grad-cache run's choices (read, not bounded); "
+              "kernels_vs_sdpa_plain_gmm replays the kernel run's expert choices; own_routing: each run "
               "routes on its own (kernels_vs_sdpa_plain_gmm bounded by own_routing_min_cosine; its halves "
               "read, not bounded); tokens counted once per MoE layer when valid", ok=ok)
     if not ok:
@@ -1000,7 +1041,7 @@ def moe_kernels(dev, card):
 
 # The flash kernels' check cases: (name, shape, options). mask=(full, empty)
 # gives random lengths with `full` rows whole and `empty` rows fully masked.
-FWD_CASES = [
+BASE_CASES = [
     ("pad_b8_s512_empty_row", dict(B=8, S=512, T=512, H=12, Hkv=12, D=64), dict(mask=(1, 1))),
     ("pad_b256_s512", dict(B=256, S=512, T=512, H=12, Hkv=12, D=64), dict(mask=(1, 0))),
     ("s16", dict(B=4, S=16, T=16, H=12, Hkv=12, D=64), dict(mask=(1, 0))),
@@ -1018,11 +1059,11 @@ FWD_CASES = [
     ("train_q_b512_s32", dict(B=512, S=32, T=32, H=12, Hkv=12, D=64), dict(mask=(512, 0))),
     ("train_d_b16_s256", dict(B=16, S=256, T=256, H=12, Hkv=12, D=64), dict(mask=(16, 0))),
 ]
-# the backward kernels: the forward's cases but the two largest, and the
-# edges of the persistent walk: one row, partial last tiles (65, 129; the
-# kernels' items are 128 rows at D = 64, 64 at D = 128), B * H = 143 items
+# the edges of the kernels' persistent walk: one row, partial last tiles
+# (65, 129; the items are 128 rows, but 64 for the backward at D = 128 and
+# for every kernel at D = 64 when the rows are at most 64), B * H = 143 items
 # (not a multiple of the 132 SMs), GQA at the MLM length
-BWD_CASES = [c for c in FWD_CASES if c[0] not in ("pad_b256_s512", "s8192")] + [
+EDGE_CASES = [
     ("s1", dict(B=4, S=1, T=1, H=12, Hkv=12, D=64), dict(mask=(4, 0))),
     ("s65", dict(B=3, S=65, T=65, H=12, Hkv=12, D=64), dict(mask=(1, 0))),
     ("s129_gqa", dict(B=3, S=129, T=129, H=12, Hkv=4, D=64), dict(mask=(1, 0))),
@@ -1030,6 +1071,9 @@ BWD_CASES = [c for c in FWD_CASES if c[0] not in ("pad_b256_s512", "s8192")] + [
     ("bh143_s96", dict(B=11, S=96, T=96, H=13, Hkv=13, D=64), dict(mask=(1, 0))),
     ("gqa_hkv4_s2048", dict(B=1, S=2048, T=2048, H=12, Hkv=4, D=64), dict(mask=(1, 0))),
 ]
+FWD_CASES = BASE_CASES + EDGE_CASES
+# the backward kernels: the same but the two largest
+BWD_CASES = [c for c in FWD_CASES if c[0] not in ("pad_b256_s512", "s8192")]
 
 
 def make_qkv(gen, dev, B, S, T, H, Hkv, D):
@@ -1067,7 +1111,8 @@ def case_inputs(gen, dev, shp, opt):
 
 def forward_checks(dev, gen):
     """Phase kernel_check: the forward kernel against its plain version in
-    FWD_CASES. Returns {case: max abs error of O}."""
+    FWD_CASES, a second run bit-identical to the first. Returns {case: max
+    abs error of O}."""
     import torch
 
     from contrastors_tpu_torch.ops import flash_attention as fa
@@ -1076,13 +1121,16 @@ def forward_checks(dev, gen):
     for name, shp, opt in FWD_CASES:
         q, k, v, kw = case_inputs(gen, dev, shp, opt)
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        again = fa.flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
         torch.cuda.synchronize()
         o_err = (out.float() - ref_out.float()).abs().max().item()
         o_ratio = fa.output_error_ratio(out, ref_out)
         lse_err = (lse - ref_lse).abs().max().item()
-        ok = o_ratio <= 1.0 and lse_err <= fa.LSE_ATOL and bool(torch.isfinite(out.float()).all())
+        deterministic = bool(torch.equal(out, again[0])) and bool(torch.equal(lse, again[1]))
+        ok = (o_ratio <= 1.0 and lse_err <= fa.LSE_ATOL and bool(torch.isfinite(out.float()).all())
+              and deterministic)
         if name.endswith("empty_row"):
             ok = ok and bool((out[-1] == 0).all()) and bool((lse[-1] == fa.NEG_INF).all())
         o_errs[name] = o_err
@@ -1090,10 +1138,11 @@ def forward_checks(dev, gen):
              o_ref_abs_max=ref_out.float().abs().max().item(),
              o_ref_abs_mean=ref_out.float().abs().mean().item(),
              o_tol=f"{fa.O_REL:g}*|ref| + {fa.O_ABS_FRAC:g}*max|ref|", o_err_over_tol=o_ratio,
-             lse_max_abs_err=lse_err, lse_tol=fa.LSE_ATOL, ok=ok)
+             lse_max_abs_err=lse_err, lse_tol=fa.LSE_ATOL, deterministic=deterministic, ok=ok)
         if not ok:
-            raise AssertionError(f"flash kernel disagrees with its plain version in case {name}")
-        del q, k, v, out, lse, ref_out, ref_lse
+            raise AssertionError(f"flash kernel disagrees with its plain version, or is not deterministic, "
+                                 f"in case {name}")
+        del q, k, v, out, lse, again, ref_out, ref_lse
     torch.cuda.empty_cache()
     return o_errs
 
@@ -1220,9 +1269,10 @@ FUSED_CASES = [
     ("gqa_hkv4_s512", dict(B=2, S=512, H=12, Hkv=4, D=64), dict(mask=True)),
     ("unaligned_s300", dict(B=4, S=300, H=12, Hkv=12, D=64), dict(mask=True)),
     ("d128_s384", dict(B=2, S=384, H=8, Hkv=8, D=128), dict(mask=True)),
-    # the edges of the backward kernels' persistent walk, as in BWD_CASES
+    # the edges of the kernels' persistent walk, as in EDGE_CASES
     ("s1", dict(B=4, S=1, H=12, Hkv=12, D=64), dict()),
     ("s65", dict(B=3, S=65, H=12, Hkv=12, D=64), dict(mask=True)),
+    ("s129_gqa", dict(B=3, S=129, H=12, Hkv=4, D=64), dict(mask=True)),
     ("d128_s129", dict(B=2, S=129, H=8, Hkv=8, D=128), dict(mask=True)),
     ("bh143_s96", dict(B=11, S=96, H=13, Hkv=13, D=64), dict(mask=True)),
     ("gqa_hkv4_s2048", dict(B=1, S=2048, H=12, Hkv=4, D=64), dict()),
@@ -1258,32 +1308,38 @@ def rotary_case(dev, gen, B, S, H, Hkv, D, rot_dim=None, interleaved=False, mask
     return q, k, v, kw
 
 
-def fused_kernel_checks(dev, gen):
+def fused_kernel_checks(dev, gen, backward=True):
     """Phase fused_kernel_check: the fused-rotary forward, dq and dk/dv
     kernels against their plain versions in FUSED_CASES, with a strided dO,
-    a second backward bit-identical to the first;
-    at the MLM shape the backward kernels given negated sin tables must fall
-    outside the rule. Returns {"fwd"|"dq"|"dk"|"dv": max abs error}."""
+    a second forward and backward bit-identical to the first; at the MLM
+    shape the backward kernels given negated sin tables must fall outside the
+    rule. backward=False checks the forward alone. Returns {"fwd"|"dq"|"dk"|"dv":
+    max abs error}."""
     import torch
 
     from contrastors_tpu_torch.ops import flash_attention as fa
 
-    errs = dict(fwd=0.0, dq=0.0, dk=0.0, dv=0.0)
+    errs = dict(fwd=0.0, dq=0.0, dk=0.0, dv=0.0) if backward else dict(fwd=0.0)
     for name, shp, opt in FUSED_CASES:
         q, k, v, kw = rotary_case(dev, gen, **shp, **opt)
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
-        dout = torch.randn(*out.shape[:3], out.shape[3] + 8, generator=gen, device=dev).bfloat16()
-        dout = dout[..., : out.shape[3]]
-        grads = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
-        again = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+        out2, lse2 = fa.flash_attention_fwd(q, k, v, **kw)
+        grads = again = refs = ()
+        if backward:
+            dout = torch.randn(*out.shape[:3], out.shape[3] + 8, generator=gen, device=dev).bfloat16()
+            dout = dout[..., : out.shape[3]]
+            grads = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+            again = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
-        refs = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw)
+        if backward:
+            refs = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw)
         torch.cuda.synchronize()
         line = dict(o_max_abs_err=(out.float() - ref_out.float()).abs().max().item(),
                     o_err_over_tol=fa.output_error_ratio(out, ref_out),
                     lse_max_abs_err=(lse - ref_lse).abs().max().item(),
-                    deterministic=all(bool(torch.equal(a, b)) for a, b in zip(grads, again)))
+                    deterministic=(bool(torch.equal(out, out2)) and bool(torch.equal(lse, lse2))
+                                   and all(bool(torch.equal(a, b)) for a, b in zip(grads, again))))
         ok = (line["o_err_over_tol"] <= 1.0 and line["lse_max_abs_err"] <= fa.LSE_ATOL
               and bool(torch.isfinite(out.float()).all()) and line["deterministic"])
         errs["fwd"] = max(errs["fwd"], line["o_max_abs_err"])
@@ -1292,7 +1348,7 @@ def fused_kernel_checks(dev, gen):
             errs[gname] = max(errs[gname], err)
             line[f"{gname}_max_abs_err"], line[f"{gname}_err_over_tol"] = err, ratio
             ok = ok and line[f"{gname}_err_over_tol"] <= 1.0 and bool(torch.isfinite(g.float()).all())
-        if name == "mlm_b8_s2048":
+        if backward and name == "mlm_b8_s2048":
             with planted_fault("negated_sin"):
                 bad = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
             line["negated_sin_err_over_tol"] = {gname: fa.grad_error_ratio(g, r, gname)
@@ -1301,11 +1357,11 @@ def fused_kernel_checks(dev, gen):
             del bad
         emit(phase="fused_kernel_check", case=name, **shp, rot_dim=opt.get("rot_dim", shp["D"]),
              interleaved=opt.get("interleaved", False), tables="per batch row" if opt.get("packed") else "shared",
-             **line, ok=ok)
+             backward=backward, **line, ok=ok)
         if not ok:
             raise AssertionError(f"fused-rotary kernels disagree with their plain versions in case {name}, "
-                                 "or the planted fault is inside the bound")
-        del q, k, v, kw, out, lse, dout, grads, again, ref_out, ref_lse, refs
+                                 "or are not deterministic, or the planted fault is inside the bound")
+        del q, k, v, kw, out, lse, out2, lse2, grads, again, ref_out, ref_lse, refs
     torch.cuda.empty_cache()
     return errs
 
@@ -1377,6 +1433,83 @@ def fused_kernel_timing(dev, card, gen):
               "apply_rotary on q and k (no single PyTorch call computes fused-rotary attention)")
     del q, k, v, qr, kr, out, lse, dout, inputs, inputs_r, qt, kt, vt, leaves, dot, ql, kl
     torch.cuda.empty_cache()
+    return rows
+
+
+# The forward's timed shapes: the encode batch, a long-context batch, the
+# contrastive step's query tower and document chunk, and the MLM step's
+# shape, plain and with fused rotary; each with the all-ones attention mask
+# that the encoder and the steps pass.
+FWD_TIMING_SHAPES = (("b256_s512", 256, 512, False), ("b16_s4096", 16, 4096, False),
+                     ("b512_s32", 512, 32, False), ("b16_s256", 16, 256, False),
+                     ("mlm_b8_s2048", 8, 2048, False), ("mlm_b8_s2048_fused", 8, 2048, True))
+
+
+def forward_timing(dev, card, gen):
+    """Phase kernel_timing at FWD_TIMING_SHAPES (H=12, D=64): the forward
+    through `flash_attention_fwd` (so that trees whose C arguments differ
+    are timed alike), checked once more against its plain version, as ms,
+    device_ms and the host's enqueue per call, beside its bound, the plain
+    version and torch SDPA the same three ways: SDPA without a mask (the
+    all-ones mask selects every key), and for the fused shape on q and k
+    rotated by apply_rotary inside the timed call (the nearest composite:
+    no PyTorch call fuses rotary into attention); at the unfused shapes
+    also SDPA with the mask as a boolean attn_mask (`library_masked_ms`,
+    the yardstick of runs before PR 7). Returns {shape: row}."""
+    import torch
+    import torch.nn.functional as F
+
+    from contrastors_tpu_torch.layers.rotary import apply_rotary, rotary_cos_sin
+    from contrastors_tpu_torch.ops import flash_attention as fa
+
+    rows = {}
+    for label, B, S, fused in FWD_TIMING_SHAPES:
+        H, D = 12, 64
+        q, k, v = make_qkv(gen, dev, B, S, S, H, H, D)
+        mask = torch.ones(B, S, dtype=torch.int32, device=dev)
+        kw = dict(attention_mask=mask)
+        b_ms, b_by, flops, nbytes = attention_bound(B, S, S, H, H, D, mask)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if fused:
+            cos, sin = rotary_cos_sin(S, D, base=1000.0, device=dev)
+            kw.update(rotary_cos=cos, rotary_sin=sin)
+            # + the two expanded fp32 tables, padded to the 64-row tile
+            b_ms, b_by, _, nbytes = _bound(flops, nbytes + 2 * 4 * (-(-S // 64) * 64) * D)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(apply_rotary(q, cos, sin).transpose(1, 2),
+                                                      apply_rotary(k, cos, sin).transpose(1, 2), vt)
+        else:
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt)
+
+        def run():
+            return fa.flash_attention_fwd(q, k, v, **kw)
+
+        out, lse = run()
+        ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+        ratio, lse_err = fa.output_error_ratio(out, ref_out), (lse - ref_lse).abs().max().item()
+        del out, lse, ref_out, ref_lse
+        row = dict(ms=median_ms(run), device_ms=median_ms(run, queued=True), enqueue_us=host_enqueue_us(run),
+                   plain_ms=median_ms(lambda: fa.flash_attention_reference(q, k, v, **kw), runs=3, warmup=1),
+                   library_ms=median_ms(sdpa), library_device_ms=median_ms(sdpa, queued=True),
+                   library_enqueue_us=host_enqueue_us(sdpa), bound_ms=b_ms, bound_by=b_by, flops=flops,
+                   bytes=nbytes, o_err_over_tol=ratio, lse_max_abs_err=lse_err)
+        if not fused:
+            keep = mask.bool()[:, None, None, :]
+            row["library_masked_ms"] = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep))
+        row.update(tflops=flops / row["ms"] / 1e9, roofline_share=b_ms / row["ms"],
+                   device_roofline_share=b_ms / row["device_ms"])
+        rows[label] = row
+        emit(phase="kernel_timing", card=card, gpu_state=gpu_state(), shape=label, B=B, S=S, T=S, H=H, D=D,
+             fused_rotary=fused, **row,
+             note="ms, device_ms, enqueue_us: flash_attention_fwd; library: SDPA without a mask"
+                  + (" on q, k rotated by apply_rotary in the same call" if fused else
+                     "; library_masked_ms: SDPA with the all-ones mask as a boolean attn_mask"))
+        if ratio > 1.0 or lse_err > fa.LSE_ATOL:
+            raise AssertionError(f"flash forward kernel disagrees with its plain version at {label}")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1770,6 +1903,50 @@ def dense_training(dev, card, agreement=True):
     return launches_train, timing
 
 
+def fused_encode(dev, card, model, tok, texts, e):
+    """Phase fused_encode: the encode batch (256 texts of 512 tokens) through
+    a BiEncoder with fused_rotary=True and the weights of `model` (rotary
+    outside), whose embeddings of the same texts are e: 12 fused launches,
+    cosine >= 0.999; then both models' forward at 256 x 512 timed in turns
+    (CUDA events). Returns the launch counts."""
+    import torch
+
+    from contrastors_tpu_torch.eval.encoder import Encoder
+    from contrastors_tpu_torch.models import BiEncoder
+    from contrastors_tpu_torch.models.presets import nomic_bert_2048
+
+    cfg = nomic_bert_2048(attn_impl="flash", fused_rotary=True)
+    model_f = BiEncoder(cfg, pooling="mean", dtype=torch.bfloat16, device=dev)
+    model_f.load_state_dict(model.state_dict())
+    enc_f = Encoder(model_f, tok, seq_len=512, batch_size=256)
+    enc_f.query_prefix = enc_f.document_prefix = None
+    reset_counts()
+    e_f = enc_f.encode(texts)
+    launches = read_counts()
+    cos_f = (e_f * e).sum(-1)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ids = torch.randint(1000, 30000, (256, 512), generator=gen, device=dev)
+    full = torch.ones(256, 512, dtype=torch.int64, device=dev)
+    fwd_ms = dict(fused=[], outside=[])
+    with torch.inference_mode():
+        runs = (("fused", model_f), ("outside", model))
+        for i in range(4):
+            for label, m in runs if i % 2 == 0 else runs[::-1]:
+                fwd_ms[label].append(median_ms(lambda: m(ids, full, normalize=False), runs=3, warmup=1))
+    ok = (launches == expect(fwd_rot=cfg.n_layer) and e_f.shape == e.shape
+          and bool(np.isfinite(e_f).all()) and float(cos_f.min()) >= 0.999)
+    emit(phase="fused_encode", card=card, batch=256, seq_len=512, launches=launches,
+         expected_launches=expect(fwd_rot=cfg.n_layer), min_cosine_vs_outside=float(cos_f.min()),
+         mean_cosine_vs_outside=float(cos_f.mean()), threshold=0.999,
+         forward_ms={k: float(np.median(v)) for k, v in fwd_ms.items()}, forward_ms_runs=fwd_ms, ok=ok,
+         note="forward_ms: the model's forward at 256 x 512, fused and outside rotation in turns")
+    if not ok:
+        raise AssertionError("fused-rotary encode: launch counts or agreement with the outside rotation failed")
+    del model_f, enc_f
+    torch.cuda.empty_cache()
+    return launches
+
+
 def finish(card, summary):
     """The run's ending: the command_time line, the card's line, the summary
     and the last line, these three as the contract gives them, without t."""
@@ -1787,9 +1964,11 @@ def main(argv=None):
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the PyTorch / CUDA port on one NVIDIA GPU.")
-    ap.add_argument("--only", choices=["moe_kernels", "moe", "flash_bwd", "dense"],
+    ap.add_argument("--only", choices=["moe_kernels", "moe", "flash_fwd", "flash_bwd", "dense"],
                     help="run only the card, build and grouped-matmul phases (9), or (moe) also MoE "
                          "serving and the MoE step's timing and profile (10-12, no gradient agreement); "
+                         "flash_fwd: the card, build, the forward checks (3, 13), the forward timing (6), "
+                         "the fused encode (14) and the MLM step's timing, fused and outside; "
                          "flash_bwd: the card, build, the backward checks (4, 13), the backward timing "
                          "(8, the whole backward only) and the MLM step's timing, fused and outside; "
                          "dense: the card, build and the dense step's timing and profile (7-8, no "
@@ -1831,7 +2010,7 @@ def main(argv=None):
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = dict(moe_kernels=("gmm",), flash_bwd=("flash_fwd", "flash_bwd"),
+    libs = dict(moe_kernels=("gmm",), flash_fwd=("flash_fwd", "flash_bwd"), flash_bwd=("flash_fwd", "flash_bwd"),
                 dense=("flash_fwd", "flash_bwd")).get(args.only, _build.LIBRARIES)
     with ThreadPoolExecutor(len(libs)) as pool:
         paths = dict(zip(libs, pool.map(_build.build, libs)))
@@ -1845,7 +2024,22 @@ def main(argv=None):
     if args.only:
         summary = dict(package=str(_build.CSRC.parents[2]))
         gen = torch.Generator(device=dev).manual_seed(0)
-        if args.only == "flash_bwd":
+        if args.only == "flash_fwd":
+            o_errs = forward_checks(dev, gen)
+            fused_errs = fused_kernel_checks(dev, gen, backward=False)
+            summary["flash_fwd"] = forward_timing(dev, card, gen)
+            cfg = nomic_bert_2048(attn_impl="flash")
+            model = seed_weights(BiEncoder(cfg, pooling="mean", dtype=torch.bfloat16, device=dev), "dense")
+            tok = StubTokenizer(cfg.vocab_size)
+            texts = make_texts(np.random.default_rng(0), 256, 512, 512, lognormal=False)
+            enc = Encoder(model, tok, seq_len=512, batch_size=256)
+            enc.query_prefix = enc.document_prefix = None
+            summary["fused_encode_launches"] = fused_encode(dev, card, model, tok, texts, enc.encode(texts))
+            del model, enc
+            torch.cuda.empty_cache()
+            summary["mlm_launches"], summary["mlm_step"] = mlm_training(dev, card, agreement=False)
+            summary["max_abs_err"] = dict(fwd=max(o_errs.values()), fused_fwd=fused_errs["fwd"])
+        elif args.only == "flash_bwd":
             grad_errs = backward_checks(dev, gen)
             fused_errs = fused_kernel_checks(dev, gen)
             summary["flash_bwd"] = backward_timing(dev, card, gen, per_kernel=False)
@@ -1955,44 +2149,11 @@ def main(argv=None):
          forward_ms=fwd_ms, forward_tokens_per_s=256 * 512 / fwd_ms * 1e3)
 
     # 14. fused-rotary encode: the same weights and texts with fused_rotary=True
-    model_f = BiEncoder(nomic_bert_2048(attn_impl="flash", fused_rotary=True), pooling="mean",
-                        dtype=torch.bfloat16, device=dev)
-    model_f.load_state_dict(model.state_dict())
-    enc_f = Encoder(model_f, tok, seq_len=512, batch_size=256)
-    enc_f.query_prefix = enc_f.document_prefix = None
-    reset_counts()
-    e_f = enc_f.encode(texts_512)
-    launches_fused_enc = read_counts()
-    cos_f = (e_f * e).sum(-1)
-    ok = (launches_fused_enc == expect(fwd_rot=cfg.n_layer) and e_f.shape == e.shape
-          and bool(np.isfinite(e_f).all()) and float(cos_f.min()) >= 0.999)
-    emit(phase="fused_encode", batch=256, seq_len=512, launches=launches_fused_enc,
-         expected_launches=expect(fwd_rot=cfg.n_layer), min_cosine_vs_outside=float(cos_f.min()),
-         mean_cosine_vs_outside=float(cos_f.mean()), threshold=0.999, ok=ok)
-    if not ok:
-        raise AssertionError("fused-rotary encode: launch counts or agreement with the outside rotation failed")
-    del model, enc, model_f, enc_f
+    launches_fused_enc = fused_encode(dev, card, model, tok, texts_512, e)
+    del model, enc
     torch.cuda.empty_cache()
 
-    timings = {}
-    for label, B, S in (("b256_s512", 256, 512), ("b16_s4096", 16, 4096)):
-        H, D = 12, 64
-        q, k, v = make_qkv(gen, dev, B, S, S, H, H, D)
-        mask = torch.ones(B, S, dtype=torch.int32, device=dev)
-        kernel_ms = median_ms(lambda: fa.flash_attention_fwd(q, k, v, attention_mask=mask))
-        plain_ms = median_ms(lambda: fa.flash_attention_reference(q, k, v, attention_mask=mask), runs=5)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        keep = mask.bool()[:, None, None, :]
-        library_ms = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep))
-        bound_ms, bound_by, flops, nbytes = attention_bound(B, S, S, H, H, D, mask)
-        timings[label] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                              bound_ms=bound_ms, bound_by=bound_by)
-        emit(phase="kernel_timing", card=card, gpu_state=gpu_state(), shape=label, B=B, S=S, T=S, H=H, D=D,
-             flops=flops, bytes=nbytes, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-             bound_ms=bound_ms, bound_by=bound_by, tflops=flops / kernel_ms / 1e9,
-             roofline_share=bound_ms / kernel_ms)
-        del q, k, v, qt, kt, vt
-        torch.cuda.empty_cache()
+    timings = forward_timing(dev, card, gen)
 
     # 15. the fused-rotary kernels timed at the MLM shape, and the ported
     # rotary-fusion ablation (rotary outside, pre-rotated, fused)
@@ -2089,13 +2250,17 @@ def main(argv=None):
             launches=launches_docs,
             train_launches=launches_train["fwd"],
             max_abs_err=max(o_errs.values()),
-            ms=main["ms"],
-            plain_ms=main["plain_ms"],
-            bound_ms=main["bound_ms"],
-            bound_by=main["bound_by"],
-            library_ms=main["library_ms"],
+            **{k: main[k] for k in ("ms", "device_ms", "enqueue_us", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "library_device_ms", "library_masked_ms")},
+            shape="B=256 S=T=512 H=12 D=64, all-ones mask (the encode batch)",
             long_context=dict(timings["b16_s4096"], launches=launches_long,
                               max_abs_err=max(o_errs["s4096"], o_errs["s8192"])),
+            timings={label: {k: row[k] for k in ("ms", "device_ms", "enqueue_us", "plain_ms", "bound_ms",
+                                                 "library_ms", "library_device_ms")}
+                     for label, row in timings.items()},
+            note="library: torch SDPA without a mask (the all-ones mask selects every key); "
+                 "library_masked_ms: SDPA with the mask as a boolean attn_mask; timings: every timed shape "
+                 "(the fused one against SDPA on q, k rotated by apply_rotary)",
         ),
         bwd_entry("dq", "contrastors_tpu/ops/flash_attention.py:422"),
         bwd_entry("dkv", "contrastors_tpu/ops/flash_attention.py:512"),

@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks shared by gmm.cu and flash_bwd.cu: shared
+// Hopper (sm_90a) building blocks shared by gmm.cu and the flash kernels: shared
 // memory addresses, mbarriers, TMA loads and stores (cp.async.bulk.tensor),
 // the proxy fence, named barriers, register budgets (setmaxnreg), wgmma
 // descriptors and its fence / commit / wait, and on the host the tensor-map encoder reached through the
@@ -119,6 +119,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 // __syncthreads.
 __device__ __forceinline__ void named_bar_sync(int id, int threads = 128) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrive on barrier `id` of `threads` threads without waiting: the other
+// side of a named_bar_sync.
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Warp-specialised register budgets: every warp of a warpgroup lowers

@@ -4,10 +4,12 @@ PyTorch versions, forward and backward.
 Counterpart of `contrastors_tpu/ops/flash_attention.py`. One CUDA kernel,
 `csrc/flash_fwd.cu`, stands for both Pallas forward kernels there
 (`_fwd_kernel_single` for T <= block_kv and the multi-block `_fwd_kernel`):
-it loops over 64-wide kv tiles inside the block with an online softmax, so
-T within one tile is simply a loop that runs once. `csrc/flash_bwd.cu`
-holds the two backward kernels, `flash_bwd_dq` (for `_bwd_dq_kernel`) and
-`flash_bwd_dkv` (for `_bwd_dkv_kernel`).
+a persistent block walks the 64-row kv tiles of each of its q tiles with an
+online softmax, so T within one tile is simply a walk of one step.
+`csrc/flash_bwd.cu` holds the two backward kernels, `flash_bwd_dq` (for
+`_bwd_dq_kernel`) and `flash_bwd_dkv` (for `_bwd_dkv_kernel`). All three
+load their operands by TMA through tensor maps over the strided storage
+(`csrc/flash_common.cuh`).
 
 Semantics kept from the JAX wrapper:
   - logits s = q k^T in fp32, unscaled; c = softmax_scale * log2(e) enters
@@ -77,7 +79,7 @@ LSE_ATOL = 1e-3
 GRAD_REL = 2.0**-7
 GRAD_ABS_FRAC = {"dq": 2.0**-8, "dk": 2.0**-8, "dv": 2.0**-7}
 
-KERNEL_TILE = 64  # rows of the kernels' q and kv tiles
+KERNEL_TILE = 64  # rows of the kernels' walked tiles; the rotary tables are padded to it
 
 # kernel launches made by this process (read and reset by chip_smoke.py)
 launches = 0  # flash_fwd
@@ -270,9 +272,8 @@ def _check_kernel_inputs(q, k, v):
 
 
 def _aligned(x):
-    # 16-byte vector loads (forward) and TMA tensor maps (backward): unit
-    # stride over D, other strides positive multiples of 8 elements, the base
-    # pointer a multiple of 16 bytes
+    # TMA tensor maps (every flash kernel): unit stride over D, other strides
+    # positive multiples of 8 elements, the base pointer a multiple of 16 bytes
     return (x.stride(3) == 1 and all(s > 0 and s % 8 == 0 for s in x.stride()[:3])
             and x.data_ptr() % 16 == 0)
 

@@ -50,10 +50,30 @@ def _jax_lse(q, k, v, attention_mask, segment_ids, kv_segment_ids, causal, windo
     return np.asarray(lse)[:, :, 0, :S]
 
 
+# the edges of the kernels' persistent walk (chip_smoke.EDGE_CASES) at CPU
+# size: one row, partial last tiles with GQA and at D = 128, B * H = 143
+# items, GQA at the MLM length; each with a random key length per batch row
+EDGES = {
+    "s1": dict(S=1),
+    "s65": dict(S=65),
+    "s129_gqa": dict(S=129, Hkv=2),
+    "d128_s129": dict(S=129, D=128),
+    "bh143_s96": dict(B=11, S=96, H=13, Hkv=13),
+    "gqa_s2048": dict(B=1, S=2048, H=2, Hkv=1),
+}
+
+
 def _case(name):
     rng = np.random.default_rng(zlib.crc32(name.encode()))
     B, S, T, H, Hkv, D = 2, 128, 128, 4, 4, 64
     kw = dict(attention_mask=None, segment_ids=None, kv_segment_ids=None, causal=False, window=0)
+    if name in EDGES:
+        e = dict(dict(B=B, H=H, Hkv=Hkv, D=D), **EDGES[name])
+        B, H, Hkv, D = e["B"], e["H"], e["Hkv"], e["D"]
+        S = T = e["S"]
+        lengths = rng.integers(1, T + 1, size=B)
+        lengths[0] = T
+        kw["attention_mask"] = (np.arange(T)[None] < lengths[:, None]).astype(np.int32)
     if name == "unaligned":
         S = T = 200
     if name == "causal_s_ne_t":
@@ -78,7 +98,7 @@ def _case(name):
     return q, k, v, kw
 
 
-CASES = ["padding", "segments", "causal_s_ne_t", "window", "gqa", "unaligned", "fully_masked_row"]
+CASES = ["padding", "segments", "causal_s_ne_t", "window", "gqa", "unaligned", "fully_masked_row", *EDGES]
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -105,19 +125,25 @@ def test_reference_matches_jax_pallas_forward(name, monkeypatch):
         assert np.all(t_lse.numpy()[1] == np.float32(tfa.NEG_INF))
 
 
-def _tiled_forward(q, k, v, fault, tile=64):
+def _tiled_forward(q, k, v, seg, fault, tile=tfa.KERNEL_TILE):
     """The kernel's arithmetic in plain torch (bf16 inputs, fp32 online softmax
-    over 64-wide kv tiles, p cast to bf16), optionally with one fault."""
+    over the kernel's kv tiles, pairs across segments at -1e30, p cast to
+    bf16), optionally with one fault."""
     c = tfa.LOG2E / q.shape[-1] ** 0.5
     s = torch.einsum("bshd,bthd->bhst", q.float(), k.float())
+    valid = ((seg[:, None, :, None] == seg[:, None, None, :]) & (seg[:, None, None, :] != 0))
     vt = v.float().transpose(1, 2)
     B, H, S, T = s.shape
     m = torch.full((B, H, S, 1), -1e20)
     l, acc = torch.zeros_like(m), torch.zeros(B, H, S, q.shape[-1])
     for j in range(0, T - tile if fault == "drop_last_tile" else T, tile):
-        m_new = torch.maximum(m, s[..., j:j + tile].amax(-1, keepdim=True))
+        sj = s[..., j:j + tile]
+        mixed = bool((seg[:, j:j + tile] != seg[:, j:j + 1]).any())  # the tile's keys span two segments
+        if not (fault == "branch_free_on_mixed_tile" and mixed):
+            sj = sj.masked_fill(~valid[..., j:j + tile], tfa.NEG_INF)
+        m_new = torch.maximum(m, sj.amax(-1, keepdim=True))
         corr = torch.exp2((m - m_new) * c)
-        p = torch.exp2(s[..., j:j + tile] * c - m_new * c)
+        p = torch.exp2(sj * c - m_new * c)
         l = l * corr + p.sum(-1, keepdim=True)
         acc = acc if fault == "no_rescale" else acc * corr
         acc = acc + p.bfloat16().float() @ vt[:, :, j:j + tile]
@@ -125,17 +151,20 @@ def _tiled_forward(q, k, v, fault, tile=64):
     return (acc / l).bfloat16().transpose(1, 2)
 
 
-@pytest.mark.parametrize("fault", ["none", "no_rescale", "drop_last_tile"])
+@pytest.mark.parametrize("fault", ["none", "no_rescale", "drop_last_tile", "branch_free_on_mixed_tile"])
 @pytest.mark.parametrize("S", [200, 1024])
 def test_kernel_tolerance_rejects_online_softmax_faults(fault, S):
     """The rule that holds the card's kernel to its plain version
     (`output_error_ratio` <= 1) accepts the tiled arithmetic and rejects it
-    with the accumulator's rescale left out or the last kv tile dropped, at
-    |O| ~ sqrt(e / T), far below any fixed absolute tolerance."""
+    with the accumulator's rescale left out, the last kv tile dropped, or the
+    branch-free (unmasked) softmax taken on a tile whose keys span two
+    segments, at |O| ~ sqrt(e / T), far below any fixed absolute tolerance.
+    Two segments split the row off a tile boundary (at 0.4 S + 3)."""
     gen = torch.Generator().manual_seed(S)
     q, k, v = (torch.randn(1, S, 2, 64, generator=gen).bfloat16() for _ in range(3))
-    ref, _ = tfa.flash_attention_reference(q, k, v)
-    ratio = tfa.output_error_ratio(_tiled_forward(q, k, v, fault), ref)
+    seg = (torch.arange(S) >= int(0.4 * S) + 3).int()[None] + 1
+    ref, _ = tfa.flash_attention_reference(q, k, v, segment_ids=seg)
+    ratio = tfa.output_error_ratio(_tiled_forward(q, k, v, seg, fault), ref)
     assert (ratio <= 1.0) == (fault == "none"), ratio
 
 

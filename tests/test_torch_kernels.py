@@ -35,6 +35,16 @@ def cuda():
     (2, 200, 200, 4, 4, 64, False, 0),
     (2, 100, 300, 6, 2, 64, True, 0),
     (1, 700, 700, 2, 2, 128, False, 256),
+    # one row; partial last tiles of a persistent walk (65, 129), with GQA
+    # and at D = 128
+    (2, 1, 1, 2, 2, 64, False, 0),
+    (3, 65, 65, 4, 4, 64, False, 0),
+    (2, 129, 129, 4, 2, 64, False, 0),
+    (2, 129, 129, 2, 2, 128, False, 0),
+    # B * H = 143 items: not a multiple of the 132 SMs
+    (11, 96, 96, 13, 13, 64, False, 0),
+    # GQA at the MLM length
+    (1, 2048, 2048, 12, 4, 64, False, 0),
 ])
 def test_kernel_matches_plain_version_on_card(cuda, B, S, T, H, Hkv, D, causal, window):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -144,6 +154,21 @@ def test_fused_rotary_kernels_match_plain_versions_on_card(cuda, B, S, H, Hkv, D
     refs = tfa.flash_attention_backward_reference(q, k, v, out.detach(), lse, dout, **kw)
     for g, r, name in zip(grads, refs, ("dq", "dk", "dv")):
         assert tfa.grad_error_ratio(g, r, name) <= 1.0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_forward_kernel_is_deterministic(cuda, fused):
+    """Each output row has one owner and sums in a fixed order: two runs on
+    the same inputs give the same bits (O, LSE)."""
+    q, k, v, _, kw = _rotary_inputs(cuda, 2, 300, 4, 2, 64, 64, False, False, seed=4)
+    if not fused:
+        kw = dict(attention_mask=kw["attention_mask"])
+    first = tfa.flash_attention_fwd(q, k, v, **kw)
+    second = tfa.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, ("O", "LSE")):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
