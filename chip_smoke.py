@@ -2,7 +2,7 @@
 """Drive the PyTorch / CUDA port (contrastors_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only {moe_kernels,moe,flash_fwd,flash_bwd,dense} [--tree DIR]
+    python3 chip_smoke.py --only {moe_kernels,moe,flash_fwd,flash_bwd,dense,trainer} [--tree DIR]
 
 The second form runs phases 1, 2 and 9 (moe_kernels), or 1, 2 and 9-12
 without the gradient agreement (moe: the kernels, MoE serving and the MoE
@@ -11,7 +11,8 @@ and 13, the forward timing of 6, the fused encode of 14 and the MLM step's
 timing, fused and outside in turns, or (flash_bwd) 1, 2, the backward
 checks of 4 and 13, the backward timing of 8 (the whole backward only) and
 the MLM step's timing, or (dense) 1, 2 and the dense step of 7-8
-(launches, timing, profile; no gradient agreement), on this checkout's
+(launches, timing, profile; no gradient agreement), or (trainer) 1, 2 and
+17, on this checkout's
 package or on the one under DIR (another checkout, e.g. the parent commit
 unpacked by `git archive`), so that two versions can be timed in turns on
 one card.
@@ -137,6 +138,22 @@ MLM pretraining step:
      update at gradient_accumulation_steps=4; at B=2 the gradients per
      tensor against the unfused kernels and against sdpa (cosine >= 0.999),
      with the negated-sin fault outside.
+The trainer entry point (after phase 7):
+ 17. trainer: configs/train/contrastive_pretrain.yaml (PRETRAIN_RECIPE) with
+     the overrides of `trainer_overrides` (a local config.json of
+     nomic-bert-2048 with random weights, 512 pairs of local synthetic
+     data, 8 steps, warmup 2, log and save every 4, the retrieval eval at
+     step 8, every query chunk direct) through train.run and the
+     TextTextTrainer with the stand-in tokenizer, in bf16: per step 780 /
+     396 / 396 flash launches (the bare step's), the loss at step 8 below
+     step 1's, the logged lr on make_schedule, a second trainer resumed
+     from step_4 logging steps 5-8 within 2e-3 relative, the eval logged,
+     and no more synchronising calls per quiet loop step (sync debug mode)
+     than the bare step makes. Timed against the bare step in turns (bare,
+     loop, bare, resumed loop): the loop's median ms per quiet step, its
+     idle share, the time it waits on the prefetch queue, and one
+     grad-cache step's peak memory with and without activation
+     checkpointing.
 Kernel times (ms) are CUDA-event times of calls made on an idle card, so a
 short kernel's time holds the host's enqueue; phases 8 and 9 give beside
 them the device's work alone (device_ms: each call queued behind a device
@@ -152,6 +169,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1903,6 +1921,327 @@ def dense_training(dev, card, agreement=True):
     return launches_train, timing
 
 
+# configs/train/contrastive_pretrain.yaml, the recipe the trainer phase runs
+PRETRAIN_RECIPE = {
+    "train_args": {
+        "num_epochs": 1, "learning_rate": 2.0e-4, "weight_decay": 0.01, "warmup_steps": 700,
+        "schedule_type": "cosine", "max_grad_norm": 1.0, "adam_beta1": 0.9, "adam_beta2": 0.999,
+        "grad_cache": True, "chunk_size": 16, "loss_fn": "clip", "clamp_logits": False,
+        "log_grads_every": 100, "log_lr_every": 10, "save_every": 2500,
+        "output_dir": "ckpts/contrastive-pretrain", "wandb": False, "wandb_project_name": "text-contrastors",
+    },
+    "model_args": {
+        "model_type": "encoder", "model_name": "nomic-ai/nomic-bert-2048", "tokenizer_name": "bert-base-uncased",
+        "pooling": "mean", "logit_scale": 50, "trainable_logit_scale": False, "nomic_encoder": True,
+        "add_prefix": True, "pretrained": True, "seq_len": 2048, "attn_impl": "flash",
+    },
+    "data_args": {
+        "input_shards": "configs/data/contrastive_pretrain.yaml", "batch_size": 16384, "seed": 42,
+        "workers": 0, "shuffle": False,
+    },
+}
+
+# the public config.json of nomic-ai/nomic-bert-2048 (weights random here)
+NOMIC_BERT_2048_CONFIG = {
+    "model_type": "nomic_bert", "architectures": ["NomicBertForPreTraining"], "activation_function": "swiglu",
+    "attn_pdrop": 0.0, "embd_pdrop": 0.0, "resid_pdrop": 0.0, "causal": False, "dense_seq_output": True,
+    "initializer_range": 0.02, "layer_norm_epsilon": 1e-12, "mlp_fc1_bias": False, "mlp_fc2_bias": False,
+    "n_embd": 768, "n_head": 12, "n_inner": 3072, "n_layer": 12, "n_positions": 2048,
+    "pad_vocab_size_multiple": 64, "parallel_block": False, "prenorm": False, "qkv_proj_bias": False,
+    "rotary_emb_base": 1000, "rotary_emb_fraction": 1.0, "rotary_emb_interleaved": False,
+    "rotary_emb_scale_base": None, "type_vocab_size": 2, "use_rms_norm": False, "vocab_size": 30528,
+}
+
+TRAIN_STEPS, SAVE_EVERY = 8, 4
+
+
+def trainer_overrides(model_dir, pairs, eval_dir, out_dir):
+    """What the trainer phase changes in the recipe: the model (a local
+    config.json, random weights), the batch (16384 -> 512 pairs), the data
+    (local synthetic pairs), the run's length and cadence, the eval, and
+    every query chunk direct as in the dense step of phase 7."""
+    return {
+        "train_args": {"num_train_steps": TRAIN_STEPS, "warmup_steps": 2, "save_every": SAVE_EVERY,
+                       "log_lr_every": SAVE_EVERY, "eval_strategy": "steps", "eval_steps": TRAIN_STEPS,
+                       "output_dir": out_dir, "grad_cache_direct_chunks_q": -1},
+        "model_args": {"model_name": model_dir, "pretrained": False},
+        "data_args": {"batch_size": PAIRS, "input_shards": pairs, "streaming": False, "eval_retrieval": eval_dir},
+    }
+
+
+def trainer_recipe(model_dir, pairs, eval_dir, out_dir, checkpoint=None):
+    recipe = json.loads(json.dumps(PRETRAIN_RECIPE))
+    for group, values in trainer_overrides(model_dir, pairs, eval_dir, out_dir).items():
+        recipe[group].update(values)
+    if checkpoint:
+        recipe["train_args"]["checkpoint"] = checkpoint
+    return recipe
+
+
+def write_trainer_inputs(root, seed=0):
+    """config.json, TRAIN_STEPS batches of synthetic pairs (each document
+    starts with its query's words, queries of 40 words and documents of
+    300, so that with the prefixes every row fills 32 / 256 tokens) and an
+    eval set (256 documents, 64 queries made of a document's first 20 words
+    and 10 others, one relevant document each)."""
+    rng = np.random.default_rng(seed)
+    paths = dict(model_dir=os.path.join(root, "nomic-bert-2048"), pairs=os.path.join(root, "pairs.jsonl"),
+                 eval_dir=os.path.join(root, "eval"), out_dir=os.path.join(root, "run"))
+    os.makedirs(paths["model_dir"])
+    with open(os.path.join(paths["model_dir"], "config.json"), "w") as f:
+        json.dump(NOMIC_BERT_2048_CONFIG, f)
+
+    def words(a):
+        return " ".join(map(str, a))
+
+    with open(paths["pairs"], "w") as f:
+        for _ in range(TRAIN_STEPS * PAIRS):
+            q = rng.integers(1000, 30000, size=40)
+            f.write(json.dumps({"query": words(q), "document": words(q) + " " + words(
+                rng.integers(1000, 30000, size=260))}) + "\n")
+    os.makedirs(paths["eval_dir"])
+    docs = rng.integers(1000, 30000, size=(256, 200))
+    with open(os.path.join(paths["eval_dir"], "corpus.jsonl"), "w") as f:
+        for i, d in enumerate(docs):
+            f.write(json.dumps({"_id": f"d{i}", "text": words(d)}) + "\n")
+    with open(os.path.join(paths["eval_dir"], "queries.jsonl"), "w") as f, \
+            open(os.path.join(paths["eval_dir"], "qrels.tsv"), "w") as g:
+        for i in range(64):
+            f.write(json.dumps({"_id": f"q{i}", "text": words(np.concatenate(
+                [docs[4 * i, :20], rng.integers(1000, 30000, size=10)]))}) + "\n")
+            g.write(f"q{i}\td{4 * i}\t1\n")
+    return paths
+
+
+@contextlib.contextmanager
+def sync_log():
+    """The synchronising CUDA calls made inside, as torch's sync debug mode
+    ("warn") reports them, from any thread."""
+    import warnings
+
+    import torch
+
+    log = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+
+        def record(message, category, *args, **kwargs):
+            if "synchroniz" in str(message):
+                log.append(str(message).splitlines()[0])
+            else:
+                shown(message, category, *args, **kwargs)
+
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield log
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def chip_trainer_class():
+    """TextTextTrainer with the stand-in tokenizer (the get_tokenizer hook),
+    whose steps record, per loop step: the host clock and the count of
+    synchronising calls at the step's start, its flash launches, and its
+    metrics (device tensors, read after the run)."""
+    from contrastors_tpu_torch.eval.stub_tokenizer import StubTokenizer
+    from contrastors_tpu_torch.trainers import TextTextTrainer
+
+    class ChipTrainer(TextTextTrainer):
+        syncs = None  # the list sync_log() fills
+
+        def get_tokenizer(self):
+            return StubTokenizer(NOMIC_BERT_2048_CONFIG["vocab_size"])
+
+        def make_train_step(self):
+            step = super().make_train_step()
+            self.record = []
+
+            def recorded(batch, generator):
+                t, n_sync, before = time.perf_counter(), len(self.syncs), read_counts()
+                metrics = step(batch, generator)
+                after = read_counts()
+                self.record.append(dict(step=self.step + 1, t=t, syncs=n_sync, metrics=metrics,
+                                        launches={k: after[k] - before[k] for k in after}))
+                return metrics
+
+            return recorded
+
+    return ChipTrainer
+
+
+def run_chip_trainer(recipe, dev):
+    """One trainer run of the recipe on dev, its sync log kept; returns
+    (trainer, per-step rows, seconds, launches over the whole run)."""
+    from contrastors_tpu_torch.config import Config
+    from contrastors_tpu_torch.train import run
+
+    cls = chip_trainer_class()
+    reset_counts()
+    t0 = time.perf_counter()
+    with sync_log() as syncs:
+        cls.syncs = syncs
+        trainer = run(Config.from_dict(recipe), "bf16", dev, trainer_cls=cls)
+        t_end, n_end = time.perf_counter(), len(syncs)
+    launches = read_counts()
+    rows = trainer.record
+    for i, row in enumerate(rows):  # an iteration runs from its step's start to the next one's
+        nxt = rows[i + 1] if i + 1 < len(rows) else dict(t=t_end, syncs=n_end)
+        row["iteration_ms"] = (nxt["t"] - row["t"]) * 1e3
+        row["iteration_syncs"] = nxt["syncs"] - row["syncs"]
+        row["loss"] = row["metrics"]["loss"].item()
+        del row["metrics"]
+    return trainer, rows, time.perf_counter() - t0, launches, list(syncs)
+
+
+def bare_step_timing(step, qb, db, gen, runs=3):
+    """Host-clock ms of `runs` bare steps, each ending in a synchronize, and
+    the synchronising calls each made (the synchronize excluded)."""
+    import torch
+
+    ms, syncs = [], []
+    for _ in range(runs):
+        with sync_log() as log:
+            t0 = time.perf_counter()
+            step(qb, db, gen)
+            n = len(log)
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        syncs.append(n)
+    return ms, syncs
+
+
+def trainer_phase(dev, card, bare_busy_ms=None):
+    """Phase trainer: the port's contrastive trainer entry point
+    (train.run -> TextTextTrainer -> BaseTrainer.train) on the pretrain
+    recipe at full width, against the bare GradCache step of the same
+    geometry, in turns: bare, loop, bare, resumed loop. The idle shares
+    take bare_busy_ms, the device busy ms of one profiled bare step (phase
+    7's, in the full run), or profile one here. Returns the launches of one
+    loop step."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from contrastors_tpu_torch.config import Config
+    from contrastors_tpu_torch.models.auto import load_biencoder
+    from contrastors_tpu_torch.models.biencoder import LogitScale
+    from contrastors_tpu_torch.trainers.text_text import make_train_step
+    from contrastors_tpu_torch.utils.optim import make_optimizer, make_schedule
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    paths = write_trainer_inputs(root)
+    recipe = trainer_recipe(**paths)
+    config = Config.from_dict(recipe)
+    n_layer = NOMIC_BERT_2048_CONFIG["n_layer"]
+    expected = expect(fwd=n_layer * (1 + 2 * PAIRS // CHUNK), dq=n_layer * (1 + PAIRS // CHUNK),
+                      dkv=n_layer * (1 + PAIRS // CHUNK))
+
+    # the bare step: the same model (load_biencoder, seed 42) and optimizer,
+    # driven from hand-built token batches
+    model, _ = load_biencoder(config.model_args, dtype=torch.bfloat16, device=dev, seed=42)
+    scale = LogitScale(50.0, trainable=False, device=dev)
+    named = [("model." + n, p) for n, p in model.named_parameters()]
+    named += [("logit_scale." + n, p) for n, p in scale.named_parameters()]
+    opt = make_optimizer(named, 2e-4, weight_decay=0.01, max_grad_norm=1.0)
+    step = make_train_step(model, scale, opt, grad_cache=True, chunk_size=CHUNK, direct_chunks_q=-1)
+    qb, db = token_batches(PAIRS, dev)
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(2):
+        step(qb, db, gen)
+    torch.cuda.synchronize()
+    peak_gb = {}
+    for remat in (False, True):
+        model.trunk.remat = remat
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        step(qb, db, gen)
+        torch.cuda.synchronize()
+        peak_gb["remat" if remat else "no_remat"] = torch.cuda.max_memory_allocated() / 2**30
+        if not remat:  # the replay adds forward launches
+            bare_launches = read_counts()
+    model.trunk.remat = False
+    bare_ms, bare_syncs = bare_step_timing(step, qb, db, gen)
+    busy_ms = bare_busy_ms or profile_step(lambda: step(qb, db, gen), float(np.median(bare_ms)))["device_busy_ms"]
+
+    # the loop, uninterrupted
+    trainer, rows, seconds, run_launches, syncs = run_chip_trainer(recipe, dev)
+    wait_s = trainer.prefetch_wait_seconds
+    del trainer
+    gc.collect()
+
+    # the bare step again, then a loop resumed from step_4
+    bare_ms_2, bare_syncs_2 = bare_step_timing(step, qb, db, gen)
+    del model, scale, opt, step, qb, db
+    gc.collect()
+    torch.cuda.empty_cache()
+    checkpoint = os.path.join(paths["out_dir"], f"step_{SAVE_EVERY}")
+    resumed_recipe = trainer_recipe(**dict(paths, out_dir=os.path.join(root, "resumed")), checkpoint=checkpoint)
+    resumed, rows_b, seconds_b, _, _ = run_chip_trainer(resumed_recipe, dev)
+    wait_b = resumed.prefetch_wait_seconds
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with open(os.path.join(paths["out_dir"], "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    schedule = make_schedule("cosine", 2e-4, TRAIN_STEPS, 2)
+    lr_logged = {m["step"]: m["lr"] for m in logged if "lr" in m}
+    lr_err = max(abs(v - schedule(k)) for k, v in lr_logged.items())
+    evals = [m for m in logged if "retrieval/ndcg@10" in m]
+    losses = {r["step"]: r["loss"] for r in rows}
+    resumed_losses = {r["step"]: r["loss"] for r in rows_b}
+    resume_rel = max(abs(resumed_losses[k] - losses[k]) / abs(losses[k]) for k in resumed_losses)
+    log_steps = {k for k in losses if k % SAVE_EVERY == 0}
+    quiet = [r for r in rows if r["step"] not in log_steps and r["step"] > 1]
+    quiet_b = [r for r in rows_b if r["step"] not in log_steps and r["step"] > SAVE_EVERY + 1]
+    loop_ms = float(np.median([r["iteration_ms"] for r in quiet]))
+    loop_syncs = max(r["iteration_syncs"] for r in quiet)
+    checks = dict(
+        launches_per_step=all(r["launches"] == expected for r in rows + rows_b) and bare_launches == expected,
+        loss_falls=losses[TRAIN_STEPS] < losses[1],
+        lr_follows_schedule=sorted(lr_logged) == [SAVE_EVERY, TRAIN_STEPS] and lr_err < 1e-9,
+        resume_within_2e_3=sorted(resumed_losses) == list(range(SAVE_EVERY + 1, TRAIN_STEPS + 1))
+        and resume_rel <= 2e-3,
+        eval_logged=[m["step"] for m in evals] == [TRAIN_STEPS],
+        syncs_at_most_bare=loop_syncs <= min(bare_syncs + bare_syncs_2),
+        finite=bool(np.isfinite(list(losses.values()) + list(resumed_losses.values())).all()),
+    )
+    ok = all(checks.values())
+    emit(phase="trainer", card=card, gpu_state=gpu_state(), recipe="configs/train/contrastive_pretrain.yaml",
+         overrides=trainer_overrides(**{k: os.path.basename(v) for k, v in paths.items()}),
+         pairs=PAIRS, q_len=Q_LEN, d_len=D_LEN, chunk=CHUNK, steps=TRAIN_STEPS, dtype="bf16",
+         expected_launches=expected, launches_per_step=[r["launches"] for r in rows],
+         run_launches=run_launches, losses=losses, resumed_losses=resumed_losses,
+         resume_max_rel_diff=resume_rel, resume_bit_identical=all(
+             resumed_losses[k] == losses[k] for k in resumed_losses),
+         lr_logged=lr_logged, lr_max_err=lr_err, eval=evals[-1] if evals else None,
+         peak_memory_gb_grad_cache_step=peak_gb, checks=checks, ok=ok)
+    emit(phase="trainer_timing", card=card, gpu_state=gpu_state(),
+         loop_ms=loop_ms, loop_ms_runs=[r["iteration_ms"] for r in rows],
+         resumed_loop_ms=float(np.median([r["iteration_ms"] for r in quiet_b])) if quiet_b else None,
+         resumed_loop_ms_runs=[r["iteration_ms"] for r in rows_b],
+         bare_step_ms=float(np.median(bare_ms + bare_ms_2)), bare_step_ms_turns=[bare_ms, bare_ms_2],
+         loop_minus_bare_ms=loop_ms - float(np.median(bare_ms + bare_ms_2)),
+         bare_device_busy_ms=busy_ms, bare_idle_share=1.0 - busy_ms / float(np.median(bare_ms + bare_ms_2)),
+         loop_idle_share=1.0 - busy_ms / loop_ms,
+         prefetch_wait_ms_per_step=wait_s * 1e3 / len(rows), resumed_prefetch_wait_ms_per_step=wait_b * 1e3 / len(rows_b),
+         loop_syncs_per_quiet_step=[r["iteration_syncs"] for r in quiet],
+         loop_syncs_per_step=[r["iteration_syncs"] for r in rows], bare_syncs_per_step=bare_syncs + bare_syncs_2,
+         sync_examples=sorted(set(syncs))[:8], run_seconds=seconds, resumed_run_seconds=seconds_b,
+         note="loop_ms: median host time from one step's start to the next over the steps that neither log, "
+              "save nor evaluate (steps 2, 3, 5, 6, 7); bare: the step alone on hand-built batches, "
+              "synchronized after each call; idle shares take the device busy ms of one profiled bare step "
+              "(phase 7's in the full run; the loop runs the same kernels); syncs: calls that torch's sync "
+              "debug mode reports")
+    shutil.rmtree(root)  # ~5 GB of checkpoints
+    if not ok:
+        raise AssertionError(f"trainer: a check failed: {checks}")
+    return rows[1]["launches"]
+
+
 def fused_encode(dev, card, model, tok, texts, e):
     """Phase fused_encode: the encode batch (256 texts of 512 tokens) through
     a BiEncoder with fused_rotary=True and the weights of `model` (rotary
@@ -1964,7 +2303,7 @@ def main(argv=None):
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the PyTorch / CUDA port on one NVIDIA GPU.")
-    ap.add_argument("--only", choices=["moe_kernels", "moe", "flash_fwd", "flash_bwd", "dense"],
+    ap.add_argument("--only", choices=["moe_kernels", "moe", "flash_fwd", "flash_bwd", "dense", "trainer"],
                     help="run only the card, build and grouped-matmul phases (9), or (moe) also MoE "
                          "serving and the MoE step's timing and profile (10-12, no gradient agreement); "
                          "flash_fwd: the card, build, the forward checks (3, 13), the forward timing (6), "
@@ -1972,7 +2311,7 @@ def main(argv=None):
                          "flash_bwd: the card, build, the backward checks (4, 13), the backward timing "
                          "(8, the whole backward only) and the MLM step's timing, fused and outside; "
                          "dense: the card, build and the dense step's timing and profile (7-8, no "
-                         "gradient agreement)")
+                         "gradient agreement); trainer: the card, build and the trainer phase (17)")
     ap.add_argument("--tree", help="with --only: the root of another checkout whose contrastors_tpu_torch "
                                    "package is built and timed (an earlier commit, for old against new)")
     args = ap.parse_args(argv)
@@ -2011,7 +2350,7 @@ def main(argv=None):
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
     libs = dict(moe_kernels=("gmm",), flash_fwd=("flash_fwd", "flash_bwd"), flash_bwd=("flash_fwd", "flash_bwd"),
-                dense=("flash_fwd", "flash_bwd")).get(args.only, _build.LIBRARIES)
+                dense=("flash_fwd", "flash_bwd"), trainer=("flash_fwd", "flash_bwd")).get(args.only, _build.LIBRARIES)
     with ThreadPoolExecutor(len(libs)) as pool:
         paths = dict(zip(libs, pool.map(_build.build, libs)))
     for name in libs:
@@ -2047,6 +2386,8 @@ def main(argv=None):
             summary["max_abs_err"] = dict({g: max(e.values()) for g, e in grad_errs.items()}, fused=fused_errs)
         elif args.only == "dense":
             summary["dense_launches"], summary["dense_step"] = dense_training(dev, card, agreement=False)
+        elif args.only == "trainer":
+            summary["trainer_launches"] = trainer_phase(dev, card)
         else:
             summary["max_abs_err"], moe_times = moe_kernels(dev, card)
             summary["moe_kernels"] = {f"{k[0]} {k[1]} K={k[2]} N={k[3]}": v for k, v in moe_times.items()}
@@ -2163,7 +2504,10 @@ def main(argv=None):
     # 7. training at full width: the text GradCache step, after the dead-row
     # dispatch it runs through
     dead_row_check(dev, gen)
-    launches_train, _ = dense_training(dev, card)
+    launches_train, dense_timing = dense_training(dev, card)
+
+    # 17. the trainer entry point on the pretrain recipe, against the bare step
+    launches_trainer = trainer_phase(dev, card, bare_busy_ms=dense_timing["device_busy_ms"])
 
     # 8. the backward kernels at the main-path shapes
     bwd_timings = backward_timing(dev, card, gen)
@@ -2212,6 +2556,7 @@ def main(argv=None):
             source="contrastors_tpu_torch/ops/csrc/flash_bwd.cu",
             replaces=replaces,
             launches=launches_train[kname],
+            trainer_launches=launches_trainer[kname],
             max_abs_err=max(max(grad_errs[g].values()) for g in (("dq",) if kname == "dq" else ("dk", "dv"))),
             **{k: v for k, v in at(doc, "B=16 S=T=256 H=12 D=64 (document chunk)").items()},
             query_tower=at(query, "B=512 S=T=32 H=12 D=64"),
@@ -2249,6 +2594,7 @@ def main(argv=None):
             also_replaces="contrastors_tpu/ops/flash_attention.py:115",
             launches=launches_docs,
             train_launches=launches_train["fwd"],
+            trainer_launches=launches_trainer["fwd"],
             max_abs_err=max(o_errs.values()),
             **{k: main[k] for k in ("ms", "device_ms", "enqueue_us", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "library_device_ms", "library_masked_ms")},

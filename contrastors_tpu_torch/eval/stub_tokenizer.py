@@ -3,7 +3,8 @@
 No tokenizer files ship with the repo, so the smoke script and the parity
 tests drive `Encoder` with this stand-in: [CLS]=101, then one id per word
 (an integer word is its own id modulo the vocab, any other word a stable
-crc32 id).
+crc32 id). Like bert-base-uncased's tokenizer it has no EOS token, and it
+pads on the right, so `TokenizeCollator` takes it with add_eos off.
 """
 
 import zlib
@@ -13,6 +14,9 @@ import numpy as np
 
 class StubTokenizer:
     pad_token_id = 0
+    eos_token = None
+    eos_token_id = None
+    padding_side = "right"
 
     def __init__(self, vocab_size: int):
         self.vocab_size = vocab_size

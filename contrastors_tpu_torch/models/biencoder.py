@@ -6,8 +6,10 @@ normalisation with the clamp inside the sqrt, and binarisation keep the JAX
 semantics. The output carries the MoE layers' masked router logits under
 "router_logits" (None for a dense trunk), for the router load-balance
 loss. `LogitScale` is the contrastive loss's exp-parameterised
-temperature. The decoder and vision trunks, the MAP pooling head and packed
-mode raise until their slices are ported.
+temperature. `remat` recomputes each trunk block's activations in the
+backward (activation checkpointing, `NomicBertModel`). The decoder and
+vision trunks, the MAP pooling head and packed mode raise until their
+slices are ported.
 """
 
 import math
@@ -73,6 +75,7 @@ class BiEncoder(nn.Module):
         hamming: bool = False,
         dtype=torch.float32,
         device="cuda",
+        remat: bool = False,
     ):
         super().__init__()
         device = resolve_device(device)
@@ -85,7 +88,7 @@ class BiEncoder(nn.Module):
                 f"pooling {pooling!r}: the port has {POOLINGS}"
             )
         self.config, self.pooling, self.dtype = config, pooling, dtype
-        self.trunk = NomicBertModel(config, dtype=dtype, device=device)
+        self.trunk = NomicBertModel(config, dtype=dtype, device=device, remat=remat)
         self.hamming = (
             LayerNorm(config.n_embd, eps=1e-5, elementwise_affine=False, device=device)
             if hamming else None

@@ -9,12 +9,18 @@ static-shape masks, as on the JAX side. The classification head waits for a
 later slice. MoE layers (every `moe_every_n_layers`-th, from layer 1) run
 the dropless MoEMLP; the output carries their masked router logits, in
 layer order, under "router_logits" (an empty list for a dense trunk).
+With `remat`, each block runs under `torch.utils.checkpoint` (JAX's
+`nn.remat(Block)`): its activations are recomputed in the backward instead
+of kept. The replay restores only the global RNG state, so once dropout is
+ported it must draw from the chunk's explicit generator in the replay too
+(ROADMAP Queue 1, item 1).
 """
 
 from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from contrastors_tpu_torch._device import resolve_device
 from contrastors_tpu_torch.layers.activations import ACT2FN
@@ -67,9 +73,10 @@ def init_weights(module: nn.Module, seed: int, std: float = 0.02) -> nn.Module:
 
 
 class NomicBertModel(nn.Module):
-    def __init__(self, config: TrunkConfig, dtype=torch.float32, device="cuda"):
+    def __init__(self, config: TrunkConfig, dtype=torch.float32, device="cuda", remat: bool = False):
         super().__init__()
         device = resolve_device(device)
+        self.remat = remat
         unported = [f for f in UNPORTED_FEATURES if getattr(config, f)]
         if unported:
             raise NotImplementedError(f"config features not ported yet (see ROADMAP): {unported}")
@@ -111,7 +118,11 @@ class NomicBertModel(nn.Module):
         hidden = self.emb_ln(self.embeddings(input_ids, position_ids, token_type_ids))
         residual, router_logits = None, []
         for block in self.layers:
-            hidden, residual, rl = block(hidden, residual, attention_mask, segment_ids, position_ids)
+            args = (hidden, residual, attention_mask, segment_ids, position_ids)
+            if self.remat and torch.is_grad_enabled():
+                hidden, residual, rl = checkpoint(block, *args, use_reentrant=False)
+            else:
+                hidden, residual, rl = block(*args)
             if rl is not None:
                 router_logits.append(rl)
         if self.final_norm is not None:

@@ -1,26 +1,34 @@
-"""The text-text contrastive train step, in PyTorch.
+"""The text-text contrastive trainer and its train step, in PyTorch.
 
-Counterpart of `TextTextTrainer.make_train_step`
-(`contrastors_tpu/trainers/text_text.py:320-573`) for unpacked, dense
-batches on one device, without gradient accumulation:
+Counterpart of `contrastors_tpu/trainers/text_text.py` for unpacked, dense
+batches on one device.
+
+`make_train_step` (`:320-573`):
   - grad_cache=True: `grad_cache_loss_and_grads` with chunk sizes clamped
     to a divisor of each tower's rows (`divisor_chunk`), the clip loss with
-    `clip_bidirectional` honoured, and accuracy from the loss stage;
-  - grad_cache=False (the standard branch, with `make_standard_train_step`
-    of `trainers/base.py`): one backward over both towers, clip or
-    Matryoshka loss. As in the JAX trainer, `clip_bidirectional` is not
-    honoured here and Matryoshka dims are not used on the grad-cache path
-    (ROADMAP, Queue 3).
+    `clip_bidirectional` honoured, and accuracy from the loss stage; one
+    update per call;
+  - grad_cache=False (the standard branch, `make_standard_train_step` of
+    `trainers/base.py`, with gradient accumulation): one backward over both
+    towers, clip or Matryoshka loss. As in the JAX trainer,
+    `clip_bidirectional` is not honoured here and Matryoshka dims are not
+    used on the grad-cache path (ROADMAP, Queue 3).
 The logit scale is clamped to log(logit_max) after the update when it is
 trainable and clamp_logits is set. With MoE layers the encoder also returns
 the router load-balance loss, and router_aux_coef weighs it: grad cache
 sums it over the chunks (`grad_cache_loss_and_grads`), the standard branch
-adds one aux per tower over its whole batch, as the JAX trainer does. The
-trainer loop, data, packed batches and the data-parallel form wait for
-later slices (ROADMAP, Queue 1).
+adds one aux per tower over its whole batch, as the JAX trainer does.
+
+`TextTextTrainer` (`:30-98, 265-318`) is `BaseTrainer` with `load_biencoder`
+plus a `LogitScale`, the pair datasets, the step above and the in-train
+retrieval eval through the port's `Encoder`. Packed batches (ROADMAP Queue
+1, item 4) and the data-parallel form (item 3) wait for later slices.
 """
 
+import glob
+import json
 import math
+import os
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
@@ -29,6 +37,7 @@ from torch.profiler import record_function
 from contrastors_tpu_torch.grad_cache import grad_cache_loss_and_grads
 from contrastors_tpu_torch.losses import clip_loss, matryoshka_clip_loss, router_aux_loss
 from contrastors_tpu_torch.models.biencoder import BiEncoder, LogitScale
+from contrastors_tpu_torch.trainers.base import BaseTrainer, make_standard_train_step
 from contrastors_tpu_torch.utils.optim import AdamW
 
 Batch = Dict[str, torch.Tensor]
@@ -74,68 +83,218 @@ def make_train_step(
     clamp_logits: bool = False,
     logit_max: float = 100.0,
     router_aux_coef: float = 0.0,
+    gradient_accumulation_steps: int = 1,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns step(q_batch, d_batch, generator=None) -> {"loss",
     "grad_norm", "accuracy", "router_aux"}, which updates the modules in
-    place; router_aux is 0 for a dense model. The
-    optimizer is `make_optimizer`'s AdamW; grad_norm is the global norm of
-    the gradients before its clip. The generator (default: seed 0) gives
+    place; router_aux is 0 for a dense model. The optimizer is
+    `make_optimizer`'s AdamW; grad_norm is the global norm of the gradients
+    before its clip. On the standard branch gradient_accumulation_steps = N
+    applies the mean of N calls' gradients on every N-th call, and
+    grad_norm is reported on those calls only; the grad-cache branch takes
+    N = 1 only. The generator (default: seed 0) gives one draw per call,
     the step's base seed for the chunks' generators. The step's phases are
     profiler ranges: `grad_cache_loss_and_grads`'s, or "train_step/forward"
     and "train_step/backward" on the standard branch, then
     "train_step/optimizer"."""
     if loss_fn not in LOSS_FNS:
         raise ValueError(f"loss_fn {loss_fn!r}: the port has {LOSS_FNS}")
+    if grad_cache and gradient_accumulation_steps > 1:
+        raise ValueError("the grad-cache step updates on every call: gradient_accumulation_steps must be 1")
     log_max = math.log(logit_max) if clamp_logits and logit_scale.trainable else None
     bidirectional = loss_fn == "clip_bidirectional"
+
+    def clamp():
+        if log_max is not None:
+            with torch.no_grad():
+                logit_scale.logit_scale.clamp_(max=log_max)
 
     def gc_loss(q, d, scale):
         loss, acc = clip_loss(q, d, scale, bidirectional=bidirectional)
         return loss, {"accuracy": acc}
+
+    def std_loss(batches):
+        q_out, d_out = (encode_batch(biencoder, b) for b in batches)
+        q, d = q_out["embedding"], d_out["embedding"]
+        if matryoshka_dims:
+            loss, accuracy = matryoshka_clip_loss(q, d, logit_scale, dims=matryoshka_dims,
+                                                  weights=matryoshka_loss_weights)
+        else:
+            loss, accuracy = clip_loss(q, d, logit_scale)
+        # one aux per tower, over its whole batch
+        auxes = [o["router_aux"] for o in (q_out, d_out) if "router_aux" in o]
+        router_aux = sum(auxes) if auxes else torch.zeros((), device=q.device)
+        if auxes:
+            loss = loss + router_aux_coef * router_aux
+        return loss, {"accuracy": accuracy, "router_aux": router_aux.detach()}
+
+    std_step = None if grad_cache else make_standard_train_step(
+        std_loss, optimizer, scheduler, gradient_accumulation_steps, post_update=clamp)
 
     def step(q_batch: Batch, d_batch: Batch,
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         seed = int(torch.randint(0, 2**62, (1,), generator=generator))
+        if not grad_cache:
+            return std_step((q_batch, d_batch))
         optimizer.zero_grad(set_to_none=True)
-        if grad_cache:
-            cq = divisor_chunk(chunk_size, q_batch["input_ids"].shape[0])
-            cd = divisor_chunk(chunk_size, d_batch["input_ids"].shape[0])
-            loss, metrics = grad_cache_loss_and_grads(
-                biencoder, q_batch, d_batch, encode_batch, encode_batch, gc_loss,
-                chunk_size=cq, chunk_size_d=cd, rng=seed, extra_params=logit_scale,
-                direct_chunks=direct_chunks_q, direct_chunks_d=direct_chunks_d,
-                return_metrics=True, loss_has_aux=True, router_aux_coef=router_aux_coef,
-            )
-            accuracy, router_aux = metrics["accuracy"], metrics["router_aux"]
-        else:
-            with record_function("train_step/forward"):
-                q_out = encode_batch(biencoder, q_batch)
-                d_out = encode_batch(biencoder, d_batch)
-                q, d = q_out["embedding"], d_out["embedding"]
-                if matryoshka_dims:
-                    loss, accuracy = matryoshka_clip_loss(
-                        q, d, logit_scale, dims=matryoshka_dims, weights=matryoshka_loss_weights)
-                else:
-                    loss, accuracy = clip_loss(q, d, logit_scale)
-                # one aux per tower, over its whole batch
-                auxes = [o["router_aux"] for o in (q_out, d_out) if "router_aux" in o]
-                router_aux = sum(auxes) if auxes else torch.zeros((), device=q.device)
-                if auxes:
-                    loss = loss + router_aux_coef * router_aux
-                router_aux = router_aux.detach()
-            with record_function("train_step/backward"):
-                loss.backward()
-            loss = loss.detach()
+        cq = divisor_chunk(chunk_size, q_batch["input_ids"].shape[0])
+        cd = divisor_chunk(chunk_size, d_batch["input_ids"].shape[0])
+        loss, metrics = grad_cache_loss_and_grads(
+            biencoder, q_batch, d_batch, encode_batch, encode_batch, gc_loss,
+            chunk_size=cq, chunk_size_d=cd, rng=seed, extra_params=logit_scale,
+            direct_chunks=direct_chunks_q, direct_chunks_d=direct_chunks_d,
+            return_metrics=True, loss_has_aux=True, router_aux_coef=router_aux_coef,
+        )
         with record_function("train_step/optimizer"):
             optimizer.step()
             if scheduler is not None:
                 scheduler.step()
-            if log_max is not None:
-                with torch.no_grad():
-                    logit_scale.logit_scale.clamp_(max=log_max)
-        return {"loss": loss, "grad_norm": optimizer.grad_norm, "accuracy": accuracy,
-                "router_aux": router_aux}
+            clamp()
+        return {"loss": loss, "grad_norm": optimizer.grad_norm, "accuracy": metrics["accuracy"],
+                "router_aux": metrics["router_aux"]}
 
     return step
+
+
+def read_retrieval_set(path: str):
+    """(corpus {id: {title, text}}, queries {id: text}, qrels {qid: {cid:
+    score}}) from a dir with corpus.jsonl, queries.jsonl and qrels.tsv."""
+    corpus, queries, qrels = {}, {}, {}
+    with open(os.path.join(path, "corpus.jsonl")) as f:
+        for line in f:
+            r = json.loads(line)
+            corpus[str(r["_id"])] = {"title": r.get("title", ""), "text": r["text"]}
+    with open(os.path.join(path, "queries.jsonl")) as f:
+        for line in f:
+            r = json.loads(line)
+            queries[str(r["_id"])] = r["text"]
+    with open(os.path.join(path, "qrels.tsv")) as f:
+        for line in f:
+            qid, cid, score = line.strip().split("\t")
+            qrels.setdefault(qid, {})[cid] = int(score)
+    return corpus, queries, qrels
+
+
+class TextTextTrainer(BaseTrainer):
+    def _uses_grad_accumulation(self) -> bool:
+        # the grad-cache step updates every loop step (chunking replaces
+        # accumulation); the standard branch accumulates
+        return not self.config.train_args.grad_cache
+
+    def get_model(self) -> torch.nn.ModuleDict:
+        from contrastors_tpu_torch.models.auto import load_biencoder
+
+        margs = self.config.model_args
+        self.biencoder, self.trunk_config = load_biencoder(margs, dtype=self.dtype, device=self.device,
+                                                           seed=self.seed)
+        self.logit_scale = LogitScale(margs.logit_scale, trainable=margs.trainable_logit_scale,
+                                      device=self.device)
+        return torch.nn.ModuleDict({"model": self.biencoder, "logit_scale": self.logit_scale})
+
+    def frozen_mask(self) -> Dict[str, bool]:
+        margs = self.config.model_args
+        return {name: not ((margs.freeze and name.startswith("model."))
+                           or (not margs.trainable_logit_scale and name.startswith("logit_scale.")))
+                for name, _ in self.model.named_parameters()}
+
+    def get_dataloaders(self):
+        from contrastors_tpu_torch.data import LocalJsonlDataset, StreamingShardDataset
+
+        dargs = self.config.data_args
+        margs = self.config.model_args
+        common = dict(
+            tokenizer=self.tokenizer,
+            seed=dargs.seed,
+            add_eos=self.tokenizer.eos_token is not None,
+            add_prefix=margs.add_prefix,
+            num_negatives=margs.num_negatives,
+            sample_negatives=dargs.sample_negatives,
+            query_max_length=dargs.query_max_length,
+            document_max_length=dargs.document_max_length,
+        )
+        if dargs.streaming and dargs.input_shards.endswith(".yaml"):
+            ds = StreamingShardDataset(
+                dargs.input_shards,
+                global_batch_size=dargs.batch_size,
+                weighted_sampling=dargs.weighted_sampling,
+                state_dir=os.path.join(self.config.train_args.output_dir or ".", "data_state"),
+                run_name=self.config.train_args.wandb_run_name,
+                verbose=dargs.verbose,
+                **common,
+            )
+            steps = len(ds) // dargs.batch_size
+        else:
+            files = (sorted(glob.glob(dargs.input_shards)) if any(ch in dargs.input_shards for ch in "*?[")
+                     else [dargs.input_shards])
+            ds = LocalJsonlDataset(
+                files,
+                global_batch_size=dargs.batch_size,
+                objective={"type": "paired", "columns": ["query", "document"]},
+                shuffle=dargs.shuffle,
+                **common,
+            )
+            steps = ds.num_batches()
+        return ds, steps
+
+    def transform_host_batch(self, host_batch):
+        if self.config.data_args.packed:
+            raise NotImplementedError("packed batches are not ported yet (ROADMAP Queue 1, item 4)")
+        return host_batch
+
+    def eval_loop(self, step: int) -> Dict[str, float]:
+        """In-train retrieval eval (nDCG@10, Recall@10) on the local set
+        `data_args.eval_retrieval`, through the port's Encoder."""
+        path = self.config.data_args.eval_retrieval
+        if not path:
+            return {}
+        from contrastors_tpu_torch.eval.encoder import Encoder
+        from contrastors_tpu_torch.eval.retrieval import evaluate_retrieval
+
+        corpus, queries, qrels = read_retrieval_set(path)
+        margs = self.config.model_args
+        enc = Encoder(
+            self.biencoder,
+            self.tokenizer,
+            seq_len=self.config.data_args.document_max_length or 256,
+            batch_size=self.config.data_args.eval_batch_size or 64,
+            query_prefix=(margs.query_prefix.rstrip(": ") if margs.add_prefix and margs.query_prefix else None),
+            document_prefix=(margs.document_prefix.rstrip(": ")
+                             if margs.add_prefix and margs.document_prefix else None),
+        )
+        res = evaluate_retrieval(enc, corpus, queries, qrels, ks=(10,))
+        return {f"retrieval/{k}": v for k, v in res.items()}
+
+    def make_train_step(self) -> Callable[[Batch, torch.Generator], Dict[str, torch.Tensor]]:
+        ta = self.config.train_args
+        use_moe = self.config.model_args.num_experts > 0
+        if ta.grad_cache_embed_parallel != 1:
+            raise NotImplementedError("grad_cache_embed_parallel > 1 is not ported yet (ROADMAP Queue 1, item 1)")
+        step = make_train_step(
+            self.biencoder,
+            self.logit_scale,
+            self.optimizer,
+            self.scheduler,
+            grad_cache=bool(ta.grad_cache),
+            chunk_size=ta.chunk_size or 64,
+            direct_chunks_q=ta.grad_cache_direct_chunks_q,
+            direct_chunks_d=ta.grad_cache_direct_chunks_d,
+            loss_fn="clip_bidirectional" if ta.loss_fn == "clip_bidirectional" else "clip",
+            matryoshka_dims=ta.matryoshka_dims,
+            matryoshka_loss_weights=ta.matryoshka_loss_weights,
+            clamp_logits=ta.clamp_logits,
+            logit_max=ta.logit_max,
+            router_aux_coef=ta.router_aux_loss_coef if use_moe else 0.0,
+            gradient_accumulation_steps=1 if ta.grad_cache else ta.gradient_accumulation_steps,
+        )
+
+        def train_step(batch: Batch, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+            q = {"input_ids": batch["query_input_ids"], "attention_mask": batch["query_attention_mask"]}
+            d = {"input_ids": batch["document_input_ids"], "attention_mask": batch["document_attention_mask"]}
+            metrics = step(q, d, generator)
+            if not use_moe:  # JAX reports the aux for MoE models only
+                metrics.pop("router_aux")
+            return metrics
+
+        return train_step

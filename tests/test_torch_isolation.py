@@ -17,7 +17,7 @@ PORT = ROOT / "contrastors_tpu_torch"
 def _forbidden(name: str) -> bool:
     # exact names or dotted children; contrastors_tpu_torch shares the prefix
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "contrastors_tpu")
+    return top in ("jax", "jaxlib", "flax", "optax", "orbax", "contrastors_tpu", "pydantic")
 
 
 def _imported_names(path: Path):
@@ -40,13 +40,18 @@ def test_importing_every_port_module_loads_no_jax():
         m.name for m in pkgutil.walk_packages([str(PORT)], prefix="contrastors_tpu_torch.")
     )
     for m in ("ops.flash_attention", "ops.grouped_matmul", "layers.moe", "trainers.base",
-              "trainers.mlm", "scripts.ablate_rotary_fusion"):
+              "trainers.mlm", "scripts.ablate_rotary_fusion", "config", "read", "train", "trainers.text_text",
+              "models.hf_interop", "models.auto", "data.text", "data.indexing", "utils.prefetch",
+              "utils.logging", "eval.metrics", "eval.retrieval"):
         assert "contrastors_tpu_torch." + m in modules
+    # the JAX stack, and the packages the card's machine is not known to
+    # have (imported only inside the functions that need them)
     code = (
         "import importlib, sys\n"
         "def bad():\n"
         "    return sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'contrastors_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'contrastors_tpu', 'pydantic', 'yaml', 'transformers', "
+        "'safetensors', 'fsspec', 'datasets'))\n"
         "assert not bad(), bad()\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "assert not bad(), bad()\n"
@@ -80,5 +85,19 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
             entry(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         rotary_cos_sin(16, 64)
+    from contrastors_tpu_torch import train
+    from contrastors_tpu_torch.config import Config
+    from contrastors_tpu_torch.trainers import TextTextTrainer
+
+    config = Config.from_dict(dict(train_args=dict(learning_rate=1e-3),
+                                   data_args=dict(batch_size=2, input_shards="pairs.jsonl"),
+                                   model_args=dict(model_type="encoder", model_name="m")))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TextTextTrainer(config)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.run(config, "fp32")
+    recipe = ROOT / "configs" / "train" / "contrastive_finetune.yaml"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--config", str(recipe)])
     assert BiEncoder(cfg, device="cpu").trunk.emb_ln.weight.device.type == "cpu"
     assert rotary_cos_sin(16, 64, device="cpu")[0].device.type == "cpu"
