@@ -2,7 +2,7 @@
 """Drive the PyTorch / CUDA port (contrastors_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only {moe_kernels,moe,flash_fwd,flash_bwd,dense,trainer} [--tree DIR]
+    python3 chip_smoke.py --only {moe_kernels,moe,flash_fwd,flash_bwd,dense,trainer,mlm_trainer} [--tree DIR]
 
 The second form runs phases 1, 2 and 9 (moe_kernels), or 1, 2 and 9-12
 without the gradient agreement (moe: the kernels, MoE serving and the MoE
@@ -12,7 +12,7 @@ timing, fused and outside in turns, or (flash_bwd) 1, 2, the backward
 checks of 4 and 13, the backward timing of 8 (the whole backward only) and
 the MLM step's timing, or (dense) 1, 2 and the dense step of 7-8
 (launches, timing, profile; no gradient agreement), or (trainer) 1, 2 and
-17, on this checkout's
+17, or (mlm_trainer) 1, 2 and 18, on this checkout's
 package or on the one under DIR (another checkout, e.g. the parent commit
 unpacked by `git archive`), so that two versions can be timed in turns on
 one card.
@@ -26,7 +26,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
      lengths, the multi-tile regime at 4096/8192, causal S != T, window,
      segments, GQA, D=128, the training step's two shapes, B=512 S=32
      and B=16 S=256, and the edges of the persistent walk: S = T = 1, 65,
-     129 with GQA, D = 128 at 129, B * H = 143, GQA at S = 2048); a second
+     129 with GQA, D = 128 at 129, B * H = 143, GQA at S = 2048; the GLUE
+     eval batch, 64 x 128 padded, as the dispatch hands it over); a second
      run bit-identical to the first.
   4. kernel_check_bwd: the two backward kernels (dq, which also computes
      delta; dk/dv) against the plain backward on the same O and LSE, with a
@@ -46,7 +47,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
      calls it) the same three ways, at B=256 S=512, B=16 S=4096, the
      contrastive step's B=512 S=32 and B=16 S=256, and the MLM shape B=8
      S=2048 plain and with fused rotary (against SDPA plus apply_rotary),
-     all with the all-ones mask.
+     all with the all-ones mask, and the padded GLUE eval batch (64 x 128,
+     against SDPA with the mask).
   7. dead_row_check and train_step: attention_core(impl="flash") with a
      mask only at kv 256, as the step's document chunks call it (and with
      GQA and fused rotary), on a batch whose last row has no valid key:
@@ -104,7 +106,11 @@ second layer: 6 MoE layers, ~435M parameters):
      kernel run's expert choices), per tensor; the same comparison with
      each run routing on its own, at three data seeds, beside the gmm
      kernels' and the attention's share of it; a tgmm writing expert e's
-     gradient into expert e+1 must fall outside.
+     gradient into expert e+1 must fall outside. Read beside it, not
+     bounded (moe_grad_margin_reading): grad cache against the standard
+     step by layer, with the router aux off and at 0.001, and by chunk (the
+     chunk's embeddings, cotangent and gradient contribution against the
+     standard step's for the same rows).
  12. moe_timing: MoE encode texts/s, step ms (median of 5), one profiled
      step with gmm and tgmm as their own groups and its device-to-host
      copies counted.
@@ -154,6 +160,30 @@ The trainer entry point (after phase 7):
      idle share, the time it waits on the prefetch queue, and one
      grad-cache step's peak memory with and without activation
      checkpointing.
+The BERT pretraining and fine-tuning family (after phase 16):
+ 18. mlm_trainer, mmlm_trainer, glue_trainer and dropout_checks:
+     configs/train/mlm.yaml, mmlm.yaml and glue.yaml through the port's
+     read_config and train.run at full width (12 x 768, H = 12, D = 64; the
+     public config.json fields of bert-base-uncased and xlm-roberta-base,
+     random weights, in-memory data, the stand-in tokenizer), in bf16, cut
+     in batch, steps and data only (`bert_family_overrides`): MLM 32
+     micro-steps of 4 x 2048 (8 updates at the recipe's accumulation 4,
+     warmup 2 updates, the eval at the end over 2 batches), MMLM 4 steps of
+     8 x 512 over two languages, GLUE sst2 the recipe's 3 epochs of 12
+     steps (32 x 128, eval batch 64 on 100 padded sentences). Gates: no
+     flash launch in any training step (the recipes' attention dropout 0.1
+     runs sdpa, as in JAX) and 12 forwards per eval batch; finite losses,
+     the MLM loss falling (the mean of updates 7-8 below that of updates
+     1-2); 0 synchronising calls per quiet loop step; `loss/<lang>` logged;
+     the MLM val_loss through the kernel within 1e-2 of the plain path's;
+     the GLUE eval logits at cosine >= 0.999 with the same argmax on >= 99%
+     of rows; a train-mode forward bit-identical under one seed, another
+     under another; one MLM micro-step's gradients with remat on and off
+     bit-identical, and a planted global-RNG dropout failing that check;
+     each dropout site's keep share within 0.9 +- 0.0006 over >= 10^7
+     draws, the kept values 1 / 0.9. Recorded: peak memory, the micro-steps'
+     ms, and the MLM micro-step with dropout on (sdpa) and off (the flash
+     kernels) in turns beside phase 16's dropout-free step.
 Kernel times (ms) are CUDA-event times of calls made on an idle card, so a
 short kernel's time holds the host's enqueue; phases 8 and 9 give beside
 them the device's work alone (device_ms: each call queued behind a device
@@ -341,10 +371,10 @@ def seed_weights(model, key):
     return model
 
 
-def train_modules(impl, dev, lr=2e-4, max_grad_norm=1.0, moe=False):
+def train_modules(impl, dev, lr=2e-4, max_grad_norm=1.0, moe=False, dtype=None):
     """BiEncoder(nomic-bert-2048, or its MoE form, mean pooling, bf16
-    compute) with random weights from seed 0, a fixed LogitScale(50) and
-    AdamW (the headline's: lr 2e-4, wd 0.01, clip 1.0)."""
+    compute unless `dtype`) with random weights from seed 0, a fixed
+    LogitScale(50) and AdamW (the headline's: lr 2e-4, wd 0.01, clip 1.0)."""
     import torch
 
     from contrastors_tpu_torch.models import BiEncoder, LogitScale
@@ -352,7 +382,7 @@ def train_modules(impl, dev, lr=2e-4, max_grad_norm=1.0, moe=False):
     from contrastors_tpu_torch.utils.optim import make_optimizer
 
     cfg = moe_config(impl) if moe else nomic_bert_2048(attn_impl=impl)
-    model = seed_weights(BiEncoder(cfg, pooling="mean", dtype=torch.bfloat16, device=dev),
+    model = seed_weights(BiEncoder(cfg, pooling="mean", dtype=dtype or torch.bfloat16, device=dev),
                          "moe" if moe else "dense")
     scale = LogitScale(50.0, trainable=False, device=dev)
     named = [("model." + n, p) for n, p in model.named_parameters()]
@@ -377,17 +407,19 @@ def token_batches(pairs, dev, seed=0):
     return batch(q), batch(d)
 
 
-def step_grads(impl, grad_cache, dev, qb, db, moe=False):
+def step_grads(impl, grad_cache, dev, qb, db, moe=False, router_aux_coef=0.0, dtype=None):
     """The gradients of one train step at the headline settings (the MoE
-    benchmark's with moe, router aux 0), read after a step whose optimizer
-    (lr 0, no clip) leaves the weights and the gradients as they were."""
+    benchmark's with moe, router aux router_aux_coef; compute in bf16 unless
+    `dtype`), read after a step whose optimizer (lr 0, no clip) leaves the
+    weights and the gradients as they were."""
     import torch
 
     from contrastors_tpu_torch.trainers.text_text import make_train_step
 
-    model, scale, opt = train_modules(impl, dev, lr=0.0, max_grad_norm=None, moe=moe)
+    model, scale, opt = train_modules(impl, dev, lr=0.0, max_grad_norm=None, moe=moe, dtype=dtype)
     kw = dict(chunk_size=MOE_CHUNK, direct_chunks_q=0) if moe else dict(chunk_size=CHUNK, direct_chunks_q=-1)
-    step = make_train_step(model, scale, opt, grad_cache=grad_cache, direct_chunks_d=0, **kw)
+    step = make_train_step(model, scale, opt, grad_cache=grad_cache, direct_chunks_d=0,
+                           router_aux_coef=router_aux_coef, **kw)
     step(qb, db, torch.Generator().manual_seed(0))
     return {n: p.grad.float().clone() for n, p in model.named_parameters() if p.grad is not None}
 
@@ -829,6 +861,90 @@ def moe_training(dev, card, agreement=True):
     return launches
 
 
+def tensor_group(name):
+    """The layer a parameter belongs to: layer_<i>, embeddings or other."""
+    m = re.search(r"layers\.(\d+)\.", name)
+    return f"layer_{int(m.group(1)):02d}" if m else ("embeddings" if "embeddings" in name else "other")
+
+
+def per_group_rel_l2(got, ref):
+    """Relative L2 distance of got against ref over each tensor group."""
+    import torch
+
+    groups = {}
+    for n in ref:
+        groups.setdefault(tensor_group(n), []).append(n)
+    out = {}
+    for g, names in sorted(groups.items()):
+        x = torch.cat([got[n].flatten().double() for n in names])
+        y = torch.cat([ref[n].flatten().double() for n in names])
+        out[g] = (x - y).norm().item() / max(y.norm().item(), 1e-300)
+    return out
+
+
+def moe_chunk_reading(dev, sq, sd):
+    """The grad-cache margin chunk by chunk (MOE_CHUNK rows, both towers):
+    for each chunk, the relative L2 distance of its pass-1 embeddings and of
+    its loss cotangent from the standard step's rows, and of the gradient it
+    contributes (<embedding, cotangent> backpropagated through its own
+    forward) from the one the standard step's whole-tower forward gives the
+    same rows, overall and by layer. Router aux off: the embedding part."""
+    import gc
+
+    import torch
+
+    from contrastors_tpu_torch.losses import clip_loss
+    from contrastors_tpu_torch.trainers.text_text import encode_batch
+
+    model, scale, _ = train_modules("flash", dev, lr=0.0, max_grad_norm=None, moe=True)
+    n = 64 // MOE_CHUNK
+
+    def rows(b, i):
+        return {k: v[i * MOE_CHUNK:(i + 1) * MOE_CHUNK] for k, v in b.items()}
+
+    def cotangents(embs):
+        leaves = [e.detach().float().requires_grad_() for e in embs]
+        clip_loss(*leaves, scale)[0].backward()
+        return [x.grad for x in leaves]
+
+    with torch.no_grad():
+        gc_emb = [torch.cat([encode_batch(model, rows(b, i))["embedding"] for i in range(n)]) for b in (sq, sd)]
+        std_emb = [encode_batch(model, b)["embedding"] for b in (sq, sd)]
+    gc_cot, std_cot = cotangents(gc_emb), cotangents(std_emb)
+
+    def grads():
+        out = {name: p.grad.float().clone() for name, p in model.named_parameters() if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    reading = {}
+    for t, (tower, b) in enumerate((("query", sq), ("document", sd))):
+        model.zero_grad(set_to_none=True)
+        std_out = encode_batch(model, b)["embedding"]
+        for i in range(n):
+            sl = slice(i * MOE_CHUNK, (i + 1) * MOE_CHUNK)
+            (std_out[sl] * std_cot[t][sl].to(std_out.dtype)).sum().backward(retain_graph=i + 1 < n)
+            g_std = grads()
+            out = encode_batch(model, rows(b, i))["embedding"]
+            (out * gc_cot[t][sl].to(out.dtype)).sum().backward()
+            g_gc = grads()
+            reading[f"{tower}_chunk{i}"] = dict(
+                embedding_rel_l2=rel(gc_emb[t][sl], std_emb[t][sl]), cotangent_rel_l2=rel(gc_cot[t][sl],
+                                                                                         std_cot[t][sl]),
+                gradient=compare_grads(g_gc, g_std), gradient_by_layer=per_group_rel_l2(g_gc, g_std))
+            del g_std, g_gc, out
+        del std_out
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, scale
+    gc.collect()
+    torch.cuda.empty_cache()
+    return reading
+
+
 def moe_grad_agreement(dev):
     """Phase moe_train_grad_agreement."""
     import gc
@@ -863,6 +979,36 @@ def moe_grad_agreement(dev):
             gc_in_std_order = standard_order(kernel_choices, 64 // MOE_CHUNK)
         gc.collect()
         torch.cuda.empty_cache()
+    # the margin's reading by layer, router aux off (the runs above) and on
+    # (the benchmark's 0.001: grad cache sums one aux per chunk, the standard
+    # step one per tower), and by chunk (read, not bounded)
+    by_layer = dict(aux_0=per_group_rel_l2(grads["gc"], grads["std"]))
+    aux_grads = {}
+    for label, grad_cache in (("gc", True), ("std", False)):
+        aux_grads[label] = step_grads("flash", grad_cache, dev, sq, sd, moe=True, router_aux_coef=MOE_AUX)
+        gc.collect()
+        torch.cuda.empty_cache()
+    by_layer[f"aux_{MOE_AUX:g}"] = dict(per_group_rel_l2(aux_grads["gc"], aux_grads["std"]),
+                                        whole=compare_grads(aux_grads["gc"], aux_grads["std"]))
+    # the same pair computed in fp32 (sdpa and the plain grouped matmul: the
+    # kernels take bf16), aux off: a bf16 weight gradient is rounded once per
+    # chunk in grad cache and once per batch in the standard step
+    with plain_grouped_matmul():
+        for label, grad_cache in (("gc", True), ("std", False)):
+            aux_grads[label] = step_grads("sdpa", grad_cache, dev, sq, sd, moe=True, dtype=torch.float32)
+            gc.collect()
+            torch.cuda.empty_cache()
+    by_layer["aux_0_fp32_compute"] = dict(per_group_rel_l2(aux_grads["gc"], aux_grads["std"]),
+                                          whole=compare_grads(aux_grads["gc"], aux_grads["std"]))
+    del aux_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="moe_grad_margin_reading", pairs=64, chunk=MOE_CHUNK, gc_vs_standard_by_layer=by_layer,
+         gc_vs_standard_by_chunk=moe_chunk_reading(dev, sq, sd),
+         note="relative L2 of the grad-cache step's gradients against the standard step's, by layer (each "
+              "routing on its own), with the router aux off and on, and aux off with fp32 compute; by chunk: the chunk's pass-1 embeddings, "
+              "its cotangent and the gradient it contributes against the standard step's for the same rows "
+              "(aux off); read, not bounded")
     bounds = dict(gc_vs_std_min_cosine=0.9999, gc_vs_std_max_rel_l2=0.01, kernels_vs_plain_min_cosine=0.999,
                   own_routing_min_cosine=0.995)
     flipped, routed = differing_choices(gc_in_std_order, std_choices)
@@ -1089,9 +1235,14 @@ EDGE_CASES = [
     ("bh143_s96", dict(B=11, S=96, T=96, H=13, Hkv=13, D=64), dict(mask=(1, 0))),
     ("gqa_hkv4_s2048", dict(B=1, S=2048, T=2048, H=12, Hkv=4, D=64), dict(mask=(1, 0))),
 ]
-FWD_CASES = BASE_CASES + EDGE_CASES
-# the backward kernels: the same but the two largest
-BWD_CASES = [c for c in FWD_CASES if c[0] not in ("pad_b256_s512", "s8192")]
+# the GLUE eval batch (64 x 128, padded sentences) as attention_core hands it
+# to the kernel below kv 512: every query row live, the mask as kv ids
+GLUE_CASES = [
+    ("glue_pad_b64_s128", dict(B=64, S=128, T=128, H=12, Hkv=12, D=64), dict(mask=(0, 0), dispatch=True)),
+]
+FWD_CASES = BASE_CASES + EDGE_CASES + GLUE_CASES
+# the backward kernels: the same but the two largest and the eval-only GLUE batch
+BWD_CASES = [c for c in FWD_CASES if c[0] not in ("pad_b256_s512", "s8192", "glue_pad_b64_s128")]
 
 
 def make_qkv(gen, dev, B, S, T, H, Hkv, D):
@@ -1120,6 +1271,9 @@ def case_inputs(gen, dev, shp, opt):
         if empty_rows:
             lens[B - empty_rows:] = 0
         kw["attention_mask"] = (torch.arange(T, device=dev)[None] < lens[:, None]).int()
+    if opt.get("dispatch"):
+        kw["segment_ids"] = torch.ones(shp["B"], shp["S"], dtype=torch.int32, device=dev)
+        kw["kv_segment_ids"] = kw.pop("attention_mask")
     if opt.get("segments"):
         seg = torch.zeros(shp["B"], shp["S"], dtype=torch.int32, device=dev)
         seg[:, :100], seg[:, 100:300], seg[:, 300:450] = 1, 2, 3  # 450.. is padding
@@ -1460,7 +1614,13 @@ def fused_kernel_timing(dev, card, gen):
 # that the encoder and the steps pass.
 FWD_TIMING_SHAPES = (("b256_s512", 256, 512, False), ("b16_s4096", 16, 4096, False),
                      ("b512_s32", 512, 32, False), ("b16_s256", 16, 256, False),
-                     ("mlm_b8_s2048", 8, 2048, False), ("mlm_b8_s2048_fused", 8, 2048, True))
+                     ("mlm_b8_s2048", 8, 2048, False), ("mlm_b8_s2048_fused", 8, 2048, True),
+                     ("glue_b64_s128_padded", 64, 128, False))
+
+
+def glue_lengths(B, S, seed=3):
+    """Padded sentence lengths of a GLUE eval batch: 8 to S tokens."""
+    return np.random.default_rng(seed).integers(8, S + 1, size=B)
 
 
 def forward_timing(dev, card, gen):
@@ -1473,7 +1633,11 @@ def forward_timing(dev, card, gen):
     rotated by apply_rotary inside the timed call (the nearest composite:
     no PyTorch call fuses rotary into attention); at the unfused shapes
     also SDPA with the mask as a boolean attn_mask (`library_masked_ms`,
-    the yardstick of runs before PR 7). Returns {shape: row}."""
+    the yardstick of earlier runs). The padded GLUE eval batch (64 x
+    128, `glue_lengths`) runs as attention_core hands it to the kernel below
+    kv 512 (every query row live, the mask as kv ids), against SDPA with the
+    mask as a boolean attn_mask (`library_ms`); its bound counts the pairs
+    of live keys. Returns {shape: row}."""
     import torch
     import torch.nn.functional as F
 
@@ -1488,7 +1652,18 @@ def forward_timing(dev, card, gen):
         kw = dict(attention_mask=mask)
         b_ms, b_by, flops, nbytes = attention_bound(B, S, S, H, H, D, mask)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        if fused:
+        padded = label.endswith("padded")
+        if padded:
+            lens = torch.from_numpy(glue_lengths(B, S)).to(dev)
+            mask = (torch.arange(S, device=dev)[None] < lens[:, None]).int()
+            kw = dict(segment_ids=torch.ones(B, S, dtype=torch.int32, device=dev), kv_segment_ids=mask)
+            flops = 4.0 * D * H * S * float(lens.sum().item())  # every query row against its live keys
+            b_ms, b_by, _, nbytes = _bound(flops, nbytes)
+            keep = mask.bool()[:, None, None, :]
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
+        elif fused:
             cos, sin = rotary_cos_sin(S, D, base=1000.0, device=dev)
             kw.update(rotary_cos=cos, rotary_sin=sin)
             # + the two expanded fp32 tables, padded to the 64-row tile
@@ -1513,7 +1688,7 @@ def forward_timing(dev, card, gen):
                    library_ms=median_ms(sdpa), library_device_ms=median_ms(sdpa, queued=True),
                    library_enqueue_us=host_enqueue_us(sdpa), bound_ms=b_ms, bound_by=b_by, flops=flops,
                    bytes=nbytes, o_err_over_tol=ratio, lse_max_abs_err=lse_err)
-        if not fused:
+        if not fused and not padded:
             keep = mask.bool()[:, None, None, :]
             row["library_masked_ms"] = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep))
         row.update(tflops=flops / row["ms"] / 1e9, roofline_share=b_ms / row["ms"],
@@ -1521,9 +1696,12 @@ def forward_timing(dev, card, gen):
         rows[label] = row
         emit(phase="kernel_timing", card=card, gpu_state=gpu_state(), shape=label, B=B, S=S, T=S, H=H, D=D,
              fused_rotary=fused, **row,
-             note="ms, device_ms, enqueue_us: flash_attention_fwd; library: SDPA without a mask"
-                  + (" on q, k rotated by apply_rotary in the same call" if fused else
-                     "; library_masked_ms: SDPA with the all-ones mask as a boolean attn_mask"))
+             note="ms, device_ms, enqueue_us: flash_attention_fwd; " + (
+                 "the dispatch's form of a padded batch (segment ids 1, the mask as kv ids); library: SDPA "
+                 "with the mask as a boolean attn_mask" if padded else
+                 "library: SDPA without a mask" + (" on q, k rotated by apply_rotary in the same call" if fused
+                                                   else "; library_masked_ms: SDPA with the all-ones mask as a "
+                                                        "boolean attn_mask")))
         if ratio > 1.0 or lse_err > fa.LSE_ATOL:
             raise AssertionError(f"flash forward kernel disagrees with its plain version at {label}")
         del q, k, v, qt, kt, vt
@@ -2040,19 +2218,26 @@ def sync_log():
             torch.cuda.set_sync_debug_mode(0)
 
 
-def chip_trainer_class():
-    """TextTextTrainer with the stand-in tokenizer (the get_tokenizer hook),
-    whose steps record, per loop step: the host clock and the count of
-    synchronising calls at the step's start, its flash launches, and its
-    metrics (device tensors, read after the run)."""
+def chip_trainer_class(base=None, tokenizer=None, splits=None):
+    """A trainer class (default: TextTextTrainer with the stand-in
+    tokenizer) whose get_tokenizer hook gives `tokenizer`, whose
+    load_dataset hook hands out `splits` (in memory, by the path's last
+    part) and whose steps record, per loop step: the host clock and the
+    count of synchronising calls at the step's start, its flash launches,
+    and its metrics (device tensors, read after the run)."""
     from contrastors_tpu_torch.eval.stub_tokenizer import StubTokenizer
     from contrastors_tpu_torch.trainers import TextTextTrainer
 
-    class ChipTrainer(TextTextTrainer):
+    tokenizer = tokenizer or StubTokenizer(NOMIC_BERT_2048_CONFIG["vocab_size"])
+
+    class ChipTrainer(base or TextTextTrainer):
         syncs = None  # the list sync_log() fills
 
         def get_tokenizer(self):
-            return StubTokenizer(NOMIC_BERT_2048_CONFIG["vocab_size"])
+            return tokenizer
+
+        def load_dataset(self, path):
+            return splits[os.path.basename(path)]
 
         def make_train_step(self):
             step = super().make_train_step()
@@ -2071,13 +2256,13 @@ def chip_trainer_class():
     return ChipTrainer
 
 
-def run_chip_trainer(recipe, dev):
+def run_chip_trainer(recipe, dev, cls=None):
     """One trainer run of the recipe on dev, its sync log kept; returns
     (trainer, per-step rows, seconds, launches over the whole run)."""
     from contrastors_tpu_torch.config import Config
     from contrastors_tpu_torch.train import run
 
-    cls = chip_trainer_class()
+    cls = cls or chip_trainer_class()
     reset_counts()
     t0 = time.perf_counter()
     with sync_log() as syncs:
@@ -2242,6 +2427,493 @@ def trainer_phase(dev, card, bare_busy_ms=None):
     return rows[1]["launches"]
 
 
+# the public config.json fields of bert-base-uncased and xlm-roberta-base
+# (the weights are random here)
+BERT_BASE_UNCASED_CONFIG = {
+    "model_type": "bert", "architectures": ["BertForMaskedLM"], "vocab_size": 30522, "hidden_size": 768,
+    "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072, "hidden_act": "gelu",
+    "hidden_dropout_prob": 0.1, "attention_probs_dropout_prob": 0.1, "max_position_embeddings": 512,
+    "type_vocab_size": 2, "initializer_range": 0.02, "layer_norm_eps": 1e-12, "pad_token_id": 0,
+    "position_embedding_type": "absolute",
+}
+XLM_ROBERTA_BASE_CONFIG = {
+    "model_type": "xlm-roberta", "architectures": ["XLMRobertaForMaskedLM"], "vocab_size": 250002,
+    "hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072,
+    "hidden_act": "gelu", "hidden_dropout_prob": 0.1, "attention_probs_dropout_prob": 0.1,
+    "max_position_embeddings": 514, "type_vocab_size": 1, "initializer_range": 0.02, "layer_norm_eps": 1e-05,
+    "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2, "position_embedding_type": "absolute",
+}
+# what the phase cuts from each recipe: the rows of one loop step (one
+# micro-step: the trainers' batch_size), the steps and the data
+MLM_ROWS, MLM_STEPS, MLM_WARMUP, MLM_GA_RECIPE = 4, 32, 8, 4  # 8 updates of 4 micro-steps, warmup 2 updates
+MMLM_ROWS, MMLM_STEPS = 8, 4
+GLUE_TRAIN_ROWS, GLUE_VAL_ROWS, GLUE_EPOCHS = 384, 100, 3  # 12 steps of 32 per epoch, the recipe's 3 epochs
+KEEP_BAND, KEEP_DRAWS = 0.0006, 10**7
+
+
+class Rows:
+    """Rows held in memory with what the trainers read of a `datasets`
+    split: len() and, for a list of indices, a dict of columns."""
+
+    def __init__(self, **columns):
+        self.columns = {k: np.asarray(v) for k, v in columns.items()}
+
+    def __len__(self):
+        return len(next(iter(self.columns.values())))
+
+    def __getitem__(self, idx):
+        if isinstance(idx, str):
+            return self.columns[idx]
+        return {k: v[np.asarray(idx, dtype=np.int64)] for k, v in self.columns.items()}
+
+
+def bert_family_inputs(root, seed=42):
+    """The config.json directories, the multilingual root (one empty
+    directory per language: the trainer lists them) and the in-memory
+    splits by the last part of the recipes' data paths. MLM and MMLM rows
+    draw ids from 300 token values, so that the loss can fall; GLUE's are
+    sentences of 4-120 number words, label 1 where "7777" is one of them."""
+    rng = np.random.default_rng(seed)
+    dirs = {}
+    for name, cfg in (("bert-base-uncased", BERT_BASE_UNCASED_CONFIG), ("xlm-roberta-base", XLM_ROBERTA_BASE_CONFIG)):
+        dirs[name] = os.path.join(root, name)
+        os.makedirs(dirs[name])
+        with open(os.path.join(dirs[name], "config.json"), "w") as f:
+            json.dump(cfg, f)
+
+    def ids(n, S, lo):
+        return rng.integers(lo, lo + 300, size=(n, S))
+
+    splits = {"wiki-books-2048": {"train": Rows(input_ids=ids(MLM_STEPS * MLM_ROWS, 2048, 1000)),
+                                  "validation": Rows(input_ids=ids(2 * MLM_ROWS, 2048, 1000))}}
+    mm_root = os.path.join(root, "multilingual")
+    for lang, n, lo in (("en", 3 * MMLM_ROWS, 5000), ("fr", 2 * MMLM_ROWS, 6000)):
+        os.makedirs(os.path.join(mm_root, lang))
+        splits[lang] = Rows(input_ids=ids(n, 512, lo))
+
+    def sentences(n):
+        texts, labels = [], []
+        for _ in range(n):
+            words = rng.integers(1000, 2000, size=rng.integers(4, 121)).astype(str).tolist()
+            label = int(rng.random() < 0.5)
+            if label:
+                words[rng.integers(len(words))] = "7777"
+            texts.append(" ".join(words))
+            labels.append(label)
+        return Rows(sentence=np.asarray(texts, dtype=object), label=labels)
+
+    splits["sst2"] = {"train": sentences(GLUE_TRAIN_ROWS), "validation": sentences(GLUE_VAL_ROWS)}
+    return dirs, mm_root, splits
+
+
+def bert_family_overrides(dirs, mm_root, out_root):
+    """What the phase changes in each recipe: the model (a local config.json,
+    random weights), the batch, the steps (and their warmup and eval in
+    the MLM run, the log cadence in the MMLM run, which is 4 steps long),
+    the data and the output directory."""
+    bert, xlmr = dirs["bert-base-uncased"], dirs["xlm-roberta-base"]
+    return {
+        "mlm": {"train_args": {"num_train_steps": MLM_STEPS, "warmup_steps": MLM_WARMUP, "eval_steps": MLM_STEPS,
+                               "output_dir": os.path.join(out_root, "mlm")},
+                "model_args": {"model_name": bert}, "data_args": {"batch_size": MLM_ROWS}},
+        "mmlm": {"train_args": {"num_train_steps": MMLM_STEPS, "log_lr_every": 2,
+                                "output_dir": os.path.join(out_root, "mmlm")},
+                 "model_args": {"model_name": xlmr},
+                 "data_args": {"batch_size": MMLM_ROWS, "tokenized_dataset": mm_root}},
+        "glue": {"train_args": {"output_dir": os.path.join(out_root, "glue")},
+                 "model_args": {"model_name": bert, "pretrained": False}},
+    }
+
+
+def bert_family_recipe(name, overrides):
+    """configs/train/<name>.yaml through the port's read_config, with the
+    phase's overrides."""
+    from contrastors_tpu_torch.read import read_config
+
+    raw = read_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "train",
+                                   f"{name}.yaml")).to_dict()
+    for group, values in overrides[name].items():
+        raw[group].update(values)
+    return raw
+
+
+@contextlib.contextmanager
+def dropout_sites(stats):
+    """Count the keep masks drawn inside by site: stats[site] = [kept (a
+    device tensor), draws]. A site is known by the generator it draws from,
+    which the model and its blocks build per site (`site_generator`)."""
+    from contrastors_tpu_torch.layers import block
+    from contrastors_tpu_torch.models import nomic_bert
+    from contrastors_tpu_torch.ops import dropout as drop
+
+    names = {}
+    block_sites = {0: "residual_1", 1: "drop_path_1", 2: "attention", 3: "residual_2", 4: "drop_path_2"}
+    model_sites = {nomic_bert.SITE_EMBEDDING: "embedding", nomic_bert.SITE_FINAL: "final",
+                   nomic_bert.SITE_CLASSIFIER: "classifier"}
+
+    def tagged(orig, sites):
+        def site_generator(seed, *path, device):
+            g = orig(seed, *path, device=device)
+            if g is not None:
+                names[id(g)] = sites[path[0]]
+            return g
+        return site_generator
+
+    def keep_mask(shape, keep, generator, device, orig=drop.keep_mask):
+        m = orig(shape, keep, generator, device)
+        row = stats.setdefault(names.get(id(generator), "unknown"), [0, 0])
+        row[0] = row[0] + m.sum()
+        row[1] += m.numel()
+        return m
+
+    patches = [(block, "site_generator", tagged(block.site_generator, block_sites)),
+               (nomic_bert, "site_generator", tagged(nomic_bert.site_generator, model_sites)),
+               (drop, "keep_mask", keep_mask)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        yield stats
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def global_rng_dropout():
+    """The planted fault of the replay check: keep masks drawn from the
+    global RNG instead of the site's generator."""
+    import torch
+
+    from contrastors_tpu_torch.ops import dropout as drop
+
+    orig = drop.keep_mask
+    drop.keep_mask = lambda shape, keep, generator, device: torch.rand(tuple(shape), device=device) < keep
+    try:
+        yield
+    finally:
+        drop.keep_mask = orig
+
+
+def remat_grads(model, batch, dev, remat):
+    """One MLM micro-step's gradients, dropout on (seed 11), with or without
+    activation checkpointing; deterministic algorithms where torch has them
+    (the dense_seq_output gather's backward adds with atomics otherwise)."""
+    import warnings
+
+    import torch
+
+    flags = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
+    model.bert.remat = remat
+    model.zero_grad(set_to_none=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            out = model(batch["input_ids"], attention_mask=batch["attention_mask"], labels=batch["labels"],
+                        masked_positions=batch.get("masked_positions"),
+                        generator=torch.Generator(device=dev).manual_seed(11))
+            out["loss"].backward()
+    finally:
+        torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
+        model.bert.remat = False
+    grads = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def bit_identical(a, b):
+    import torch
+
+    return all(torch.equal(a[n], b[n]) for n in a) and set(a) == set(b)
+
+
+def quiet_rows(rows, noisy):
+    """The loop steps that neither log, save nor evaluate (nor start the run)."""
+    return [r for r in rows if r["step"] > 1 and r["step"] not in noisy]
+
+
+def mlm_trainer_phase(dev, card, mlm_step_ms=None):
+    """Phase mlm_trainer: configs/train/{mlm,mmlm,glue}.yaml through the
+    port's read_config and train.run at full width (bert-base-uncased's and
+    xlm-roberta-base's public config.json, random weights, in-memory data,
+    the stand-in tokenizer), cut in batch, steps and data only; the recipes'
+    dropout 0.1 runs attention through sdpa in every training step, as in
+    JAX, and the flash forward in the evals. Then on the trained MLM model:
+    eval through the kernel against the plain path, one micro-step's
+    gradients with remat on and off (and with a planted global-RNG dropout),
+    determinism of the noise, each site's keep share, and the micro-step
+    timed with dropout on and off in turns; on the GLUE model the eval
+    logits through the kernel against the plain path and the classifier's
+    keep share. Returns {"mlm_eval": launches, "glue_eval": launches, ...}."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from contrastors_tpu_torch.eval.stub_tokenizer import StubTokenizer
+    from contrastors_tpu_torch.ops import dropout as drop
+    from contrastors_tpu_torch.trainers import GlueTrainer, MLMTrainer, MMLMTrainer
+    from contrastors_tpu_torch.trainers.mlm import make_mlm_train_step
+    from contrastors_tpu_torch.utils.optim import make_optimizer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_bert_")
+    dirs, mm_root, splits = bert_family_inputs(root)
+    overrides = bert_family_overrides(dirs, mm_root, os.path.join(root, "runs"))
+    n_layer = BERT_BASE_UNCASED_CONFIG["num_hidden_layers"]
+    bert_tok = StubTokenizer(BERT_BASE_UNCASED_CONFIG["vocab_size"])
+    xlmr_tok = StubTokenizer(XLM_ROBERTA_BASE_CONFIG["vocab_size"], pad_token_id=1, cls_token_id=0,
+                             sep_token_id=2, mask_token_id=250001)
+    zero = expect()
+    checks, out = {}, {}
+
+    def logged(name):
+        with open(os.path.join(root, "runs", name, "metrics.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    # -- MLM ------------------------------------------------------------------
+    recipe = bert_family_recipe("mlm", overrides)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, rows, seconds, run_launches, syncs = run_chip_trainer(
+        recipe, dev, chip_trainer_class(MLMTrainer, bert_tok, splits))
+    mlm_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    model, cfg = trainer.model, trainer.trunk_config
+    losses = [r["loss"] for r in rows]
+    per_update = [float(np.mean(losses[i:i + MLM_GA_RECIPE])) for i in range(0, len(losses), MLM_GA_RECIPE)]
+    step_launches = {k: sum(r["launches"][k] for r in rows) for k in zero}
+    eval_launches = {k: run_launches[k] - step_launches[k] for k in zero}
+    mlm_log = logged("mlm")
+    evals = [m for m in mlm_log if "val_loss" in m]
+    quiet = quiet_rows(rows, {k for k in range(1, MLM_STEPS + 1) if k % recipe["train_args"]["log_lr_every"] == 0}
+                       | {MLM_STEPS})
+    n_val_batches = len(splits["wiki-books-2048"]["validation"]) // MLM_ROWS
+    checks.update(
+        mlm_no_flash_in_training=all(r["launches"] == zero for r in rows),
+        mlm_eval_flash_launches=eval_launches == expect(fwd=n_layer * n_val_batches),
+        mlm_finite=bool(np.isfinite(losses).all()) and len(evals) == 1 and np.isfinite(evals[0]["val_loss"]),
+        mlm_loss_falls=float(np.mean(per_update[-2:])) < float(np.mean(per_update[:2])),
+        mlm_no_sync_per_quiet_step=all(r["iteration_syncs"] == 0 for r in quiet),
+    )
+    mlm_ms = float(np.median([r["iteration_ms"] for r in quiet]))
+
+    # eval through the kernel against the plain path, on the same weights
+    reset_counts()
+    val_flash = trainer.eval_loop(MLM_STEPS)["val_loss"]
+    eval_flash_launches = read_counts()
+    cfg.attn_impl = "sdpa"
+    val_plain = trainer.eval_loop(MLM_STEPS)["val_loss"]
+    cfg.attn_impl = "flash"
+    val_rel = abs(val_flash - val_plain) / abs(val_plain)
+    checks["mlm_eval_kernel_vs_plain_1e_2"] = val_rel <= 1e-2
+    checks["mlm_eval_launches_12_per_batch"] = eval_flash_launches == expect(fwd=n_layer * n_val_batches)
+
+    # one micro-batch of the run's data, on the card
+    loader_batch = next(iter(trainer.dataloader))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in loader_batch.items()}
+    model.train()
+
+    # determinism: the same seed draws the same noise, another seed other noise
+    def logits(seed):
+        with torch.no_grad():
+            return model(batch["input_ids"], attention_mask=batch["attention_mask"],
+                         masked_positions=batch["masked_positions"],
+                         generator=torch.Generator(device=dev).manual_seed(seed))["prediction_logits"]
+
+    a, b, c = logits(1), logits(1), logits(2)
+    checks["same_seed_bit_identical"] = bool(torch.equal(a, b))
+    checks["other_seed_differs"] = not bool(torch.equal(a, c))
+    del a, b, c
+
+    # replay: remat on and off bit-identical; a global-RNG dropout must fail it
+    g_off = remat_grads(model, batch, dev, remat=False)
+    g_on = remat_grads(model, batch, dev, remat=True)
+    replay_ok = bit_identical(g_off, g_on)
+    replay = dict(remat_on_off_bit_identical=replay_ok)
+    if not replay_ok:  # is the step itself deterministic?
+        replay["remat_off_twice_bit_identical"] = bit_identical(g_off, remat_grads(model, batch, dev, remat=False))
+    del g_on
+    with global_rng_dropout():
+        f_off = remat_grads(model, batch, dev, remat=False)
+        f_on = remat_grads(model, batch, dev, remat=True)
+    replay["planted_global_rng_bit_identical"] = bit_identical(f_off, f_on)
+    del g_off, f_off, f_on
+    checks["remat_replay_bit_identical"] = replay_ok
+    checks["planted_global_rng_fails_replay"] = not replay["planted_global_rng_bit_identical"]
+
+    # each site's keep share, over two train-mode forwards
+    stats = {}
+    with dropout_sites(stats), torch.no_grad():
+        for seed in (3, 4):
+            model(batch["input_ids"], attention_mask=batch["attention_mask"],
+                  masked_positions=batch["masked_positions"], generator=torch.Generator(device=dev).manual_seed(seed))
+
+    # the micro-step with dropout on (attention through sdpa) and off (the
+    # flash kernels), in turns, on the run's model and batch
+    opt = make_optimizer(model.named_parameters(), 5e-4, weight_decay=0.01, max_grad_norm=1.0)
+    step = make_mlm_train_step(model, opt)
+    drops = (cfg.embd_pdrop, cfg.resid_pdrop, cfg.attn_pdrop)
+
+    def set_dropout(on):
+        cfg.embd_pdrop, cfg.resid_pdrop, cfg.attn_pdrop = drops if on else (0.0, 0.0, 0.0)
+
+    step_ms, step_launches_by = dict(dropout=[], no_dropout=[]), {}
+    gen = torch.Generator()
+    for i in range(6):
+        for label in (("dropout", "no_dropout") if i % 2 == 0 else ("no_dropout", "dropout")):
+            set_dropout(label == "dropout")
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(batch, drop.step_generator(gen, dev))
+            torch.cuda.synchronize()
+            step_ms[label].append((time.perf_counter() - t0) * 1e3)
+            step_launches_by[label] = read_counts()
+    set_dropout(True)
+    checks["bare_step_launches"] = (step_launches_by["dropout"] == zero
+                                    and step_launches_by["no_dropout"] == expect(fwd=n_layer, dq=n_layer,
+                                                                                 dkv=n_layer))
+    mlm_eval_launches = eval_flash_launches["fwd"]
+    del trainer, model, opt, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="mlm_trainer", card=card, gpu_state=gpu_state(), recipe="configs/train/mlm.yaml",
+         overrides=overrides["mlm"], rows_per_micro_step=MLM_ROWS, seq_len=2048, micro_steps=MLM_STEPS,
+         gradient_accumulation_steps=MLM_GA_RECIPE, dtype="bf16", dropout=drops, losses=losses,
+         loss_per_update=per_update, eval=evals[-1] if evals else None, eval_launches=eval_launches,
+         val_loss_flash=val_flash, val_loss_plain=val_plain, val_loss_rel_diff=val_rel,
+         replay=replay, peak_memory_gb=mlm_peak_gb, run_seconds=seconds,
+         quiet_step_ms=mlm_ms, quiet_step_ms_runs=[r["iteration_ms"] for r in quiet],
+         syncs_per_quiet_step=[r["iteration_syncs"] for r in quiet], sync_examples=sorted(set(syncs))[:8],
+         bare_micro_step_ms={k: float(np.median(v)) for k, v in step_ms.items()}, bare_micro_step_ms_runs=step_ms,
+         bare_micro_step_launches=step_launches_by,
+         dropout_free_mlm_train_step_ms=mlm_step_ms,
+         note="quiet_step_ms: median host time from one loop step's start to the next over the steps that "
+              "neither log nor evaluate; bare_micro_step_ms: the same model and batch, one micro-step with a "
+              "synchronize, dropout on (attention through sdpa) and off (the flash kernels) in turns; "
+              "dropout_free_mlm_train_step_ms: phase mlm_train_timing's fused step at B=8 x 2048")
+
+    # -- MMLM -----------------------------------------------------------------
+    recipe = bert_family_recipe("mmlm", overrides)
+    torch.cuda.reset_peak_memory_stats()
+    trainer, m_rows, m_seconds, m_launches, _ = run_chip_trainer(
+        recipe, dev, chip_trainer_class(MMLMTrainer, xlmr_tok, splits))
+    mmlm_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    mmlm_log = logged("mmlm")
+    lang_keys = sorted({k for m in mmlm_log for k in m if k.startswith("loss/")})
+    m_losses = [r["loss"] for r in m_rows]
+    m_quiet = quiet_rows(m_rows, {2, 4})
+    checks.update(
+        mmlm_no_flash=m_launches == zero and all(r["launches"] == zero for r in m_rows),
+        mmlm_finite=bool(np.isfinite(m_losses).all()) and all(
+            np.isfinite(m[k]) for m in mmlm_log for k in lang_keys if k in m),
+        mmlm_lang_losses_logged=bool(lang_keys) and set(lang_keys) <= {"loss/en", "loss/fr"},
+        mmlm_no_sync_per_quiet_step=all(r["iteration_syncs"] == 0 for r in m_quiet),
+    )
+    emit(phase="mmlm_trainer", card=card, gpu_state=gpu_state(), recipe="configs/train/mmlm.yaml",
+         overrides=overrides["mmlm"], rows=MMLM_ROWS, seq_len=512, steps=MMLM_STEPS, dtype="bf16",
+         vocab=trainer.trunk_config.vocab_size, losses=m_losses, lang_losses=[
+             {k: m[k] for k in m if k.startswith("loss/")} for m in mmlm_log],
+         launches=m_launches, peak_memory_gb=mmlm_peak_gb, run_seconds=m_seconds,
+         step_ms_runs=[r["iteration_ms"] for r in m_rows],
+         quiet_step_ms=float(np.median([r["iteration_ms"] for r in m_quiet])),
+         syncs_per_quiet_step=[r["iteration_syncs"] for r in m_quiet])
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- GLUE -----------------------------------------------------------------
+    recipe = bert_family_recipe("glue", overrides)
+    torch.cuda.reset_peak_memory_stats()
+    trainer, g_rows, g_seconds, g_launches, _ = run_chip_trainer(
+        recipe, dev, chip_trainer_class(GlueTrainer, bert_tok, splits))
+    glue_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    glue_log = logged("glue")
+    g_losses = [r["loss"] for r in g_rows]
+    steps_per_epoch = GLUE_TRAIN_ROWS // recipe["data_args"]["batch_size"]
+    eval_batch = recipe["data_args"]["eval_batch_size"]
+    n_eval_batches = -(-GLUE_VAL_ROWS // eval_batch)
+    g_step_launches = {k: sum(r["launches"][k] for r in g_rows) for k in zero}
+    g_eval_launches = {k: g_launches[k] - g_step_launches[k] for k in zero}
+    g_evals = [m for m in glue_log if "glue_sst2/accuracy" in m]
+    noisy = ({k for k in range(1, len(g_rows) + 1) if k % recipe["train_args"]["log_lr_every"] == 0}
+             | {k for k in range(1, len(g_rows) + 1) if k % steps_per_epoch == 0})
+    g_quiet = quiet_rows(g_rows, noisy)
+
+    # the eval logits through the kernel against the plain path
+    model, gcfg = trainer.model, trainer.trunk_config
+    val = splits["sst2"]["validation"]
+    model.eval()
+    enc = [trainer.encode(val[list(range(i, min(i + eval_batch, len(val))))])
+           for i in range(0, len(val), eval_batch)]
+    reset_counts()
+    lg_flash = np.concatenate([trainer.eval_logits(b) for b in enc])
+    glue_logit_launches = read_counts()
+    gcfg.attn_impl = "sdpa"
+    lg_plain = np.concatenate([trainer.eval_logits(b) for b in enc])
+    gcfg.attn_impl = "flash"
+    x, y = lg_flash.astype(np.float64).ravel(), lg_plain.astype(np.float64).ravel()
+    glue_cos = float(x @ y / (np.linalg.norm(x) * np.linalg.norm(y)))
+    argmax_share = float((lg_flash.argmax(-1) == lg_plain.argmax(-1)).mean())
+    checks.update(
+        glue_no_flash_in_training=all(r["launches"] == zero for r in g_rows),
+        glue_eval_flash_launches=g_eval_launches == expect(fwd=n_layer * n_eval_batches * GLUE_EPOCHS)
+        and glue_logit_launches == expect(fwd=n_layer * n_eval_batches),
+        glue_finite=bool(np.isfinite(g_losses).all()) and len(g_evals) == GLUE_EPOCHS,
+        glue_eval_logits_cosine_0_999=glue_cos >= 0.999,
+        glue_eval_argmax_99_percent=argmax_share >= 0.99,
+        glue_no_sync_per_quiet_step=all(r["iteration_syncs"] == 0 for r in g_quiet),
+    )
+
+    # the classifier's keep share: one train-mode forward of 13056 rows of 16 tokens
+    model.train()
+    cls_ids = torch.randint(1000, 2000, (13056, 16), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(5))
+    with dropout_sites(stats), torch.no_grad():
+        model(cls_ids, attention_mask=torch.ones_like(cls_ids), generator=torch.Generator(device=dev).manual_seed(6))
+    emit(phase="glue_trainer", card=card, gpu_state=gpu_state(), recipe="configs/train/glue.yaml",
+         overrides=overrides["glue"], train_rows=GLUE_TRAIN_ROWS, val_rows=GLUE_VAL_ROWS, epochs=GLUE_EPOCHS,
+         seq_len=recipe["model_args"]["seq_len"], batch=recipe["data_args"]["batch_size"], eval_batch=eval_batch,
+         dtype="bf16", losses=g_losses, evals=g_evals, eval_launches=g_eval_launches,
+         eval_logits_cosine=glue_cos, eval_argmax_agreement=argmax_share, peak_memory_gb=glue_peak_gb,
+         run_seconds=g_seconds, quiet_step_ms=float(np.median([r["iteration_ms"] for r in g_quiet])),
+         step_ms_runs=[r["iteration_ms"] for r in g_rows],
+         syncs_per_quiet_step=[r["iteration_syncs"] for r in g_quiet])
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- dropout: each site's keep share and the scale of the kept values ------
+    shares = {site: dict(draws=n, keep_share=float(kept.item()) / n) for site, (kept, n) in stats.items()}
+    scale = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.ones(KEEP_DRAWS, dtype=dt, device=dev)
+        y = drop.dropout(x, 0.1, torch.Generator(device=dev).manual_seed(7))
+        kept = y != 0
+        scale[str(dt)] = dict(keep_share=float(kept.float().mean().item()),
+                              kept_values_are_1_over_0_9=bool((y[kept] == x[0] / 0.9).all().item()))
+    sites = ("embedding", "residual_1", "residual_2", "attention", "classifier")
+    checks["keep_share_per_site"] = all(
+        site in shares and shares[site]["draws"] >= KEEP_DRAWS and abs(shares[site]["keep_share"] - 0.9) <= KEEP_BAND
+        for site in sites) and set(shares) <= set(sites)
+    checks["kept_scale_1_over_0_9"] = all(v["kept_values_are_1_over_0_9"] and abs(v["keep_share"] - 0.9) <= KEEP_BAND
+                                          for v in scale.values())
+    checks = {k: bool(v) for k, v in checks.items()}
+    ok = all(checks.values())
+    emit(phase="dropout_checks", keep_shares=shares, band=KEEP_BAND, min_draws=KEEP_DRAWS, scale=scale,
+         checks=checks, ok=ok,
+         note="keep shares per site from two train-mode forwards of the trained MLM model (4 x 2048) and one of "
+              "the GLUE model at 13056 x 16 (the classifier); scale: dropout(ones) in fp32 and bf16")
+    shutil.rmtree(root)
+    if not ok:
+        raise AssertionError(f"mlm_trainer: a check failed: {checks}")
+    out.update(mlm_eval=mlm_eval_launches, mlm_eval_batches=n_val_batches,
+               glue_eval=glue_logit_launches["fwd"], glue_eval_batches=n_eval_batches,
+               mlm_micro_step_ms=mlm_ms)
+    return out
+
+
 def fused_encode(dev, card, model, tok, texts, e):
     """Phase fused_encode: the encode batch (256 texts of 512 tokens) through
     a BiEncoder with fused_rotary=True and the weights of `model` (rotary
@@ -2303,7 +2975,8 @@ def main(argv=None):
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the PyTorch / CUDA port on one NVIDIA GPU.")
-    ap.add_argument("--only", choices=["moe_kernels", "moe", "flash_fwd", "flash_bwd", "dense", "trainer"],
+    ap.add_argument("--only", choices=["moe_kernels", "moe", "flash_fwd", "flash_bwd", "dense", "trainer",
+                                       "mlm_trainer"],
                     help="run only the card, build and grouped-matmul phases (9), or (moe) also MoE "
                          "serving and the MoE step's timing and profile (10-12, no gradient agreement); "
                          "flash_fwd: the card, build, the forward checks (3, 13), the forward timing (6), "
@@ -2311,7 +2984,8 @@ def main(argv=None):
                          "flash_bwd: the card, build, the backward checks (4, 13), the backward timing "
                          "(8, the whole backward only) and the MLM step's timing, fused and outside; "
                          "dense: the card, build and the dense step's timing and profile (7-8, no "
-                         "gradient agreement); trainer: the card, build and the trainer phase (17)")
+                         "gradient agreement); trainer: the card, build and the trainer phase (17); "
+                         "mlm_trainer: the card, build and the MLM, MMLM and GLUE trainers (18)")
     ap.add_argument("--tree", help="with --only: the root of another checkout whose contrastors_tpu_torch "
                                    "package is built and timed (an earlier commit, for old against new)")
     args = ap.parse_args(argv)
@@ -2350,7 +3024,8 @@ def main(argv=None):
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
     libs = dict(moe_kernels=("gmm",), flash_fwd=("flash_fwd", "flash_bwd"), flash_bwd=("flash_fwd", "flash_bwd"),
-                dense=("flash_fwd", "flash_bwd"), trainer=("flash_fwd", "flash_bwd")).get(args.only, _build.LIBRARIES)
+                dense=("flash_fwd", "flash_bwd"), trainer=("flash_fwd", "flash_bwd"),
+                mlm_trainer=("flash_fwd", "flash_bwd")).get(args.only, _build.LIBRARIES)
     with ThreadPoolExecutor(len(libs)) as pool:
         paths = dict(zip(libs, pool.map(_build.build, libs)))
     for name in libs:
@@ -2388,6 +3063,8 @@ def main(argv=None):
             summary["dense_launches"], summary["dense_step"] = dense_training(dev, card, agreement=False)
         elif args.only == "trainer":
             summary["trainer_launches"] = trainer_phase(dev, card)
+        elif args.only == "mlm_trainer":
+            summary["mlm_trainer"] = mlm_trainer_phase(dev, card)
         else:
             summary["max_abs_err"], moe_times = moe_kernels(dev, card)
             summary["moe_kernels"] = {f"{k[0]} {k[1]} K={k[2]} N={k[3]}": v for k, v in moe_times.items()}
@@ -2515,6 +3192,9 @@ def main(argv=None):
     # 16. the MLM pretraining step with fused rotary at full width
     mlm_launches, mlm_timing = mlm_training(dev, card)
 
+    # 18. the MLM, multilingual MLM and GLUE trainers on their recipes
+    bert_family = mlm_trainer_phase(dev, card, mlm_step_ms=mlm_timing["fused"]["step_ms"])
+
     # 10-12. the dropless MoE path: serving and training
     moe_enc_launches, moe_batches = moe_serving(dev, card, tok, rng, gen)
     moe_train_launches = moe_training(dev, card)
@@ -2595,6 +3275,8 @@ def main(argv=None):
             launches=launches_docs,
             train_launches=launches_train["fwd"],
             trainer_launches=launches_trainer["fwd"],
+            mlm_eval_launches=bert_family["mlm_eval"], mlm_eval_batches=bert_family["mlm_eval_batches"],
+            glue_eval_launches=bert_family["glue_eval"], glue_eval_batches=bert_family["glue_eval_batches"],
             max_abs_err=max(o_errs.values()),
             **{k: main[k] for k in ("ms", "device_ms", "enqueue_us", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "library_device_ms", "library_masked_ms")},

@@ -14,7 +14,9 @@ The fused Wqkv output order q | k | v is the same on both sides, so the
 transpose is all it needs. The MLM tree (`bert/...`, `transform_dense`,
 `transform_layer_norm` and the top-level `decoder_bias`) maps onto
 `NomicBertForPreTraining` by the same rules; its tied decoder is the word
-embedding table and has no parameter of its own. Values come out as fp32 tensors on the CPU;
+embedding table and has no parameter of its own. The classification tree
+(`bert/pooler_dense`, `classifier`) maps onto
+`NomicBertForSequenceClassification` the same way. Values come out as fp32 tensors on the CPU;
 `load_state_dict` casts them to each parameter's dtype and device.
 """
 

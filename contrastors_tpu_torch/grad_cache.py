@@ -12,7 +12,10 @@ Hybrid mode: the leading `direct_chunks` chunks of a tower are encoded once,
 flattened into one batch, with their graph held; they receive their
 cotangent directly and skip the pass-2 replay. Gradients equal the naive
 full-batch loss's for any chunking and any split, up to float
-reassociation.
+reassociation. With `stochastic` (an encoder that draws dropout noise) the
+direct chunks run one forward and one backward each, with the cached path's
+generators, so that a chunk draws the same noise cached or direct and the
+gradients of every split are the same, in the same order of accumulation.
 
 What differs from the JAX function, and why:
   - Gradients accumulate into each parameter's `.grad`, as `backward`
@@ -20,9 +23,11 @@ What differs from the JAX function, and why:
     the metrics dict when `return_metrics`), not a gradient tree.
   - `rng` is an integer base seed. Each (tower, chunk index) gets its own
     `torch.Generator`, seeded the same way in both passes, so a stochastic
-    encoder replays the same noise in pass 2; the direct forward gets
-    index n_total, as JAX's fold_in(rng, n_total). `encode(params, chunk,
-    generator)` receives it.
+    encoder replays the same noise in pass 2; the one direct forward of a
+    deterministic encoder gets index n_total, as JAX's fold_in(rng,
+    n_total). `encode(params, chunk, generator)` receives it. JAX's direct
+    forward draws other noise than its cached chunks; the port's, with
+    `stochastic`, draws theirs.
   - Single device: no shard_map, so there is no data axis inside.
   - `embed_parallel > 1` raises NotImplementedError until the slice that
     needs it (ROADMAP).
@@ -81,6 +86,7 @@ def grad_cache_loss_and_grads(
     embed_parallel_d: Optional[int] = None,
     return_metrics: bool = False,
     loss_has_aux: bool = False,
+    stochastic: bool = False,
 ) -> Union[torch.Tensor, tuple]:
     """Accumulate the gradients of loss_fn(encode_q(q), encode_d(d)) into
     `.grad` and return the loss, or (loss, metrics) with return_metrics.
@@ -89,7 +95,8 @@ def grad_cache_loss_and_grads(
     loss_fn(q_embs, d_embs) -> scalar, or loss_fn(q_embs, d_embs,
     extra_params) when extra_params is given; with loss_has_aux it returns
     (scalar, metrics dict). direct_chunks / direct_chunks_d count leading
-    chunks kept live (negative: all).
+    chunks kept live (negative: all). stochastic: the encoders draw noise
+    from their generator (see the module docstring).
     """
     if embed_parallel != 1 or (embed_parallel_d or 1) != 1:
         raise NotImplementedError("embed_parallel > 1 is not ported yet (ROADMAP, Queue 1)")
@@ -112,28 +119,30 @@ def grad_cache_loss_and_grads(
 
     # ---- direct part: the leading chunks' forward, graph held ---------------
     def direct_embed(encode, tower, batch, c, k, n_total, trainable):
-        """(embeddings, summed router aux or None)."""
+        """[(embedding, router aux or None)] of the direct forwards, in
+        chunk order."""
         if k == 0:
-            return None, None
+            return []
         with torch.set_grad_enabled(trainable and torch.is_grad_enabled()):
-            if not router_aux_coef:
+            if not (router_aux_coef or stochastic):
                 # one forward; a generator one past the cached chunk indices
                 gen = chunk_generator(base, tower, n_total, device)
-                return encode(params, _slice(batch, 0, k * c), gen)["embedding"], None
+                return [(encode(params, _slice(batch, 0, k * c), gen)["embedding"], None)]
             # one forward per chunk, with the cached path's generators
-            outs = [encode(params, _slice(batch, i * c, (i + 1) * c),
-                           chunk_generator(base, tower, i, device)) for i in range(k)]
-            auxes = [o["router_aux"].float() for o in outs if "router_aux" in o]
-            aux = torch.stack(auxes).sum() if auxes else None
-            return torch.cat([o["embedding"] for o in outs]), aux
+            outs = []
+            for i in range(k):
+                o = encode(params, _slice(batch, i * c, (i + 1) * c), chunk_generator(base, tower, i, device))
+                aux = o["router_aux"].float() if router_aux_coef and "router_aux" in o else None
+                outs.append((o["embedding"], aux))
+            return outs
 
     with record_function("grad_cache/direct"):
-        q_direct, q_direct_aux = direct_embed(encode_q, 0, q_batch, cq, k_q, n_q, True)
-        d_direct, d_direct_aux = direct_embed(encode_d, 1, d_batch, cd, k_d, n_d, d_trainable)
+        q_direct = direct_embed(encode_q, 0, q_batch, cq, k_q, n_q, True)
+        d_direct = direct_embed(encode_d, 1, d_batch, cd, k_d, n_d, d_trainable)
 
     # ---- pass 1: cached chunks without grad ---------------------------------
     def tower_embs(encode, tower, batch, c, k, n, direct):
-        parts = [] if direct is None else [direct.detach()]
+        parts = [emb.detach() for emb, _ in direct]
         with torch.no_grad():
             for i in range(k, n):
                 gen = chunk_generator(base, tower, i, device)
@@ -160,14 +169,15 @@ def grad_cache_loss_and_grads(
         else:
             emb.backward(cot.to(emb.dtype))
 
-    def accumulate(encode, tower, batch, c, k, n, direct, direct_aux, cot):
+    def accumulate(encode, tower, batch, c, k, n, direct, cot):
         """Returns the tower's summed router aux."""
         total = torch.zeros((), device=device)
-        n_direct = 0 if direct is None else direct.shape[0]
-        if direct is not None:
-            backward(direct, cot[:n_direct], direct_aux)
-            if direct_aux is not None:
-                total = total + direct_aux.detach()
+        n_direct = 0
+        for emb, aux in direct:
+            backward(emb, cot[n_direct:n_direct + emb.shape[0]], aux)
+            n_direct += emb.shape[0]
+            if aux is not None:
+                total = total + aux.detach()
         per_chunk = (cot.shape[0] - n_direct) // max(n - k, 1)
         for j, i in enumerate(range(k, n)):
             gen = chunk_generator(base, tower, i, device)
@@ -180,10 +190,9 @@ def grad_cache_loss_and_grads(
         return total
 
     with record_function("grad_cache/pass2"):
-        total_aux = accumulate(encode_q, 0, q_batch, cq, k_q, n_q, q_direct, q_direct_aux, gq)
+        total_aux = accumulate(encode_q, 0, q_batch, cq, k_q, n_q, q_direct, gq)
         if d_trainable:
-            total_aux = total_aux + accumulate(encode_d, 1, d_batch, cd, k_d, n_d, d_direct,
-                                               d_direct_aux, gd)
+            total_aux = total_aux + accumulate(encode_d, 1, d_batch, cd, k_d, n_d, d_direct, gd)
 
     loss = loss.detach()
     if router_aux_coef:

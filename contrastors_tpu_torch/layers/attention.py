@@ -6,8 +6,10 @@ on the JAX side. q/k/v are views of that output (row stride 3*H*D), which
 the flash kernel takes as they are. Rotary is applied outside attention by
 default (`fused_rotary=False`, as in JAX); with `fused_rotary=True` the
 tables go to `attention_core`, whose flash path rotates q/k inside the
-kernels and whose SDPA path rotates outside. The pooling heads wait for a
-later slice.
+kernels and whose SDPA path rotates outside. In training mode with
+attn_pdrop > 0 the attention dropout is drawn from `dropout_generator`
+(JAX's "dropout" rng), which `attention_core` sends to the plain `sdpa`,
+as JAX's sends it to its XLA sdpa. The pooling heads wait for a later slice.
 """
 
 from typing import Dict, Optional, Tuple
@@ -19,6 +21,7 @@ from contrastors_tpu_torch._device import resolve_device
 from contrastors_tpu_torch.layers.dense import Dense
 from contrastors_tpu_torch.layers.rotary import apply_rotary, rotary_cos_sin
 from contrastors_tpu_torch.ops import attention_core
+from contrastors_tpu_torch.ops.dropout import active, need_generator
 
 
 class MultiHeadAttention(nn.Module):
@@ -54,8 +57,12 @@ class MultiHeadAttention(nn.Module):
         attention_mask: Optional[torch.Tensor] = None,
         segment_ids: Optional[torch.Tensor] = None,
         position_ids: Optional[torch.Tensor] = None,
+        dropout_generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         cfg = self.config
+        dropout_p = cfg.attn_pdrop if active(cfg.attn_pdrop, self.training) else 0.0
+        if dropout_p:
+            need_generator(dropout_generator, dropout_p, "attention dropout")
         B, S, _ = hidden_states.shape
         H, Hkv, D = cfg.n_head, cfg.num_heads_kv, cfg.head_dim
         qkv = self.Wqkv(hidden_states)
@@ -84,6 +91,8 @@ class MultiHeadAttention(nn.Module):
             causal=cfg.causal,
             window=self.window,
             softmax_scale=1.0 / (D**0.5),
+            dropout_p=dropout_p,
+            dropout_generator=dropout_generator if dropout_p else None,
             **rotary_kw,
         )
         return self.out_proj(out.reshape(B, S, H * D))

@@ -1,6 +1,7 @@
 from contrastors_tpu_torch.models.model_config import TrunkConfig  # noqa: F401
 from contrastors_tpu_torch.models.nomic_bert import (  # noqa: F401
     NomicBertForPreTraining,
+    NomicBertForSequenceClassification,
     NomicBertModel,
     init_weights,
     masked_cross_entropy,

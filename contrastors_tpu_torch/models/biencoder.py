@@ -7,7 +7,8 @@ semantics. The output carries the MoE layers' masked router logits under
 "router_logits" (None for a dense trunk), for the router load-balance
 loss. `LogitScale` is the contrastive loss's exp-parameterised
 temperature. `remat` recomputes each trunk block's activations in the
-backward (activation checkpointing, `NomicBertModel`). The decoder and
+backward (activation checkpointing, `NomicBertModel`). `generator` seeds the
+trunk's dropout in training mode (JAX's "dropout" rng). The decoder and
 vision trunks, the MAP pooling head and packed mode raise until their
 slices are ported.
 """
@@ -108,6 +109,7 @@ class BiEncoder(nn.Module):
         max_segments: Optional[int] = None,
         normalize: bool = True,
         binarize: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, Any]:
         if segment_ids is not None and max_segments is not None:
             raise NotImplementedError("packed mode is not ported yet (ROADMAP, Queue 1: packed path)")
@@ -117,6 +119,7 @@ class BiEncoder(nn.Module):
             position_ids=position_ids,
             token_type_ids=token_type_ids,
             segment_ids=segment_ids,
+            generator=generator,
         )
         hidden = trunk_out["last_hidden_state"]
 

@@ -4,7 +4,8 @@ Counterpart of the BERT part of `contrastors_tpu/models/hf_interop.py`
 (`bert_config_to_trunk_config`, `normalize_bert_keys`,
 `bert_state_dict_to_flax`), on numpy dicts. Both source layouts are taken:
 vanilla HF BERT / RoBERTa (q/k/v split, intermediate/output naming) and
-the nomic-bert flash layout (fused Wqkv, fc11/fc12). The remap builds the
+the nomic-bert flash layout (fused Wqkv, fc11/fc12). Heads: the MLM head,
+and the classification head with its pooler (JAX `:155-240`). The remap builds the
 same nested tree as JAX's and hands it to `convert.flax_to_torch`, so the
 naming rules live in one place. The decoder, ViT, timm and ModernBERT
 converters wait for their slices (ROADMAP Queue 1, items 7-9).
@@ -122,7 +123,8 @@ def normalize_bert_keys(sd: Dict[str, Array]) -> Dict[str, Array]:
     return sd
 
 
-def _bert_tree(sd: Dict[str, Array], config: TrunkConfig, head: Optional[str]) -> dict:
+def _bert_tree(sd: Dict[str, Array], config: TrunkConfig, head: Optional[str],
+               add_pooling_layer: bool = False) -> dict:
     """The flax-shaped tree of `bert_state_dict_to_flax` (its numpy part)."""
     sd = dict(normalize_bert_keys(sd))
 
@@ -162,12 +164,21 @@ def _bert_tree(sd: Dict[str, Array], config: TrunkConfig, head: Optional[str]) -
             if f"{src}.{norm}.bias" in sd:
                 set_path(trunk, f"{dst}/{norm}/bias", sd.pop(f"{src}.{norm}.bias"))
 
+    if add_pooling_layer and "pooler.dense.weight" in sd:
+        set_path(trunk, "pooler_dense/kernel", _t(sd.pop("pooler.dense.weight")))
+        set_path(trunk, "pooler_dense/bias", sd.pop("pooler.dense.bias"))
+
     if head is None:
         return trunk
-    if head != "pretraining":
-        raise NotImplementedError(
-            f"head {head!r} is not ported yet (ROADMAP Queue 1, item 6: the classification head)")
+    if head not in ("pretraining", "classification"):
+        raise ValueError(f"head {head!r}: None, 'pretraining' or 'classification'")
     params: dict = {"bert": trunk}
+    if head == "classification":
+        # an absent classifier (a trunk or MLM checkpoint) keeps its init
+        if "classifier.weight" in sd:
+            set_path(params, "classifier/kernel", _t(sd.pop("classifier.weight")))
+            set_path(params, "classifier/bias", sd.pop("classifier.bias"))
+        return params
     # head weights may be absent (trunk-only checkpoints): they keep their init
     if "cls.predictions.transform.dense.weight" in sd:
         set_path(params, "transform_dense/kernel", _t(sd.pop("cls.predictions.transform.dense.weight")))
@@ -180,11 +191,15 @@ def _bert_tree(sd: Dict[str, Array], config: TrunkConfig, head: Optional[str]) -
 
 
 def bert_state_dict_to_torch(
-    sd: Dict[str, Array], config: TrunkConfig, head: Optional[str] = None
+    sd: Dict[str, Array], config: TrunkConfig, head: Optional[str] = None, add_pooling_layer: bool = False
 ) -> Dict[str, torch.Tensor]:
-    """The state dict of `NomicBertModel` (head=None) or of
-    `NomicBertForPreTraining` (head="pretraining", trunk under "bert."),
-    fp32, from an HF BERT-family checkpoint's numpy state dict. The word
-    table is zero-padded to config.vocab_size (the MLM decoder bias with
-    -100), and learned position embeddings are dropped for a rotary trunk."""
-    return flax_to_torch(_bert_tree(sd, config, head))
+    """The state dict of `NomicBertModel` (head=None), of
+    `NomicBertForPreTraining` (head="pretraining", trunk under "bert.") or of
+    `NomicBertForSequenceClassification` (head="classification" with
+    add_pooling_layer: the pooler under "bert.pooler_dense", the
+    "classifier"), fp32, from an HF BERT-family checkpoint's numpy state
+    dict. The word table is zero-padded to config.vocab_size (the MLM
+    decoder bias with -100), and learned position embeddings are dropped
+    for a rotary trunk. Head weights absent from the checkpoint are absent
+    from the result, for the caller's init to keep."""
+    return flax_to_torch(_bert_tree(sd, config, head, add_pooling_layer))

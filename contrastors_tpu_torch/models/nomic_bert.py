@@ -1,19 +1,30 @@
-"""NomicBERT encoder trunk and MLM head, counterpart of
+"""NomicBERT encoder trunk and its heads, counterpart of
 `contrastors_tpu/models/nomic_bert.py` (`NomicBertModel`,
-`NomicBertForPreTraining`, `masked_cross_entropy`).
+`NomicBertForPreTraining`, `NomicBertForSequenceClassification`,
+`masked_cross_entropy`).
 
 Postnorm blocks, the embedding LayerNorm, optional rotary (nomic-bert-2048;
 rotated inside the flash kernels with `fused_rotary`), ModernBERT-style
 local/global alternation and prenorm trunks. Padding is handled by
-static-shape masks, as on the JAX side. The classification head waits for a
-later slice. MoE layers (every `moe_every_n_layers`-th, from layer 1) run
-the dropless MoEMLP; the output carries their masked router logits, in
-layer order, under "router_logits" (an empty list for a dense trunk).
+static-shape masks, as on the JAX side. MoE layers (every
+`moe_every_n_layers`-th, from layer 1) run the dropless MoEMLP; the output
+carries their masked router logits, in layer order, under "router_logits"
+(an empty list for a dense trunk).
+
+Dropout, in training mode (`module.train()`), where JAX's runs with
+deterministic=False: after the embedding LayerNorm (`embd_pdrop`), in each
+block (`layers/block.py`), before the prenorm trunk's final add-norm
+(`resid_pdrop`) and on the classifier's pooled input. Every forward takes
+`generator`, whose seed (`ops/dropout.py:noise_seed`, no device sync) seeds
+every site: the same seed draws the same noise, as the same flax rng does.
+A trunk with any dropout on refuses training mode without one.
+`drop_path_rate` is ignored here, as JAX's NomicBertModel ignores it (only
+its ViT passes it to its blocks).
 With `remat`, each block runs under `torch.utils.checkpoint` (JAX's
 `nn.remat(Block)`): its activations are recomputed in the backward instead
-of kept. The replay restores only the global RNG state, so once dropout is
-ported it must draw from the chunk's explicit generator in the replay too
-(ROADMAP Queue 1, item 1).
+of kept. The checkpoint restores only the global RNG state, so the block's
+seed is derived on the host outside the checkpointed call and its
+generators are built inside it: the replay draws the same noise.
 """
 
 from typing import Any, Dict, Optional
@@ -29,6 +40,7 @@ from contrastors_tpu_torch.layers.dense import Dense
 from contrastors_tpu_torch.layers.embeddings import BertEmbeddings
 from contrastors_tpu_torch.layers.norms import LayerNorm, make_norm
 from contrastors_tpu_torch.models.model_config import TrunkConfig
+from contrastors_tpu_torch.ops.dropout import active, dropout, fold_seed, noise_seed, site_generator
 
 
 # trunk features of other model families (EVA/ViT layer scale and post-MLP
@@ -72,8 +84,13 @@ def init_weights(module: nn.Module, seed: int, std: float = 0.02) -> nn.Module:
     return module
 
 
+# dropout sites under a forward's seed (ops/dropout.py:fold_seed paths)
+SITE_EMBEDDING, SITE_BLOCK, SITE_FINAL, SITE_CLASSIFIER = range(4)
+
+
 class NomicBertModel(nn.Module):
-    def __init__(self, config: TrunkConfig, dtype=torch.float32, device="cuda", remat: bool = False):
+    def __init__(self, config: TrunkConfig, dtype=torch.float32, device="cuda", remat: bool = False,
+                 add_pooling_layer: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.remat = remat
@@ -100,6 +117,14 @@ class NomicBertModel(nn.Module):
             ))
         self.layers = nn.ModuleList(layers)
         self.final_norm = make_norm(config, device=device) if config.prenorm else None
+        self.pooler_dense = Dense(config.n_embd, config.n_embd, dtype=dtype, device=device) if add_pooling_layer \
+            else None
+
+    def uses_dropout(self) -> bool:
+        """True when a forward in the current mode draws noise."""
+        cfg = self.config
+        return self.training and max(cfg.embd_pdrop, cfg.resid_pdrop, cfg.attn_pdrop,
+                                     cfg.moe_resid_pdrop or 0.0) > 0.0
 
     def forward(
         self,
@@ -108,17 +133,19 @@ class NomicBertModel(nn.Module):
         position_ids: Optional[torch.Tensor] = None,
         token_type_ids: Optional[torch.Tensor] = None,
         segment_ids: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, Any]:
         cfg = self.config
-        if self.training and max(
-            cfg.embd_pdrop, cfg.resid_pdrop, cfg.attn_pdrop, cfg.drop_path_rate,
-            cfg.moe_resid_pdrop or 0.0,
-        ) > 0.0:
-            raise NotImplementedError("training with dropout is not ported yet (ROADMAP, Queue 1)")
+        seed = noise_seed(generator) if self.uses_dropout() else None
+        dev, train = input_ids.device, self.training
         hidden = self.emb_ln(self.embeddings(input_ids, position_ids, token_type_ids))
+        if active(cfg.embd_pdrop, train):
+            hidden = dropout(hidden, cfg.embd_pdrop, site_generator(seed, SITE_EMBEDDING, device=dev))
         residual, router_logits = None, []
-        for block in self.layers:
-            args = (hidden, residual, attention_mask, segment_ids, position_ids)
+        for i, block in enumerate(self.layers):
+            # the block's seed is a host int, fixed before the checkpointed call
+            block_seed = None if seed is None else fold_seed(seed, SITE_BLOCK, i)
+            args = (hidden, residual, attention_mask, segment_ids, position_ids, block_seed)
             if self.remat and torch.is_grad_enabled():
                 hidden, residual, rl = checkpoint(block, *args, use_reentrant=False)
             else:
@@ -126,12 +153,17 @@ class NomicBertModel(nn.Module):
             if rl is not None:
                 router_logits.append(rl)
         if self.final_norm is not None:
-            # the final add-norm closes the shifted-prenorm carry
+            # the final dropout-add-norm closes the shifted-prenorm carry
+            if active(cfg.resid_pdrop, train):
+                hidden = dropout(hidden, cfg.resid_pdrop, site_generator(seed, SITE_FINAL, device=dev))
             resid_dtype = torch.float32 if cfg.residual_in_fp32 else hidden.dtype
             h = hidden.to(resid_dtype)
             residual = h if residual is None else residual + h
             hidden = self.final_norm(residual).to(self.dtype)
-        return {"last_hidden_state": hidden, "router_logits": router_logits}
+        out: Dict[str, Any] = {"last_hidden_state": hidden, "router_logits": router_logits}
+        if self.pooler_dense is not None:
+            out["pooler_output"] = torch.tanh(self.pooler_dense(hidden[:, 0]))
+        return out
 
 
 class NomicBertForPreTraining(nn.Module):
@@ -145,13 +177,14 @@ class NomicBertForPreTraining(nn.Module):
         B*k rows instead of B*S.
     The head is dense -> act (silu for swiglu) -> norm, then the tied
     decoder, the fp32 word-embedding table cast to the compute dtype (a
-    plain torch.matmul), plus an fp32 `decoder_bias`."""
+    plain torch.matmul), plus an fp32 `decoder_bias`. `generator` seeds the
+    trunk's dropout in training mode; `remat` checkpoints its blocks."""
 
-    def __init__(self, config: TrunkConfig, dtype=torch.float32, device="cuda"):
+    def __init__(self, config: TrunkConfig, dtype=torch.float32, device="cuda", remat: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.config, self.dtype = config, dtype
-        self.bert = NomicBertModel(config, dtype=dtype, device=device)
+        self.bert = NomicBertModel(config, dtype=dtype, device=device, remat=remat)
         self.transform_dense = Dense(config.n_embd, config.n_embd, bias=config.mlp_fc1_bias,
                                      dtype=dtype, device=device)
         self.transform_layer_norm = make_norm(config, device=device)
@@ -168,10 +201,11 @@ class NomicBertForPreTraining(nn.Module):
         token_type_ids: Optional[torch.Tensor] = None,
         labels: Optional[torch.Tensor] = None,
         masked_positions: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, Any]:
         cfg = self.config
         hidden = self.bert(input_ids, attention_mask=attention_mask, position_ids=position_ids,
-                           token_type_ids=token_type_ids)["last_hidden_state"]
+                           token_type_ids=token_type_ids, generator=generator)["last_hidden_state"]
         if masked_positions is not None:
             # dense_seq_output: project only the masked rows, gathered per batch row
             idx = masked_positions.to(device=hidden.device, dtype=torch.int64)
@@ -199,3 +233,62 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Te
     gold = flat.gather(-1, safe[:, None])[:, 0]
     nll = (torch.logsumexp(flat, dim=-1) - gold) * valid.float()
     return nll.sum() / valid.float().sum().clamp_min(1.0)
+
+
+class NomicBertForSequenceClassification(nn.Module):
+    """GLUE head (JAX `NomicBertForSequenceClassification`): the trunk with
+    its pooler (dense + tanh on the first token), dropout on the pooled
+    vector (`classifier_dropout`, else `embd_pdrop`) and a dense classifier
+    to `num_labels`. With labels the loss follows `problem_type`, or, when
+    it is None, num_labels == 1 -> regression (MSE), integer labels ->
+    single-label CE, else multi-label BCE with logits, each a mean in fp32."""
+
+    def __init__(self, config: TrunkConfig, dtype=torch.float32, device="cuda", remat: bool = False):
+        super().__init__()
+        device = resolve_device(device)
+        self.config, self.dtype = config, dtype
+        self.bert = NomicBertModel(config, dtype=dtype, device=device, remat=remat, add_pooling_layer=True)
+        self.classifier = Dense(config.n_embd, config.num_labels, dtype=dtype, device=device)
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: Optional[torch.Tensor] = None,
+        token_type_ids: Optional[torch.Tensor] = None,
+        labels: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, Any]:
+        cfg = self.config
+        pooled = self.bert(input_ids, attention_mask=attention_mask, token_type_ids=token_type_ids,
+                           generator=generator)["pooler_output"]
+        p_drop = cfg.classifier_dropout if cfg.classifier_dropout is not None else cfg.embd_pdrop
+        if active(p_drop, self.training):
+            seed = noise_seed(generator)
+            pooled = dropout(pooled, p_drop, site_generator(seed, SITE_CLASSIFIER, device=pooled.device))
+        logits = self.classifier(pooled)
+        out: Dict[str, Any] = {"logits": logits}
+        if labels is not None:
+            out["loss"] = classification_loss(logits, labels, cfg.num_labels, cfg.problem_type)
+        return out
+
+
+def classification_loss(logits: torch.Tensor, labels: torch.Tensor, num_labels: int,
+                        problem_type: Optional[str] = None) -> torch.Tensor:
+    """JAX's three losses, by problem_type (inferred as JAX infers it)."""
+    problem = problem_type
+    if problem is None:
+        if num_labels == 1:
+            problem = "regression"
+        elif not labels.dtype.is_floating_point:
+            problem = "single_label_classification"
+        else:
+            problem = "multi_label_classification"
+    lg = logits.float()
+    labels = labels.to(lg.device)
+    if problem == "regression":
+        return ((lg.squeeze() - labels.squeeze().float()) ** 2).mean()
+    if problem == "single_label_classification":
+        gold = lg.gather(-1, labels.long()[:, None])[:, 0]
+        return (torch.logsumexp(lg, dim=-1) - gold).mean()
+    lab = labels.float()
+    return (lg.clamp_min(0) - lg * lab + torch.log1p(torch.exp(-lg.abs()))).mean()

@@ -3,19 +3,26 @@
 Counterpart of `contrastors_tpu/trainers/base.py`:
 
 `make_standard_train_step` (`:208-267`): one forward and backward per
-micro-batch; with gradient_accumulation_steps = N the gradients of N
-micro-batches are summed (in the fp32 parameters' .grad, in micro-batch
-order, as JAX adds its gradient trees) and the optimizer applies their mean
-on the N-th. `grad_norm` is the global norm of that mean before the clip,
-reported on the update's micro-step only, as in JAX.
+micro-batch, `loss_fn(batch, generator)` receiving the step's generator as JAX's
+`loss_fn(params, batch, rng)` receives its rng; with
+gradient_accumulation_steps = N the gradients of N micro-batches are summed
+(in the fp32 parameters' .grad, in micro-batch order, as JAX adds its
+gradient trees) and the optimizer applies their mean on the N-th.
+`grad_norm` is the global norm of that mean before the clip, reported on the
+update's micro-step only, as in JAX.
 
 `BaseTrainer` (`:53-460`) owns a run on one device: seeding, tokenizer,
 data, model, AdamW with its learning-rate schedule, EMA weights,
 checkpoints, logging, in-train eval and the loop. What differs from JAX,
 and why:
   - The step's randomness is one draw from the trainer's CPU
-    `torch.Generator` per step (`make_train_step`'s steps take it), where
-    JAX splits its key; no draw touches the device.
+    `torch.Generator` per step (`make_train_step`'s steps take it, and
+    `ops/dropout.py:step_generator` turns it into the step's generator on
+    the device), where JAX splits its key; no draw touches the device.
+  - A batch whose meta carries "lang" (the multilingual MLM data) adds its
+    loss to that language's running losses, kept on the device and logged
+    as `loss/<lang>` (their mean since the last log) in the log step's one
+    stacked copy, as JAX does.
   - A checkpoint is `torch.save` of the modules, the optimizer, the
     scheduler, the generator's state and the EMA, with the data cursor,
     step.txt and trunk_config.json beside it. With async_checkpointing the
@@ -48,7 +55,7 @@ from contrastors_tpu_torch.utils.optim import AdamW, lr_scheduler, make_optimize
 from contrastors_tpu_torch.utils.prefetch import PrefetchIterator
 
 Batch = Dict[str, torch.Tensor]
-LossFn = Callable[[Any], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+LossFn = Callable[[Any, Optional[torch.Generator]], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -58,23 +65,24 @@ def make_standard_train_step(
     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
     gradient_accumulation_steps: int = 1,
     post_update: Optional[Callable[[], None]] = None,
-) -> Callable[[Any], Dict[str, torch.Tensor]]:
-    """Returns step(batch) -> metrics, which updates the parameters of
-    `optimizer` in place every gradient_accumulation_steps calls, then runs
-    post_update() (in-place, e.g. a clamp). loss_fn(batch) -> (loss,
-    metrics); the step's metrics are those plus "loss" and, on an update,
-    "grad_norm". Its phases are the profiler ranges "train_step/forward",
-    "train_step/backward" and "train_step/optimizer"."""
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Returns step(batch, generator=None) -> metrics, which updates the
+    parameters of `optimizer` in place every gradient_accumulation_steps
+    calls, then runs post_update() (in-place, e.g. a clamp).
+    loss_fn(batch, generator) -> (loss, metrics); the step's metrics are
+    those plus "loss" and, on an update, "grad_norm". Its phases are the
+    profiler ranges "train_step/forward", "train_step/backward" and
+    "train_step/optimizer"."""
     ga = max(1, int(gradient_accumulation_steps or 1))
     params = [p for group in optimizer.param_groups for p in group["params"]]
     micro = 0
 
-    def step(batch) -> Dict[str, torch.Tensor]:
+    def step(batch, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         nonlocal micro
         if micro % ga == 0:
             optimizer.zero_grad(set_to_none=True)
         with record_function("train_step/forward"):
-            loss, metrics = loss_fn(batch)
+            loss, metrics = loss_fn(batch, generator)
         with record_function("train_step/backward"):
             loss.backward()  # adds this micro-batch's gradients into .grad
         micro += 1
@@ -223,6 +231,15 @@ class BaseTrainer(ABC):
 
         return AutoTokenizer.from_pretrained(margs.tokenizer_name or margs.model_name)
 
+    def load_dataset(self, path: str):
+        """The data of a `datasets.save_to_disk` directory: a DatasetDict of
+        splits or one Dataset. The MLM, MMLM and GLUE trainers read disk
+        data only through this hook, so a subclass can hand in splits held
+        in memory (rows by a list of indices, as a dict of columns)."""
+        from datasets import load_from_disk
+
+        return load_from_disk(path)
+
     def frozen_mask(self) -> Optional[Dict[str, bool]]:
         """{parameter name: trainable}; None = all trainable."""
         return None
@@ -352,6 +369,7 @@ class BaseTrainer(ABC):
         train_step = None
         last_log = time.time()
         examples = 0
+        lang_losses: Dict[str, list] = {}  # per-language device scalars since the last log
         self._data_iter = self._batches()
         try:
             while self.step < self.total_steps:
@@ -366,6 +384,8 @@ class BaseTrainer(ABC):
                 metrics = train_step(batch, self.generator)
                 self.step += 1
                 examples += n_examples
+                if meta.get("lang"):
+                    lang_losses.setdefault(meta["lang"], []).append(metrics["loss"])
                 if self.ema_params is not None:
                     self._ema_update()
 
@@ -376,6 +396,9 @@ class BaseTrainer(ABC):
                     metrics["examples_per_sec"] = examples / (now - last_log)
                     if meta.get("dataset_name") and "accuracy" in metrics:
                         metrics[f"accuracy/{meta['dataset_name']}"] = metrics.pop("accuracy")
+                    for lang, values in lang_losses.items():
+                        metrics[f"loss/{lang}"] = torch.stack(values).float().mean()
+                    lang_losses.clear()
                     self.tracker.log(metrics, self.step)
                     last_log = now
                     examples = 0

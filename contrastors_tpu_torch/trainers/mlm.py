@@ -1,22 +1,37 @@
-"""The MLM pretraining step, in PyTorch.
+"""The MLM pretraining trainer and its step, in PyTorch.
 
 Counterpart of `contrastors_tpu/trainers/mlm.py`: numpy copies of its
 host-side masking (`mlm_mask`, `masked_positions_static`, `dense_budget`,
 `:26-73`), which give the JAX functions' results bit for bit from the same
-numpy generator, and the loss of `MLMTrainer.make_train_step` (`:178-191`)
-on `make_standard_train_step`. `MLMTrainer.get_model` (a local HF
-`bert-base-uncased` directory), `get_dataloaders` (`data/wiki-books-2048`
-through `datasets.load_from_disk`) and the perplexity `eval_loop` wait for
-those files (ROADMAP, Queue 1).
+numpy generator; the step (`make_mlm_train_step`, the loss of
+`MLMTrainer.make_train_step` on `make_standard_train_step`, with gradient
+accumulation); and `MLMTrainer` (`:76-243`):
+  - `get_model`: `NomicBertForPreTraining` from a local HF config.json with
+    JAX's overrides (tied word embeddings; rotary with n_positions=0 when
+    rotary_emb_fraction is set; vocab padding; the activation; the biases)
+    and, with `pretrained`, the checkpoint's tensors laid over the seeded
+    init (`overlay`);
+  - `get_dataloaders`: one shared permutation per epoch, `mlm_mask` with a
+    second numpy generator, `dense_seq_output` collation; the data comes
+    from `BaseTrainer.load_dataset` (`datasets.load_from_disk`), whose
+    train split trains and whose validation (or test) split evaluates;
+  - `eval_loop`: the loss of at most 50 validation batches masked at
+    val_mlm_prob from a generator seeded 0, in eval mode, as `val_loss`
+    and `val_perplexity`.
+The step's generator seeds the model's dropout (`ops/dropout.py`).
 """
 
+import types
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from contrastors_tpu_torch.models.nomic_bert import NomicBertForPreTraining
-from contrastors_tpu_torch.trainers.base import make_standard_train_step
+from contrastors_tpu_torch.models.auto import _load_hf_config, _load_state_dict
+from contrastors_tpu_torch.models.hf_interop import bert_config_to_trunk_config, bert_state_dict_to_torch
+from contrastors_tpu_torch.models.nomic_bert import NomicBertForPreTraining, init_weights
+from contrastors_tpu_torch.ops.dropout import step_generator
+from contrastors_tpu_torch.trainers.base import BaseTrainer, make_standard_train_step
 from contrastors_tpu_torch.utils.optim import AdamW
 
 
@@ -76,13 +91,130 @@ def make_mlm_train_step(
     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
     gradient_accumulation_steps: int = 1,
 ) -> Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
-    """step(batch) for batches of "input_ids", "attention_mask", "labels"
-    and, for dense_seq_output, "masked_positions" (with labels [B, k]): the
-    model's MLM loss through `make_standard_train_step`."""
+    """step(batch, generator=None) for batches of "input_ids",
+    "attention_mask", "labels" and, for dense_seq_output, "masked_positions"
+    (with labels [B, k]): the model's MLM loss through
+    `make_standard_train_step`; the generator seeds the model's dropout."""
 
-    def loss_fn(batch):
+    def loss_fn(batch, generator):
         out = model(batch["input_ids"], attention_mask=batch["attention_mask"],
-                    labels=batch["labels"], masked_positions=batch.get("masked_positions"))
+                    labels=batch["labels"], masked_positions=batch.get("masked_positions"),
+                    generator=generator)
         return out["loss"], {}
 
     return make_standard_train_step(loss_fn, optimizer, scheduler, gradient_accumulation_steps)
+
+
+def overlay(model: torch.nn.Module, loaded: Dict[str, torch.Tensor]):
+    """Copy each loaded tensor into the model's parameter of that name; a
+    name the model lacks is skipped, as JAX's `_overlay` skips it, and a
+    shape that differs raises."""
+    own = model.state_dict()
+    keep = {k: v for k, v in loaded.items() if k in own}
+    for k, v in keep.items():
+        if own[k].shape != v.shape:
+            raise ValueError(f"shape mismatch at {k}: {tuple(own[k].shape)} vs {tuple(v.shape)}")
+    model.load_state_dict(keep, strict=False)
+
+
+class MLMTrainer(BaseTrainer):
+    def get_model(self) -> NomicBertForPreTraining:
+        margs = self.config.model_args
+        overrides = dict(attn_impl=margs.attn_impl, tie_word_embeddings=True)
+        if margs.rotary_emb_fraction:
+            overrides.update(rotary_emb_fraction=margs.rotary_emb_fraction, rotary_emb_base=margs.rotary_emb_base,
+                             n_positions=0)
+        if margs.pad_vocab_to_multiple_of:
+            overrides["pad_vocab_size_multiple"] = margs.pad_vocab_to_multiple_of
+        if margs.activation_function:
+            overrides["activation_function"] = margs.activation_function
+        overrides.update(qkv_proj_bias=margs.qkv_proj_bias, mlp_fc1_bias=margs.mlp_fc1_bias,
+                         mlp_fc2_bias=margs.mlp_fc2_bias)
+        cfg = bert_config_to_trunk_config(types.SimpleNamespace(**_load_hf_config(margs.model_name)), **overrides)
+        self.trunk_config = cfg
+        model = NomicBertForPreTraining(cfg, dtype=self.dtype, device=self.device,
+                                        remat=margs.gradient_checkpointing)
+        init_weights(model, self.seed)
+        if margs.pretrained:
+            sd = _load_state_dict(margs.model_name)
+            if sd is not None:
+                overlay(model, bert_state_dict_to_torch(sd, cfg, head="pretraining"))
+        return model
+
+    def _mask_batch(self, ids: np.ndarray, attention_mask: np.ndarray, prob: float, rng: np.random.Generator,
+                    dense: Optional[bool] = None):
+        """The host batch of one block of rows: masked ids, labels and, with
+        dense (default: dense_seq_output), the masked positions and their
+        labels."""
+        tok = self.tokenizer
+        masked, labels = mlm_mask(ids, prob, tok.mask_token_id, len(tok), set(tok.all_special_ids), rng)
+        out = {"input_ids": masked, "attention_mask": attention_mask, "labels": labels.astype(np.int32)}
+        if self.trunk_config.dense_seq_output if dense is None else dense:
+            out["masked_positions"], out["labels"] = masked_positions_static(
+                labels, dense_budget(ids.shape[1], prob))
+        return out
+
+    @staticmethod
+    def _rows(ds, idx):
+        rows = ds[list(idx)]
+        ids = np.asarray(rows["input_ids"], dtype=np.int32)
+        mask = rows.get("attention_mask")
+        return ids, (np.ones_like(ids) if mask is None else np.asarray(mask, dtype=np.int32))
+
+    def get_dataloaders(self):
+        dargs = self.config.data_args
+        ds = self.load_dataset(dargs.tokenized_dataset)
+        self._val = None
+        if hasattr(ds, "keys") and "train" in ds:
+            self._val = ds.get("validation") or ds.get("test")
+            ds = ds["train"]
+        self._train_ds = ds
+        batch = dargs.batch_size
+        steps = len(ds) // batch
+        # one permutation generator for the order, another for the masks (JAX
+        # folds in the process index, 0 on one device)
+        rng = np.random.default_rng(dargs.seed)
+        mask_rng = np.random.default_rng((dargs.seed, 0))
+
+        class Loader:
+            def __iter__(loader):
+                order = rng.permutation(len(ds))
+                for b in range(steps):
+                    ids, mask = self._rows(ds, order[b * batch:(b + 1) * batch].tolist())
+                    yield self._mask_batch(ids, mask, dargs.mlm_prob, mask_rng)
+
+        return Loader(), steps
+
+    def make_train_step(self):
+        step = make_mlm_train_step(self.model, self.optimizer, self.scheduler,
+                                   self.config.train_args.gradient_accumulation_steps or 1)
+
+        def train_step(batch, generator):
+            return step(batch, step_generator(generator, self.device))
+
+        return train_step
+
+    def eval_loop(self, step: int) -> Dict[str, float]:
+        if self._val is None:
+            return {}
+        dargs = self.config.data_args
+        batch = dargs.eval_batch_size or dargs.batch_size
+        prob = dargs.val_mlm_prob or dargs.mlm_prob
+        rng = np.random.default_rng(0)
+        losses = []
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                for i in range(min(len(self._val) // batch, 50)):
+                    ids, mask = self._rows(self._val, range(i * batch, (i + 1) * batch))
+                    b = {k: torch.from_numpy(v).to(self.device) for k, v in
+                         self._mask_batch(ids, mask, prob, rng).items()}
+                    losses.append(self.model(b["input_ids"], attention_mask=b["attention_mask"], labels=b["labels"],
+                                             masked_positions=b.get("masked_positions"))["loss"])
+        finally:
+            self.model.train(was_training)
+        if not losses:
+            return {}
+        loss = float(np.mean(torch.stack(losses).float().cpu().numpy().astype(np.float64)))
+        return {"val_loss": loss, "val_perplexity": float(np.exp(loss))}

@@ -37,6 +37,7 @@ from torch.profiler import record_function
 from contrastors_tpu_torch.grad_cache import grad_cache_loss_and_grads
 from contrastors_tpu_torch.losses import clip_loss, matryoshka_clip_loss, router_aux_loss
 from contrastors_tpu_torch.models.biencoder import BiEncoder, LogitScale
+from contrastors_tpu_torch.ops.dropout import noise_seed, site_generator
 from contrastors_tpu_torch.trainers.base import BaseTrainer, make_standard_train_step
 from contrastors_tpu_torch.utils.optim import AdamW
 
@@ -56,9 +57,9 @@ def divisor_chunk(chunk: int, rows: int) -> int:
 def encode_batch(model: BiEncoder, batch: Batch, generator: Optional[torch.Generator] = None):
     """Embed one {"input_ids", "attention_mask"} batch: {"embedding"}, and
     "router_aux" (the load-balance loss over this batch's valid tokens) when
-    the model has MoE layers. The generator is the chunk's dropout stream;
-    the trunks have no dropout yet (ROADMAP)."""
-    out = model(batch["input_ids"], batch["attention_mask"])
+    the model has MoE layers. The generator seeds the chunk's dropout (JAX's
+    chunk rng); a model in eval mode, or without dropout, draws nothing."""
+    out = model(batch["input_ids"], batch["attention_mask"], generator=generator)
     res = {"embedding": out["embedding"]}
     if out["router_logits"]:
         cfg = model.config
@@ -92,8 +93,10 @@ def make_train_step(
     before its clip. On the standard branch gradient_accumulation_steps = N
     applies the mean of N calls' gradients on every N-th call, and
     grad_norm is reported on those calls only; the grad-cache branch takes
-    N = 1 only. The generator (default: seed 0) gives one draw per call,
-    the step's base seed for the chunks' generators. The step's phases are
+    N = 1 only. The generator (a CPU one; default: seed 0) gives one draw
+    per call, the step's base seed for the chunks' generators (grad cache)
+    or the towers' (standard branch), which seed the trunk's dropout when
+    the model is in training mode with a dropout on. The step's phases are
     profiler ranges: `grad_cache_loss_and_grads`'s, or "train_step/forward"
     and "train_step/backward" on the standard branch, then
     "train_step/optimizer"."""
@@ -113,8 +116,11 @@ def make_train_step(
         loss, acc = clip_loss(q, d, scale, bidirectional=bidirectional)
         return loss, {"accuracy": acc}
 
-    def std_loss(batches):
-        q_out, d_out = (encode_batch(biencoder, b) for b in batches)
+    def std_loss(batches, generator):
+        # one generator per tower, as JAX splits its rng into rq, rd
+        seed = noise_seed(generator)
+        q_out, d_out = (encode_batch(biencoder, b, site_generator(seed, tower, device=b["input_ids"].device))
+                        for tower, b in enumerate(batches))
         q, d = q_out["embedding"], d_out["embedding"]
         if matryoshka_dims:
             loss, accuracy = matryoshka_clip_loss(q, d, logit_scale, dims=matryoshka_dims,
@@ -137,7 +143,7 @@ def make_train_step(
             generator = torch.Generator().manual_seed(0)
         seed = int(torch.randint(0, 2**62, (1,), generator=generator))
         if not grad_cache:
-            return std_step((q_batch, d_batch))
+            return std_step((q_batch, d_batch), torch.Generator().manual_seed(seed))
         optimizer.zero_grad(set_to_none=True)
         cq = divisor_chunk(chunk_size, q_batch["input_ids"].shape[0])
         cd = divisor_chunk(chunk_size, d_batch["input_ids"].shape[0])
@@ -146,6 +152,7 @@ def make_train_step(
             chunk_size=cq, chunk_size_d=cd, rng=seed, extra_params=logit_scale,
             direct_chunks=direct_chunks_q, direct_chunks_d=direct_chunks_d,
             return_metrics=True, loss_has_aux=True, router_aux_coef=router_aux_coef,
+            stochastic=biencoder.trunk.uses_dropout(),
         )
         with record_function("train_step/optimizer"):
             optimizer.step()

@@ -42,7 +42,8 @@ def test_importing_every_port_module_loads_no_jax():
     for m in ("ops.flash_attention", "ops.grouped_matmul", "layers.moe", "trainers.base",
               "trainers.mlm", "scripts.ablate_rotary_fusion", "config", "read", "train", "trainers.text_text",
               "models.hf_interop", "models.auto", "data.text", "data.indexing", "utils.prefetch",
-              "utils.logging", "eval.metrics", "eval.retrieval"):
+              "utils.logging", "eval.metrics", "eval.retrieval", "ops.dropout", "trainers.mmlm", "trainers.glue",
+              "data.constants"):
         assert "contrastors_tpu_torch." + m in modules
     # the JAX stack, and the packages the card's machine is not known to
     # have (imported only inside the functions that need them)
@@ -73,31 +74,33 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
     from contrastors_tpu_torch.layers.rotary import rotary_cos_sin
-    from contrastors_tpu_torch.models import BiEncoder, NomicBertForPreTraining, NomicBertModel
+    from contrastors_tpu_torch.models import (BiEncoder, NomicBertForPreTraining, NomicBertForSequenceClassification,
+                                              NomicBertModel)
     from contrastors_tpu_torch.models.presets import nomic_bert_2048
     from contrastors_tpu_torch.scripts import ablate_rotary_fusion
 
     cfg = nomic_bert_2048(n_layer=1, n_embd=64, n_head=1, n_inner=128, vocab_size=64)
     with pytest.raises(RuntimeError, match="CUDA device"):
         ablate_rotary_fusion.run()
-    for entry in (BiEncoder, NomicBertModel, NomicBertForPreTraining):
+    for entry in (BiEncoder, NomicBertModel, NomicBertForPreTraining, NomicBertForSequenceClassification):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         rotary_cos_sin(16, 64)
     from contrastors_tpu_torch import train
     from contrastors_tpu_torch.config import Config
-    from contrastors_tpu_torch.trainers import TextTextTrainer
+    from contrastors_tpu_torch.trainers import GlueTrainer, MLMTrainer, MMLMTrainer, TextTextTrainer
 
     config = Config.from_dict(dict(train_args=dict(learning_rate=1e-3),
                                    data_args=dict(batch_size=2, input_shards="pairs.jsonl"),
                                    model_args=dict(model_type="encoder", model_name="m")))
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        TextTextTrainer(config)
+    for trainer in (TextTextTrainer, MLMTrainer, MMLMTrainer, GlueTrainer):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            trainer(config)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.run(config, "fp32")
-    recipe = ROOT / "configs" / "train" / "contrastive_finetune.yaml"
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        train.main(["--config", str(recipe)])
+    for name in ("contrastive_finetune", "mlm", "mmlm", "glue"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train.main(["--config", str(ROOT / "configs" / "train" / f"{name}.yaml")])
     assert BiEncoder(cfg, device="cpu").trunk.emb_ln.weight.device.type == "cpu"
     assert rotary_cos_sin(16, 64, device="cpu")[0].device.type == "cpu"
