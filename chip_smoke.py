@@ -1654,10 +1654,15 @@ def forward_timing(dev, card, gen):
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         padded = label.endswith("padded")
         if padded:
-            lens = torch.from_numpy(glue_lengths(B, S)).to(dev)
+            lens_host = glue_lengths(B, S)
+            lens = torch.from_numpy(lens_host).to(dev)
             mask = (torch.arange(S, device=dev)[None] < lens[:, None]).int()
             kw = dict(segment_ids=torch.ones(B, S, dtype=torch.int32, device=dev), kv_segment_ids=mask)
-            flops = 4.0 * D * H * S * float(lens.sum().item())  # every query row against its live keys
+            live = float(lens_host.sum())
+            # every query row against its live keys; q and O in full, k and v
+            # only at live keys, LSE, and the two id vectors
+            flops = 4.0 * D * H * S * live
+            nbytes = 2 * (2 * B * S * H * D + 2 * H * D * live) + 4 * B * H * S + 4 * 2 * B * S
             b_ms, b_by, _, nbytes = _bound(flops, nbytes)
             keep = mask.bool()[:, None, None, :]
 
@@ -2766,7 +2771,7 @@ def mlm_trainer_phase(dev, card, mlm_step_ms=None):
             reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            step(batch, drop.step_generator(gen, dev))
+            step(batch, gen)
             torch.cuda.synchronize()
             step_ms[label].append((time.perf_counter() - t0) * 1e3)
             step_launches_by[label] = read_counts()

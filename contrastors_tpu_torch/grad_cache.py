@@ -12,10 +12,11 @@ Hybrid mode: the leading `direct_chunks` chunks of a tower are encoded once,
 flattened into one batch, with their graph held; they receive their
 cotangent directly and skip the pass-2 replay. Gradients equal the naive
 full-batch loss's for any chunking and any split, up to float
-reassociation. With `stochastic` (an encoder that draws dropout noise) the
-direct chunks run one forward and one backward each, with the cached path's
-generators, so that a chunk draws the same noise cached or direct and the
-gradients of every split are the same, in the same order of accumulation.
+reassociation. When the encoder draws dropout noise (`params.uses_dropout()`,
+which a BiEncoder answers from its trunk's mode and rates) the direct chunks
+run one forward and one backward each, with the cached path's generators, so
+that a chunk draws the same noise cached or direct and the gradients of every
+split are the same, in the same order of accumulation.
 
 What differs from the JAX function, and why:
   - Gradients accumulate into each parameter's `.grad`, as `backward`
@@ -26,8 +27,8 @@ What differs from the JAX function, and why:
     encoder replays the same noise in pass 2; the one direct forward of a
     deterministic encoder gets index n_total, as JAX's fold_in(rng,
     n_total). `encode(params, chunk, generator)` receives it. JAX's direct
-    forward draws other noise than its cached chunks; the port's, with
-    `stochastic`, draws theirs.
+    forward draws other noise than its cached chunks; the port's, for an
+    encoder that draws noise, draws theirs.
   - Single device: no shard_map, so there is no data axis inside.
   - `embed_parallel > 1` raises NotImplementedError until the slice that
     needs it (ROADMAP).
@@ -86,7 +87,6 @@ def grad_cache_loss_and_grads(
     embed_parallel_d: Optional[int] = None,
     return_metrics: bool = False,
     loss_has_aux: bool = False,
-    stochastic: bool = False,
 ) -> Union[torch.Tensor, tuple]:
     """Accumulate the gradients of loss_fn(encode_q(q), encode_d(d)) into
     `.grad` and return the loss, or (loss, metrics) with return_metrics.
@@ -95,12 +95,14 @@ def grad_cache_loss_and_grads(
     loss_fn(q_embs, d_embs) -> scalar, or loss_fn(q_embs, d_embs,
     extra_params) when extra_params is given; with loss_has_aux it returns
     (scalar, metrics dict). direct_chunks / direct_chunks_d count leading
-    chunks kept live (negative: all). stochastic: the encoders draw noise
-    from their generator (see the module docstring).
+    chunks kept live (negative: all). When `params` has `uses_dropout()`
+    and it is true, the encoders draw noise from their generator (see the
+    module docstring).
     """
     if embed_parallel != 1 or (embed_parallel_d or 1) != 1:
         raise NotImplementedError("embed_parallel > 1 is not ported yet (ROADMAP, Queue 1)")
     base = 0 if rng is None else int(rng)
+    stochastic = bool(getattr(params, "uses_dropout", lambda: False)())
     device = next(iter(q_batch.values())).device
 
     cq, cd = chunk_size, chunk_size_d or chunk_size

@@ -99,6 +99,10 @@ class BiEncoder(nn.Module):
             if projection_dim else None
         )
 
+    def uses_dropout(self) -> bool:
+        """True when a forward in the current mode draws noise."""
+        return self.trunk.uses_dropout()
+
     def forward(
         self,
         input_ids: torch.Tensor,

@@ -30,6 +30,7 @@ generators are built inside it: the replay draws the same noise.
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -286,9 +287,7 @@ def classification_loss(logits: torch.Tensor, labels: torch.Tensor, num_labels: 
     lg = logits.float()
     labels = labels.to(lg.device)
     if problem == "regression":
-        return ((lg.squeeze() - labels.squeeze().float()) ** 2).mean()
+        return F.mse_loss(lg.squeeze(), labels.squeeze().float())
     if problem == "single_label_classification":
-        gold = lg.gather(-1, labels.long()[:, None])[:, 0]
-        return (torch.logsumexp(lg, dim=-1) - gold).mean()
-    lab = labels.float()
-    return (lg.clamp_min(0) - lg * lab + torch.log1p(torch.exp(-lg.abs()))).mean()
+        return F.cross_entropy(lg, labels.long())
+    return F.binary_cross_entropy_with_logits(lg, labels.float())

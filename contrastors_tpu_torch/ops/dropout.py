@@ -52,11 +52,11 @@ def site_generator(seed: Optional[int], *path: int, device) -> Optional[torch.Ge
     return torch.Generator(device=device).manual_seed(fold_seed(seed, *path))
 
 
-def step_generator(generator: torch.Generator, device) -> torch.Generator:
-    """A generator on `device` for one training step, seeded by one draw
-    from the trainer's CPU generator (a host draw: no device sync)."""
-    seed = int(torch.randint(0, 2**62, (1,), generator=generator))
-    return torch.Generator(device=device).manual_seed(seed)
+def step_generator(generator: torch.Generator) -> torch.Generator:
+    """The generator of one training step, seeded by one draw from the
+    trainer's CPU generator (a host draw: no device sync). It carries only
+    its seed: the sites build their generators on the tensors' device."""
+    return torch.Generator().manual_seed(int(torch.randint(0, 2**62, (1,), generator=generator)))
 
 
 def active(p: float, training: bool) -> bool:

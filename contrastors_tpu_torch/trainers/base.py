@@ -17,8 +17,9 @@ checkpoints, logging, in-train eval and the loop. What differs from JAX,
 and why:
   - The step's randomness is one draw from the trainer's CPU
     `torch.Generator` per step (`make_train_step`'s steps take it, and
-    `ops/dropout.py:step_generator` turns it into the step's generator on
-    the device), where JAX splits its key; no draw touches the device.
+    `make_standard_train_step` hands `loss_fn` the step's generator,
+    `ops/dropout.py:step_generator`), where JAX splits its key; no draw
+    touches the device.
   - A batch whose meta carries "lang" (the multilingual MLM data) adds its
     loss to that language's running losses, kept on the device and logged
     as `loss/<lang>` (their mean since the last log) in the log step's one
@@ -50,6 +51,7 @@ from torch.profiler import record_function
 
 from contrastors_tpu_torch._device import resolve_device
 from contrastors_tpu_torch.config import Config
+from contrastors_tpu_torch.ops.dropout import step_generator
 from contrastors_tpu_torch.utils.logging import Tracker
 from contrastors_tpu_torch.utils.optim import AdamW, lr_scheduler, make_optimizer, make_schedule
 from contrastors_tpu_torch.utils.prefetch import PrefetchIterator
@@ -68,8 +70,10 @@ def make_standard_train_step(
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns step(batch, generator=None) -> metrics, which updates the
     parameters of `optimizer` in place every gradient_accumulation_steps
-    calls, then runs post_update() (in-place, e.g. a clamp).
-    loss_fn(batch, generator) -> (loss, metrics); the step's metrics are
+    calls, then runs post_update() (in-place, e.g. a clamp). `generator`
+    is the trainer's: each call draws the step's generator from it
+    (`ops/dropout.py:step_generator`; None without one).
+    loss_fn(batch, step_generator) -> (loss, metrics); the step's metrics are
     those plus "loss" and, on an update, "grad_norm". Its phases are the
     profiler ranges "train_step/forward", "train_step/backward" and
     "train_step/optimizer"."""
@@ -82,7 +86,7 @@ def make_standard_train_step(
         if micro % ga == 0:
             optimizer.zero_grad(set_to_none=True)
         with record_function("train_step/forward"):
-            loss, metrics = loss_fn(batch, generator)
+            loss, metrics = loss_fn(batch, None if generator is None else step_generator(generator))
         with record_function("train_step/backward"):
             loss.backward()  # adds this micro-batch's gradients into .grad
         micro += 1

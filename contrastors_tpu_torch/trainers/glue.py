@@ -27,7 +27,6 @@ import torch
 from contrastors_tpu_torch.models.auto import _load_hf_config, _load_state_dict
 from contrastors_tpu_torch.models.hf_interop import bert_config_to_trunk_config, bert_state_dict_to_torch
 from contrastors_tpu_torch.models.nomic_bert import NomicBertForSequenceClassification, init_weights
-from contrastors_tpu_torch.ops.dropout import step_generator
 from contrastors_tpu_torch.trainers.base import BaseTrainer, make_standard_train_step
 from contrastors_tpu_torch.trainers.mlm import overlay
 
@@ -154,13 +153,8 @@ class GlueTrainer(BaseTrainer):
                         token_type_ids=batch["token_type_ids"], labels=batch["labels"], generator=generator)
             return out["loss"], {}
 
-        step = make_standard_train_step(loss_fn, self.optimizer, self.scheduler,
+        return make_standard_train_step(loss_fn, self.optimizer, self.scheduler,
                                         self.config.train_args.gradient_accumulation_steps or 1)
-
-        def train_step(batch, generator):
-            return step(batch, step_generator(generator, self.device))
-
-        return train_step
 
     def eval_logits(self, b: Dict[str, np.ndarray]) -> np.ndarray:
         """The model's logits of one encoded batch, in eval mode."""

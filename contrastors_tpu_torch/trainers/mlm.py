@@ -30,7 +30,6 @@ import torch
 from contrastors_tpu_torch.models.auto import _load_hf_config, _load_state_dict
 from contrastors_tpu_torch.models.hf_interop import bert_config_to_trunk_config, bert_state_dict_to_torch
 from contrastors_tpu_torch.models.nomic_bert import NomicBertForPreTraining, init_weights
-from contrastors_tpu_torch.ops.dropout import step_generator
 from contrastors_tpu_torch.trainers.base import BaseTrainer, make_standard_train_step
 from contrastors_tpu_torch.utils.optim import AdamW
 
@@ -186,13 +185,8 @@ class MLMTrainer(BaseTrainer):
         return Loader(), steps
 
     def make_train_step(self):
-        step = make_mlm_train_step(self.model, self.optimizer, self.scheduler,
+        return make_mlm_train_step(self.model, self.optimizer, self.scheduler,
                                    self.config.train_args.gradient_accumulation_steps or 1)
-
-        def train_step(batch, generator):
-            return step(batch, step_generator(generator, self.device))
-
-        return train_step
 
     def eval_loop(self, step: int) -> Dict[str, float]:
         if self._val is None:

@@ -37,7 +37,7 @@ from torch.profiler import record_function
 from contrastors_tpu_torch.grad_cache import grad_cache_loss_and_grads
 from contrastors_tpu_torch.losses import clip_loss, matryoshka_clip_loss, router_aux_loss
 from contrastors_tpu_torch.models.biencoder import BiEncoder, LogitScale
-from contrastors_tpu_torch.ops.dropout import noise_seed, site_generator
+from contrastors_tpu_torch.ops.dropout import noise_seed, site_generator, step_generator
 from contrastors_tpu_torch.trainers.base import BaseTrainer, make_standard_train_step
 from contrastors_tpu_torch.utils.optim import AdamW
 
@@ -141,9 +141,9 @@ def make_train_step(
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        seed = int(torch.randint(0, 2**62, (1,), generator=generator))
         if not grad_cache:
-            return std_step((q_batch, d_batch), torch.Generator().manual_seed(seed))
+            return std_step((q_batch, d_batch), generator)
+        seed = noise_seed(step_generator(generator))
         optimizer.zero_grad(set_to_none=True)
         cq = divisor_chunk(chunk_size, q_batch["input_ids"].shape[0])
         cd = divisor_chunk(chunk_size, d_batch["input_ids"].shape[0])
@@ -152,7 +152,6 @@ def make_train_step(
             chunk_size=cq, chunk_size_d=cd, rng=seed, extra_params=logit_scale,
             direct_chunks=direct_chunks_q, direct_chunks_d=direct_chunks_d,
             return_metrics=True, loss_has_aux=True, router_aux_coef=router_aux_coef,
-            stochastic=biencoder.trunk.uses_dropout(),
         )
         with record_function("train_step/optimizer"):
             optimizer.step()

@@ -327,11 +327,11 @@ def test_grad_cache_cached_and_direct_chunks_give_bit_identical_gradients_with_d
     init_weights(model, seed=5)
     scale = LogitScale(20.0, trainable=False, device="cpu")
 
-    def run(direct, stochastic=True):
+    def run(direct):
         model.zero_grad(set_to_none=True)
         loss = grad_cache_loss_and_grads(model, qb, db, encode_batch, encode_batch,
                                          lambda q, d: clip_loss(q, d, scale)[0], chunk_size=2, rng=13,
-                                         direct_chunks=direct, stochastic=stochastic)
+                                         direct_chunks=direct)
         return loss, {n: p.grad.clone() for n, p in model.named_parameters()}
 
     cached, direct, mixed = run(0), run(-1), run(2)
@@ -339,8 +339,10 @@ def test_grad_cache_cached_and_direct_chunks_give_bit_identical_gradients_with_d
         assert torch.equal(cached[0], other[0])
         for name in cached[1]:
             assert torch.equal(cached[1][name], other[1][name]), name
-    # without the per-chunk generators the direct forward draws other noise
-    assert not torch.equal(cached[0], run(-1, stochastic=False)[0])
+    # an encoder that hides its dropout gets the one direct forward, whose
+    # generator draws other noise
+    model.uses_dropout = lambda: False
+    assert not torch.equal(cached[0], run(-1)[0])
 
 
 @pytest.mark.parametrize("over", [dict(embd_pdrop=0.1), dict(resid_pdrop=0.1), dict(attn_pdrop=0.1),
@@ -391,8 +393,8 @@ def test_keep_share_and_scale():
 
 def test_contrastive_step_carries_the_generator_into_the_trunk():
     """text_text.make_train_step with a dropout trunk: the grad-cache step
-    with every chunk direct equals the all-cached one bit for bit (the
-    trainer tells grad cache the encoder draws noise), and the standard
+    with every chunk direct equals the all-cached one bit for bit (grad
+    cache asks the BiEncoder whether it draws noise), and the standard
     branch draws (its loss differs from the eval-mode loss)."""
     from contrastors_tpu_torch.models import init_weights
     from contrastors_tpu_torch.models.biencoder import LogitScale
