@@ -2,7 +2,7 @@
 """Drive the PyTorch / CUDA port (contrastors_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only {moe_kernels,moe,flash_fwd,flash_bwd,dense,trainer,mlm_trainer} [--tree DIR]
+    python3 chip_smoke.py --only {moe_kernels,moe,flash_fwd,flash_bwd,dense,trainer,mlm_trainer,vision} [--tree DIR]
 
 The second form runs phases 1, 2 and 9 (moe_kernels), or 1, 2 and 9-12
 without the gradient agreement (moe: the kernels, MoE serving and the MoE
@@ -12,7 +12,8 @@ timing, fused and outside in turns, or (flash_bwd) 1, 2, the backward
 checks of 4 and 13, the backward timing of 8 (the whole backward only) and
 the MLM step's timing, or (dense) 1, 2 and the dense step of 7-8
 (launches, timing, profile; no gradient agreement), or (trainer) 1, 2 and
-17, or (mlm_trainer) 1, 2 and 18, on this checkout's
+17, or (mlm_trainer) 1, 2 and 18, or (vision) 1, 2, the ViT shape's
+checks of 3 and 4 and 19, on this checkout's
 package or on the one under DIR (another checkout, e.g. the parent commit
 unpacked by `git archive`), so that two versions can be timed in turns on
 one card.
@@ -184,6 +185,30 @@ The BERT pretraining and fine-tuning family (after phase 16):
      draws, the kept values 1 / 0.9. Recorded: peak memory, the micro-steps'
      ms, and the MLM micro-step with dropout on (sdpa) and off (the flash
      kernels) in turns beside phase 16's dropout-free step.
+The vision / LiT family (after phase 18):
+ 19. vit_kernel_timing, vision_main_path, lit_standard, lit_grad_cache and
+     lit_grad_agreement. The ViT's attention shape (B=64 S=T=197 H=12
+     D=64, no mask: a partial last tile) is a case of phases 3 and 4; here
+     its forward, dq and dk/dv are timed beside their bounds, the plain
+     versions and SDPA. A full-width DualEncoder in bf16 with seed weights
+     (text: nomic-bert-2048's geometry at 77 tokens, hamming LN; vision:
+     EVA02-B/16 at 224, 2-D rope, SwiGLU 2048 with norm_mlp, no final LN,
+     MAP head) encodes 256 images and 256 captions: 12 flash launches per
+     tower forward, cosine >= 0.999 against attn_impl="sdpa" in fp32,
+     images/s.
+     Then configs/train/nomic_embed_vision_v1.5.yaml through read_config and
+     train.run (`lit_recipe`: pretrained false on both towers, remat on as
+     the recipe sets it; cut in batch 16384 -> 512, warmup 2000 -> 2, 8
+     steps, in-memory uint8 images and stand-in captions through the
+     trainer's data hook, the zero-shot eval at the last step over 4
+     in-memory batches through its eval hook), and the same recipe with
+     grad_cache, chunk 128, at batch 2048 for 3 steps. Gates: flash
+     launches per step as the code predicts (36 / 12 / 12, and 768 / 192
+     / 192), the loss falling, the logit scale moving, the text tower
+     bit-identical, 0 synchronising calls per quiet step, the eval's
+     launches (12 per batch of the 8000 prompts and of images); grad cache
+     against the standard step on one batch of 512 (cosine >= 0.9999,
+     relative L2 <= 0.01), a planted rolled replay outside both.
 Kernel times (ms) are CUDA-event times of calls made on an idle card, so a
 short kernel's time holds the host's enqueue; phases 8 and 9 give beside
 them the device's work alone (device_ms: each call queued behind a device
@@ -1240,7 +1265,12 @@ EDGE_CASES = [
 GLUE_CASES = [
     ("glue_pad_b64_s128", dict(B=64, S=128, T=128, H=12, Hkv=12, D=64), dict(mask=(0, 0), dispatch=True)),
 ]
-FWD_CASES = BASE_CASES + EDGE_CASES + GLUE_CASES
+# the ViT's self-attention (phase 19): no mask, S = T = 197 (196 patches and
+# the cls token), a partial last tile; the vision step's image chunk of 64
+VIT_CASES = [
+    ("vit_b64_s197", dict(B=64, S=197, T=197, H=12, Hkv=12, D=64), dict()),
+]
+FWD_CASES = BASE_CASES + EDGE_CASES + GLUE_CASES + VIT_CASES
 # the backward kernels: the same but the two largest and the eval-only GLUE batch
 BWD_CASES = [c for c in FWD_CASES if c[0] not in ("pad_b256_s512", "s8192", "glue_pad_b64_s128")]
 
@@ -1281,16 +1311,16 @@ def case_inputs(gen, dev, shp, opt):
     return q, k, v, kw
 
 
-def forward_checks(dev, gen):
+def forward_checks(dev, gen, cases=None):
     """Phase kernel_check: the forward kernel against its plain version in
-    FWD_CASES, a second run bit-identical to the first. Returns {case: max
-    abs error of O}."""
+    `cases` (default FWD_CASES), a second run bit-identical to the first.
+    Returns {case: max abs error of O}."""
     import torch
 
     from contrastors_tpu_torch.ops import flash_attention as fa
 
     o_errs = {}
-    for name, shp, opt in FWD_CASES:
+    for name, shp, opt in cases or FWD_CASES:
         q, k, v, kw = case_inputs(gen, dev, shp, opt)
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
         again = fa.flash_attention_fwd(q, k, v, **kw)
@@ -1332,17 +1362,18 @@ def grad_check(grad, ref, name, dv_ref, single_key):
     return err, fa.grad_error_ratio(grad, ref, name)
 
 
-def backward_checks(dev, gen):
+def backward_checks(dev, gen, cases=None):
     """Phase kernel_check_bwd: the two backward kernels (dq; dk/dv) against
-    the plain backward on the same O and LSE, with a strided dO, in
-    BWD_CASES; dq exactly 0 on a fully masked row; a second run bit-identical
-    to the first. Returns {"dq"|"dk"|"dv": {case: max abs error}}."""
+    the plain backward on the same O and LSE, with a strided dO, in `cases`
+    (default BWD_CASES); dq exactly 0 on a fully masked row; a second run
+    bit-identical to the first. Returns {"dq"|"dk"|"dv": {case: max abs
+    error}}."""
     import torch
 
     from contrastors_tpu_torch.ops import flash_attention as fa
 
     grad_errs = {"dq": {}, "dk": {}, "dv": {}}
-    for name, shp, opt in BWD_CASES:
+    for name, shp, opt in cases or BWD_CASES:
         q, k, v, kw = case_inputs(gen, dev, shp, opt)
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
         # a strided dO, as a view of a wider buffer
@@ -2963,6 +2994,492 @@ def fused_encode(dev, card, model, tok, texts, e):
     return launches
 
 
+# -- the vision / LiT family (phase 19) ---------------------------------------
+VISION_RECIPE = "nomic_embed_vision_v1.5"
+EVA02 = "timm/vit_eva02_base_patch16_224"
+VIT_B, VIT_S, VIT_IMG, CAPTION_LEN = 64, 197, 224, 77  # serving batch; 196 patches + cls; image side; seq_len
+SERVING_COSINE = 0.999  # the kernel's embeddings against sdpa's in fp32
+LIT_BATCH, LIT_STEPS, LIT_GC_BATCH, LIT_GC_CHUNK, LIT_GC_STEPS = 512, 8, 2048, 128, 3
+
+
+def vit_attention_timing(dev, card, gen):
+    """Phase vit_kernel_timing: the ViT's attention shape (B=64 S=T=197 H=12
+    D=64, no mask) through the flash forward, dq and dk/dv, checked once
+    more against the plain version, each as ms, device_ms and enqueue us
+    beside its bound (`attention_bound`, `backward_bound` with no ids), the
+    plain version and torch SDPA without a mask (forward; the backward as
+    forward + backward minus forward). Returns {"fwd"|"dq"|"dkv": row}."""
+    import torch
+    import torch.nn.functional as F
+
+    from contrastors_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, D = VIT_B, VIT_S, 12, 64
+    q, k, v = make_qkv(gen, dev, B, S, S, H, H, D)
+    scale = 1.0 / D**0.5
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v)
+    fwd_ratio = fa.output_error_ratio(out, ref_out)
+    dout = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
+    refs = fa.flash_attention_backward_reference(q, k, v, out, lse, dout)
+    grads = fa.flash_attention_backward(q, k, v, out, lse, dout)
+    bwd_ratio = max(fa.grad_error_ratio(g, r, n) for g, r, n in zip(grads, refs, ("dq", "dk", "dv")))
+    del ref_out, ref_lse, refs, grads
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = dout.transpose(1, 2)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt), dot)
+
+    inputs = fa.prepare_backward(q, k, v, out, lse, dout, None, None)
+    args = (False, 0, 0, scale)
+    runs = dict(fwd=lambda: fa.flash_attention_fwd(q, k, v),
+                dq=lambda: fa.launch_bwd_dq(*inputs, *args),
+                dkv=lambda: fa.launch_bwd_dkv(*inputs, *args))
+    plain = dict(fwd=lambda: fa.flash_attention_reference(q, k, v),
+                 bwd=lambda: fa.flash_attention_backward_reference(q, k, v, out, lse, dout))
+    lib_fwd, lib_fwd_dev = median_ms(sdpa_fwd), median_ms(sdpa_fwd, queued=True)
+    lib_bwd = median_ms(sdpa_fwd_bwd) - lib_fwd
+    lib_bwd_dev = median_ms(sdpa_fwd_bwd, queued=True) - lib_fwd_dev
+    plain_fwd = median_ms(plain["fwd"], runs=3, warmup=1)
+    plain_bwd = median_ms(plain["bwd"], runs=3, warmup=1)
+    whole_bwd = lambda: fa.flash_attention_backward(q, k, v, out, lse, dout)  # noqa: E731
+    rows = {}
+    for kname, run in runs.items():
+        if kname == "fwd":
+            b_ms, b_by, flops, nbytes = attention_bound(B, S, S, H, H, D)
+        else:
+            b_ms, b_by, flops, nbytes = backward_bound(kname, B, S, S, H, H, D, masked=False)
+        k_ms, k_dev = median_ms(run), median_ms(run, queued=True)
+        rows[kname] = dict(ms=k_ms, device_ms=k_dev, enqueue_us=host_enqueue_us(run), bound_ms=b_ms, bound_by=b_by,
+                           flops=flops, bytes=nbytes, plain_ms=plain_fwd if kname == "fwd" else plain_bwd,
+                           library_ms=lib_fwd if kname == "fwd" else lib_bwd,
+                           library_device_ms=lib_fwd_dev if kname == "fwd" else lib_bwd_dev,
+                           roofline_share=b_ms / k_ms, device_roofline_share=b_ms / k_dev,
+                           err_over_tol=fwd_ratio if kname == "fwd" else bwd_ratio)
+    rows["backward"] = dict(ms=median_ms(whole_bwd), device_ms=median_ms(whole_bwd, queued=True))
+    emit(phase="vit_kernel_timing", card=card, gpu_state=gpu_state(), B=B, S=S, T=S, H=H, D=D, mask=None, **rows,
+         note="dq and dkv: each kernel alone on prepared inputs (dq writes the delta dkv reads); plain_ms and "
+              "library_ms of dq and dkv are whole backwards; library: torch SDPA without a mask")
+    if fwd_ratio > 1.0 or bwd_ratio > 1.0:
+        raise AssertionError("flash kernels disagree with their plain version at the ViT's shape")
+    del q, k, v, out, lse, dout, qt, kt, vt, inputs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def lit_configs(impl="flash"):
+    """The recipe's towers at full width: nomic-bert-2048's geometry for the
+    text, EVA02-B/16 at 224 (2-D rope, SwiGLU 2048 with norm_mlp, no final
+    LN) for the images."""
+    from contrastors_tpu_torch.models.hf_interop_timm import timm_name_to_trunk_config
+    from contrastors_tpu_torch.models.presets import nomic_bert_2048
+
+    return nomic_bert_2048(attn_impl=impl), timm_name_to_trunk_config(EVA02, attn_impl=impl)
+
+
+def caption_batch(tok, rng, n):
+    """n stand-in captions of 5-76 words, tokenised to 77 ids (numpy)."""
+    texts = [" ".join(map(str, rng.integers(1000, 30000, size=int(L)))) for L in rng.integers(5, 77, size=n)]
+    enc = tok(texts, padding="max_length", truncation=True, max_length=CAPTION_LEN, return_tensors="np")
+    return enc["input_ids"], enc["attention_mask"]
+
+
+def normalised(px_u8):
+    """uint8 pixels on the card -> fp32 with the OpenAI mean / std, as the
+    trainer normalises them."""
+    import torch
+
+    from contrastors_tpu_torch.config import OPENAI_IMAGE_MEAN, OPENAI_IMAGE_STD
+
+    mean = torch.tensor(OPENAI_IMAGE_MEAN, device=px_u8.device).reshape(3, 1, 1)
+    std = torch.tensor(OPENAI_IMAGE_STD, device=px_u8.device).reshape(3, 1, 1)
+    return (px_u8.float() / 255.0 - mean) / std
+
+
+def vision_serving(dev, card, tok, gen):
+    """Phase vision_main_path: a full-width DualEncoder in bf16 with seed
+    weights encodes 256 images (4 batches of 64, uniform noise from their
+    own seed) and 256 captions (one batch of 77 tokens, hamming LN) with
+    encode_image / encode_text: 12 flash launches per tower forward,
+    embeddings finite and unit-norm, and through the kernel against the
+    same weights under attn_impl="sdpa" in fp32 at cosine >= 0.999; the
+    cosines of bf16 sdpa to fp32 and of the kernel to bf16 sdpa are read
+    beside it. Images/s and captions/s, median of 5 host-clock runs.
+    Returns (launches per image forward, per text forward, the timings)."""
+    import torch
+
+    from contrastors_tpu_torch.models import BiEncoder, DualEncoder, init_weights
+
+    text_cfg, vis_cfg = lit_configs()
+    dual = DualEncoder(text_cfg, vis_cfg, text_hamming=True, dtype=torch.bfloat16, device=dev).eval()
+    init_weights(dual.text, 0)
+    init_weights(dual.vision, 1)
+    n_params = dict(text=sum(p.numel() for p in dual.text.parameters()),
+                    vision=sum(p.numel() for p in dual.vision.parameters()))
+    px = normalised(torch.randint(0, 256, (256, 3, VIT_IMG, VIT_IMG), device=dev, dtype=torch.uint8,
+                                  generator=torch.Generator(device=dev).manual_seed(19)))
+    ids, mask = (torch.from_numpy(a).to(dev) for a in caption_batch(tok, np.random.default_rng(5), 256))
+
+    def images(model):
+        with torch.inference_mode():
+            return torch.cat([model(px[i:i + VIT_B]) for i in range(0, 256, VIT_B)]).float()
+
+    def captions():
+        with torch.inference_mode():
+            return dual.encode_text(ids, mask).float()
+
+    reset_counts()
+    images(dual.encode_image)
+    per_image_fwd = read_counts()["fwd"] / (256 // VIT_B)
+    reset_counts()
+    t_emb = captions()
+    per_text_fwd = read_counts()["fwd"]
+    img_emb = images(dual.encode_image)
+    # the same weights with attn_impl="sdpa", in bf16 and in fp32
+    refs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        vis = BiEncoder(vis_cfg.replace(attn_impl="sdpa"), trunk_type="vision", pooling="map", dtype=dtype,
+                        device=dev).eval()
+        vis.load_state_dict(dual.vision.state_dict())
+        txt = BiEncoder(text_cfg.replace(attn_impl="sdpa"), hamming=True, dtype=dtype, device=dev).eval()
+        txt.load_state_dict(dual.text.state_dict())
+        with torch.inference_mode():
+            refs[dtype] = (images(lambda x, m=vis: m(pixel_values=x.to(dtype))["embedding"]),
+                           txt(ids, mask)["embedding"].float())
+        del vis, txt
+
+    def min_cos(a, b):
+        return float((a * b).sum(-1).min())
+
+    fp32_img, fp32_txt = refs[torch.float32]
+    agreement = dict(
+        image_kernel_vs_sdpa_bf16=min_cos(img_emb, refs[torch.bfloat16][0]),
+        text_kernel_vs_sdpa_bf16=min_cos(t_emb, refs[torch.bfloat16][1]),
+        image_kernel_vs_sdpa_fp32=min_cos(img_emb, fp32_img), text_kernel_vs_sdpa_fp32=min_cos(t_emb, fp32_txt),
+        image_sdpa_bf16_vs_fp32=min_cos(refs[torch.bfloat16][0], fp32_img),
+        text_sdpa_bf16_vs_fp32=min_cos(refs[torch.bfloat16][1], fp32_txt))
+    # the gate's reference is sdpa in fp32: against bf16 sdpa the kernel's
+    # cosine holds two bf16 roundings, each ~0.9993 from fp32 at random init
+    cos_img, cos_txt = agreement["image_kernel_vs_sdpa_fp32"], agreement["text_kernel_vs_sdpa_fp32"]
+    del refs
+
+    def host_ms(fn, runs=5):
+        times = []
+        for _ in range(runs + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times[1:]))
+
+    img_ms, txt_ms = host_ms(lambda: images(dual.encode_image)), host_ms(captions)
+    norms = img_emb.norm(dim=-1)
+    ok = (per_image_fwd == vis_cfg.n_layer and per_text_fwd == text_cfg.n_layer
+          and bool(torch.isfinite(img_emb).all()) and bool(torch.isfinite(t_emb).all())
+          and float((norms - 1).abs().max()) < 1e-2 and min(cos_img, cos_txt) >= SERVING_COSINE)
+    timing = dict(images_ms=img_ms, images_per_s=256 / img_ms * 1e3, captions_ms=txt_ms,
+                  captions_per_s=256 / txt_ms * 1e3)
+    emit(phase="vision_main_path", card=card, gpu_state=gpu_state(), params=n_params, images=256,
+         image_batch=VIT_B, captions=256, caption_len=CAPTION_LEN, flash_per_image_forward=per_image_fwd,
+         flash_per_text_forward=per_text_fwd, min_cosine=agreement, threshold=SERVING_COSINE, max_norm_dev=float((norms - 1).abs().max()), **timing, ok=ok)
+    if not ok:
+        raise AssertionError("vision serving: launches, finiteness, norms or agreement with sdpa failed")
+    del dual, px
+    torch.cuda.empty_cache()
+    return per_image_fwd, per_text_fwd, timing
+
+
+def lit_inputs(root, seed=0):
+    """The text tower's config.json (nomic-bert-2048's public one; random
+    weights), two in-memory batches of LIT_BATCH and one of LIT_GC_BATCH
+    uint8 images with their stand-in captions, one batch of LIT_BATCH
+    uniform-noise images, and 4 zero-shot eval batches of 64 normalised
+    images with labels. A training image is a colour of its own plus noise
+    (+-24), so that images differ in content and the model has something
+    to learn; uniform noise alone makes every image's embedding nearly the
+    same at random init (the cls token averages 196 noise patches)."""
+    from contrastors_tpu_torch.eval.stub_tokenizer import StubTokenizer
+
+    text_dir = os.path.join(root, "nomic-bert-2048")
+    os.makedirs(text_dir)
+    with open(os.path.join(text_dir, "config.json"), "w") as f:
+        json.dump(NOMIC_BERT_2048_CONFIG, f)
+    rng = np.random.default_rng(seed)
+    tok = StubTokenizer(NOMIC_BERT_2048_CONFIG["vocab_size"])
+
+    def batch(n, noise_only=False):
+        ids, mask = caption_batch(tok, rng, n)
+        if noise_only:
+            px = rng.integers(0, 256, size=(n, 3, VIT_IMG, VIT_IMG), dtype=np.uint8)
+        else:
+            colour = rng.integers(24, 232, size=(n, 3, 1, 1), dtype=np.int16)
+            px = (colour + rng.integers(-24, 25, size=(n, 3, VIT_IMG, VIT_IMG), dtype=np.int16)).astype(np.uint8)
+        return dict(pixel_values=px, input_ids=ids, attention_mask=mask)
+
+    evals = [dict(pixel_values=rng.normal(size=(64, 3, VIT_IMG, VIT_IMG)).astype(np.float32),
+                  labels=rng.integers(0, 1000, size=64).astype(np.int32)) for _ in range(4)]
+    return (text_dir, tok, [batch(LIT_BATCH), batch(LIT_BATCH)], [batch(LIT_GC_BATCH)],
+            batch(LIT_BATCH, noise_only=True), evals)
+
+
+def lit_recipe(text_dir, out_dir, grad_cache=False):
+    """configs/train/nomic_embed_vision_v1.5.yaml through the port's
+    read_config, cut in batch (16384 -> 512, or 2048 with grad cache), data
+    (in memory, through the hooks), steps (8, or 3), warmup (2000 -> 2) and
+    cadence (log every 4, the eval at the last step, no save before the
+    end); both towers pretrained: false (no checkpoint in the repo), remat on
+    as the recipe sets it."""
+    from contrastors_tpu_torch.read import read_config
+
+    raw = read_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "train",
+                                   f"{VISION_RECIPE}.yaml")).to_dict()
+    steps = LIT_GC_STEPS if grad_cache else LIT_STEPS
+    raw["train_args"].update(num_train_steps=steps, warmup_steps=2, log_lr_every=4, eval_steps=steps,
+                             output_dir=out_dir)
+    if grad_cache:
+        raw["train_args"].update(grad_cache=True, chunk_size=LIT_GC_CHUNK)
+    raw["text_model_args"].update(model_name=text_dir, pretrained=False)
+    raw["vision_model_args"].update(pretrained=False)
+    raw["data_args"].update(batch_size=LIT_GC_BATCH if grad_cache else LIT_BATCH, imagenet_val_path="in-memory")
+    return raw
+
+
+def lit_trainer_class(tok, batches, evals):
+    """The phase's ImageTextTrainer: the stand-in tokenizer, in-memory batches
+    (`get_dataloaders`) and eval batches (`imagenet_batches`), each loop
+    step recorded (`chip_trainer_class`), and the eval's flash launches."""
+    from contrastors_tpu_torch.trainers import ImageTextTrainer
+
+    class LitChipTrainer(chip_trainer_class(ImageTextTrainer, tok)):
+        def get_dataloaders(self):
+            return batches, len(batches)
+
+        def imagenet_batches(self):
+            return iter(evals)
+
+        def eval_loop(self, step):
+            before = read_counts()
+            metrics = super().eval_loop(step)
+            after = read_counts()
+            self.eval_launches = {k: after[k] - before[k] for k in after}
+            return metrics
+
+    return LitChipTrainer
+
+
+def lit_step_grads(trainer, batch, rolled_replay=False):
+    """The gradients of one step of the trainer's own train step on `batch`
+    (device tensors), its optimizer update and scheduler step stubbed out so
+    that the weights stay as they were. rolled_replay plants a fault: grad
+    cache's pass 2 replays each image chunk with its rows rotated by one."""
+    import torch
+
+    opt, sched = trainer.optimizer, trainer.scheduler
+    opt.step, sched.step = (lambda *a, **k: None), (lambda *a, **k: None)
+    if rolled_replay:
+        pixels = trainer.pixels
+        trainer.pixels = lambda px: pixels(px.roll(1, 0) if torch.is_grad_enabled() else px)
+    try:
+        trainer.make_train_step()(batch, torch.Generator().manual_seed(0))
+        return {n: p.grad.float().clone() for n, p in trainer.dual.named_parameters() if p.grad is not None}
+    finally:
+        del opt.step, sched.step
+        if rolled_replay:
+            del trainer.pixels
+
+
+def lit_fp32_agreement(dual, batch):
+    """Grad cache (chunk LIT_GC_CHUNK) against the standard step's gradients
+    for a copy of `dual` computing in fp32 with sdpa (the flash kernels take
+    bf16 only), on `batch` (device tensors, uint8 pixels)."""
+    import torch
+
+    from contrastors_tpu_torch.grad_cache import grad_cache_loss_and_grads
+    from contrastors_tpu_torch.losses import clip_loss_symmetric
+    from contrastors_tpu_torch.models import DualEncoder
+
+    t, v = dual.text, dual.vision
+    ref_dual = DualEncoder(t.config.replace(attn_impl="sdpa"), v.config.replace(attn_impl="sdpa"), text_hamming=True,
+                           dtype=torch.float32, device=batch["input_ids"].device, remat=True)
+    ref_dual.load_state_dict(dual.state_dict())
+    for p in ref_dual.text.parameters():
+        p.requires_grad_(False)
+    px = normalised(batch["pixel_values"])
+
+    def grads():
+        out = {n: p.grad.clone() for n, p in ref_dual.named_parameters() if p.grad is not None}
+        ref_dual.zero_grad(set_to_none=True)
+        return out
+
+    ref_dual(batch["input_ids"], batch["attention_mask"], px)["loss"].backward()
+    standard = grads()
+    grad_cache_loss_and_grads(
+        ref_dual, {"pixel_values": px}, {k: batch[k] for k in ("input_ids", "attention_mask")},
+        lambda m, b, g: {"embedding": m.encode_image(b["pixel_values"])},
+        lambda m, b, g: {"embedding": m.encode_text(b["input_ids"], b["attention_mask"])},
+        clip_loss_symmetric, chunk_size=LIT_GC_CHUNK, d_trainable=False, extra_params=ref_dual.logit_scale)
+    cached = grads()
+    del ref_dual
+    torch.cuda.empty_cache()
+    return flat_agreement(cached, standard)
+
+
+def flat_agreement(got, ref):
+    """Cosine and relative L2 of all gradients together, beside the worst tensor's."""
+    import torch
+
+    x = torch.cat([got[n].flatten() for n in ref]).double()
+    y = torch.cat([ref[n].flatten() for n in ref]).double()
+    return dict(cosine=float(x @ y / (x.norm() * y.norm())), rel_l2=float((x - y).norm() / y.norm()),
+                **compare_grads(got, ref))
+
+
+def vision_phase(dev, card):
+    """Phase 19, lit_trainer and lit_grad_cache: the vision recipe through
+    read_config and train.run (ImageTextTrainer -> DualEncoder: the frozen
+    text tower, EVA02 with remat, MAP pooling, clip_loss_symmetric, AdamW),
+    8 steps at 512 and then 3 grad-cache steps at 2048 (chunk 128), bf16.
+    Gates: flash launches per step as the code predicts them (standard:
+    text 12 + vision 12 + the remat replay 12 forwards, 12 dq, 12 dk/dv;
+    grad cache per chunk: pass 1 text 12 and vision 12, pass 2 vision 12 +
+    remat 12 forwards, 12 dq, 12 dk/dv), the loss falling, the logit scale
+    moving, every text parameter bit-identical to its start, 0 synchronising
+    calls per quiet step, the eval's flash launches (12 per text batch of
+    the 8000 prompts, 12 per image batch) and finite accuracies; then grad
+    cache against the standard step on one batch of 512 (cosine >= 0.9999,
+    relative L2 <= 0.01, all gradients together), a planted rolled replay
+    outside both bounds; read beside it, the same on uniform-noise images,
+    in bf16 and in fp32. One standard step is profiled (busy time by
+    kernel group). Returns the launches and timings."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_vision_")
+    try:
+        text_dir, tok, batches, gc_batches, noise_batch, evals = lit_inputs(root)
+        text_cfg, vis_cfg = lit_configs()
+        L = vis_cfg.n_layer
+        n_chunks = LIT_GC_BATCH // LIT_GC_CHUNK
+        n_eval_text = -(-8 * 1000 // 256)
+        predicted = dict(standard=expect(fwd=3 * L, dq=L, dkv=L),
+                         grad_cache=expect(fwd=4 * L * n_chunks, dq=L * n_chunks, dkv=L * n_chunks),
+                         eval=expect(fwd=L * n_eval_text + L * len(evals)))
+        out, checks, trainers = {}, {}, {}
+        for name, gc_on, data in (("standard", False, batches), ("grad_cache", True, gc_batches)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            recipe = lit_recipe(text_dir, os.path.join(root, name), grad_cache=gc_on)
+            cls = lit_trainer_class(tok, data, evals)
+            # the text tower's start, before any step
+            start = {}
+
+            class Snap(cls):
+                def get_model(self):
+                    model = super().get_model()
+                    start.update({k: v.detach().clone() for k, v in model.text.state_dict().items()})
+                    return model
+
+            trainer, rows, seconds, launches, syncs = run_chip_trainer(recipe, dev, Snap)
+            peak_gb = torch.cuda.max_memory_allocated() / 2**30
+            steps = len(rows)
+            noisy = {s for s in range(1, steps + 1) if s % 4 == 0} | {steps}
+            quiet = quiet_rows(rows, noisy)
+            losses = [r["loss"] for r in rows]
+            scale = float(trainer.dual.logit_scale.logit_scale.detach().exp())
+            text_same = all(torch.equal(v, start[k]) for k, v in trainer.dual.text.state_dict().items())
+            metrics = [json.loads(line) for line in open(os.path.join(root, name, "metrics.jsonl"))]
+            evals_logged = [m for m in metrics if "imagenet_zeroshot_top1" in m]
+            eval_ok = (len(evals_logged) == 1 and 0.0 <= evals_logged[0]["imagenet_zeroshot_top1"]
+                       <= evals_logged[0]["imagenet_zeroshot_top5"] <= 1.0)
+            row = dict(
+                launches_per_step=rows[0]["launches"], predicted_per_step=predicted[name],
+                eval_launches=trainer.eval_launches, predicted_eval=predicted["eval"], losses=losses,
+                logit_scale=scale, peak_gb=peak_gb, seconds=seconds,
+                quiet_step_ms=float(np.median([r["iteration_ms"] for r in quiet])) if quiet else None,
+                syncs_per_quiet_step=[r["iteration_syncs"] for r in quiet], eval=evals_logged[-1] if evals_logged
+                else None)
+            row["images_per_s"] = (len(data[0]["pixel_values"]) / row["quiet_step_ms"] * 1e3
+                                   if row["quiet_step_ms"] else None)
+            checks.update({
+                f"{name}_launches": all(r["launches"] == predicted[name] for r in rows),
+                f"{name}_finite": bool(np.isfinite(losses).all()),
+                f"{name}_logit_scale_moves": abs(scale - 1 / 0.07) > 1e-3,
+                f"{name}_text_bit_identical": text_same,
+                f"{name}_no_sync_per_quiet_step": all(r["iteration_syncs"] == 0 for r in quiet),
+                f"{name}_eval_launches": trainer.eval_launches == predicted["eval"],
+                f"{name}_eval_finite": eval_ok,
+            })
+            if name == "standard":  # the mean of the last two steps below that of the first two
+                checks["standard_loss_falls"] = float(np.mean(losses[-2:])) < float(np.mean(losses[:2]))
+            emit(phase=f"lit_{name}", card=card, gpu_state=gpu_state(), batch=len(data[0]["pixel_values"]),
+                 chunk=LIT_GC_CHUNK if gc_on else None, steps=steps, **row,
+                 first_syncs=syncs[:3], ok=all(v for k, v in checks.items() if k.startswith(name)))
+            out[name] = row
+            trainers[name] = trainer
+            shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+
+        # one profiled standard step: device busy time by kernel group, idle share
+        std, gcache = trainers["standard"], trainers["grad_cache"]
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
+        step = std.make_train_step()
+        step(batch, torch.Generator().manual_seed(1))
+        prof = profile_step(lambda: step(batch, torch.Generator().manual_seed(2)), out["standard"]["quiet_step_ms"],
+                            phases=STD_PHASES)
+        emit(phase="lit_profile", card=card, gpu_state=gpu_state(), batch=LIT_BATCH, **prof)
+        out["standard"]["profile"] = {k: prof[k] for k in ("device_busy_ms", "idle_share_of_step", "by_group")}
+
+        # grad cache against the standard step, on one batch of 512 and the same weights
+        gcache.dual.load_state_dict(std.dual.state_dict())
+        ref = lit_step_grads(std, batch)
+        sound = flat_agreement(lit_step_grads(gcache, batch), ref)
+        fault = flat_agreement(lit_step_grads(gcache, batch, rolled_replay=True), ref)
+        checks["grad_cache_vs_standard"] = sound["cosine"] >= 0.9999 and sound["rel_l2"] <= 0.01
+        checks["rolled_replay_outside"] = fault["cosine"] < 0.9999 and fault["rel_l2"] > 0.01
+        emit(phase="lit_grad_agreement", batch=LIT_BATCH, chunk=LIT_GC_CHUNK, sound=sound, rolled_replay=fault,
+             bounds=dict(cosine=0.9999, rel_l2=0.01), ok=checks["grad_cache_vs_standard"]
+             and checks["rolled_replay_outside"])
+        # read beside it, not bounded: the same two steps on uniform-noise
+        # images, in bf16 through the trainers and in fp32 (sdpa) outside them
+        noise = {k: torch.from_numpy(v).to(dev) for k, v in noise_batch.items()}
+        noise_bf16 = flat_agreement(lit_step_grads(gcache, noise), lit_step_grads(std, noise))
+        noise_fp32 = lit_fp32_agreement(std.dual, noise)
+        emit(phase="lit_grad_margin_reading", batch=LIT_BATCH, chunk=LIT_GC_CHUNK, noise_images_bf16=noise_bf16,
+             noise_images_fp32_sdpa=noise_fp32, note="grad cache against the standard step on uniform-noise "
+             "images: the trainers' bf16 steps, and both computed in fp32 with sdpa on the same weights")
+        out["grad_agreement"] = dict(sound=sound, rolled_replay=fault, noise_images_bf16=noise_bf16,
+                                     noise_images_fp32_sdpa=noise_fp32)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(phase="vision_trainer", card=card, checks=checks, ok=all(checks.values()))
+    if not all(checks.values()):
+        raise AssertionError(f"vision phase gates failed: {[k for k, v in checks.items() if not v]}")
+    del trainers, std, gcache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def vision_family(dev, card, gen):
+    """Phase 19 whole: the ViT attention timing, serving and training."""
+    from contrastors_tpu_torch.eval.stub_tokenizer import StubTokenizer
+
+    timing = vit_attention_timing(dev, card, gen)
+    per_image, per_text, serving = vision_serving(dev, card, StubTokenizer(NOMIC_BERT_2048_CONFIG["vocab_size"]),
+                                                  gen)
+    training = vision_phase(dev, card)
+    return dict(kernels=timing, serving=dict(serving, flash_per_image_forward=per_image,
+                                             flash_per_text_forward=per_text), training=training)
+
+
 def finish(card, summary):
     """The run's ending: the command_time line, the card's line, the summary
     and the last line, these three as the contract gives them, without t."""
@@ -2981,7 +3498,7 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description="Drive the PyTorch / CUDA port on one NVIDIA GPU.")
     ap.add_argument("--only", choices=["moe_kernels", "moe", "flash_fwd", "flash_bwd", "dense", "trainer",
-                                       "mlm_trainer"],
+                                       "mlm_trainer", "vision"],
                     help="run only the card, build and grouped-matmul phases (9), or (moe) also MoE "
                          "serving and the MoE step's timing and profile (10-12, no gradient agreement); "
                          "flash_fwd: the card, build, the forward checks (3, 13), the forward timing (6), "
@@ -2990,7 +3507,8 @@ def main(argv=None):
                          "(8, the whole backward only) and the MLM step's timing, fused and outside; "
                          "dense: the card, build and the dense step's timing and profile (7-8, no "
                          "gradient agreement); trainer: the card, build and the trainer phase (17); "
-                         "mlm_trainer: the card, build and the MLM, MMLM and GLUE trainers (18)")
+                         "mlm_trainer: the card, build and the MLM, MMLM and GLUE trainers (18); vision: the "
+                         "card, build, the ViT attention shape's forward and backward checks and phase 19")
     ap.add_argument("--tree", help="with --only: the root of another checkout whose contrastors_tpu_torch "
                                    "package is built and timed (an earlier commit, for old against new)")
     args = ap.parse_args(argv)
@@ -3030,7 +3548,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     libs = dict(moe_kernels=("gmm",), flash_fwd=("flash_fwd", "flash_bwd"), flash_bwd=("flash_fwd", "flash_bwd"),
                 dense=("flash_fwd", "flash_bwd"), trainer=("flash_fwd", "flash_bwd"),
-                mlm_trainer=("flash_fwd", "flash_bwd")).get(args.only, _build.LIBRARIES)
+                mlm_trainer=("flash_fwd", "flash_bwd"), vision=("flash_fwd", "flash_bwd")).get(args.only, _build.LIBRARIES)
     with ThreadPoolExecutor(len(libs)) as pool:
         paths = dict(zip(libs, pool.map(_build.build, libs)))
     for name in libs:
@@ -3070,6 +3588,11 @@ def main(argv=None):
             summary["trainer_launches"] = trainer_phase(dev, card)
         elif args.only == "mlm_trainer":
             summary["mlm_trainer"] = mlm_trainer_phase(dev, card)
+        elif args.only == "vision":
+            o_errs = forward_checks(dev, gen, VIT_CASES)
+            grad_errs = backward_checks(dev, gen, VIT_CASES)
+            summary["vision"] = vision_family(dev, card, gen)
+            summary["max_abs_err"] = dict(fwd=max(o_errs.values()), **{g: max(e.values()) for g, e in grad_errs.items()})
         else:
             summary["max_abs_err"], moe_times = moe_kernels(dev, card)
             summary["moe_kernels"] = {f"{k[0]} {k[1]} K={k[2]} N={k[3]}": v for k, v in moe_times.items()}
@@ -3200,6 +3723,9 @@ def main(argv=None):
     # 18. the MLM, multilingual MLM and GLUE trainers on their recipes
     bert_family = mlm_trainer_phase(dev, card, mlm_step_ms=mlm_timing["fused"]["step_ms"])
 
+    # 19. the vision / LiT family: the ViT's attention shape, serving, the recipe's trainer
+    vision = vision_family(dev, card, gen)
+
     # 10-12. the dropless MoE path: serving and training
     moe_enc_launches, moe_batches = moe_serving(dev, card, tok, rng, gen)
     moe_train_launches = moe_training(dev, card)
@@ -3225,6 +3751,21 @@ def main(argv=None):
             entry["encode_batches"] = moe_batches
         return entry
 
+    def vision_entry(kname):
+        """The ViT's attention shape: timing row, launches per vision step, error."""
+        row = vision["kernels"][kname]
+        training = vision["training"]
+        errs = [o_errs["vit_b64_s197"]] if kname == "fwd" else [
+            grad_errs[g]["vit_b64_s197"] for g in (("dq",) if kname == "dq" else ("dk", "dv"))]
+        return dict(shape="B=64 S=T=197 H=12 D=64, no mask (the ViT)", max_abs_err=max(errs),
+                    launches_per_step=training["standard"]["launches_per_step"][kname],
+                    launches_per_grad_cache_step=training["grad_cache"]["launches_per_step"][kname],
+                    **({"launches_per_eval": training["standard"]["eval_launches"]["fwd"],
+                        "launches_per_image_forward": vision["serving"]["flash_per_image_forward"]}
+                       if kname == "fwd" else {}),
+                    **{k: row[k] for k in ("ms", "device_ms", "enqueue_us", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms", "library_device_ms")})
+
     def bwd_entry(kname, replaces):
         doc, query, mlm = bwd_timings["b16_s256"], bwd_timings["b512_s32"], bwd_timings["mlm_b8_s2048"]
 
@@ -3246,6 +3787,7 @@ def main(argv=None):
             **{k: v for k, v in at(doc, "B=16 S=T=256 H=12 D=64 (document chunk)").items()},
             query_tower=at(query, "B=512 S=T=32 H=12 D=64"),
             mlm_unfused=at(mlm, "B=8 S=T=2048 H=12 D=64, rotary outside"),
+            vision=vision_entry(kname),
             note="plain_ms and library_ms time a whole backward (dq, dk and dv); backward_ms is the whole "
                  "flash_attention_backward (dq, with delta, then dk/dv)",
         )
@@ -3288,6 +3830,7 @@ def main(argv=None):
             shape="B=256 S=T=512 H=12 D=64, all-ones mask (the encode batch)",
             long_context=dict(timings["b16_s4096"], launches=launches_long,
                               max_abs_err=max(o_errs["s4096"], o_errs["s8192"])),
+            vision=vision_entry("fwd"),
             timings={label: {k: row[k] for k in ("ms", "device_ms", "enqueue_us", "plain_ms", "bound_ms",
                                                  "library_ms", "library_device_ms")}
                      for label, row in timings.items()},

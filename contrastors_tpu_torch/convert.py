@@ -16,7 +16,13 @@ transpose is all it needs. The MLM tree (`bert/...`, `transform_dense`,
 `NomicBertForPreTraining` by the same rules; its tied decoder is the word
 embedding table and has no parameter of its own. The classification tree
 (`bert/pooler_dense`, `classifier`) maps onto
-`NomicBertForSequenceClassification` the same way. Values come out as fp32 tensors on the CPU;
+`NomicBertForSequenceClassification` the same way. The vision family needs
+no rule of its own: a ViT tree's `embeddings/proj` (the patch Dense),
+`cls_token`, `reg_token` and `pos_embed` ([1, n, D] arrays), each block's
+`ls1` / `ls2` and `mlp/norm`, a BiEncoder's `selector` (the MAP head: `attn/
+latent`, `Wq`, `Wkv`, `out_proj`, `norm1`, `mlp`) and `proj`, and the
+DualEncoder tree (`text`, `vision`, `logit_scale/logit_scale`, a scalar)
+map by the rules above onto modules of the same names. Values come out as fp32 tensors on the CPU;
 `load_state_dict` casts them to each parameter's dtype and device.
 """
 

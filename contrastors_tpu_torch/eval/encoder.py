@@ -23,6 +23,19 @@ def corpus_to_texts(corpus) -> List[str]:
     return list(corpus)
 
 
+@contextlib.contextmanager
+def eval_mode(module: torch.nn.Module):
+    """Eval mode for one call (JAX passes deterministic=True per call);
+    every submodule's training flag is restored after it."""
+    modes = [(m, m.training) for m in module.modules()]
+    module.eval()
+    try:
+        yield
+    finally:
+        for m, training in modes:
+            m.training = training
+
+
 class Encoder:
     def __init__(
         self,
@@ -62,20 +75,8 @@ class Encoder:
             emb = emb / np.maximum(np.linalg.norm(emb, axis=-1, keepdims=True), 1e-12)
         return emb
 
-    @contextlib.contextmanager
-    def _eval_mode(self):
-        """Eval mode for one call (JAX passes deterministic=True per call);
-        every submodule's training flag is restored after it."""
-        modes = [(m, m.training) for m in self.module.modules()]
-        self.module.eval()
-        try:
-            yield
-        finally:
-            for m, training in modes:
-                m.training = training
-
     def _run_batch(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
-        with self._eval_mode(), torch.inference_mode():
+        with eval_mode(self.module), torch.inference_mode():
             out = self.module(
                 input_ids=torch.from_numpy(ids).to(self.device),
                 attention_mask=torch.from_numpy(mask).to(self.device),

@@ -1,9 +1,16 @@
-"""Retrieval metrics, counterpart of `contrastors_tpu/eval/metrics.py`
-(`ndcg_at_k`, `recall_at_k`): BEIR's numbers without the beir package."""
+"""Retrieval and classification metrics, counterpart of
+`contrastors_tpu/eval/metrics.py` (`topk_accuracy`, `ndcg_at_k`,
+`recall_at_k`): BEIR's numbers without the beir package."""
 
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import numpy as np
+
+
+def topk_accuracy(logits: np.ndarray, labels: np.ndarray, ks: Sequence[int] = (1, 5)) -> Dict[int, float]:
+    """{k: share of rows whose label is among the k highest logits}."""
+    order = np.argsort(-logits, axis=-1)
+    return {k: float((order[:, :k] == labels[:, None]).any(axis=1).mean()) for k in ks}
 
 
 def ndcg_at_k(ranked_ids: List[List[str]], relevant: List[Dict[str, int]], k: int = 10) -> float:

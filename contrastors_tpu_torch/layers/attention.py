@@ -1,5 +1,6 @@
-"""Multi-head self-attention, counterpart of
-`contrastors_tpu/layers/attention.py:MultiHeadAttention`.
+"""Multi-head self-attention and latent-query attention pooling,
+counterpart of `contrastors_tpu/layers/attention.py` (`MultiHeadAttention`,
+`AttentionPooling`, `MultiHeadAttentionPooling`).
 
 One fused Wqkv projection whose output features are ordered q | k | v, as
 on the JAX side. q/k/v are views of that output (row stride 3*H*D), which
@@ -9,7 +10,15 @@ tables go to `attention_core`, whose flash path rotates q/k inside the
 kernels and whose SDPA path rotates outside. In training mode with
 attn_pdrop > 0 the attention dropout is drawn from `dropout_generator`
 (JAX's "dropout" rng), which `attention_core` sends to the plain `sdpa`,
-as JAX's sends it to its XLA sdpa. The pooling heads wait for a later slice.
+as JAX's sends it to its XLA sdpa. A ViT passes its 2-D rope table
+(`rope`): q and k are rotated outside attention with the first
+max(register_tokens, 1) tokens left as they are (even with no cls token,
+JAX's quirk), and attention runs unmasked through `attention_core`.
+
+The MAP head (`MultiHeadAttentionPooling`) is one learned latent query
+cross-attending over the sequence through the plain `sdpa` on purpose (one
+query row, as JAX's `impl="sdpa"`), then hidden + mlp(norm(attn)) taken at
+token 0.
 """
 
 from typing import Dict, Optional, Tuple
@@ -19,7 +28,9 @@ from torch import nn
 
 from contrastors_tpu_torch._device import resolve_device
 from contrastors_tpu_torch.layers.dense import Dense
-from contrastors_tpu_torch.layers.rotary import apply_rotary, rotary_cos_sin
+from contrastors_tpu_torch.layers.mlp import make_mlp
+from contrastors_tpu_torch.layers.norms import make_norm
+from contrastors_tpu_torch.layers.rotary import apply_rope_cat_prefixed, apply_rotary, rotary_cos_sin
 from contrastors_tpu_torch.ops import attention_core
 from contrastors_tpu_torch.ops.dropout import active, need_generator
 
@@ -57,6 +68,7 @@ class MultiHeadAttention(nn.Module):
         attention_mask: Optional[torch.Tensor] = None,
         segment_ids: Optional[torch.Tensor] = None,
         position_ids: Optional[torch.Tensor] = None,
+        rope: Optional[torch.Tensor] = None,
         dropout_generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         cfg = self.config
@@ -80,6 +92,10 @@ class MultiHeadAttention(nn.Module):
             else:
                 q = apply_rotary(q, cos, sin, cfg.rotary_emb_interleaved, position_ids)
                 k = apply_rotary(k, cos, sin, cfg.rotary_emb_interleaved, position_ids)
+        elif rope is not None:
+            n_prefix = max(cfg.register_tokens, 1)
+            q = apply_rope_cat_prefixed(q, rope, n_prefix)
+            k = apply_rope_cat_prefixed(k, rope, n_prefix)
 
         out = attention_core(
             q,
@@ -96,3 +112,47 @@ class MultiHeadAttention(nn.Module):
             **rotary_kw,
         )
         return self.out_proj(out.reshape(B, S, H * D))
+
+
+class AttentionPooling(nn.Module):
+    """One learned latent query (`latent` [1, 1, n_embd]) attending over
+    kv_states through the plain sdpa."""
+
+    def __init__(self, config, dtype=torch.float32, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.config = config
+        H, Hkv, D = config.n_head, config.num_heads_kv, config.head_dim
+        kw = dict(dtype=dtype, device=device)
+        self.latent = nn.Parameter(torch.randn(1, 1, config.n_embd, device=device) * config.n_embd**-0.5)
+        self.Wq = Dense(config.n_embd, config.n_embd, bias=config.qkv_proj_bias, **kw)
+        self.Wkv = Dense(config.n_embd, 2 * Hkv * D, bias=config.qkv_proj_bias, **kw)
+        self.out_proj = Dense(H * D, config.n_embd, bias=config.qkv_proj_bias, **kw)
+
+    def forward(self, kv_states: torch.Tensor, attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cfg = self.config
+        B = kv_states.shape[0]
+        H, Hkv, D = cfg.n_head, cfg.num_heads_kv, cfg.head_dim
+        q = self.Wq(self.latent.to(self.Wq.compute_dtype).expand(B, 1, cfg.n_embd))
+        k, v = self.Wkv(kv_states).chunk(2, dim=-1)
+        out = attention_core(q.reshape(B, 1, H, D), k.reshape(B, -1, Hkv, D), v.reshape(B, -1, Hkv, D),
+                             impl="sdpa", attention_mask=attention_mask, causal=False,
+                             softmax_scale=1.0 / (D**0.5))
+        return self.out_proj(out.reshape(B, 1, H * D))
+
+
+class MultiHeadAttentionPooling(nn.Module):
+    """big_vision's MAP head: `attn` (AttentionPooling), `norm1`, `mlp`;
+    returns (hidden + mlp(norm1(attn(hidden))))[:, 0], the broadcast add of
+    JAX's and the shipped HF model's."""
+
+    def __init__(self, config, dtype=torch.float32, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.attn = AttentionPooling(config, dtype=dtype, device=device)
+        self.norm1 = make_norm(config, device=device)
+        self.mlp = make_mlp(config, dtype=dtype, device=device)
+
+    def forward(self, hidden_states: torch.Tensor, attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        mlp_out = self.mlp(self.norm1(self.attn(hidden_states, attention_mask)))
+        return (hidden_states + mlp_out)[:, 0]

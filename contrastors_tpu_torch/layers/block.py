@@ -10,7 +10,10 @@ the carry after the last block. The residual stream is kept in fp32 when
 with its own generator under the block's `dropout_seed` (`ops/dropout.py`),
 in JAX's order: prenorm dropout1, drop-path1, attention, dropout2,
 drop-path2; postnorm attention, dropout1, drop-path1, MLP, dropout2,
-drop-path2. A MoE block
+drop-path2. With `layer_scale` (EVA, DINOv2) the attention and MLP outputs
+are scaled by `ls1` / `ls2` ([n_embd], initialised to layer_scale_init)
+before their residual add (prenorm only, as in JAX). `rope`, the 2-D ViT table, goes to the attention
+(`layers/attention.py`). A MoE block
 (`moe` and num_experts > 0) runs the dropless `MoEMLP` in place of the MLP
 and returns its masked router logits; a dense block returns None for them.
 The parallel block waits for a later slice.
@@ -46,6 +49,10 @@ class Block(nn.Module):
                     else make_mlp(config, dtype=dtype, device=device))
         self.norm1 = None if norm1_identity else make_norm(config, device=device)
         self.norm2 = make_norm(config, device=device)
+        self.ls1 = self.ls2 = None
+        if config.layer_scale:
+            self.ls1 = nn.Parameter(torch.full((config.n_embd,), float(config.layer_scale_init), device=device))
+            self.ls2 = nn.Parameter(torch.full((config.n_embd,), float(config.layer_scale_init), device=device))
 
     @property
     def resid_pdrop(self) -> float:
@@ -70,10 +77,11 @@ class Block(nn.Module):
         segment_ids: Optional[torch.Tensor] = None,
         position_ids: Optional[torch.Tensor] = None,
         dropout_seed: Optional[int] = None,
+        rope: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
         """(hidden_states, residual, router_logits). dropout_seed (a host
         int) seeds the block's dropout sites; training mode with a dropout
-        on needs it."""
+        on needs it. rope: the 2-D ViT rope table, or None."""
         cfg = self.config
         dev, train = hidden_states.device, self.training
 
@@ -85,18 +93,22 @@ class Block(nn.Module):
             return drop_path(x, rate_path, gen(site + 1, rate_path), train)
 
         attn_kw = dict(attention_mask=attention_mask, segment_ids=segment_ids, position_ids=position_ids,
-                       dropout_generator=gen(2, cfg.attn_pdrop))
+                       rope=rope, dropout_generator=gen(2, cfg.attn_pdrop))
         if cfg.prenorm:
             resid_dtype = torch.float32 if cfg.residual_in_fp32 else hidden_states.dtype
             h = drop(hidden_states, 0, self.drop_path_rate1).to(resid_dtype)
             residual = h if residual is None else residual + h
-            hidden_states = self.attn(self._norm1(residual).to(self.dtype), **attn_kw)
+            hidden_states = _scaled(self.attn(self._norm1(residual).to(self.dtype), **attn_kw), self.ls1)
             residual = residual + drop(hidden_states, 3, self.drop_path_rate2).to(resid_dtype)
             hidden_states, router_logits = self._mlp(self.norm2(residual).to(self.dtype), attention_mask)
-            return hidden_states, residual, router_logits
+            return _scaled(hidden_states, self.ls2), residual, router_logits
         if residual is not None:
             raise ValueError("postnorm blocks carry no external residual")
         attn_out = self.attn(hidden_states, **attn_kw)
         hidden_states = self._norm1(drop(attn_out, 0, self.drop_path_rate1) + hidden_states)
         mlp_out, router_logits = self._mlp(hidden_states, attention_mask)
         return self.norm2(drop(mlp_out, 3, self.drop_path_rate2) + hidden_states), None, router_logits
+
+
+def _scaled(x: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
+    return x if scale is None else x * scale.to(x.dtype)

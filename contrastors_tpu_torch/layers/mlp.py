@@ -13,6 +13,7 @@ from torch import nn
 from contrastors_tpu_torch._device import resolve_device
 from contrastors_tpu_torch.layers.activations import ACT2FN, is_gated
 from contrastors_tpu_torch.layers.dense import Dense
+from contrastors_tpu_torch.layers.norms import LayerNorm
 
 
 def round_hidden(in_features: int, hidden_features: Optional[int], multiple_of: int = 256) -> int:
@@ -38,7 +39,9 @@ class MLP(nn.Module):
 
 class GatedMLP(nn.Module):
     """out = fc2(fc11(x) * act(fc12(x))): the activation is on the fc12
-    ("gate") branch for every variant (GLU sigmoid, SwiGLU silu, GeGLU gelu)."""
+    ("gate") branch for every variant (GLU sigmoid, SwiGLU silu, GeGLU gelu).
+    With `norm_mlp` (EVA02) a LayerNorm `norm` over the hidden width runs
+    between the product and fc2."""
 
     def __init__(self, config, dtype=torch.float32, hidden_features=None, device="cuda"):
         super().__init__()
@@ -50,9 +53,13 @@ class GatedMLP(nn.Module):
         self.fc11 = Dense(config.n_embd, hidden, bias=config.mlp_fc1_bias, **kw)
         self.fc12 = Dense(config.n_embd, hidden, bias=config.mlp_fc1_bias, **kw)
         self.fc2 = Dense(hidden, config.n_embd, bias=config.mlp_fc2_bias, **kw)
+        self.norm = LayerNorm(hidden, eps=config.layer_norm_epsilon, device=kw["device"]) if config.norm_mlp else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.fc11(x) * self.act(self.fc12(x)))
+        y = self.fc11(x) * self.act(self.fc12(x))
+        if self.norm is not None:
+            y = self.norm(y)
+        return self.fc2(y)
 
 
 def make_mlp(config, dtype=torch.float32, hidden_features=None, device="cuda") -> nn.Module:

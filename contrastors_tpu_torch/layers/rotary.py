@@ -3,7 +3,10 @@
 Counterpart of `contrastors_tpu/layers/rotary.py`. The cos/sin tables are
 built in numpy fp32 with the same code as the JAX package, so their bits
 match; `apply_rotary` rotates in fp32 and casts back to the input dtype, as
-the JAX version does. The 2-D ViT rope is not ported yet.
+the JAX version does. The 2-D ViT rope ("cat" rope, EVA02) is
+`build_2d_rope_cat` (its table, built in numpy as JAX builds it, so the
+bits match) and `apply_rope_cat` / `apply_rope_cat_prefixed` (the rotation
+in fp32, cast back once); it is applied outside attention.
 
 The fused-rotary flash kernels take the tables expanded to full-D fp32 rows
 (`expanded_tables`, JAX `flash_attention.py:876-899`), padded with identity
@@ -174,3 +177,53 @@ def apply_rotary(
     """
     cos_d, sin_d = expanded_tables(cos, sin, x.shape[-1], interleaved, x.shape[1], position_ids)
     return rotate(x, cos_d, sin_d, cos.shape[-1] * 2, interleaved)
+
+
+# ---------------------------------------------------------------------------
+# 2-D rotary for ViT (EVA02-style "cat" rope), JAX `rotary.py:168-232`.
+# ---------------------------------------------------------------------------
+
+
+def build_2d_rope_cat(
+    dim: int,
+    feat_shape: Tuple[int, int],
+    temperature: float = 10_000.0,
+    ref_feat_shape: Optional[Tuple[int, int]] = None,
+    device: DeviceLike = "cuda",
+) -> torch.Tensor:
+    """[H*W, 2*dim] fp32 on `device`: sin||cos, each repeat-interleaved x2.
+    dim is the per-head dimension; dim // 4 bands per spatial axis."""
+    device = resolve_device(device)
+    num_bands = dim // 4
+    exp = np.arange(0, num_bands, 1, dtype=np.float32) / num_bands
+    bands = 1.0 / (temperature**exp)
+    t = [np.arange(s, dtype=np.float32) for s in feat_shape]
+    if ref_feat_shape is not None:
+        t = [x / f * r for x, f, r in zip(t, feat_shape, ref_feat_shape)]
+    grid = np.stack(np.meshgrid(*t, indexing="ij"), axis=-1)  # [H, W, 2]
+    pos = grid[..., None] * bands  # [H, W, 2, nb]
+    n = feat_shape[0] * feat_shape[1]
+    sin = np.repeat(np.sin(pos).reshape(n, -1), 2, axis=-1)
+    cos = np.repeat(np.cos(pos).reshape(n, -1), 2, axis=-1)
+    return torch.from_numpy(np.concatenate([sin, cos], axis=-1)).to(device)
+
+
+def apply_rope_cat(x: torch.Tensor, rope: torch.Tensor) -> torch.Tensor:
+    """x: [..., N, dim]; rope: [N, 2*dim] (sin||cos). Interleaved pairs
+    (x0, x1) -> (-x1, x0), combined in fp32 and cast back to x.dtype."""
+    sin, cos = rope.float().chunk(2, dim=-1)
+    xf = x.float()
+    return (xf * cos + _rotate(xf, xf.shape[-1], True) * sin).to(x.dtype)
+
+
+def apply_rope_cat_prefixed(x: torch.Tensor, rope: torch.Tensor, n_prefix: int) -> torch.Tensor:
+    """The 2-D rope over x [B, S, H, dim], the first `n_prefix` tokens (cls,
+    registers) left unrotated: the table gets n_prefix identity rows in
+    front (sin = 0, cos = 1), as in JAX."""
+    sin, cos = rope.float().chunk(2, dim=-1)
+    if n_prefix:
+        sin = torch.nn.functional.pad(sin, (0, 0, n_prefix, 0), value=0.0)
+        cos = torch.nn.functional.pad(cos, (0, 0, n_prefix, 0), value=1.0)
+    sin, cos = sin[:, None], cos[:, None]  # [S, 1, dim]: broadcast over heads
+    rot = _rotate(x, x.shape[-1], True)  # a signed permutation: exact in x.dtype
+    return (x.float() * cos + rot.float() * sin).to(x.dtype)

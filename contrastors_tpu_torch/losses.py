@@ -1,11 +1,10 @@
 """Contrastive losses: InfoNCE/CLIP and Matryoshka, on one device.
 
 Counterpart of `contrastors_tpu/losses.py` (`_ce`, `clip_loss`,
-`matryoshka_clip_loss`, `router_aux_loss`), in its single-device form:
-there is no `axis_name`, so labels are plain row indices. The sharded form
-(an all-gather of the document side over the data-parallel group) comes
-with the distributed slice; `clip_loss_symmetric` comes with the slice that
-uses it (ROADMAP, Queue 1).
+`clip_loss_symmetric`, `matryoshka_clip_loss`, `router_aux_loss`), in its
+single-device form: there is no `axis_name`, so labels are plain row
+indices. The sharded forms (an all-gather over the data-parallel group)
+come with the distributed slice (ROADMAP, Queue 1, item 3).
 """
 
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -45,6 +44,20 @@ def clip_loss(
         d_labels = torch.arange(document.shape[0], device=query.device)
         loss = loss + _ce(logit_scale(document @ query.T), d_labels)
     return loss, accuracy
+
+
+def clip_loss_symmetric(
+    image_emb: torch.Tensor,
+    text_emb: torch.Tensor,
+    logit_scale: Callable[[torch.Tensor], torch.Tensor],
+) -> torch.Tensor:
+    """The symmetric CLIP loss in fp32: the mean of the image -> text and
+    text -> image cross-entropies, row i of each the other's positive."""
+    image_emb, text_emb = image_emb.float(), text_emb.float()
+    labels = torch.arange(image_emb.shape[0], device=image_emb.device)
+    loss_i = _ce(logit_scale(image_emb @ text_emb.T), labels)
+    loss_t = _ce(logit_scale(text_emb @ image_emb.T), labels)
+    return (loss_i + loss_t) / 2.0
 
 
 def matryoshka_clip_loss(

@@ -1,12 +1,17 @@
-"""Model factory: ModelArgs -> BiEncoder, for the encoder family.
+"""Model factory: ModelArgs -> BiEncoder, for the encoder and vision
+families.
 
 Counterpart of `contrastors_tpu/models/auto.py:load_biencoder`. `model_name`
 (or `checkpoint`) is a local directory holding an HF config.json, and with
 `pretrained: true` a model.safetensors (safetensors is imported only then)
 or a pytorch_model.bin. The same overrides as JAX's are applied to the
 trunk config; `pretrained: false` gives the port's seeded random init
-(`init_weights`). Decoder, vision (timm included) and ModernBERT
-checkpoints, and a dense checkpoint loaded into an MoE config, raise
+(`init_weights`). A timm name (`timm/vit_eva02_base_patch16_224` and the
+other `TIMM_PRESETS`) resolves to its preset without any file, and with
+`pretrained: true` reads timm-named weights from a local directory of that
+name. HF vision checkpoints (vit, vit_mae, clip, clip_vision_model,
+dinov2) load through `hf_interop_vit`. Decoder and ModernBERT checkpoints,
+and a dense checkpoint loaded into an MoE config, raise
 NotImplementedError naming their ROADMAP item.
 """
 
@@ -21,6 +26,13 @@ import torch
 from contrastors_tpu_torch.config import ModelArgs
 from contrastors_tpu_torch.models.biencoder import BiEncoder
 from contrastors_tpu_torch.models.hf_interop import bert_config_to_trunk_config, bert_state_dict_to_torch
+from contrastors_tpu_torch.models.hf_interop_timm import (
+    TIMM_PRESETS,
+    normalize_timm_name,
+    timm_name_to_trunk_config,
+    timm_state_dict_to_torch,
+)
+from contrastors_tpu_torch.models.hf_interop_vit import vit_config_to_trunk_config, vit_state_dict_to_torch
 from contrastors_tpu_torch.models.model_config import TrunkConfig
 from contrastors_tpu_torch.models.nomic_bert import init_weights
 
@@ -46,14 +58,22 @@ def _load_state_dict(path: str) -> Optional[Dict[str, np.ndarray]]:
     return None
 
 
-def _refuse_family(model_type: str, name: str):
-    """NotImplementedError for a model family the port has no trunk for."""
-    lname = (name or "").lower()
+def sniff_family(model_type: str, model_name: str) -> str:
+    """encoder | decoder | vision, by JAX's rule (`auto.py:sniff_family`)."""
+    name = (model_name or "").lower()
+    if model_type in ("bert", "nomic_bert", "roberta", "xlm-roberta", "modernbert"):
+        return "encoder"
     if model_type in DECODER_TYPES:
+        return "decoder"
+    if model_type in VISION_TYPES or "vit" in name or "eva02" in name:
+        return "vision"
+    return "encoder"
+
+
+def _refuse_family(model_type: str, family: str):
+    """NotImplementedError for a model family the port has no trunk for."""
+    if family == "decoder":
         raise NotImplementedError(f"decoder checkpoints ({model_type}) are not ported yet (ROADMAP Queue 1, item 8)")
-    if model_type in VISION_TYPES or "vit" in lname or "eva02" in lname:
-        raise NotImplementedError(f"vision checkpoints ({model_type or name}) are not ported yet "
-                                  "(ROADMAP Queue 1, item 7)")
     if model_type == "modernbert":
         raise NotImplementedError("ModernBERT checkpoints are not ported yet (ROADMAP Queue 1, item 9: the "
                                   "HF loaders)")
@@ -71,16 +91,17 @@ def load_biencoder(
     checkpoint, the rest (and every weight with pretrained=false) from
     `init_weights(seed)`."""
     path = model_args.checkpoint or model_args.model_name
+    if path is not None and normalize_timm_name(path) in TIMM_PRESETS:
+        return _load_timm_biencoder(model_args, path, dtype, device, seed, trunk_overrides)
     if path is None or not os.path.isdir(path):
-        if path is not None and (path.startswith("timm/") or path.split("/")[-1].startswith("vit_")):
-            _refuse_family("", path)
         raise FileNotFoundError(
             f"model path {path!r} not found locally. Pass a directory containing an HF "
             "config.json (and model weights for pretrained=true)."
         )
     hf_cfg = _load_hf_config(path)
     model_type = hf_cfg.get("model_type", "bert")
-    _refuse_family(model_type, hf_cfg.get("_name_or_path", ""))
+    family = sniff_family(model_type, hf_cfg.get("_name_or_path", ""))
+    _refuse_family(model_type, family)
 
     overrides = dict(trunk_overrides or {})
     overrides.setdefault("attn_impl", model_args.attn_impl)
@@ -105,14 +126,18 @@ def load_biencoder(
     if model_args.activation_function and not any(
             k in hf_cfg for k in ("hidden_act", "hidden_activation", "activation_function")):
         overrides.setdefault("activation_function", model_args.activation_function)
-    cfg = bert_config_to_trunk_config(types.SimpleNamespace(**hf_cfg), **overrides)
+    if family == "vision":
+        cfg = vit_config_to_trunk_config(hf_cfg, **overrides)
+    else:
+        cfg = bert_config_to_trunk_config(types.SimpleNamespace(**hf_cfg), **overrides)
 
     module = BiEncoder(
         cfg,
-        trunk_type="encoder",
+        trunk_type=family,
         pooling=model_args.pooling or "mean",
         projection_dim=model_args.projection_dim,
         hamming=model_args.hamming,
+        freeze=model_args.freeze,
         dtype=dtype,
         device=device,
         remat=model_args.gradient_checkpointing,
@@ -125,18 +150,57 @@ def load_biencoder(
         sd = _load_state_dict(path)
         if sd is None:
             raise FileNotFoundError(f"pretrained=true but no weights found in {path}")
-        trunk = {"trunk." + k: v for k, v in bert_state_dict_to_torch(sd, cfg).items()}
-        # pooling heads and projections keep their init (a partial load);
-        # a checkpoint tensor with no home, or of the wrong shape, means the
-        # config does not match the checkpoint
-        own = module.state_dict()
-        dropped = [k for k in trunk if k not in own]
-        if dropped:
-            raise ValueError(f"{len(dropped)} remapped checkpoint tensors have no matching module "
-                             f"parameter (first few: {dropped[:8]}); the model config does not match "
-                             "this checkpoint")
-        for k, v in trunk.items():
-            if own[k].shape != v.shape:
-                raise ValueError(f"shape mismatch at {k}: {tuple(own[k].shape)} vs {tuple(v.shape)}")
-        module.load_state_dict(trunk, strict=False)
+        if family == "vision":
+            _load_trunk(module, vit_state_dict_to_torch(sd, cfg, hf_cfg.get("model_type", "vit")))
+        else:
+            _load_trunk(module, bert_state_dict_to_torch(sd, cfg))
+    return module, cfg
+
+
+def _load_trunk(module: BiEncoder, trunk_sd: Dict[str, torch.Tensor]):
+    """Load remapped trunk weights into module.trunk; pooling heads and
+    projections keep their init (a partial load). A checkpoint tensor with
+    no home, or of the wrong shape, means the config does not match the
+    checkpoint."""
+    trunk = {"trunk." + k: v for k, v in trunk_sd.items()}
+    own = module.state_dict()
+    dropped = [k for k in trunk if k not in own]
+    if dropped:
+        raise ValueError(f"{len(dropped)} remapped checkpoint tensors have no matching module "
+                         f"parameter (first few: {dropped[:8]}); the model config does not match "
+                         "this checkpoint")
+    for k, v in trunk.items():
+        if own[k].shape != v.shape:
+            raise ValueError(f"shape mismatch at {k}: {tuple(own[k].shape)} vs {tuple(v.shape)}")
+    module.load_state_dict(trunk, strict=False)
+
+
+def _load_timm_biencoder(model_args: ModelArgs, path: str, dtype, device, seed: int,
+                         trunk_overrides: Optional[Dict[str, Any]]) -> Tuple[BiEncoder, TrunkConfig]:
+    """A timm name: its preset (MAP pooling by default), and with
+    pretrained=true the timm-named weights of a local directory `path`."""
+    overrides = dict(trunk_overrides or {})
+    overrides.setdefault("attn_impl", model_args.attn_impl)
+    if model_args.patch_dropout:
+        overrides["patch_dropout"] = model_args.patch_dropout
+    cfg = timm_name_to_trunk_config(path, **overrides)
+    module = BiEncoder(
+        cfg,
+        trunk_type="vision",
+        pooling=model_args.pooling or "map",
+        projection_dim=model_args.projection_dim,
+        freeze=model_args.freeze,
+        dtype=dtype,
+        device=device,
+        remat=model_args.gradient_checkpointing,
+    )
+    init_weights(module, seed)
+    if model_args.pretrained:
+        if not os.path.isdir(path):
+            raise FileNotFoundError(f"pretrained timm weights expected in local dir {path!r} "
+                                    "(model.safetensors / pytorch_model.bin with timm naming)")
+        sd = _load_state_dict(path)
+        if sd is None:
+            raise FileNotFoundError(f"no weights found in {path}")
+        _load_trunk(module, timm_state_dict_to_torch(sd, cfg))
     return module, cfg

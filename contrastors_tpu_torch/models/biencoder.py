@@ -1,18 +1,24 @@
 """BiEncoder: single-tower embedder with pooling heads, counterpart of
-`contrastors_tpu/models/biencoder.py` for the encoder trunk.
+`contrastors_tpu/models/biencoder.py` for the encoder and vision trunks.
 
-Mean / cls / last / none pooling, the hamming LayerNorm, the projection,
+Mean / cls / last / MAP / none pooling, the hamming LayerNorm, the projection,
 normalisation with the clamp inside the sqrt, and binarisation keep the JAX
 semantics. The output carries the MoE layers' masked router logits under
 "router_logits" (None for a dense trunk), for the router load-balance
 loss. `LogitScale` is the contrastive loss's exp-parameterised
 temperature. `remat` recomputes each trunk block's activations in the
 backward (activation checkpointing, `NomicBertModel`). `generator` seeds the
-trunk's dropout in training mode (JAX's "dropout" rng). The decoder and
-vision trunks, the MAP pooling head and packed mode raise until their
-slices are ported.
+trunk's dropout in training mode (JAX's "dropout" rng).
+
+trunk_type="vision" runs `ViTModel` on `pixel_values` with no mask;
+pooling="map" adds the MAP head (`selector`, JAX's name). With `freeze`
+the trunk runs under `torch.no_grad()`, where JAX stops the gradient at
+its last_hidden_state: the pooling head, hamming LayerNorm and projection
+after it still take gradients. The decoder trunk and packed mode raise
+until their slices are ported.
 """
 
+import contextlib
 import math
 from typing import Any, Dict, Optional
 
@@ -20,12 +26,15 @@ import torch
 from torch import nn
 
 from contrastors_tpu_torch._device import resolve_device
+from contrastors_tpu_torch.layers.attention import MultiHeadAttentionPooling
 from contrastors_tpu_torch.layers.dense import Dense
 from contrastors_tpu_torch.layers.norms import LayerNorm
 from contrastors_tpu_torch.models.model_config import TrunkConfig
 from contrastors_tpu_torch.models.nomic_bert import NomicBertModel
+from contrastors_tpu_torch.models.vit import ViTModel
 
-POOLINGS = ("mean", "last", "cls", "none")
+POOLINGS = ("mean", "last", "cls", "map", "none")
+TRUNK_TYPES = ("encoder", "vision")
 
 
 def mean_pool(hidden: torch.Tensor, attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -74,22 +83,25 @@ class BiEncoder(nn.Module):
         pooling: str = "mean",
         projection_dim: Optional[int] = None,
         hamming: bool = False,
+        freeze: bool = False,
         dtype=torch.float32,
         device="cuda",
         remat: bool = False,
     ):
         super().__init__()
         device = resolve_device(device)
-        if trunk_type != "encoder":
-            raise NotImplementedError(
-                f"trunk_type={trunk_type!r} is not ported yet (ROADMAP, Queue 1)"
+        if trunk_type not in TRUNK_TYPES:
+            raise (NotImplementedError if trunk_type == "decoder" else ValueError)(
+                f"trunk_type={trunk_type!r}: the port has {TRUNK_TYPES} (the decoder: ROADMAP Queue 1, item 8)"
             )
         if pooling not in POOLINGS:
-            raise (NotImplementedError if pooling == "map" else ValueError)(
-                f"pooling {pooling!r}: the port has {POOLINGS}"
-            )
-        self.config, self.pooling, self.dtype = config, pooling, dtype
-        self.trunk = NomicBertModel(config, dtype=dtype, device=device, remat=remat)
+            raise ValueError(f"pooling {pooling!r}: the port has {POOLINGS}")
+        self.config, self.trunk_type, self.pooling, self.freeze, self.dtype = (
+            config, trunk_type, pooling, freeze, dtype)
+        trunk_cls = ViTModel if trunk_type == "vision" else NomicBertModel
+        self.trunk = trunk_cls(config, dtype=dtype, device=device, remat=remat)
+        self.selector = (MultiHeadAttentionPooling(config, dtype=dtype, device=device)
+                         if pooling == "map" else None)
         self.hamming = (
             LayerNorm(config.n_embd, eps=1e-5, elementwise_affine=False, device=device)
             if hamming else None
@@ -105,7 +117,7 @@ class BiEncoder(nn.Module):
 
     def forward(
         self,
-        input_ids: torch.Tensor,
+        input_ids: Optional[torch.Tensor] = None,
         attention_mask: Optional[torch.Tensor] = None,
         token_type_ids: Optional[torch.Tensor] = None,
         segment_ids: Optional[torch.Tensor] = None,
@@ -114,17 +126,25 @@ class BiEncoder(nn.Module):
         normalize: bool = True,
         binarize: bool = False,
         generator: Optional[torch.Generator] = None,
+        pixel_values: Optional[torch.Tensor] = None,
     ) -> Dict[str, Any]:
         if segment_ids is not None and max_segments is not None:
+            if self.trunk_type == "vision":
+                raise ValueError("packed mode does not apply to vision trunks")
             raise NotImplementedError("packed mode is not ported yet (ROADMAP, Queue 1: packed path)")
-        trunk_out = self.trunk(
-            input_ids,
-            attention_mask=attention_mask,
-            position_ids=position_ids,
-            token_type_ids=token_type_ids,
-            segment_ids=segment_ids,
-            generator=generator,
-        )
+        with torch.no_grad() if self.freeze else contextlib.nullcontext():
+            if self.trunk_type == "vision":
+                trunk_out = self.trunk(pixel_values, generator=generator)
+                attention_mask = None
+            else:
+                trunk_out = self.trunk(
+                    input_ids,
+                    attention_mask=attention_mask,
+                    position_ids=position_ids,
+                    token_type_ids=token_type_ids,
+                    segment_ids=segment_ids,
+                    generator=generator,
+                )
         hidden = trunk_out["last_hidden_state"]
 
         if self.pooling == "mean":
@@ -133,6 +153,8 @@ class BiEncoder(nn.Module):
             embedding = last_token_pool(hidden, attention_mask)
         elif self.pooling == "cls":
             embedding = cls_pool(hidden)
+        elif self.pooling == "map":
+            embedding = self.selector(hidden, attention_mask)
         else:
             embedding = hidden
         if self.hamming is not None:
@@ -147,4 +169,4 @@ class BiEncoder(nn.Module):
             e32 = embedding.float()
             norm = torch.sqrt((e32 * e32).sum(dim=-1, keepdim=True).clamp_min(1e-24))
             embedding = (e32 / norm).to(embedding.dtype)
-        return {"embedding": embedding, "router_logits": trunk_out["router_logits"] or None}
+        return {"embedding": embedding, "router_logits": trunk_out.get("router_logits") or None}

@@ -7,8 +7,9 @@ vanilla HF BERT / RoBERTa (q/k/v split, intermediate/output naming) and
 the nomic-bert flash layout (fused Wqkv, fc11/fc12). Heads: the MLM head,
 and the classification head with its pooler (JAX `:155-240`). The remap builds the
 same nested tree as JAX's and hands it to `convert.flax_to_torch`, so the
-naming rules live in one place. The decoder, ViT, timm and ModernBERT
-converters wait for their slices (ROADMAP Queue 1, items 7-9).
+naming rules live in one place. The ViT and timm converters are
+`hf_interop_vit.py` and `hf_interop_timm.py`; the decoder and ModernBERT
+ones wait for their slices (ROADMAP Queue 1, items 8-9).
 """
 
 import re

@@ -44,10 +44,9 @@ from contrastors_tpu_torch.models.model_config import TrunkConfig
 from contrastors_tpu_torch.ops.dropout import active, dropout, fold_seed, noise_seed, site_generator
 
 
-# trunk features of other model families (EVA/ViT layer scale and post-MLP
-# norm, the open_lm head-index rotary, GPT-J parallel blocks): their slices
-# port them
-UNPORTED_FEATURES = ("layer_scale", "norm_mlp", "rotary_head_dim", "parallel_block")
+# trunk features of the decoder family (the open_lm head-index rotary, GPT-J
+# parallel blocks): its slice ports them
+UNPORTED_FEATURES = ("rotary_head_dim", "parallel_block")
 
 
 def _layer_is_moe(config: TrunkConfig, i: int) -> bool:
@@ -66,16 +65,24 @@ def _layer_is_moe(config: TrunkConfig, i: int) -> bool:
     return False
 
 
+# parameters that keep their constant initial value (layer scale, the cls token)
+CONSTANT_INIT = ("ls1", "ls2", "cls_token")
+
+
 def init_weights(module: nn.Module, seed: int, std: float = 0.02) -> nn.Module:
     """Random weights from a seeded CPU torch.Generator, copied to the
     module's device: Linear/Embedding weights, MoE routers and expert
-    tensors ~ N(0, std), biases (the MoE output bias and the MLM
-    decoder_bias too) 0, norm weights 1, the kinds of the JAX initialisers.
-    The same seed gives the same weights on every device."""
+    tensors, the ViT's position table, register tokens and pooling latent
+    ~ N(0, std), biases (the MoE output bias and the MLM decoder_bias too)
+    0, norm weights 1, layer scales and the cls token as constructed
+    (layer_scale_init, 0), the kinds of the JAX initialisers. The same seed
+    gives the same weights on every device."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in module.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
+            if leaf in CONSTANT_INIT:
+                continue
             if leaf.endswith("bias"):
                 p.zero_()
             elif "norm" in name or "emb_ln" in name:

@@ -137,10 +137,10 @@ def test_encoder_restores_the_callers_training_flags():
     assert tm.training and not all(before.values())
 
 
-@pytest.mark.parametrize("over", [dict(layer_scale=True), dict(rotary_head_dim=True),
+@pytest.mark.parametrize("over", [dict(parallel_block=True), dict(rotary_head_dim=True),
                                   dict(num_experts=4, moe_every_n_layers=2, moe_impl="capacity")])
 def test_unported_trunk_features_raise(over):
     with pytest.raises(NotImplementedError):
         BiEncoder(t_preset(**SMALL, **over), device="cpu")
     with pytest.raises(NotImplementedError):
-        BiEncoder(t_preset(**SMALL), pooling="map", device="cpu")
+        BiEncoder(t_preset(**SMALL), trunk_type="decoder", device="cpu")

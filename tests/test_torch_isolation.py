@@ -43,7 +43,9 @@ def test_importing_every_port_module_loads_no_jax():
               "trainers.mlm", "scripts.ablate_rotary_fusion", "config", "read", "train", "trainers.text_text",
               "models.hf_interop", "models.auto", "data.text", "data.indexing", "utils.prefetch",
               "utils.logging", "eval.metrics", "eval.retrieval", "ops.dropout", "trainers.mmlm", "trainers.glue",
-              "data.constants"):
+              "data.constants", "models.vit", "models.dual_encoder", "models.hf_interop_vit",
+              "models.hf_interop_timm", "data.transforms", "data.image_text", "trainers.image_text",
+              "eval.zero_shot", "eval.image_text_retrieval"):
         assert "contrastors_tpu_torch." + m in modules
     # the JAX stack, and the packages the card's machine is not known to
     # have (imported only inside the functions that need them)
@@ -52,7 +54,7 @@ def test_importing_every_port_module_loads_no_jax():
         "def bad():\n"
         "    return sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'contrastors_tpu', 'pydantic', 'yaml', 'transformers', "
-        "'safetensors', 'fsspec', 'datasets'))\n"
+        "'safetensors', 'fsspec', 'datasets', 'PIL'))\n"
         "assert not bad(), bad()\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "assert not bad(), bad()\n"
@@ -104,3 +106,41 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
             train.main(["--config", str(ROOT / "configs" / "train" / f"{name}.yaml")])
     assert BiEncoder(cfg, device="cpu").trunk.emb_ln.weight.device.type == "cpu"
     assert rotary_cos_sin(16, 64, device="cpu")[0].device.type == "cpu"
+
+
+def _top_level_imports(path: Path):
+    """Names imported at module level (not inside a function or class)."""
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_imports_pil_or_transformers_at_top_level(path):
+    """The card's machine lists no Pillow and may have no transformers: the
+    image pipeline and the tokenizer hooks import them where they are used."""
+    bad = [n for n in _top_level_imports(path) if n in ("PIL", "transformers")]
+    assert not bad, f"{path.name} imports {bad} at module level"
+
+
+def test_vision_entry_points_default_to_cuda_and_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from contrastors_tpu_torch import train
+    from contrastors_tpu_torch.layers.rotary import build_2d_rope_cat
+    from contrastors_tpu_torch.models import BiEncoder, DualEncoder, ViTModel
+    from contrastors_tpu_torch.models.hf_interop_timm import timm_name_to_trunk_config
+    from contrastors_tpu_torch.models.presets import nomic_bert_2048
+
+    vit = timm_name_to_trunk_config("timm/vit_eva02_base_patch16_224", n_layer=1, n_embd=64, n_head=4,
+                                    n_inner=128, img_size=32, patch_size=8, ref_feat_shape=(2, 2))
+    text = nomic_bert_2048(n_layer=1, n_embd=64, n_head=1, n_inner=128, vocab_size=64)
+    for build in (lambda: ViTModel(vit), lambda: BiEncoder(vit, trunk_type="vision", pooling="map"),
+                  lambda: DualEncoder(text, vit), lambda: build_2d_rope_cat(16, (2, 2))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--config", str(ROOT / "configs" / "train" / "nomic_embed_vision_v1.5.yaml")])
+    assert DualEncoder(text, vit, device="cpu").vision.trunk.layers[0].mlp.norm.weight.device.type == "cpu"

@@ -98,15 +98,27 @@ def test_load_biencoder_takes_remat_from_gradient_checkpointing(tmp_path, on):
     ("timm", {}, "item 7"),
 ])
 def test_load_biencoder_names_the_roadmap_item_of_each_unported_family(tmp_path, model_type, extra, match):
-    """Decoder, vision (timm included) and ModernBERT checkpoints, and a
-    dense checkpoint into an MoE config, raise NotImplementedError."""
+    """Decoder and ModernBERT checkpoints, and a dense checkpoint into an MoE
+    config, raise NotImplementedError naming their ROADMAP item. Item 7's
+    families (an HF ViT config.json, a timm name) are ported: they load as
+    vision BiEncoders (MAP pooling by default for a timm name)."""
     path = "timm/vit_base_patch16_224"
     if model_type != "timm":
         cfg = dict(model_type=model_type, n_embd=128, n_layer=2, n_head=2, n_inner=256, vocab_size=64)
+        if model_type == "vit":
+            cfg = dict(model_type="vit", hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                       intermediate_size=128, image_size=32, patch_size=8)
         with open(tmp_path / "config.json", "w") as f:
             json.dump(cfg, f)
         (tmp_path / "pytorch_model.bin").write_bytes(b"")
         path = str(tmp_path)
+    if match == "item 7":
+        args = ModelArgs.from_dict(dict(model_type="encoder", model_name=path, pretrained=False, **extra))
+        model, trunk_cfg = load_biencoder(args, device="cpu", trunk_overrides=dict(n_layer=1))
+        assert model.trunk_type == "vision" and type(model.trunk).__name__ == "ViTModel"
+        assert model.pooling == ("map" if model_type == "timm" else "mean")
+        assert trunk_cfg.n_embd == (768 if model_type == "timm" else 64)
+        return
     args = ModelArgs.from_dict(dict(model_type="encoder", model_name=path, pretrained=True, **extra))
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {match}"):
         load_biencoder(args, device="cpu")

@@ -249,15 +249,16 @@ def test_cli_runs_a_yaml_recipe(files, tmp_path):
 
 
 def test_registry_names_the_roadmap_item_of_each_unported_trainer():
-    from contrastors_tpu_torch.trainers import (TRAINER_REGISTRY, UNPORTED, GlueTrainer, MLMTrainer, MMLMTrainer,
-                                                TextTextTrainer)
+    from contrastors_tpu_torch.trainers import (TRAINER_REGISTRY, UNPORTED, GlueTrainer, ImageTextTrainer,
+                                                MLMTrainer, MMLMTrainer, TextTextTrainer)
 
     from contrastors_tpu.config import _MODEL_TYPES
 
     assert set(TRAINER_REGISTRY) == set(_MODEL_TYPES) and TRAINER_REGISTRY["encoder"] is TextTextTrainer
     assert (TRAINER_REGISTRY["mlm"], TRAINER_REGISTRY["mmlm"], TRAINER_REGISTRY["glue"]) == (
         MLMTrainer, MMLMTrainer, GlueTrainer)
-    assert set(UNPORTED) == {"clip", "locked_text", "distill"}
+    assert TRAINER_REGISTRY["clip"] is TRAINER_REGISTRY["locked_text"] is ImageTextTrainer
+    assert set(UNPORTED) == {"distill"}
     for name in UNPORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             TRAINER_REGISTRY[name](None, "fp32", "cpu")
