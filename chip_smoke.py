@@ -2,7 +2,8 @@
 """Drive the PyTorch / CUDA port (contrastors_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only {moe_kernels,moe,flash_fwd,flash_bwd,dense,trainer,mlm_trainer,vision} [--tree DIR]
+    python3 chip_smoke.py --only {moe_kernels,moe,flash_fwd,flash_bwd,dense,trainer,mlm_trainer,vision,families}
+                             [--tree DIR]
 
 The second form runs phases 1, 2 and 9 (moe_kernels), or 1, 2 and 9-12
 without the gradient agreement (moe: the kernels, MoE serving and the MoE
@@ -13,7 +14,8 @@ checks of 4 and 13, the backward timing of 8 (the whole backward only) and
 the MLM step's timing, or (dense) 1, 2 and the dense step of 7-8
 (launches, timing, profile; no gradient agreement), or (trainer) 1, 2 and
 17, or (mlm_trainer) 1, 2 and 18, or (vision) 1, 2, the ViT shape's
-checks of 3 and 4 and 19, on this checkout's
+checks of 3 and 4 and 19, or (families) 1, 2, the families' two shapes'
+checks of 3 and 4 and 20, on this checkout's
 package or on the one under DIR (another checkout, e.g. the parent commit
 unpacked by `git archive`), so that two versions can be timed in turns on
 one card.
@@ -28,8 +30,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
      segments, GQA, D=128, the training step's two shapes, B=512 S=32
      and B=16 S=256, and the edges of the persistent walk: S = T = 1, 65,
      129 with GQA, D = 128 at 129, B * H = 143, GQA at S = 2048; the GLUE
-     eval batch, 64 x 128 padded, as the dispatch hands it over); a second
-     run bit-identical to the first.
+     eval batch, 64 x 128 padded, as the dispatch hands it over; the
+     families' window band with a padding mask, 32 x 512, and causal band
+     with one, 128 x 128 in the dispatch's form); a second run
+     bit-identical to the first.
   4. kernel_check_bwd: the two backward kernels (dq, which also computes
      delta; dk/dv) against the plain backward on the same O and LSE, with a
      strided dO, in 13 of those cases (the training shapes included) and in
@@ -209,6 +213,27 @@ The vision / LiT family (after phase 18):
      launches (12 per batch of the 8000 prompts and of images); grad cache
      against the standard step on one batch of 512 (cosine >= 0.9999,
      relative L2 <= 0.01), a planted rolled replay outside both.
+The families of configs/train/ no earlier phase drives (after phase 19):
+ 20. modernbert_*, moe_training, distill_training, pythia_*,
+     family_kernel_timing: each model at its published widths (the
+     config.json of ModernBERT-base, nomic-bert-2048 and pythia-160m; the
+     distill student that config.json at 6 layers) with seeded weights
+     written under the HF names as pytorch_model.bin, loaded through the
+     port's loaders. Serving (ModernBERT 256 x 512, mean pooling; pythia
+     256 x 128, last pooling; one padded batch through Encoder): n_layer
+     flash launches, cosine >= 0.999 against sdpa in fp32, texts/s.
+     Training through read_config and train.run on
+     contrastive_finetune_modernbert.yaml, contrastive_finetune_moe.yaml
+     (the dense checkpoint upcycled to 8 experts: every expert the dense
+     MLP bit for bit after the load), distill.yaml (student layer i the
+     teacher's layer 2i bit for bit after the init, the teacher unchanged
+     after the steps) and contrastive_finetune_decoder.yaml, each cut in
+     batch, steps, warmup and data (`FAMILIES`; one in-memory batch
+     repeated), in bf16: launches per step as the code predicts them
+     (flash, and gmm / tgmm for the MoE), the loss falling, 0 synchronising
+     calls per quiet step, step ms and peak memory. Then the two new
+     shapes timed: forward, dq and dk/dv beside bounds over the live pairs
+     only and SDPA with the equivalent boolean mask.
 Kernel times (ms) are CUDA-event times of calls made on an idle card, so a
 short kernel's time holds the host's enqueue; phases 8 and 9 give beside
 them the device's work alone (device_ms: each call queued behind a device
@@ -320,20 +345,45 @@ def median_ms(fn, runs=10, warmup=3, queued=False):
     return float(np.median(event_ms(fn, runs, warmup, queued)))
 
 
-def attention_bound(B, S, T, H, Hkv, D, mask=None):
-    """Least time for the forward on this card: the larger of the tensor-core
-    time for the (row, col) pairs these inputs need and the time to move
-    q, k, v, O, LSE and the ids once."""
-    import torch
+def live_pairs(lens, S, T, causal=False, window=0, all_rows=False):
+    """The (query row, key) pairs the kernels must compute on these inputs:
+    key c of batch row b is live when c < lens[b] and inside the band
+    (bottom-right causal: c <= r + T - S; window: |r - c| <= window // 2);
+    the query rows are r < lens[b] (the mask as the query ids, S == T), or
+    every row with all_rows (the dispatch's form below kv 512: query ids
+    1). Counted on the host, exactly."""
+    r, c = np.arange(S)[:, None], np.arange(T)[None, :]
+    band = np.ones((S, T), bool)
+    if causal:
+        band &= c <= r + T - S
+    if window:
+        band &= np.abs(r - c) <= window // 2
+    below = np.cumsum(band, axis=1)  # [r, c]: band keys of row r at columns <= c
+    return int(sum(below[:S if all_rows else n, n - 1].sum() for n in np.asarray(lens, np.int64) if n > 0))
 
-    if mask is None:
-        pairs = B * S * T
-    else:  # S == T, mask only: padded rows and columns need no work
-        n = mask.sum(dim=1).double()
-        pairs = float((n * n).sum().item())
+
+def _live_rows(B, S, lens, all_rows):
+    """(query rows each kernel must read, key rows of k and v it must read):
+    every row without lens; else the live keys, and the live query rows
+    unless all_rows."""
+    if lens is None:
+        return B * S, None
+    return (B * S if all_rows else int(sum(min(n, S) for n in lens))), int(sum(lens))
+
+
+def attention_bound(B, S, T, H, Hkv, D, lens=None, causal=False, window=0, all_rows=False):
+    """Least time for the forward on this card: the larger of the tensor-core
+    time for the live (row, key) pairs these inputs need (`live_pairs`:
+    every pair without lens, a padding mask's keys of length lens, and with
+    them its rows unless all_rows; the causal or window band) and the time
+    to read q at live rows, k and v at live keys and the ids (with lens),
+    and to write O and LSE once."""
+    live_q, live_kv = _live_rows(B, S, lens, all_rows)
+    live_kv = B * T if live_kv is None else live_kv
+    pairs = live_pairs([T] * B if lens is None else lens, S, T, causal, window, all_rows=all_rows or lens is None)
     flops = 4.0 * D * H * pairs
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * T * Hkv * D) + 4 * B * H * S
-    if mask is not None:
+    nbytes = 2 * (live_q * H * D + B * S * H * D + 2 * live_kv * Hkv * D) + 4 * B * H * S
+    if lens is not None:
         nbytes += 4 * (B * S + B * T)
     return _bound(flops, nbytes)
 
@@ -343,20 +393,24 @@ def _bound(flops, nbytes):
     return bound_s * 1e3, "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes", flops, nbytes
 
 
-def backward_bound(kernel, B, S, T, H, Hkv, D, masked=True):
-    """Least time for one backward kernel on this card, all (row, col) pairs
-    live: dq runs 3 products (q k^T, dO v^T, ds k), dk/dv 4 (q k^T, dO v^T,
-    p^T dO, ds^T q), each 2*D FLOP per pair and q head. Bytes are what each
-    kernel must move once: dq reads q, k, v, dO, O and LSE (and the ids) and
-    writes dq and delta; dk/dv reads q, k, v, dO, LSE and delta (and the ids)
-    and writes dk and dv."""
-    qkv = 2 * (B * S * H * D + 2 * B * T * Hkv * D)
+def backward_bound(kernel, B, S, T, H, Hkv, D, lens=None, causal=False, window=0, all_rows=False):
+    """Least time for one backward kernel on this card, over the live (row,
+    key) pairs (as `attention_bound`): dq runs 3 products (q k^T, dO v^T,
+    ds k), dk/dv 4 (q k^T, dO v^T, p^T dO, ds^T q), each 2*D FLOP per pair
+    and q head. Bytes are what each kernel must move once: dq reads q, dO,
+    O and LSE at live query rows, k and v at live keys (and the ids) and
+    writes dq and delta; dk/dv reads q, dO, LSE and delta at live query
+    rows, k and v at live keys (and the ids) and writes dk and dv."""
+    live_q, live_kv = _live_rows(B, S, lens, all_rows)
+    live_kv = B * T if live_kv is None else live_kv
+    kv = 2 * 2 * live_kv * Hkv * D
     if kernel == "dq":
-        products, nbytes = 3, qkv + 2 * 2 * B * S * H * D + 4 * B * H * S + 2 * B * S * H * D + 4 * B * H * S
+        products, nbytes = 3, kv + 2 * 3 * live_q * H * D + 4 * H * live_q + 2 * B * S * H * D + 4 * B * H * S
     else:
-        products, nbytes = 4, qkv + 2 * B * S * H * D + 8 * B * H * S + 4 * B * T * Hkv * D
-    flops = products * 2.0 * D * H * B * S * T
-    if masked:
+        products, nbytes = 4, kv + 2 * 2 * live_q * H * D + 8 * H * live_q + 4 * B * T * Hkv * D
+    pairs = live_pairs([T] * B if lens is None else lens, S, T, causal, window, all_rows=all_rows or lens is None)
+    flops = products * 2.0 * D * H * pairs
+    if lens is not None:
         nbytes += 4 * (B * S + B * T)
     return _bound(flops, nbytes)
 
@@ -1270,9 +1324,32 @@ GLUE_CASES = [
 VIT_CASES = [
     ("vit_b64_s197", dict(B=64, S=197, T=197, H=12, Hkv=12, D=64), dict()),
 ]
-FWD_CASES = BASE_CASES + EDGE_CASES + GLUE_CASES + VIT_CASES
-# the backward kernels: the same but the two largest and the eval-only GLUE batch
-BWD_CASES = [c for c in FWD_CASES if c[0] not in ("pad_b256_s512", "s8192", "glue_pad_b64_s128")]
+# the families phase's attention (phase 20): ModernBERT-base's windowed
+# layers (window 128, i.e. +-64 keys) with a padding mask at the finetune
+# recipe's 512 tokens, and pythia-160m's causal band with a padding mask at
+# 128 tokens, below kv 512 in the dispatch's form (query ids 1, the mask as
+# kv ids)
+FAMILY_CASES = [
+    ("modernbert_window128_pad_b32_s512", dict(B=32, S=512, T=512, H=12, Hkv=12, D=64),
+     dict(window=128, mask=(1, 0))),
+    ("pythia_causal_pad_b128_s128", dict(B=128, S=128, T=128, H=12, Hkv=12, D=64),
+     dict(causal=True, mask=(1, 0), dispatch=True)),
+]
+# the same two bands at the batches the families phase launches them with,
+# since the kernels walk a persistent grid: ModernBERT's query tower (8),
+# documents (64) and serving batch (256); pythia's queries (64), documents
+# (512) and serving batch (256). The serving batches run no backward
+FAMILY_PATH_CASES = [
+    (f"modernbert_window128_pad_b{B}_s512", dict(B=B, S=512, T=512, H=12, Hkv=12, D=64),
+     dict(window=128, mask=(1, 0))) for B in (8, 64, 256)
+] + [
+    (f"pythia_causal_pad_b{B}_s128", dict(B=B, S=128, T=128, H=12, Hkv=12, D=64),
+     dict(causal=True, mask=(1, 0), dispatch=True)) for B in (64, 512, 256)
+]
+FAMILY_SERVING = ("modernbert_window128_pad_b256_s512", "pythia_causal_pad_b256_s128")
+FWD_CASES = BASE_CASES + EDGE_CASES + GLUE_CASES + VIT_CASES + FAMILY_CASES + FAMILY_PATH_CASES
+# the backward kernels: the same but the two largest and the eval-only batches
+BWD_CASES = [c for c in FWD_CASES if c[0] not in ("pad_b256_s512", "s8192", "glue_pad_b64_s128") + FAMILY_SERVING]
 
 
 def make_qkv(gen, dev, B, S, T, H, Hkv, D):
@@ -1623,7 +1700,7 @@ def fused_kernel_timing(dev, card, gen):
             _, _, flops, nbytes = attention_bound(B, S, S, H, H, D)
             plain, composite = plain_ms["fwd"], sdpa_fwd + rotary_fwd
         else:
-            _, _, flops, nbytes = backward_bound(kname, B, S, S, H, H, D, masked=False)
+            _, _, flops, nbytes = backward_bound(kname, B, S, S, H, H, D)
             plain, composite = plain_ms["bwd"], sdpa_bwd + rotary_bwd
         b_ms, b_by, _, nbytes = _bound(flops, nbytes + table_bytes)
         rows[kname] = dict(ms=ms[kname], unfused_ms=unfused_ms[kname], plain_ms=plain, bound_ms=b_ms,
@@ -1681,7 +1758,7 @@ def forward_timing(dev, card, gen):
         q, k, v = make_qkv(gen, dev, B, S, S, H, H, D)
         mask = torch.ones(B, S, dtype=torch.int32, device=dev)
         kw = dict(attention_mask=mask)
-        b_ms, b_by, flops, nbytes = attention_bound(B, S, S, H, H, D, mask)
+        b_ms, b_by, flops, nbytes = attention_bound(B, S, S, H, H, D, [S] * B)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         padded = label.endswith("padded")
         if padded:
@@ -1813,7 +1890,7 @@ def backward_timing(dev, card, gen, per_kernel=True):
                              dkv=lambda: fa.launch_bwd_dkv(*inputs, *args, rot=rot))
             launchers["dq"]()  # delta for dk/dv
             for kname, launch in launchers.items():
-                b_ms, b_by, flops, nbytes = backward_bound(kname, B, S, S, H, H, D)
+                b_ms, b_by, flops, nbytes = backward_bound(kname, B, S, S, H, H, D, [S] * B)
                 if fused:  # + the two fp32 tables
                     b_ms, b_by, _, nbytes = _bound(flops, nbytes + 2 * rot.cos.numel() * 4)
                 k_ms, k_dev = median_ms(launch), median_ms(launch, queued=True)
@@ -3052,7 +3129,7 @@ def vit_attention_timing(dev, card, gen):
         if kname == "fwd":
             b_ms, b_by, flops, nbytes = attention_bound(B, S, S, H, H, D)
         else:
-            b_ms, b_by, flops, nbytes = backward_bound(kname, B, S, S, H, H, D, masked=False)
+            b_ms, b_by, flops, nbytes = backward_bound(kname, B, S, S, H, H, D)
         k_ms, k_dev = median_ms(run), median_ms(run, queued=True)
         rows[kname] = dict(ms=k_ms, device_ms=k_dev, enqueue_us=host_enqueue_us(run), bound_ms=b_ms, bound_by=b_by,
                            flops=flops, bytes=nbytes, plain_ms=plain_fwd if kname == "fwd" else plain_bwd,
@@ -3480,6 +3557,438 @@ def vision_family(dev, card, gen):
                                              flash_per_text_forward=per_text), training=training)
 
 
+# -- phase 20: the families of configs/train/ that no earlier phase drives ----
+
+# answerdotai/ModernBERT-base's config.json (the fields the loader reads)
+MODERNBERT_BASE_CONFIG = {
+    "model_type": "modernbert", "architectures": ["ModernBertForMaskedLM"], "vocab_size": 50368,
+    "hidden_size": 768, "num_hidden_layers": 22, "num_attention_heads": 12, "intermediate_size": 1152,
+    "hidden_activation": "gelu", "max_position_embeddings": 8192, "norm_eps": 1e-5, "norm_bias": False,
+    "global_rope_theta": 160000.0, "local_rope_theta": 10000.0, "local_attention": 128,
+    "global_attn_every_n_layers": 3, "attention_bias": False, "mlp_bias": False, "pad_token_id": 50283,
+    "embedding_dropout": 0.0, "mlp_dropout": 0.0, "attention_dropout": 0.0, "initializer_range": 0.02,
+}
+# EleutherAI/pythia-160m's config.json
+PYTHIA_160M_CONFIG = {
+    "model_type": "gpt_neox", "architectures": ["GPTNeoXForCausalLM"], "vocab_size": 50304, "hidden_size": 768,
+    "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072, "hidden_act": "gelu",
+    "rotary_pct": 0.25, "rotary_emb_base": 10000, "use_parallel_residual": True, "layer_norm_eps": 1e-5,
+    "max_position_embeddings": 2048, "initializer_range": 0.02, "tie_word_embeddings": False,
+    "bos_token_id": 0, "eos_token_id": 0,
+}
+FAMILY_STEPS, FAMILY_LOG_EVERY = 6, 3
+# per family: (recipe, batch as run, the recipe's batch, negatives, query / document tokens)
+FAMILIES = {
+    "modernbert": ("contrastive_finetune_modernbert", 8, 256, 7, 512, 512),
+    "moe": ("contrastive_finetune_moe", 32, 256, 7, 32, 256),
+    "distill": ("distill", 256, 256, 0, 32, 256),
+    "pythia": ("contrastive_finetune_decoder", 64, 128, 7, 128, 128),
+}
+
+
+def _hf_shapes(family, cfg):
+    """{HF name: shape} of a family's checkpoint, under the names the loaders
+    read (ModernBERT and GPT-NeoX without their "model." / "gpt_neox."
+    prefix, which the remaps strip; nomic-bert in its flash layout)."""
+    if family == "modernbert":
+        D, F = cfg["hidden_size"], cfg["intermediate_size"]
+        shapes = {"embeddings.tok_embeddings.weight": (cfg["vocab_size"], D), "embeddings.norm.weight": (D,),
+                  "final_norm.weight": (D,)}
+        for i in range(cfg["num_hidden_layers"]):
+            p = f"layers.{i}."
+            shapes.update({p + "attn.Wqkv.weight": (3 * D, D), p + "attn.Wo.weight": (D, D),
+                           p + "mlp_norm.weight": (D,), p + "mlp.Wi.weight": (2 * F, D), p + "mlp.Wo.weight": (D, F)})
+            if i:
+                shapes[p + "attn_norm.weight"] = (D,)
+        return shapes
+    if family == "pythia":
+        D, F = cfg["hidden_size"], cfg["intermediate_size"]
+        shapes = {"embed_in.weight": (cfg["vocab_size"], D), "final_layer_norm.weight": (D,),
+                  "final_layer_norm.bias": (D,)}
+        for i in range(cfg["num_hidden_layers"]):
+            p = f"layers.{i}."
+            for n, shp in (("input_layernorm", (D,)), ("post_attention_layernorm", (D,))):
+                shapes.update({p + n + ".weight": shp, p + n + ".bias": shp})
+            shapes.update({p + "attention.query_key_value.weight": (3 * D, D),
+                           p + "attention.query_key_value.bias": (3 * D,), p + "attention.dense.weight": (D, D),
+                           p + "attention.dense.bias": (D,), p + "mlp.dense_h_to_4h.weight": (F, D),
+                           p + "mlp.dense_h_to_4h.bias": (F,), p + "mlp.dense_4h_to_h.weight": (D, F),
+                           p + "mlp.dense_4h_to_h.bias": (D,)})
+        return shapes
+    D, F = cfg["n_embd"], cfg["n_inner"]  # nomic-bert
+    shapes = {"embeddings.word_embeddings.weight": (cfg["vocab_size"], D),
+              "embeddings.token_type_embeddings.weight": (cfg["type_vocab_size"], D), "emb_ln.weight": (D,),
+              "emb_ln.bias": (D,)}
+    for i in range(cfg["n_layer"]):
+        p = f"encoder.layers.{i}."
+        shapes.update({p + "attn.Wqkv.weight": (3 * D, D), p + "attn.out_proj.weight": (D, D),
+                       p + "mlp.fc11.weight": (F, D), p + "mlp.fc12.weight": (F, D), p + "mlp.fc2.weight": (D, F),
+                       p + "norm1.weight": (D,), p + "norm1.bias": (D,), p + "norm2.weight": (D,),
+                       p + "norm2.bias": (D,)})
+    return shapes
+
+
+def write_family_checkpoint(path, family, cfg, seed, weights=True):
+    """config.json and, with weights, pytorch_model.bin (torch.save) of
+    seeded random weights under the HF names: N(0, 0.02) matrices and
+    embeddings, norm scales 1, biases 0. Returns the state dict written."""
+    import torch
+
+    os.makedirs(path)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    if not weights:
+        return None
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for name, shape in _hf_shapes(family, cfg).items():
+        if name.endswith("bias"):
+            sd[name] = torch.zeros(shape)
+        elif len(shape) == 1:
+            sd[name] = torch.ones(shape)
+        else:
+            sd[name] = torch.randn(shape, generator=gen) * 0.02
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    return sd
+
+
+def family_batch(rng, vocab, B, negatives, q_len, d_len):
+    """One in-memory host batch of the text trainers: B queries and
+    B * (1 + negatives) documents, padded right with random lengths (the
+    first row of each full); document i * (1 + negatives) is query i's
+    positive and starts with its first 8 tokens (a signal the model can
+    learn, not one that separates the batch at random init), the others
+    are random."""
+    docs = B * (1 + negatives)
+
+    def rows(n, L, lo):
+        lens = rng.integers(lo, L + 1, size=n)
+        lens[0] = L
+        ids = rng.integers(1000, vocab - 1000, size=(n, L))
+        mask = (np.arange(L)[None] < lens[:, None]).astype(np.int64)
+        return ids * mask, mask, lens
+
+    q_ids, q_mask, q_lens = rows(B, q_len, max(2, q_len // 2))
+    d_ids, d_mask, _ = rows(docs, d_len, max(2, d_len // 4))
+    for i in range(B):
+        n = min(q_lens[i], d_len, 8)
+        d_ids[i * (1 + negatives), :n] = q_ids[i, :n]
+        d_mask[i * (1 + negatives), :n] = 1
+    return dict(query_input_ids=q_ids, query_attention_mask=q_mask, document_input_ids=d_ids,
+                document_attention_mask=d_mask)
+
+
+def family_recipe(family, model_dir, out_dir, teacher_dir=None):
+    """The family's recipe through the port's read_config, cut in batch,
+    steps (FAMILY_STEPS), warmup (2) and cadence (log every
+    FAMILY_LOG_EVERY); its model a local directory."""
+    from contrastors_tpu_torch.read import read_config
+
+    name, batch = FAMILIES[family][:2]
+    raw = read_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "train",
+                                   f"{name}.yaml")).to_dict()
+    raw["train_args"].update(num_train_steps=FAMILY_STEPS, warmup_steps=2, log_lr_every=FAMILY_LOG_EVERY,
+                             output_dir=out_dir)
+    raw["model_args"]["model_name"] = model_dir
+    if teacher_dir:
+        raw["tower_model_args"]["model_name"] = teacher_dir
+    raw["data_args"]["batch_size"] = batch
+    return raw
+
+
+def family_serving(dev, card, family, model_dir, seq_len, pooling):
+    """`load_biencoder` of the family's checkpoint (bf16, attn_impl flash)
+    encodes 256 texts of random lengths padded to seq_len, one batch,
+    through the port's Encoder: n_layer flash
+    forwards a batch, finite unit-norm embeddings, cosine >= 0.999 against
+    the same checkpoint under attn_impl="sdpa" in fp32; texts/s."""
+    import torch
+
+    from contrastors_tpu_torch.config import ModelArgs
+    from contrastors_tpu_torch.eval.encoder import Encoder
+    from contrastors_tpu_torch.eval.stub_tokenizer import StubTokenizer
+    from contrastors_tpu_torch.models.auto import load_biencoder
+
+    args = dict(model_type="encoder", model_name=model_dir, pooling=pooling, pretrained=True, attn_impl="flash")
+    model, cfg = load_biencoder(ModelArgs.from_dict(args), dtype=torch.bfloat16, device=dev)
+    tok = StubTokenizer(cfg.vocab_size)
+    texts = make_texts(np.random.default_rng(7), 256, 8, seq_len - 2, lognormal=False)
+
+    def encoder(m):
+        enc = Encoder(m.eval(), tok, seq_len=seq_len, batch_size=256, bucketed=False)
+        enc.query_prefix = enc.document_prefix = None
+        return enc
+
+    enc = encoder(model)
+    reset_counts()
+    emb = enc.encode(texts)
+    launches = read_counts()
+    ref_model, _ = load_biencoder(ModelArgs.from_dict(dict(args, attn_impl="sdpa")), dtype=torch.float32,
+                                  device=dev)
+    ref = encoder(ref_model).encode(texts)
+    del ref_model
+    cos = float((emb * ref).sum(-1).min())
+    times = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        enc.encode(texts)
+        times.append((time.perf_counter() - t0) * 1e3)
+    norms = np.linalg.norm(emb, axis=-1)
+    ok = (launches == expect(fwd=cfg.n_layer) and emb.shape == (256, cfg.n_embd) and bool(np.isfinite(emb).all())
+          and float(np.abs(norms - 1).max()) < 1e-2 and cos >= SERVING_COSINE)
+    row = dict(texts=256, seq_len=seq_len, pooling=pooling, launches_per_batch=launches, min_cosine_vs_sdpa_fp32=cos,
+               encode_ms=float(np.median(times[1:])), texts_per_s=256 / float(np.median(times[1:])) * 1e3)
+    emit(phase=f"{family}_serving", card=card, gpu_state=gpu_state(),
+         params=sum(p.numel() for p in model.parameters()), n_layer=cfg.n_layer, **row, threshold=SERVING_COSINE,
+         ok=ok)
+    del model, enc
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"{family} serving: launches, finiteness, norms or agreement with sdpa failed")
+    return row
+
+
+def family_training(dev, card, family, model_dir, teacher_dir=None, dense_sd=None):
+    """The family's recipe through train.run (`family_recipe`), one
+    in-memory batch repeated: flash (and gmm / tgmm) launches per step as
+    predicted, finite losses, the mean of the last two below that of the
+    first two, 0 synchronising calls per quiet step; with dense_sd (the
+    upcycled MoE) every expert of an MoE layer the dense MLP bit for bit
+    after the load; distill: student layer i the teacher's layer 2i bit
+    for bit after the init, and the teacher unchanged by the steps. Returns
+    the row."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from contrastors_tpu_torch.eval.stub_tokenizer import StubTokenizer
+    from contrastors_tpu_torch.models.nomic_bert import _layer_is_moe
+    from contrastors_tpu_torch.trainers import DistillTrainer, TextTextTrainer
+
+    name, batch, recipe_batch, negatives, q_len, d_len = FAMILIES[family]
+    out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{family}_")
+    raw = family_recipe(family, model_dir, out_dir, teacher_dir)
+    vocab = {"modernbert": MODERNBERT_BASE_CONFIG, "pythia": PYTHIA_160M_CONFIG}.get(
+        family, NOMIC_BERT_2048_CONFIG)
+    vocab = vocab.get("vocab_size")
+    host = [family_batch(np.random.default_rng(11), vocab, batch, negatives, q_len, d_len)]
+    base = DistillTrainer if family == "distill" else TextTextTrainer
+    checks = {}
+
+    class FamilyTrainer(chip_trainer_class(base, StubTokenizer(vocab))):
+        def get_dataloaders(self):
+            return host, len(host)
+
+        def get_model(self):
+            model = super().get_model()
+            trunk = self.biencoder.trunk.state_dict()
+            if dense_sd is not None:
+                moe_layers = [i for i in range(self.trunk_config.n_layer) if _layer_is_moe(self.trunk_config, i)]
+                checks["experts_equal_dense_mlp"] = all(
+                    torch.equal(trunk[f"layers.{i}.mlp.{ours}"][e].to("cpu"), dense_sd[
+                        f"encoder.layers.{i}.mlp.{theirs}.weight"].t())
+                    for i in moe_layers for e in range(self.trunk_config.num_experts)
+                    for ours, theirs in (("w_up", "fc11"), ("w_gate", "fc12")))
+                checks["experts_equal_dense_mlp"] &= all(
+                    torch.equal(trunk[f"layers.{i}.mlp.w_down"][e].to("cpu"),
+                                dense_sd[f"encoder.layers.{i}.mlp.fc2.weight"].t())
+                    for i in moe_layers for e in range(self.trunk_config.num_experts))
+            if family == "distill":
+                teacher = self.teacher.trunk.state_dict()
+                checks["student_layer_i_is_teacher_layer_2i"] = all(
+                    torch.equal(v, teacher[re.sub(r"^layers\.(\d+)\.", lambda m: f"layers.{2 * int(m[1])}.", k)])
+                    for k, v in trunk.items())
+                self.teacher_start = {k: v.clone() for k, v in self.teacher.state_dict().items()}
+            return model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_before_gb = torch.cuda.memory_allocated() / 2**30
+    try:
+        trainer, rows, seconds, launches, syncs = run_chip_trainer(raw, dev, FamilyTrainer)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    cfg = trainer.trunk_config
+    L = cfg.n_layer
+    if family == "moe":
+        n_moe = sum(1 for i in range(L) if _layer_is_moe(cfg, i))
+        predicted = expect(fwd=2 * L, dq=2 * L, dkv=2 * L, gmm=2 * 6 * n_moe, tgmm=2 * 3 * n_moe)
+    elif family == "distill":
+        predicted = expect(fwd=2 * L + 2 * len(trainer.teacher.trunk.layers), dq=2 * L, dkv=2 * L)
+    else:
+        predicted = expect(fwd=2 * L, dq=2 * L, dkv=2 * L)
+    noisy = {s for s in range(1, len(rows) + 1) if s % FAMILY_LOG_EVERY == 0} | {len(rows)}
+    quiet = quiet_rows(rows, noisy)
+    losses = [r["loss"] for r in rows]
+    checks.update(
+        launches=all(r["launches"] == predicted for r in rows), finite=bool(np.isfinite(losses).all()),
+        loss_falls=float(np.mean(losses[-2:])) < float(np.mean(losses[:2])),
+        no_sync_per_quiet_step=bool(quiet) and all(r["iteration_syncs"] == 0 for r in quiet))
+    if family == "distill":
+        checks["teacher_unchanged"] = all(torch.equal(v, trainer.teacher_start[k])
+                                          for k, v in trainer.teacher.state_dict().items())
+    row = dict(recipe=f"configs/train/{name}.yaml", n_layer=L, launches_per_step=rows[0]["launches"],
+               predicted_per_step=predicted, losses=losses, peak_gb=peak_gb,
+               allocated_before_gb=allocated_before_gb, seconds=seconds,
+               step_ms=float(np.median([r["iteration_ms"] for r in quiet])) if quiet else None,
+               syncs_per_quiet_step=[r["iteration_syncs"] for r in quiet],
+               cuts=dict(batch=f"{recipe_batch} -> {batch}", negatives=negatives,
+                         tokens=f"query {q_len} / document {d_len}", steps=FAMILY_STEPS,
+                         warmup=f"{raw['train_args']['warmup_steps']} (recipe: see its yaml)",
+                         data="one in-memory batch of stand-in token ids, repeated", tokenizer="StubTokenizer",
+                         weights="seeded random, written under the HF names"),
+               params=sum(p.numel() for p in trainer.biencoder.parameters()))
+    if family == "distill":
+        row["teacher_params"] = sum(p.numel() for p in trainer.teacher.parameters())
+    emit(phase=f"{family}_training", card=card, gpu_state=gpu_state(), **row, checks=checks,
+         first_syncs=syncs[:3], ok=all(checks.values()))
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"{family} training gates failed: {[k for k, v in checks.items() if not v]}")
+    return row
+
+
+def family_kernel_timing(dev, card, gen):
+    """The two new attention shapes (FAMILY_CASES) timed: the forward
+    (flash_attention_fwd) and dq and dk/dv alone, each as ms and device_ms
+    beside its bound over the live pairs only (the band with the padding
+    mask: `live_pairs`), beside the plain versions (the forward; the whole
+    backward) and beside torch SDPA with the equivalent boolean
+    mask (the valid keys inside the band; forward, and forward + backward
+    minus forward for the backward). Each is checked once more against its
+    plain version. Returns {case: row}."""
+    import torch
+    import torch.nn.functional as F
+
+    from contrastors_tpu_torch.ops import flash_attention as fa
+
+    rows = {}
+    for name, shp, opt in FAMILY_CASES:
+        B, S, T, H, Hkv, D = (shp[n] for n in ("B", "S", "T", "H", "Hkv", "D"))
+        q, k, v, kw = case_inputs(gen, dev, shp, opt)
+        causal, window, dispatch = kw["causal"], kw["window"], opt.get("dispatch", False)
+        mask = kw["kv_segment_ids"] if dispatch else kw["attention_mask"]
+        lens = mask.sum(dim=1).tolist()
+        band = dict(causal=causal, window=window, all_rows=dispatch)
+        b_ms, b_by, flops, nbytes = attention_bound(B, S, T, H, Hkv, D, lens, **band)
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        ref_out, _ = fa.flash_attention_reference(q, k, v, **kw)
+        ratio = fa.output_error_ratio(out, ref_out)
+        del ref_out
+
+        def run():
+            return fa.flash_attention_fwd(q, k, v, **kw)
+
+        r_i, c_i = torch.arange(S, device=dev)[:, None], torch.arange(T, device=dev)[None, :]
+        keep = (c_i[None] < mask.sum(dim=1)[:, None, None])
+        if causal:
+            keep = keep & (c_i <= r_i + T - S)
+        if window:
+            keep = keep & ((r_i - c_i).abs() <= window // 2)
+        keep = keep[:, None]
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
+
+        row = dict(fwd=dict(ms=median_ms(run), device_ms=median_ms(run, queued=True), bound_ms=b_ms, bound_by=b_by,
+                            flops=flops, bytes=nbytes, live_pairs=live_pairs(lens, S, T, **band),
+                            all_pairs=B * S * T,
+                            plain_ms=median_ms(lambda: fa.flash_attention_reference(q, k, v, **kw), runs=3, warmup=1),
+                            library_ms=median_ms(sdpa),
+                            library_device_ms=median_ms(sdpa, queued=True), o_err_over_tol=ratio))
+        dout = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
+        seg_q, seg_kv = fa.merge_segments(B, S, T, kw.get("attention_mask"), kw.get("segment_ids"),
+                                          kw.get("kv_segment_ids"), dev)
+        inputs = fa.prepare_backward(q, k, v, out, lse, dout, seg_q, seg_kv)
+        args = (causal, T - S, window, 1.0 / D**0.5)
+        launchers = dict(dq=lambda: fa.launch_bwd_dq(*inputs, *args), dkv=lambda: fa.launch_bwd_dkv(*inputs, *args))
+        launchers["dq"]()  # delta for dk/dv
+        for kname, launch in launchers.items():
+            k_ms, k_by, k_flops, k_bytes = backward_bound(kname, B, S, T, H, Hkv, D, lens, **band)
+            row[kname] = dict(ms=median_ms(launch), device_ms=median_ms(launch, queued=True), bound_ms=k_ms,
+                              bound_by=k_by, flops=k_flops, bytes=k_bytes)
+        dot = dout.transpose(1, 2)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+        row["plain_backward_ms"] = median_ms(lambda: fa.flash_attention_backward_reference(
+            q, k, v, out, lse, dout, **kw), runs=3, warmup=1)
+        row["library_backward_ms"] = median_ms(sdpa_fwd_bwd) - row["fwd"]["library_ms"]
+        row["library_backward_device_ms"] = median_ms(sdpa_fwd_bwd, queued=True) - row["fwd"]["library_device_ms"]
+        grads = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+        refs = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw)
+        row["grad_err_over_tol"] = {n: fa.grad_error_ratio(g, r, n) for g, r, n in zip(grads, refs, ("dq", "dk", "dv"))}
+        rows[name] = row
+        emit(phase="family_kernel_timing", card=card, gpu_state=gpu_state(), case=name, **shp, causal=causal,
+             window=window, dispatch=dispatch, **row,
+             note="fwd: flash_attention_fwd; dq, dkv: the kernels alone; bound over the live pairs; library: "
+                  "SDPA with the valid keys inside the band as a boolean attn_mask")
+        if ratio > 1.0 or max(row["grad_err_over_tol"].values()) > 1.0:
+            raise AssertionError(f"flash kernels disagree with their plain versions at {name}")
+        del q, k, v, out, lse, dout, inputs, grads, refs, qt, kt, vt, keep
+        torch.cuda.empty_cache()
+    return rows
+
+
+def families_phase(dev, card, gen):
+    """Phase 20: the four families of configs/train/ that no earlier phase
+    drives, each at its published widths with seeded weights written under
+    the HF names to a temporary directory, through the port's loaders and
+    train.run: ModernBERT-base (serving 256 x 512, and
+    contrastive_finetune_modernbert.yaml), nomic-bert-2048 upcycled to 8
+    experts (contrastive_finetune_moe.yaml, from a dense checkpoint), the
+    distill pair of configs/train/distill.yaml (teacher nomic-embed-text-
+    v1.5's widths, a 6-layer student of the same config.json) and
+    pythia-160m (serving 256 x 128 with last pooling, and
+    contrastive_finetune_decoder.yaml); then the two new attention shapes
+    timed. Returns the rows."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_families_")
+    out = {}
+    try:
+        mb_dir = os.path.join(root, "ModernBERT-base")
+        write_family_checkpoint(mb_dir, "modernbert", MODERNBERT_BASE_CONFIG, seed=20)
+        out["modernbert"] = dict(serving=family_serving(dev, card, "modernbert", mb_dir, 512, "mean"),
+                                 training=family_training(dev, card, "modernbert", mb_dir))
+        shutil.rmtree(mb_dir)
+
+        dense_dir = os.path.join(root, "nomic-bert-2048")
+        dense_sd = write_family_checkpoint(dense_dir, "nomic", NOMIC_BERT_2048_CONFIG, seed=21)
+        out["moe"] = dict(training=family_training(dev, card, "moe", dense_dir, dense_sd=dense_sd))
+        del dense_sd
+        shutil.rmtree(dense_dir)
+
+        teacher_dir, student_dir = os.path.join(root, "nomic-embed-text-v1.5"), os.path.join(root, "nomic-bert-6l")
+        write_family_checkpoint(teacher_dir, "nomic", NOMIC_BERT_2048_CONFIG, seed=22)
+        # the student: the teacher's config.json at half its depth (6 layers)
+        write_family_checkpoint(student_dir, "nomic", dict(NOMIC_BERT_2048_CONFIG,
+                                                           n_layer=NOMIC_BERT_2048_CONFIG["n_layer"] // 2),
+                                seed=0, weights=False)
+        out["distill"] = dict(training=family_training(dev, card, "distill", student_dir, teacher_dir=teacher_dir))
+
+        py_dir = os.path.join(root, "pythia-160m")
+        write_family_checkpoint(py_dir, "pythia", PYTHIA_160M_CONFIG, seed=23)
+        out["pythia"] = dict(serving=family_serving(dev, card, "pythia", py_dir, 128, "last"),
+                             training=family_training(dev, card, "pythia", py_dir))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["kernels"] = family_kernel_timing(dev, card, gen)
+    emit(phase="families", card=card, ok=True, **{f: {k: {kk: vv for kk, vv in v.items() if kk in (
+        "launches_per_step", "launches_per_batch", "step_ms", "peak_gb", "texts_per_s")} for k, v in rows.items()}
+        for f, rows in out.items() if f != "kernels"})
+    return out
+
+
 def finish(card, summary):
     """The run's ending: the command_time line, the card's line, the summary
     and the last line, these three as the contract gives them, without t."""
@@ -3498,7 +4007,7 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description="Drive the PyTorch / CUDA port on one NVIDIA GPU.")
     ap.add_argument("--only", choices=["moe_kernels", "moe", "flash_fwd", "flash_bwd", "dense", "trainer",
-                                       "mlm_trainer", "vision"],
+                                       "mlm_trainer", "vision", "families"],
                     help="run only the card, build and grouped-matmul phases (9), or (moe) also MoE "
                          "serving and the MoE step's timing and profile (10-12, no gradient agreement); "
                          "flash_fwd: the card, build, the forward checks (3, 13), the forward timing (6), "
@@ -3508,7 +4017,9 @@ def main(argv=None):
                          "dense: the card, build and the dense step's timing and profile (7-8, no "
                          "gradient agreement); trainer: the card, build and the trainer phase (17); "
                          "mlm_trainer: the card, build and the MLM, MMLM and GLUE trainers (18); vision: the "
-                         "card, build, the ViT attention shape's forward and backward checks and phase 19")
+                         "card, build, the ViT attention shape's forward and backward checks and phase 19; "
+                         "families: the card, build, the families' attention shapes' forward and backward "
+                         "checks and phase 20")
     ap.add_argument("--tree", help="with --only: the root of another checkout whose contrastors_tpu_torch "
                                    "package is built and timed (an earlier commit, for old against new)")
     args = ap.parse_args(argv)
@@ -3588,10 +4099,12 @@ def main(argv=None):
             summary["trainer_launches"] = trainer_phase(dev, card)
         elif args.only == "mlm_trainer":
             summary["mlm_trainer"] = mlm_trainer_phase(dev, card)
-        elif args.only == "vision":
-            o_errs = forward_checks(dev, gen, VIT_CASES)
-            grad_errs = backward_checks(dev, gen, VIT_CASES)
-            summary["vision"] = vision_family(dev, card, gen)
+        elif args.only in ("vision", "families"):
+            cases, phase = ((VIT_CASES, vision_family) if args.only == "vision"
+                            else (FAMILY_CASES + FAMILY_PATH_CASES, families_phase))
+            o_errs = forward_checks(dev, gen, cases)
+            grad_errs = backward_checks(dev, gen, [c for c in cases if c[0] not in FAMILY_SERVING])
+            summary[args.only] = phase(dev, card, gen)
             summary["max_abs_err"] = dict(fwd=max(o_errs.values()), **{g: max(e.values()) for g, e in grad_errs.items()})
         else:
             summary["max_abs_err"], moe_times = moe_kernels(dev, card)
@@ -3726,6 +4239,9 @@ def main(argv=None):
     # 19. the vision / LiT family: the ViT's attention shape, serving, the recipe's trainer
     vision = vision_family(dev, card, gen)
 
+    # 20. the families: ModernBERT, the upcycled MoE, distill and pythia
+    families = families_phase(dev, card, gen)
+
     # 10-12. the dropless MoE path: serving and training
     moe_enc_launches, moe_batches = moe_serving(dev, card, tok, rng, gen)
     moe_train_launches = moe_training(dev, card)
@@ -3746,9 +4262,26 @@ def main(argv=None):
             timings={f"{name} {layout} K={K} N={N}": {k: row[k] for k in pick}
                      for (name, layout, K, N), row in moe_times.items() if (name == "tgmm") == (kname == "tgmm")},
         )
+        entry["families"] = family_entry(kname)
         if kname == "gmm":
             entry["encode_launches"] = moe_enc_launches["gmm"]
             entry["encode_batches"] = moe_batches
+        return entry
+
+    def family_entry(kname):
+        """Phase 20: launches per training step of each family (and per
+        serving batch), and for the flash kernels the two new shapes'
+        timing rows."""
+        entry = {f"{f}_launches_per_step": families[f]["training"]["launches_per_step"][kname]
+                 for f in ("modernbert", "moe", "distill", "pythia")}
+        if kname == "fwd":
+            entry.update({f"{f}_launches_per_serving_batch": families[f]["serving"]["launches_per_batch"]["fwd"]
+                          for f in ("modernbert", "pythia")})
+        if kname in ("fwd", "dq", "dkv"):
+            lib = ("library_ms", "library_device_ms") if kname == "fwd" else ("library_backward_ms",
+                                                                              "library_backward_device_ms")
+            entry["timings"] = {case: dict(row[kname], **{k: row[k] if k in row else row["fwd"][k] for k in lib})
+                                for case, row in families["kernels"].items()}
         return entry
 
     def vision_entry(kname):
@@ -3788,6 +4321,7 @@ def main(argv=None):
             query_tower=at(query, "B=512 S=T=32 H=12 D=64"),
             mlm_unfused=at(mlm, "B=8 S=T=2048 H=12 D=64, rotary outside"),
             vision=vision_entry(kname),
+            families=family_entry(kname),
             note="plain_ms and library_ms time a whole backward (dq, dk and dv); backward_ms is the whole "
                  "flash_attention_backward (dq, with delta, then dk/dv)",
         )
@@ -3831,6 +4365,7 @@ def main(argv=None):
             long_context=dict(timings["b16_s4096"], launches=launches_long,
                               max_abs_err=max(o_errs["s4096"], o_errs["s8192"])),
             vision=vision_entry("fwd"),
+            families=family_entry("fwd"),
             timings={label: {k: row[k] for k in ("ms", "device_ms", "enqueue_us", "plain_ms", "bound_ms",
                                                  "library_ms", "library_device_ms")}
                      for label, row in timings.items()},

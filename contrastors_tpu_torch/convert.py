@@ -22,7 +22,15 @@ no rule of its own: a ViT tree's `embeddings/proj` (the patch Dense),
 `ls1` / `ls2` and `mlp/norm`, a BiEncoder's `selector` (the MAP head: `attn/
 latent`, `Wq`, `Wkv`, `out_proj`, `norm1`, `mlp`) and `proj`, and the
 DualEncoder tree (`text`, `vision`, `logit_scale/logit_scale`, a scalar)
-map by the rules above onto modules of the same names. Values come out as fp32 tensors on the CPU;
+map by the rules above onto modules of the same names. So do the trees of
+this slice's families: the decoder's (`embed_tokens/embedding`, or
+`embeddings/...` for learned positions; `ln_f`; a `ParallelBlock`'s
+`norm1`, `norm2`, `attn` and `mlp`, the same names as a `Block`'s),
+ModernBERT's (layer 0 has no `norm1`, and neither has the port's module)
+and an upcycled MoE trunk (the expert tensors `w_up`, `w_gate`, `w_in`,
+`w_down` and the `router` are not Dense kernels: they keep JAX's layout,
+[E, D, F], [E, F, D] and [D, E], as the port's `MoEMLP` does, and copy as
+they are; the shared experts are Dense layers). Values come out as fp32 tensors on the CPU;
 `load_state_dict` casts them to each parameter's dtype and device.
 """
 

@@ -13,7 +13,9 @@ attn_pdrop > 0 the attention dropout is drawn from `dropout_generator`
 as JAX's sends it to its XLA sdpa. A ViT passes its 2-D rope table
 (`rope`): q and k are rotated outside attention with the first
 max(register_tokens, 1) tokens left as they are (even with no cls token,
-JAX's quirk), and attention runs unmasked through `attention_core`.
+JAX's quirk), and attention runs unmasked through `attention_core`. With
+`rotary_head_dim` (open_lm's `rotary_old`) the table is H rows long and q
+and k are rotated over the head index instead of the position, as in JAX.
 
 The MAP head (`MultiHeadAttentionPooling`) is one learned latent query
 cross-attending over the sequence through the plain `sdpa` on purpose (one
@@ -84,8 +86,12 @@ class MultiHeadAttention(nn.Module):
         rotary_kw = {}
         if cfg.rotary_emb_dim > 0:
             # DynamicNTK scaling engages only past the trained context
-            cos, sin = self._rotary_tables(S, q.device)
-            if cfg.fused_rotary:
+            cos, sin = self._rotary_tables(H if cfg.rotary_head_dim else S, q.device)
+            if cfg.rotary_head_dim:
+                # open_lm's quirk: the head index is the rotary position
+                q = apply_rotary(q.transpose(1, 2), cos, sin, cfg.rotary_emb_interleaved).transpose(1, 2)
+                k = apply_rotary(k.transpose(1, 2), cos, sin, cfg.rotary_emb_interleaved).transpose(1, 2)
+            elif cfg.fused_rotary:
                 rotary_kw = dict(rotary_cos=cos, rotary_sin=sin,
                                  rotary_interleaved=cfg.rotary_emb_interleaved,
                                  rotary_position_ids=position_ids)

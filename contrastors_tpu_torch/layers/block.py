@@ -1,4 +1,5 @@
-"""Transformer block, counterpart of `contrastors_tpu/layers/block.py:Block`.
+"""Transformer blocks, counterpart of `contrastors_tpu/layers/block.py`
+(`Block`, `ParallelBlock`).
 
 Postnorm (BERT) and the shifted prenorm layout: a prenorm Block receives
 the un-added output of the previous block plus the running residual, adds
@@ -16,7 +17,13 @@ before their residual add (prenorm only, as in JAX). `rope`, the 2-D ViT table, 
 (`layers/attention.py`). A MoE block
 (`moe` and num_experts > 0) runs the dropless `MoEMLP` in place of the MLP
 and returns its masked router logits; a dense block returns None for them.
-The parallel block waits for a later slice.
+
+`ParallelBlock` (GPT-J / GPT-NeoX) carries two un-added streams, the
+previous block's attention and MLP outputs, plus the residual: it adds both
+(each through its residual dropout, sites 0 and 3) to the residual, then
+runs attention on norm1(residual) and the MLP on norm2(residual), or on the
+same normed input with `parallel_block_tied_norm`, and returns both outputs
+un-added.
 """
 
 from typing import Optional, Tuple
@@ -108,6 +115,46 @@ class Block(nn.Module):
         hidden_states = self._norm1(drop(attn_out, 0, self.drop_path_rate1) + hidden_states)
         mlp_out, router_logits = self._mlp(hidden_states, attention_mask)
         return self.norm2(drop(mlp_out, 3, self.drop_path_rate2) + hidden_states), None, router_logits
+
+
+class ParallelBlock(nn.Module):
+    def __init__(self, config, dtype=torch.float32, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.config, self.dtype = config, dtype
+        self.attn = MultiHeadAttention(config, dtype=dtype, device=device)
+        self.mlp = make_mlp(config, dtype=dtype, device=device)
+        self.norm1 = make_norm(config, device=device)
+        self.norm2 = None if config.parallel_block_tied_norm else make_norm(config, device=device)
+
+    def forward(
+        self,
+        hidden_states1: torch.Tensor,
+        hidden_states2: Optional[torch.Tensor],
+        residual: Optional[torch.Tensor] = None,
+        attention_mask: Optional[torch.Tensor] = None,
+        segment_ids: Optional[torch.Tensor] = None,
+        position_ids: Optional[torch.Tensor] = None,
+        dropout_seed: Optional[int] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(attention output, MLP output, residual). hidden_states2 is None
+        before the first block."""
+        cfg = self.config
+        dev, train = hidden_states1.device, self.training
+
+        def gen(site, p):
+            return site_generator(dropout_seed, site, device=dev) if active(p, train) else None
+
+        resid_dtype = torch.float32 if cfg.residual_in_fp32 else hidden_states1.dtype
+        new = dropout(hidden_states1, cfg.resid_pdrop, gen(0, cfg.resid_pdrop), train).to(resid_dtype)
+        if hidden_states2 is not None:
+            new = new + dropout(hidden_states2, cfg.resid_pdrop, gen(3, cfg.resid_pdrop), train).to(resid_dtype)
+        residual = new if residual is None else residual + new
+        hidden1 = self.norm1(residual).to(self.dtype)
+        hidden2 = hidden1 if self.norm2 is None else self.norm2(residual).to(self.dtype)
+        attn_out = self.attn(hidden1, attention_mask=attention_mask, segment_ids=segment_ids,
+                             position_ids=position_ids, dropout_generator=gen(2, cfg.attn_pdrop))
+        return attn_out, self.mlp(hidden2), residual
 
 
 def _scaled(x: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:

@@ -1,31 +1,41 @@
-"""Model factory: ModelArgs -> BiEncoder, for the encoder and vision
-families.
+"""Model factory: ModelArgs -> BiEncoder, for every family of the JAX
+package.
 
 Counterpart of `contrastors_tpu/models/auto.py:load_biencoder`. `model_name`
 (or `checkpoint`) is a local directory holding an HF config.json, and with
 `pretrained: true` a model.safetensors (safetensors is imported only then)
 or a pytorch_model.bin. The same overrides as JAX's are applied to the
 trunk config; `pretrained: false` gives the port's seeded random init
-(`init_weights`). A timm name (`timm/vit_eva02_base_patch16_224` and the
-other `TIMM_PRESETS`) resolves to its preset without any file, and with
-`pretrained: true` reads timm-named weights from a local directory of that
-name. HF vision checkpoints (vit, vit_mae, clip, clip_vision_model,
-dinov2) load through `hf_interop_vit`. Decoder and ModernBERT checkpoints,
-and a dense checkpoint loaded into an MoE config, raise
-NotImplementedError naming their ROADMAP item.
+(`init_weights`). The family is sniffed from config.json as JAX sniffs it:
+BERT-family and ModernBERT checkpoints load into the encoder trunk
+(`hf_interop`), gpt_neox / llama / open_lm / clip_text_model into the
+causal decoder (`hf_interop_decoder`), and HF vision checkpoints (vit,
+vit_mae, clip, clip_vision_model, dinov2) through `hf_interop_vit`. A timm
+name (`timm/vit_eva02_base_patch16_224` and the other `TIMM_PRESETS`)
+resolves to its preset without any file, and with `pretrained: true` reads
+timm-named weights from a local directory of that name. A dense encoder
+checkpoint loaded into an MoE config is upcycled (`moe_interop`): each MoE
+layer's experts start as copies of its dense MLP, with a fresh router.
 """
 
 import json
 import os
 import types
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from contrastors_tpu_torch.config import ModelArgs
+from contrastors_tpu_torch.convert import flax_to_torch
+from contrastors_tpu_torch.models import hf_interop_decoder as dec
 from contrastors_tpu_torch.models.biencoder import BiEncoder
-from contrastors_tpu_torch.models.hf_interop import bert_config_to_trunk_config, bert_state_dict_to_torch
+from contrastors_tpu_torch.models.hf_interop import (
+    bert_config_to_trunk_config,
+    bert_tree,
+    modernbert_config_to_trunk_config,
+    modernbert_trunk_tree,
+)
 from contrastors_tpu_torch.models.hf_interop_timm import (
     TIMM_PRESETS,
     normalize_timm_name,
@@ -34,6 +44,7 @@ from contrastors_tpu_torch.models.hf_interop_timm import (
 )
 from contrastors_tpu_torch.models.hf_interop_vit import vit_config_to_trunk_config, vit_state_dict_to_torch
 from contrastors_tpu_torch.models.model_config import TrunkConfig
+from contrastors_tpu_torch.models.moe_interop import expand_dense_trunk_to_moe
 from contrastors_tpu_torch.models.nomic_bert import init_weights
 
 DECODER_TYPES = ("gpt_neox", "llama", "gpt2", "open_lm", "openlm", "clip_text_model")
@@ -70,13 +81,55 @@ def sniff_family(model_type: str, model_name: str) -> str:
     return "encoder"
 
 
-def _refuse_family(model_type: str, family: str):
-    """NotImplementedError for a model family the port has no trunk for."""
-    if family == "decoder":
-        raise NotImplementedError(f"decoder checkpoints ({model_type}) are not ported yet (ROADMAP Queue 1, item 8)")
-    if model_type == "modernbert":
-        raise NotImplementedError("ModernBERT checkpoints are not ported yet (ROADMAP Queue 1, item 9: the "
-                                  "HF loaders)")
+def _encoder_weights(tree_fn):
+    """An encoder checkpoint's weights: its Flax-layout tree, upcycled on
+    the numpy tree when the config has experts (JAX's step), then carried
+    to the port's names."""
+    def weights(sd, cfg, hf):
+        tree = tree_fn(sd, cfg)
+        if cfg.num_experts > 0:
+            tree = expand_dense_trunk_to_moe(tree, cfg)
+        return flax_to_torch(tree)
+    return weights
+
+
+class FamilyLoader(NamedTuple):
+    """How one kind of config.json loads: config.json (and the overrides)
+    -> TrunkConfig; (numpy state dict, TrunkConfig, config.json) -> the
+    trunk's state dict; and whether the converter fixes the activation
+    itself, so that ModelArgs' must not replace it."""
+    config: Callable[..., TrunkConfig]
+    weights: Callable[[Dict[str, np.ndarray], TrunkConfig, Dict[str, Any]], Dict[str, torch.Tensor]]
+    own_activation: bool = False
+
+
+# by model_type, else by family ("bert" for every other encoder), as JAX's
+# `trunk_config_from_hf_dict` and `load_biencoder` dispatch
+LOADERS = {
+    "vision": FamilyLoader(vit_config_to_trunk_config,
+                           lambda sd, cfg, hf: vit_state_dict_to_torch(sd, cfg, hf.get("model_type", "vit"))),
+    "decoder": FamilyLoader(dec.decoder_config_to_trunk_config,
+                            lambda sd, cfg, hf: dec.decoder_state_dict_to_torch(sd, cfg, hf["model_type"])),
+    # a plain MLP could not hold open_lm's fc11 / fc12
+    "open_lm": FamilyLoader(dec.open_lm_config_to_trunk_config,
+                            lambda sd, cfg, _: dec.open_lm_state_dict_to_torch(sd, cfg), own_activation=True),
+    "clip_text_model": FamilyLoader(dec.clip_text_config_to_trunk_config,
+                                    lambda sd, cfg, _: dec.clip_text_state_dict_to_torch(sd, cfg),
+                                    own_activation=True),
+    "modernbert": FamilyLoader(modernbert_config_to_trunk_config, _encoder_weights(modernbert_trunk_tree)),
+    "bert": FamilyLoader(lambda hf, **o: bert_config_to_trunk_config(types.SimpleNamespace(**hf), **o),
+                         _encoder_weights(bert_tree)),
+}
+
+
+def family_loader(hf: Dict[str, Any]) -> Tuple[str, FamilyLoader]:
+    """(family, loader) of a config.json."""
+    model_type = hf.get("model_type", "bert")
+    family = sniff_family(model_type, hf.get("_name_or_path", ""))
+    key = "open_lm" if model_type == "openlm" else model_type
+    if family == "vision" or key not in LOADERS:
+        key = {"encoder": "bert"}.get(family, family)
+    return family, LOADERS[key]
 
 
 def load_biencoder(
@@ -99,9 +152,7 @@ def load_biencoder(
             "config.json (and model weights for pretrained=true)."
         )
     hf_cfg = _load_hf_config(path)
-    model_type = hf_cfg.get("model_type", "bert")
-    family = sniff_family(model_type, hf_cfg.get("_name_or_path", ""))
-    _refuse_family(model_type, family)
+    family, loader = family_loader(hf_cfg)
 
     overrides = dict(trunk_overrides or {})
     overrides.setdefault("attn_impl", model_args.attn_impl)
@@ -122,14 +173,13 @@ def load_biencoder(
     # ModelArgs.activation_function applies when config.json names no
     # activation. JAX checks only hidden_act / hidden_activation, so the
     # ModelArgs default "gelu" replaces the "activation_function" of a
-    # GPT2-style config such as nomic-bert-2048's swiglu (ROADMAP Queue 3)
-    if model_args.activation_function and not any(
+    # GPT2-style config such as nomic-bert-2048's swiglu (ROADMAP Queue 3).
+    # As in JAX, it never applies to open_lm and the CLIP text tower, whose
+    # converters fix the activation (`FamilyLoader.own_activation`)
+    if model_args.activation_function and not loader.own_activation and not any(
             k in hf_cfg for k in ("hidden_act", "hidden_activation", "activation_function")):
         overrides.setdefault("activation_function", model_args.activation_function)
-    if family == "vision":
-        cfg = vit_config_to_trunk_config(hf_cfg, **overrides)
-    else:
-        cfg = bert_config_to_trunk_config(types.SimpleNamespace(**hf_cfg), **overrides)
+    cfg = loader.config(hf_cfg, **overrides)
 
     module = BiEncoder(
         cfg,
@@ -144,16 +194,10 @@ def load_biencoder(
     )
     init_weights(module, seed)
     if model_args.pretrained:
-        if cfg.num_experts > 0:
-            raise NotImplementedError("loading a dense checkpoint into an MoE config (upcycling) is not ported "
-                                      "yet (ROADMAP Queue 1, item 5)")
         sd = _load_state_dict(path)
         if sd is None:
             raise FileNotFoundError(f"pretrained=true but no weights found in {path}")
-        if family == "vision":
-            _load_trunk(module, vit_state_dict_to_torch(sd, cfg, hf_cfg.get("model_type", "vit")))
-        else:
-            _load_trunk(module, bert_state_dict_to_torch(sd, cfg))
+        _load_trunk(module, loader.weights(sd, cfg, hf_cfg))
     return module, cfg
 
 

@@ -1,5 +1,6 @@
 """BiEncoder: single-tower embedder with pooling heads, counterpart of
-`contrastors_tpu/models/biencoder.py` for the encoder and vision trunks.
+`contrastors_tpu/models/biencoder.py` for the encoder, decoder and vision
+trunks.
 
 Mean / cls / last / MAP / none pooling, the hamming LayerNorm, the projection,
 normalisation with the clamp inside the sqrt, and binarisation keep the JAX
@@ -14,8 +15,9 @@ trunk_type="vision" runs `ViTModel` on `pixel_values` with no mask;
 pooling="map" adds the MAP head (`selector`, JAX's name). With `freeze`
 the trunk runs under `torch.no_grad()`, where JAX stops the gradient at
 its last_hidden_state: the pooling head, hamming LayerNorm and projection
-after it still take gradients. The decoder trunk and packed mode raise
-until their slices are ported.
+after it still take gradients. trunk_type="decoder" runs the causal
+`DecoderModel` (no token types), usually with "last" pooling: the final
+valid token of each row. Packed mode raises until its slice is ported.
 """
 
 import contextlib
@@ -29,12 +31,14 @@ from contrastors_tpu_torch._device import resolve_device
 from contrastors_tpu_torch.layers.attention import MultiHeadAttentionPooling
 from contrastors_tpu_torch.layers.dense import Dense
 from contrastors_tpu_torch.layers.norms import LayerNorm
+from contrastors_tpu_torch.models.decoder import DecoderModel
 from contrastors_tpu_torch.models.model_config import TrunkConfig
 from contrastors_tpu_torch.models.nomic_bert import NomicBertModel
 from contrastors_tpu_torch.models.vit import ViTModel
 
 POOLINGS = ("mean", "last", "cls", "map", "none")
-TRUNK_TYPES = ("encoder", "vision")
+TRUNKS = {"encoder": NomicBertModel, "decoder": DecoderModel, "vision": ViTModel}
+TRUNK_TYPES = tuple(TRUNKS)
 
 
 def mean_pool(hidden: torch.Tensor, attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -91,15 +95,12 @@ class BiEncoder(nn.Module):
         super().__init__()
         device = resolve_device(device)
         if trunk_type not in TRUNK_TYPES:
-            raise (NotImplementedError if trunk_type == "decoder" else ValueError)(
-                f"trunk_type={trunk_type!r}: the port has {TRUNK_TYPES} (the decoder: ROADMAP Queue 1, item 8)"
-            )
+            raise ValueError(f"trunk_type={trunk_type!r}: the port has {TRUNK_TYPES}")
         if pooling not in POOLINGS:
             raise ValueError(f"pooling {pooling!r}: the port has {POOLINGS}")
         self.config, self.trunk_type, self.pooling, self.freeze, self.dtype = (
             config, trunk_type, pooling, freeze, dtype)
-        trunk_cls = ViTModel if trunk_type == "vision" else NomicBertModel
-        self.trunk = trunk_cls(config, dtype=dtype, device=device, remat=remat)
+        self.trunk = TRUNKS[trunk_type](config, dtype=dtype, device=device, remat=remat)
         self.selector = (MultiHeadAttentionPooling(config, dtype=dtype, device=device)
                          if pooling == "map" else None)
         self.hamming = (
@@ -136,6 +137,9 @@ class BiEncoder(nn.Module):
             if self.trunk_type == "vision":
                 trunk_out = self.trunk(pixel_values, generator=generator)
                 attention_mask = None
+            elif self.trunk_type == "decoder":
+                trunk_out = self.trunk(input_ids, attention_mask=attention_mask, position_ids=position_ids,
+                                       segment_ids=segment_ids, generator=generator)
             else:
                 trunk_out = self.trunk(
                     input_ids,

@@ -8,8 +8,12 @@ the nomic-bert flash layout (fused Wqkv, fc11/fc12). Heads: the MLM head,
 and the classification head with its pooler (JAX `:155-240`). The remap builds the
 same nested tree as JAX's and hands it to `convert.flax_to_torch`, so the
 naming rules live in one place. The ViT and timm converters are
-`hf_interop_vit.py` and `hf_interop_timm.py`; the decoder and ModernBERT
-ones wait for their slices (ROADMAP Queue 1, items 8-9).
+`hf_interop_vit.py` and `hf_interop_timm.py`, the decoder ones
+`hf_interop_decoder.py`. ModernBERT (JAX `:307-373`): its config maps onto
+the prenorm trunk with the skipped first prenorm, local / global attention
+and GeGLU, and its `Wi` packs [input, gate] rows: fc12 (the activated
+branch) takes the first half, fc11 the second. Layer 0 has no attn_norm, so
+its tree has no norm1.
 """
 
 import re
@@ -124,9 +128,11 @@ def normalize_bert_keys(sd: Dict[str, Array]) -> Dict[str, Array]:
     return sd
 
 
-def _bert_tree(sd: Dict[str, Array], config: TrunkConfig, head: Optional[str],
-               add_pooling_layer: bool = False) -> dict:
-    """The flax-shaped tree of `bert_state_dict_to_flax` (its numpy part)."""
+def bert_tree(sd: Dict[str, Array], config: TrunkConfig, head: Optional[str] = None,
+              add_pooling_layer: bool = False) -> dict:
+    """The flax-shaped numpy tree of `bert_state_dict_to_flax` (flax names,
+    [in, out] kernels), for a step that works on the tree (upcycling) before
+    `flax_to_torch`."""
     sd = dict(normalize_bert_keys(sd))
 
     w = sd["embeddings.word_embeddings.weight"]
@@ -203,4 +209,78 @@ def bert_state_dict_to_torch(
     decoder bias with -100), and learned position embeddings are dropped
     for a rotary trunk. Head weights absent from the checkpoint are absent
     from the result, for the caller's init to keep."""
-    return flax_to_torch(_bert_tree(sd, config, head, add_pooling_layer))
+    return flax_to_torch(bert_tree(sd, config, head, add_pooling_layer))
+
+
+def modernbert_config_to_trunk_config(hf: Dict, **overrides) -> TrunkConfig:
+    """answerdotai/ModernBERT-* config.json (a dict) -> TrunkConfig."""
+    kw = dict(
+        vocab_size=hf["vocab_size"],
+        n_positions=0,  # rotary
+        n_embd=hf["hidden_size"],
+        n_layer=hf["num_hidden_layers"],
+        n_head=hf["num_attention_heads"],
+        n_inner=hf["intermediate_size"],
+        activation_function="geglu",  # act(input) * gate, exact gelu
+        layer_norm_epsilon=hf.get("norm_eps", 1e-5),
+        norm_bias=bool(hf.get("norm_bias", False)),
+        prenorm=True,
+        skip_first_prenorm=True,  # layer 0's attn_norm is Identity
+        causal=False,
+        rotary_emb_fraction=1.0,
+        rotary_emb_base=hf.get("global_rope_theta", 160_000.0),
+        local_rotary_emb_base=hf.get("local_rope_theta", 10_000.0),
+        sliding_window=hf.get("local_attention", 128),
+        global_attn_every_n_layers=hf.get("global_attn_every_n_layers", 3),
+        qkv_proj_bias=bool(hf.get("attention_bias", False)),
+        mlp_fc1_bias=bool(hf.get("mlp_bias", False)),
+        mlp_fc2_bias=bool(hf.get("mlp_bias", False)),
+        type_vocab_size=0,
+        pad_token_id=hf.get("pad_token_id", 0),
+        embd_pdrop=hf.get("embedding_dropout", 0.0),
+        resid_pdrop=hf.get("mlp_dropout", 0.0),
+        attn_pdrop=hf.get("attention_dropout", 0.0),
+        max_trained_positions=hf.get("max_position_embeddings", 8192),
+    )
+    kw.update(overrides)
+    return TrunkConfig(**kw)
+
+
+def modernbert_trunk_tree(sd: Dict[str, Array], config: TrunkConfig) -> dict:
+    """The trunk's numpy tree of an HF ModernBertModel state dict (JAX
+    `modernbert_state_dict_to_flax`)."""
+    sd = {k.removeprefix("model."): v for k, v in sd.items()}
+    trunk: dict = {}
+    w = sd["embeddings.tok_embeddings.weight"]
+    if config.vocab_size > w.shape[0]:
+        w = np.pad(w, ((0, config.vocab_size - w.shape[0]), (0, 0)))
+    set_path(trunk, "embeddings/word_embeddings/embedding", w)
+    set_path(trunk, "emb_ln/weight", sd["embeddings.norm.weight"])
+    if "embeddings.norm.bias" in sd:
+        set_path(trunk, "emb_ln/bias", sd["embeddings.norm.bias"])
+    for i in range(config.n_layer):
+        src, dst = f"layers.{i}", f"layers_{i}"
+        set_path(trunk, f"{dst}/attn/Wqkv/kernel", _t(sd[f"{src}.attn.Wqkv.weight"]))
+        set_path(trunk, f"{dst}/attn/out_proj/kernel", _t(sd[f"{src}.attn.Wo.weight"]))
+        if f"{src}.attn_norm.weight" in sd:  # absent at layer 0 (Identity)
+            set_path(trunk, f"{dst}/norm1/weight", sd[f"{src}.attn_norm.weight"])
+            if f"{src}.attn_norm.bias" in sd:
+                set_path(trunk, f"{dst}/norm1/bias", sd[f"{src}.attn_norm.bias"])
+        set_path(trunk, f"{dst}/norm2/weight", sd[f"{src}.mlp_norm.weight"])
+        if f"{src}.mlp_norm.bias" in sd:
+            set_path(trunk, f"{dst}/norm2/bias", sd[f"{src}.mlp_norm.bias"])
+        wi = sd[f"{src}.mlp.Wi.weight"]  # [2F, D]: [input; gate]
+        f_hid = wi.shape[0] // 2
+        set_path(trunk, f"{dst}/mlp/fc12/kernel", _t(wi[:f_hid]))  # the activated "input"
+        set_path(trunk, f"{dst}/mlp/fc11/kernel", _t(wi[f_hid:]))  # the linear "gate"
+        set_path(trunk, f"{dst}/mlp/fc2/kernel", _t(sd[f"{src}.mlp.Wo.weight"]))
+    set_path(trunk, "final_norm/weight", sd["final_norm.weight"])
+    if "final_norm.bias" in sd:
+        set_path(trunk, "final_norm/bias", sd["final_norm.bias"])
+    return trunk
+
+
+def modernbert_state_dict_to_torch(sd: Dict[str, Array], config: TrunkConfig) -> Dict[str, torch.Tensor]:
+    """The state dict of `NomicBertModel`, fp32, from an HF ModernBertModel
+    checkpoint's numpy state dict."""
+    return flax_to_torch(modernbert_trunk_tree(sd, config))

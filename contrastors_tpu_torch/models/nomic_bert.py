@@ -44,11 +44,6 @@ from contrastors_tpu_torch.models.model_config import TrunkConfig
 from contrastors_tpu_torch.ops.dropout import active, dropout, fold_seed, noise_seed, site_generator
 
 
-# trunk features of the decoder family (the open_lm head-index rotary, GPT-J
-# parallel blocks): its slice ports them
-UNPORTED_FEATURES = ("rotary_head_dim", "parallel_block")
-
-
 def _layer_is_moe(config: TrunkConfig, i: int) -> bool:
     # moe when i % every_n == 1 (the upstream placement rule)
     if config.num_experts <= 0:
@@ -74,9 +69,9 @@ def init_weights(module: nn.Module, seed: int, std: float = 0.02) -> nn.Module:
     module's device: Linear/Embedding weights, MoE routers and expert
     tensors, the ViT's position table, register tokens and pooling latent
     ~ N(0, std), biases (the MoE output bias and the MLM decoder_bias too)
-    0, norm weights 1, layer scales and the cls token as constructed
-    (layer_scale_init, 0), the kinds of the JAX initialisers. The same seed
-    gives the same weights on every device."""
+    0, norm weights (the decoder's ln_f too) 1, layer scales and the cls
+    token as constructed (layer_scale_init, 0), the kinds of the JAX
+    initialisers. The same seed gives the same weights on every device."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in module.named_parameters():
@@ -85,7 +80,7 @@ def init_weights(module: nn.Module, seed: int, std: float = 0.02) -> nn.Module:
                 continue
             if leaf.endswith("bias"):
                 p.zero_()
-            elif "norm" in name or "emb_ln" in name:
+            elif "norm" in name or "emb_ln" in name or "ln_f" in name:
                 p.fill_(1.0)
             else:
                 p.copy_(torch.randn(p.shape, generator=gen) * std)
@@ -102,9 +97,9 @@ class NomicBertModel(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.remat = remat
-        unported = [f for f in UNPORTED_FEATURES if getattr(config, f)]
-        if unported:
-            raise NotImplementedError(f"config features not ported yet (see ROADMAP): {unported}")
+        if config.parallel_block:
+            raise ValueError("parallel_block: the parallel-residual blocks belong to the decoder trunk "
+                             "(models/decoder.py, trunk_type='decoder')")
         self.config, self.dtype = config, dtype
         self.embeddings = BertEmbeddings(config, dtype=dtype, device=device)
         self.emb_ln = LayerNorm(

@@ -140,7 +140,21 @@ def test_encoder_restores_the_callers_training_flags():
 @pytest.mark.parametrize("over", [dict(parallel_block=True), dict(rotary_head_dim=True),
                                   dict(num_experts=4, moe_every_n_layers=2, moe_impl="capacity")])
 def test_unported_trunk_features_raise(over):
-    with pytest.raises(NotImplementedError):
-        BiEncoder(t_preset(**SMALL, **over), device="cpu")
-    with pytest.raises(NotImplementedError):
-        BiEncoder(t_preset(**SMALL), trunk_type="decoder", device="cpu")
+    """The decoder family's features build: trunk_type="decoder" with
+    parallel blocks or the open_lm head-index rotary embeds finite, unit-norm
+    rows with "last" pooling; the encoder trunk refuses parallel blocks,
+    which JAX's encoder would ignore. The capacity MoE dispatch is still
+    unported and raises NotImplementedError."""
+    if over.get("moe_impl") == "capacity":
+        with pytest.raises(NotImplementedError):
+            BiEncoder(t_preset(**SMALL, **over), device="cpu")
+        return
+    model = BiEncoder(t_preset(**SMALL, **over, causal=True), trunk_type="decoder", pooling="last", device="cpu")
+    assert type(model.trunk.layers[0]).__name__ == ("ParallelBlock" if "parallel_block" in over else "Block")
+    ids = torch.randint(1, 512, (2, 10), generator=torch.Generator().manual_seed(0))
+    mask = (torch.arange(10)[None] < torch.tensor([[10], [6]])).long()
+    emb = model(ids, mask)["embedding"]
+    assert torch.isfinite(emb).all() and torch.allclose(emb.norm(dim=-1), torch.ones(2), atol=1e-5)
+    if "parallel_block" in over:
+        with pytest.raises(ValueError, match="decoder"):
+            BiEncoder(t_preset(**SMALL, **over), device="cpu")

@@ -10,6 +10,7 @@ from `gradient_checkpointing`.
 """
 
 import json
+import re
 
 import numpy as np
 import pytest
@@ -90,6 +91,22 @@ def test_load_biencoder_takes_remat_from_gradient_checkpointing(tmp_path, on):
     assert trunk_cfg.activation_function == "swiglu" and hasattr(model.trunk.layers[0].mlp, "fc11")
 
 
+# a config.json of each family at a small width (D = 64 per head)
+FAMILY_CONFIGS = {
+    "gpt_neox": dict(model_type="gpt_neox", vocab_size=64, hidden_size=128, num_hidden_layers=2,
+                     num_attention_heads=2, intermediate_size=256, rotary_pct=0.25, use_parallel_residual=True,
+                     hidden_act="gelu"),
+    "vit": dict(model_type="vit", hidden_size=64, num_hidden_layers=2, num_attention_heads=4, intermediate_size=128,
+                image_size=32, patch_size=8),
+    "modernbert": dict(model_type="modernbert", vocab_size=64, hidden_size=128, num_hidden_layers=2,
+                       num_attention_heads=2, intermediate_size=96, local_attention=8, global_attn_every_n_layers=3,
+                       hidden_activation="gelu"),
+    "nomic_bert": dict(model_type="nomic_bert", n_embd=128, n_layer=2, n_head=2, n_inner=256, vocab_size=64,
+                       activation_function="swiglu", rotary_emb_fraction=1.0, qkv_proj_bias=False,
+                       mlp_fc1_bias=False, mlp_fc2_bias=False),
+}
+
+
 @pytest.mark.parametrize("model_type,extra,match", [
     ("gpt_neox", {}, "item 8"),
     ("vit", {}, "item 7"),
@@ -98,19 +115,17 @@ def test_load_biencoder_takes_remat_from_gradient_checkpointing(tmp_path, on):
     ("timm", {}, "item 7"),
 ])
 def test_load_biencoder_names_the_roadmap_item_of_each_unported_family(tmp_path, model_type, extra, match):
-    """Decoder and ModernBERT checkpoints, and a dense checkpoint into an MoE
-    config, raise NotImplementedError naming their ROADMAP item. Item 7's
-    families (an HF ViT config.json, a timm name) are ported: they load as
-    vision BiEncoders (MAP pooling by default for a timm name)."""
+    """Every family the ROADMAP once listed as unported now loads: a GPT-NeoX
+    config.json as the causal decoder trunk (ParallelBlocks), ModernBERT as
+    the encoder trunk with its window and skipped first prenorm, a dense
+    nomic-bert checkpoint into an MoE config upcycled (every expert of an
+    MoE layer a copy of the dense MLP), and item 7's HF ViT config.json and
+    timm name as vision BiEncoders (MAP pooling by default for a timm
+    name)."""
     path = "timm/vit_base_patch16_224"
     if model_type != "timm":
-        cfg = dict(model_type=model_type, n_embd=128, n_layer=2, n_head=2, n_inner=256, vocab_size=64)
-        if model_type == "vit":
-            cfg = dict(model_type="vit", hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
-                       intermediate_size=128, image_size=32, patch_size=8)
         with open(tmp_path / "config.json", "w") as f:
-            json.dump(cfg, f)
-        (tmp_path / "pytorch_model.bin").write_bytes(b"")
+            json.dump(FAMILY_CONFIGS[model_type], f)
         path = str(tmp_path)
     if match == "item 7":
         args = ModelArgs.from_dict(dict(model_type="encoder", model_name=path, pretrained=False, **extra))
@@ -119,6 +134,24 @@ def test_load_biencoder_names_the_roadmap_item_of_each_unported_family(tmp_path,
         assert model.pooling == ("map" if model_type == "timm" else "mean")
         assert trunk_cfg.n_embd == (768 if model_type == "timm" else 64)
         return
-    args = ModelArgs.from_dict(dict(model_type="encoder", model_name=path, pretrained=True, **extra))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {match}"):
-        load_biencoder(args, device="cpu")
+    if extra:  # a dense checkpoint of the same config, under the nomic HF names
+        dense, _ = load_biencoder(ModelArgs.from_dict(dict(model_type="encoder", model_name=path,
+                                                           pretrained=False)), device="cpu", seed=5)
+        torch.save({re.sub(r"^layers\.", "encoder.layers.", k): v for k, v in dense.trunk.state_dict().items()},
+                   tmp_path / "pytorch_model.bin")
+    args = ModelArgs.from_dict(dict(model_type="encoder", model_name=path, pretrained=bool(extra), **extra))
+    model, trunk_cfg = load_biencoder(args, device="cpu")
+    if model_type == "gpt_neox":
+        assert model.trunk_type == "decoder" and trunk_cfg.causal and trunk_cfg.rotary_emb_dim == 16
+        assert type(model.trunk.layers[0]).__name__ == "ParallelBlock"
+    elif model_type == "modernbert":
+        assert model.trunk_type == "encoder" and trunk_cfg.activation_function == "geglu"
+        assert model.trunk.layers[0].norm1 is None and model.trunk.layers[1].attn.window == 8
+    else:
+        sd, dense_sd = model.trunk.state_dict(), dense.trunk.state_dict()
+        assert trunk_cfg.num_experts == 4 and torch.equal(sd["layers.0.mlp.fc11.weight"],
+                                                          dense_sd["layers.0.mlp.fc11.weight"])
+        for e in range(4):
+            assert torch.equal(sd["layers.1.mlp.w_up"][e], dense_sd["layers.1.mlp.fc11.weight"].T)
+            assert torch.equal(sd["layers.1.mlp.w_gate"][e], dense_sd["layers.1.mlp.fc12.weight"].T)
+            assert torch.equal(sd["layers.1.mlp.w_down"][e], dense_sd["layers.1.mlp.fc2.weight"].T)

@@ -249,7 +249,10 @@ def test_cli_runs_a_yaml_recipe(files, tmp_path):
 
 
 def test_registry_names_the_roadmap_item_of_each_unported_trainer():
-    from contrastors_tpu_torch.trainers import (TRAINER_REGISTRY, UNPORTED, GlueTrainer, ImageTextTrainer,
+    """Every JAX model_type has its port trainer: no trainer is left
+    unported, and distill maps to DistillTrainer."""
+    import contrastors_tpu_torch.trainers as trainers
+    from contrastors_tpu_torch.trainers import (TRAINER_REGISTRY, DistillTrainer, GlueTrainer, ImageTextTrainer,
                                                 MLMTrainer, MMLMTrainer, TextTextTrainer)
 
     from contrastors_tpu.config import _MODEL_TYPES
@@ -258,10 +261,9 @@ def test_registry_names_the_roadmap_item_of_each_unported_trainer():
     assert (TRAINER_REGISTRY["mlm"], TRAINER_REGISTRY["mmlm"], TRAINER_REGISTRY["glue"]) == (
         MLMTrainer, MMLMTrainer, GlueTrainer)
     assert TRAINER_REGISTRY["clip"] is TRAINER_REGISTRY["locked_text"] is ImageTextTrainer
-    assert set(UNPORTED) == {"distill"}
-    for name in UNPORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            TRAINER_REGISTRY[name](None, "fp32", "cpu")
+    assert TRAINER_REGISTRY["distill"] is DistillTrainer
+    assert all(isinstance(cls, type) for cls in TRAINER_REGISTRY.values())
+    assert not hasattr(trainers, "UNPORTED")
 
 
 @pytest.mark.parametrize("case", ["grad_cache_with_accumulation", "two_devices", "packed"])
