@@ -2,7 +2,8 @@
 """Drive the PyTorch / CUDA port (contrastors_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only {moe_kernels,moe,flash_fwd,flash_bwd,dense,trainer,mlm_trainer,vision,families}
+    python3 chip_smoke.py --only {moe_kernels,moe,flash_fwd,flash_bwd,dense,trainer,mlm_trainer,vision,families,
+                                  inference}
                              [--tree DIR]
 
 The second form runs phases 1, 2 and 9 (moe_kernels), or 1, 2 and 9-12
@@ -15,7 +16,8 @@ the MLM step's timing, or (dense) 1, 2 and the dense step of 7-8
 (launches, timing, profile; no gradient agreement), or (trainer) 1, 2 and
 17, or (mlm_trainer) 1, 2 and 18, or (vision) 1, 2, the ViT shape's
 checks of 3 and 4 and 19, or (families) 1, 2, the families' two shapes'
-checks of 3 and 4 and 20, on this checkout's
+checks of 3 and 4 and 20, or (inference) 1, 2, the long-context case's
+check of 3 and 21, on this checkout's
 package or on the one under DIR (another checkout, e.g. the parent commit
 unpacked by `git archive`), so that two versions can be timed in turns on
 one card.
@@ -234,6 +236,29 @@ The families of configs/train/ no earlier phase drives (after phase 19):
      calls per quiet step, step ms and peak memory. Then the two new
      shapes timed: forward, dq and dk/dv beside bounds over the live pairs
      only and SDPA with the equivalent boolean mask.
+The inference side (after phase 20), at full width with seeded weights:
+ 21. inference_*: the encode CLI's function (scripts/encode.py) on 4096
+     texts at 256 x 512 into a .npy (12 flash launches a batch, the rows
+     bit for bit Encoder.encode's, --matryoshka_dim 256 --binarize the
+     packed signs of the first 256 dims, cosine >= 0.999 against fp32
+     sdpa, texts/s); export with weights_format="bin" reloaded by the
+     port's load_biencoder bit for bit (nomic-bert-2048 through the
+     trust_remote_code package, bert-base-uncased's widths as vanilla
+     BERT, ViT-B/16 as HF ViT; EVA02-B/16 refused); the long-context eval
+     (build_long_context_encoder at 8192, batch 8, NTK 2.0, over a written
+     BEIR directory of 64 documents of 4098-8191 tokens and 16 queries,
+     through run_beir_dirs: 12 launches a batch, nDCG@10 finite, one
+     batch at cosine >= 0.999 against fp32 sdpa row by row, documents/s);
+     six synthetic MTEB tasks through eval_mteb.run_mteb and the offline
+     runner (scores equal to those computed from Encoder.encode's
+     embeddings outside the harness, score_table over the folder); mine
+     and consistency_keep_mask on 4096 pairs of embeddings whose products
+     are exact in fp32, against numpy's full sort (identical); the decoder
+     heads at pythia-160m's widths, 256 x 128 (the causal LM's logits and
+     one backward against sdpa, 12 / 12 / 12 launches, peak memory; the
+     sequence, token and QA heads' forwards). The long-context case
+     (longctx_ntk_pad_b8_s8192, a case of phase 3, its plain version
+     row by row) timed beside its bound, its plain version and SDPA.
 Kernel times (ms) are CUDA-event times of calls made on an idle card, so a
 short kernel's time holds the host's enqueue; phases 8 and 9 give beside
 them the device's work alone (device_ms: each call queued behind a device
@@ -1347,9 +1372,17 @@ FAMILY_PATH_CASES = [
      dict(causal=True, mask=(1, 0), dispatch=True)) for B in (64, 512, 256)
 ]
 FAMILY_SERVING = ("modernbert_window128_pad_b256_s512", "pythia_causal_pad_b256_s128")
-FWD_CASES = BASE_CASES + EDGE_CASES + GLUE_CASES + VIT_CASES + FAMILY_CASES + FAMILY_PATH_CASES
+# the long-context eval's batch (phase 21): nomic-bert-2048 at 8192 tokens,
+# batch 8, a padding mask with key lengths drawn in 4096-8192; the plain
+# version is computed a batch row at a time (`ref_rows`): the 8 rows' fp32
+# scores alone are 8 x 12 x 8192^2 x 4 B = 25.8 GB
+LONGCTX_CASES = [
+    ("longctx_ntk_pad_b8_s8192", dict(B=8, S=8192, T=8192, H=12, Hkv=12, D=64), dict(lens=(4096, 8192), ref_rows=1)),
+]
+FWD_CASES = BASE_CASES + EDGE_CASES + GLUE_CASES + VIT_CASES + FAMILY_CASES + FAMILY_PATH_CASES + LONGCTX_CASES
 # the backward kernels: the same but the two largest and the eval-only batches
-BWD_CASES = [c for c in FWD_CASES if c[0] not in ("pad_b256_s512", "s8192", "glue_pad_b64_s128") + FAMILY_SERVING]
+BWD_CASES = [c for c in FWD_CASES if c[0] not in ("pad_b256_s512", "s8192", "glue_pad_b64_s128") + FAMILY_SERVING
+             + tuple(c[0] for c in LONGCTX_CASES)]
 
 
 def make_qkv(gen, dev, B, S, T, H, Hkv, D):
@@ -1370,6 +1403,10 @@ def case_inputs(gen, dev, shp, opt):
 
     q, k, v = make_qkv(gen, dev, *(shp[n] for n in ("B", "S", "T", "H", "Hkv", "D")))
     kw = dict(causal=opt.get("causal", False), window=opt.get("window", 0))
+    if "lens" in opt:
+        lo, hi = opt["lens"]
+        lens = torch.randint(lo, hi + 1, (shp["B"],), generator=gen, device=dev)
+        kw["attention_mask"] = (torch.arange(shp["T"], device=dev)[None] < lens[:, None]).int()
     if "mask" in opt:
         B, T = shp["B"], shp["T"]
         full_rows, empty_rows = opt["mask"]
@@ -1388,6 +1425,23 @@ def case_inputs(gen, dev, shp, opt):
     return q, k, v, kw
 
 
+def reference_in_rows(q, k, v, kw, rows=None):
+    """The forward's plain version, on all batch rows at once or on `rows`
+    of them at a time (the rows are independent, so the result is the same
+    per element, in less memory)."""
+    import torch
+
+    from contrastors_tpu_torch.ops import flash_attention as fa
+
+    if not rows:
+        return fa.flash_attention_reference(q, k, v, **kw)
+    parts = []
+    for r in range(0, q.shape[0], rows):
+        part = {n: (x[r:r + rows] if isinstance(x, torch.Tensor) else x) for n, x in kw.items()}
+        parts.append(fa.flash_attention_reference(q[r:r + rows], k[r:r + rows], v[r:r + rows], **part))
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
 def forward_checks(dev, gen, cases=None):
     """Phase kernel_check: the forward kernel against its plain version in
     `cases` (default FWD_CASES), a second run bit-identical to the first.
@@ -1402,7 +1456,7 @@ def forward_checks(dev, gen, cases=None):
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
         again = fa.flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
-        ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+        ref_out, ref_lse = reference_in_rows(q, k, v, kw, opt.get("ref_rows"))
         torch.cuda.synchronize()
         o_err = (out.float() - ref_out.float()).abs().max().item()
         o_ratio = fa.output_error_ratio(out, ref_out)
@@ -3989,6 +4043,657 @@ def families_phase(dev, card, gen):
     return out
 
 
+# -- phase 21: the inference side (the encode CLI, export, long context, MTEB, mining, decoder heads) --
+
+# google/vit-base-patch16-224's config.json: the HF ViT layout at EVA02-B/16's widths
+VIT_BASE_CONFIG = {
+    "model_type": "vit", "architectures": ["ViTModel"], "hidden_size": 768, "num_hidden_layers": 12,
+    "num_attention_heads": 12, "intermediate_size": 3072, "hidden_act": "gelu", "image_size": 224,
+    "patch_size": 16, "num_channels": 3, "layer_norm_eps": 1e-12, "qkv_bias": True,
+    "hidden_dropout_prob": 0.0, "attention_probs_dropout_prob": 0.0,
+}
+INFER_TEXTS, INFER_BATCH, INFER_SEQ = 4096, 256, 512
+LONG_SEQ, LONG_BATCH, LONG_NTK, LONG_DOCS, LONG_QUERIES = 8192, 8, 2.0, 64, 16
+HEADS_B, HEADS_S = 256, 128
+
+
+def min_row_cosine(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(((a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))).min())
+
+
+def encode_cli_check(dev, card, model, tok, root):
+    """The encode CLI's function (`scripts/encode.py:encode_texts`) on 4096
+    texts at batch 256 / seq_len 512 into a .npy: 12 flash launches per
+    batch, the rows bit for bit those of `Encoder.encode`, --matryoshka_dim
+    256 --binarize the packed signs of the first 256 dims, cosine >= 0.999
+    against the same weights under attn_impl="sdpa" in fp32; texts/s.
+    Returns (row, the texts, the float embeddings)."""
+    import torch
+
+    from contrastors_tpu_torch.eval.encoder import Encoder
+    from contrastors_tpu_torch.models import BiEncoder
+    from contrastors_tpu_torch.models.presets import nomic_bert_2048
+    from contrastors_tpu_torch.scripts.encode import encode_texts
+
+    texts = make_texts(np.random.default_rng(21), INFER_TEXTS, 8, INFER_SEQ - 1)
+    args = dict(seq_len=INFER_SEQ, batch_size=INFER_BATCH)
+    path = os.path.join(root, "embeddings.npy")
+    reset_counts()
+    np.save(path, encode_texts(model, tok, texts, **args))
+    launches = read_counts()
+    embs = np.load(path)
+    batches = -(-INFER_TEXTS // INFER_BATCH)
+    direct = Encoder(model, tok, **args).encode(texts)
+    bits = encode_texts(model, tok, texts, matryoshka_dim=256, binarize=True, **args)
+    dims = min(256, embs.shape[1])
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        encode_texts(model, tok, texts, **args)
+        times.append(time.perf_counter() - t0)
+    ref_model = BiEncoder(nomic_bert_2048(attn_impl="sdpa"), pooling="mean", dtype=torch.float32, device=dev)
+    ref_model.load_state_dict(model.state_dict())
+    ref = Encoder(ref_model.eval(), tok, **args).encode(texts)
+    del ref_model
+    torch.cuda.empty_cache()
+    cos = min_row_cosine(embs, ref)
+    row = dict(texts=INFER_TEXTS, batch=INFER_BATCH, seq_len=INFER_SEQ, batches=batches, launches=launches["fwd"],
+               launches_per_batch=launches["fwd"] / batches, rows_equal_encoder=bool(np.array_equal(embs, direct)),
+               binarize_equals_packed_signs=bool(np.array_equal(bits, np.packbits(embs[:, :dims] > 0, axis=-1))),
+               binarized_shape=list(bits.shape), min_cosine_vs_sdpa_fp32=cos,
+               encode_s=float(np.median(times)), texts_per_s=INFER_TEXTS / float(np.median(times)))
+    ok = (launches == expect(fwd=model.trunk.config.n_layer * batches)
+          and embs.shape == (INFER_TEXTS, model.trunk.config.n_embd) and embs.dtype == np.float32
+          and bool(np.isfinite(embs).all()) and row["rows_equal_encoder"] and row["binarize_equals_packed_signs"]
+          and bits.shape == (INFER_TEXTS, dims // 8) and cos >= SERVING_COSINE)
+    emit(phase="inference_encode_cli", card=card, gpu_state=gpu_state(), **row, threshold=SERVING_COSINE, ok=ok)
+    if not ok:
+        raise AssertionError("encode CLI: launches, the Encoder's rows, the packed bits or agreement with sdpa failed")
+    return row, texts, embs
+
+
+def export_round_trips(dev, card, model, tok, texts, root):
+    """Each trunk exported with weights_format="bin" and reloaded by the
+    port's `load_biencoder` gives the original model's embeddings bit for
+    bit: the dense nomic-bert-2048 trunk (routed to the trust_remote_code
+    package), bert-base-uncased's widths (vanilla BERT) and a ViT at
+    EVA02-B/16's widths in the HF ViT layout (ViT-B/16); EVA02-B/16 itself
+    (2-D rope, SwiGLU with its MLP norm) must be refused. Returns
+    (row, the nomic export's directory)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from contrastors_tpu_torch import export
+    from contrastors_tpu_torch.config import ModelArgs
+    from contrastors_tpu_torch.eval.encoder import Encoder
+    from contrastors_tpu_torch.models import BiEncoder, init_weights
+    from contrastors_tpu_torch.models.auto import load_biencoder
+    from contrastors_tpu_torch.models.hf_interop import bert_config_to_trunk_config
+    from contrastors_tpu_torch.models.hf_interop_timm import timm_name_to_trunk_config
+    from contrastors_tpu_torch.models.hf_interop_vit import vit_config_to_trunk_config
+
+    rows = {}
+
+    def reload(path, pooling):
+        margs = ModelArgs(model_type="encoder", model_name=path, pooling=pooling, attn_impl="flash")
+        return load_biencoder(margs, dtype=torch.bfloat16, device=dev)[0].eval()
+
+    def text_round_trip(name, m, cfg):
+        path = os.path.join(root, name)
+        t0 = time.perf_counter()
+        export.export_bert_trunk(m.trunk.state_dict(), cfg, path, weights_format="bin")
+        t_export = time.perf_counter() - t0
+        again = reload(path, "mean")
+        sample = texts[:INFER_BATCH]
+        a = Encoder(m, tok, seq_len=INFER_SEQ, batch_size=INFER_BATCH).encode(sample)
+        b = Encoder(again, tok, seq_len=INFER_SEQ, batch_size=INFER_BATCH).encode(sample)
+        with open(os.path.join(path, "config.json")) as f:
+            model_type = json.load(f)["model_type"]
+        rows[name] = dict(model_type=model_type, files=sorted(os.listdir(path)), export_s=t_export,
+                          bin_mb=os.path.getsize(os.path.join(path, "pytorch_model.bin")) / 2**20,
+                          bit_identical=bool(np.array_equal(a, b)))
+        del again
+        return path
+
+    nomic_dir = text_round_trip("nomic-bert-2048", model, model.trunk.config)
+    bert_cfg = bert_config_to_trunk_config(SimpleNamespace(**BERT_BASE_UNCASED_CONFIG), attn_impl="flash")
+    bert = init_weights(BiEncoder(bert_cfg, pooling="mean", dtype=torch.bfloat16, device=dev), 31).eval()
+    text_round_trip("bert-base-uncased", bert, bert_cfg)
+    del bert
+
+    vit_cfg = vit_config_to_trunk_config(VIT_BASE_CONFIG, attn_impl="flash")
+    vit = init_weights(BiEncoder(vit_cfg, trunk_type="vision", pooling="cls", dtype=torch.bfloat16, device=dev),
+                       32).eval()
+    path = os.path.join(root, "vit-base-patch16-224")
+    export.export_vit_trunk(vit.trunk.state_dict(), vit_cfg, path, weights_format="bin")
+    again = reload(path, "cls")
+    img = VIT_BASE_CONFIG["image_size"]
+    px = torch.randn(64, 3, img, img, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    with torch.inference_mode():
+        a, b = vit(pixel_values=px)["embedding"], again(pixel_values=px)["embedding"]
+    rows["vit-base-patch16-224"] = dict(model_type="vit", files=sorted(os.listdir(path)),
+                                        bit_identical=bool(torch.equal(a, b)))
+    del vit, again
+    eva = timm_name_to_trunk_config("timm/vit_eva02_base_patch16_224")
+    try:
+        export.export_vit_trunk({}, eva, os.path.join(root, "eva02"))
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    rows["eva02_base_patch16_224"] = dict(refused=refusal)
+    torch.cuda.empty_cache()
+    ok = (all(r.get("bit_identical") for k, r in rows.items() if k != "eva02_base_patch16_224")
+          and rows["nomic-bert-2048"]["model_type"] == "nomic_bert"
+          and "modeling_nomic_bert.py" in rows["nomic-bert-2048"]["files"]
+          and rows["bert-base-uncased"]["model_type"] == "bert" and refusal is not None and "rotary" in refusal)
+    emit(phase="inference_export", card=card, weights_format="bin", **rows, ok=ok)
+    if not ok:
+        raise AssertionError("export: a reloaded model's embeddings differ, or EVA02 was not refused")
+    return rows, nomic_dir
+
+
+def long_context_check(dev, card, model_dir, tok, root):
+    """`build_long_context_encoder` (seq_len 8192, batch 8, NTK factor 2.0)
+    over a written BEIR directory (64 documents of 4097-8190 stand-in
+    tokens, 16 queries sharing 16 tokens with their document) through
+    `run_beir_dirs`: 12 flash launches per batch, nDCG@10 finite, and one
+    batch of 8 documents at cosine >= 0.999 against the same weights under
+    attn_impl="sdpa" in fp32 (encoded one row at a time, for memory: a
+    row's fp32 scores are 12 x 8192^2 x 4 B = 3.2 GB); documents/s."""
+    import torch
+
+    from contrastors_tpu_torch.config import ModelArgs
+    from contrastors_tpu_torch.eval.encoder import Encoder
+    from contrastors_tpu_torch.eval.eval_long_context import build_long_context_encoder, load_beir_dir
+    from contrastors_tpu_torch.models.auto import load_biencoder
+    from contrastors_tpu_torch.eval.loco_data import export_beir_dir
+    from contrastors_tpu_torch.eval.retrieval import run_beir_dirs
+
+    rng = np.random.default_rng(22)
+    # 2 + words tokens each ([CLS], the document prefix): 4098-8191, all in the 8192 bucket
+    words = [rng.integers(1000, 30000, size=n) for n in rng.integers(LONG_SEQ // 2, LONG_SEQ - 2, size=LONG_DOCS)]
+    corpus = {f"d{i}": {"title": "", "text": " ".join(map(str, w))} for i, w in enumerate(words)}
+    queries = {f"q{i}": " ".join(map(str, words[4 * i][100:116])) for i in range(LONG_QUERIES)}
+    qrels = {f"q{i}": {f"d{4 * i}": 1} for i in range(LONG_QUERIES)}
+    data = export_beir_dir(corpus, queries, qrels, os.path.join(root, "longctx"))
+    enc = build_long_context_encoder(model_dir, seq_len=LONG_SEQ, rotary_scaling_factor=LONG_NTK,
+                                     batch_size=LONG_BATCH, dtype="bf16", device=dev, tokenizer=tok)
+    cfg = enc.module.trunk.config
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run_beir_dirs(enc, [data], ks=(10,))
+    t_all = time.perf_counter() - t0
+    launches = read_counts()
+    batches = -(-LONG_DOCS // LONG_BATCH) + -(-LONG_QUERIES // LONG_BATCH)
+    c, _, _ = load_beir_dir(data)
+    docs = [c[f"d{i}"] for i in range(LONG_BATCH)]
+    t0 = time.perf_counter()
+    got = enc.encode_corpus(docs)
+    t_batch = time.perf_counter() - t0
+    margs = ModelArgs(model_type="encoder", model_name=model_dir, pooling="mean", attn_impl="sdpa")
+    ref_model = load_biencoder(margs, dtype=torch.float32, device=dev,
+                               trunk_overrides=dict(rotary_scaling_factor=LONG_NTK))[0].eval()
+    ref = Encoder(ref_model, tok, seq_len=LONG_SEQ, batch_size=1).encode_corpus(docs)
+    del ref_model
+    torch.cuda.empty_cache()
+    cos = min_row_cosine(got, ref)
+    ndcg = results["longctx"]["ndcg@10"]
+    row = dict(seq_len=LONG_SEQ, batch=LONG_BATCH, ntk_factor=cfg.rotary_scaling_factor,
+               max_trained_positions=cfg.max_trained_positions, documents=LONG_DOCS, queries=LONG_QUERIES,
+               doc_tokens=[int(min(len(w) for w in words)) + 2, int(max(len(w) for w in words)) + 2],
+               batches=batches, launches=launches["fwd"], launches_per_batch=launches["fwd"] / batches,
+               ndcg_at_10=ndcg, min_cosine_vs_sdpa_fp32=cos, eval_s=t_all, batch_s=t_batch,
+               documents_per_s=LONG_BATCH / t_batch)
+    ok = (launches == expect(fwd=cfg.n_layer * batches) and cfg.rotary_scaling_factor == LONG_NTK and np.isfinite(ndcg)
+          and cos >= SERVING_COSINE)
+    emit(phase="inference_long_context", card=card, gpu_state=gpu_state(), **row, threshold=SERVING_COSINE, ok=ok)
+    if not ok:
+        raise AssertionError("long context: launches, the NTK factor, nDCG or agreement with sdpa failed")
+    return row
+
+
+def write_mteb_tasks(root, seed=23):
+    """Six synthetic tasks, one per type, of a few hundred stand-in texts
+    each (numbers, which the stand-in tokenizer maps to themselves), none
+    two alike: retrieval (200 documents, 100 queries of 6 of their
+    document's 24 tokens), STS (150 pairs sharing 0-10 of 10 tokens, scored
+    by that count), classification (200 train / 100 test, two classes on
+    disjoint token ranges), clustering (300 texts, three ranges), pair
+    classification (150 pairs, half sharing 8 of 10 tokens) and reranking
+    (60 queries, one positive and four negatives each)."""
+    rng = np.random.default_rng(seed)
+
+    def sent(n=10, lo=1000, hi=30000):
+        return [str(x) for x in rng.integers(lo, hi, size=n)]
+
+    def mix(a, keep):
+        b = a[:keep] + sent(len(a) - keep)
+        rng.shuffle(b)
+        return b
+
+    def jsonl(path, rows):
+        with open(path, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in rows)
+
+    def task(name):
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        return d
+
+    d = task("SciFact")
+    docs = [sent(24) for _ in range(200)]
+    jsonl(os.path.join(d, "corpus.jsonl"), [{"_id": f"d{i}", "title": "", "text": " ".join(w)}
+                                            for i, w in enumerate(docs)])
+    jsonl(os.path.join(d, "queries.jsonl"), [{"_id": f"q{i}", "text": " ".join(docs[2 * i][5:11])} for i in range(100)])
+    with open(os.path.join(d, "qrels.tsv"), "w") as f:
+        f.write("query-id\tcorpus-id\tscore\n" + "".join(f"q{i}\td{2 * i}\t1\n" for i in range(100)))
+    rows = []
+    for i in range(150):
+        a, keep = sent(), i % 11
+        rows.append({"sentence1": " ".join(a), "sentence2": " ".join(mix(a, keep)), "score": float(keep)})
+    jsonl(os.path.join(task("STSBenchmark"), "pairs.jsonl"), rows)
+    d = task("Banking77Classification")
+    label = lambda n, k: [{"text": " ".join(sent(lo=1000 + 9000 * g, hi=10000 + 9000 * g)), "label": g}  # noqa: E731
+                          for _ in range(n) for g in range(k)]
+    jsonl(os.path.join(d, "train.jsonl"), label(100, 2))
+    jsonl(os.path.join(d, "test.jsonl"), label(50, 2))
+    jsonl(os.path.join(task("TwentyNewsgroupsClustering"), "docs.jsonl"), label(100, 3))
+    rows = []
+    for i in range(75):
+        a = sent()
+        rows.append({"sentence1": " ".join(a), "sentence2": " ".join(mix(a, 8)), "label": 1})
+        rows.append({"sentence1": " ".join(sent()), "sentence2": " ".join(sent()), "label": 0})
+    jsonl(os.path.join(task("SprintDuplicateQuestions"), "pairs.jsonl"), rows)
+    rows = []
+    for _ in range(60):
+        pos = sent(16)
+        rows.append({"query": " ".join(pos[:5]), "positive": [" ".join(pos)], "negative": [" ".join(sent(16))
+                                                                                           for _ in range(4)]})
+    jsonl(os.path.join(task("SciDocsRR"), "samples.jsonl"), rows)
+    return ["SciFact", "STSBenchmark", "Banking77Classification", "TwentyNewsgroupsClustering",
+            "SprintDuplicateQuestions", "SciDocsRR"]
+
+
+def mteb_direct_scores(model, tok, data, tasks):
+    """Each task's main score from `Encoder.encode`'s embeddings, outside
+    the harness: numpy scores and rankings, with mini_mteb's metric
+    functions (spearman, average precision, kmeans + v_measure, softmax
+    regression) and the harness's renormalisation of the embeddings."""
+    from contrastors_tpu_torch.eval import mini_mteb
+    from contrastors_tpu_torch.eval.encoder import Encoder
+    from contrastors_tpu_torch.eval.eval_mteb import task_prefixes
+
+    def read(task, name):
+        with open(os.path.join(data, task, name)) as f:
+            return [json.loads(line) for line in f if line.strip()]
+
+    scores = {}
+    for task in tasks:
+        qp, dp = task_prefixes(task)
+        enc = Encoder(model, tok, seq_len=512, batch_size=64)
+
+        def emb(texts):
+            # the harness encodes every task but retrieval without a prefix
+            e = enc.encode(texts)
+            return e / np.maximum(np.linalg.norm(e, axis=-1, keepdims=True), 1e-12)
+
+        if task == "SciFact":
+            corpus, queries = read(task, "corpus.jsonl"), read(task, "queries.jsonl")
+            d = enc.encode([(c["title"] + " " + c["text"]).strip() for c in corpus], prefix=dp)
+            q = enc.encode([r["text"] for r in queries], prefix=qp)
+            order = np.argsort(-(q.astype(np.float64) @ d.T.astype(np.float64)), axis=1, kind="stable")
+            rank = np.array([np.flatnonzero(order[i] == 2 * i)[0] for i in range(len(queries))])
+            scores[task] = float(np.mean(np.where(rank < 10, 1.0 / np.log2(rank + 2), 0.0)))
+        elif task in ("STSBenchmark", "SprintDuplicateQuestions"):
+            rows = read(task, "pairs.jsonl")
+            cos = (emb([r["sentence1"] for r in rows]) * emb([r["sentence2"] for r in rows])).sum(-1)
+            if task == "STSBenchmark":
+                scores[task] = mini_mteb.spearman(cos, np.array([r["score"] for r in rows]))
+            else:
+                scores[task] = mini_mteb.average_precision(cos, np.array([r["label"] for r in rows]))
+        elif task == "Banking77Classification":
+            train, test = read(task, "train.jsonl"), read(task, "test.jsonl")
+            pred = mini_mteb.softmax_regression(emb([r["text"] for r in train]), np.array([r["label"] for r in train]),
+                                                emb([r["text"] for r in test]))
+            scores[task] = float((pred == np.array([r["label"] for r in test])).mean())
+        elif task == "TwentyNewsgroupsClustering":
+            rows = read(task, "docs.jsonl")
+            labels = np.array([r["label"] for r in rows])
+            scores[task] = mini_mteb.v_measure(labels, mini_mteb.kmeans(emb([r["text"] for r in rows]),
+                                                                        len(np.unique(labels))))
+        else:  # reranking: every query in one call, every document in another, as the harness batches them
+            rows = read(task, "samples.jsonl")
+            q = emb([r["query"] for r in rows])
+            docs = emb([t for r in rows for t in r["positive"] + r["negative"]])
+            aps, start = [], 0
+            for i, r in enumerate(rows):
+                n = len(r["positive"]) + len(r["negative"])
+                labels = np.array([1] * len(r["positive"]) + [0] * len(r["negative"]))
+                aps.append(mini_mteb.average_precision(docs[start:start + n] @ q[i], labels))
+                start += n
+            scores[task] = float(np.mean(aps))
+    return scores
+
+
+def mteb_check(dev, card, model, tok, root):
+    """The six synthetic tasks (`write_mteb_tasks`) through
+    `eval_mteb.run_mteb` with the offline runner: the scores finite, equal
+    (within 1e-6) to `mteb_direct_scores` from the same model, and
+    `score_table` reading the output folder."""
+    from contrastors_tpu_torch.eval.eval_mteb import run_mteb
+    from contrastors_tpu_torch.eval.mteb_tools import score_table
+
+    data, out = os.path.join(root, "mteb_data"), os.path.join(root, "mteb_results")
+    tasks = write_mteb_tasks(data)
+    reset_counts()
+    t0 = time.perf_counter()
+    results = run_mteb(model, tok, tasks, out, local_data_dir=data, seq_len=512, batch_size=64)
+    t_run = time.perf_counter() - t0
+    launches = read_counts()
+    got = {t: results[t]["test"]["main_score"] for t in tasks}
+    want = mteb_direct_scores(model, tok, data, tasks)
+    table = score_table(out)
+    diff = max(abs(got[t] - want[t]) for t in tasks)
+    ok = (all(np.isfinite(v) for v in got.values()) and diff <= 1e-6 and table["n_tasks"] == 6
+          and len(table["per_type"]) == 6 and launches["fwd"] > 0 and launches["fwd"] % 12 == 0)
+    emit(phase="inference_mteb", card=card, scores=got, direct_scores=want, max_abs_diff=diff,
+         average=table["average"], per_type=table["per_type"], launches=launches["fwd"], run_s=t_run, ok=ok)
+    if not ok:
+        raise AssertionError("offline MTEB: non-finite scores, disagreement with the direct scores, or the table")
+    return dict(scores=got, max_abs_diff=diff, launches=launches["fwd"], run_s=t_run)
+
+
+def exact_embeddings(n=4096, dim=768, seed=24):
+    """Queries and documents whose every dot product is exact in fp32, in
+    any order of summation, and distinct per query: 767 coordinates of
+    64 x {-2..2} (so each product is 4096 x an integer of at most 4 and
+    every partial sum stays below 4096 x 3068), and a last one, 1 for the
+    queries and the document's index for the documents (a tie-breaker
+    under 4096). Document i is query i's positive (the query with a fifth
+    of its coordinates moved by one), and every odd document nearly repeats
+    the even one before it (false negatives for the margin)."""
+    rng = np.random.default_rng(seed)
+    q_int = rng.integers(-2, 3, size=(n, dim - 1))
+    moved = rng.random(size=q_int.shape) < 0.2
+    d_int = np.clip(q_int + moved * rng.choice([-1, 1], size=q_int.shape), -2, 2)
+    d_int[1::2] = d_int[0::2]
+    d_int[1::2, :10] = rng.integers(-2, 3, size=(n // 2, 10))
+    q = np.concatenate([64.0 * q_int, np.ones((n, 1))], axis=1).astype(np.float32)
+    d = np.concatenate([64.0 * d_int, np.arange(n)[:, None]], axis=1).astype(np.float32)
+    return q, d
+
+
+def mine_reference(q, d, positives, num_negatives, margin, k):
+    """`mine` by a numpy full sort in float64 of the same embeddings."""
+    scores = q.astype(np.float64) @ d.T.astype(np.float64)
+    order = np.argsort(-scores, axis=1, kind="stable")[:, :k]
+    out = []
+    for i in range(len(q)):
+        pos = positives[i]
+        pos_score = float(q[i] @ d[pos])
+        negs, overflow = [], []
+        for j in order[i]:
+            if j == pos:
+                continue
+            if scores[i, j] >= margin * pos_score:
+                overflow.append(int(j))
+                continue
+            negs.append(int(j))
+            if len(negs) == num_negatives:
+                break
+        while len(negs) < num_negatives and overflow:
+            negs.append(overflow.pop())
+        out.append(negs)
+    return out
+
+
+def mining_check(dev, card, real_q, real_d):
+    """`mine` (7 negatives, margin 0.95, chunks of 1024) and
+    `consistency_keep_mask` (top 2, all 4096 and a pool of 1024) on 4096
+    pairs of `exact_embeddings`, on the card, against a numpy full sort and
+    count in float64: identical lists and masks. Read beside it, not
+    bounded: the same on the encode CLI's embeddings (queries with the
+    search_query prefix), where the card's fp32 products and numpy's differ
+    in their last bits."""
+    from contrastors_tpu_torch.scripts.consistency_filter import consistency_keep_mask
+    from contrastors_tpu_torch.scripts.mine_hard_negatives import mine
+
+    q, d = exact_embeddings()
+    pos = np.arange(len(q))
+    t0 = time.perf_counter()
+    got = mine(q, d, pos, num_negatives=7, margin=0.95, device=dev)
+    t_mine = time.perf_counter() - t0
+    want = mine_reference(q, d, pos, 7, 0.95, k=7 + 32)
+    skipped = sum(1 for i, negs in enumerate(want) if i % 2 == 0 and i + 1 not in negs)
+    masks = {}
+    for pool in (0, len(q) // 4):
+        keep = consistency_keep_mask(q, d, top_k=2, pool_size=pool, seed=0, device=dev)
+        pool_idx = np.random.default_rng(0).choice(len(q), size=pool, replace=False) if pool else np.arange(len(q))
+        scores = q.astype(np.float64) @ d[pool_idx].T.astype(np.float64)
+        ref = (scores > (q.astype(np.float64) * d.astype(np.float64)).sum(-1)[:, None]).sum(1) < 2
+        masks[pool] = dict(equal=bool(np.array_equal(keep, ref)), kept=int(keep.sum()))
+    real_pos = np.arange(len(real_q))
+    real = mine(real_q, real_d, real_pos, num_negatives=7, margin=0.95, device=dev)
+    real_ref = mine_reference(real_q, real_d, real_pos, 7, 0.95, k=7 + 32)
+    # how far apart the candidates' scores lie: the spread of each row's 39 best, in float64
+    real_top = -np.sort(-(real_q.astype(np.float64) @ real_d.T.astype(np.float64)), axis=1)[:, :39]
+    row = dict(pairs=len(q), dim=q.shape[1], lists_equal=got == want, false_negatives_skipped=skipped,
+               mine_s=t_mine, keep_masks=masks,
+               real_embeddings_lists_differing=sum(a != b for a, b in zip(real, real_ref)),
+               real_median_top39_spread=float(np.median(real_top[:, 0] - real_top[:, -1])),
+               real_median_top39_gap=float(np.median(np.diff(-real_top, axis=1))))
+    ok = row["lists_equal"] and all(m["equal"] for m in masks.values()) and skipped > 0
+    emit(phase="inference_mining", card=card, **row, ok=ok)
+    if not ok:
+        raise AssertionError("mining: the device's lists or keep masks differ from numpy's")
+    return row
+
+
+def decoder_heads_check(dev, card):
+    """The decoder heads at pythia-160m's published widths (12 x 768, H 12,
+    rotary on 16 of 64 dims, parallel residual, vocab 50304, untied
+    embed_out), bf16 compute, seeded weights, 256 x 128 padded rows: the
+    causal LM's forward (12 causal flash launches; the logits at every live
+    position at cosine >= 0.999 against the same weights under sdpa in
+    fp32), one loss.backward (12 dq and 12 dk/dv launches; each gradient
+    tensor at cosine >= 0.999 against sdpa's in bf16, as phase 7 holds the
+    train step's, and read against fp32), the peak memory of forward and
+    backward (the fp32 loss keeps no copy of the 3.3 GB logits; read
+    beside the same step with the plain masked CE, which does), then the
+    sequence, token and QA heads' forwards (12 launches each, finite)."""
+    import torch
+
+    from contrastors_tpu_torch.models import (DecoderForCausalLM, DecoderForQuestionAnswering,
+                                              DecoderForSequenceClassification, DecoderForTokenClassification,
+                                              init_weights)
+    from contrastors_tpu_torch.models import hf_interop_decoder as dec
+    from contrastors_tpu_torch.models.decoder_heads import shift_labels
+    from contrastors_tpu_torch.models.nomic_bert import masked_cross_entropy
+
+    cfg = dec.decoder_config_to_trunk_config(PYTHIA_160M_CONFIG, attn_impl="flash", num_labels=5)
+    rng = np.random.default_rng(25)
+    lens = rng.integers(HEADS_S // 2, HEADS_S + 1, size=HEADS_B)
+    lens[0] = HEADS_S
+    mask_np = (np.arange(HEADS_S)[None] < lens[:, None]).astype(np.int64)
+    ids = torch.from_numpy(rng.integers(1000, cfg.vocab_size - 1000, size=(HEADS_B, HEADS_S)) * mask_np).to(dev)
+    mask = torch.from_numpy(mask_np).to(dev)
+    labels = torch.where(mask > 0, ids, torch.full_like(ids, -100))
+
+    def causal(impl, dtype):
+        m = DecoderForCausalLM(cfg.replace(attn_impl=impl), dtype=dtype, device=dev)
+        return init_weights(m, 26)
+
+    model = causal("flash", torch.bfloat16)
+    reset_counts()
+    with torch.inference_mode():
+        logits = model(ids, mask)["logits"]
+    fwd_launches = read_counts()
+    live = mask.bool()
+    with torch.inference_mode():
+        ref32 = causal("sdpa", torch.float32)(ids, mask)["logits"]
+        cosines = []
+        for r in range(0, HEADS_B, 32):  # 32 rows at a time: no fp32 copy of the whole logits
+            a, b = logits[r:r + 32][live[r:r + 32]].float(), ref32[r:r + 32][live[r:r + 32]]
+            cosines.append(((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).min())
+        logits_cos = float(torch.stack(cosines).min())
+    del ref32, a, b, logits
+    torch.cuda.empty_cache()
+
+    def grads(m, plain_ce=False):
+        """(gradients, loss, peak GB above the model) of one loss.backward();
+        plain_ce: the plain masked CE on the logits (an fp32 copy of them)
+        in place of the head's `lm_cross_entropy`."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        if plain_ce:
+            out = m(ids, mask)
+            out["loss"] = masked_cross_entropy(out["logits"], shift_labels(labels))
+        else:
+            out = m(ids, mask, labels=labels)
+        out["loss"].backward()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        g = {n: p.grad.detach().float().clone() for n, p in m.named_parameters()}
+        loss = float(out["loss"].detach())
+        del out
+        m.zero_grad(set_to_none=True)
+        return g, loss, peak
+
+    reset_counts()
+    got, loss, peak_gb = grads(model)
+    bwd_launches = read_counts()
+    plain_ce_peak_gb = grads(model, plain_ce=True)[2]
+    ref_bf16 = causal("sdpa", torch.bfloat16)
+    want, ref_loss, ref_peak_gb = grads(ref_bf16)
+    del ref_bf16
+    ref_fp32 = causal("sdpa", torch.float32)
+    want32, ref32_loss, _ = grads(ref_fp32)
+    del ref_fp32
+    torch.cuda.empty_cache()
+    vs_bf16, vs_fp32 = compare_grads(got, want), compare_grads(got, want32)
+    del got, want, want32
+
+    others = {}
+    for name, cls, kw in (("sequence", DecoderForSequenceClassification, dict(labels=torch.arange(HEADS_B, device=dev) % 5)),
+                          ("token", DecoderForTokenClassification, dict(labels=torch.where(mask > 0, ids % 5, -100))),
+                          ("qa", DecoderForQuestionAnswering, dict(start_positions=torch.zeros(HEADS_B, device=dev),
+                                                                   end_positions=torch.full((HEADS_B,), 9, device=dev)))):
+        head = init_weights(cls(cfg, dtype=torch.bfloat16, device=dev), 27).eval()
+        reset_counts()
+        with torch.inference_mode():
+            out = head(ids, mask, **kw)
+        n = read_counts()
+        finite = all(bool(torch.isfinite(v.float()).all()) for v in out.values())
+        others[name] = dict(launches=n["fwd"], loss=float(out["loss"]), finite=finite,
+                            shapes={k: list(v.shape) for k, v in out.items() if v.dim()})
+        del head, out
+    torch.cuda.empty_cache()
+    logits_gb = HEADS_B * HEADS_S * cfg.vocab_size * 2 / 2**30
+    row = dict(batch=HEADS_B, seq_len=HEADS_S, vocab=cfg.vocab_size, forward_launches=fwd_launches["fwd"],
+               backward_launches=dict(fwd=bwd_launches["fwd"], dq=bwd_launches["dq"], dkv=bwd_launches["dkv"]),
+               min_logit_cosine_vs_sdpa_fp32=logits_cos, loss=loss, sdpa_bf16_loss=ref_loss, sdpa_fp32_loss=ref32_loss,
+               grads_vs_sdpa_bf16=vs_bf16, grads_vs_sdpa_fp32=vs_fp32, peak_gb=peak_gb, sdpa_peak_gb=ref_peak_gb,
+               plain_ce_peak_gb=plain_ce_peak_gb,
+               logits_gb=logits_gb, heads=others)
+    ok = (fwd_launches == expect(fwd=12) and bwd_launches == expect(fwd=12, dq=12, dkv=12)
+          and logits_cos >= SERVING_COSINE and vs_bf16["min_cosine"] >= 0.999 and np.isfinite(loss)
+          and all(h["launches"] == 12 and h["finite"] for h in others.values()))
+    emit(phase="inference_decoder_heads", card=card, gpu_state=gpu_state(), **row, ok=ok)
+    if not ok:
+        raise AssertionError("decoder heads: launches, logits or gradients against sdpa, or the other heads failed")
+    return row
+
+
+def longctx_kernel_timing(dev, card, gen):
+    """The long-context case (LONGCTX_CASES) timed: the forward as ms and
+    device_ms beside its bound over the live keys and rows (`lens`), its
+    plain version (row by row, for memory: the 8 rows' fp32 scores would be
+    25.8 GB) and torch SDPA with the equivalent boolean key mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from contrastors_tpu_torch.ops import flash_attention as fa
+
+    name, shp, opt = LONGCTX_CASES[0]
+    B, S, T, H, Hkv, D = (shp[n] for n in ("B", "S", "T", "H", "Hkv", "D"))
+    q, k, v, kw = case_inputs(gen, dev, shp, opt)
+    lens = kw["attention_mask"].sum(dim=1).tolist()
+    b_ms, b_by, flops, nbytes = attention_bound(B, S, T, H, Hkv, D, lens)
+
+    def run():
+        return fa.flash_attention_fwd(q, k, v, **kw)
+
+    def plain():
+        for r in range(B):
+            fa.flash_attention_reference(q[r:r + 1], k[r:r + 1], v[r:r + 1],
+                                         attention_mask=kw["attention_mask"][r:r + 1])
+
+    keep = (torch.arange(T, device=dev)[None] < kw["attention_mask"].sum(dim=1)[:, None])[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
+
+    row = dict(shape=f"B={B} S=T={S} H={H} D={D}, key lengths {min(lens)}-{max(lens)} (the long-context batch)",
+               ms=median_ms(run), device_ms=median_ms(run, queued=True), plain_ms=median_ms(plain, runs=2, warmup=1),
+               bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes, library_ms=median_ms(sdpa),
+               library_device_ms=median_ms(sdpa, queued=True))
+    row["fraction_of_bound"] = row["bound_ms"] / row["device_ms"]
+    emit(phase="longctx_kernel_timing", card=card, gpu_state=gpu_state(), case=name, **row,
+         library="torch SDPA with the boolean key mask [B, 1, 1, T]")
+    del q, k, v, kw, keep
+    torch.cuda.empty_cache()
+    return row
+
+
+def inference_phase(dev, card, gen):
+    """Phase 21: the inference side at full width with seeded weights and
+    the stand-in tokenizer, each part its module: the encode CLI
+    (scripts/encode.py), export round trips (export.py, hf_interop*.py),
+    long context (eval/eval_long_context.py, eval/retrieval.py,
+    eval/loco_data.py), the offline MTEB (eval/eval_mteb.py, mini_mteb.py,
+    mteb_tools.py), mining (scripts/mine_hard_negatives.py,
+    consistency_filter.py) and the decoder heads (models/decoder_heads.py),
+    then the long-context kernel case timed. Returns the rows."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from contrastors_tpu_torch.eval.encoder import Encoder
+    from contrastors_tpu_torch.eval.stub_tokenizer import StubTokenizer
+    from contrastors_tpu_torch.models import BiEncoder
+    from contrastors_tpu_torch.models.presets import nomic_bert_2048
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_inference_")
+    out = {}
+    try:
+        cfg = nomic_bert_2048(attn_impl="flash")
+        model = seed_weights(BiEncoder(cfg, pooling="mean", dtype=torch.bfloat16, device=dev), "dense").eval()
+        tok = StubTokenizer(cfg.vocab_size)
+        out["encode"], texts, embs = encode_cli_check(dev, card, model, tok, root)
+        out["export"], nomic_dir = export_round_trips(dev, card, model, tok, texts, root)
+        out["long_context"] = long_context_check(dev, card, nomic_dir, tok, root)
+        out["mteb"] = mteb_check(dev, card, model, tok, root)
+        queries = Encoder(model, tok, seq_len=INFER_SEQ, batch_size=INFER_BATCH).encode_queries(texts)
+        del model
+        torch.cuda.empty_cache()
+        out["mining"] = mining_check(dev, card, queries, embs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["decoder_heads"] = decoder_heads_check(dev, card)
+    out["kernel"] = longctx_kernel_timing(dev, card, gen)
+    emit(phase="inference", card=card, seconds=time.perf_counter() - t_phase,
+         texts_per_s=out["encode"]["texts_per_s"], documents_per_s=out["long_context"]["documents_per_s"],
+         heads_peak_gb=out["decoder_heads"]["peak_gb"], ok=True)
+    return out
+
+
 def finish(card, summary):
     """The run's ending: the command_time line, the card's line, the summary
     and the last line, these three as the contract gives them, without t."""
@@ -4007,7 +4712,7 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description="Drive the PyTorch / CUDA port on one NVIDIA GPU.")
     ap.add_argument("--only", choices=["moe_kernels", "moe", "flash_fwd", "flash_bwd", "dense", "trainer",
-                                       "mlm_trainer", "vision", "families"],
+                                       "mlm_trainer", "vision", "families", "inference"],
                     help="run only the card, build and grouped-matmul phases (9), or (moe) also MoE "
                          "serving and the MoE step's timing and profile (10-12, no gradient agreement); "
                          "flash_fwd: the card, build, the forward checks (3, 13), the forward timing (6), "
@@ -4019,7 +4724,8 @@ def main(argv=None):
                          "mlm_trainer: the card, build and the MLM, MMLM and GLUE trainers (18); vision: the "
                          "card, build, the ViT attention shape's forward and backward checks and phase 19; "
                          "families: the card, build, the families' attention shapes' forward and backward "
-                         "checks and phase 20")
+                         "checks and phase 20; inference: the card, build, the long-context case's forward "
+                         "check and phase 21")
     ap.add_argument("--tree", help="with --only: the root of another checkout whose contrastors_tpu_torch "
                                    "package is built and timed (an earlier commit, for old against new)")
     args = ap.parse_args(argv)
@@ -4059,7 +4765,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     libs = dict(moe_kernels=("gmm",), flash_fwd=("flash_fwd", "flash_bwd"), flash_bwd=("flash_fwd", "flash_bwd"),
                 dense=("flash_fwd", "flash_bwd"), trainer=("flash_fwd", "flash_bwd"),
-                mlm_trainer=("flash_fwd", "flash_bwd"), vision=("flash_fwd", "flash_bwd")).get(args.only, _build.LIBRARIES)
+                mlm_trainer=("flash_fwd", "flash_bwd"), vision=("flash_fwd", "flash_bwd"),
+                inference=("flash_fwd", "flash_bwd")).get(args.only, _build.LIBRARIES)
     with ThreadPoolExecutor(len(libs)) as pool:
         paths = dict(zip(libs, pool.map(_build.build, libs)))
     for name in libs:
@@ -4099,6 +4806,10 @@ def main(argv=None):
             summary["trainer_launches"] = trainer_phase(dev, card)
         elif args.only == "mlm_trainer":
             summary["mlm_trainer"] = mlm_trainer_phase(dev, card)
+        elif args.only == "inference":
+            o_errs = forward_checks(dev, gen, LONGCTX_CASES)
+            summary["inference"] = inference_phase(dev, card, gen)
+            summary["max_abs_err"] = dict(fwd=max(o_errs.values()))
         elif args.only in ("vision", "families"):
             cases, phase = ((VIT_CASES, vision_family) if args.only == "vision"
                             else (FAMILY_CASES + FAMILY_PATH_CASES, families_phase))
@@ -4242,6 +4953,9 @@ def main(argv=None):
     # 20. the families: ModernBERT, the upcycled MoE, distill and pythia
     families = families_phase(dev, card, gen)
 
+    # 21. the inference side: the encode CLI, export, long context, MTEB, mining, the decoder heads
+    inference = inference_phase(dev, card, gen)
+
     # 10-12. the dropless MoE path: serving and training
     moe_enc_launches, moe_batches = moe_serving(dev, card, tok, rng, gen)
     moe_train_launches = moe_training(dev, card)
@@ -4284,6 +4998,19 @@ def main(argv=None):
                                 for case, row in families["kernels"].items()}
         return entry
 
+    def inference_entry(kname):
+        """Phase 21: launches per encode-CLI and long-context batch, and
+        per pythia-160m causal-LM step; for the forward, the long-context
+        case's timing row and error."""
+        heads = inference["decoder_heads"]
+        if kname != "fwd":
+            return dict(pythia_causal_lm_backward_launches=heads["backward_launches"][kname])
+        return dict(encode_cli_launches_per_batch=inference["encode"]["launches_per_batch"],
+                    long_context_launches_per_batch=inference["long_context"]["launches_per_batch"],
+                    pythia_causal_lm_forward_launches=heads["forward_launches"],
+                    pythia_causal_lm_step_launches=heads["backward_launches"]["fwd"],
+                    long_context=dict(inference["kernel"], max_abs_err=o_errs["longctx_ntk_pad_b8_s8192"]))
+
     def vision_entry(kname):
         """The ViT's attention shape: timing row, launches per vision step, error."""
         row = vision["kernels"][kname]
@@ -4322,6 +5049,7 @@ def main(argv=None):
             mlm_unfused=at(mlm, "B=8 S=T=2048 H=12 D=64, rotary outside"),
             vision=vision_entry(kname),
             families=family_entry(kname),
+            inference=inference_entry(kname),
             note="plain_ms and library_ms time a whole backward (dq, dk and dv); backward_ms is the whole "
                  "flash_attention_backward (dq, with delta, then dk/dv)",
         )
@@ -4366,6 +5094,7 @@ def main(argv=None):
                               max_abs_err=max(o_errs["s4096"], o_errs["s8192"])),
             vision=vision_entry("fwd"),
             families=family_entry("fwd"),
+            inference=inference_entry("fwd"),
             timings={label: {k: row[k] for k in ("ms", "device_ms", "enqueue_us", "plain_ms", "bound_ms",
                                                  "library_ms", "library_device_ms")}
                      for label, row in timings.items()},

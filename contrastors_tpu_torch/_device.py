@@ -12,6 +12,8 @@ from typing import Union
 import torch
 
 DeviceLike = Union[str, torch.device]
+# the CLIs' --dtype names
+DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def resolve_device(device: DeviceLike) -> torch.device:

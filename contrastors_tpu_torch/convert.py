@@ -30,7 +30,10 @@ ModernBERT's (layer 0 has no `norm1`, and neither has the port's module)
 and an upcycled MoE trunk (the expert tensors `w_up`, `w_gate`, `w_in`,
 `w_down` and the `router` are not Dense kernels: they keep JAX's layout,
 [E, D, F], [E, F, D] and [D, E], as the port's `MoEMLP` does, and copy as
-they are; the shared experts are Dense layers). Values come out as fp32 tensors on the CPU;
+they are; the shared experts are Dense layers). The decoder heads' trees
+(`models/decoder_heads.py`: the trunk under `model`, and `lm_head`,
+`score`, `classifier` or `qa_outputs`, each a Dense) map by the same
+rules onto modules of the same names. Values come out as fp32 tensors on the CPU;
 `load_state_dict` casts them to each parameter's dtype and device.
 """
 

@@ -1,6 +1,9 @@
-"""Inference encoder: BiEncoder -> embeddings for MTEB/BEIR-style evals.
+"""Inference encoders: BiEncoder -> embeddings for MTEB/BEIR-style evals.
 
-Counterpart of `contrastors_tpu/eval/encoder.py:Encoder`. Texts are
+Counterpart of `contrastors_tpu/eval/encoder.py` (`Encoder`, and the
+baseline adapters `OpenAIEncoder` and `HFEncoder`). `load_encoder_model`
+and `auto_tokenizer` are what the port's CLIs load a local checkpoint
+directory with. In `Encoder`, texts are
 tokenised by any tokenizer with the Hugging Face call interface, sorted by
 length and batched into power-of-two length buckets (the default), or
 padded to `seq_len` (bucketed=False). Prefixes, normalisation,
@@ -21,6 +24,28 @@ def corpus_to_texts(corpus) -> List[str]:
     if corpus and isinstance(corpus[0], dict):
         return [(d.get("title", "") + " " + d["text"]).strip() for d in corpus]
     return list(corpus)
+
+
+def load_encoder_model(model_name: str, pooling: str = "mean", dtype: str = "bf16", device="cuda",
+                       trunk_overrides: Optional[dict] = None):
+    """(BiEncoder in eval mode, TrunkConfig) of a local HF checkpoint
+    directory, through `models/auto.py:load_biencoder`; dtype "bf16",
+    "fp32" or a torch dtype (the compute dtype; parameters stay fp32)."""
+    from contrastors_tpu_torch._device import DTYPES
+    from contrastors_tpu_torch.config import ModelArgs
+    from contrastors_tpu_torch.models.auto import load_biencoder
+
+    margs = ModelArgs(model_type="encoder", model_name=model_name, pooling=pooling)
+    module, cfg = load_biencoder(margs, dtype=DTYPES[dtype] if isinstance(dtype, str) else dtype, device=device,
+                                 trunk_overrides=trunk_overrides)
+    return module.eval(), cfg
+
+
+def auto_tokenizer(model_name: str):
+    """`transformers.AutoTokenizer` of a local directory, imported here."""
+    from transformers import AutoTokenizer
+
+    return AutoTokenizer.from_pretrained(model_name)
 
 
 @contextlib.contextmanager
@@ -141,6 +166,123 @@ class Encoder:
         return self._postprocess(embs)
 
     # MTEB / BEIR-style interface
+    def encode_queries(self, queries: List[str], **kw) -> np.ndarray:
+        return self.encode(queries, prefix=self.query_prefix)
+
+    def encode_corpus(self, corpus, **kw) -> np.ndarray:
+        return self.encode(corpus_to_texts(corpus), prefix=self.document_prefix)
+
+
+class OpenAIEncoder:
+    """Baseline adapter over the OpenAI embeddings API (JAX
+    `eval/encoder.py:OpenAIEncoder`): token-budget truncation with tiktoken,
+    chunked requests with one retry, the MTEB / BEIR encode surface. It
+    needs the `openai` and `tiktoken` packages and network access; without
+    them construction raises, so A/B tables against API models run
+    unchanged only where both exist."""
+
+    def __init__(
+        self,
+        embedding_model: str = "text-embedding-ada-002",
+        batch_size: int = 32,
+        cutoff: int = 8192,
+        retry_seconds: float = 30.0,
+    ):
+        try:
+            import tiktoken
+            from openai import OpenAI
+        except ImportError as e:
+            raise ImportError(
+                "OpenAIEncoder needs the `openai` and `tiktoken` packages (and network access), "
+                "which this environment lacks"
+            ) from e
+        self.client = OpenAI()
+        self.embedding_model = embedding_model
+        self.encoding = tiktoken.get_encoding("cl100k_base")
+        self.batch_size = batch_size
+        self.cutoff = cutoff
+        self.retry_seconds = retry_seconds
+
+    def _truncate(self, text: str) -> str:
+        toks = self.encoding.encode(text)
+        return self.encoding.decode(toks[: self.cutoff]) if len(toks) > self.cutoff else text
+
+    def encode(self, sentences: List[str], **kw) -> np.ndarray:
+        import time
+
+        sentences = [self._truncate(s) for s in sentences]
+        out = []
+        for start in range(0, len(sentences), self.batch_size):
+            chunk = sentences[start : start + self.batch_size]
+            try:
+                resp = self.client.embeddings.create(input=chunk, model=self.embedding_model)
+            except Exception:
+                time.sleep(self.retry_seconds)
+                resp = self.client.embeddings.create(input=chunk, model=self.embedding_model)
+            out.extend(d.embedding for d in resp.data)
+        return np.asarray(out, dtype=np.float32)
+
+    def encode_queries(self, queries: List[str], **kw) -> np.ndarray:
+        return self.encode(queries)
+
+    def encode_corpus(self, corpus, **kw) -> np.ndarray:
+        return self.encode(corpus_to_texts(corpus))
+
+
+class HFEncoder:
+    """Baseline adapter: any local HF checkpoint as an encoder for A/B
+    tables (JAX `eval/encoder.py:HFEncoder`): `transformers.AutoModel` with
+    mean pooling over the mask, or a CLIP model's `get_text_features`. The
+    model runs on `device` (default "cuda"; pass "cpu" to run without a
+    card). `transformers` is imported here, when the adapter is built."""
+
+    def __init__(
+        self,
+        model_name: str,
+        seq_len: int = 512,
+        batch_size: int = 16,
+        normalize: bool = True,
+        query_prefix: Optional[str] = None,
+        document_prefix: Optional[str] = None,
+        device="cuda",
+    ):
+        from transformers import AutoModel, AutoTokenizer
+
+        from contrastors_tpu_torch._device import resolve_device
+
+        self.device = resolve_device(device)
+        self.model = AutoModel.from_pretrained(model_name, trust_remote_code=True).to(self.device).eval()
+        self.tokenizer = AutoTokenizer.from_pretrained(model_name)
+        self.clip_model = getattr(self.model.config, "model_type", "") == "clip"
+        if self.tokenizer.model_max_length > seq_len:
+            self.tokenizer.model_max_length = seq_len
+        self.batch_size = batch_size
+        self.normalize = normalize
+        self.query_prefix = query_prefix
+        self.document_prefix = document_prefix
+
+    def encode(self, sentences: List[str], prefix: Optional[str] = None) -> np.ndarray:
+        if prefix:
+            sentences = [f"{prefix}: {s}" for s in sentences]
+        out = []
+        with torch.inference_mode():
+            for start in range(0, len(sentences), self.batch_size):
+                enc = self.tokenizer(
+                    sentences[start : start + self.batch_size],
+                    padding=True, truncation=True, return_tensors="pt",
+                ).to(self.device)
+                if self.clip_model:
+                    pooled = self.model.get_text_features(**enc)
+                else:
+                    hidden = self.model(**enc)[0]
+                    m = enc["attention_mask"].unsqueeze(-1).to(hidden.dtype)
+                    pooled = (hidden * m).sum(1) / m.sum(1).clamp(min=1e-9)
+                out.append(pooled.float().cpu().numpy())
+        emb = np.concatenate(out)
+        if self.normalize:
+            emb = emb / np.maximum(np.linalg.norm(emb, axis=-1, keepdims=True), 1e-12)
+        return emb
+
     def encode_queries(self, queries: List[str], **kw) -> np.ndarray:
         return self.encode(queries, prefix=self.query_prefix)
 

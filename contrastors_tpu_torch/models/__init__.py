@@ -9,3 +9,9 @@ from contrastors_tpu_torch.models.nomic_bert import (  # noqa: F401
 from contrastors_tpu_torch.models.biencoder import BiEncoder, LogitScale  # noqa: F401
 from contrastors_tpu_torch.models.vit import ViTModel  # noqa: F401
 from contrastors_tpu_torch.models.dual_encoder import DualEncoder  # noqa: F401
+from contrastors_tpu_torch.models.decoder_heads import (  # noqa: F401
+    DecoderForCausalLM,
+    DecoderForQuestionAnswering,
+    DecoderForSequenceClassification,
+    DecoderForTokenClassification,
+)

@@ -132,20 +132,10 @@ def family_loader(hf: Dict[str, Any]) -> Tuple[str, FamilyLoader]:
     return family, LOADERS[key]
 
 
-def load_biencoder(
-    model_args: ModelArgs,
-    dtype=torch.float32,
-    device="cuda",
-    seed: int = 0,
-    trunk_overrides: Optional[Dict[str, Any]] = None,
-) -> Tuple[BiEncoder, TrunkConfig]:
-    """Returns (module, trunk_config). The module's parameters are fp32 on
-    `device` with compute in `dtype`; pretrained weights come from the
-    checkpoint, the rest (and every weight with pretrained=false) from
-    `init_weights(seed)`."""
+def resolve_trunk_config(model_args: ModelArgs, trunk_overrides: Optional[Dict[str, Any]] = None):
+    """(family, loader, config.json, TrunkConfig) of a local checkpoint
+    directory, with JAX's overrides applied, before any module is built."""
     path = model_args.checkpoint or model_args.model_name
-    if path is not None and normalize_timm_name(path) in TIMM_PRESETS:
-        return _load_timm_biencoder(model_args, path, dtype, device, seed, trunk_overrides)
     if path is None or not os.path.isdir(path):
         raise FileNotFoundError(
             f"model path {path!r} not found locally. Pass a directory containing an HF "
@@ -179,7 +169,24 @@ def load_biencoder(
     if model_args.activation_function and not loader.own_activation and not any(
             k in hf_cfg for k in ("hidden_act", "hidden_activation", "activation_function")):
         overrides.setdefault("activation_function", model_args.activation_function)
-    cfg = loader.config(hf_cfg, **overrides)
+    return family, loader, hf_cfg, loader.config(hf_cfg, **overrides)
+
+
+def load_biencoder(
+    model_args: ModelArgs,
+    dtype=torch.float32,
+    device="cuda",
+    seed: int = 0,
+    trunk_overrides: Optional[Dict[str, Any]] = None,
+) -> Tuple[BiEncoder, TrunkConfig]:
+    """Returns (module, trunk_config). The module's parameters are fp32 on
+    `device` with compute in `dtype`; pretrained weights come from the
+    checkpoint, the rest (and every weight with pretrained=false) from
+    `init_weights(seed)`."""
+    path = model_args.checkpoint or model_args.model_name
+    if path is not None and normalize_timm_name(path) in TIMM_PRESETS:
+        return _load_timm_biencoder(model_args, path, dtype, device, seed, trunk_overrides)
+    family, loader, hf_cfg, cfg = resolve_trunk_config(model_args, trunk_overrides)
 
     module = BiEncoder(
         cfg,

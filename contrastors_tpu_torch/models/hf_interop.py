@@ -13,7 +13,11 @@ naming rules live in one place. The ViT and timm converters are
 the prenorm trunk with the skipped first prenorm, local / global attention
 and GeGLU, and its `Wi` packs [input, gate] rows: fc12 (the activated
 branch) takes the first half, fc11 the second. Layer 0 has no attn_norm, so
-its tree has no norm1.
+its tree has no norm1. The inverse maps, for export, start from the port's
+own state dict (torch layout on both sides, so nothing is transposed):
+`torch_to_bert_state_dict` (JAX `flax_to_bert_state_dict`) and
+`torch_to_nomic_state_dict` (JAX `flax_to_nomic_state_dict`); each refuses
+a state dict with tensors its layout has no place for.
 """
 
 import re
@@ -284,3 +288,99 @@ def modernbert_state_dict_to_torch(sd: Dict[str, Array], config: TrunkConfig) ->
     """The state dict of `NomicBertModel`, fp32, from an HF ModernBertModel
     checkpoint's numpy state dict."""
     return flax_to_torch(modernbert_trunk_tree(sd, config))
+
+
+# -- the inverse maps, for export ----------------------------------------------
+
+
+def _numpy_state_dict(sd) -> Dict[str, Array]:
+    """fp32 numpy values of a state dict of tensors (or of arrays)."""
+    return {k: (v.detach().cpu().float().numpy() if isinstance(v, torch.Tensor) else np.asarray(v, np.float32))
+            for k, v in sd.items()}
+
+
+def _take_all(sd: Dict[str, Array], taken: set, what: str, ignore=()):
+    """Refuse a state dict with tensors the target layout has no place for
+    (an MoE trunk, say): exporting without them would change the model."""
+    left = sorted(k for k in sd if k not in taken and not k.startswith(ignore))
+    if left:
+        raise ValueError(f"{len(left)} tensors have no place in the {what} layout (first few: {left[:6]}); "
+                         "this trunk cannot be exported to it")
+
+
+def torch_to_bert_state_dict(sd, config: TrunkConfig) -> Dict[str, Array]:
+    """The port's `NomicBertModel` state dict -> vanilla HF BERT names
+    (`bert.` prefix, q/k/v split, intermediate/output), fp32 numpy: JAX
+    `flax_to_bert_state_dict`. A gated MLP keeps its flash names
+    (mlp.fc11/fc12/fc2), as in JAX; `export.export_bert_trunk` sends such
+    trunks (and ModernBERT's prenorm ones) to `torch_to_nomic_state_dict`
+    instead."""
+    sd = _numpy_state_dict(sd)
+    out: Dict[str, Array] = {}
+    taken = set()
+
+    def put(dst, src):
+        out[dst] = sd[src]
+        taken.add(src)
+
+    put("bert.embeddings.word_embeddings.weight", "embeddings.word_embeddings.weight")
+    for name in ("position_embeddings", "token_type_embeddings"):
+        if f"embeddings.{name}.weight" in sd:
+            put(f"bert.embeddings.{name}.weight", f"embeddings.{name}.weight")
+    put("bert.embeddings.LayerNorm.weight", "emb_ln.weight")
+    put("bert.embeddings.LayerNorm.bias", "emb_ln.bias")
+    for i in range(config.n_layer):
+        src, pre = f"layers.{i}", f"bert.encoder.layer.{i}"
+        for leaf in ("weight", "bias"):
+            key = f"{src}.attn.Wqkv.{leaf}"
+            if key in sd:
+                d3 = sd[key].shape[0] // 3
+                for j, n in enumerate(("query", "key", "value")):
+                    out[f"{pre}.attention.self.{n}.{leaf}"] = sd[key][j * d3:(j + 1) * d3]
+                taken.add(key)
+            if f"{src}.attn.out_proj.{leaf}" in sd:
+                put(f"{pre}.attention.output.dense.{leaf}", f"{src}.attn.out_proj.{leaf}")
+            put(f"{pre}.attention.output.LayerNorm.{leaf}", f"{src}.norm1.{leaf}")
+            put(f"{pre}.output.LayerNorm.{leaf}", f"{src}.norm2.{leaf}")
+        if f"{src}.mlp.fc1.weight" in sd:
+            for fc, name in (("fc1", "intermediate.dense"), ("fc2", "output.dense")):
+                for leaf in ("weight", "bias"):
+                    if f"{src}.mlp.{fc}.{leaf}" in sd:
+                        put(f"{pre}.{name}.{leaf}", f"{src}.mlp.{fc}.{leaf}")
+        else:  # the flash gated layout round-trips as it is
+            for fc in ("fc11", "fc12", "fc2"):
+                for leaf in ("weight", "bias"):
+                    if f"{src}.mlp.{fc}.{leaf}" in sd:
+                        put(f"{pre}.mlp.{fc}.{leaf}", f"{src}.mlp.{fc}.{leaf}")
+    if "pooler_dense.weight" in sd:
+        put("bert.pooler.dense.weight", "pooler_dense.weight")
+        put("bert.pooler.dense.bias", "pooler_dense.bias")
+    _take_all(sd, taken, "HF BERT")
+    return out
+
+
+def torch_to_nomic_state_dict(sd, config: TrunkConfig) -> Dict[str, Array]:
+    """The port's `NomicBertModel` state dict -> the flash naming of the
+    exported trust_remote_code model (`encoder.layers.<i>.attn.Wqkv`,
+    fc11/fc12, norm1/norm2, `final_norm` for prenorm trunks), fp32 numpy:
+    JAX `flax_to_nomic_state_dict`. A layer without norm1 (ModernBERT's
+    skipped first prenorm) has none here either; the pooler is not part of
+    this layout, and `normalize_bert_keys` reads the result back."""
+    sd = _numpy_state_dict(sd)
+    out: Dict[str, Array] = {}
+    taken = set()
+    for name in ("embeddings.word_embeddings", "embeddings.position_embeddings",
+                 "embeddings.token_type_embeddings", "emb_ln", "final_norm"):
+        for leaf in ("weight", "bias"):
+            if f"{name}.{leaf}" in sd:
+                out[f"{name}.{leaf}"] = sd[f"{name}.{leaf}"]
+                taken.add(f"{name}.{leaf}")
+    for i in range(config.n_layer):
+        for mod in ("attn.Wqkv", "attn.out_proj", "norm1", "norm2", "mlp.fc1", "mlp.fc2", "mlp.fc11", "mlp.fc12"):
+            for leaf in ("weight", "bias"):
+                key = f"layers.{i}.{mod}.{leaf}"
+                if key in sd:
+                    out[f"encoder.{key}"] = sd[key]
+                    taken.add(key)
+    _take_all(sd, taken, "nomic_bert", ignore=("pooler_dense.",))
+    return out

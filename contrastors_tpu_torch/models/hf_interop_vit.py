@@ -5,8 +5,10 @@ port's ViT, counterpart of `contrastors_tpu/models/hf_interop_vit.py`
 The remap builds JAX's nested tree and hands it to `convert.flax_to_torch`,
 so the naming rules live in one place. Conv patch kernels [D, C, p, p]
 flatten to the linear patchify layout ((c p1 p2) columns), which
-`PatchEmbedding` reads. The inverse (`flax_to_hf_vit_state_dict`, for
-export) waits with `export.py` (ROADMAP Queue 1, item 9).
+`PatchEmbedding` reads. The inverse, for export, is
+`torch_to_hf_vit_state_dict` (JAX `flax_to_hf_vit_state_dict`), on the
+port's state dict: transformers' ViTModel names, the conv kernel rebuilt;
+it refuses a trunk whose features that layout cannot hold.
 """
 
 import re
@@ -205,3 +207,67 @@ def _vit_tree(sd: Dict[str, Array], config: TrunkConfig, model_type: str) -> dic
 def vit_state_dict_to_torch(sd: Dict[str, Array], config: TrunkConfig, model_type: str) -> Dict[str, torch.Tensor]:
     """An HF vision state dict (numpy) -> the port's ViTModel state dict."""
     return flax_to_torch(_vit_tree(dict(sd), config, model_type))
+
+
+def hf_vit_unsupported(config: TrunkConfig) -> list:
+    """The features of a ViT trunk that transformers' ViTModel layout cannot
+    hold (EVA02's 2-D rope, SwiGLU with its MLP norm, layer scale, ...):
+    an export without them would change the model."""
+    from contrastors_tpu_torch.layers.activations import is_gated
+
+    checks = dict(rotary=config.use_rotary_pos_emb, gated_mlp=is_gated(config.activation_function),
+                  layer_scale=config.layer_scale, register_tokens=config.register_tokens > 0,
+                  norm_mlp=config.norm_mlp, no_cls_token=config.no_cls_token,
+                  prepre_layernorm=config.prepre_layernorm, global_pool=config.global_pool is not None,
+                  no_last_ln=config.no_last_ln, rms_norm=bool(config.use_rms_norm),
+                  no_patch_bias=not config.patch_embed_bias)
+    return [name for name, on in checks.items() if on]
+
+
+def torch_to_hf_vit_state_dict(sd, config: TrunkConfig) -> Dict[str, Array]:
+    """The port's `ViTModel` state dict -> transformers ViTModel names, fp32
+    numpy (JAX `flax_to_hf_vit_state_dict`): the linear patchify weight
+    [D, C*p*p] back to the conv kernel [D, C, p, p], q/k/v split. A trunk
+    with a feature that layout lacks (`hf_vit_unsupported`) raises."""
+    from contrastors_tpu_torch.models.hf_interop import _numpy_state_dict, _take_all
+
+    bad = hf_vit_unsupported(config)
+    if bad:
+        raise ValueError(f"transformers' ViTModel cannot hold this trunk's {bad}; it cannot be exported as HF ViT")
+    sd = _numpy_state_dict(sd)
+    out: Dict[str, Array] = {}
+    taken = set()
+
+    def put(dst, src):
+        out[dst] = sd[src]
+        taken.add(src)
+
+    pk = sd["embeddings.proj.weight"]  # [D, C*p*p]
+    ps = config.patch_size
+    out["embeddings.patch_embeddings.projection.weight"] = pk.reshape(pk.shape[0], config.num_channels, ps, ps)
+    taken.add("embeddings.proj.weight")
+    if "embeddings.proj.bias" in sd:
+        put("embeddings.patch_embeddings.projection.bias", "embeddings.proj.bias")
+    if "embeddings.cls_token" in sd:
+        put("embeddings.cls_token", "embeddings.cls_token")
+    if "embeddings.pos_embed" in sd:
+        put("embeddings.position_embeddings", "embeddings.pos_embed")
+    for i in range(config.n_layer):
+        src, pre = f"layers.{i}", f"encoder.layer.{i}"
+        for leaf in ("weight", "bias"):
+            key = f"{src}.attn.Wqkv.{leaf}"
+            if key in sd:
+                d3 = sd[key].shape[0] // 3
+                for j, n in enumerate(("query", "key", "value")):
+                    out[f"{pre}.attention.attention.{n}.{leaf}"] = sd[key][j * d3:(j + 1) * d3]
+                taken.add(key)
+            for mod, name in (("attn.out_proj", "attention.output.dense"), ("norm1", "layernorm_before"),
+                              ("norm2", "layernorm_after"), ("mlp.fc1", "intermediate.dense"),
+                              ("mlp.fc2", "output.dense")):
+                if f"{src}.{mod}.{leaf}" in sd:
+                    put(f"{pre}.{name}.{leaf}", f"{src}.{mod}.{leaf}")
+    if "ln_f.weight" in sd:
+        put("layernorm.weight", "ln_f.weight")
+        put("layernorm.bias", "ln_f.bias")
+    _take_all(sd, taken, "HF ViT")
+    return out

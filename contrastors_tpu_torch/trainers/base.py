@@ -49,7 +49,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from contrastors_tpu_torch._device import resolve_device
+from contrastors_tpu_torch._device import DTYPES, resolve_device
 from contrastors_tpu_torch.config import Config
 from contrastors_tpu_torch.ops.dropout import step_generator
 from contrastors_tpu_torch.utils.logging import Tracker
@@ -58,7 +58,6 @@ from contrastors_tpu_torch.utils.prefetch import PrefetchIterator
 
 Batch = Dict[str, torch.Tensor]
 LossFn = Callable[[Any, Optional[torch.Generator]], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
-DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def make_standard_train_step(

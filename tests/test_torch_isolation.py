@@ -144,3 +144,69 @@ def test_vision_entry_points_default_to_cuda_and_raise_without_a_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--config", str(ROOT / "configs" / "train" / "nomic_embed_vision_v1.5.yaml")])
     assert DualEncoder(text, vit, device="cpu").vision.trunk.layers[0].mlp.norm.weight.device.type == "cpu"
+
+
+def test_inference_modules_exist_and_the_modeling_file_ships_as_data():
+    """The inference slice's modules are importable port modules; the
+    trust_remote_code model that export copies imports transformers at its
+    top, so it ships as package data, never as a module."""
+    modules = {m.name for m in pkgutil.walk_packages([str(PORT)], prefix="contrastors_tpu_torch.")}
+    for m in ("eval.encoder", "scripts.encode", "models.hf_interop", "models.hf_interop_vit", "export",
+              "eval.retrieval", "eval.loco_data", "eval.eval_long_context", "eval.mini_mteb", "eval.eval_mteb",
+              "eval.mteb_tools", "scripts.mine_hard_negatives", "scripts.consistency_filter",
+              "models.decoder_heads"):
+        assert "contrastors_tpu_torch." + m in modules, m
+    asset = PORT / "assets" / "modeling_nomic_bert.py.in"
+    assert asset.exists() and not any(p.name.startswith("modeling_nomic_bert") for p in PORT.rglob("*.py"))
+    assert "from transformers import" in asset.read_text()
+    assert '"contrastors_tpu_torch" = ["assets/modeling_nomic_bert.py.in"]' in (ROOT / "pyproject.toml").read_text()
+
+
+def _tiny_config_dir(tmp_path):
+    path = tmp_path / "tiny"
+    path.mkdir()
+    (path / "config.json").write_text(
+        '{"model_type": "nomic_bert", "vocab_size": 64, "n_embd": 64, "n_layer": 1, "n_head": 1, '
+        '"n_inner": 128, "activation_function": "swiglu", "rotary_emb_fraction": 1.0, '
+        '"max_trained_positions": 32}')
+    return str(path)
+
+
+def test_inference_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    import numpy as np
+
+    from contrastors_tpu_torch import export
+    from contrastors_tpu_torch.eval import eval_long_context, eval_mteb, retrieval
+    from contrastors_tpu_torch.eval.encoder import HFEncoder, load_encoder_model
+    from contrastors_tpu_torch.models import (DecoderForCausalLM, DecoderForQuestionAnswering,
+                                              DecoderForSequenceClassification, DecoderForTokenClassification)
+    from contrastors_tpu_torch.models.model_config import TrunkConfig
+    from contrastors_tpu_torch.scripts import consistency_filter, encode, mine_hard_negatives
+
+    model_dir = _tiny_config_dir(tmp_path)
+    texts = tmp_path / "texts.txt"
+    texts.write_text("a b\n")
+    data = str(tmp_path / "beir")
+    calls = [
+        lambda: encode.main(["--model_name", model_dir, "--input", str(texts), "--output", str(tmp_path / "e.npy")]),
+        lambda: load_encoder_model(model_dir),
+        lambda: eval_long_context.build_long_context_encoder(model_dir),
+        lambda: eval_long_context.main(["--model_name", model_dir, "--data", data]),
+        lambda: retrieval.main(["--model_name", model_dir, "--data", data]),
+        lambda: eval_mteb.main(["--model_name", model_dir, "--local_data_dir", data]),
+        lambda: HFEncoder(model_dir),
+        lambda: export.main(["--ckpt_path", str(tmp_path), "--output", str(tmp_path / "out"),
+                             "--config_json", str(tmp_path / "none.json")]),
+        lambda: mine_hard_negatives.mine(np.ones((2, 4), np.float32), np.ones((2, 4), np.float32), np.arange(2)),
+        lambda: consistency_filter.consistency_keep_mask(np.ones((2, 4), np.float32), np.ones((2, 4), np.float32)),
+    ]
+    cfg = TrunkConfig(vocab_size=64, n_embd=64, n_layer=1, n_head=1, n_inner=128, causal=True, prenorm=True,
+                      parallel_block=True, rotary_emb_fraction=0.25, n_positions=0)
+    calls += [lambda head=head: head(cfg) for head in (DecoderForCausalLM, DecoderForSequenceClassification,
+                                                       DecoderForTokenClassification, DecoderForQuestionAnswering)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert DecoderForCausalLM(cfg, device="cpu").model.layers[0].norm1.weight.device.type == "cpu"
