@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only {moe_kernels,moe,flash_fwd,flash_bwd,dense,trainer,mlm_trainer,vision,families,
-                                  inference}
+                                  inference,distributed}
                              [--tree DIR]
 
 The second form runs phases 1, 2 and 9 (moe_kernels), or 1, 2 and 9-12
@@ -17,7 +17,7 @@ the MLM step's timing, or (dense) 1, 2 and the dense step of 7-8
 17, or (mlm_trainer) 1, 2 and 18, or (vision) 1, 2, the ViT shape's
 checks of 3 and 4 and 19, or (families) 1, 2, the families' two shapes'
 checks of 3 and 4 and 20, or (inference) 1, 2, the long-context case's
-check of 3 and 21, on this checkout's
+check of 3 and 21, or (distributed) 1, 2 and 22, on this checkout's
 package or on the one under DIR (another checkout, e.g. the parent commit
 unpacked by `git archive`), so that two versions can be timed in turns on
 one card.
@@ -259,6 +259,33 @@ The inference side (after phase 20), at full width with seeded weights:
      sequence, token and QA heads' forwards). The long-context case
      (longctx_ntk_pad_b8_s8192, a case of phase 3, its plain version
      row by row) timed beside its bound, its plain version and SDPA.
+Data-parallel training across processes (after phase 21):
+ 22. distributed, distributed_timing, distributed_nccl: the pretrain
+     recipe (PRETRAIN_RECIPE at 512 pairs, 32 / 256 tokens, grad cache
+     with chunk 16 a rank, every query chunk direct, 4 steps, full
+     nomic-bert-2048 width, bf16) and configs/train/mlm.yaml (bert-base-
+     uncased's widths, dropout 0, 4 x 2048, rows 2-3 short) through
+     train.run, first on one rank in this process, then on two ranks of
+     this script started in torchrun's environment (RANK, WORLD_SIZE,
+     LOCAL_RANK, MASTER_ADDR / MASTER_PORT, CONTRASTORS_DIST_BACKEND=gloo),
+     over gloo with CUDA tensors, both on card 0 (NCCL refuses two ranks on
+     one device); with --tree the ranks import that tree's package too, and
+     each rank's package path is checked against the launcher's. Gates, stated
+     before the first run: each step's loss within 2e-3 relative of the
+     one-rank run's at the same global batch; the two runs' parameter
+     updates after the last step at cosine >= 0.99 per tensor and >= 0.999
+     over all; a planted fault (labels without the rank offset; for MLM
+     the mean of the ranks' means) outside them; flash launches per rank
+     step 396 / 204 / 204 (the one-rank step's 780 / 396 / 396); the
+     ranks' initial parameters the one-rank run's; the optimizer state
+     sharded; no synchronising call outside the collectives in a quiet
+     step. Recorded, marked as gloo on one shared card: per-rank step ms,
+     the gradient all-reduce, embedding gather and sharded optimizer's row
+     gather ms at the step's sizes, peak memory per rank. Then NCCL at world size 1 in torchrun's
+     environment (the default backend on a card): the gather forward and
+     backward, the gradient all-reduce, the metric reductions and the
+     broadcast checked and timed; across two cards only where there are
+     two.
 Kernel times (ms) are CUDA-event times of calls made on an idle card, so a
 short kernel's time holds the host's enqueue; phases 8 and 9 give beside
 them the device's work alone (device_ms: each call queued behind a device
@@ -4694,6 +4721,570 @@ def inference_phase(dev, card, gen):
     return out
 
 
+# -- phase 22: data-parallel training across processes ------------------------
+DIST_WORLD, DIST_STEPS = 2, 4
+# bounds stated before the phase's first run (PERF.md): each step's loss of
+# two ranks against one rank's at the same global batch, and the cosine of
+# the two runs' parameter updates after the last step, per tensor and over
+# every tensor at once
+DIST_LOSS_RTOL, DIST_UPDATE_COSINE, DIST_UPDATE_COSINE_ALL = 2e-3, 0.99, 0.999
+DIST_MLM_ROWS, DIST_MLM_SEQ, DIST_MLM_SHORT = 4, 2048, 64  # rows 2 and 3 hold 64 tokens, the rest padding
+DIST_TIMEOUT = 600
+TREE = None  # --tree: the checkout whose package this run and its ranks import
+DIST_GRAD_ELEMENTS = 136_731_648  # nomic-bert-2048's parameters (phase 5's count)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_pretrain_recipe(paths, world):
+    """The trainer phase's pretrain recipe at DIST_STEPS steps of the same
+    global batch (512 pairs, chunk 16 a rank), no eval, no checkpoint, one
+    log at the end; `world` ranks on the data axis."""
+    recipe = trainer_recipe(**paths)
+    recipe["train_args"].update(num_train_steps=DIST_STEPS, save_every=None, log_lr_every=DIST_STEPS,
+                                eval_strategy=None, output_dir=None)
+    recipe["data_args"]["eval_retrieval"] = None
+    recipe["parallel_args"] = {"data": world}
+    return recipe
+
+
+def dist_mlm_recipe(model_dir, world):
+    """configs/train/mlm.yaml through read_config at DIST_MLM_ROWS global
+    rows of 2048 tokens, dropout 0 (the model dir's config.json), one update
+    a step, no eval and no checkpoint; `world` ranks on the data axis."""
+    from contrastors_tpu_torch.read import read_config
+
+    raw = read_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "train",
+                                   "mlm.yaml")).to_dict()
+    raw["train_args"].update(num_train_steps=DIST_STEPS, warmup_steps=1, gradient_accumulation_steps=1,
+                             eval_strategy=None, eval_steps=None, save_every=None, log_lr_every=DIST_STEPS,
+                             output_dir=None, wandb=False)
+    raw["model_args"].update(model_name=model_dir)
+    raw["data_args"].update(batch_size=DIST_MLM_ROWS)
+    raw["parallel_args"] = {"data": world}
+    return raw
+
+
+def dist_mlm_inputs(root):
+    """A config.json dir of bert-base-uncased's widths with dropout 0, and
+    DIST_STEPS global batches of token ids: rows 0 and 1 of each random
+    ids, rows 2 and 3 DIST_MLM_SHORT copies of one id and padding. Rank 1
+    masks ~30x fewer tokens than rank 0, and at random init the model's
+    loss on them differs from rank 0's, so a mean of the ranks' means is
+    far from the global masked mean."""
+    model_dir = os.path.join(root, "bert-base-uncased-nodrop")
+    os.makedirs(model_dir)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(dict(BERT_BASE_UNCASED_CONFIG, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0), f)
+    rng = np.random.default_rng(7)
+    ids = rng.integers(1000, 1300, size=(DIST_STEPS * DIST_MLM_ROWS, DIST_MLM_SEQ))
+    mask = np.ones_like(ids)
+    short = np.arange(len(ids)) % DIST_MLM_ROWS >= DIST_MLM_ROWS // 2
+    mask[short, DIST_MLM_SHORT:] = 0
+    ids[short] = 1000
+    return model_dir, ids * mask, mask
+
+
+def dist_mlm_class(tokenizer, batches_path, ids=None, mask=None):
+    """MLMTrainer with the stand-in tokenizer whose data are the global
+    batches masked once (by the one-rank run, with its own _mask_batch, and
+    saved to batches_path) and read back by every rank, which takes its
+    window of each: two ranks and one rank train on the same masked rows."""
+    from contrastors_tpu_torch.trainers import MLMTrainer
+
+    base = chip_trainer_class(MLMTrainer, tokenizer)
+
+    class Batches:
+        def __init__(self, trainer):
+            self.trainer = trainer
+
+        def __iter__(self):
+            t = self.trainer
+            if ids is not None:
+                rng = np.random.default_rng(0)
+                batches = [t._mask_batch(ids[i:i + DIST_MLM_ROWS], mask[i:i + DIST_MLM_ROWS], 0.3, rng)
+                           for i in range(0, len(ids), DIST_MLM_ROWS)]
+                np.savez(batches_path, **{f"{i}/{k}": v for i, b in enumerate(batches) for k, v in b.items()})
+            else:
+                with np.load(batches_path) as z:
+                    flat = {key: z[key] for key in z.files}
+                batches = [{k.split("/")[1]: v for k, v in flat.items() if k.split("/")[0] == str(i)}
+                           for i in range(DIST_STEPS)]
+                per = DIST_MLM_ROWS // t.mesh.data
+                rows = slice(t.mesh.rank * per, (t.mesh.rank + 1) * per)
+                batches = [{k: v[rows] for k, v in b.items()} for b in batches]
+            return iter(batches)
+
+    class DistMLM(base):
+        def get_dataloaders(self):
+            self._val = None
+            return Batches(self), DIST_STEPS
+
+    return DistMLM
+
+
+def initial_params_class(base):
+    """base whose model keeps a copy of its initial parameters (`init`)."""
+
+    class Kept(base):
+        def get_model(self):
+            model = super().get_model()
+            self.init = {n: p.detach().clone() for n, p in model.named_parameters()}
+            return model
+
+    return Kept
+
+
+def update_cosines(model, init, ref_delta):
+    """Per-tensor cosine between this run's update (final - init) and the
+    reference's (ref_delta), over the tensors the reference moved."""
+    import torch
+
+    out, dot, got_sq, ref_sq = {}, 0.0, 0.0, 0.0
+    for n, p in model.named_parameters():
+        ref = ref_delta[n].to(p.device).double()
+        if float(ref.norm()) == 0.0:
+            continue
+        got = (p.detach() - init[n]).double()
+        d, g, r = float((got * ref).sum()), float(got.square().sum()), float(ref.square().sum())
+        out[n] = d / max((g * r) ** 0.5, 1e-300)
+        dot, got_sq, ref_sq = dot + d, got_sq + g, ref_sq + r
+    return out, dot / max((got_sq * ref_sq) ** 0.5, 1e-300)
+
+
+@contextlib.contextmanager
+def collectives_outside_sync_log():
+    """The torch.distributed collectives run with sync debug mode off: gloo
+    stages CUDA tensors through the host, and what the phase counts are
+    the synchronising calls outside the collectives."""
+    import torch
+    import torch.distributed as dist
+
+    names = ("all_reduce", "all_gather", "broadcast", "barrier")
+    saved = {n: getattr(dist, n) for n in names}
+
+    def quiet(fn):
+        def call(*args, **kwargs):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+
+        return call
+
+    for n in names:
+        setattr(dist, n, quiet(saved[n]))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def collective_ms(fn, dev, runs=3):
+    """Median host ms of fn() ended by a synchronize, after one warm call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize(dev)
+    ms = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def dist_timings(trainer, dev, rows):
+    """ms of the step's three collectives on this process group, at the
+    step's sizes: the gradient all-reduce (every gradient of the model, one
+    flat fp32 buffer), the embedding gather of `rows` x 768 fp32, and the
+    sharded optimizer's gather of the updated rows (one flat buffer; the
+    rows are those of the last step, so the parameters stay as they are)."""
+    import torch
+    import torch.distributed as dist
+
+    from contrastors_tpu_torch.parallel.collectives import all_gather_rows, all_reduce_grads
+
+    params = [p for p in trainer.model.parameters() if p.grad is not None]
+    emb = torch.randn(rows, 768, device=dev)
+    opt = trainer.optimizer
+    return dict(grad_all_reduce_ms=collective_ms(lambda: all_reduce_grads(params, dist.group.WORLD), dev),
+                grad_elements=sum(p.numel() for p in params),
+                embedding_gather_ms=collective_ms(lambda: all_gather_rows(emb, dist.group.WORLD), dev),
+                embedding_rows=rows,
+                optimizer_gather_ms=collective_ms(opt.gather_updated_rows, dev),
+                optimizer_gather_elements=sum(p.numel() for p, s in zip(opt.full_params, opt.sharded)
+                                              if s and p.grad is not None))
+
+
+def dist_case_pretrain(spec, dev, rank, fault=False):
+    """The pretrain recipe on this rank; with `fault`, the labels lose the
+    rank offset (every rank's queries point at rank 0's documents)."""
+    import torch
+
+    from contrastors_tpu_torch import losses
+    from contrastors_tpu_torch.parallel.mesh import fingerprint
+
+    saved = losses.group_rank
+    if fault:
+        losses.group_rank = lambda group: 0
+    try:
+        cls = initial_params_class(chip_trainer_class())
+        torch.cuda.reset_peak_memory_stats(dev)
+        with collectives_outside_sync_log():
+            trainer, rows, seconds, _, _ = run_chip_trainer(dist_pretrain_recipe(spec["paths"], spec["world"]),
+                                                            dev, cls)
+    finally:
+        losses.group_rank = saved
+    out = dict(losses=[r["loss"] for r in rows], launches=[r["launches"] for r in rows],
+               step_ms=[r["iteration_ms"] for r in rows],
+               quiet_syncs=[r["iteration_syncs"] for r in quiet_rows(rows, {DIST_STEPS})],
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 2**30, seconds=seconds,
+               replicas_agreed=trainer.init_replicas_agreed,
+               sharded_optimizer=type(trainer.optimizer).__name__,
+               init_fingerprint=fingerprint(trainer.init.values()))
+    if rank == 0:
+        ref = torch.load(spec["ref_delta"], map_location="cpu", weights_only=True)
+        cos, cos_all = update_cosines(trainer.model, trainer.init, ref)
+        worst = min(cos, key=cos.get)
+        out.update(update_cosine_min=cos[worst], update_cosine_worst=worst, update_cosine_all=cos_all,
+                   update_tensors=len(cos))
+    if not fault:
+        out.update(dist_timings(trainer, dev, PAIRS // spec["world"]))
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_case_mlm(spec, dev, rank, fault=False):
+    """The MLM recipe on this rank; with `fault`, the loss is the mean of the
+    ranks' means, not the global masked mean."""
+    import torch
+
+    from contrastors_tpu_torch.eval.stub_tokenizer import StubTokenizer
+    from contrastors_tpu_torch.trainers import mlm as mlm_module
+
+    saved = mlm_module.masked_mean_weight
+    if fault:
+        mlm_module.masked_mean_weight = lambda labels, group: 1.0
+    try:
+        cls = dist_mlm_class(StubTokenizer(BERT_BASE_UNCASED_CONFIG["vocab_size"]), spec["mlm_batches"])
+        torch.cuda.reset_peak_memory_stats(dev)
+        with collectives_outside_sync_log():
+            trainer, rows, seconds, _, _ = run_chip_trainer(dist_mlm_recipe(spec["mlm_dir"], spec["world"]), dev, cls)
+    finally:
+        mlm_module.masked_mean_weight = saved
+    masked = [int((b["labels"] >= 0).sum()) for b in iter(trainer.dataloader)]
+    out = dict(losses=[r["loss"] for r in rows], launches=[r["launches"] for r in rows],
+               step_ms=[r["iteration_ms"] for r in rows], masked_tokens=masked,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 2**30, seconds=seconds)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_case_collectives(spec, dev, rank):
+    """The collectives on this process group (NCCL by default): the
+    differentiable gather forward and backward, the gradient all-reduce,
+    the metric and host reductions, the broadcast, each against what it
+    must give; and their ms at the pretrain step's sizes."""
+    import torch
+    import torch.distributed as dist
+
+    from contrastors_tpu_torch.parallel import all_gather_rows, all_reduce_grads, make_mesh, reduce_metrics, replicate
+    from contrastors_tpu_torch.utils import dist as du
+
+    world, group = dist.get_world_size(), dist.group.WORLD
+    gen = torch.Generator(device=dev).manual_seed(rank)
+    x = torch.randn(PAIRS // world, 768, device=dev, generator=gen, requires_grad=True)
+    y = all_gather_rows(x, group)
+    lo = rank * x.shape[0]
+    y.backward(torch.full_like(y, float(rank + 1)))
+    lin = torch.nn.Linear(768, 768, device=dev)
+    replicate(lin, make_mesh())
+    lin(y.detach()).sum().backward()  # the same input on every rank: the same gradient
+    own = lin.weight.grad.clone()
+    all_reduce_grads(lin.parameters(), group)
+    reduced = reduce_metrics({"loss": torch.tensor(1.0, device=dev), "accuracy": torch.tensor(float(rank), device=dev)},
+                             group, summed=("loss",))
+    host = du.process_allmean({"m": float(rank)})
+    checks = dict(
+        gather_rows=bool(torch.equal(y[lo:lo + x.shape[0]], x.detach())) and y.shape[0] == PAIRS,
+        gather_backward=bool(torch.equal(x.grad, torch.full_like(x, world * (world + 1) / 2))),
+        all_reduce=bool(torch.equal(lin.weight.grad, own * world)),
+        reduce_metrics=abs(float(reduced["loss"]) - world) < 1e-6
+        and abs(float(reduced["accuracy"]) - (world - 1) / 2) < 1e-6,
+        process_allmean=abs(host["m"] - (world - 1) / 2) < 1e-6,
+        backend=dist.get_backend(), current_device=torch.cuda.current_device(),
+    )
+    flat = [torch.zeros(DIST_GRAD_ELEMENTS, device=dev)]  # the pretrain model's gradients, one fp32 buffer
+    flat[0].grad = torch.randn(DIST_GRAD_ELEMENTS, device=dev, generator=gen)
+    timing = dict(grad_all_reduce_ms=collective_ms(lambda: all_reduce_grads(flat, group), dev),
+                  grad_elements=flat[0].numel(),
+                  embedding_gather_ms=collective_ms(lambda: all_gather_rows(x.detach(), group), dev),
+                  embedding_rows=x.shape[0])
+    ok = all(v for k, v in checks.items() if k not in ("backend", "current_device"))
+    return dict(checks=checks, ok=ok, env={k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK")},
+                **timing)
+
+
+DIST_CASES = {
+    "pretrain": dist_case_pretrain,
+    "pretrain_fault": lambda spec, dev, rank: dist_case_pretrain(spec, dev, rank, fault=True),
+    "mlm": dist_case_mlm,
+    "mlm_fault": lambda spec, dev, rank: dist_case_mlm(spec, dev, rank, fault=True),
+    "collectives": dist_case_collectives,
+}
+
+
+def dist_rank_main(spec_path):
+    """One rank of the distributed phase, in torchrun's environment (RANK,
+    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR / MASTER_PORT, and
+    $CONTRASTORS_DIST_BACKEND where the caller chose a backend): import the
+    package from the spec's tree (the launcher's), join the process group
+    on the device the spec names, run the spec's cases in order and write
+    each result, with the package's path, to <out>/<case>.rank<r>.json.
+    Any error exits non-zero."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    if spec.get("tree"):
+        sys.path.insert(0, spec["tree"])
+    import torch
+
+    import contrastors_tpu_torch
+    from contrastors_tpu_torch.utils import dist as du
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    du.maybe_initialize_distributed(device=spec.get("device"))
+    rank = du.rank()
+    dev = torch.device(spec["device"]) if spec.get("device") else torch.device("cuda", torch.cuda.current_device())
+    try:
+        for case in spec["cases"]:
+            result = dict(DIST_CASES[case](spec, dev, rank), package=contrastors_tpu_torch.__file__)
+            with open(os.path.join(spec["out"], f"{case}.rank{rank}.json"), "w") as f:
+                json.dump(result, f)
+            du.barrier()
+    finally:
+        du.destroy()
+    return 0
+
+
+def launch_ranks(spec, root, name, world, devices=None):
+    """Start `world` ranks of this script in torchrun's environment (with
+    $CONTRASTORS_DIST_BACKEND set to spec["backend"] where it names one),
+    on the package this process imported (`--tree`), wait for them (killing
+    every one at DIST_TIMEOUT), and return {case: [each rank's result]}; a
+    failed rank, or one that imported another package, raises."""
+    import contrastors_tpu_torch
+
+    out = os.path.join(root, name)
+    os.makedirs(out)
+    spec = dict(spec, out=out, world=world, tree=TREE)
+    spec_path = os.path.join(out, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        env.pop("CONTRASTORS_DIST_BACKEND", None)
+        if spec.get("backend"):
+            env["CONTRASTORS_DIST_BACKEND"] = spec["backend"]
+        if devices is not None:
+            spec_rank = dict(spec, device=devices[rank])
+            path = os.path.join(out, f"spec{rank}.json")
+            with open(path, "w") as f:
+                json.dump(spec_rank, f)
+        else:
+            path = spec_path
+        log = open(os.path.join(out, f"rank{rank}.log"), "w")
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-worker", path],
+                                      env=env, stdout=log, stderr=subprocess.STDOUT))
+        log.close()
+    deadline = time.perf_counter() + DIST_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        logs = []
+        for rank in range(world):
+            with open(os.path.join(out, f"rank{rank}.log")) as f:
+                logs.append(f"--- rank {rank} (rc {procs[rank].returncode}) ---\n" + f.read()[-6000:])
+        raise AssertionError(f"distributed {name}: a rank failed\n" + "\n".join(logs))
+    results = {}
+    for case in spec["cases"]:
+        results[case] = []
+        for rank in range(world):
+            with open(os.path.join(out, f"{case}.rank{rank}.json")) as f:
+                results[case].append(json.load(f))
+            if results[case][-1]["package"] != contrastors_tpu_torch.__file__:
+                raise AssertionError(f"distributed {name}: rank {rank} imported {results[case][-1]['package']}, "
+                                     f"the launcher {contrastors_tpu_torch.__file__}")
+    return results
+
+
+def rel_diffs(a, b):
+    return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+
+def distributed_phase(dev, card):
+    """Phase distributed: data-parallel training across processes on the
+    card. The pretrain recipe (full nomic-bert-2048 width, 512 pairs of
+    32 / 256 tokens, grad cache with chunk 16 a rank, DIST_STEPS steps, the
+    sharded optimizer state) and the MLM recipe (bert-base-uncased's widths,
+    4 x 2048, dropout 0) through train.run on one rank in this process, then
+    on two ranks of this script (torchrun's environment, gloo, both on card
+    0: NCCL refuses two ranks on one device), with a planted fault each;
+    then NCCL at world size 1, and NCCL across two cards where there are
+    two. Returns the launches of one two-rank pretrain step per rank."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from contrastors_tpu_torch.eval.stub_tokenizer import StubTokenizer
+    from contrastors_tpu_torch.parallel.mesh import fingerprint
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    paths = write_trainer_inputs(root)
+    n_layer, n_bert = NOMIC_BERT_2048_CONFIG["n_layer"], BERT_BASE_UNCASED_CONFIG["num_hidden_layers"]
+    expected_mlm = expect(fwd=n_bert, dq=n_bert, dkv=n_bert)
+    per_rank = PAIRS // DIST_WORLD
+    expected_rank = expect(fwd=n_layer * (1 + 2 * per_rank // CHUNK), dq=n_layer * (1 + per_rank // CHUNK),
+                           dkv=n_layer * (1 + per_rank // CHUNK))
+    expected_one = expect(fwd=n_layer * (1 + 2 * PAIRS // CHUNK), dq=n_layer * (1 + PAIRS // CHUNK),
+                          dkv=n_layer * (1 + PAIRS // CHUNK))
+
+    # one rank, this process: the reference losses and parameter update
+    gc.collect()
+    torch.cuda.empty_cache()
+    cls = initial_params_class(chip_trainer_class())
+    one, rows, one_seconds, _, _ = run_chip_trainer(dist_pretrain_recipe(paths, 1), dev, cls)
+    one_losses = [r["loss"] for r in rows]
+    ref_delta = {n: (p.detach() - one.init[n]).cpu() for n, p in one.model.named_parameters()}
+    ref_path = os.path.join(root, "ref_delta.pt")
+    torch.save(ref_delta, ref_path)
+    one_launches = [r["launches"] for r in rows]
+    one_step_ms = [r["iteration_ms"] for r in rows]
+    one_fingerprint = fingerprint(one.init.values())
+    del one, ref_delta, rows, cls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mlm_dir, ids, mask = dist_mlm_inputs(root)
+    mlm_batches = os.path.join(root, "mlm_batches.npz")
+    tok = StubTokenizer(BERT_BASE_UNCASED_CONFIG["vocab_size"])
+    one_mlm, mlm_rows, _, _, _ = run_chip_trainer(dist_mlm_recipe(mlm_dir, 1), dev,
+                                                  dist_mlm_class(tok, mlm_batches, ids, mask))
+    one_mlm_losses = [r["loss"] for r in mlm_rows]
+    one_mlm_launches = [r["launches"] for r in mlm_rows]
+    del one_mlm, mlm_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # two ranks on the one card, gloo
+    spec = dict(backend="gloo", device="cuda:0", paths=paths, ref_delta=ref_path, mlm_dir=mlm_dir,
+                mlm_batches=mlm_batches, cases=["pretrain", "pretrain_fault", "mlm", "mlm_fault"])
+    t0 = time.perf_counter()
+    two = launch_ranks(spec, root, "gloo_two_ranks", DIST_WORLD)
+    two_seconds = time.perf_counter() - t0
+
+    def pretrain_gates(res):
+        r0 = res[0]
+        loss_rel = max(rel_diffs(r0["losses"], one_losses))
+        return dict(
+            loss_rel=loss_rel, update_cosine_min=r0["update_cosine_min"],
+            update_cosine_worst=r0["update_cosine_worst"], update_cosine_all=r0["update_cosine_all"],
+            losses_within=loss_rel <= DIST_LOSS_RTOL,
+            updates_within=r0["update_cosine_min"] >= DIST_UPDATE_COSINE
+            and r0["update_cosine_all"] >= DIST_UPDATE_COSINE_ALL,
+        )
+
+    good, bad = pretrain_gates(two["pretrain"]), pretrain_gates(two["pretrain_fault"])
+    mlm_rel = max(rel_diffs(two["mlm"][0]["losses"], one_mlm_losses))
+    mlm_fault_rel = max(rel_diffs(two["mlm_fault"][0]["losses"], one_mlm_losses))
+    pre = two["pretrain"]
+    checks = dict(
+        pretrain_losses_within=good["losses_within"],
+        pretrain_updates_within=good["updates_within"],
+        fault_fails_losses=not bad["losses_within"],
+        fault_fails_updates=not bad["updates_within"],
+        ranks_log_the_same_losses=all(r["losses"] == pre[0]["losses"] for r in pre),
+        one_rank_launches=all(x == expected_one for x in one_launches),
+        launches_per_rank=all(x == expected_rank for r in pre for x in r["launches"]),
+        same_initial_parameters=all(r["init_fingerprint"] == one_fingerprint and r["replicas_agreed"] for r in pre),
+        optimizer_state_sharded=all(r["sharded_optimizer"] == "ShardedAdamW" for r in pre),
+        no_sync_outside_collectives=all(n == 0 for r in pre for n in r["quiet_syncs"]),
+        losses_finite=bool(np.isfinite([x for r in pre for x in r["losses"]]).all()),
+        mlm_losses_within=mlm_rel <= DIST_LOSS_RTOL,
+        mlm_fault_fails=mlm_fault_rel > DIST_LOSS_RTOL,
+        mlm_launches=all(x == expected_mlm for r in two["mlm"] for x in r["launches"])
+        and all(x == expected_mlm for x in one_mlm_launches),
+    )
+    ok = all(checks.values())
+    emit(phase="distributed", card=card, gpu_state=gpu_state(), backend="gloo", ranks=DIST_WORLD,
+         device="cuda:0 (both ranks)", recipe="configs/train/contrastive_pretrain.yaml", pairs=PAIRS,
+         pairs_per_rank=per_rank, chunk_per_rank=CHUNK, steps=DIST_STEPS,
+         bounds=dict(loss_rtol=DIST_LOSS_RTOL, update_cosine_per_tensor=DIST_UPDATE_COSINE,
+                     update_cosine_all=DIST_UPDATE_COSINE_ALL),
+         one_rank_losses=one_losses, two_rank_losses=[r["losses"] for r in pre], pretrain=good,
+         planted_fault_labels_without_rank_offset=dict(bad, losses=two["pretrain_fault"][0]["losses"]),
+         expected_launches_per_rank=expected_rank, launches_per_rank=[r["launches"][1] for r in pre],
+         one_rank_launches=one_launches[1], quiet_syncs=[r["quiet_syncs"] for r in pre],
+         mlm=dict(recipe="configs/train/mlm.yaml", rows=DIST_MLM_ROWS, seq=DIST_MLM_SEQ,
+                  one_rank_losses=one_mlm_losses, two_rank_losses=two["mlm"][0]["losses"], loss_rel=mlm_rel,
+                  masked_tokens_per_rank=[r["masked_tokens"] for r in two["mlm"]],
+                  planted_fault_mean_of_rank_means=dict(losses=two["mlm_fault"][0]["losses"],
+                                                        loss_rel=mlm_fault_rel)),
+         checks=checks, ok=ok)
+    emit(phase="distributed_timing", card=card, gpu_state=gpu_state(),
+         note="gloo, two ranks sharing one card: not NCCL's speed; step ms: host clock from one loop step's "
+              "start to the next; collectives: median host ms ended by a synchronize, at the step's sizes",
+         one_rank_step_ms=one_step_ms, step_ms_per_rank=[r["step_ms"] for r in pre],
+         grad_all_reduce_ms=[r["grad_all_reduce_ms"] for r in pre], grad_elements=pre[0]["grad_elements"],
+         embedding_gather_ms=[r["embedding_gather_ms"] for r in pre], embedding_rows=pre[0]["embedding_rows"],
+         optimizer_gather_ms=[r["optimizer_gather_ms"] for r in pre],
+         optimizer_gather_elements=pre[0]["optimizer_gather_elements"],
+         peak_gb_per_rank=[r["peak_gb"] for r in pre], mlm_step_ms_per_rank=[r["step_ms"] for r in two["mlm"]],
+         mlm_peak_gb_per_rank=[r["peak_gb"] for r in two["mlm"]], two_rank_seconds=two_seconds,
+         one_rank_seconds=one_seconds)
+    if not ok:
+        raise AssertionError(f"distributed: a check failed: {checks}")
+
+    # NCCL at world size 1 (torchrun's environment, the default backend on a
+    # card), and across two cards only where there are two
+    nccl = launch_ranks(dict(cases=["collectives"]), root, "nccl_one_rank", 1)["collectives"]
+    count = torch.cuda.device_count()
+    nccl2 = (launch_ranks(dict(cases=["collectives"]), root, "nccl_two_cards", 2, devices=["cuda:0", "cuda:1"])
+             ["collectives"] if count >= 2 else None)
+    nccl_ok = all(r["ok"] and r["checks"]["backend"] == "nccl" for r in nccl + (nccl2 or []))
+    emit(phase="distributed_nccl", card=card, gpu_state=gpu_state(), world_1=nccl,
+         two_cards=nccl2 if nccl2 is not None else f"not run: {count} card(s)", ok=nccl_ok)
+    shutil.rmtree(root)
+    if not nccl_ok:
+        raise AssertionError("distributed: an NCCL collective check failed")
+    return pre[0]["launches"][1]
+
+
 def finish(card, summary):
     """The run's ending: the command_time line, the card's line, the summary
     and the last line, these three as the contract gives them, without t."""
@@ -4712,7 +5303,7 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description="Drive the PyTorch / CUDA port on one NVIDIA GPU.")
     ap.add_argument("--only", choices=["moe_kernels", "moe", "flash_fwd", "flash_bwd", "dense", "trainer",
-                                       "mlm_trainer", "vision", "families", "inference"],
+                                       "mlm_trainer", "vision", "families", "inference", "distributed"],
                     help="run only the card, build and grouped-matmul phases (9), or (moe) also MoE "
                          "serving and the MoE step's timing and profile (10-12, no gradient agreement); "
                          "flash_fwd: the card, build, the forward checks (3, 13), the forward timing (6), "
@@ -4725,14 +5316,19 @@ def main(argv=None):
                          "card, build, the ViT attention shape's forward and backward checks and phase 19; "
                          "families: the card, build, the families' attention shapes' forward and backward "
                          "checks and phase 20; inference: the card, build, the long-context case's forward "
-                         "check and phase 21")
+                         "check and phase 21; distributed: the card, build and phase 22")
     ap.add_argument("--tree", help="with --only: the root of another checkout whose contrastors_tpu_torch "
                                    "package is built and timed (an earlier commit, for old against new)")
+    ap.add_argument("--dist-worker", metavar="SPEC", help=argparse.SUPPRESS)  # one rank of phase 22
     args = ap.parse_args(argv)
+    if args.dist_worker:
+        return dist_rank_main(args.dist_worker)
     if args.tree:
         if not args.only:
             ap.error("--tree needs --only")
-        sys.path.insert(0, os.path.abspath(args.tree))
+        global TREE
+        TREE = os.path.abspath(args.tree)
+        sys.path.insert(0, TREE)
     import torch
 
     if not torch.cuda.is_available():
@@ -4766,7 +5362,8 @@ def main(argv=None):
     libs = dict(moe_kernels=("gmm",), flash_fwd=("flash_fwd", "flash_bwd"), flash_bwd=("flash_fwd", "flash_bwd"),
                 dense=("flash_fwd", "flash_bwd"), trainer=("flash_fwd", "flash_bwd"),
                 mlm_trainer=("flash_fwd", "flash_bwd"), vision=("flash_fwd", "flash_bwd"),
-                inference=("flash_fwd", "flash_bwd")).get(args.only, _build.LIBRARIES)
+                inference=("flash_fwd", "flash_bwd"), distributed=("flash_fwd", "flash_bwd")).get(
+        args.only, _build.LIBRARIES)
     with ThreadPoolExecutor(len(libs)) as pool:
         paths = dict(zip(libs, pool.map(_build.build, libs)))
     for name in libs:
@@ -4806,6 +5403,8 @@ def main(argv=None):
             summary["trainer_launches"] = trainer_phase(dev, card)
         elif args.only == "mlm_trainer":
             summary["mlm_trainer"] = mlm_trainer_phase(dev, card)
+        elif args.only == "distributed":
+            summary["distributed_launches_per_rank_step"] = distributed_phase(dev, card)
         elif args.only == "inference":
             o_errs = forward_checks(dev, gen, LONGCTX_CASES)
             summary["inference"] = inference_phase(dev, card, gen)
@@ -4956,6 +5555,9 @@ def main(argv=None):
     # 21. the inference side: the encode CLI, export, long context, MTEB, mining, the decoder heads
     inference = inference_phase(dev, card, gen)
 
+    # 22. data-parallel training across processes: two ranks on the card (gloo), NCCL at world size 1
+    dist_launches = distributed_phase(dev, card)
+
     # 10-12. the dropless MoE path: serving and training
     moe_enc_launches, moe_batches = moe_serving(dev, card, tok, rng, gen)
     moe_train_launches = moe_training(dev, card)
@@ -5043,6 +5645,7 @@ def main(argv=None):
             replaces=replaces,
             launches=launches_train[kname],
             trainer_launches=launches_trainer[kname],
+            distributed_launches_per_rank_step=dist_launches[kname],
             max_abs_err=max(max(grad_errs[g].values()) for g in (("dq",) if kname == "dq" else ("dk", "dv"))),
             **{k: v for k, v in at(doc, "B=16 S=T=256 H=12 D=64 (document chunk)").items()},
             query_tower=at(query, "B=512 S=T=32 H=12 D=64"),
@@ -5084,6 +5687,7 @@ def main(argv=None):
             launches=launches_docs,
             train_launches=launches_train["fwd"],
             trainer_launches=launches_trainer["fwd"],
+            distributed_launches_per_rank_step=dist_launches["fwd"],
             mlm_eval_launches=bert_family["mlm_eval"], mlm_eval_batches=bert_family["mlm_eval_batches"],
             glue_eval_launches=bert_family["glue_eval"], glue_eval_batches=bert_family["glue_eval_batches"],
             max_abs_err=max(o_errs.values()),

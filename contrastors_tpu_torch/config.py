@@ -430,10 +430,16 @@ class TransformsConfig(_Base):
 
 @dataclass(kw_only=True)
 class ParallelArgs(_Base):
-    """Device layout. The port runs on one device: every axis of more than
-    one device raises in the trainer (ROADMAP Queue 1, item 3)."""
+    """Device layout, one process per GPU (`torchrun --nproc-per-node=N`):
+    `data` is the number of ranks on the data axis, -1 for the world size;
+    any other value must equal the world size. Each rank reads its rows of
+    every global batch (`batch_size` stays global) and the gradients are
+    summed over the ranks. `shard_optimizer_state` keeps the Adam moments
+    of leaves with at least `opt_state_shard_min_size` elements (and a
+    leading dim divisible by `data`) on their owner rank. `tensor` and
+    `expert` above 1 raise (ROADMAP Queue 1, item 5)."""
 
-    data: int = -1  # -1 = all devices
+    data: int = -1  # -1 = the world size
     tensor: int = 1
     expert: int = 1
     shard_optimizer_state: bool = True

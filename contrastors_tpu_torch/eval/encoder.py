@@ -8,7 +8,11 @@ tokenised by any tokenizer with the Hugging Face call interface, sorted by
 length and batched into power-of-two length buckets (the default), or
 padded to `seq_len` (bucketed=False). Prefixes, normalisation,
 binarisation and matryoshka slicing are kept. The model runs on the device
-its parameters live on.
+its parameters live on. With a `mesh` of more than one rank (JAX's `mesh`
+form, `:41-80`) every rank calls `encode` with the same texts, encodes its
+share of each batch's rows (the batch padded to a multiple of the ranks
+with copies of its last row) and the rows are gathered, so each rank gets
+the one-rank result, row for row, in the original order.
 """
 
 import contextlib
@@ -74,8 +78,10 @@ class Encoder:
         binarize: bool = False,
         matryoshka_dim: Optional[int] = None,
         bucketed: bool = True,
+        mesh=None,
     ):
         self.module = module
+        self.mesh = mesh if mesh is not None and mesh.data > 1 else None
         self.device = next(module.parameters()).device
         self.tokenizer = tokenizer
         self.seq_len = seq_len
@@ -101,6 +107,20 @@ class Encoder:
         return emb
 
     def _run_batch(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        if self.mesh is None:
+            return self._encode_rows(ids, mask)
+        from contrastors_tpu_torch.parallel.collectives import all_gather_rows
+        from contrastors_tpu_torch.parallel.mesh import local_rows
+
+        n, w = ids.shape[0], self.mesh.data
+        pad = -n % w
+        if pad:
+            ids, mask = (np.concatenate([a, np.repeat(a[-1:], pad, axis=0)]) for a in (ids, mask))
+        rows = local_rows(n + pad, self.mesh)
+        local = torch.from_numpy(self._encode_rows(ids[rows], mask[rows])).to(self.device)
+        return all_gather_rows(local, self.mesh.group).cpu().numpy()[:n]
+
+    def _encode_rows(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         with eval_mode(self.module), torch.inference_mode():
             out = self.module(
                 input_ids=torch.from_numpy(ids).to(self.device),

@@ -29,7 +29,18 @@ What differs from the JAX function, and why:
     n_total). `encode(params, chunk, generator)` receives it. JAX's direct
     forward draws other noise than its cached chunks; the port's, for an
     encoder that draws noise, draws theirs.
-  - Single device: no shard_map, so there is no data axis inside.
+  - The data axis (`group`, JAX's `grad_cache_data_axis` under
+    `shard_map_grad_cache`, `:310-352`): each rank chunks its own rows
+    (chunk_size is per rank, as in JAX), pass 1 embeds them, and the loss,
+    which the caller writes with the group (on gathered embeddings, a mean
+    over this rank's rows), is divided here by the world size and sends
+    each rank the cotangents of its own rows through the gather's
+    backward. Pass 2 replays as on one device. The parameter gradients are
+    then summed over the ranks in one all-reduce over a flat buffer, the
+    loss (the share, with coef * the rank's aux) is summed,
+    the router aux is summed and the other metrics are averaged, as JAX's
+    psum / pmean. Each rank's chunks draw their own noise: the rank enters
+    `chunk_generator`.
   - `embed_parallel > 1` raises NotImplementedError until the slice that
     needs it (ROADMAP).
 MoE router aux (router_aux_coef != 0, an encoder that returns
@@ -50,13 +61,17 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from contrastors_tpu_torch.parallel.collectives import all_reduce_grads, group_rank, group_size, reduce_metrics
+
 Batch = Dict[str, torch.Tensor]
 
 
-def chunk_generator(base_seed: int, tower: int, index: int, device) -> torch.Generator:
+def chunk_generator(base_seed: int, tower: int, index: int, device, rank: int = 0) -> torch.Generator:
     """The generator of chunk `index` of tower 0 (queries) or 1 (documents)
-    for a step seeded with base_seed."""
-    seed = int(np.random.SeedSequence([base_seed, tower, index]).generate_state(1, np.uint64)[0])
+    of data-parallel rank `rank` for a step seeded with base_seed (rank 0
+    draws what a lone process draws)."""
+    entropy = [base_seed, tower, index] + ([rank] if rank else [])
+    seed = int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0])
     return torch.Generator(device=device).manual_seed(seed)
 
 
@@ -87,6 +102,7 @@ def grad_cache_loss_and_grads(
     embed_parallel_d: Optional[int] = None,
     return_metrics: bool = False,
     loss_has_aux: bool = False,
+    group=None,
 ) -> Union[torch.Tensor, tuple]:
     """Accumulate the gradients of loss_fn(encode_q(q), encode_d(d)) into
     `.grad` and return the loss, or (loss, metrics) with return_metrics.
@@ -97,11 +113,14 @@ def grad_cache_loss_and_grads(
     (scalar, metrics dict). direct_chunks / direct_chunks_d count leading
     chunks kept live (negative: all). When `params` has `uses_dropout()`
     and it is true, the encoders draw noise from their generator (see the
-    module docstring).
+    module docstring). With a process group the batches are this rank's
+    rows and the returned loss, metrics and accumulated gradients are the
+    global ones (see the module docstring).
     """
     if embed_parallel != 1 or (embed_parallel_d or 1) != 1:
         raise NotImplementedError("embed_parallel > 1 is not ported yet (ROADMAP, Queue 1)")
     base = 0 if rng is None else int(rng)
+    rank, world = group_rank(group), group_size(group)
     stochastic = bool(getattr(params, "uses_dropout", lambda: False)())
     device = next(iter(q_batch.values())).device
 
@@ -128,12 +147,12 @@ def grad_cache_loss_and_grads(
         with torch.set_grad_enabled(trainable and torch.is_grad_enabled()):
             if not (router_aux_coef or stochastic):
                 # one forward; a generator one past the cached chunk indices
-                gen = chunk_generator(base, tower, n_total, device)
+                gen = chunk_generator(base, tower, n_total, device, rank)
                 return [(encode(params, _slice(batch, 0, k * c), gen)["embedding"], None)]
             # one forward per chunk, with the cached path's generators
             outs = []
             for i in range(k):
-                o = encode(params, _slice(batch, i * c, (i + 1) * c), chunk_generator(base, tower, i, device))
+                o = encode(params, _slice(batch, i * c, (i + 1) * c), chunk_generator(base, tower, i, device, rank))
                 aux = o["router_aux"].float() if router_aux_coef and "router_aux" in o else None
                 outs.append((o["embedding"], aux))
             return outs
@@ -147,7 +166,7 @@ def grad_cache_loss_and_grads(
         parts = [emb.detach() for emb, _ in direct]
         with torch.no_grad():
             for i in range(k, n):
-                gen = chunk_generator(base, tower, i, device)
+                gen = chunk_generator(base, tower, i, device, rank)
                 parts.append(encode(params, _slice(batch, i * c, (i + 1) * c), gen)["embedding"])
         return torch.cat(parts) if len(parts) > 1 else parts[0]
 
@@ -160,6 +179,9 @@ def grad_cache_loss_and_grads(
         args = (q_embs, d_embs) if extra_params is None else (q_embs, d_embs, extra_params)
         out = loss_fn(*args)
         loss, loss_aux = out if loss_has_aux else (out, {})
+        if world > 1:
+            # a rank's share: summed over the ranks, the global loss
+            loss = loss / world
         loss.backward()
         gq, gd = q_embs.grad, d_embs.grad
 
@@ -182,7 +204,7 @@ def grad_cache_loss_and_grads(
                 total = total + aux.detach()
         per_chunk = (cot.shape[0] - n_direct) // max(n - k, 1)
         for j, i in enumerate(range(k, n)):
-            gen = chunk_generator(base, tower, i, device)
+            gen = chunk_generator(base, tower, i, device, rank)
             out = encode(params, _slice(batch, i * c, (i + 1) * c), gen)
             aux = out["router_aux"].float() if "router_aux" in out else None
             lo = n_direct + j * per_chunk
@@ -200,8 +222,14 @@ def grad_cache_loss_and_grads(
     if router_aux_coef:
         # the objective whose gradient was accumulated
         loss = loss + router_aux_coef * total_aux
+    metrics = {k: v.detach() if torch.is_tensor(v) else v for k, v in loss_aux.items()}
+    metrics["router_aux"] = total_aux
+    if group is not None:
+        with record_function("grad_cache/all_reduce"):
+            modules = [m for m in (params, extra_params) if isinstance(m, torch.nn.Module)]
+            all_reduce_grads([p for m in modules for p in m.parameters()], group)
+            metrics = reduce_metrics({**metrics, "loss": loss}, group, summed=("loss", "router_aux"))
+            loss = metrics.pop("loss")
     if return_metrics:
-        metrics = {k: v.detach() if torch.is_tensor(v) else v for k, v in loss_aux.items()}
-        metrics["router_aux"] = total_aux
         return loss, metrics
     return loss

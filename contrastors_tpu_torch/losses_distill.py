@@ -1,6 +1,6 @@
 """Distillation losses and the student's initialisation from its teacher.
 
-Counterpart of `contrastors_tpu/losses_distill.py`, on one device. The four
+Counterpart of `contrastors_tpu/losses_distill.py`. The four
 loss modes of `distill_loss` (both towers' embeddings normalised in fp32,
 the norm floored at 1e-12):
 
@@ -12,6 +12,10 @@ the norm floored at 1e-12):
   stella - 10 * (1 - cos) per tower, 200 * the MSE of the intra-tower
            similarity matrices, and 20 * a hinge on the signs of pairwise
            score differences (`pairwise_hinge`, in blocks).
+
+With a process group (JAX's `axis_name`) each InfoNCE term gathers its
+documents over the ranks (`losses.clip_loss`'s group form) and the other
+terms stay local, as in JAX's `distill_loss(axis_name=...)`.
 
 `init_student_from_teacher` walks the port's state dict: student layer i
 takes teacher layer i * stride, a tensor whose shape differs goes through
@@ -35,8 +39,8 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
     return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(1e-12)
 
 
-def _infonce(q: torch.Tensor, d: torch.Tensor, temperature: float) -> torch.Tensor:
-    loss, _ = clip_loss(q, d, lambda x: x / temperature)
+def _infonce(q: torch.Tensor, d: torch.Tensor, temperature: float, group=None) -> torch.Tensor:
+    loss, _ = clip_loss(q, d, lambda x: x / temperature, group=group)
     return loss
 
 
@@ -95,8 +99,10 @@ def distill_loss(
     teacher_q: torch.Tensor,
     teacher_d: torch.Tensor,
     temperature: float = 1.0,
+    group=None,
 ) -> Dict[str, torch.Tensor]:
-    """{"loss", and the mode's terms}, fp32 scalars."""
+    """{"loss", and the mode's terms}, fp32 scalars; `group` reaches the
+    InfoNCE terms."""
     sq, sd = _norm(student_q), _norm(student_d)
     tq, td = _norm(teacher_q), _norm(teacher_d)
 
@@ -111,14 +117,14 @@ def distill_loss(
         s_logp = torch.log_softmax(s_sim, dim=-1)
         t_p = torch.softmax(t_sim, dim=-1)
         kd = (t_p * (torch.log(t_p.clamp_min(1e-12)) - s_logp)).sum() / s_sim.shape[0]
-        infonce = _infonce(sq, sd, 0.02)
+        infonce = _infonce(sq, sd, 0.02, group)
         return {"loss": 1000.0 * kd + infonce, "kd_loss": kd, "infonce_loss": infonce}
 
     if loss_fn == "towers":
-        l1 = _infonce(sq, sd, temperature)
-        l2 = _infonce(sq, tq, temperature)
-        l3 = _infonce(sd, td, temperature)
-        l4 = _infonce(sq, td, temperature)
+        l1 = _infonce(sq, sd, temperature, group)
+        l2 = _infonce(sq, tq, temperature, group)
+        l3 = _infonce(sd, td, temperature, group)
+        l4 = _infonce(sq, td, temperature, group)
         return {
             "loss": (l1 + l2 + l3 + l4) / 4,
             "loss_infonce_student": l1,

@@ -8,8 +8,8 @@ place of the text tower. Module names (`text`, `vision`, `logit_scale`) are
 JAX's, so `convert.flax_to_torch` maps the dual tree one to one.
 In training mode the towers' dropout draws from generators derived from the
 forward's `generator` per tower (`ops/dropout.py`), as flax derives its
-rngs per module. The gathered (data-parallel) form of the loss waits for
-ROADMAP Queue 1, item 3.
+rngs per module. With a process group (`Mesh.group`, JAX's `axis_name`)
+the loss gathers both towers over the ranks (`clip_loss_symmetric`).
 """
 
 from typing import Any, Dict, Optional
@@ -75,9 +75,10 @@ class DualEncoder(nn.Module):
         pixel_values: Optional[torch.Tensor] = None,
         text_embeddings: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        group=None,
     ) -> Dict[str, Any]:
         if text_embeddings is None:
             text_embeddings = self.encode_text(input_ids, attention_mask, generator=generator)
         image_embeddings = self.encode_image(pixel_values, generator=generator)
-        loss = clip_loss_symmetric(image_embeddings, text_embeddings, self.logit_scale)
+        loss = clip_loss_symmetric(image_embeddings, text_embeddings, self.logit_scale, group=group)
         return {"loss": loss, "text_embedding": text_embeddings, "image_embedding": image_embeddings}

@@ -10,10 +10,14 @@ The library name carries a hash of the sources and flags, so an edit
 rebuilds and an unchanged source is reused. The build directory
 (`contrastors_tpu_torch/_build/`) is listed in .gitignore. Only the
 sources in this package are compiled; nvcc is taken from $CUDA_HOME/bin,
-then /usr/local/cuda/bin, then $PATH.
+then /usr/local/cuda/bin, then $PATH. A build holds an exclusive lock on
+`_build/<name>.lock` (`fcntl.flock`, released when its process ends), so
+ranks that start together on one checkout compile each library once: the
+others wait, then load what the first one wrote.
 """
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -105,11 +109,20 @@ def library_path(name: str) -> Path:
 
 
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless the library for these sources exists."""
+    """Compile csrc/<name>.cu unless the library for these sources exists
+    (or another process builds it meanwhile: then wait for it)."""
     out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():  # built by the process that held the lock
+            return out
+        return _compile(name, out)
+
+
+def _compile(name: str, out: Path) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]

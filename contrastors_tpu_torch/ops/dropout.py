@@ -52,11 +52,16 @@ def site_generator(seed: Optional[int], *path: int, device) -> Optional[torch.Ge
     return torch.Generator(device=device).manual_seed(fold_seed(seed, *path))
 
 
-def step_generator(generator: torch.Generator) -> torch.Generator:
+def step_generator(generator: torch.Generator, rank: Optional[int] = None) -> torch.Generator:
     """The generator of one training step, seeded by one draw from the
     trainer's CPU generator (a host draw: no device sync). It carries only
-    its seed: the sites build their generators on the tensors' device."""
-    return torch.Generator().manual_seed(int(torch.randint(0, 2**62, (1,), generator=generator)))
+    its seed: the sites build their generators on the tensors' device. A
+    data-parallel rank folds its index into the seed, so that the ranks
+    draw different noise for their different rows."""
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator))
+    if rank is not None:
+        seed = fold_seed(seed, rank) >> 2
+    return torch.Generator().manual_seed(seed)
 
 
 def active(p: float, training: bool) -> bool:

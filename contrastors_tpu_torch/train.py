@@ -3,8 +3,17 @@
     python -m contrastors_tpu_torch.train --config=configs/train/X.yaml \
         [--dtype=bf16] [--device=cuda] [--key=value overrides]
 
-Trains on one device: the card by default, which must be present;
-`--device cpu` runs the plain PyTorch path.
+Trains on the card by default, which must be present; `--device cpu` runs
+the plain PyTorch path. Data-parallel, launch one process per card as the
+reference does:
+
+    torchrun --nproc-per-node=N -m contrastors_tpu_torch.train --config=...
+
+Each rank joins the process group before its trainer is built
+(`utils/dist.py:maybe_initialize_distributed`, JAX's `train.py:55-60`),
+with NCCL on the cards ($CONTRASTORS_DIST_BACKEND=gloo for gloo, which is
+the CPU's backend), and `--device cuda` means the rank's own card,
+`cuda:LOCAL_RANK`. `parallel_args.data` is -1 or the world size.
 """
 
 import argparse
@@ -13,13 +22,14 @@ from typing import Optional
 from contrastors_tpu_torch.config import Config
 from contrastors_tpu_torch.read import read_config
 from contrastors_tpu_torch.trainers import TRAINER_REGISTRY
+from contrastors_tpu_torch.utils.dist import maybe_initialize_distributed
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="contrastors_tpu_torch trainer")
     parser.add_argument("--config", required=True)
     parser.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"])
-    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--device", default="cuda", help="cuda (default; a rank's own card) or cpu")
     parser.add_argument("--learning_rate", type=float)
     parser.add_argument("--batch_size", type=int)
     parser.add_argument("--num_epochs", type=int)
@@ -68,7 +78,13 @@ def run(config: Config, dtype: str = "bf16", device="cuda", trainer_cls: Optiona
 def main(argv=None):
     args = parse_args(argv)
     config = update_config_with_args(read_config(args.config), args)
-    return run(config, args.dtype, args.device)
+    device = args.device
+    if maybe_initialize_distributed(device=None if device == "cuda" else device):
+        import torch
+
+        if device == "cuda":
+            device = f"cuda:{torch.cuda.current_device()}"
+    return run(config, args.dtype, device)
 
 
 if __name__ == "__main__":

@@ -11,10 +11,28 @@ gradient trees) and the optimizer applies their mean on the N-th.
 `grad_norm` is the global norm of that mean before the clip, reported on the
 update's micro-step only, as in JAX.
 
-`BaseTrainer` (`:53-460`) owns a run on one device: seeding, tokenizer,
-data, model, AdamW with its learning-rate schedule, EMA weights,
-checkpoints, logging, in-train eval and the loop. What differs from JAX,
-and why:
+Data parallelism (`parallel_args.data`, JAX's mesh at `:55-135`): one
+process per GPU under `torchrun`, each rank on its own card
+(`utils/dist.py:maybe_initialize_distributed` sets it) with its own rows
+of every global batch. The rank's loss is its share of the global one
+(the shares add up over the ranks to JAX's loss on the global batch), its
+gradients are summed over the ranks once per applied update, after the
+last micro-step, in one all-reduce (`parallel/collectives.py`), so the clip
+and `grad_norm` see the global gradient, and the step's metrics are
+reduced over the ranks on the device ("loss" and "router_aux" summed, the
+rest averaged). The parameters are broadcast from rank 0 after the model is
+built, and their checksums compared. With `shard_optimizer_state` the
+Adam moments of large leaves live on their owner rank
+(`parallel/sharding.py`). Rank 0 alone writes the tracker, the model, the
+scheduler and step.txt; each rank writes its data cursor, and its
+optimizer shard when the state is sharded; a load waits for the writes in
+flight and for every rank. Eval metrics are averaged over the ranks
+(`process_allmean`). The tensor and expert axes raise
+NotImplementedError (ROADMAP Queue 1, item 5).
+
+`BaseTrainer` (`:53-460`) owns a run: seeding, tokenizer, data, model,
+AdamW with its learning-rate schedule, EMA weights, checkpoints, logging,
+in-train eval and the loop. What differs from JAX, and why:
   - The step's randomness is one draw from the trainer's CPU
     `torch.Generator` per step (`make_train_step`'s steps take it, and
     `make_standard_train_step` hands `loss_fn` the step's generator,
@@ -35,8 +53,7 @@ and why:
     prefetch thread collates and pins the batch, the loop issues its copy
     to the device without waiting, and metrics stay on the device until
     the tracker fetches them.
-  - One device: parallel_args asking for more raise (ROADMAP Queue 1,
-    item 3), and moe_impl "auto" resolves to "dropless".
+  - moe_impl "auto" resolves to "dropless" (no expert axis).
 """
 
 import os
@@ -52,6 +69,10 @@ from torch.profiler import record_function
 from contrastors_tpu_torch._device import DTYPES, resolve_device
 from contrastors_tpu_torch.config import Config
 from contrastors_tpu_torch.ops.dropout import step_generator
+from contrastors_tpu_torch.parallel.collectives import all_reduce_grads, group_rank, group_size, reduce_metrics
+from contrastors_tpu_torch.parallel.mesh import fingerprint, make_mesh, replicate, shard_batch
+from contrastors_tpu_torch.parallel.sharding import ShardedAdamW, optimizer_params, shard_optimizer_state
+from contrastors_tpu_torch.utils import dist as dist_utils
 from contrastors_tpu_torch.utils.logging import Tracker
 from contrastors_tpu_torch.utils.optim import AdamW, lr_scheduler, make_optimizer, make_schedule
 from contrastors_tpu_torch.utils.prefetch import PrefetchIterator
@@ -66,6 +87,7 @@ def make_standard_train_step(
     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
     gradient_accumulation_steps: int = 1,
     post_update: Optional[Callable[[], None]] = None,
+    group=None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns step(batch, generator=None) -> metrics, which updates the
     parameters of `optimizer` in place every gradient_accumulation_steps
@@ -75,9 +97,20 @@ def make_standard_train_step(
     loss_fn(batch, step_generator) -> (loss, metrics); the step's metrics are
     those plus "loss" and, on an update, "grad_norm". Its phases are the
     profiler ranges "train_step/forward", "train_step/backward" and
-    "train_step/optimizer"."""
+    "train_step/optimizer".
+
+    With a process group (the data axis) loss_fn returns this rank's loss
+    as a lone process would on its rows: a mean whose mean over the ranks
+    is the global batch's loss (a loss that is not, such as a mean over a
+    count that differs by rank, weighs itself; see `trainers/mlm.py`). The
+    step backpropagates it divided by the world size, folds the rank into
+    the step generator, sums the gradients over the ranks once per update
+    ("train_step/all_reduce", after the last micro-step), and averages the
+    metrics over the ranks (`parallel/collectives.py:reduce_metrics`)."""
     ga = max(1, int(gradient_accumulation_steps or 1))
-    params = [p for group in optimizer.param_groups for p in group["params"]]
+    params = optimizer_params(optimizer)
+    rank = None if group is None else group_rank(group)
+    world = group_size(group)
     micro = 0
 
     def step(batch, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
@@ -85,13 +118,17 @@ def make_standard_train_step(
         if micro % ga == 0:
             optimizer.zero_grad(set_to_none=True)
         with record_function("train_step/forward"):
-            loss, metrics = loss_fn(batch, None if generator is None else step_generator(generator))
+            loss, metrics = loss_fn(batch, None if generator is None else step_generator(generator, rank))
         with record_function("train_step/backward"):
-            loss.backward()  # adds this micro-batch's gradients into .grad
+            # adds this micro-batch's gradients into .grad; summed over the
+            # ranks, the world's shares give the global loss's gradients
+            (loss / world if world > 1 else loss).backward()
         micro += 1
-        metrics = dict(metrics)
-        metrics["loss"] = loss.detach()
+        metrics = reduce_metrics({**metrics, "loss": loss.detach()}, group)
         if micro % ga == 0:
+            if group is not None:
+                with record_function("train_step/all_reduce"):
+                    all_reduce_grads(params, group)
             with record_function("train_step/optimizer"):
                 if ga > 1:
                     torch._foreach_div_([p.grad for p in params if p.grad is not None], float(ga))
@@ -156,6 +193,9 @@ def _write_async(path: str, state: Dict[str, Any]):
 class BaseTrainer(ABC):
     def __init__(self, config: Config, dtype: str = "bf16", device="cuda"):
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None and dist_utils.is_initialized():
+            # a rank's "cuda" is its own card, made current by maybe_initialize_distributed
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.config = config
         self.dtype = DTYPES[dtype]
         ta = config.train_args
@@ -163,11 +203,15 @@ class BaseTrainer(ABC):
         self.generator = torch.Generator().manual_seed(self.seed)
 
         pa = config.parallel_args
-        if pa.data not in (-1, 1) or pa.tensor != 1 or pa.expert != 1:
-            raise NotImplementedError(
-                f"parallel_args data={pa.data} tensor={pa.tensor} expert={pa.expert}: the port trains on one "
-                "device (ROADMAP Queue 1, item 3: distributed)"
-            )
+        self.mesh = make_mesh(pa.data, pa.tensor, pa.expert)
+        # the data axis' group: None for a lone process; at world size 1 in
+        # a process group the collectives run on the one rank
+        self.group = self.mesh.group
+        self.is_main = self.mesh.rank == 0
+        batch = getattr(config.data_args, "batch_size", None)
+        if batch and batch % self.mesh.data:
+            raise ValueError(f"data_args.batch_size={batch} (the global batch) does not divide over "
+                             f"{self.mesh.data} ranks")
         for margs_ in (config.model_args, config.text_model_args, config.vision_model_args,
                        config.tower_model_args):
             if margs_ is not None and margs_.moe_impl == "auto":
@@ -178,6 +222,7 @@ class BaseTrainer(ABC):
         self.total_steps = ta.num_train_steps or (ta.num_epochs * self.steps_per_epoch)
 
         self.model = self.get_model()
+        self._replicate_model()
         warmup = ta.warmup_steps or (int(self.total_steps * ta.warmup_pct) if ta.warmup_pct else 0)
         self.schedule = make_schedule(ta.schedule_type, ta.learning_rate, self.total_steps, warmup,
                                       ta.cooldown_steps)
@@ -204,6 +249,8 @@ class BaseTrainer(ABC):
             max_grad_norm=ta.max_grad_norm,
             frozen_mask=self.frozen_mask(),
         )
+        if pa.shard_optimizer_state:
+            self.optimizer = shard_optimizer_state(self.optimizer, self.mesh, pa.opt_state_shard_min_size)
         self.scheduler = lr_scheduler(self.optimizer, opt_schedule)
         self.step = 0
 
@@ -214,7 +261,7 @@ class BaseTrainer(ABC):
             self._ema_decay = float(margs.ema_decay)
 
         self.prefetch_wait_seconds = 0.0
-        self.tracker = Tracker(
+        self.tracker = None if not self.is_main else Tracker(
             enabled_wandb=ta.wandb,
             project=ta.wandb_project_name,
             entity=ta.wandb_entity,
@@ -226,6 +273,29 @@ class BaseTrainer(ABC):
         )
         if ta.checkpoint:
             self.load_state(ta.checkpoint)
+
+    def _replicate_model(self):
+        """Broadcast every parameter and buffer from rank 0. Each rank built
+        the model from the same seed, so their checksums should agree
+        before (`init_replicas_agreed`); after the broadcast they must."""
+        self.init_replicas_agreed = True
+        if self.mesh.data == 1:
+            return
+        tensors = lambda: list(self.model.parameters()) + list(self.model.buffers())  # noqa: E731
+        before = dist_utils.gather_objects(fingerprint(tensors()))
+        replicate(self.model, self.mesh)
+        after = dist_utils.gather_objects(fingerprint(tensors()))
+        self.init_replicas_agreed = len(set(before)) == 1
+        if len(set(after)) != 1:
+            raise RuntimeError(f"the replicas' parameters differ after the broadcast from rank 0: {after}")
+        if not self.init_replicas_agreed:
+            dist_utils.rank0_print(f"[trainer] the ranks built different initial parameters {before}; "
+                                   "rank 0's were broadcast")
+
+    def log(self, metrics: Dict[str, Any], step: int):
+        """Log on rank 0 (the only tracker)."""
+        if self.tracker is not None:
+            self.tracker.log(metrics, step)
 
     # -- hooks ---------------------------------------------------------------
     def get_tokenizer(self):
@@ -280,31 +350,51 @@ class BaseTrainer(ABC):
             state["ema"] = self.ema_params
         return state
 
+    def _optimizer_shard_path(self, path: str) -> str:
+        return os.path.join(path, f"optimizer_rank_{self.mesh.rank}_of_{self.mesh.data}.pt")
+
     def save_state(self, out_dir: str, step: int):
         path = os.path.abspath(os.path.join(out_dir, f"step_{step}"))
         os.makedirs(path, exist_ok=True)
         state_path = os.path.join(path, "state.pt")
         wait_pending_saves()  # at most one write in flight
-        state = _to_host(self._state())
-        if self.config.train_args.async_checkpointing:
-            _write_async(state_path, state)
-        else:
-            torch.save(state, state_path)
+        state = self._state()
+        if isinstance(self.optimizer, ShardedAdamW):
+            # each rank writes the moments it owns
+            torch.save(_to_host(state.pop("optimizer")), self._optimizer_shard_path(path))
+        if self.is_main:
+            state = _to_host(state)
+            if self.config.train_args.async_checkpointing:
+                _write_async(state_path, state)
+            else:
+                torch.save(state, state_path)
         if hasattr(self.dataloader, "save_state"):
-            self.dataloader.save_state(path)
-        with open(os.path.join(path, "step.txt"), "w") as f:
-            f.write(str(step))
-        if hasattr(self, "trunk_config"):
-            with open(os.path.join(path, "trunk_config.json"), "w") as f:
-                f.write(self.trunk_config.to_json())
+            self.dataloader.save_state(path)  # each rank its own cursor
+        if self.is_main:
+            with open(os.path.join(path, "step.txt"), "w") as f:
+                f.write(str(step))
+            if hasattr(self, "trunk_config"):
+                with open(os.path.join(path, "trunk_config.json"), "w") as f:
+                    f.write(self.trunk_config.to_json())
 
     def load_state(self, path: str):
         path = os.path.abspath(path)
         state_path = os.path.join(path, "state.pt")
         wait_pending_saves(state_path)  # a just-written checkpoint may still be in flight
+        dist_utils.barrier()  # ... on every rank
         state = torch.load(state_path, map_location="cpu", weights_only=True)
         self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        if isinstance(self.optimizer, ShardedAdamW):
+            shard = self._optimizer_shard_path(path)
+            if not os.path.exists(shard):
+                raise ValueError(f"{path} holds no optimizer shard for rank {self.mesh.rank} of "
+                                 f"{self.mesh.data}: resume a sharded run with the same data axis")
+            self.optimizer.load_state_dict(torch.load(shard, map_location="cpu", weights_only=True))
+        elif "optimizer" not in state:
+            raise ValueError(f"{path} was written with a sharded optimizer state: resume it with the same "
+                             "data axis and shard_optimizer_state")
+        else:
+            self.optimizer.load_state_dict(state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
         self.generator.set_state(state["generator"])
         if self.ema_params is not None:
@@ -316,7 +406,7 @@ class BaseTrainer(ABC):
         if os.path.exists(step_file):
             with open(step_file) as f:
                 self.step = int(f.read().strip())
-        print(f"[trainer] resumed from {path} at step {self.step}")
+        dist_utils.rank0_print(f"[trainer] resumed from {path} at step {self.step}")
 
     def _ema_update(self):
         names = list(self.ema_params)
@@ -383,10 +473,10 @@ class BaseTrainer(ABC):
                     # the cursor of the batch being trained on, not of the
                     # prefetch thread's read-ahead
                     self.dataloader.note_consumed(meta["cursor_snapshot"])
-                batch = {k: v.to(self.device, non_blocking=True) for k, v in tensors.items()}
+                batch = shard_batch(tensors, self.mesh, self.device)  # this rank's rows, to its device
                 metrics = train_step(batch, self.generator)
                 self.step += 1
-                examples += n_examples
+                examples += n_examples * self.mesh.data
                 if meta.get("lang"):
                     lang_losses.setdefault(meta["lang"], []).append(metrics["loss"])
                 if self.ema_params is not None:
@@ -402,7 +492,7 @@ class BaseTrainer(ABC):
                     for lang, values in lang_losses.items():
                         metrics[f"loss/{lang}"] = torch.stack(values).float().mean()
                     lang_losses.clear()
-                    self.tracker.log(metrics, self.step)
+                    self.log(metrics, self.step)
                     last_log = now
                     examples = 0
 
@@ -416,9 +506,11 @@ class BaseTrainer(ABC):
                     and self.step % self.steps_per_epoch == 0
                 )
                 if eval_due:
-                    eval_metrics = self.eval_loop(self.step)
+                    # host numbers of each rank, averaged (train metrics are
+                    # reduced in the step)
+                    eval_metrics = dist_utils.process_allmean(self.eval_loop(self.step))
                     if eval_metrics:
-                        self.tracker.log(eval_metrics, self.step)
+                        self.log(eval_metrics, self.step)
 
                 if ta.profile and self.step >= 10:
                     break
@@ -428,10 +520,13 @@ class BaseTrainer(ABC):
             profiler.stop()
             trace_dir = os.path.join(ta.output_dir or ".", "trace")
             os.makedirs(trace_dir, exist_ok=True)
-            profiler.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+            name = "trace.json" if self.mesh.data == 1 else f"trace_rank_{self.mesh.rank}.json"
+            profiler.export_chrome_trace(os.path.join(trace_dir, name))
             print(f"[trainer] profile written to {trace_dir}")
         if ta.output_dir:
             self.save_state(ta.output_dir, self.step)
         wait_pending_saves()  # the final checkpoint is on disk at exit
-        self.tracker.finish()
+        dist_utils.barrier()  # ... every rank's part of it
+        if self.tracker is not None:
+            self.tracker.finish()
         return self.step

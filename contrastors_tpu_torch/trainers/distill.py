@@ -2,7 +2,7 @@
 PyTorch.
 
 Counterpart of `contrastors_tpu/trainers/distill.py:DistillTrainer`, a
-`TextTextTrainer` on one device:
+`TextTextTrainer`:
   - the teacher is `tower_model_args` through `load_biencoder`, frozen
     (no parameter takes a gradient, and the optimizer never sees it), in
     eval mode; its embeddings are computed under `torch.no_grad()`,
@@ -18,6 +18,10 @@ Counterpart of `contrastors_tpu/trainers/distill.py:DistillTrainer`, a
     seed, for dropout), both teacher towers, takes `distill_loss` in
     `train_args.distill_loss_fn` mode, and reports the mode's terms and
     `grad_norm` beside the loss.
+Data-parallel, the loss is JAX's on the global batch: every rank gathers
+the four embedding matrices (the student's differentiably) and computes the
+whole loss; the step backpropagates it divided by the world size, so the
+summed gradients are its gradients.
 """
 
 from typing import Callable, Dict
@@ -27,6 +31,7 @@ import torch
 from contrastors_tpu_torch.losses_distill import distill_loss, init_student_from_teacher
 from contrastors_tpu_torch.models.biencoder import LogitScale
 from contrastors_tpu_torch.ops.dropout import noise_seed, site_generator
+from contrastors_tpu_torch.parallel.collectives import all_gather_rows
 from contrastors_tpu_torch.trainers.base import make_standard_train_step
 from contrastors_tpu_torch.trainers.text_text import TextTextTrainer
 
@@ -71,8 +76,9 @@ class DistillTrainer(TextTextTrainer):
                       for i, (ids, mask) in enumerate(towers))
             with torch.no_grad():
                 tq, td = (teacher(ids, mask, normalize=False)["embedding"] for ids, mask in towers)
+            sq, sd, tq, td = (all_gather_rows(x, self.group) for x in (sq, sd, tq, td))
             losses = distill_loss(mode, sq, sd, tq, td, temperature=temperature)
             loss = losses.pop("loss")
             return loss, {k: v.detach() for k, v in losses.items()}
 
-        return make_standard_train_step(loss_fn, self.optimizer, self.scheduler)
+        return make_standard_train_step(loss_fn, self.optimizer, self.scheduler, group=self.group)

@@ -16,6 +16,9 @@ task's text columns, label count and problem type), the metrics in numpy
     partial batch padded to the eval batch with copies of its last row,
     whose logits are dropped), as `glue_<task>/<metric>`, and MNLI's
     mismatched split as `glue_mnli_mm/<metric>`.
+Data-parallel, each rank reads its window of every global batch, and its
+loss is a mean over its rows, equal in number on every rank, so the mean
+over the ranks is the global batch's.
 """
 
 import types
@@ -137,11 +140,14 @@ class GlueTrainer(BaseTrainer):
         self._task = dargs.task_name
         self._keys = GLUE_TASKS[dargs.task_name][0]
 
+        rank, rank_batch = self.mesh.rank, batch // self.mesh.data
+
         class Loader:
             def __iter__(loader):
                 order = rng.permutation(len(ds))
                 for b in range(steps):
-                    yield self.encode(ds[order[b * batch:(b + 1) * batch].tolist()])
+                    lo = b * batch + rank * rank_batch  # this rank's window of the global batch
+                    yield self.encode(ds[order[lo:lo + rank_batch].tolist()])
 
         return Loader(), steps
 
@@ -154,7 +160,7 @@ class GlueTrainer(BaseTrainer):
             return out["loss"], {}
 
         return make_standard_train_step(loss_fn, self.optimizer, self.scheduler,
-                                        self.config.train_args.gradient_accumulation_steps or 1)
+                                        self.config.train_args.gradient_accumulation_steps or 1, group=self.group)
 
     def eval_logits(self, b: Dict[str, np.ndarray]) -> np.ndarray:
         """The model's logits of one encoded batch, in eval mode."""

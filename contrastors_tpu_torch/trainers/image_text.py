@@ -1,7 +1,7 @@
 """The CLIP / LiT image-text trainer (model_type clip | locked_text), in
 PyTorch.
 
-Counterpart of `contrastors_tpu/trainers/image_text.py` on one device: a
+Counterpart of `contrastors_tpu/trainers/image_text.py`: a
 `DualEncoder` whose text tower is frozen under `locked_text` (its trunk
 runs without gradients; its parameters get requires_grad=False and stay out
 of the optimizer, where JAX's `frozen_mask` zeroes their updates) and a
@@ -27,8 +27,12 @@ after, bit-identical to the host's fp32 pipeline. JAX normalises uint8 only
 in its grad-cache step, whose loader alone ships them; the port does it in
 both steps.
 
-The data-parallel form (`axis_name`) and `grad_cache_embed_parallel > 1`
-wait for ROADMAP Queue 1, items 3 and 1.
+With a process group (the data axis, JAX's `:148-250`) each rank reads
+its rows of every global batch (the loader's rank window), both steps'
+symmetric loss gathers both towers over the ranks, the step divides it by
+the world size, and the gradients are summed over the ranks (grad cache per
+rank, chunk_size per rank, as JAX's `shard_map` body).
+`grad_cache_embed_parallel > 1` waits for ROADMAP Queue 1, item 1.
 """
 
 import os
@@ -42,8 +46,8 @@ from contrastors_tpu_torch.grad_cache import grad_cache_loss_and_grads
 from contrastors_tpu_torch.losses import clip_loss_symmetric
 from contrastors_tpu_torch.models.dual_encoder import DualEncoder
 from contrastors_tpu_torch.ops.dropout import noise_seed, step_generator
+from contrastors_tpu_torch.parallel.mesh import divisor_chunk
 from contrastors_tpu_torch.trainers.base import BaseTrainer, make_standard_train_step
-from contrastors_tpu_torch.trainers.text_text import divisor_chunk
 
 Batch = Dict[str, torch.Tensor]
 
@@ -108,6 +112,8 @@ class ImageTextTrainer(BaseTrainer):
             std=t.std if t else None,
             mlm_prob=dargs.mlm_prob,
             ship_uint8=bool(self.config.train_args.grad_cache),
+            process_index=self.mesh.rank,
+            process_count=self.mesh.data,
         )
         return ds, ds.num_batches or (dargs.train_num_samples or 10**9) // dargs.batch_size
 
@@ -144,10 +150,10 @@ class ImageTextTrainer(BaseTrainer):
         def loss_fn(batch, generator):
             out = self.dual(input_ids=batch.get("input_ids"), attention_mask=batch.get("attention_mask"),
                             pixel_values=self.pixels(batch["pixel_values"]),
-                            text_embeddings=batch.get("text_embeddings"), generator=generator)
+                            text_embeddings=batch.get("text_embeddings"), generator=generator, group=self.group)
             return out["loss"], {}
 
-        step = make_standard_train_step(loss_fn, self.optimizer, self.scheduler)
+        step = make_standard_train_step(loss_fn, self.optimizer, self.scheduler, group=self.group)
 
         def train_step(batch: Batch, generator: torch.Generator) -> Dict[str, torch.Tensor]:
             m = step(batch, generator)
@@ -172,16 +178,21 @@ class ImageTextTrainer(BaseTrainer):
             return {"embedding": dual.encode_text(chunk_batch["input_ids"], chunk_batch["attention_mask"],
                                                   generator=generator)}
 
+        def loss_fn(img, txt, scale):
+            # a rank's share: the shares add up to the global batch's loss
+            return clip_loss_symmetric(img, txt, scale, group=self.group)
+
         def train_step(batch: Batch, generator: torch.Generator) -> Dict[str, torch.Tensor]:
             img_b = {"pixel_values": batch["pixel_values"]}
             txt_b = ({"text_embeddings": batch["text_embeddings"]} if "text_embeddings" in batch
                      else {"input_ids": batch["input_ids"], "attention_mask": batch["attention_mask"]})
             self.optimizer.zero_grad(set_to_none=True)
             loss = grad_cache_loss_and_grads(
-                self.dual, img_b, txt_b, encode_image, encode_text, clip_loss_symmetric,
+                self.dual, img_b, txt_b, encode_image, encode_text, loss_fn,
                 chunk_size=divisor_chunk(chunk, img_b["pixel_values"].shape[0]),
                 rng=noise_seed(step_generator(generator)), d_trainable=text_trainable,
                 extra_params=self.dual.logit_scale, direct_chunks=direct_q, direct_chunks_d=direct_d,
+                group=self.group,
             )
             self.optimizer.step()
             self.scheduler.step()

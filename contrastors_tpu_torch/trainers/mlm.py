@@ -19,6 +19,13 @@ accumulation); and `MLMTrainer` (`:76-243`):
     val_mlm_prob from a generator seeded 0, in eval mode, as `val_loss`
     and `val_perplexity`.
 The step's generator seeds the model's dropout (`ops/dropout.py`).
+
+Data-parallel (a process group): each rank reads its window of every global
+batch of the shared permutation and masks it with its own generator
+(seed, rank), as JAX's loader does per process; the loss is JAX's mean over
+every masked token of the global batch (`nomic_bert.py:175`), so a rank's
+loss is its masked mean weighted by its count over the mean count (the
+counts all-reduced, `masked_mean_weight`), not the mean of per-rank means.
 """
 
 import types
@@ -30,6 +37,7 @@ import torch
 from contrastors_tpu_torch.models.auto import _load_hf_config, _load_state_dict
 from contrastors_tpu_torch.models.hf_interop import bert_config_to_trunk_config, bert_state_dict_to_torch
 from contrastors_tpu_torch.models.nomic_bert import NomicBertForPreTraining, init_weights
+from contrastors_tpu_torch.parallel.collectives import all_reduce_sum, group_size
 from contrastors_tpu_torch.trainers.base import BaseTrainer, make_standard_train_step
 from contrastors_tpu_torch.utils.optim import AdamW
 
@@ -84,24 +92,35 @@ def dense_budget(seq_len: int, prob: float) -> int:
     return max(128, int(-(-(mean + 4 * sigma) // 128) * 128))
 
 
+def masked_mean_weight(labels: torch.Tensor, group) -> torch.Tensor:
+    """The weight that makes a mean over this rank's labelled positions
+    (label >= 0) a value whose mean over the ranks is the mean over every
+    rank's: n_rank * world / n_global."""
+    n = (labels >= 0).sum().float()
+    return n * group_size(group) / all_reduce_sum(n, group).clamp_min(1.0)
+
+
 def make_mlm_train_step(
     model: NomicBertForPreTraining,
     optimizer: AdamW,
     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
     gradient_accumulation_steps: int = 1,
+    group=None,
 ) -> Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """step(batch, generator=None) for batches of "input_ids",
     "attention_mask", "labels" and, for dense_seq_output, "masked_positions"
     (with labels [B, k]): the model's MLM loss through
-    `make_standard_train_step`; the generator seeds the model's dropout."""
+    `make_standard_train_step`; the generator seeds the model's dropout.
+    With a process group the loss is the global batch's masked mean."""
 
     def loss_fn(batch, generator):
         out = model(batch["input_ids"], attention_mask=batch["attention_mask"],
                     labels=batch["labels"], masked_positions=batch.get("masked_positions"),
                     generator=generator)
-        return out["loss"], {}
+        loss = out["loss"] if group is None else out["loss"] * masked_mean_weight(batch["labels"], group)
+        return loss, {}
 
-    return make_standard_train_step(loss_fn, optimizer, scheduler, gradient_accumulation_steps)
+    return make_standard_train_step(loss_fn, optimizer, scheduler, gradient_accumulation_steps, group=group)
 
 
 def overlay(model: torch.nn.Module, loaded: Dict[str, torch.Tensor]):
@@ -170,23 +189,25 @@ class MLMTrainer(BaseTrainer):
         self._train_ds = ds
         batch = dargs.batch_size
         steps = len(ds) // batch
-        # one permutation generator for the order, another for the masks (JAX
-        # folds in the process index, 0 on one device)
+        rank, rank_batch = self.mesh.rank, batch // self.mesh.data
+        # one permutation generator for the order, shared by the ranks, and
+        # one for the masks, per rank (JAX folds in the process index)
         rng = np.random.default_rng(dargs.seed)
-        mask_rng = np.random.default_rng((dargs.seed, 0))
+        mask_rng = np.random.default_rng((dargs.seed, rank))
 
         class Loader:
             def __iter__(loader):
                 order = rng.permutation(len(ds))
                 for b in range(steps):
-                    ids, mask = self._rows(ds, order[b * batch:(b + 1) * batch].tolist())
+                    lo = b * batch + rank * rank_batch  # this rank's window of the global batch
+                    ids, mask = self._rows(ds, order[lo:lo + rank_batch].tolist())
                     yield self._mask_batch(ids, mask, dargs.mlm_prob, mask_rng)
 
         return Loader(), steps
 
     def make_train_step(self):
         return make_mlm_train_step(self.model, self.optimizer, self.scheduler,
-                                   self.config.train_args.gradient_accumulation_steps or 1)
+                                   self.config.train_args.gradient_accumulation_steps or 1, group=self.group)
 
     def eval_loop(self, step: int) -> Dict[str, float]:
         if self._val is None:

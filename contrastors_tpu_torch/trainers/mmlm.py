@@ -10,6 +10,8 @@ that language's rows from its own cursor, wrapping around at the end. The
 batch carries its language, so the loop logs `loss/<lang>`. The model, the
 step and the masking are `MLMTrainer`'s, with labels over every position
 (no dense_seq_output collation, as in JAX); there is no validation split.
+Data-parallel, each rank takes its slice of the language's global window,
+and the ranks share the masking generator, as JAX's processes do.
 """
 
 import os
@@ -58,6 +60,7 @@ class MMLMTrainer(MLMTrainer):
 
         self._val = None
         batch = dargs.batch_size
+        rank, rank_batch = self.mesh.rank, batch // self.mesh.data
         rng = np.random.default_rng(dargs.seed + 1)
         cursors = {lang: 0 for lang in langs}
         steps = sum(sizes.values()) // batch
@@ -72,7 +75,9 @@ class MMLMTrainer(MLMTrainer):
                         # a corpus smaller than a batch rotates its cursor
                         start = start % len(ds) if batch >= len(ds) else 0
                     cursors[lang] = start + batch
-                    ids, mask = self._rows(ds, [i % len(ds) for i in range(start, start + batch)])
+                    # the global window, then this rank's slice of it
+                    lo = start + rank * rank_batch
+                    ids, mask = self._rows(ds, [i % len(ds) for i in range(lo, lo + rank_batch)])
                     # labels over every position, as JAX's MMLM batches carry them
                     out = self._mask_batch(ids, mask, dargs.mlm_prob, rng, dense=False)
                     yield {"lang": lang, **out}

@@ -1,7 +1,7 @@
 """The text-text contrastive trainer and its train step, in PyTorch.
 
 Counterpart of `contrastors_tpu/trainers/text_text.py` for unpacked, dense
-batches on one device.
+batches, on one device or data-parallel over ranks (`group`).
 
 `make_train_step` (`:320-573`):
   - grad_cache=True: `grad_cache_loss_and_grads` with chunk sizes clamped
@@ -19,10 +19,20 @@ the router load-balance loss, and router_aux_coef weighs it: grad cache
 sums it over the chunks (`grad_cache_loss_and_grads`), the standard branch
 adds one aux per tower over its whole batch, as the JAX trainer does.
 
+With a process group (the data axis, JAX's `:355-500`) each rank holds
+its rows of the global batch: grad cache chunks them per rank (chunk_size
+is per rank, as in JAX) and runs the loss on gathered embeddings
+(`grad_cache_loss_and_grads(group=...)`); the standard branch gathers the
+documents in the loss, and its router aux is the global tokens' (the
+expert counts summed over the ranks, `losses.router_aux_loss`), as JAX's
+loss on its global batch. Either step divides the rank's loss by the world
+size and sums the gradients over the ranks.
+
 `TextTextTrainer` (`:30-98, 265-318`) is `BaseTrainer` with `load_biencoder`
-plus a `LogitScale`, the pair datasets, the step above and the in-train
-retrieval eval through the port's `Encoder`. Packed batches (ROADMAP Queue
-1, item 4) and the data-parallel form (item 3) wait for later slices.
+plus a `LogitScale`, the pair datasets (each rank its window of every
+global batch), the step above and the in-train retrieval eval through the
+port's `Encoder` (each rank encoding its share of every batch). Packed
+batches wait for ROADMAP Queue 1, item 4.
 """
 
 import glob
@@ -38,6 +48,7 @@ from contrastors_tpu_torch.grad_cache import grad_cache_loss_and_grads
 from contrastors_tpu_torch.losses import clip_loss, matryoshka_clip_loss, router_aux_loss
 from contrastors_tpu_torch.models.biencoder import BiEncoder, LogitScale
 from contrastors_tpu_torch.ops.dropout import noise_seed, site_generator, step_generator
+from contrastors_tpu_torch.parallel.mesh import divisor_chunk
 from contrastors_tpu_torch.trainers.base import BaseTrainer, make_standard_train_step
 from contrastors_tpu_torch.utils.optim import AdamW
 
@@ -45,26 +56,18 @@ Batch = Dict[str, torch.Tensor]
 LOSS_FNS = ("clip", "clip_bidirectional")
 
 
-def divisor_chunk(chunk: int, rows: int) -> int:
-    """Largest chunk size <= chunk that divides rows (grad-cache chunking is
-    execution-only, so clamping is always exact)."""
-    c = max(1, min(int(chunk), int(rows)))
-    while rows % c:
-        c -= 1
-    return c
-
-
-def encode_batch(model: BiEncoder, batch: Batch, generator: Optional[torch.Generator] = None):
+def encode_batch(model: BiEncoder, batch: Batch, generator: Optional[torch.Generator] = None, group=None):
     """Embed one {"input_ids", "attention_mask"} batch: {"embedding"}, and
-    "router_aux" (the load-balance loss over this batch's valid tokens) when
-    the model has MoE layers. The generator seeds the chunk's dropout (JAX's
-    chunk rng); a model in eval mode, or without dropout, draws nothing."""
+    "router_aux" (the load-balance loss over this batch's valid tokens; with
+    a group, this rank's value of the global tokens' loss) when the model
+    has MoE layers. The generator seeds the chunk's dropout (JAX's chunk
+    rng); a model in eval mode, or without dropout, draws nothing."""
     out = model(batch["input_ids"], batch["attention_mask"], generator=generator)
     res = {"embedding": out["embedding"]}
     if out["router_logits"]:
         cfg = model.config
         res["router_aux"] = router_aux_loss(out["router_logits"], cfg.num_experts, cfg.moe_top_k,
-                                            attention_mask=batch["attention_mask"])
+                                            attention_mask=batch["attention_mask"], group=group)
     return res
 
 
@@ -85,6 +88,7 @@ def make_train_step(
     logit_max: float = 100.0,
     router_aux_coef: float = 0.0,
     gradient_accumulation_steps: int = 1,
+    group=None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns step(q_batch, d_batch, generator=None) -> {"loss",
     "grad_norm", "accuracy", "router_aux"}, which updates the modules in
@@ -99,7 +103,8 @@ def make_train_step(
     the model is in training mode with a dropout on. The step's phases are
     profiler ranges: `grad_cache_loss_and_grads`'s, or "train_step/forward"
     and "train_step/backward" on the standard branch, then
-    "train_step/optimizer"."""
+    "train_step/optimizer". With a process group the batches are this
+    rank's rows and the metrics are the global batch's (module docstring)."""
     if loss_fn not in LOSS_FNS:
         raise ValueError(f"loss_fn {loss_fn!r}: the port has {LOSS_FNS}")
     if grad_cache and gradient_accumulation_steps > 1:
@@ -113,20 +118,21 @@ def make_train_step(
                 logit_scale.logit_scale.clamp_(max=log_max)
 
     def gc_loss(q, d, scale):
-        loss, acc = clip_loss(q, d, scale, bidirectional=bidirectional)
+        loss, acc = clip_loss(q, d, scale, bidirectional=bidirectional, group=group)
         return loss, {"accuracy": acc}
 
     def std_loss(batches, generator):
         # one generator per tower, as JAX splits its rng into rq, rd
         seed = noise_seed(generator)
-        q_out, d_out = (encode_batch(biencoder, b, site_generator(seed, tower, device=b["input_ids"].device))
+        q_out, d_out = (encode_batch(biencoder, b, site_generator(seed, tower, device=b["input_ids"].device),
+                                     group=group)
                         for tower, b in enumerate(batches))
         q, d = q_out["embedding"], d_out["embedding"]
         if matryoshka_dims:
             loss, accuracy = matryoshka_clip_loss(q, d, logit_scale, dims=matryoshka_dims,
-                                                  weights=matryoshka_loss_weights)
+                                                  weights=matryoshka_loss_weights, group=group)
         else:
-            loss, accuracy = clip_loss(q, d, logit_scale)
+            loss, accuracy = clip_loss(q, d, logit_scale, group=group)
         # one aux per tower, over its whole batch
         auxes = [o["router_aux"] for o in (q_out, d_out) if "router_aux" in o]
         router_aux = sum(auxes) if auxes else torch.zeros((), device=q.device)
@@ -135,7 +141,7 @@ def make_train_step(
         return loss, {"accuracy": accuracy, "router_aux": router_aux.detach()}
 
     std_step = None if grad_cache else make_standard_train_step(
-        std_loss, optimizer, scheduler, gradient_accumulation_steps, post_update=clamp)
+        std_loss, optimizer, scheduler, gradient_accumulation_steps, post_update=clamp, group=group)
 
     def step(q_batch: Batch, d_batch: Batch,
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
@@ -151,7 +157,7 @@ def make_train_step(
             biencoder, q_batch, d_batch, encode_batch, encode_batch, gc_loss,
             chunk_size=cq, chunk_size_d=cd, rng=seed, extra_params=logit_scale,
             direct_chunks=direct_chunks_q, direct_chunks_d=direct_chunks_d,
-            return_metrics=True, loss_has_aux=True, router_aux_coef=router_aux_coef,
+            return_metrics=True, loss_has_aux=True, router_aux_coef=router_aux_coef, group=group,
         )
         with record_function("train_step/optimizer"):
             optimizer.step()
@@ -219,6 +225,8 @@ class TextTextTrainer(BaseTrainer):
             sample_negatives=dargs.sample_negatives,
             query_max_length=dargs.query_max_length,
             document_max_length=dargs.document_max_length,
+            process_index=self.mesh.rank,
+            process_count=self.mesh.data,
         )
         if dargs.streaming and dargs.input_shards.endswith(".yaml"):
             ds = StreamingShardDataset(
@@ -265,6 +273,7 @@ class TextTextTrainer(BaseTrainer):
             self.tokenizer,
             seq_len=self.config.data_args.document_max_length or 256,
             batch_size=self.config.data_args.eval_batch_size or 64,
+            mesh=self.mesh,
             query_prefix=(margs.query_prefix.rstrip(": ") if margs.add_prefix and margs.query_prefix else None),
             document_prefix=(margs.document_prefix.rstrip(": ")
                              if margs.add_prefix and margs.document_prefix else None),
@@ -293,6 +302,7 @@ class TextTextTrainer(BaseTrainer):
             logit_max=ta.logit_max,
             router_aux_coef=ta.router_aux_loss_coef if use_moe else 0.0,
             gradient_accumulation_steps=1 if ta.grad_cache else ta.gradient_accumulation_steps,
+            group=self.group,
         )
 
         def train_step(batch: Batch, generator: torch.Generator) -> Dict[str, torch.Tensor]:

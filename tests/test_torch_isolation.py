@@ -210,3 +210,20 @@ def test_inference_entry_points_default_to_cuda_and_raise_without_a_card(tmp_pat
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert DecoderForCausalLM(cfg, device="cpu").model.layers[0].norm1.weight.device.type == "cpu"
+
+
+# the modules that talk to torch.distributed; everything else reaches it
+# through them
+DISTRIBUTED_MODULES = ("utils/dist.py", "parallel/mesh.py", "parallel/collectives.py", "parallel/sharding.py")
+
+
+def test_torch_distributed_is_imported_only_by_the_parallel_modules():
+    """The data-parallel slice's modules exist and import no JAX (the import
+    run above covers them); torch.distributed is imported by them alone."""
+    modules = {m.name for m in pkgutil.walk_packages([str(PORT)], prefix="contrastors_tpu_torch.")}
+    for m in ("utils.dist", "parallel", "parallel.mesh", "parallel.collectives", "parallel.sharding"):
+        assert "contrastors_tpu_torch." + m in modules, m
+    users = sorted(str(p.relative_to(PORT)) for p in PORT.rglob("*.py")
+                   if any(n == "torch.distributed" or n.startswith("torch.distributed.")
+                          for n in _imported_names(p)))
+    assert users == sorted(DISTRIBUTED_MODULES), users

@@ -266,12 +266,14 @@ def test_registry_names_the_roadmap_item_of_each_unported_trainer():
     assert not hasattr(trainers, "UNPORTED")
 
 
-@pytest.mark.parametrize("case", ["grad_cache_with_accumulation", "two_devices", "packed"])
+@pytest.mark.parametrize("case", ["grad_cache_with_accumulation", "two_devices", "tensor_axis", "expert_axis",
+                                  "packed"])
 def test_trainer_refuses_what_it_cannot_run(files, tmp_path, case):
     """A grad-cache step with accumulation raises ValueError, as JAX's
-    trainer does; more than one device and packed batches raise
-    NotImplementedError naming their ROADMAP item, the packed one from the
-    prefetch thread, re-raised in the loop."""
+    trainer does; a data axis of 2 in a lone process (no process group of
+    world 2) raises ValueError naming the mismatch; the tensor and expert
+    axes and packed batches raise NotImplementedError naming their ROADMAP
+    item, the packed one from the prefetch thread, re-raised in the loop."""
     raw = raw_config(files, str(tmp_path / "run"), "grad_cache")
     if case == "grad_cache_with_accumulation":
         raw["train_args"]["gradient_accumulation_steps"] = 2
@@ -282,7 +284,12 @@ def test_trainer_refuses_what_it_cannot_run(files, tmp_path, case):
         return
     if case == "two_devices":
         raw["parallel_args"] = dict(data=2)
-        match = "Queue 1, item 3"
+        with pytest.raises(ValueError, match="parallel_args.data=2 but the process group has 1 rank"):
+            ttrain.run(Config.from_dict(raw), "fp32", "cpu")
+        return
+    if case in ("tensor_axis", "expert_axis"):
+        raw["parallel_args"] = {case.split("_")[0]: 2}
+        match = "Queue 1, item 5"
     else:
         raw["data_args"]["packed"] = True
         match = "Queue 1, item 4"
