@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only {moe_kernels,moe,flash_fwd,flash_bwd,dense,trainer,mlm_trainer,vision,families,
-                                  inference,distributed}
+                                  inference,distributed,knobs}
                              [--tree DIR]
 
 The second form runs phases 1, 2 and 9 (moe_kernels), or 1, 2 and 9-12
@@ -17,8 +17,9 @@ the MLM step's timing, or (dense) 1, 2 and the dense step of 7-8
 17, or (mlm_trainer) 1, 2 and 18, or (vision) 1, 2, the ViT shape's
 checks of 3 and 4 and 19, or (families) 1, 2, the families' two shapes'
 checks of 3 and 4 and 20, or (inference) 1, 2, the long-context case's
-check of 3 and 21, or (distributed) 1, 2 and 22, on this checkout's
-package or on the one under DIR (another checkout, e.g. the parent commit
+check of 3 and 21, or (distributed) 1, 2 and 22, or (knobs) 1, 2, the packed step's
+cases of 3, 4 and 13, and 23,
+on this checkout's package or on the one under DIR (another checkout, e.g. the parent commit
 unpacked by `git archive`), so that two versions can be timed in turns on
 one card.
 
@@ -34,11 +35,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
      129 with GQA, D = 128 at 129, B * H = 143, GQA at S = 2048; the GLUE
      eval batch, 64 x 128 padded, as the dispatch hands it over; the
      families' window band with a padding mask, 32 x 512, and causal band
-     with one, 128 x 128 in the dispatch's form); a second run
-     bit-identical to the first.
+     with one, 128 x 128 in the dispatch's form; the packed step's rows
+     of phase 23, 128 x 128 and 4 x 512, up to 4 sequences a row of
+     lognormal lengths placed by pack_tokenized, segment ids with the
+     mask merged in); a second run bit-identical to the first.
   4. kernel_check_bwd: the two backward kernels (dq, which also computes
      delta; dk/dv) against the plain backward on the same O and LSE, with a
-     strided dO, in 13 of those cases (the training shapes included) and in
+     strided dO, in 15 of those cases (the training shapes and the packed
+     step's rows included) and in
      the edges of the kernels' persistent walk (S = T = 1, 65, 129 at D = 64
      and 128, B * H = 143, GQA with Hkv = 4 at S = 2048); dq must be 0 on
      the fully masked row, and a second run bit-identical to the first.
@@ -64,7 +68,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      rows at cosine >= 0.9999. Then the text GradCache step at full width
      (the JAX headline geometry: 512 pairs, query 32 / document 256 tokens,
      chunk 16, every query chunk direct, document chunks cached, AdamW lr
-     2e-4 wd 0.01 clip 1.0, LogitScale(50) fixed) takes 5 steps on one
+     2e-4 wd 0.01 clip 1.0, LogitScale(50) fixed) takes 3 steps on one
      batch whose documents start with their query's tokens. Each step's launch counts, set to 0
      before it, must be n_layer x its forwards (780) and backwards (396, dq
      and dk/dv each); losses finite and falling. Then, at 64 pairs: the
@@ -103,7 +107,7 @@ second layer: 6 MoE layers, ~435M parameters):
      routed to another expert pair by that switch is recorded.
  11. moe_train_step: the JAX MoE benchmark step (bench.py:908-956): 512
      pairs, 32/256 tokens, chunk 32, every chunk cached, router aux 0.001,
-     AdamW lr 2e-4 wd 0.01 clip 1.0, LogitScale(50) fixed, 5 steps; per
+     AdamW lr 2e-4 wd 0.01 clip 1.0, LogitScale(50) fixed, 3 steps; per
      step 768 / 384 / 384 flash fwd / dq / dk-dv launches, 1728 gmm and
      576 tgmm; losses finite and falling, each chunk's aux near top_k = 2.
      At 64 pairs with aux 0: grad cache against the standard step (with
@@ -118,7 +122,7 @@ second layer: 6 MoE layers, ~435M parameters):
      step by layer, with the router aux off and at 0.001, and by chunk (the
      chunk's embeddings, cotangent and gradient contribution against the
      standard step's for the same rows).
- 12. moe_timing: MoE encode texts/s, step ms (median of 5), one profiled
+ 12. moe_timing: MoE encode texts/s, step ms (median of 3), one profiled
      step with gmm and tgmm as their own groups and its device-to-host
      copies counted.
 The fused-rotary kernels (q and k rotated inside the flash kernels) and the
@@ -129,7 +133,9 @@ MLM pretraining step:
      512), packed rows (B=4 S=2048, three segments per row, positions
      restarting: per-batch tables), interleaved rotary over 32 of 64
      features, GQA (Hkv=4), S=300 and D=128, and the walk's edges (S = 1,
-     65, 129 with GQA and at D = 128, B * H = 143, GQA at S = 2048); every
+     65, 129 with GQA and at D = 128, B * H = 143, GQA at S = 2048), and
+     the packed step's rows of phase 23 (128 x 128 and 4 x 512) with
+     positions restarting at each segment; every
      forward and backward bit-identical on a second run; at the MLM shape
      the backward kernels given negated sin tables (the wrong adjoint) must
      fall outside.
@@ -262,7 +268,7 @@ The inference side (after phase 20), at full width with seeded weights:
 Data-parallel training across processes (after phase 21):
  22. distributed, distributed_timing, distributed_nccl: the pretrain
      recipe (PRETRAIN_RECIPE at 512 pairs, 32 / 256 tokens, grad cache
-     with chunk 16 a rank, every query chunk direct, 4 steps, full
+     with chunk 16 a rank, every query chunk direct, 3 steps, full
      nomic-bert-2048 width, bf16) and configs/train/mlm.yaml (bert-base-
      uncased's widths, dropout 0, 4 x 2048, rows 2-3 short) through
      train.run, first on one rank in this process, then on two ranks of
@@ -286,6 +292,43 @@ Data-parallel training across processes (after phase 21):
      backward, the gradient all-reduce, the metric reductions and the
      broadcast checked and timed; across two cards only where there are
      two.
+The training step's last single-card knobs (after phase 12):
+ 23. knobs_packed, knobs_packed_agreement: PRETRAIN_RECIPE with
+     data_args.packed (K = 4 segments a row at the default geometry: rows
+     of 128 query tokens, 512 document tokens) through train.run, 512
+     pairs a step of lognormal lengths (queries <= 32 tokens, documents
+     <= 256), chunk 16 (4 rows), every query chunk direct, 3 steps, bf16.
+     Gates: 780 / 396 / 396 flash launches a step (the queries' one direct
+     forward, the documents' 32 row chunks in both passes) on segment ids,
+     losses finite and falling, 0 synchronising calls in a quiet step.
+     Then on the first batch from the recipe's initial weights: packed
+     against padded embeddings (each sequence that packing kept whole,
+     both towers) at cosine >= 0.999, the step's gradient (grad cache, lr
+     0) against the padded step's on the sequences as packing kept them
+     (each mask cut to its kept tokens) at cosine >= 0.999 overall, and
+     the same with fused_rotary (the fused kernels on per-batch tables,
+     positions restarting per segment: 780 / 396 / 396 fused launches); a
+     planted fault (the query pair_index rolled by one slot) outside both.
+     Recorded: the predicted gain, kept share, sequences kept whole and
+     truncated to 0 per tower (and the kept share at phase 5's document
+     lengths), the gradient against the padded step on the whole
+     sequences, AdamW's first-update cosine, packed and padded step ms in
+     turns.
+     knobs_moe_encode, knobs_moe_step: the MoE model (moe_config) on its
+     seed weights with moe_impl="capacity": the encode batch (256 x 512,
+     lognormal lengths) at factor E / k = 4 (C = N, nothing can drop) at
+     cosine >= 0.999 against dropless, 0 gmm launches; the dropped share at
+     the default factor 2.0 recorded. The MoE benchmark step (phase 11's
+     geometry) with the capacity dispatch, in turns with dropless on the
+     same weights: 768 / 384 / 384 flash launches and 0 gmm and tgmm a
+     step, the loss falling over 2 steps; then expert choice: every table
+     [8, C] with C distinct tokens an expert (C = 512 / 4096 for a query /
+     document chunk), 0 gmm, the loss falling over 2 steps.
+     knobs_embed_parallel: grad cache's pass 1 with 4 chunks to a forward
+     against 1, on the vision recipe's grad-cache step (2048 images, chunk
+     128, LiT) and the dense text step (phase 7's geometry): gradients at
+     cosine >= 0.9999 and relative L2 <= 0.01; pass-1 ms and step ms in
+     turns (1, 4, 4, 1).
 Kernel times (ms) are CUDA-event times of calls made on an idle card, so a
 short kernel's time holds the host's enqueue; phases 8 and 9 give beside
 them the device's work alone (device_ms: each call queued behind a device
@@ -298,6 +341,7 @@ non-zero without a CUDA device.
 """
 
 import contextlib
+import io
 import json
 import os
 import re
@@ -472,16 +516,19 @@ PAIRS, Q_LEN, D_LEN, CHUNK = 512, 32, 256, 16
 # the JAX MoE benchmark step (bench.py:886-980): chunk 32, every chunk
 # cached, router aux 0.001
 MOE_CHUNK, MOE_AUX = 32, 0.001
+# steps of the dense and MoE steps' launch and loss gates (phases 7, 11) and of
+# the MoE step's timing (12): 3, so that the whole script, phase 23 included, stays under 900 s
+GATE_STEPS = 3
 
 
-def moe_config(impl="flash"):
+def moe_config(impl="flash", **over):
     """nomic-bert-2048 with the MoE recipe's experts
     (configs/train/contrastive_finetune_moe.yaml): 8 experts, top-2, MoE on
-    every second layer, dropless."""
+    every second layer, dropless unless `over` says otherwise."""
     from contrastors_tpu_torch.models.presets import nomic_bert_2048
 
-    return nomic_bert_2048(attn_impl=impl, num_experts=8, moe_top_k=2, moe_every_n_layers=2,
-                           moe_impl="dropless")
+    return nomic_bert_2048(**dict(dict(attn_impl=impl, num_experts=8, moe_top_k=2, moe_every_n_layers=2,
+                                       moe_impl="dropless"), **over))
 
 
 # the seed-0 weights of each model, drawn once and kept on the host
@@ -588,10 +635,10 @@ def planted_fault(kind):
             return launch
         patches = [(fa, name, negated(getattr(fa, name))) for name in ("launch_bwd_dq", "launch_bwd_dkv")]
     else:
-        def patched(model, batch, generator=None, orig=text_text.encode_batch):
+        def patched(model, batch, generator=None, orig=text_text.encode_batch, **kw):
             if torch.is_grad_enabled() and batch["input_ids"].shape[1] == D_LEN:
                 batch = {k: v.roll(1, 0) for k, v in batch.items()}
-            return orig(model, batch, generator)
+            return orig(model, batch, generator, **kw)
         patches = [(text_text, "encode_batch", patched)]
     saved = [(module, name, getattr(module, name)) for module, name, _ in patches]
     for module, name, fn in patches:
@@ -840,8 +887,8 @@ def chunk_aux_recorder(into):
 
     orig = text_text.encode_batch
 
-    def recording(model, batch, generator=None):
-        out = orig(model, batch, generator)
+    def recording(model, batch, generator=None, **kw):
+        out = orig(model, batch, generator, **kw)
         if torch.is_grad_enabled() and "router_aux" in out:
             into.append(out["router_aux"].detach())
         return out
@@ -943,7 +990,7 @@ def moe_training(dev, card, agreement=True):
                       gmm=3 * n_moe * 2 * n_chunks + 3 * n_moe * n_chunks, tgmm=3 * n_moe * n_chunks)
     train_gen = torch.Generator().manual_seed(0)
     steps, chunk_aux = [], []
-    for i in range(5):
+    for i in range(GATE_STEPS):
         reset_counts()
         t0 = time.perf_counter()
         with chunk_aux_recorder(chunk_aux) if i == 0 else contextlib.nullcontext():
@@ -968,7 +1015,7 @@ def moe_training(dev, card, agreement=True):
         raise AssertionError("MoE train step: launch counts, finiteness, falling loss or router aux failed")
 
     host_ms, enqueue_ms = [], []
-    for _ in range(5):
+    for _ in range(GATE_STEPS):
         t0 = time.perf_counter()
         step(qb, db, train_gen)
         enqueue_ms.append((time.perf_counter() - t0) * 1e3)
@@ -1354,6 +1401,17 @@ BASE_CASES = [
     ("train_q_b512_s32", dict(B=512, S=32, T=32, H=12, Hkv=12, D=64), dict(mask=(512, 0))),
     ("train_d_b16_s256", dict(B=16, S=256, T=256, H=12, Hkv=12, D=64), dict(mask=(16, 0))),
 ]
+# the packed step's rows (phase 23): the queries' 128 rows of 128 tokens and
+# a document chunk's 4 rows of 512, each row up to 4 sequences that
+# `pack_tokenized` places at data-dependent cuts, then trailing pad; pack =
+# (K, median, shortest, longest) of the lognormal lengths in tokens, as
+# phase 23's batches have them. The segment ids come with the mask
+# segment_ids > 0, as the packed trunk passes them
+PACKED_STEP_CASES = [
+    ("packed_q_b128_s128", dict(B=128, S=128, T=128, H=12, Hkv=12, D=64), dict(pack=(4, 14, 4, 32))),
+    ("packed_d_b4_s512", dict(B=4, S=512, T=512, H=12, Hkv=12, D=64), dict(pack=(4, 66, 10, 256))),
+]
+BASE_CASES += PACKED_STEP_CASES
 # the edges of the kernels' persistent walk: one row, partial last tiles
 # (65, 129; the items are 128 rows, but 64 for the backward at D = 128 and
 # for every kernel at D = 64 when the rows are at most 64), B * H = 143 items
@@ -1449,7 +1507,24 @@ def case_inputs(gen, dev, shp, opt):
         seg = torch.zeros(shp["B"], shp["S"], dtype=torch.int32, device=dev)
         seg[:, :100], seg[:, 100:300], seg[:, 300:450] = 1, 2, 3  # 450.. is padding
         kw["segment_ids"] = seg
+    if "pack" in opt:
+        kw["segment_ids"], _ = packed_rows(dev, shp["B"], shp["S"], *opt["pack"])
+        kw["attention_mask"] = (kw["segment_ids"] > 0).int()
     return q, k, v, kw
+
+
+def packed_rows(dev, B, S, K, median, lo, hi, seed=0):
+    """Segment and position ids [B, S] (int32, on dev) of `pack_tokenized`
+    packing B * K sequences of lognormal lengths in tokens (`knob_lengths`)
+    into B rows of S tokens."""
+    import torch
+
+    from contrastors_tpu_torch.data.packing import pack_tokenized
+
+    lens = knob_lengths(np.random.default_rng(seed), B * K, median, lo, hi)
+    mask = (np.arange(int(lens.max()))[None] < lens[:, None]).astype(np.int64)
+    packed = pack_tokenized(mask, mask, row_len=S, max_segments=K)
+    return tuple(torch.from_numpy(packed[k]).to(dev) for k in ("segment_ids", "position_ids"))
 
 
 def reference_in_rows(q, k, v, kw, rows=None):
@@ -1621,7 +1696,8 @@ def dead_row_check(dev, gen):
 # The fused-rotary kernels' check cases: (name, shape, options). The MLM
 # step's shape; an encode batch with padding; packed rows (three segments
 # per row, positions restarting at each: per-batch tables); interleaved
-# rotary over 32 of 64 features; GQA; a length off the 64-row tile; D=128.
+# rotary over 32 of 64 features; GQA; a length off the 64-row tile; D=128;
+# the packed step's rows (PACKED_STEP_CASES) with their positions.
 FUSED_CASES = [
     ("mlm_b8_s2048", dict(B=8, S=2048, H=12, Hkv=12, D=64), dict()),
     ("encode_b256_s512_pad", dict(B=256, S=512, H=12, Hkv=12, D=64), dict(mask=True)),
@@ -1638,9 +1714,12 @@ FUSED_CASES = [
     ("bh143_s96", dict(B=11, S=96, H=13, Hkv=13, D=64), dict(mask=True)),
     ("gqa_hkv4_s2048", dict(B=1, S=2048, H=12, Hkv=4, D=64), dict()),
 ]
+PACKED_STEP_FUSED_CASES = [(f"{name}_rot", {k: v for k, v in shp.items() if k != "T"}, opt)
+                           for name, shp, opt in PACKED_STEP_CASES]
+FUSED_CASES += PACKED_STEP_FUSED_CASES
 
 
-def rotary_case(dev, gen, B, S, H, Hkv, D, rot_dim=None, interleaved=False, mask=False, packed=False):
+def rotary_case(dev, gen, B, S, H, Hkv, D, rot_dim=None, interleaved=False, mask=False, packed=False, pack=None):
     """bf16 q, k, v (views of one fused projection when H == Hkv, as the
     model gives them) and the rotary keyword arguments of one case, with
     nomic-bert's rotary base 1000."""
@@ -1666,22 +1745,25 @@ def rotary_case(dev, gen, B, S, H, Hkv, D, rot_dim=None, interleaved=False, mask
         start = torch.where(seg == 0, 0, torch.where(seg == 1, cuts[:, :1], cuts[:, 1:]))
         kw["segment_ids"] = (seg + 1).contiguous()
         kw["rotary_position_ids"] = (idx[None] - start).contiguous()
+    if pack:  # the packed step's rows (PACKED_STEP_CASES), positions restarting at each segment
+        kw["segment_ids"], kw["rotary_position_ids"] = packed_rows(dev, B, S, *pack)
+        kw["attention_mask"] = (kw["segment_ids"] > 0).int()
     return q, k, v, kw
 
 
-def fused_kernel_checks(dev, gen, backward=True):
+def fused_kernel_checks(dev, gen, backward=True, cases=None):
     """Phase fused_kernel_check: the fused-rotary forward, dq and dk/dv
     kernels against their plain versions in FUSED_CASES, with a strided dO,
     a second forward and backward bit-identical to the first; at the MLM
     shape the backward kernels given negated sin tables must fall outside the
-    rule. backward=False checks the forward alone. Returns {"fwd"|"dq"|"dk"|"dv":
-    max abs error}."""
+    rule. backward=False checks the forward alone; `cases` replaces
+    FUSED_CASES. Returns {"fwd"|"dq"|"dk"|"dv": max abs error}."""
     import torch
 
     from contrastors_tpu_torch.ops import flash_attention as fa
 
     errs = dict(fwd=0.0, dq=0.0, dk=0.0, dv=0.0) if backward else dict(fwd=0.0)
-    for name, shp, opt in FUSED_CASES:
+    for name, shp, opt in cases or FUSED_CASES:
         q, k, v, kw = rotary_case(dev, gen, **shp, **opt)
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
         out2, lse2 = fa.flash_attention_fwd(q, k, v, **kw)
@@ -1717,7 +1799,7 @@ def fused_kernel_checks(dev, gen, backward=True):
             ok = ok and min(line["negated_sin_err_over_tol"][g] for g in ("dq", "dk")) > 1.0
             del bad
         emit(phase="fused_kernel_check", case=name, **shp, rot_dim=opt.get("rot_dim", shp["D"]),
-             interleaved=opt.get("interleaved", False), tables="per batch row" if opt.get("packed") else "shared",
+             interleaved=opt.get("interleaved", False), tables="per batch row" if opt.get("packed") or opt.get("pack") else "shared",
              backward=backward, **line, ok=ok)
         if not ok:
             raise AssertionError(f"fused-rotary kernels disagree with their plain versions in case {name}, "
@@ -2205,7 +2287,7 @@ def dense_training(dev, card, agreement=True):
                       dkv=tcfg.n_layer * (1 + n_chunks))
     train_gen = torch.Generator().manual_seed(0)
     steps = []
-    for _ in range(5):
+    for _ in range(GATE_STEPS):
         reset_counts()
         t0 = time.perf_counter()
         m = step(qb, db, train_gen)
@@ -2542,7 +2624,7 @@ def trainer_phase(dev, card, bare_busy_ms=None):
         if not remat:  # the replay adds forward launches
             bare_launches = read_counts()
     model.trunk.remat = False
-    bare_ms, bare_syncs = bare_step_timing(step, qb, db, gen)
+    bare_ms, bare_syncs = bare_step_timing(step, qb, db, gen, runs=2)
     busy_ms = bare_busy_ms or profile_step(lambda: step(qb, db, gen), float(np.median(bare_ms)))["device_busy_ms"]
 
     # the loop, uninterrupted
@@ -2552,7 +2634,7 @@ def trainer_phase(dev, card, bare_busy_ms=None):
     gc.collect()
 
     # the bare step again, then a loop resumed from step_4
-    bare_ms_2, bare_syncs_2 = bare_step_timing(step, qb, db, gen)
+    bare_ms_2, bare_syncs_2 = bare_step_timing(step, qb, db, gen, runs=2)
     del model, scale, opt, step, qb, db
     gc.collect()
     torch.cuda.empty_cache()
@@ -4722,7 +4804,7 @@ def inference_phase(dev, card, gen):
 
 
 # -- phase 22: data-parallel training across processes ------------------------
-DIST_WORLD, DIST_STEPS = 2, 4
+DIST_WORLD, DIST_STEPS = 2, 3  # 3 steps (4 before phase 23), for the 900 s budget
 # bounds stated before the phase's first run (PERF.md): each step's loss of
 # two ranks against one rank's at the same global batch, and the cosine of
 # the two runs' parameter updates after the last step, per tensor and over
@@ -5285,6 +5367,556 @@ def distributed_phase(dev, card):
     return pre[0]["launches"][1]
 
 
+# -- the training step's last single-card knobs (phase 23) ---------------------
+KNOB_K, KNOB_STEPS = 4, 3  # segments a packed row; train.run steps of the packed recipe
+# words of a query / a document: with [CLS] and the prefix word, <= 32 / <= 256 tokens;
+# the default geometry truncates a few documents, and the phase reads the kept share
+KNOB_Q_WORDS, KNOB_D_WORDS = (2, 30), (8, 254)
+KNOB_EC_STEPS = 2  # expert-choice steps
+KNOB_ENC_B, KNOB_ENC_S = 256, 512  # the MoE encode batch
+
+
+def knob_lengths(rng, n, median, lo, hi):
+    return np.clip(rng.lognormal(np.log(median), 0.7, size=n), lo, hi).astype(int)
+
+
+def write_packed_inputs(root, seed=0):
+    """nomic-bert-2048's config.json and KNOB_STEPS batches of PAIRS pairs
+    with lognormal lengths (queries of median 12 words, documents of median
+    64, clipped to KNOB_Q_WORDS / KNOB_D_WORDS); each document starts with
+    its query's words."""
+    rng = np.random.default_rng(seed)
+    paths = dict(model_dir=os.path.join(root, "nomic-bert-2048"), pairs=os.path.join(root, "pairs.jsonl"))
+    os.makedirs(paths["model_dir"])
+    with open(os.path.join(paths["model_dir"], "config.json"), "w") as f:
+        json.dump(NOMIC_BERT_2048_CONFIG, f)
+    n = KNOB_STEPS * PAIRS
+    q_lens, d_lens = knob_lengths(rng, n, 12, *KNOB_Q_WORDS), knob_lengths(rng, n, 64, *KNOB_D_WORDS)
+    with open(paths["pairs"], "w") as f:
+        for lq, ld in zip(q_lens, np.maximum(d_lens, q_lens)):
+            q = rng.integers(1000, 30000, size=lq)
+            d = np.concatenate([q, rng.integers(1000, 30000, size=ld - lq)])
+            f.write(json.dumps({"query": " ".join(map(str, q)), "document": " ".join(map(str, d))}) + "\n")
+    return paths
+
+
+def packed_recipe(model_dir, pairs, packed=True):
+    """PRETRAIN_RECIPE with data_args.packed (K = KNOB_K, the default row
+    length: 128 tokens for queries of <= 32, 512 for documents of <= 256),
+    cut as the trainer phase cuts it (a local config.json with random
+    weights, PAIRS pairs a step, warmup 2, every query chunk direct), for
+    KNOB_STEPS steps with no checkpoint."""
+    recipe = json.loads(json.dumps(PRETRAIN_RECIPE))
+    recipe["train_args"].update(num_train_steps=KNOB_STEPS, warmup_steps=2, log_lr_every=KNOB_STEPS,
+                                output_dir=None, chunk_size=CHUNK, grad_cache_direct_chunks_q=-1)
+    recipe["model_args"].update(model_name=model_dir, pretrained=False)
+    recipe["data_args"].update(batch_size=PAIRS, input_shards=pairs, streaming=False, query_max_length=Q_LEN,
+                               document_max_length=D_LEN, packed=packed, packed_max_segments=KNOB_K)
+    return recipe
+
+
+def model_grads(model):
+    return {n: p.grad.float().clone() for n, p in model.named_parameters() if p.grad is not None}
+
+
+def adam_first_update(grads, params, eps=1e-8, max_norm=1.0, wd=0.01):
+    """The direction of AdamW's first update from these gradients (clipped
+    to max_norm; bias-corrected moments g and g^2, so g / (|g| + eps), plus
+    the decoupled decay), as one flat vector."""
+    import torch
+
+    norm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values())).item()
+    c = min(1.0, max_norm / max(norm, 1e-30))
+    return torch.cat([(c * grads[n] / ((c * grads[n]).abs() + eps) + wd * params[n].float()).flatten()
+                      for n in grads])
+
+
+def vector_cosine(a, b):
+    return float((a.double() @ b.double()) / (a.double().norm() * b.double().norm()))
+
+
+@contextlib.contextmanager
+def phase_clock(into):
+    """grad_cache.py's profiler ranges timed on the host clock, the card
+    synchronized at each range's ends: into[name] gets the ms."""
+    import torch
+
+    from contrastors_tpu_torch import grad_cache as gcm
+
+    orig = gcm.record_function
+
+    @contextlib.contextmanager
+    def timed(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with orig(name):
+                yield
+        finally:
+            torch.cuda.synchronize()
+            into[name] = into.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+    gcm.record_function = timed
+    try:
+        yield into
+    finally:
+        gcm.record_function = orig
+
+
+def timed_call(fn):
+    """(fn's result, host ms to a synchronize after it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def kept_lengths(packed, K):
+    """Each sequence's tokens in a `pack_tokenized` result (a truncated
+    sequence keeps its first ones)."""
+    seg = packed["segment_ids"]
+    counts = (seg[:, :, None] == np.arange(1, K + 1)).sum(axis=1).reshape(-1)  # [rows * K]
+    return counts[packed["pair_index"]]
+
+
+def knobs_packed(dev, card):
+    """Phase 23a, knobs_packed and knobs_packed_agreement: the pretrain
+    recipe with data_args.packed through train.run (KNOB_STEPS steps), then,
+    on its first batch from the recipe's initial weights, the packed step
+    against the padded step on the sequences as packing kept them (each
+    mask cut to its kept tokens) and a planted fault (the query pair_index
+    rolled by one slot). Returns the launches of one packed loop step."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from contrastors_tpu_torch.config import Config
+    from contrastors_tpu_torch.data.packing import packing_efficiency, packing_kept_fraction
+    from contrastors_tpu_torch.models.auto import load_biencoder
+    from contrastors_tpu_torch.models.biencoder import BiEncoder, LogitScale
+    from contrastors_tpu_torch.models.presets import nomic_bert_2048
+    from contrastors_tpu_torch.trainers.text_text import PACKED_KEYS, encode_batch, make_train_step
+    from contrastors_tpu_torch.utils.optim import make_optimizer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_knobs_")
+    try:
+        paths = write_packed_inputs(root)
+        recipe = packed_recipe(**paths)
+        n_layer = NOMIC_BERT_2048_CONFIG["n_layer"]
+        rows = PAIRS // KNOB_K  # each tower's packed rows
+        chunk_rows = CHUNK // KNOB_K
+        # the queries' one direct forward, the documents' chunks in pass 1 and 2
+        expected = expect(fwd=n_layer * (1 + 2 * rows // chunk_rows), dq=n_layer * (1 + rows // chunk_rows),
+                          dkv=n_layer * (1 + rows // chunk_rows))
+        trainer, loop_rows, seconds, run_launches, syncs = run_chip_trainer(recipe, dev)
+        host = next(iter(trainer.dataloader))  # the first batch, padded
+        packed_host = trainer.transform_host_batch(dict(host))
+        geometry = {col: trainer._pack_geometry(col) for col in ("query", "document")}
+        data_ok = trainer.config.data_args.packed
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        reading, whole, kept_masks = {}, {}, {}
+        for col in ("query", "document"):
+            ids, mask = host[f"{col}_input_ids"], host[f"{col}_attention_mask"]
+            L, K = geometry[col]
+            reading[col] = dict(row_len=L, max_segments=K, real_tokens=int(mask.sum()),
+                                padded_tokens=int(mask.size), packed_tokens=int(packed_host[f"{col}_input_ids"].size),
+                                predicted_gain=packing_efficiency(mask, L, K),
+                                kept_share=packing_kept_fraction(ids, mask, L, K),
+                                real_share_of_packed=float(mask.sum()) / packed_host[f"{col}_input_ids"].size)
+            kept = kept_lengths({k: packed_host[f"{col}_{k}"] for k in ("segment_ids", "pair_index")}, K)
+            whole[col] = kept == mask.sum(axis=1)
+            kept_masks[col] = (np.arange(mask.shape[1])[None] < kept[:, None]).astype(mask.dtype)
+            reading[col].update(sequences=int(mask.shape[0]), kept_whole=int(whole[col].sum()),
+                                truncated_to_0=int((kept == 0).sum()))
+        # the kept share at phase 5's document lengths (lognormal, median 96 words, up to 511)
+        rng = np.random.default_rng(1)
+        lens = np.clip(rng.lognormal(np.log(96), 0.9, size=PAIRS), 8, D_LEN).astype(int)
+        m5 = (np.arange(D_LEN)[None] < lens[:, None]).astype(np.int64)
+        with contextlib.redirect_stdout(io.StringIO()):  # its 0-token truncations print a line each
+            reading["document"]["kept_share_at_phase5_lengths"] = packing_kept_fraction(
+                m5 * 7, m5, *geometry["document"])
+
+        config = Config.from_dict(recipe)
+        model, _ = load_biencoder(config.model_args, dtype=torch.bfloat16, device=dev, seed=42)
+        scale = LogitScale(50.0, trainable=False, device=dev)
+        opt = make_optimizer([("model." + n, p) for n, p in model.named_parameters()], 0.0, weight_decay=0.0,
+                             max_grad_norm=None)  # lr 0: the weights and gradients stay as they are
+        batches = {}
+        for col in ("query", "document"):
+            batches[("padded", col)] = {k: torch.from_numpy(host[f"{col}_{k}"]).to(dev)
+                                        for k in ("input_ids", "attention_mask")}
+            batches[("kept", col)] = dict(batches[("padded", col)],
+                                          attention_mask=torch.from_numpy(kept_masks[col]).to(dev))
+            batches[("packed", col)] = {k: torch.from_numpy(packed_host[f"{col}_{k}"]).to(dev) for k in PACKED_KEYS}
+        fault_q = dict(batches[("packed", "query")])
+        fault_q["pair_index"] = fault_q["pair_index"].roll(1)
+        kw = dict(grad_cache=True, chunk_size=CHUNK, direct_chunks_q=-1)
+        steps = dict(padded=make_train_step(model, scale, opt, **kw),
+                     packed=make_train_step(model, scale, opt, packed_segments=KNOB_K, **kw))
+
+        # embeddings, in one tower's forward each
+        with torch.no_grad():
+            emb = {(form, col): encode_batch(model, batches[(form, col)],
+                                             max_segments=KNOB_K if form == "packed" else None)["embedding"].float()
+                   for form in ("padded", "packed") for col in ("query", "document")}
+            emb_fault = encode_batch(model, fault_q, max_segments=KNOB_K)["embedding"].float()
+        # on the sequences packing kept whole
+        rows_whole = {col: torch.from_numpy(whole[col]).to(dev) for col in whole}
+        emb_cos = {col: float(torch.nn.functional.cosine_similarity(emb[("packed", col)], emb[("padded", col)])
+                              [rows_whole[col]].min()) for col in ("query", "document")}
+        emb_cos_fault = float(torch.nn.functional.cosine_similarity(emb_fault, emb[("padded", "query")])
+                              [rows_whole["query"]].min())
+
+        # the steps' gradients and times in turns: padded, packed, packed, padded
+        gen = torch.Generator().manual_seed(0)
+        grads, ms, launches = {}, dict(padded=[], packed=[]), None
+        for form in ("padded", "packed", "packed", "padded"):
+            reset_counts()
+            _, t = timed_call(lambda: steps[form](batches[(form, "query")], batches[(form, "document")], gen))
+            ms[form].append(t)
+            if form not in grads:
+                grads[form] = model_grads(model)
+                if form == "packed":
+                    launches = read_counts()
+        steps["padded"](batches[("kept", "query")], batches[("kept", "document")], gen)
+        grads["kept"] = model_grads(model)
+        steps["packed"](fault_q, batches[("packed", "document")], gen)
+        grads_fault = model_grads(model)
+
+        # the fused-rotary kernels on the packed rows: positions restarting per segment (per-batch tables)
+        model_f = BiEncoder(nomic_bert_2048(attn_impl="flash", fused_rotary=True), pooling="mean",
+                            dtype=torch.bfloat16, device=dev)
+        model_f.load_state_dict(model.state_dict())
+        opt_f = make_optimizer([("model." + n, p) for n, p in model_f.named_parameters()], 0.0, weight_decay=0.0,
+                               max_grad_norm=None)
+        step_f = make_train_step(model_f, scale, opt_f, packed_segments=KNOB_K, **kw)
+        reset_counts()
+        step_f(batches[("packed", "query")], batches[("packed", "document")], gen)
+        launches_fused = read_counts()
+        grads_fused = model_grads(model_f)
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        update = {k: adam_first_update(g, params) for k, g in (("packed", grads["packed"]),
+                                                               ("kept", grads["kept"]), ("fault", grads_fault))}
+        agreement = dict(
+            grad=flat_agreement(grads["packed"], grads["kept"]),
+            fused_grad=flat_agreement(grads_fused, grads["kept"]),
+            fault_grad=flat_agreement(grads_fault, grads["kept"]),
+            grad_against_untruncated=flat_agreement(grads["packed"], grads["padded"]),
+            adam_update_cosine=vector_cosine(update["packed"], update["kept"]),
+            fault_adam_update_cosine=vector_cosine(update["fault"], update["kept"]),
+        )
+        del model_f, opt_f, step_f, grads_fused
+        del model, scale, opt, steps, grads, grads_fault, batches, emb
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root)
+
+    losses = [r["loss"] for r in loop_rows]
+    quiet = [r for r in loop_rows if 1 < r["step"] < KNOB_STEPS]
+    checks = dict(
+        packed=data_ok and "query_pair_index" in packed_host,
+        launches_per_step=all(r["launches"] == expected for r in loop_rows) and launches == expected,
+        fused_launches=launches_fused == expect(fwd_rot=expected["fwd"], dq_rot=expected["dq"],
+                                                dkv_rot=expected["dkv"]),
+        embeddings_cosine_0_999=min(emb_cos.values()) >= 0.999,
+        gradient_cosine_0_999=agreement["grad"]["cosine"] >= 0.999 and agreement["fused_grad"]["cosine"] >= 0.999,
+        fault_outside=emb_cos_fault < 0.999 and agreement["fault_grad"]["cosine"] < 0.999,
+        losses_finite_and_falling=bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+        no_sync_in_quiet_steps=all(r["iteration_syncs"] == 0 for r in quiet),
+    )
+    ok = all(checks.values())
+    emit(phase="knobs_packed", card=card, gpu_state=gpu_state(), recipe="configs/train/contrastive_pretrain.yaml",
+         pairs=PAIRS, chunk=CHUNK, max_segments=KNOB_K, steps=KNOB_STEPS, dtype="bf16", data=reading,
+         expected_launches=expected, launches_per_step=[r["launches"] for r in loop_rows], run_launches=run_launches,
+         losses=losses, loop_ms_runs=[r["iteration_ms"] for r in loop_rows],
+         loop_syncs_per_step=[r["iteration_syncs"] for r in loop_rows], sync_examples=sorted(set(syncs))[:8],
+         run_seconds=seconds, checks=checks, ok=ok)
+    emit(phase="knobs_packed_agreement", card=card, gpu_state=gpu_state(), embedding_min_cosine=emb_cos,
+         fault_embedding_min_cosine=emb_cos_fault, threshold=0.999, **agreement, bare_step_launches=launches,
+         fused_step_launches=launches_fused, step_ms=dict(packed=float(np.median(ms["packed"])),
+                                                         padded=float(np.median(ms["padded"]))),
+         step_ms_turns=ms, ok=ok,
+         note="on the first batch from the recipe's initial weights: packed against padded embeddings (each "
+              "sequence that packing kept whole, both towers) and the step's gradient (grad cache, lr 0: all "
+              "parameters together) against the padded step on the sequences as packing kept them (each mask "
+              "cut to its kept tokens); grad_against_untruncated: against the padded step on the whole "
+              "sequences (read, not bounded); the fault rolls the query pair_index by one slot; "
+              "adam_update_cosine reads AdamW's first update from "
+              "those gradients (about sign(g), so near-0 gradients flip it: read, not bounded); step_ms: the "
+              "step (its optimizer at lr 0) to a synchronize, padded and packed in turns")
+    if not ok:
+        raise AssertionError(f"knobs packed: a check failed: {checks}")
+    return dict(plain=launches, fused=launches_fused)
+
+
+@contextlib.contextmanager
+def capacity_reading(into):
+    """Each capacity dispatch's dropped assignments: into gets (dropped,
+    valid) device counts per call, from the layer's own slot assignment
+    (`MoEMLP._capacity_slots`): a valid token's assignment that takes no
+    slot is dropped."""
+    from contrastors_tpu_torch.layers.moe import MoEMLP
+
+    orig = MoEMLP._capacity_slots
+
+    def read(self, top_e, valid, groups):
+        C, pos, ok = orig(self, top_e, valid, groups)
+        live = valid.sum() * self.top_k
+        into.append((live - ok.sum(), live))
+        return C, pos, ok
+
+    MoEMLP._capacity_slots = read
+    try:
+        yield into
+    finally:
+        MoEMLP._capacity_slots = orig
+
+
+@contextlib.contextmanager
+def expert_choice_reading(into):
+    """Each expert-choice dispatch's token table: into gets its shape [E, C]
+    and the count of distinct tokens in each expert's row (device)."""
+    import torch
+
+    from contrastors_tpu_torch.layers.moe import MoEMLP
+
+    orig = MoEMLP._combine
+
+    def read(self, x_rows, idx, weights, n_out):
+        if self.config.expert_choice_router:
+            srt = torch.sort(idx, dim=1).values
+            into.append((tuple(idx.shape), (srt[:, 1:] != srt[:, :-1]).sum(dim=1) + 1))
+        return orig(self, x_rows, idx, weights, n_out)
+
+    MoEMLP._combine = read
+    try:
+        yield into
+    finally:
+        MoEMLP._combine = orig
+
+
+def knobs_moe(dev, card):
+    """Phase 23b, knobs_moe_encode and knobs_moe_step: the MoE model
+    (moe_config) with moe_impl="capacity" and with expert_choice_router, on
+    the dropless model's seed weights. Returns the launches of one capacity
+    step."""
+    import gc
+
+    import torch
+
+    from contrastors_tpu_torch.models import BiEncoder, LogitScale
+    from contrastors_tpu_torch.trainers.text_text import make_train_step
+    from contrastors_tpu_torch.utils.optim import make_optimizer
+
+    def model_of(**over):
+        return seed_weights(BiEncoder(moe_config(**over), pooling="mean", dtype=torch.bfloat16, device=dev), "moe")
+
+    cfg = moe_config()
+    E, k, n_layer = cfg.num_experts, cfg.moe_top_k, cfg.n_layer
+    B, S = KNOB_ENC_B, KNOB_ENC_S
+    gen = torch.Generator(device=dev).manual_seed(23)
+    lens = torch.from_numpy(np.clip(np.random.default_rng(23).lognormal(np.log(96), 0.9, size=B), 8, S)
+                            .astype(np.int64)).to(dev)
+    ids = torch.randint(1000, 30000, (B, S), generator=gen, device=dev)
+    mask = (torch.arange(S, device=dev)[None] < lens[:, None]).long()
+    encode = {}
+    with torch.no_grad():
+        for name, over in (("dropless", {}), ("capacity_no_drop", dict(moe_impl="capacity",
+                                                                        moe_capacity_factor=float(E // k))),
+                           ("capacity", dict(moe_impl="capacity"))):
+            model = model_of(**over)
+            drops = []
+            reset_counts()
+            with capacity_reading(drops):
+                e = model(ids * mask, mask)["embedding"].float()
+            encode[name] = dict(embedding=e, launches=read_counts(),
+                                dropped=[int(a) for a, _ in drops], assignments=[int(b) for _, b in drops])
+            del model
+            torch.cuda.empty_cache()
+    n_moe = len(encode["capacity"]["dropped"])
+    cos = float(torch.nn.functional.cosine_similarity(encode["capacity_no_drop"]["embedding"],
+                                                      encode["dropless"]["embedding"]).min())
+    enc_checks = dict(
+        no_drop_cosine_0_999=cos >= 0.999 and sum(encode["capacity_no_drop"]["dropped"]) == 0,
+        no_gmm=all(encode[n]["launches"]["gmm"] == 0 for n in ("capacity_no_drop", "capacity")),
+        dropless_gmm=encode["dropless"]["launches"]["gmm"] == 3 * n_moe,
+        flash=all(encode[n]["launches"]["fwd"] == n_layer for n in encode),
+    )
+    emit(phase="knobs_moe_encode", card=card, batch=B, seq_len=S, min_cosine_no_drop_vs_dropless=cos,
+         threshold=0.999, launches={n: v["launches"] for n, v in encode.items()},
+         dropped_share_factor_2=sum(encode["capacity"]["dropped"]) / sum(encode["capacity"]["assignments"]),
+         dropped_share_by_layer=[a / b for a, b in zip(encode["capacity"]["dropped"],
+                                                       encode["capacity"]["assignments"])],
+         checks=enc_checks, ok=all(enc_checks.values()),
+         note="the encode batch (256 x 512, lognormal lengths) through the dropless model and the capacity "
+              "dispatch on its weights, at factor E / k = 4 (C = N: nothing can drop) and at the default 2.0; "
+              "dropped share: valid tokens' assignments past their expert's C")
+    if not all(enc_checks.values()):
+        raise AssertionError(f"knobs MoE encode: a check failed: {enc_checks}")
+    del encode
+    gc.collect()
+
+    qb, db = token_batches(PAIRS, dev)
+    n_chunks = 2 * PAIRS // MOE_CHUNK
+    expected = expect(fwd=n_layer * 2 * n_chunks, dq=n_layer * n_chunks, dkv=n_layer * n_chunks)
+
+    def trained(**over):
+        model = model_of(**over)
+        scale = LogitScale(50.0, trainable=False, device=dev)
+        named = [("model." + n, p) for n, p in model.named_parameters()]
+        opt = make_optimizer(named, 2e-4, weight_decay=0.01, max_grad_norm=1.0)
+        step = make_train_step(model, scale, opt, grad_cache=True, chunk_size=MOE_CHUNK, direct_chunks_q=0,
+                               direct_chunks_d=0, router_aux_coef=MOE_AUX)
+        return model, step
+
+    runs = {}
+    train_gen = torch.Generator().manual_seed(0)
+    models = dict(capacity=trained(moe_impl="capacity"), dropless=trained())
+    # in turns: the first call of each warms it up; capacity's 2 losses
+    for name in ("capacity", "dropless", "capacity", "dropless"):
+        reset_counts()
+        m, t = timed_call(lambda: models[name][1](qb, db, train_gen))
+        r = runs.setdefault(name, dict(losses=[], ms=[], launches=[]))
+        r["losses"].append(m["loss"].item())
+        r["ms"].append(t)
+        r["launches"].append(read_counts())
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    ec_model, ec_step = trained(expert_choice_router=True)
+    tables = []
+    ec = dict(losses=[], launches=[])
+    for i in range(KNOB_EC_STEPS):
+        reset_counts()
+        with expert_choice_reading(tables) if i == 0 else contextlib.nullcontext():
+            ec["losses"].append(ec_step(qb, db, train_gen)["loss"].item())
+        ec["launches"].append(read_counts())
+    del ec_model, ec_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a chunk's tokens: n = MOE_CHUNK x its length; C = factor n k / E
+    c_of = {length: min(int(max(2.0 * MOE_CHUNK * length * k / E, 1)), MOE_CHUNK * length) for length in (Q_LEN, D_LEN)}
+    tables = [(shape, distinct.tolist()) for shape, distinct in tables]
+    ec_ok = bool(tables) and all(shape[0] == E and shape[1] in c_of.values() and all(d == shape[1] for d in distinct)
+                                 for shape, distinct in tables)
+    cap = runs["capacity"]
+    checks = dict(
+        capacity_launches=all(x == expected for x in cap["launches"]),
+        capacity_no_gmm=all(x["gmm"] == 0 and x["tgmm"] == 0 for x in cap["launches"] + ec["launches"]),
+        capacity_losses_falling=bool(np.isfinite(cap["losses"]).all()) and cap["losses"][-1] < cap["losses"][0],
+        expert_choice_c_tokens_each=ec_ok,
+        expert_choice_losses_falling=bool(np.isfinite(ec["losses"]).all()) and ec["losses"][-1] < ec["losses"][0],
+        expert_choice_launches=all(x == expected for x in ec["launches"]),
+    )
+    ok = all(checks.values())
+    emit(phase="knobs_moe_step", card=card, gpu_state=gpu_state(), pairs=PAIRS, chunk=MOE_CHUNK,
+         router_aux_coef=MOE_AUX, expected_launches=expected, capacity=cap, dropless=runs["dropless"],
+         expert_choice=ec, expert_choice_tables=dict(n=len(tables), c_per_chunk=c_of,
+                                                     shapes=sorted({shape for shape, _ in tables})),
+         step_ms=dict(capacity=cap["ms"][1], dropless=runs["dropless"]["ms"][1]),
+         checks=checks, ok=ok,
+         note="the MoE benchmark step (phase 11's geometry) with moe_impl capacity (factor 2.0) and dropless on "
+              "the same seed weights, in turns (capacity, dropless, capacity, dropless; the first call of each "
+              "a warm-up, left out of step_ms), then expert choice; step ms to a synchronize")
+    if not ok:
+        raise AssertionError(f"knobs MoE step: a check failed: {checks}")
+    return cap["launches"][0]
+
+
+def knobs_embed_parallel(dev, card, m=4):
+    """Phase 23c, knobs_embed_parallel: grad cache's pass 1 m chunks to a
+    forward against m = 1, on the vision recipe's grad-cache step (LiT,
+    LIT_GC_BATCH images, chunk LIT_GC_CHUNK) and on the dense text step
+    (phase 7's geometry), gradients from one step each (lr 0), pass-1 ms
+    and step ms in turns (1, m, m, 1)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from contrastors_tpu_torch.config import Config
+    from contrastors_tpu_torch.trainers.text_text import make_train_step
+
+    out = {}
+
+    def compare(name, run):
+        """run(mm) -> gradients of one step with embed_parallel mm."""
+        grads, pass1, step_ms = {}, {1: [], m: []}, {1: [], m: []}
+        for mm in (1, m, m, 1):
+            clock = {}
+            with phase_clock(clock):
+                g, t = timed_call(lambda: run(mm))
+            grads.setdefault(mm, g)
+            pass1[mm].append(clock["grad_cache/pass1"])
+            step_ms[mm].append(t)
+        out[name] = dict(grad=flat_agreement(grads[m], grads[1]),
+                         pass1_ms={k: float(np.median(v)) for k, v in pass1.items()}, pass1_ms_turns=pass1,
+                         step_ms={k: float(np.median(v)) for k, v in step_ms.items()}, step_ms_turns=step_ms)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_knobs_lit_")
+    try:
+        text_dir, tok, _, gc_batches, _, evals = lit_inputs(root)
+        recipe = lit_recipe(text_dir, os.path.join(root, "run"), grad_cache=True)
+        trainer = lit_trainer_class(tok, gc_batches, evals)(Config.from_dict(recipe), "bf16", dev)
+        trainer.syncs = []  # its steps' record (chip_trainer_class) outside run_chip_trainer
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in gc_batches[0].items()}
+
+        def lit_run(mm):
+            trainer.config.train_args.grad_cache_embed_parallel = mm
+            return lit_step_grads(trainer, batch)
+
+        compare("lit_grad_cache", lit_run)
+        del trainer, batch
+    finally:
+        shutil.rmtree(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model, scale, opt = train_modules("flash", dev, lr=0.0, max_grad_norm=None)
+    qb, db = token_batches(PAIRS, dev)
+    steps = {mm: make_train_step(model, scale, opt, grad_cache=True, chunk_size=CHUNK, direct_chunks_q=-1,
+                                 embed_parallel=mm) for mm in (1, m)}
+
+    def dense_run(mm):
+        steps[mm](qb, db, torch.Generator().manual_seed(0))
+        return model_grads(model)
+
+    compare("dense_text", dense_run)
+    del model, scale, opt, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = {f"{name}_cosine_0_9999_rel_l2_0_01": r["grad"]["cosine"] >= 0.9999 and r["grad"]["rel_l2"] <= 0.01
+              for name, r in out.items()}
+    ok = all(checks.values())
+    emit(phase="knobs_embed_parallel", card=card, gpu_state=gpu_state(), embed_parallel=m,
+         lit=dict(images=LIT_GC_BATCH, chunk=LIT_GC_CHUNK), dense=dict(pairs=PAIRS, chunk=CHUNK), **out,
+         checks=checks, ok=ok,
+         note="gradients of one grad-cache step (lr 0, all parameters together) with pass 1 embedding m chunks "
+              "to a forward against m = 1; ms: host clock to a synchronize (pass1_ms from grad_cache.py's "
+              "pass-1 range, the card synchronized at its ends), m = 1 and m in turns (1, m, m, 1); the LiT "
+              "step's optimizer update is stubbed")
+    if not ok:
+        raise AssertionError(f"knobs embed_parallel: a check failed: {checks}")
+    return out
+
+
+def knobs_phase(dev, card):
+    """Phase 23 (module docstring). Returns the launches of one packed step
+    (plain and fused rotary) and of one capacity MoE step."""
+    packed = knobs_packed(dev, card)
+    moe = knobs_moe(dev, card)
+    knobs_embed_parallel(dev, card)
+    return dict(packed=packed["plain"], packed_fused=packed["fused"], capacity=moe)
+
+
 def finish(card, summary):
     """The run's ending: the command_time line, the card's line, the summary
     and the last line, these three as the contract gives them, without t."""
@@ -5303,7 +5935,7 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description="Drive the PyTorch / CUDA port on one NVIDIA GPU.")
     ap.add_argument("--only", choices=["moe_kernels", "moe", "flash_fwd", "flash_bwd", "dense", "trainer",
-                                       "mlm_trainer", "vision", "families", "inference", "distributed"],
+                                       "mlm_trainer", "vision", "families", "inference", "distributed", "knobs"],
                     help="run only the card, build and grouped-matmul phases (9), or (moe) also MoE "
                          "serving and the MoE step's timing and profile (10-12, no gradient agreement); "
                          "flash_fwd: the card, build, the forward checks (3, 13), the forward timing (6), "
@@ -5316,7 +5948,8 @@ def main(argv=None):
                          "card, build, the ViT attention shape's forward and backward checks and phase 19; "
                          "families: the card, build, the families' attention shapes' forward and backward "
                          "checks and phase 20; inference: the card, build, the long-context case's forward "
-                         "check and phase 21; distributed: the card, build and phase 22")
+                         "check and phase 21; distributed: the card, build and phase 22; knobs: the card, "
+                         "build and phase 23")
     ap.add_argument("--tree", help="with --only: the root of another checkout whose contrastors_tpu_torch "
                                    "package is built and timed (an earlier commit, for old against new)")
     ap.add_argument("--dist-worker", metavar="SPEC", help=argparse.SUPPRESS)  # one rank of phase 22
@@ -5405,6 +6038,13 @@ def main(argv=None):
             summary["mlm_trainer"] = mlm_trainer_phase(dev, card)
         elif args.only == "distributed":
             summary["distributed_launches_per_rank_step"] = distributed_phase(dev, card)
+        elif args.only == "knobs":
+            o_errs = forward_checks(dev, gen, PACKED_STEP_CASES)
+            grad_errs = backward_checks(dev, gen, PACKED_STEP_CASES)
+            fused_errs = fused_kernel_checks(dev, gen, cases=PACKED_STEP_FUSED_CASES)
+            summary["knobs_launches_per_step"] = knobs_phase(dev, card)
+            summary["max_abs_err"] = dict(fwd=max(o_errs.values()), **{g: max(e.values()) for g, e in grad_errs.items()},
+                                          fused=fused_errs)
         elif args.only == "inference":
             o_errs = forward_checks(dev, gen, LONGCTX_CASES)
             summary["inference"] = inference_phase(dev, card, gen)
@@ -5562,6 +6202,9 @@ def main(argv=None):
     moe_enc_launches, moe_batches = moe_serving(dev, card, tok, rng, gen)
     moe_train_launches = moe_training(dev, card)
 
+    # 23. the training step's last single-card knobs: packing, capacity and expert-choice MoE, embed_parallel
+    knobs = knobs_phase(dev, card)
+
     main = timings["b256_s512"]
 
     def gmm_entry(kname, replaces):
@@ -5579,6 +6222,7 @@ def main(argv=None):
                      for (name, layout, K, N), row in moe_times.items() if (name == "tgmm") == (kname == "tgmm")},
         )
         entry["families"] = family_entry(kname)
+        entry["capacity_moe_step_launches"] = knobs["capacity"][kname]
         if kname == "gmm":
             entry["encode_launches"] = moe_enc_launches["gmm"]
             entry["encode_batches"] = moe_batches
@@ -5646,7 +6290,10 @@ def main(argv=None):
             launches=launches_train[kname],
             trainer_launches=launches_trainer[kname],
             distributed_launches_per_rank_step=dist_launches[kname],
+            packed_step_launches=knobs["packed"][kname],
             max_abs_err=max(max(grad_errs[g].values()) for g in (("dq",) if kname == "dq" else ("dk", "dv"))),
+            packed_step_max_abs_err=max(grad_errs[g][c[0]] for g in (("dq",) if kname == "dq" else ("dk", "dv"))
+                                        for c in PACKED_STEP_CASES),
             **{k: v for k, v in at(doc, "B=16 S=T=256 H=12 D=64 (document chunk)").items()},
             query_tower=at(query, "B=512 S=T=32 H=12 D=64"),
             mlm_unfused=at(mlm, "B=8 S=T=2048 H=12 D=64, rotary outside"),
@@ -5667,6 +6314,7 @@ def main(argv=None):
             replaces=replaces,
             also_replaces=also,
             launches=mlm_launches[f"{kname}_rot"],
+            packed_step_launches=knobs["packed_fused"][f"{kname}_rot"],
             max_abs_err=max(fused_errs[g] for g in errs),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             library_composite_ms=row["library_composite_ms"],
@@ -5688,6 +6336,8 @@ def main(argv=None):
             train_launches=launches_train["fwd"],
             trainer_launches=launches_trainer["fwd"],
             distributed_launches_per_rank_step=dist_launches["fwd"],
+            packed_step_launches=knobs["packed"]["fwd"],
+            packed_step_max_abs_err=max(o_errs[c[0]] for c in PACKED_STEP_CASES),
             mlm_eval_launches=bert_family["mlm_eval"], mlm_eval_batches=bert_family["mlm_eval_batches"],
             glue_eval_launches=bert_family["glue_eval"], glue_eval_batches=bert_family["glue_eval_batches"],
             max_abs_err=max(o_errs.values()),

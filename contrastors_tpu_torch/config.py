@@ -229,7 +229,7 @@ class TrainArgs(_Base):
     # skip the pass-2 re-forward
     grad_cache_direct_chunks_q: int = 0
     grad_cache_direct_chunks_d: int = 0
-    # pass-1 super-chunking; only 1 is ported (grad_cache.py raises above it)
+    # pass-1 super-chunking: cached chunks embedded per pass-1 forward
     grad_cache_embed_parallel: int = 1
     clamp_logits: bool = True
     logit_max: float = 100.0
@@ -313,7 +313,7 @@ class ContrastiveDataArgs(DataArgs):
     sample_negatives: bool = True
     query_max_length: Optional[int] = None
     document_max_length: Optional[int] = None
-    # sequence packing (ROADMAP Queue 1, packed path: not ported yet)
+    # sequence packing (data/packing.py)
     packed: bool = False
     packed_seq_len: Optional[int] = None
     packed_max_segments: int = 4

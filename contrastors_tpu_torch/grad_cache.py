@@ -41,8 +41,18 @@ What differs from the JAX function, and why:
     the router aux is summed and the other metrics are averaged, as JAX's
     psum / pmean. Each rank's chunks draw their own noise: the rank enters
     `chunk_generator`.
-  - `embed_parallel > 1` raises NotImplementedError until the slice that
-    needs it (ROADMAP).
+  - `embed_parallel = m > 1` (pass-1 super-chunking, JAX's `:100-110,
+    183-227`): pass 1 encodes m cached chunks per forward, m clamped down
+    to the largest divisor of the tower's count of cached chunks
+    (`embed_parallel_d` for the documents, default m). JAX vmaps the
+    encoder over the m chunks, so each keeps its own key; here the forward
+    gets a `GeneratorGroup` of the m chunks' generators
+    (`ops/dropout.py`), so each chunk's rows draw the noise its own
+    generator draws at m = 1, which pass 2 replays, and `chunks=m`, so
+    that MoE layers route each chunk on its own (`layers/moe.py`: the
+    capacity and expert-choice dispatches' C is the chunk's). The
+    embeddings are then those of m = 1 in any mode; on the CPU in fp32,
+    bit for bit (the tests). Pass 2 and the direct chunks are unchanged.
 MoE router aux (router_aux_coef != 0, an encoder that returns
 "router_aux"): pass 2 backpropagates <emb, cot> + coef * aux for each
 chunk. The direct part then runs one forward per chunk, with the cached
@@ -61,6 +71,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from contrastors_tpu_torch.ops.dropout import GeneratorGroup
 from contrastors_tpu_torch.parallel.collectives import all_reduce_grads, group_rank, group_size, reduce_metrics
 
 Batch = Dict[str, torch.Tensor]
@@ -107,18 +118,19 @@ def grad_cache_loss_and_grads(
     """Accumulate the gradients of loss_fn(encode_q(q), encode_d(d)) into
     `.grad` and return the loss, or (loss, metrics) with return_metrics.
 
-    encode_*(params, chunk_batch, generator) -> {"embedding": [c, D]};
+    encode_*(params, chunk_batch, generator) -> {"embedding": [c, D]}
+    (with embed_parallel m > 1, pass 1 also hands it chunks=m);
     loss_fn(q_embs, d_embs) -> scalar, or loss_fn(q_embs, d_embs,
     extra_params) when extra_params is given; with loss_has_aux it returns
     (scalar, metrics dict). direct_chunks / direct_chunks_d count leading
-    chunks kept live (negative: all). When `params` has `uses_dropout()`
+    chunks kept live (negative: all). embed_parallel / embed_parallel_d
+    encode that many cached chunks per pass-1 forward (the module
+    docstring). When `params` has `uses_dropout()`
     and it is true, the encoders draw noise from their generator (see the
     module docstring). With a process group the batches are this rank's
     rows and the returned loss, metrics and accumulated gradients are the
     global ones (see the module docstring).
     """
-    if embed_parallel != 1 or (embed_parallel_d or 1) != 1:
-        raise NotImplementedError("embed_parallel > 1 is not ported yet (ROADMAP, Queue 1)")
     base = 0 if rng is None else int(rng)
     rank, world = group_rank(group), group_size(group)
     stochastic = bool(getattr(params, "uses_dropout", lambda: False)())
@@ -161,18 +173,25 @@ def grad_cache_loss_and_grads(
         q_direct = direct_embed(encode_q, 0, q_batch, cq, k_q, n_q, True)
         d_direct = direct_embed(encode_d, 1, d_batch, cd, k_d, n_d, d_trainable)
 
-    # ---- pass 1: cached chunks without grad ---------------------------------
-    def tower_embs(encode, tower, batch, c, k, n, direct):
+    # ---- pass 1: cached chunks without grad, m to a forward -----------------
+    def tower_embs(encode, tower, batch, c, k, n, direct, m):
         parts = [emb.detach() for emb, _ in direct]
+        m = max(1, min(int(m), n - k))
+        while (n - k) % m:
+            m -= 1
         with torch.no_grad():
-            for i in range(k, n):
-                gen = chunk_generator(base, tower, i, device, rank)
-                parts.append(encode(params, _slice(batch, i * c, (i + 1) * c), gen)["embedding"])
+            for i in range(k, n, m):
+                gens = [chunk_generator(base, tower, j, device, rank) for j in range(i, i + m)]
+                rows = _slice(batch, i * c, (i + m) * c)
+                out = encode(params, rows, gens[0]) if m == 1 else encode(params, rows, GeneratorGroup(gens), chunks=m)
+                parts.append(out["embedding"])
         return torch.cat(parts) if len(parts) > 1 else parts[0]
 
+    m_q = embed_parallel
+    m_d = embed_parallel if embed_parallel_d is None else embed_parallel_d
     with record_function("grad_cache/pass1"):
-        q_embs = tower_embs(encode_q, 0, q_batch, cq, k_q, n_q, q_direct).requires_grad_()
-        d_embs = tower_embs(encode_d, 1, d_batch, cd, k_d, n_d, d_direct).requires_grad_()
+        q_embs = tower_embs(encode_q, 0, q_batch, cq, k_q, n_q, q_direct, m_q).requires_grad_()
+        d_embs = tower_embs(encode_d, 1, d_batch, cd, k_d, n_d, d_direct, m_d).requires_grad_()
 
     # ---- loss on the full embeddings: cotangents ----------------------------
     with record_function("grad_cache/loss"):

@@ -15,8 +15,9 @@ drop-path2. With `layer_scale` (EVA, DINOv2) the attention and MLP outputs
 are scaled by `ls1` / `ls2` ([n_embd], initialised to layer_scale_init)
 before their residual add (prenorm only, as in JAX). `rope`, the 2-D ViT table, goes to the attention
 (`layers/attention.py`). A MoE block
-(`moe` and num_experts > 0) runs the dropless `MoEMLP` in place of the MLP
-and returns its masked router logits; a dense block returns None for them.
+(`moe` and num_experts > 0) runs `MoEMLP` in place of the MLP, routing
+`moe_groups` blocks of rows on their own, and returns its masked router
+logits; a dense block returns None for them.
 
 `ParallelBlock` (GPT-J / GPT-NeoX) carries two un-added streams, the
 previous block's attention and MLP outputs, plus the residual: it adds both
@@ -36,7 +37,7 @@ from contrastors_tpu_torch.layers.attention import MultiHeadAttention
 from contrastors_tpu_torch.layers.mlp import make_mlp
 from contrastors_tpu_torch.layers.moe import MoEMLP
 from contrastors_tpu_torch.layers.norms import make_norm
-from contrastors_tpu_torch.ops.dropout import active, drop_path, dropout, site_generator
+from contrastors_tpu_torch.ops.dropout import Seed, active, drop_path, dropout, site_generator
 
 
 class Block(nn.Module):
@@ -70,10 +71,10 @@ class Block(nn.Module):
     def _norm1(self, x):
         return x if self.norm1 is None else self.norm1(x)
 
-    def _mlp(self, x, attention_mask):
+    def _mlp(self, x, attention_mask, moe_groups):
         """(output, router logits or None)."""
         if self.moe:
-            return self.mlp(x, attention_mask)
+            return self.mlp(x, attention_mask, moe_groups)
         return self.mlp(x), None
 
     def forward(
@@ -83,12 +84,15 @@ class Block(nn.Module):
         attention_mask: Optional[torch.Tensor] = None,
         segment_ids: Optional[torch.Tensor] = None,
         position_ids: Optional[torch.Tensor] = None,
-        dropout_seed: Optional[int] = None,
+        dropout_seed: Optional[Seed] = None,
         rope: Optional[torch.Tensor] = None,
+        moe_groups: int = 1,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
         """(hidden_states, residual, router_logits). dropout_seed (a host
-        int) seeds the block's dropout sites; training mode with a dropout
-        on needs it. rope: the 2-D ViT rope table, or None."""
+        int, or a tuple of them for row groups, `ops/dropout.py`) seeds the
+        block's dropout sites; training mode with a dropout on needs it.
+        rope: the 2-D ViT rope table, or None. moe_groups: the MoE layer's
+        routing groups."""
         cfg = self.config
         dev, train = hidden_states.device, self.training
 
@@ -107,13 +111,13 @@ class Block(nn.Module):
             residual = h if residual is None else residual + h
             hidden_states = _scaled(self.attn(self._norm1(residual).to(self.dtype), **attn_kw), self.ls1)
             residual = residual + drop(hidden_states, 3, self.drop_path_rate2).to(resid_dtype)
-            hidden_states, router_logits = self._mlp(self.norm2(residual).to(self.dtype), attention_mask)
+            hidden_states, router_logits = self._mlp(self.norm2(residual).to(self.dtype), attention_mask, moe_groups)
             return _scaled(hidden_states, self.ls2), residual, router_logits
         if residual is not None:
             raise ValueError("postnorm blocks carry no external residual")
         attn_out = self.attn(hidden_states, **attn_kw)
         hidden_states = self._norm1(drop(attn_out, 0, self.drop_path_rate1) + hidden_states)
-        mlp_out, router_logits = self._mlp(hidden_states, attention_mask)
+        mlp_out, router_logits = self._mlp(hidden_states, attention_mask, moe_groups)
         return self.norm2(drop(mlp_out, 3, self.drop_path_rate2) + hidden_states), None, router_logits
 
 
@@ -135,7 +139,7 @@ class ParallelBlock(nn.Module):
         attention_mask: Optional[torch.Tensor] = None,
         segment_ids: Optional[torch.Tensor] = None,
         position_ids: Optional[torch.Tensor] = None,
-        dropout_seed: Optional[int] = None,
+        dropout_seed: Optional[Seed] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(attention output, MLP output, residual). hidden_states2 is None
         before the first block."""

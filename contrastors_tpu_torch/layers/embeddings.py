@@ -23,7 +23,7 @@ from torch import nn
 from contrastors_tpu_torch._device import resolve_device
 from contrastors_tpu_torch.layers.dense import Dense, Embed
 from contrastors_tpu_torch.layers.rotary import build_2d_rope_cat
-from contrastors_tpu_torch.ops.dropout import need_generator
+from contrastors_tpu_torch.ops.dropout import draw, need_generator
 
 
 def pad_aware_position_ids(input_ids: torch.Tensor, pad_token_id: int) -> torch.Tensor:
@@ -135,7 +135,7 @@ def patch_dropout(x: torch.Tensor, prob: float, generator: torch.Generator, excl
     patches = x[:, 1:] if exclude_first else x
     B, N, D = patches.shape
     keep = max(1, int(N * (1.0 - prob)))
-    scores = torch.randn((B, N), generator=generator, device=x.device)
+    scores = draw(torch.randn, (B, N), generator, x.device)
     idx = torch.topk(scores, keep, dim=1).indices
     kept = torch.gather(patches, 1, idx[:, :, None].expand(-1, -1, D))
     return torch.cat([cls_part, kept], dim=1) if exclude_first else kept

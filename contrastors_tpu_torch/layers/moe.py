@@ -1,27 +1,45 @@
-"""Mixture-of-experts MLP, dropless, counterpart of
-`contrastors_tpu/layers/moe.py:MoEMLP` with `moe_impl="dropless"`.
+"""Mixture-of-experts MLP, counterpart of `contrastors_tpu/layers/moe.py:MoEMLP`.
 
-Routing (token choice): fp32 router logits x @ router [D, E]; softmax over
-the unmasked logits; top-k; optional renormalisation; then the weights of
-padding tokens are set to 0. Padding tokens are still dispatched: they
-occupy rows and contribute nothing. The layer returns the masked logits
-(-1e9 on padding) for the router load-balance loss.
+Routing: fp32 router logits x @ router [D, E]; softmax over the unmasked
+logits. The layer returns the masked logits (-1e9 on padding) for the
+router load-balance loss. Three dispatches read the same expert parameters:
 
-Dispatch: the N*k assignments are laid out expert-sorted with 128-row
-aligned groups (`ops.grouped_matmul.aligned_group_layout`), gathered from
-the tokens through an appended zero row (the padding rows' sentinel; its
-gradient is dropped), run through three grouped matmuls (up and gate, then
-down after the gated activation) and gathered back by `dest` and combined
-by weight. Optional shared experts (Dense layers on every token) blend in
-by assignment count, then the output bias. Nothing is read back to the
-host.
+  - token choice, moe_impl="dropless" (megablocks' dMoE): top-k, optional
+    renormalisation, weight 0 for padding tokens (which still occupy rows).
+    The N*k assignments are laid out expert-sorted with 128-row aligned
+    groups (`ops.grouped_matmul.aligned_group_layout`), gathered from the
+    tokens through an appended zero row (the padding rows' sentinel; its
+    gradient is dropped), run through three grouped matmuls (up and gate,
+    then down after the gated activation), gathered back by `dest` and
+    combined by weight. Nothing is dropped.
+  - token choice, moe_impl="capacity" (Switch / Mesh-TF): each expert has
+    C = min(max(capacity_factor * N * k / E, k), N) slots, taken by its
+    assignments in token order (a padding token's assignment takes its
+    place in that order and is then dropped); an [E, C] token-index table
+    (sentinel N, the appended zero row) and an [E, C] weight table gather
+    the tokens, `torch.bmm` runs the expert MLPs, and a scatter-add
+    (`index_add`) combines them. Assignments past C are dropped.
+  - expert_choice_router=True (Zhou et al. 2022): each expert takes its
+    top C = min(max(capacity_factor * N * k / E, 1), N) tokens by score
+    (padding scores 0, ties to the lower index, as JAX's top_k), a picked
+    padding token gets weight 0; the same bmm and scatter-add.
+The capacity and expert-choice dispatches are plain PyTorch: JAX runs them
+as einsums and gathers outside any Pallas kernel, so they launch no gmm.
+
+`groups` splits the N tokens into that many equal blocks of whole rows
+that route on their own, each with its own C, as that many separate calls
+would: grad cache's pass 1 embeds several chunks per forward
+(`embed_parallel`), where JAX vmaps the encoder over them. Dropless routing
+is per token, so groups do not change it.
+
+Optional shared experts (Dense layers on every token) blend in by
+assignment count, then the output bias. Nothing is read back to the host.
 
 Parameters keep the JAX names and shapes so that `convert.flax_to_torch`
 maps them one to one: `router` [D, E], `w_up`/`w_gate` [E, D, F] and
 `w_down` [E, F, D] (`w_in` for an ungated activation), `bias` [D], and the
 `shared_*` Dense layers. They are stored in fp32 and cast to the compute
-dtype where used, as `layers/dense.py` does. The capacity dispatch and
-expert-choice routing are not ported yet (ROADMAP, Queue 1).
+dtype where used, as `layers/dense.py` does.
 """
 
 import torch
@@ -38,11 +56,8 @@ class MoEMLP(nn.Module):
         super().__init__()
         device = resolve_device(device)
         cfg = config
-        if cfg.expert_choice_router:
-            raise NotImplementedError("expert-choice routing is not ported yet (ROADMAP, Queue 1: MoE)")
-        if cfg.moe_impl == "capacity":
-            raise NotImplementedError("moe_impl='capacity' is not ported yet (ROADMAP, Queue 1: MoE)")
-        if cfg.moe_impl != "dropless":
+        if cfg.moe_impl not in ("dropless", "capacity"):
+            # "auto" is resolved by the trainer (dropless with no expert axis)
             raise ValueError(f"moe_impl={cfg.moe_impl!r}: expected 'dropless' or 'capacity'")
         self.config, self.dtype = cfg, dtype
         D, std = cfg.n_embd, cfg.initializer_range
@@ -50,6 +65,7 @@ class MoEMLP(nn.Module):
         self.num_routed = cfg.num_experts - self.num_shared
         self.top_k = cfg.moe_top_k - self.num_shared
         self.block_m = int(cfg.moe_block_m)
+        self.capacity_factor = float(cfg.moe_capacity_factor)
         self.gated = is_gated(cfg.activation_function)
         self.act = ACT2FN[cfg.activation_function]
         F_hid = cfg.n_inner // cfg.ffn_div
@@ -93,11 +109,88 @@ class MoEMLP(nn.Module):
             h = self.act(gmm(xs, self.w_in.to(dt), group_sizes, bm, blocks))
         return gmm(h, self.w_down.to(dt), group_sizes, bm, blocks)
 
-    def forward(self, hidden_states: torch.Tensor, attention_mask=None):
+    def _expert_bmm(self, expert_in):
+        """The expert MLPs over a slot table's tokens [E, C, D]."""
+        dt = self.dtype
+        if self.gated:
+            h = torch.bmm(expert_in, self.w_up.to(dt)) * self.act(torch.bmm(expert_in, self.w_gate.to(dt)))
+        else:
+            h = self.act(torch.bmm(expert_in, self.w_in.to(dt)))
+        return torch.bmm(h, self.w_down.to(dt))
+
+    def _combine(self, x_rows, idx, weights, n_out):
+        """Scatter-add of the experts' weighted outputs over the tokens of
+        the [E, C] table idx into [n_out, D]."""
+        D = x_rows.shape[-1]
+        expert_out = self._expert_bmm(x_rows[idx])
+        contrib = (expert_out * weights[..., None].to(expert_out.dtype)).reshape(-1, D)
+        return contrib.new_zeros((n_out, D)).index_add(0, idx.reshape(-1), contrib)
+
+    def _dropless(self, x, top_w, top_e):
+        N, D = x.shape
+        k = self.top_k
+        token_of = torch.arange(N, device=x.device).repeat_interleave(k)
+        dest, group_sizes, P, src = aligned_group_layout(
+            top_e.reshape(-1), self.num_routed, self.block_m, src_of=token_of, sentinel=N
+        )
+        x_pad = torch.cat([x.to(self.dtype), x.new_zeros((1, D), dtype=self.dtype)])
+        y = self._experts(x_pad[src], group_sizes)
+        y_assign = y[dest].reshape(N, k, D)
+        return (y_assign * top_w[..., None].to(y_assign.dtype)).sum(dim=1)
+
+    def _capacity_slots(self, top_e, valid, groups):
+        """(C, pos, ok) of token choice with C slots an expert in each group
+        of n tokens: pos [G, n*k] is each assignment's rank in its expert's
+        queue, ok whether it is a valid token's and takes a slot."""
+        N = valid.shape[0]
+        E, k, G = self.num_routed, self.top_k, groups
+        n = N // G
+        C = min(int(max(self.capacity_factor * n * k / max(E, 1), k)), n)
+        experts = torch.arange(E, device=valid.device)
+        onehot = (top_e.reshape(G, n * k)[..., None] == experts).long()  # [G, n*k, E]
+        pos = ((onehot.cumsum(dim=1) - onehot) * onehot).sum(dim=-1)
+        ok = (pos < C) & valid.reshape(G, n, 1).expand(G, n, k).reshape(G, n * k)
+        return C, pos, ok
+
+    def _capacity(self, x, top_w, top_e, valid, groups):
+        """Token choice through the [E, C] tables; the table's columns are
+        the groups' slots side by side."""
+        N, D = x.shape
+        E, k, G = self.num_routed, self.top_k, groups
+        C, pos, ok = self._capacity_slots(top_e, valid, groups)
+        offset = (torch.arange(G, device=x.device) * C)[:, None]
+        col = torch.where(ok, pos + offset, G * C).reshape(-1)  # G*C: the dropped column
+        ok = ok.reshape(-1)
+        flat_e = top_e.reshape(-1)
+        token_of = torch.arange(N, device=x.device).repeat_interleave(k)
+        idx = torch.full((E, G * C + 1), N, dtype=torch.long, device=x.device)
+        idx = idx.index_put((flat_e, col), torch.where(ok, token_of, N))[:, :G * C]
+        w = torch.zeros((E, G * C + 1), dtype=torch.float32, device=x.device)
+        w = w.index_put((flat_e, col), torch.where(ok, top_w.reshape(-1).float(), 0.0))[:, :G * C]
+        x_pad = torch.cat([x.to(self.dtype), x.new_zeros((1, D), dtype=self.dtype)])
+        return self._combine(x_pad, idx, w, N + 1)[:N]
+
+    def _expert_choice(self, x, probs, valid, groups):
+        """Each expert's top C tokens of each group of n, by score."""
+        N, D = x.shape
+        E, k, G = self.num_routed, self.top_k, groups
+        n = N // G
+        C = min(int(max(self.capacity_factor * n * k / max(E, 1), 1)), n)
+        scores = torch.where(valid, probs, 0.0).reshape(G, n, E).transpose(1, 2)  # [G, E, n]
+        # stable: equal scores go to the lower token index, as JAX's top_k
+        g, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+        g, idx = g[..., :C], idx[..., :C] + (torch.arange(G, device=x.device) * n)[:, None, None]
+        idx = idx.transpose(0, 1).reshape(E, G * C)
+        g = g.transpose(0, 1).reshape(E, G * C) * valid.reshape(-1)[idx].to(g.dtype)  # picked pads: 0
+        return self._combine(x.to(self.dtype), idx, g, N)
+
+    def forward(self, hidden_states: torch.Tensor, attention_mask=None, groups: int = 1):
         """Returns (output [B, S, D] in hidden_states.dtype, masked router
-        logits [B*S, E] fp32)."""
+        logits [B*S, E] fp32). groups divides B (module docstring)."""
         B, S, D = hidden_states.shape
-        N, E, k = B * S, self.num_routed, self.top_k
+        N = B * S
+        if B % groups:
+            raise ValueError(f"{B} rows do not split into {groups} routing groups")
         x = hidden_states.reshape(N, D)
 
         logits = x.float() @ self.router  # [N, E]
@@ -107,16 +200,15 @@ class MoEMLP(nn.Module):
         else:
             valid = torch.ones((N, 1), dtype=torch.bool, device=x.device)
             logits_masked = logits
-        top_w, top_e = self.route(torch.softmax(logits, dim=-1), valid)  # [N, k]
-
-        token_of = torch.arange(N, device=x.device).repeat_interleave(k)
-        dest, group_sizes, P, src = aligned_group_layout(
-            top_e.reshape(-1), E, self.block_m, src_of=token_of, sentinel=N
-        )
-        x_pad = torch.cat([x.to(self.dtype), x.new_zeros((1, D), dtype=self.dtype)])
-        y = self._experts(x_pad[src], group_sizes)
-        y_assign = y[dest].reshape(N, k, D)
-        out = (y_assign * top_w[..., None].to(y_assign.dtype)).sum(dim=1)
+        probs = torch.softmax(logits, dim=-1)
+        if self.config.expert_choice_router:
+            out = self._expert_choice(x, probs, valid, groups)
+        else:
+            top_w, top_e = self.route(probs, valid)  # [N, k]
+            if self.config.moe_impl == "capacity":
+                out = self._capacity(x, top_w, top_e, valid, groups)
+            else:
+                out = self._dropless(x, top_w, top_e)
 
         if self.num_shared > 0:
             shared = self.shared_down(self.shared_up(x) * self.act(self.shared_gate(x)))

@@ -9,7 +9,9 @@ semantics. The output carries the MoE layers' masked router logits under
 loss. `LogitScale` is the contrastive loss's exp-parameterised
 temperature. `remat` recomputes each trunk block's activations in the
 backward (activation checkpointing, `NomicBertModel`). `generator` seeds the
-trunk's dropout in training mode (JAX's "dropout" rng).
+trunk's dropout in training mode (JAX's "dropout" rng). `moe_groups` splits
+the rows into that many blocks that the encoder trunk's MoE layers route
+on their own (grad cache's pass-1 chunks; the other trunks have no MoE).
 
 trunk_type="vision" runs `ViTModel` on `pixel_values` with no mask;
 pooling="map" adds the MAP head (`selector`, JAX's name). With `freeze`
@@ -17,7 +19,19 @@ the trunk runs under `torch.no_grad()`, where JAX stops the gradient at
 its last_hidden_state: the pooling head, hamming LayerNorm and projection
 after it still take gradients. trunk_type="decoder" runs the causal
 `DecoderModel` (no token types), usually with "last" pooling: the final
-valid token of each row. Packed mode raises until its slice is ported.
+valid token of each row.
+
+Packed mode (`data/packing.py`'s rows): pass `segment_ids`,
+`position_ids`, `max_segments` and `pair_index` (and `last_token_index`
+for "last" pooling). The attention mask is then segment_ids > 0, attention
+stays within segments (the flash kernels' segment ids; the decoder's causal
+band inside them), positions restart at each segment, and pooling is per
+segment: "mean" through `segment_mean_pool`, "last" by gathering each
+sequence's last token, 0 for a slot that holds no token. The result is one
+embedding per original sequence, or with pair_index=None the raw
+[rows * max_segments, D] slot matrix (grad cache chunks over rows and
+gathers the pairs at the loss). Vision trunks and other poolings refuse
+packed rows, as JAX's do.
 """
 
 import contextlib
@@ -59,6 +73,39 @@ def last_token_pool(hidden: torch.Tensor, attention_mask: torch.Tensor) -> torch
 
 def cls_pool(hidden: torch.Tensor, attention_mask=None) -> torch.Tensor:
     return hidden[:, 0]
+
+
+def _slot_onehot(segment_ids: torch.Tensor, max_segments: int) -> torch.Tensor:
+    """[R, L, K] fp32: token l of row r belongs to segment k + 1."""
+    slots = torch.arange(1, max_segments + 1, device=segment_ids.device)
+    return (segment_ids[:, :, None] == slots).float()
+
+
+def segment_mean_pool(hidden: torch.Tensor, segment_ids: torch.Tensor, max_segments: int,
+                      pair_index: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-segment masked mean over packed rows, in fp32, cast back to
+    hidden.dtype: hidden [R, L, D], segment_ids [R, L] in 0..max_segments (0
+    = pad), pair_index [B] flat (row * max_segments + seg - 1) indices, or
+    None for the raw [R * max_segments, D] slot matrix (an empty slot's
+    mean is 0)."""
+    onehot = _slot_onehot(segment_ids, max_segments)
+    sums = torch.bmm(onehot.transpose(1, 2), hidden.float())  # [R, K, D]
+    counts = onehot.sum(dim=1).clamp_min(1.0)[..., None]
+    means = (sums / counts).reshape(-1, hidden.shape[-1])
+    if pair_index is not None:
+        means = means[pair_index.long()]
+    return means.to(hidden.dtype)
+
+
+def segment_last_pool(hidden: torch.Tensor, segment_ids: torch.Tensor, max_segments: int,
+                      pair_index: Optional[torch.Tensor], last_token_index: torch.Tensor) -> torch.Tensor:
+    """Each sequence's last token (flat `last_token_index` into [R * L]);
+    a sequence that packing truncated to 0 tokens owns no position, so its
+    embedding is 0."""
+    embedding = hidden.reshape(-1, hidden.shape[-1])[last_token_index.long()]
+    counts = _slot_onehot(segment_ids, max_segments).sum(dim=1).reshape(-1)  # tokens per slot
+    sel = counts if pair_index is None else counts[pair_index.long()]
+    return embedding * (sel > 0).to(embedding.dtype)[:, None]
 
 
 class LogitScale(nn.Module):
@@ -128,11 +175,21 @@ class BiEncoder(nn.Module):
         binarize: bool = False,
         generator: Optional[torch.Generator] = None,
         pixel_values: Optional[torch.Tensor] = None,
+        pair_index: Optional[torch.Tensor] = None,
+        last_token_index: Optional[torch.Tensor] = None,
+        moe_groups: int = 1,
     ) -> Dict[str, Any]:
-        if segment_ids is not None and max_segments is not None:
+        packed = segment_ids is not None and max_segments is not None
+        if packed:
             if self.trunk_type == "vision":
                 raise ValueError("packed mode does not apply to vision trunks")
-            raise NotImplementedError("packed mode is not ported yet (ROADMAP, Queue 1: packed path)")
+            if self.pooling not in ("mean", "last"):
+                raise ValueError("packed mode supports mean or last pooling only")
+            if self.pooling == "last" and last_token_index is None:
+                raise ValueError("packed 'last' pooling needs last_token_index")
+            if attention_mask is None:
+                # MoE routing and the router aux see row padding as invalid
+                attention_mask = (segment_ids > 0).to(torch.int32)
         with torch.no_grad() if self.freeze else contextlib.nullcontext():
             if self.trunk_type == "vision":
                 trunk_out = self.trunk(pixel_values, generator=generator)
@@ -148,10 +205,15 @@ class BiEncoder(nn.Module):
                     token_type_ids=token_type_ids,
                     segment_ids=segment_ids,
                     generator=generator,
+                    moe_groups=moe_groups,
                 )
         hidden = trunk_out["last_hidden_state"]
 
-        if self.pooling == "mean":
+        if packed and self.pooling == "mean":
+            embedding = segment_mean_pool(hidden, segment_ids, max_segments, pair_index)
+        elif packed:
+            embedding = segment_last_pool(hidden, segment_ids, max_segments, pair_index, last_token_index)
+        elif self.pooling == "mean":
             embedding = mean_pool(hidden, attention_mask)
         elif self.pooling == "last":
             embedding = last_token_pool(hidden, attention_mask)

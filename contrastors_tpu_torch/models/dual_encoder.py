@@ -59,9 +59,10 @@ class DualEncoder(nn.Module):
         return site_generator(noise_seed(generator), tower, device="cpu")
 
     def encode_text(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None,
-                    normalize: bool = True, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                    normalize: bool = True, generator: Optional[torch.Generator] = None,
+                    moe_groups: int = 1) -> torch.Tensor:
         return self.text(input_ids, attention_mask, normalize=normalize,
-                         generator=self._tower_generator(generator, TOWER_TEXT))["embedding"]
+                         generator=self._tower_generator(generator, TOWER_TEXT), moe_groups=moe_groups)["embedding"]
 
     def encode_image(self, pixel_values: torch.Tensor, normalize: bool = True,
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:

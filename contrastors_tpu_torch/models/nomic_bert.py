@@ -7,7 +7,8 @@ Postnorm blocks, the embedding LayerNorm, optional rotary (nomic-bert-2048;
 rotated inside the flash kernels with `fused_rotary`), ModernBERT-style
 local/global alternation and prenorm trunks. Padding is handled by
 static-shape masks, as on the JAX side. MoE layers (every
-`moe_every_n_layers`-th, from layer 1) run the dropless MoEMLP; the output
+`moe_every_n_layers`-th, from layer 1) run MoEMLP, routing each of
+`moe_groups` equal blocks of rows on its own (grad cache's pass-1 chunks); the output
 carries their masked router logits, in layer order, under "router_logits"
 (an empty list for a dense trunk).
 
@@ -137,6 +138,7 @@ class NomicBertModel(nn.Module):
         token_type_ids: Optional[torch.Tensor] = None,
         segment_ids: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        moe_groups: int = 1,
     ) -> Dict[str, Any]:
         cfg = self.config
         seed = noise_seed(generator) if self.uses_dropout() else None
@@ -150,9 +152,9 @@ class NomicBertModel(nn.Module):
             block_seed = None if seed is None else fold_seed(seed, SITE_BLOCK, i)
             args = (hidden, residual, attention_mask, segment_ids, position_ids, block_seed)
             if self.remat and torch.is_grad_enabled():
-                hidden, residual, rl = checkpoint(block, *args, use_reentrant=False)
+                hidden, residual, rl = checkpoint(block, *args, moe_groups=moe_groups, use_reentrant=False)
             else:
-                hidden, residual, rl = block(*args)
+                hidden, residual, rl = block(*args, moe_groups=moe_groups)
             if rl is not None:
                 router_logits.append(rl)
         if self.final_norm is not None:

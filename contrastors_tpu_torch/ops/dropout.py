@@ -16,9 +16,18 @@ sync), `fold_seed` derives a site's seed from it on the host, and
 block outside the block's call and builds the block's generators inside it,
 so that the replay of `torch.utils.checkpoint`, which restores only the
 global RNG state, draws the same noise.
+
+A `GeneratorGroup` stands for m forwards in one: grad cache's pass 1 embeds
+m chunks per call (`embed_parallel`), each of which must draw the noise its
+own generator gives it alone, as JAX's `vmap` over the chunks' keys does.
+Passed where a generator goes, its seed is a tuple (one per chunk) that
+`fold_seed` and `site_generator` carry through to every site, and each site
+draws its leading-dim row blocks from the chunks' generators in turn
+(`draw`). The group carries noise only: grad cache tells the encoder the
+chunk count on its own, for the MoE layers' routing.
 """
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -32,23 +41,45 @@ def _mix(x: int) -> int:
     return x ^ (x >> 31)
 
 
-def fold_seed(seed: int, *path: int) -> int:
-    """A 64-bit seed for `path` under `seed`, on the host (JAX's fold_in)."""
+class GeneratorGroup:
+    """The generators of m equal blocks of leading rows, in order."""
+
+    def __init__(self, generators: Sequence[torch.Generator]):
+        self.generators = list(generators)
+
+    def __len__(self) -> int:
+        return len(self.generators)
+
+
+Seed = Union[int, Tuple[int, ...]]
+
+
+def fold_seed(seed: Seed, *path: int) -> Seed:
+    """A 64-bit seed for `path` under `seed`, on the host (JAX's fold_in);
+    a tuple of seeds folds each."""
+    if isinstance(seed, tuple):
+        return tuple(fold_seed(s, *path) for s in seed)
     x = _mix(int(seed) & _M64)
     for p in path:
         x = _mix((x + 0x9E3779B97F4A7C15 * (int(p) + 1)) & _M64)
     return x
 
 
-def noise_seed(generator: Optional[torch.Generator]) -> Optional[int]:
-    """The seed a generator was seeded with (None for None)."""
+def noise_seed(generator) -> Optional[Seed]:
+    """The seed a generator was seeded with (None for None; a tuple for a
+    GeneratorGroup)."""
+    if isinstance(generator, GeneratorGroup):
+        return tuple(int(g.initial_seed()) for g in generator.generators)
     return None if generator is None else int(generator.initial_seed())
 
 
-def site_generator(seed: Optional[int], *path: int, device) -> Optional[torch.Generator]:
-    """The generator of the dropout site `path` under `seed`, on `device`."""
+def site_generator(seed: Optional[Seed], *path: int, device):
+    """The generator of the dropout site `path` under `seed`, on `device`
+    (a GeneratorGroup for a tuple of seeds)."""
     if seed is None:
         return None
+    if isinstance(seed, tuple):
+        return GeneratorGroup([site_generator(s, *path, device=device) for s in seed])
     return torch.Generator(device=device).manual_seed(fold_seed(seed, *path))
 
 
@@ -74,9 +105,21 @@ def need_generator(generator: Optional[torch.Generator], p: float, where: str = 
                          "(as flax needs a 'dropout' rng)")
 
 
-def keep_mask(shape: Sequence[int], keep: float, generator: torch.Generator, device) -> torch.Tensor:
+def draw(fn: Callable[..., torch.Tensor], shape: Sequence[int], generator, device) -> torch.Tensor:
+    """fn(shape, generator=, device=) (torch.rand, torch.randn); from a
+    GeneratorGroup, each block of leading rows from its own generator."""
+    if not isinstance(generator, GeneratorGroup):
+        return fn(tuple(shape), generator=generator, device=device)
+    m = len(generator)
+    if shape[0] % m:
+        raise ValueError(f"{shape[0]} rows do not split into {m} groups")
+    block = (shape[0] // m,) + tuple(shape[1:])
+    return torch.cat([fn(block, generator=g, device=device) for g in generator.generators])
+
+
+def keep_mask(shape: Sequence[int], keep: float, generator, device) -> torch.Tensor:
     """Bool mask, True with probability `keep`, drawn from `generator`."""
-    return torch.rand(tuple(shape), generator=generator, device=device) < keep
+    return draw(torch.rand, shape, generator, device) < keep
 
 
 def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator], training: bool = True,

@@ -54,6 +54,9 @@ in-train eval and the loop. What differs from JAX, and why:
     to the device without waiting, and metrics stay on the device until
     the tracker fetches them.
   - moe_impl "auto" resolves to "dropless" (no expert axis).
+  - The step is built after the first batch's `transform_host_batch`, as
+    JAX builds it (`:321-325,368-376`), so that `packed_auto` can turn
+    packing off before the step reads the flag.
 """
 
 import os
@@ -422,8 +425,9 @@ class BaseTrainer(ABC):
         meta = {k: v for k, v in host_batch.items() if not isinstance(v, np.ndarray)}
         arrays = {k: v for k, v in host_batch.items() if isinstance(v, np.ndarray)}
         # count examples, not rows of an arbitrary array (documents carry
-        # B * (1 + negatives) rows)
-        key = next((k for k in ("query_input_ids", "input_ids") if k in arrays), next(iter(arrays)))
+        # B * (1 + negatives) rows; packed batches carry rows and pair indices)
+        key = next((k for k in ("query_pair_index", "query_input_ids", "input_ids") if k in arrays),
+                   next(iter(arrays)))
         tensors = {k: torch.from_numpy(v) for k, v in arrays.items()}
         if self.device.type == "cuda":
             tensors = {k: v.pin_memory() for k, v in tensors.items()}

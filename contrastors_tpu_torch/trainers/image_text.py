@@ -32,7 +32,9 @@ its rows of every global batch (the loader's rank window), both steps'
 symmetric loss gathers both towers over the ranks, the step divides it by
 the world size, and the gradients are summed over the ranks (grad cache per
 rank, chunk_size per rank, as JAX's `shard_map` body).
-`grad_cache_embed_parallel > 1` waits for ROADMAP Queue 1, item 1.
+`grad_cache_embed_parallel` = m embeds m chunks of each tower per pass-1
+forward (`grad_cache.py`), the knob JAX made for the vision step's many
+small launches.
 """
 
 import os
@@ -142,8 +144,6 @@ class ImageTextTrainer(BaseTrainer):
 
     def make_train_step(self):
         ta = self.config.train_args
-        if ta.grad_cache_embed_parallel != 1:
-            raise NotImplementedError("grad_cache_embed_parallel > 1 is not ported yet (ROADMAP Queue 1, item 1)")
         if ta.grad_cache:
             return self._grad_cache_step()
 
@@ -169,14 +169,15 @@ class ImageTextTrainer(BaseTrainer):
         direct_q = ta.grad_cache_direct_chunks_q
         direct_d = ta.grad_cache_direct_chunks_d if text_trainable else 0
 
-        def encode_image(dual, chunk_batch, generator):
+        def encode_image(dual, chunk_batch, generator, chunks=1):
+            # the ViT has no MoE layers to route by chunk
             return {"embedding": dual.encode_image(self.pixels(chunk_batch["pixel_values"]), generator=generator)}
 
-        def encode_text(dual, chunk_batch, generator):
+        def encode_text(dual, chunk_batch, generator, chunks=1):
             if "text_embeddings" in chunk_batch:
                 return {"embedding": chunk_batch["text_embeddings"]}
             return {"embedding": dual.encode_text(chunk_batch["input_ids"], chunk_batch["attention_mask"],
-                                                  generator=generator)}
+                                                  generator=generator, moe_groups=chunks)}
 
         def loss_fn(img, txt, scale):
             # a rank's share: the shares add up to the global batch's loss
@@ -192,7 +193,7 @@ class ImageTextTrainer(BaseTrainer):
                 chunk_size=divisor_chunk(chunk, img_b["pixel_values"].shape[0]),
                 rng=noise_seed(step_generator(generator)), d_trainable=text_trainable,
                 extra_params=self.dual.logit_scale, direct_chunks=direct_q, direct_chunks_d=direct_d,
-                group=self.group,
+                embed_parallel=ta.grad_cache_embed_parallel, group=self.group,
             )
             self.optimizer.step()
             self.scheduler.step()

@@ -28,6 +28,7 @@ from contrastors_tpu_torch.eval.encoder import Encoder
 from contrastors_tpu_torch.eval.stub_tokenizer import StubTokenizer
 from contrastors_tpu_torch.models import BiEncoder, NomicBertModel
 from contrastors_tpu_torch.models.presets import nomic_bert_2048 as t_preset
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 SMALL = dict(n_layer=2, n_embd=128, n_head=2, n_inner=256, vocab_size=512)
 
@@ -137,18 +138,12 @@ def test_encoder_restores_the_callers_training_flags():
     assert tm.training and not all(before.values())
 
 
-@pytest.mark.parametrize("over", [dict(parallel_block=True), dict(rotary_head_dim=True),
-                                  dict(num_experts=4, moe_every_n_layers=2, moe_impl="capacity")])
+@pytest.mark.parametrize("over", [dict(parallel_block=True), dict(rotary_head_dim=True)])
 def test_unported_trunk_features_raise(over):
     """The decoder family's features build: trunk_type="decoder" with
     parallel blocks or the open_lm head-index rotary embeds finite, unit-norm
     rows with "last" pooling; the encoder trunk refuses parallel blocks,
-    which JAX's encoder would ignore. The capacity MoE dispatch is still
-    unported and raises NotImplementedError."""
-    if over.get("moe_impl") == "capacity":
-        with pytest.raises(NotImplementedError):
-            BiEncoder(t_preset(**SMALL, **over), device="cpu")
-        return
+    which JAX's encoder would ignore."""
     model = BiEncoder(t_preset(**SMALL, **over, causal=True), trunk_type="decoder", pooling="last", device="cpu")
     assert type(model.trunk.layers[0]).__name__ == ("ParallelBlock" if "parallel_block" in over else "Block")
     ids = torch.randint(1, 512, (2, 10), generator=torch.Generator().manual_seed(0))

@@ -27,6 +27,7 @@ from contrastors_tpu_torch.models import decoder_heads as heads
 from contrastors_tpu_torch.models import hf_interop_decoder as dec
 from contrastors_tpu_torch.models.nomic_bert import masked_cross_entropy
 from contrastors_tpu_torch.ops import dropout as tdrop
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 B, S, V = 3, 12, 128
 HEADS = {

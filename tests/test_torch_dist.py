@@ -59,6 +59,7 @@ from contrastors_tpu_torch.convert import flax_to_torch
 
 import torch_dist_cases as C
 import torch_dist_worker as W
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 2

@@ -10,7 +10,10 @@ JAX trainer (`TRAINER_REGISTRY`) and writes its starting parameters
 (tests/torch_dist_worker.py running tests/torch_dist_trainer_cases.py),
 which record every host batch they train on. Cases: `TextTextTrainer`
 with grad cache (chunk 4 a rank, optimizer state sharded from 1024
-elements) and the standard step (a save at step 2, and a resume from it);
+elements), with grad cache on packed rows (each rank packs its own 8
+pairs into 2 rows of K = 4 with local pair indices, JAX per device; pass 1
+embeds both row chunks of a tower in one forward, embed_parallel 2)
+and the standard step (a save at step 2, and a resume from it);
 `MLMTrainer` (gradient accumulation 2); `ImageTextTrainer` (clip, grad
 cache, chunk 2, one direct image chunk); `DistillTrainer` (towers mode,
 held to one rank only: its global loss on gathered embeddings). The text
@@ -54,9 +57,10 @@ from test_more_trainers import make_tokenized_dataset
 from test_torch_image_text import _rel, _without_key_bias
 from test_torch_trainer import _pairs
 from test_trainer_e2e import make_checkpoint_dir
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 WORLD = 2
-COMPARED = ("text_gc", "text_std", "mlm", "image_gc")
+COMPARED = ("text_gc", "text_std", "mlm", "image_gc", "text_gc_packed")
 ONE_RANK = COMPARED + ("distill",)  # the cases held to the port on one rank
 RECORDED = ("mlm", "image_gc")  # the ranks' own masks and crops: JAX is given their batches
 
@@ -105,7 +109,7 @@ def runs(tmp_path_factory):
     procs = W.launch("torch_dist_trainer_cases", workdir, WORLD)
     try:
         jax_metrics, one_rank = {}, {}
-        for case in ("text_gc", "text_std"):  # their own data: run while the ranks run
+        for case in ("text_gc", "text_std", "text_gc_packed"):  # their own data: run while the ranks run
             jt, out = jax_trainers[case]
             _train(jt)
             jax_metrics[case] = C.read_metrics(out)

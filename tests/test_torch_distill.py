@@ -49,6 +49,7 @@ from contrastors_tpu_torch.losses_distill import (
 from contrastors_tpu_torch.trainers import TRAINER_REGISTRY, DistillTrainer
 
 from test_trainer_e2e import make_checkpoint_dir, make_pairs_file
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 STEPS = 4
 

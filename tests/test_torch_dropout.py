@@ -42,6 +42,7 @@ from contrastors_tpu_torch.models import (BiEncoder, NomicBertForPreTraining, No
 from contrastors_tpu_torch.models import presets as tpre
 from contrastors_tpu_torch.ops import dropout as tdrop
 from contrastors_tpu_torch.ops.sdpa import sdpa
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 SMALL = dict(n_layer=2, n_embd=64, n_head=2, n_inner=128, vocab_size=256)
 DROP = dict(resid_pdrop=0.1, embd_pdrop=0.15, attn_pdrop=0.2)

@@ -39,6 +39,7 @@ from contrastors_tpu_torch.eval import mteb_tools as tools
 
 from test_mini_mteb import make_mteb_data
 from test_trainer_e2e import make_checkpoint_dir
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def test_metrics_equal_jax_on_the_same_arrays():

@@ -46,6 +46,7 @@ from contrastors_tpu_torch.models.model_config import TrunkConfig
 from contrastors_tpu_torch.models.presets import nomic_bert_2048
 
 from test_trainer_e2e import make_checkpoint_dir
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 BERT = dict(vocab_size=128, hidden_size=64, num_hidden_layers=2, num_attention_heads=4, intermediate_size=128,
             max_position_embeddings=64, type_vocab_size=2, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 from contrastors_tpu.ops import flash_attention as jfa
 from contrastors_tpu_torch.ops import attention_core
 from contrastors_tpu_torch.ops import flash_attention as tfa
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 O_ATOL, LSE_ATOL = 1e-5, 1e-4
 

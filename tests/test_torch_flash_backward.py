@@ -22,6 +22,7 @@ import jax.numpy as jnp
 
 from contrastors_tpu.ops import flash_attention as jfa
 from contrastors_tpu_torch.ops import flash_attention as tfa
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 GRAD_ATOL = 1e-4
 CASES = ["padding", "segments", "causal_s_ne_t", "window", "gqa", "unaligned", "fully_masked_row"]

@@ -28,6 +28,7 @@ from contrastors_tpu.layers.rotary import rotary_cos_sin as j_tables
 from contrastors_tpu.ops import flash_attention as jfa
 from contrastors_tpu_torch.layers.rotary import expanded_tables, rotate, rotate_adjoint
 from contrastors_tpu_torch.ops import flash_attention as tfa
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 O_ATOL, GRAD_ATOL = 2e-5, 5e-4
 CASES = ["neox", "neox_causal", "interleaved", "interleaved_causal", "partial_dim_mask", "gqa",

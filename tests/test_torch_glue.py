@@ -45,6 +45,7 @@ from contrastors_tpu_torch.trainers import glue as tglue
 
 from test_torch_mlm_trainer import Recorded, read_metrics
 from test_trainer_e2e import make_checkpoint_dir
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _sst2(tmp):

@@ -26,6 +26,7 @@ from contrastors_tpu_torch.losses import clip_loss
 from contrastors_tpu_torch.models import BiEncoder, LogitScale, init_weights
 from contrastors_tpu_torch.models.presets import nomic_bert_2048 as t_preset
 from contrastors_tpu_torch.trainers.text_text import encode_batch
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 SMALL = dict(n_layer=2, n_embd=128, n_head=2, n_inner=256, vocab_size=512)
 B, LQ, LD = 8, 8, 12
@@ -150,10 +151,102 @@ def test_grad_cache_matches_jax():
     _assert_grads_close(_grads(model, scale), want, atol=5e-5)
 
 
-def test_unported_options_raise():
+def _run(model, scale, qb, db, encode=encode_batch, **kw):
+    model.zero_grad()
+    scale.zero_grad()
+    loss = grad_cache_loss_and_grads(model, qb, db, encode, encode, _loss, chunk_size=2, rng=7,
+                                     extra_params=scale, **kw)
+    return loss, _grads(model, scale)
+
+
+def _assert_same_run(a, b):
+    assert torch.equal(a[0], b[0])
+    assert a[1].keys() == b[1].keys() and all(torch.equal(a[1][n], b[1][n]) for n in a[1]), \
+        [n for n in a[1] if not torch.equal(a[1][n], b[1][n])]
+
+
+@pytest.mark.parametrize("m,md,direct,rows", [(2, None, 0, (4, 4)), (3, None, 0, (4, 4)), (4, None, 0, (8, 8)),
+                                              (1, 4, 0, (2, 8)), (4, 2, 1, (6, 2))])
+def test_embed_parallel_is_m1_bit_for_bit(m, md, direct, rows):
+    """Pass 1 encodes m of the 4 chunks (2 rows each) per forward, m clamped
+    down to a divisor of the cached chunks (3 -> 2; with a direct chunk, 4
+    of 3 -> 3 and 2 of 3 -> 1): loss and gradients equal m = 1's bit for
+    bit in fp32. `rows`: the rows of the queries' and documents' pass-1
+    forwards."""
     model, scale = _port_model()
-    qb, db = map(_torch, _batches())
-    for kw in (dict(embed_parallel=2), dict(embed_parallel_d=2)):
-        with pytest.raises(NotImplementedError):
-            grad_cache_loss_and_grads(model, qb, db, encode_batch, encode_batch, _loss, chunk_size=2,
-                                      extra_params=scale, **kw)
+    qb, db = map(_torch, _batches(3))
+    seen = []
+
+    def counting(mod, batch, gen, **kw):
+        if not torch.is_grad_enabled():
+            seen.append(batch["input_ids"].shape[0])
+        return encode_batch(mod, batch, gen, **kw)
+
+    base = _run(model, scale, qb, db, direct_chunks=direct)
+    got = _run(model, scale, qb, db, counting, embed_parallel=m, embed_parallel_d=md, direct_chunks=direct)
+    _assert_same_run(got, base)
+    n_q = (4 - direct) * 2 // rows[0]
+    assert seen == [rows[0]] * n_q + [rows[1]] * ((4 - direct) * 2 // rows[1])
+
+
+def _dropout_model(**over):
+    cfg = t_preset(attn_impl="flash", embd_pdrop=0.1, resid_pdrop=0.1, attn_pdrop=0.1, **SMALL, **over)
+    return init_weights(BiEncoder(cfg, device="cpu"), seed=0).train(), LogitScale(10.0, trainable=True, device="cpu")
+
+
+@pytest.mark.parametrize("over", [{}, dict(num_experts=4, moe_top_k=2, moe_every_n_layers=2, moe_impl="capacity",
+                                           moe_capacity_factor=0.5)], ids=["dense", "capacity_moe"])
+def test_embed_parallel_keeps_each_chunks_noise_and_routing(over):
+    """With dropout on every site (the attention's through sdpa), and with
+    a capacity-MoE trunk at a factor where tokens drop, m = 4 and 2 give
+    m = 1's loss and gradients bit for bit: each chunk draws its own
+    generator's noise and routes with its own capacity. A forward over two
+    chunks with one generator (a plain concatenation) gives other
+    embeddings, so the check can fail."""
+    model, scale = _dropout_model(**over)
+    assert model.uses_dropout()
+    qb, db = map(_torch, _batches(4))
+    base = _run(model, scale, qb, db)
+    for m in (4, 2):
+        _assert_same_run(_run(model, scale, qb, db, embed_parallel=m), base)
+    pair = {k: v[:4] for k, v in qb.items()}
+    with torch.no_grad():
+        parts = torch.cat([encode_batch(model, {k: v[i:i + 2] for k, v in pair.items()},
+                                        chunk_generator(7, 0, i // 2, "cpu"))["embedding"] for i in (0, 2)])
+        plain = encode_batch(model, pair, chunk_generator(7, 0, 0, "cpu"))["embedding"]
+        model.eval()
+        quiet = encode_batch(model, {k: v[:2] for k, v in pair.items()})["embedding"]
+    assert not torch.equal(parts[:2], quiet)  # the noise is on
+    assert not torch.equal(parts, plain)
+    if over:  # without dropout the capacity alone tells them apart
+        model.eval()
+        with torch.no_grad():
+            parts = torch.cat([encode_batch(model, {k: v[i:i + 2] for k, v in pair.items()})["embedding"]
+                               for i in (0, 2)])
+            assert not torch.equal(parts, encode_batch(model, pair)["embedding"])
+
+
+def test_embed_parallel_matches_jax():
+    """JAX's vmapped pass 1 (embed_parallel 2, embed_parallel_d 4) and the
+    port's, from the same parameters: as test_grad_cache_matches_jax."""
+    qb, db = _batches(5)
+    jm = JBiEncoder(config=j_preset(attn_impl="sdpa", **SMALL), pooling="mean")
+    js = JLogitScale(logit_scale_init=10.0, trainable=True)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0), input_ids=jnp.asarray(qb["input_ids"]),
+                              attention_mask=jnp.asarray(qb["attention_mask"]))
+    s_params = js.init(jax.random.PRNGKey(0), jnp.ones(()))
+
+    def j_encode(p, b, r):
+        return {"embedding": jm.apply(p, input_ids=b["input_ids"], attention_mask=b["attention_mask"])["embedding"]}
+
+    j_batch = lambda b: {k: jnp.asarray(v) for k, v in b.items()}  # noqa: E731
+    j_l, j_g, j_sg = jax.jit(lambda p, sp: j_grad_cache(
+        p, j_batch(qb), j_batch(db), j_encode, j_encode, lambda q, d, x: j_clip_loss(q, d, lambda y: js.apply(x, y))[0],
+        chunk_size=2, extra_params=sp, embed_parallel=2, embed_parallel_d=4,
+    ))(params, s_params)
+    model, scale = _port_model()
+    model.load_state_dict(flax_to_torch(params), strict=True)
+    scale.load_state_dict(flax_to_torch(s_params), strict=True)
+    loss, grads = _run(model, scale, _torch(qb), _torch(db), embed_parallel=2, embed_parallel_d=4)
+    np.testing.assert_allclose(loss.item(), float(j_l), rtol=1e-6)
+    _assert_grads_close(grads, {**flax_to_torch(j_g), **flax_to_torch(j_sg)}, atol=5e-5)

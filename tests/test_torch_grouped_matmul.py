@@ -24,6 +24,7 @@ import jax.numpy as jnp
 
 from contrastors_tpu.ops import grouped_matmul as jgm
 from contrastors_tpu_torch.ops import grouped_matmul as tgm
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 E, BM, K, N = 4, 16, 128, 256
 GROUPS = [2 * BM, 0, 3 * BM, BM]  # padded sizes: expert 1 is empty

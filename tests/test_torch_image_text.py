@@ -59,6 +59,7 @@ from contrastors_tpu_torch.trainers.image_text import ImageTextTrainer
 from test_data import make_tokenizer
 from test_image_text import make_tar_shards, make_vision_checkpoint, rand_image
 from test_trainer_e2e import make_checkpoint_dir
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = 3
@@ -198,6 +199,39 @@ def test_port_trainer_ends_at_jax_parameters(case, runs):
     trainable = {n for n, p in r["port"].model.named_parameters() if p.requires_grad}
     assert any(n.startswith("text.") for n in trainable) != frozen
     assert "logit_scale.logit_scale" in trainable
+
+
+def test_grad_cache_embed_parallel_matches_jax(files, runs):
+    """The clip grad-cache case with grad_cache_embed_parallel 3 (one
+    direct chunk a tower, so pass 1 encodes the 3 cached chunks of each
+    tower in one forward) holds JAX's run as that case does (losses, grad
+    norms and the logit scale within 1e-4; JAX's vmapped pass 1 is m = 1's
+    to 1e-6, tests/test_grad_cache.py), and m = 1's within 1e-6 relative,
+    the parameters within 1e-4 relative L2 each (the key biases left out,
+    as above; AdamW's first steps move an element with a near-0 gradient
+    by about lr whatever its rounding) and 1e-5 all together: not bit for
+    bit, because the
+    MAP head's one query row goes through matmuls whose fp32 rounding
+    depends on the number of rows (1e-8 absolute at this size; the text
+    tower's embeddings are bit for bit, tests/test_torch_grad_cache.py)."""
+    r = runs["clip_gc"]
+    raw = raw_config(files, str(files["tmp"] / "port_clip_gc_ep3"), "clip_gc")
+    raw["train_args"]["grad_cache_embed_parallel"] = 3
+    pt = TRAINER_REGISTRY["clip"](Config.from_dict(raw), "fp32", "cpu")
+    pt.model.load_state_dict(flax_to_torch(r["start"]), strict=True)
+    random.seed(0)
+    pt.train()
+    got, want = _train_lines(read_metrics(raw["train_args"]["output_dir"])), _train_lines(r["port_metrics"])
+    for key in ("loss", "grad_norm", "logit_scale"):
+        np.testing.assert_allclose([m[key] for m in got], [m[key] for m in want], rtol=1e-6, err_msg=key)
+        np.testing.assert_allclose([m[key] for m in got], [m[key] for m in _train_lines(r["jax_metrics"])],
+                                   rtol=1e-4, err_msg=key)
+    one, got_state = r["port"].model.state_dict(), pt.model.state_dict()
+    far = {n: _rel(_without_key_bias(n, v), _without_key_bias(n, one[n])) for n, v in got_state.items()
+           if one[n].norm() > 0}
+    assert max(far.values()) <= 1e-4, max(far.items(), key=lambda kv: kv[1])
+    assert _rel(torch.cat([_without_key_bias(n, v).flatten() for n, v in got_state.items()]),
+                torch.cat([_without_key_bias(n, one[n]).flatten() for n in got_state])) <= 1e-5
 
 
 def test_eval_metrics_match_jax(runs):

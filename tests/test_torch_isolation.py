@@ -9,6 +9,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "contrastors_tpu_torch"
@@ -45,7 +46,7 @@ def test_importing_every_port_module_loads_no_jax():
               "utils.logging", "eval.metrics", "eval.retrieval", "ops.dropout", "trainers.mmlm", "trainers.glue",
               "data.constants", "models.vit", "models.dual_encoder", "models.hf_interop_vit",
               "models.hf_interop_timm", "data.transforms", "data.image_text", "trainers.image_text",
-              "eval.zero_shot", "eval.image_text_retrieval"):
+              "eval.zero_shot", "eval.image_text_retrieval", "data.packing"):
         assert "contrastors_tpu_torch." + m in modules
     # the JAX stack, and the packages the card's machine is not known to
     # have (imported only inside the functions that need them)

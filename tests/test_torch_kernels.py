@@ -21,6 +21,7 @@ import torch
 
 from contrastors_tpu_torch.ops import flash_attention as tfa
 from contrastors_tpu_torch.ops import grouped_matmul as tgm
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.fixture

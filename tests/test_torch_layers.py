@@ -24,6 +24,7 @@ from contrastors_tpu_torch.layers.embeddings import BertEmbeddings
 from contrastors_tpu_torch.layers.mlp import make_mlp
 from contrastors_tpu_torch.layers.norms import LayerNorm, RMSNorm
 from contrastors_tpu_torch.models import presets as tpre
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ATOL = 1e-5
 SMALL = dict(n_layer=2, n_embd=128, n_head=2, n_inner=256, vocab_size=512)

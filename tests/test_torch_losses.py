@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from contrastors_tpu import losses as jl
 from contrastors_tpu_torch import losses as tl
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ATOL = 1e-5
 SCALE = 20.0

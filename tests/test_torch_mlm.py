@@ -27,6 +27,7 @@ from contrastors_tpu_torch.convert import flax_to_torch
 from contrastors_tpu_torch.models import NomicBertForPreTraining
 from contrastors_tpu_torch.models.presets import nomic_bert_2048 as t_preset
 from contrastors_tpu_torch.trainers import mlm as tmlm
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 SMALL = dict(n_layer=2, n_embd=128, n_head=2, n_inner=256, vocab_size=512)
 B, S, K = 3, 40, 24

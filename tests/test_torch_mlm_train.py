@@ -30,6 +30,7 @@ from contrastors_tpu_torch.convert import flax_to_torch
 from contrastors_tpu_torch.trainers.mlm import make_mlm_train_step
 from contrastors_tpu_torch.utils.optim import make_optimizer
 from test_torch_mlm import jax_model_and_params, mlm_batch, port_model
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 LR = 5e-4
 OPT = dict(weight_decay=0.01, beta1=0.9, beta2=0.98, eps=1e-6, max_grad_norm=1.0)

@@ -35,6 +35,7 @@ from contrastors_tpu_torch.trainers import TRAINER_REGISTRY
 
 from test_more_trainers import make_tokenized_dataset
 from test_trainer_e2e import make_checkpoint_dir
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -32,6 +32,7 @@ from contrastors_tpu_torch.models.hf_interop import (
     modernbert_state_dict_to_torch,
 )
 from contrastors_tpu_torch.models.nomic_bert import NomicBertModel
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def make_hf(seed=0, layers=5):

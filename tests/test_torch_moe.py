@@ -36,6 +36,7 @@ from contrastors_tpu_torch.layers.moe import MoEMLP
 from contrastors_tpu_torch.losses import router_aux_loss
 from contrastors_tpu_torch.models import BiEncoder, init_weights
 from contrastors_tpu_torch.models.presets import nomic_bert_2048 as t_preset
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 MOE = dict(n_layer=4, n_embd=128, n_head=2, n_inner=256, vocab_size=512,
            num_experts=4, moe_top_k=2, moe_every_n_layers=2)
@@ -165,8 +166,6 @@ def test_convert_loads_a_jax_moe_tree_with_shared_experts():
 
 
 @pytest.mark.parametrize("over,err", [
-    (dict(moe_impl="capacity"), NotImplementedError),
-    (dict(expert_choice_router=True), NotImplementedError),
     (dict(moe_impl="auto"), ValueError),
 ])
 def test_unported_moe_options_raise(over, err):

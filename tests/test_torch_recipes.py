@@ -32,6 +32,7 @@ from contrastors_tpu.models.presets import nomic_bert_2048 as j_preset
 from contrastors_tpu_torch import train as ttrain
 
 from test_trainer_e2e import make_checkpoint_dir, make_pairs_file
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OTHER_CLI_TESTS = ("mlm", "mmlm", "glue", "nomic_embed_vision_v1.5")

@@ -27,6 +27,7 @@ from contrastors_tpu_torch.layers.block import Block
 from contrastors_tpu_torch.models import BiEncoder
 from contrastors_tpu_torch.models.auto import load_biencoder
 from contrastors_tpu_torch.models.presets import nomic_bert_2048 as t_preset
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 SMALL = dict(n_layer=2, n_embd=128, n_head=2, n_inner=256, vocab_size=512)
 

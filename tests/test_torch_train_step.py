@@ -37,6 +37,7 @@ from contrastors_tpu_torch.models import BiEncoder, LogitScale
 from contrastors_tpu_torch.models.presets import nomic_bert_2048 as t_preset
 from contrastors_tpu_torch.trainers.text_text import make_train_step
 from contrastors_tpu_torch.utils.optim import make_optimizer
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 SMALL = dict(n_layer=2, n_embd=128, n_head=2, n_inner=256, vocab_size=512)
 PAIRS, LQ, LD, CHUNK = 16, 8, 16, 4

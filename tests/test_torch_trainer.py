@@ -40,6 +40,7 @@ from contrastors_tpu_torch.config import Config
 from contrastors_tpu_torch.convert import flax_to_torch
 
 from test_trainer_e2e import make_checkpoint_dir
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 STEPS = 8
 
@@ -266,14 +267,12 @@ def test_registry_names_the_roadmap_item_of_each_unported_trainer():
     assert not hasattr(trainers, "UNPORTED")
 
 
-@pytest.mark.parametrize("case", ["grad_cache_with_accumulation", "two_devices", "tensor_axis", "expert_axis",
-                                  "packed"])
+@pytest.mark.parametrize("case", ["grad_cache_with_accumulation", "two_devices", "tensor_axis", "expert_axis"])
 def test_trainer_refuses_what_it_cannot_run(files, tmp_path, case):
     """A grad-cache step with accumulation raises ValueError, as JAX's
     trainer does; a data axis of 2 in a lone process (no process group of
     world 2) raises ValueError naming the mismatch; the tensor and expert
-    axes and packed batches raise NotImplementedError naming their ROADMAP
-    item, the packed one from the prefetch thread, re-raised in the loop."""
+    axes raise NotImplementedError naming their ROADMAP item."""
     raw = raw_config(files, str(tmp_path / "run"), "grad_cache")
     if case == "grad_cache_with_accumulation":
         raw["train_args"]["gradient_accumulation_steps"] = 2
@@ -287,13 +286,8 @@ def test_trainer_refuses_what_it_cannot_run(files, tmp_path, case):
         with pytest.raises(ValueError, match="parallel_args.data=2 but the process group has 1 rank"):
             ttrain.run(Config.from_dict(raw), "fp32", "cpu")
         return
-    if case in ("tensor_axis", "expert_axis"):
-        raw["parallel_args"] = {case.split("_")[0]: 2}
-        match = "Queue 1, item 5"
-    else:
-        raw["data_args"]["packed"] = True
-        match = "Queue 1, item 4"
-    with pytest.raises(NotImplementedError, match=match):
+    raw["parallel_args"] = {case.split("_")[0]: 2}
+    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
         ttrain.run(Config.from_dict(raw), "fp32", "cpu")
 
 

@@ -37,6 +37,7 @@ from contrastors_tpu_torch.models.model_config import TrunkConfig
 from contrastors_tpu_torch.models.moe_interop import _replicate_rows, expand_dense_trunk_to_moe
 
 from test_trainer_e2e import make_checkpoint_dir
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 BASE = dict(n_embd=32, n_layer=4, n_head=2, n_inner=64, vocab_size=128, n_positions=32, pad_token_id=0,
             type_vocab_size=0)

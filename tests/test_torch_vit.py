@@ -41,6 +41,7 @@ from contrastors_tpu_torch.layers.block import Block
 from contrastors_tpu_torch.models import BiEncoder, ViTModel
 from contrastors_tpu_torch.models.hf_interop_timm import timm_name_to_trunk_config, timm_state_dict_to_torch
 from contrastors_tpu_torch.models.hf_interop_vit import vit_config_to_trunk_config, vit_state_dict_to_torch
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 TINY = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4, intermediate_size=128, image_size=32,
             patch_size=8)

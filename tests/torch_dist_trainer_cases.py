@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 STEPS = 4
-TEXT = ("text_gc", "text_gc_replicated", "text_std", "text_std_resumed")
+TEXT = ("text_gc", "text_gc_replicated", "text_std", "text_std_resumed", "text_gc_packed")
 
 
 def raw_config(files, case, out_dir, world=None):
@@ -36,6 +36,9 @@ def raw_config(files, case, out_dir, world=None):
                    model_args=dict(model_type="encoder", model_name=files["bert"], tokenizer_name=files["bert"],
                                    pooling="mean", logit_scale=50, trainable_logit_scale=False, pretrained=True,
                                    attn_impl="sdpa", num_negatives=-1))
+        if case == "text_gc_packed":  # each rank packs its 8 pairs into 2 rows of K = 4, one pass-1 forward
+            raw["data_args"].update(packed=True, packed_seq_len=32)
+            raw["train_args"]["grad_cache_embed_parallel"] = 2
     elif case == "mlm":
         raw = dict(train_args=dict(num_epochs=1, num_train_steps=STEPS, learning_rate=5e-4, weight_decay=0.01,
                                    warmup_steps=1, schedule_type="linear", max_grad_norm=1.0, adam_beta1=0.9,
