@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only {moe_kernels,moe,flash_fwd,flash_bwd,dense,trainer,mlm_trainer,vision,families,
-                                  inference,distributed,knobs}
+                                  inference,distributed,knobs,parallel}
                              [--tree DIR]
 
 The second form runs phases 1, 2 and 9 (moe_kernels), or 1, 2 and 9-12
@@ -18,7 +18,7 @@ the MLM step's timing, or (dense) 1, 2 and the dense step of 7-8
 checks of 3 and 4 and 19, or (families) 1, 2, the families' two shapes'
 checks of 3 and 4 and 20, or (inference) 1, 2, the long-context case's
 check of 3 and 21, or (distributed) 1, 2 and 22, or (knobs) 1, 2, the packed step's
-cases of 3, 4 and 13, and 23,
+cases of 3, 4 and 13, and 23, or (parallel) 1, 2, the local shapes' cases of 3 and 4 and 24,
 on this checkout's package or on the one under DIR (another checkout, e.g. the parent commit
 unpacked by `git archive`), so that two versions can be timed in turns on
 one card.
@@ -329,6 +329,41 @@ The training step's last single-card knobs (after phase 12):
      128, LiT) and the dense text step (phase 7's geometry): gradients at
      cosine >= 0.9999 and relative L2 <= 0.01; pass-1 ms and step ms in
      turns (1, 4, 4, 1).
+The tensor and expert axes (after phase 23):
+ 24. parallel, parallel_timing, parallel_nccl: the pretrain recipe cut to
+     32 pairs a step (32 / 256 tokens, chunk 16, every query chunk direct,
+     3 steps, full nomic-bert-2048 width, bf16) through train.run on one
+     rank in this process, then on ranks of this script started in
+     torchrun's environment over gloo with CUDA tensors, all on card 0, in
+     the cells: parallel_tensor (1 x 1 x 2: Megatron column / row splits,
+     6 of the 12 heads a rank), parallel_expert (the MoE model, 8 experts,
+     top-2, MoE every second layer, cut to 6 layers, at 1 x 2 x 1 under
+     moe_impl "auto",
+     which must resolve to capacity, and under "dropless", whose gmm /
+     tgmm run on 4 local experts) and parallel_expert_tensor (the MoE model
+     at 1 x 2 x 2 on four ranks, w_up [4, 768, 1536] a rank). Gates: each
+     step's loss within 2e-3 relative of the one-rank run's with the same
+     moe_impl; the first step's gradient, gathered whole, at cosine >= 0.99
+     per tensor and >= 0.999 over all (phase 22's numbers) or >= 0.995
+     over all (the MoE cells, phase 11's bar) against one rank's (not the
+     parameter updates: AdamW's first updates, about sign(g), flip near-0
+     gradients on the split's bf16 rounding); the replicated parameters
+     equal on every peer after the steps; the kernels' launches per rank
+     step the one-rank step's (60 / 36 / 36 flash; MoE, one direct forward
+     a query chunk: 36 / 24 / 24, and 90 gmm and 36 tgmm under dropless),
+     at 6 heads, at 4 experts; the all-reduces per rank step as
+     `predicted_all_reduces` counts them; two planted faults far outside,
+     on one fp32 block at nomic-bert-2048's widths with BERT's projection
+     biases (nomic-bert-2048 has none, so its recipe cannot show the
+     first) split against whole (relative L2 <= 1e-5 clean): the row
+     split's bias added on every rank, and copy_to_group without its
+     backward all-reduce.
+     Recorded, marked as gloo on one shared card: per-rank step ms,
+     all-reduces per rank step and their ms, peak GB per rank. NCCL across
+     two cards only where there are two. Then the flash kernels at the
+     local shapes (B=512 S=32 and B=16 S=256, H=6, cases of phases 3 and 4)
+     and gmm / tgmm on a local layout of 4 experts (reruns bit-identical),
+     timed beside their bounds, plain versions and the library.
 Kernel times (ms) are CUDA-event times of calls made on an idle card, so a
 short kernel's time holds the host's enqueue; phases 8 and 9 give beside
 them the device's work alone (device_ms: each call queued behind a device
@@ -341,6 +376,7 @@ non-zero without a CUDA device.
 """
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -742,18 +778,20 @@ def expect(**counts):
 
 def moe_layout(dev, A, E=8, seed=0):
     """The MoE layer's own layout call (aligned_group_layout) on A skewed
-    random assignments: expert 2 gets none, expert 5 exactly 128 rows (a
-    group with no padding), the rest a cubed-uniform share; the sentinel
-    marks padding rows. Returns (group_sizes, P, pad row mask, blk_e, act)."""
+    random assignments: expert 2 gets none, expert min(5, E - 1) exactly 128
+    rows (a group with no padding), the rest a cubed-uniform share; the
+    sentinel marks padding rows. Returns (group_sizes, P, pad row mask,
+    blk_e, act)."""
     import torch
 
     from contrastors_tpu_torch.ops import grouped_matmul as gm
 
     gen = torch.Generator(device=dev).manual_seed(seed)
+    exact = min(5, E - 1)
     p = torch.rand(E, generator=gen, device=dev) ** 3 + 0.01
-    p[2] = p[5] = 0.0
+    p[2] = p[exact] = 0.0
     flat_e = torch.multinomial(p, A - 128, replacement=True, generator=gen)
-    flat_e = torch.cat([flat_e, torch.full((128,), 5, device=dev)])
+    flat_e = torch.cat([flat_e, torch.full((128,), exact, device=dev)])
     flat_e = flat_e[torch.randperm(A, generator=gen, device=dev)]
     _, gs, P, src = gm.aligned_group_layout(flat_e, E, 128, src_of=torch.arange(A, device=dev), sentinel=A)
     blk_e, act = gm.block_experts(gs, P // 128, 128)
@@ -765,15 +803,15 @@ def moe_layout(dev, A, E=8, seed=0):
 MOE_LAYOUTS = (("doc_chunk", 32 * 256 * 2), ("query_chunk", 32 * 32 * 2), ("encode", 256 * 512 * 2))
 
 
-def gmm_operands(dev, P, K, N, pad, seed):
-    """Random bf16 lhs [P, K], rhs [8, K, N] and dout [P, N], with lhs and
+def gmm_operands(dev, P, K, N, pad, seed, E=8):
+    """Random bf16 lhs [P, K], rhs [E, K, N] and dout [P, N], with lhs and
     dout zero on padding rows, as the MoE layer's gather and its gradient
     leave them."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     lhs = torch.randn(P, K, generator=gen, device=dev).bfloat16().masked_fill(pad[:, None], 0)
-    rhs = torch.randn(8, K, N, generator=gen, device=dev).bfloat16()
+    rhs = torch.randn(E, K, N, generator=gen, device=dev).bfloat16()
     dout = torch.randn(P, N, generator=gen, device=dev).bfloat16().masked_fill(pad[:, None], 0)
     return lhs, rhs, dout
 
@@ -917,32 +955,33 @@ def profile_step(run, step_ms, phases=GC_PHASES):
         run()
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3
-    # one pass over the events: key_averages() takes minutes on a step's
-    # ~1M host events, this loop about a second
+    # one pass over kineto's raw events (each a range, an op or a kernel with
+    # its own duration): key_averages() takes minutes on a step's ~1M host
+    # events, and building prof.events() about a minute, this loop seconds
     split = {name: {} for name in phases}
     by_group, other, busy_ms, launches, dtoh, items = {}, {}, 0.0, 0, 0, 0
-    for e in prof.events():
-        on_device = e.device_type == torch.autograd.DeviceType.CUDA
-        if e.name in split:
-            if on_device:
-                split[e.name]["device_span_ms"] = e.device_time_total / 1e3
-            else:
-                split[e.name]["host_ms"] = e.cpu_time_total / 1e3
-        elif on_device and not getattr(e, "is_user_annotation", False):  # ranges are not kernels
-            ms = e.self_device_time_total / 1e3
+    for e in prof.profiler.kineto_results.events():
+        if e.is_hidden_event():
+            continue
+        on_device = e.device_type() == torch.autograd.DeviceType.CUDA
+        # kernel names demangled, as the profiler's own events show them
+        name, ms = torch._C._demangle(e.name()) if on_device else e.name(), e.duration_ns() / 1e6
+        if name in split:
+            split[name]["device_span_ms" if on_device else "host_ms"] = ms
+        elif on_device and not e.is_user_annotation():  # ranges are not kernels
             busy_ms += ms
             launches += 1
-            group = kernel_group(e.name)
+            group = kernel_group(name)
             g = by_group.setdefault(group, [0.0, 0])
             g[0] += ms
             g[1] += 1
             if group == OTHER:
-                g = other.setdefault(e.name[:120], [0.0, 0])
+                g = other.setdefault(name[:120], [0.0, 0])
                 g[0] += ms
                 g[1] += 1
-        if "DtoH" in e.name:
+        if "DtoH" in name:
             dtoh += 1
-        elif e.name == "aten::item":
+        elif name == "aten::item":
             items += 1
     return dict(device_busy_ms=busy_ms, kernel_launches=launches,
                 idle_share_of_step=1.0 - busy_ms / step_ms, profiled_step_ms=profiled_ms, split=split,
@@ -1314,8 +1353,10 @@ def host_enqueue_us(fn, n=50):
     return us
 
 
-def moe_kernels(dev, card):
-    """Phases kernel_check_gmm and moe_kernel_timing, per layout and (K, N):
+def moe_kernels(dev, card, layouts=MOE_LAYOUTS, E=8, kn=((768, 3072), (3072, 768))):
+    """Phases kernel_check_gmm and moe_kernel_timing, per layout of `layouts`
+    (E experts) and (K, N) of `kn` (each kernel's second run bit-identical
+    to its first):
     gmm (the forward), dlhs (gmm on the rhs.transpose(1, 2) view, as the
     backward runs it) and tgmm against their plain versions, per element,
     padding rows and the empty expert exactly 0; then each kernel's time
@@ -1328,11 +1369,11 @@ def moe_kernels(dev, card):
     from contrastors_tpu_torch.ops import grouped_matmul as gm
 
     errs, rows_out = {"gmm": 0.0, "tgmm": 0.0}, {}
-    for layout, A in MOE_LAYOUTS:
-        gs, P, pad, blk_e, act = moe_layout(dev, A, seed=1)
+    for layout, A in layouts:
+        gs, P, pad, blk_e, act = moe_layout(dev, A, E=E, seed=1)
         active_rows, nonempty = int(gs.sum()), int((gs > 0).sum())
-        for K, N in ((768, 3072), (3072, 768)):
-            lhs, rhs, dout = gmm_operands(dev, P, K, N, pad, seed=K + 1)
+        for K, N in kn:
+            lhs, rhs, dout = gmm_operands(dev, P, K, N, pad, seed=K + 1, E=E)
             rhs_t = rhs.transpose(1, 2)
             kernels = {  # name: (kernel, plain, the library's (kind, operands), the bound's (K, N))
                 "gmm": (lambda: gm.launch_gmm(lhs, rhs, blk_e, act),
@@ -1345,7 +1386,7 @@ def moe_kernels(dev, card):
                                    lambda: gm.tgmm_reference(lhs, dout, gs, 128), ("tgmm", lhs, dout), (K, N))
             line, ok = {}, True
             for name, (run, plain, _, _) in kernels.items():
-                out, ref = run(), plain()
+                out, ref, again = run(), plain(), run()
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
                 ratio = gm.error_ratio(out, ref)
@@ -1353,10 +1394,12 @@ def moe_kernels(dev, card):
                 key = "tgmm" if name == "tgmm" else "gmm"
                 errs[key] = max(errs[key], err)
                 line[name] = dict(max_abs_err=err, ref_abs_max=ref.float().abs().max().item(),
-                                  err_over_tol=ratio, padding_exactly_zero=zero)
-                ok = ok and ratio <= 1.0 and zero and bool(torch.isfinite(out.float()).all())
-                del out, ref
-            emit(phase="kernel_check_gmm", layout=layout, assignments=A, P=P, K=K, N=N,
+                                  err_over_tol=ratio, padding_exactly_zero=zero,
+                                  deterministic=bool(torch.equal(out, again)))
+                ok = (ok and ratio <= 1.0 and zero and bool(torch.isfinite(out.float()).all())
+                      and line[name]["deterministic"])
+                del out, ref, again
+            emit(phase="kernel_check_gmm", layout=layout, experts=E, assignments=A, P=P, K=K, N=N,
                  group_sizes=gs.tolist(), active_blocks=int(act.sum()), blocks=P // 128, **line,
                  tol=f"{gm.REL:g}*|ref| + {gm.ABS_FRAC:g}*max|ref|", ok=ok)
             if not ok:
@@ -1366,7 +1409,7 @@ def moe_kernels(dev, card):
                 plain_ms = median_ms(plain, runs=3, warmup=1)
                 lib_fn, lib_label = library_grouped_mm(kind, a, b, gs)
                 library_ms, library_device_ms = median_ms(lib_fn, runs=5, warmup=2), median_ms(lib_fn, queued=True)
-                b_ms, b_by, flops, nbytes = gmm_bound(kind, active_rows, P, bK, bN, nonempty)
+                b_ms, b_by, flops, nbytes = gmm_bound(kind, active_rows, P, bK, bN, nonempty, E=E)
                 row = dict(ms=ms, device_ms=device_ms, enqueue_us=enqueue_us, plain_ms=plain_ms,
                            library_ms=library_ms, library_device_ms=library_device_ms,
                            library_enqueue_us=host_enqueue_us(lib_fn), library=lib_label,
@@ -1375,7 +1418,8 @@ def moe_kernels(dev, card):
                            err_over_tol=line[name]["err_over_tol"])
                 rows_out[(name, layout, K, N)] = row
                 emit(phase="moe_kernel_timing", card=card, gpu_state=gpu_state(), kernel=name, layout=layout,
-                     assignments=A, P=P, active_rows=active_rows, nonempty_experts=nonempty, K=K, N=N, **row)
+                     experts=E, assignments=A, P=P, active_rows=active_rows, nonempty_experts=nonempty, K=K, N=N,
+                     **row)
             del lhs, rhs, rhs_t, dout, kernels
             torch.cuda.empty_cache()
     return errs, rows_out
@@ -1412,6 +1456,14 @@ PACKED_STEP_CASES = [
     ("packed_d_b4_s512", dict(B=4, S=512, T=512, H=12, Hkv=12, D=64), dict(pack=(4, 66, 10, 256))),
 ]
 BASE_CASES += PACKED_STEP_CASES
+# the tensor axis' local heads (phase 24): a rank of tensor 2 runs 6 of
+# nomic-bert-2048's 12 heads, as views of its local Wqkv output (q | k | v of
+# its heads), at the step's query tower and document chunk
+TENSOR_STEP_CASES = [
+    ("tp2_q_b512_s32_h6", dict(B=512, S=32, T=32, H=6, Hkv=6, D=64), dict(mask=(512, 0))),
+    ("tp2_d_b16_s256_h6", dict(B=16, S=256, T=256, H=6, Hkv=6, D=64), dict(mask=(16, 0))),
+]
+BASE_CASES += TENSOR_STEP_CASES
 # the edges of the kernels' persistent walk: one row, partial last tiles
 # (65, 129; the items are 128 rows, but 64 for the backward at D = 128 and
 # for every kernel at D = 64 when the rows are at most 64), B * H = 143 items
@@ -1894,8 +1946,8 @@ def glue_lengths(B, S, seed=3):
     return np.random.default_rng(seed).integers(8, S + 1, size=B)
 
 
-def forward_timing(dev, card, gen):
-    """Phase kernel_timing at FWD_TIMING_SHAPES (H=12, D=64): the forward
+def forward_timing(dev, card, gen, shapes=FWD_TIMING_SHAPES, H=12):
+    """Phase kernel_timing at `shapes` (default FWD_TIMING_SHAPES; H heads, D=64): the forward
     through `flash_attention_fwd` (so that trees whose C arguments differ
     are timed alike), checked once more against its plain version, as ms,
     device_ms and the host's enqueue per call, beside its bound, the plain
@@ -1916,8 +1968,8 @@ def forward_timing(dev, card, gen):
     from contrastors_tpu_torch.ops import flash_attention as fa
 
     rows = {}
-    for label, B, S, fused in FWD_TIMING_SHAPES:
-        H, D = 12, 64
+    for label, B, S, fused in shapes:
+        D = 64
         q, k, v = make_qkv(gen, dev, B, S, S, H, H, D)
         mask = torch.ones(B, S, dtype=torch.int32, device=dev)
         kw = dict(attention_mask=mask)
@@ -1992,8 +2044,8 @@ BWD_TIMING_SHAPES = (("b512_s32", 512, 32, False), ("b16_s256", 16, 256, False),
                      ("mlm_b8_s2048", 8, 2048, False), ("mlm_b8_s2048_fused", 8, 2048, True))
 
 
-def backward_timing(dev, card, gen, per_kernel=True):
-    """Phase kernel_timing_bwd at BWD_TIMING_SHAPES (H=12, D=64): the whole
+def backward_timing(dev, card, gen, per_kernel=True, shapes=BWD_TIMING_SHAPES, H=12):
+    """Phase kernel_timing_bwd at `shapes` (default BWD_TIMING_SHAPES; H heads, D=64): the whole
     backward through `flash_attention_backward` (this package's: dq, which
     computes delta, and dk/dv; an earlier one's may compute delta outside),
     checked once more against its plain version, as ms, device_ms and the
@@ -2009,8 +2061,8 @@ def backward_timing(dev, card, gen, per_kernel=True):
     from contrastors_tpu_torch.ops import flash_attention as fa
 
     rows = {}
-    for label, B, S, fused in BWD_TIMING_SHAPES:
-        H, D = 12, 64
+    for label, B, S, fused in shapes:
+        D = 64
         q, k, v = make_qkv(gen, dev, B, S, S, H, H, D)
         mask = torch.ones(B, S, dtype=torch.int32, device=dev)
         kw = dict(attention_mask=mask)
@@ -5917,6 +5969,465 @@ def knobs_phase(dev, card):
     return dict(packed=packed["plain"], packed_fused=packed["fused"], capacity=moe)
 
 
+# -- the tensor and expert axes (phase 24) -------------------------------------
+# the pretrain recipe cut to PAR_PAIRS pairs a step (chunk 16, every query
+# chunk direct): every split layer all-reduces [chunk, S, 768] twice a
+# forward and twice a backward, and gloo on one card stages each through the host
+PAR_PAIRS, PAR_STEPS = 32, 3
+PAR_MOE_LAYERS = 6  # the MoE cells' depth (of 12; MoE on layers 1, 3 and 5), for the 900 s budget
+# the gates: each step's loss against one rank's (phase 22's bar), and the first step's
+# gathered gradient against one rank's, per tensor and over all (phase 22's numbers; the MoE
+# cells phase 11's bar, as routing may flip on rounding). Not the parameter updates: the
+# split's partial sums round in bf16 before they are summed, and AdamW's first updates,
+# about sign(g), turn that into flips on near-0 gradients (as phase 23's packing gate found)
+PAR_LOSS_RTOL, PAR_GRAD_COSINE, PAR_GRAD_COSINE_ALL = 2e-3, 0.99, 0.999
+PAR_MOE_GRAD_COSINE_ALL = 0.995
+PAR_LAYER_REL = 1e-5  # the fp32 layer check's relative L2 bar
+# cells: name -> (layout (data, expert, tensor), MoE dispatch or None for the dense recipe)
+PAR_CELLS = {
+    "parallel_tensor": ((1, 1, 2), None),
+    "parallel_expert": ((1, 2, 1), "auto"),
+    "parallel_expert_dropless": ((1, 2, 1), "dropless"),
+    "parallel_expert_tensor": ((1, 2, 2), "auto"),
+}
+# the one-rank reference of each cell: the dense recipe, or the MoE one with the dispatch that
+# "auto" resolves to under the expert axis (capacity), or dropless
+PAR_REFERENCE = {"parallel_tensor": "dense", "parallel_expert": "capacity", "parallel_expert_dropless": "dropless",
+                 "parallel_expert_tensor": "capacity"}
+PAR_FAULTS = ("row_bias_every_rank", "copy_without_all_reduce")
+# the local experts' layout of gmm / tgmm (expert 2 of 4): half a document chunk's
+# 16 x 256 x 2 assignments, at the dropless cell's widths
+PAR_GMM_LAYOUTS = (("local_doc_chunk_e4", 16 * 256 * 2 // 2),)
+PAR_GMM_KN = ((768, 3072), (3072, 768))
+TENSOR_TIMING_SHAPES = (("tp2_b512_s32_h6", 512, 32, False), ("tp2_b16_s256_h6", 16, 256, False))
+
+
+def par_recipe(paths, layout, moe_impl=None):
+    """The pretrain recipe at PAR_PAIRS pairs a step for PAR_STEPS steps on
+    `layout`, and with moe_impl the MoE model (nomic-bert-2048 at
+    PAR_MOE_LAYERS layers, `paths["moe_dir"]`; 8 experts, top-2, MoE on every
+    second layer, router aux MOE_AUX)."""
+    recipe = dist_pretrain_recipe({k: v for k, v in paths.items() if k != "moe_dir"}, 1)
+    recipe["train_args"].update(num_train_steps=PAR_STEPS, log_lr_every=PAR_STEPS, chunk_size=CHUNK)
+    recipe["data_args"]["batch_size"] = PAR_PAIRS
+    d, e, t = layout
+    recipe["parallel_args"] = {"data": d, "expert": e, "tensor": t}
+    if moe_impl:
+        recipe["model_args"].update(model_name=paths["moe_dir"], num_experts=8, moe_top_k=2, moe_every_n_layers=2,
+                                    moe_impl=moe_impl)
+        recipe["train_args"]["router_aux_loss_coef"] = MOE_AUX
+    return recipe
+
+
+def step_passes(moe, pairs=PAR_PAIRS, chunk=CHUNK):
+    """(forwards, backwards) of one grad-cache step of the cut recipe: the
+    queries' direct forward and backward (one per query chunk with the
+    router aux on, as grad cache runs them for an MoE model), and 2
+    forwards and a backward of each document chunk."""
+    n = pairs // chunk
+    return (3 * n, 2 * n) if moe else (1 + 2 * n, 1 + n)
+
+
+def predicted_launches(moe_impl, n_layer=12, pairs=PAR_PAIRS, chunk=CHUNK):
+    """The kernels' launches of one step of the cut recipe, the same on a
+    rank of any layout as on one rank (`step_passes`); gated MoE layers
+    (every second one) launch 3 gmm a forward and 3 gmm (dlhs) and 3 tgmm
+    a backward under the dropless dispatch."""
+    fwd, bwd = step_passes(moe_impl is not None, pairs, chunk)
+    moe = n_layer // 2 if moe_impl == "dropless" else 0
+    return expect(fwd=n_layer * fwd, dq=n_layer * bwd, dkv=n_layer * bwd, gmm=moe * 3 * (fwd + bwd),
+                  tgmm=moe * 3 * bwd)
+
+
+def predicted_all_reduces(layout, moe, n_layer=12, pairs=PAR_PAIRS, chunk=CHUNK):
+    """torch.distributed all-reduce calls of one rank step on `layout`
+    (data 1: nothing over the data group). Each forward: out_proj of every
+    layer and fc2 of every dense layer under the tensor axis, and each MoE
+    layer's output once per split group; each backward: the column splits'
+    inputs (Wqkv, the gated MLP's fc11 / fc12) and each MoE layer's tokens
+    and combine weights once per split group. Then the optimizer: the
+    gradients of the parameters held whole on several peers averaged, one
+    all-reduce per group for each kind (those whole on every model axis;
+    under the tensor and the expert axis, the tensor-split ones whole on
+    the expert axis), and the global norm, one all-reduce per group of
+    each kind of split parameter."""
+    d, e, t = layout
+    moe_layers = n_layer // 2 if moe else 0
+    tp, groups = int(t > 1), int(t > 1) + int(e > 1)
+    fwd, bwd = step_passes(moe, pairs, chunk)
+    per_fwd = tp * (2 * n_layer - moe_layers) + moe_layers * groups
+    per_bwd = tp * (2 * n_layer - moe_layers) + moe_layers * 2 * groups
+    replicas = groups + (int(e > 1) if tp else 0)
+    norm = tp + (groups if moe_layers else 0)
+    return fwd * per_fwd + bwd * per_bwd + replicas + norm
+
+
+@contextlib.contextmanager
+def kernel_shapes(into):
+    """The flash kernels' head counts and the grouped matmuls' expert counts
+    of every launch inside, into sets `into["heads"]` and `into["experts"]`."""
+    from contrastors_tpu_torch.ops import flash_attention as fa
+    from contrastors_tpu_torch.ops import grouped_matmul as gm
+
+    saved = dict(fwd=fa._launch_kernel, dq=fa.launch_bwd_dq, dkv=fa.launch_bwd_dkv, gmm=gm.launch_gmm,
+                 tgmm=gm.launch_tgmm)
+    into.setdefault("heads", set())
+    into.setdefault("experts", set())
+
+    def heads(fn):
+        @functools.wraps(fn)
+        def call(q, *args, **kwargs):
+            into["heads"].add(int(q.shape[2]))
+            return fn(q, *args, **kwargs)
+        return call
+
+    def experts(fn, pos):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            into["experts"].add(int(args[pos].shape[0]))
+            return fn(*args, **kwargs)
+        return call
+
+    fa._launch_kernel, fa.launch_bwd_dq, fa.launch_bwd_dkv = (heads(saved[k]) for k in ("fwd", "dq", "dkv"))
+    gm.launch_gmm, gm.launch_tgmm = experts(saved["gmm"], 1), experts(saved["tgmm"], 2)
+    try:
+        yield into
+    finally:
+        fa._launch_kernel, fa.launch_bwd_dq, fa.launch_bwd_dkv = saved["fwd"], saved["dq"], saved["dkv"]
+        gm.launch_gmm, gm.launch_tgmm = saved["gmm"], saved["tgmm"]
+
+
+@contextlib.contextmanager
+def counted_all_reduces(dev, into):
+    """Every torch.distributed.all_reduce inside counted, and its host ms
+    (after a synchronize: gloo stages a CUDA tensor through the host, so
+    the call waits for the work queued before it) summed, into `into`."""
+    import torch
+    import torch.distributed as dist
+
+    saved = dist.all_reduce
+    into.update(count=0, ms=0.0)
+
+    def call(*args, **kwargs):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = saved(*args, **kwargs)
+        torch.cuda.synchronize(dev)
+        into["count"] += 1
+        into["ms"] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    dist.all_reduce = call
+    try:
+        yield into
+    finally:
+        dist.all_reduce = saved
+
+
+def tensor_cosines(got, ref):
+    """({name: cosine}, cosine over all) of got against ref (host tensors
+    by name), over the tensors where ref is not 0: (worst name, its
+    cosine, over all)."""
+    out, dot, got_sq, ref_sq = {}, 0.0, 0.0, 0.0
+    for n, r in ref.items():
+        r = r.double()
+        if float(r.norm()) == 0.0:
+            continue
+        g = got[n].double().cpu()
+        d, gg, rr = float((g * r).sum()), float(g.square().sum()), float(r.square().sum())
+        out[n] = d / max((gg * rr) ** 0.5, 1e-300)
+        dot, got_sq, ref_sq = dot + d, got_sq + gg, ref_sq + rr
+    worst = min(out, key=out.get)
+    return worst, out[worst], dot / max((got_sq * ref_sq) ** 0.5, 1e-300)
+
+
+def first_grads_class(base):
+    """base whose first step keeps its gradients, whole (gathered over the
+    mesh's model groups: every rank takes part), on global rank 0's host as
+    `first_grads`; the clip scales them all alike, so their direction is
+    the step's."""
+    from contrastors_tpu_torch.parallel.sharding import gather_tensors, param_splits
+
+    class FirstGrads(base):
+        def make_train_step(self):
+            step = super().make_train_step()
+
+            def kept(batch, generator):
+                metrics = step(batch, generator)
+                if not hasattr(self, "first_grads"):
+                    named = {n: p.grad for n, p in self.model.named_parameters() if p.grad is not None}
+                    whole = gather_tensors(named, param_splits(self.model), self.mesh)
+                    self.first_grads = ({n: v.float().cpu() for n, v in whole.items()}
+                                        if self.mesh.global_rank == 0 else None)
+                return metrics
+
+            return kept
+
+    return FirstGrads
+
+
+def par_case(spec, dev, rank, cell):
+    """One cell of phase 24 on this rank: the recipe through train.run on
+    the cell's layout, the kernels' launches and shapes per step, the
+    all-reduces per step and their ms, the replicated parameters' sums, and
+    (rank 0) the first step's gathered gradient against the one-rank
+    reference's."""
+    import torch
+
+    layout, moe_impl = PAR_CELLS[cell]
+    shapes, reduces = {}, {}
+    cls = first_grads_class(chip_trainer_class())
+    torch.cuda.reset_peak_memory_stats(dev)
+    with collectives_outside_sync_log(), kernel_shapes(shapes), counted_all_reduces(dev, reduces):
+        trainer, rows, seconds, _, _ = run_chip_trainer(par_recipe(spec["paths"], layout, moe_impl), dev, cls)
+    model_args = trainer.config.model_args
+    out = dict(cell=cell, layout=list(layout), losses=[r["loss"] for r in rows],
+               launches=[r["launches"] for r in rows], step_ms=[r["iteration_ms"] for r in rows],
+               all_reduces_per_step=reduces["count"] / PAR_STEPS, all_reduce_ms_per_step=reduces["ms"] / PAR_STEPS,
+               heads=sorted(shapes["heads"]), experts=sorted(shapes["experts"]),
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 2**30, seconds=seconds,
+               replicas_agreed=trainer.init_replicas_agreed,
+               moe_impl=model_args.moe_impl if model_args.num_experts else None,
+               # the replicated parameters after the steps, to hold equal on every peer
+               replicated={n: float(p.detach().double().sum()) for n, p in trainer.model.named_parameters()
+                           if getattr(p, "mesh_split", None) is None},
+               local_w_up=(list(trainer.model["model"].trunk.layers[1].mlp.w_up.shape)
+                           if model_args.num_experts else None))
+    if rank == 0:
+        ref = torch.load(spec["refs"][PAR_REFERENCE[cell]], map_location="cpu", weights_only=True)
+        worst, low, all_ = tensor_cosines(trainer.first_grads, ref)
+        out.update(grad_cosine_min=low, grad_cosine_worst=worst, grad_cosine_all=all_)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_case_layer_faults(spec, dev, rank):
+    """The two planted faults, on one block at nomic-bert-2048's widths with
+    BERT's projection biases (drawn from N(0, 0.5); nomic-bert-2048 has none
+    on its projections, so its recipe cannot show the first), fp32,
+    attention through sdpa, 16 x 256 tokens, split at 1 x 1 x 2 against the
+    whole block in this process: the output's and the input gradient's
+    relative L2 error, clean, with the row split's bias added on every rank
+    before the sum, and with copy_to_group's backward all-reduce dropped."""
+    import torch
+
+    from contrastors_tpu_torch.layers import dense as dense_mod
+    from contrastors_tpu_torch.layers.block import Block
+    from contrastors_tpu_torch.models.presets import nomic_bert_2048
+    from contrastors_tpu_torch.parallel import collectives, make_mesh
+    from contrastors_tpu_torch.parallel.sharding import shard_module
+
+    cfg = nomic_bert_2048(attn_impl="sdpa", qkv_proj_bias=True, mlp_fc1_bias=True, mlp_fc2_bias=True)
+    torch.manual_seed(0)
+    whole = Block(cfg, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        for n, p in whole.named_parameters():
+            if n.endswith("bias"):
+                p.normal_(0.0, 0.5)
+    state = {k: v.clone() for k, v in whole.state_dict().items()}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(16, 256, cfg.n_embd, generator=gen, device=dev)
+    dy = torch.randn(16, 256, cfg.n_embd, generator=gen, device=dev)
+
+    def run(block):
+        xi = x.clone().requires_grad_()
+        y = block(xi)[0]
+        y.backward(dy)
+        return y.detach(), xi.grad
+
+    ref_y, ref_dx = run(whole)
+    mesh = make_mesh(data=1, tensor=2)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    real_forward, real_copy = dense_mod.Dense.forward, collectives._CopyToGroup.__dict__["backward"]
+
+    def bias_every_rank(self, x_):
+        if self.split == "row":
+            return collectives.reduce_from_group(self.local(x_), self.group)
+        return real_forward(self, x_)
+
+    out = {}
+    for case in ("split",) + PAR_FAULTS:
+        block = Block(cfg, dtype=torch.float32, device=dev)
+        block.load_state_dict(state)
+        shard_module(block, mesh)
+        if case == "row_bias_every_rank":
+            dense_mod.Dense.forward = bias_every_rank
+        elif case == "copy_without_all_reduce":
+            collectives._CopyToGroup.backward = staticmethod(lambda ctx, grad: (grad, None))
+        try:
+            y, dx = run(block)
+        finally:
+            dense_mod.Dense.forward, collectives._CopyToGroup.backward = real_forward, real_copy
+        out[case] = dict(output_rel_l2=rel(y, ref_y), input_grad_rel_l2=rel(dx, ref_dx))
+    return out
+
+
+DIST_CASES.update({cell: (lambda spec, dev, rank, cell=cell: par_case(spec, dev, rank, cell)) for cell in PAR_CELLS})
+DIST_CASES["parallel_layer_faults"] = par_case_layer_faults
+
+
+def parallel_phase(dev, card, gen):
+    """Phase 24 (module docstring): the tensor and expert axes on ranks that
+    share the card. Returns the launches and shapes of the cells' rank steps
+    and the kernels' timing rows at the new shapes."""
+    import gc
+    import tempfile
+
+    import torch
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    paths = write_trainer_inputs(root)
+    paths["moe_dir"] = os.path.join(root, "nomic-bert-2048-moe-cells")
+    os.makedirs(paths["moe_dir"])
+    with open(os.path.join(paths["moe_dir"], "config.json"), "w") as f:
+        json.dump(dict(NOMIC_BERT_2048_CONFIG, n_layer=PAR_MOE_LAYERS), f)
+    t_phase = time.perf_counter()
+
+    # one rank, this process: the reference losses and parameter updates
+    refs = {}
+    for name, impl in (("dense", None), ("capacity", "capacity"), ("dropless", "dropless")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cls = first_grads_class(chip_trainer_class())
+        with kernel_shapes({}) as seen:
+            one, rows, seconds, _, _ = run_chip_trainer(par_recipe(paths, (1, 1, 1), impl), dev, cls)
+        path = os.path.join(root, f"ref_{name}.pt")
+        torch.save(one.first_grads, path)
+        refs[name] = dict(path=path, losses=[r["loss"] for r in rows], launches=[r["launches"] for r in rows],
+                          step_ms=[r["iteration_ms"] for r in rows], heads=sorted(seen["heads"]),
+                          experts=sorted(seen["experts"]), seconds=seconds)
+        del one, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    spec = dict(backend="gloo", device="cuda:0" if dev.type == "cuda" else "cpu", paths=paths,
+                refs={k: v["path"] for k, v in refs.items()},
+                cases=["parallel_tensor", "parallel_layer_faults", "parallel_expert", "parallel_expert_dropless"])
+    t0 = time.perf_counter()
+    two = launch_ranks(spec, root, "gloo_two_ranks", 2)
+    four = launch_ranks(dict(spec, cases=["parallel_expert_tensor"]), root, "gloo_four_ranks", 4)
+    ranks_seconds = time.perf_counter() - t0
+    results = dict(two, **four)
+
+    def gates(cell):
+        res = results[cell]
+        ref = refs[PAR_REFERENCE[cell]]
+        loss_rel = max(rel_diffs(res[0]["losses"], ref["losses"]))
+        moe = PAR_CELLS[cell][1] is not None
+        within = loss_rel <= PAR_LOSS_RTOL and (
+            res[0]["grad_cosine_all"] >= PAR_MOE_GRAD_COSINE_ALL if moe else
+            res[0]["grad_cosine_min"] >= PAR_GRAD_COSINE and res[0]["grad_cosine_all"] >= PAR_GRAD_COSINE_ALL)
+        return dict(loss_rel=loss_rel, within=within,
+                    **{k: res[0][k] for k in ("grad_cosine_min", "grad_cosine_worst", "grad_cosine_all")})
+
+    n_head = NOMIC_BERT_2048_CONFIG["n_head"]
+
+    def n_layer(cell):
+        return PAR_MOE_LAYERS if PAR_CELLS[cell][1] else NOMIC_BERT_2048_CONFIG["n_layer"]
+
+    def all_reduces(cell):
+        return predicted_all_reduces(PAR_CELLS[cell][0], PAR_CELLS[cell][1] is not None, n_layer=n_layer(cell))
+
+    def shape_checks(cell):
+        res, (layout, impl) = results[cell], PAR_CELLS[cell]
+        d, e, t = layout
+        resolved = "capacity" if impl == "auto" and e > 1 else impl
+        want = predicted_launches(resolved if impl else None, n_layer=n_layer(cell))
+        return dict(
+            launches=all(x == want for r in res for x in r["launches"]),
+            reference_launches=all(x == want for x in refs[PAR_REFERENCE[cell]]["launches"]),
+            heads=all(r["heads"] == [n_head // t] for r in res),
+            experts=all(r["experts"] == ([8 // e] if resolved == "dropless" else []) for r in res),
+            all_reduces=all(r["all_reduces_per_step"] == all_reduces(cell) for r in res),
+            resolved=all(r["moe_impl"] == resolved for r in res),
+            ranks_log_the_same_losses=all(r["losses"] == res[0]["losses"] for r in res),
+            replicated_parameters_equal=all(r["replicated"] == res[0]["replicated"] for r in res),
+            replicas_agreed=all(r["replicas_agreed"] for r in res),
+            losses_finite=bool(np.isfinite([x for r in res for x in r["losses"]]).all()),
+        )
+
+    cells = {cell: dict(gates=gates(cell), checks=shape_checks(cell)) for cell in PAR_CELLS}
+    layer = results["parallel_layer_faults"]
+
+    def worst(r):
+        return max(r["output_rel_l2"], r["input_grad_rel_l2"])
+
+    checks = dict(
+        layer_split_within=all(worst(r["split"]) <= PAR_LAYER_REL for r in layer),
+        **{f"{fault}_far_outside": all(worst(r[fault]) > 100 * PAR_LAYER_REL for r in layer) for fault in PAR_FAULTS},
+        **{f"{cell}_within": cells[cell]["gates"]["within"] for cell in PAR_CELLS},
+        **{f"{cell}_{k}": v for cell in PAR_CELLS for k, v in cells[cell]["checks"].items()},
+        local_w_up=[r["local_w_up"] for r in results["parallel_expert_tensor"]] == [
+            [4, NOMIC_BERT_2048_CONFIG["n_embd"], NOMIC_BERT_2048_CONFIG["n_inner"] // 2]] * 4,
+    )
+    ok = all(checks.values())
+    emit(phase="parallel", card=card, gpu_state=gpu_state(), backend="gloo", device="cuda:0 (every rank)",
+         recipe="configs/train/contrastive_pretrain.yaml", pairs=PAR_PAIRS, chunk=CHUNK, steps=PAR_STEPS,
+         bounds=dict(loss_rtol=PAR_LOSS_RTOL, grad_cosine_per_tensor=PAR_GRAD_COSINE,
+                     grad_cosine_all=PAR_GRAD_COSINE_ALL, moe_grad_cosine_all=PAR_MOE_GRAD_COSINE_ALL,
+                     layer_rel_l2=PAR_LAYER_REL),
+         references={k: {x: v[x] for x in ("losses", "heads", "experts")} for k, v in refs.items()},
+         cells={cell: dict(layout=PAR_CELLS[cell][0], moe_impl=results[cell][0]["moe_impl"],
+                           losses=results[cell][0]["losses"], launches_per_rank_step=results[cell][0]["launches"][-1],
+                           heads=results[cell][0]["heads"], experts=results[cell][0]["experts"],
+                           all_reduces_per_step=results[cell][0]["all_reduces_per_step"],
+                           predicted_all_reduces=all_reduces(cell),
+                           local_w_up=results[cell][0]["local_w_up"], seconds=[r["seconds"] for r in results[cell]],
+                           losses_per_rank=[r["losses"] for r in results[cell]],
+                           replicated_differing=sorted({n for r in results[cell] for n, v in r["replicated"].items()
+                                                        if v != results[cell][0]["replicated"][n]})[:20],
+                           **cells[cell]) for cell in PAR_CELLS},
+         layer_faults=layer, checks=checks, ok=ok)
+    emit(phase="parallel_timing", card=card, gpu_state=gpu_state(),
+         note="gloo, ranks sharing one card: not NCCL's speed; step ms: host clock from one loop step's start to "
+              "the next (the all-reduces timed inside it, each after a synchronize); all-reduce ms: host ms of "
+              "every torch.distributed.all_reduce of a step, summed",
+         one_rank_step_ms={k: v["step_ms"] for k, v in refs.items()},
+         cells={cell: dict(step_ms_per_rank=[r["step_ms"] for r in results[cell]],
+                           all_reduces_per_rank_step=[r["all_reduces_per_step"] for r in results[cell]],
+                           all_reduce_ms_per_rank_step=[r["all_reduce_ms_per_step"] for r in results[cell]],
+                           peak_gb_per_rank=[r["peak_gb"] for r in results[cell]])
+                for cell in PAR_CELLS},
+         ranks_seconds=ranks_seconds)
+    if not ok:
+        raise AssertionError(f"parallel: a check failed: {checks}")
+
+    # NCCL across two cards, only where there are two
+    count = torch.cuda.device_count()
+    nccl = None
+    if count >= 2:
+        nccl = launch_ranks(dict(spec, backend=None, cases=["parallel_tensor"]), root, "nccl_two_cards", 2,
+                            devices=["cuda:0", "cuda:1"])["parallel_tensor"]
+    nccl_ok = nccl is None or (max(rel_diffs(nccl[0]["losses"], refs["dense"]["losses"])) <= PAR_LOSS_RTOL
+                               and nccl[0]["grad_cosine_min"] >= PAR_GRAD_COSINE
+                               and nccl[0]["grad_cosine_all"] >= PAR_GRAD_COSINE_ALL)
+    emit(phase="parallel_nccl", card=card,
+         two_cards=(dict(losses=nccl[0]["losses"], step_ms_per_rank=[r["step_ms"] for r in nccl],
+                         all_reduce_ms_per_rank_step=[r["all_reduce_ms_per_step"] for r in nccl],
+                         grad_cosine_all=nccl[0]["grad_cosine_all"])
+                    if nccl else f"not run: {count} card(s)"),
+         ok=nccl_ok)
+    shutil.rmtree(root)
+    if not nccl_ok:
+        raise AssertionError("parallel: the tensor axis over NCCL disagrees with one rank")
+
+    # the kernels at the new shapes: the flash kernels at a tensor rank's 6
+    # heads, gmm / tgmm on 4 local experts
+    fwd_rows = forward_timing(dev, card, gen, TENSOR_TIMING_SHAPES, H=6)
+    bwd_rows = backward_timing(dev, card, gen, shapes=TENSOR_TIMING_SHAPES, H=6)
+    gmm_errs, gmm_rows = moe_kernels(dev, card, PAR_GMM_LAYOUTS, E=4, kn=PAR_GMM_KN)
+    emit(phase="parallel_phase_seconds", seconds=time.perf_counter() - t_phase)
+    tensor, dropless = results["parallel_tensor"][0], results["parallel_expert_dropless"][0]
+    return dict(tensor_launches=tensor["launches"][-1], expert_dropless_launches=dropless["launches"][-1],
+                expert_launches=results["parallel_expert"][0]["launches"][-1],
+                expert_tensor_launches=results["parallel_expert_tensor"][0]["launches"][-1],
+                fwd=fwd_rows, bwd=bwd_rows, gmm=gmm_rows, gmm_errs=gmm_errs)
+
+
 def finish(card, summary):
     """The run's ending: the command_time line, the card's line, the summary
     and the last line, these three as the contract gives them, without t."""
@@ -5935,7 +6446,8 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description="Drive the PyTorch / CUDA port on one NVIDIA GPU.")
     ap.add_argument("--only", choices=["moe_kernels", "moe", "flash_fwd", "flash_bwd", "dense", "trainer",
-                                       "mlm_trainer", "vision", "families", "inference", "distributed", "knobs"],
+                                       "mlm_trainer", "vision", "families", "inference", "distributed", "knobs",
+                                       "parallel"],
                     help="run only the card, build and grouped-matmul phases (9), or (moe) also MoE "
                          "serving and the MoE step's timing and profile (10-12, no gradient agreement); "
                          "flash_fwd: the card, build, the forward checks (3, 13), the forward timing (6), "
@@ -5949,7 +6461,8 @@ def main(argv=None):
                          "families: the card, build, the families' attention shapes' forward and backward "
                          "checks and phase 20; inference: the card, build, the long-context case's forward "
                          "check and phase 21; distributed: the card, build and phase 22; knobs: the card, "
-                         "build and phase 23")
+                         "build and phase 23; parallel: the card, build, the local shapes' kernel checks of 3 "
+                         "and 4 and phase 24")
     ap.add_argument("--tree", help="with --only: the root of another checkout whose contrastors_tpu_torch "
                                    "package is built and timed (an earlier commit, for old against new)")
     ap.add_argument("--dist-worker", metavar="SPEC", help=argparse.SUPPRESS)  # one rank of phase 22
@@ -6038,6 +6551,13 @@ def main(argv=None):
             summary["mlm_trainer"] = mlm_trainer_phase(dev, card)
         elif args.only == "distributed":
             summary["distributed_launches_per_rank_step"] = distributed_phase(dev, card)
+        elif args.only == "parallel":
+            o_errs = forward_checks(dev, gen, TENSOR_STEP_CASES)
+            grad_errs = backward_checks(dev, gen, TENSOR_STEP_CASES)
+            par = parallel_phase(dev, card, gen)
+            summary["parallel_launches_per_rank_step"] = {k: v for k, v in par.items() if k.endswith("launches")}
+            summary["max_abs_err"] = dict(fwd=max(o_errs.values()), **{g: max(e.values()) for g, e in grad_errs.items()},
+                                          **par["gmm_errs"])
         elif args.only == "knobs":
             o_errs = forward_checks(dev, gen, PACKED_STEP_CASES)
             grad_errs = backward_checks(dev, gen, PACKED_STEP_CASES)
@@ -6205,6 +6725,9 @@ def main(argv=None):
     # 23. the training step's last single-card knobs: packing, capacity and expert-choice MoE, embed_parallel
     knobs = knobs_phase(dev, card)
 
+    # 24. the tensor and expert axes: two and four ranks on the card (gloo), the kernels at the local shapes
+    par = parallel_phase(dev, card, gen)
+
     main = timings["b256_s512"]
 
     def gmm_entry(kname, replaces):
@@ -6223,6 +6746,7 @@ def main(argv=None):
         )
         entry["families"] = family_entry(kname)
         entry["capacity_moe_step_launches"] = knobs["capacity"][kname]
+        entry["parallel"] = parallel_entry(kname)
         if kname == "gmm":
             entry["encode_launches"] = moe_enc_launches["gmm"]
             entry["encode_batches"] = moe_batches
@@ -6242,6 +6766,32 @@ def main(argv=None):
                                                                               "library_backward_device_ms")
             entry["timings"] = {case: dict(row[kname], **{k: row[k] if k in row else row["fwd"][k] for k in lib})
                                 for case, row in families["kernels"].items()}
+        return entry
+
+    def parallel_entry(kname):
+        """Phase 24: launches per rank step of its cells (a tensor rank's 6
+        heads, an expert rank's 4 experts) and the new shapes' timing rows."""
+        pick = ("ms", "device_ms", "enqueue_us", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        if kname in ("gmm", "tgmm"):
+            return dict(expert_dropless_launches_per_rank_step=par["expert_dropless_launches"][kname],
+                        local_experts=4, max_abs_err=par["gmm_errs"][kname],
+                        timings={f"{name} {layout} K={K} N={N}": dict({k: row[k] for k in pick}, library=row["library"])
+                                 for (name, layout, K, N), row in par["gmm"].items()
+                                 if (name == "tgmm") == (kname == "tgmm")})
+        entry = dict(local_heads=6, tensor_launches_per_rank_step=par["tensor_launches"][kname],
+                     expert_launches_per_rank_step=par["expert_launches"][kname],
+                     expert_tensor_launches_per_rank_step=par["expert_tensor_launches"][kname])
+        cases = [c[0] for c in TENSOR_STEP_CASES]
+        if kname == "fwd":
+            entry.update(max_abs_err=max(o_errs[c] for c in cases),
+                         timings={label: {k: row[k] for k in pick} for label, row in par["fwd"].items()})
+        else:
+            entry.update(max_abs_err=max(grad_errs[g][c] for g in (("dq",) if kname == "dq" else ("dk", "dv"))
+                                         for c in cases),
+                         timings={label: dict({k: row[kname][k] for k in ("ms", "device_ms", "enqueue_us",
+                                                                           "bound_ms", "bound_by")},
+                                              plain_ms=row["plain_ms"], library_ms=row["library_ms"])
+                                  for label, row in par["bwd"].items()})
         return entry
 
     def inference_entry(kname):
@@ -6300,6 +6850,7 @@ def main(argv=None):
             vision=vision_entry(kname),
             families=family_entry(kname),
             inference=inference_entry(kname),
+            parallel=parallel_entry(kname),
             note="plain_ms and library_ms time a whole backward (dq, dk and dv); backward_ms is the whole "
                  "flash_attention_backward (dq, with delta, then dk/dv)",
         )
@@ -6349,6 +6900,7 @@ def main(argv=None):
             vision=vision_entry("fwd"),
             families=family_entry("fwd"),
             inference=inference_entry("fwd"),
+            parallel=parallel_entry("fwd"),
             timings={label: {k: row[k] for k in ("ms", "device_ms", "enqueue_us", "plain_ms", "bound_ms",
                                                  "library_ms", "library_device_ms")}
                      for label, row in timings.items()},

@@ -367,8 +367,9 @@ class ModelArgs(_Base):
     num_experts: int = 0
     moe_top_k: int = 1
     ffn_div: int = 1
-    # "dropless", "capacity" or "auto" (the trainer resolves it: dropless on
-    # one device); "megablocks" / "contrastors" are aliases
+    # "dropless", "capacity" or "auto" (the trainer resolves it: capacity
+    # when the expert axis is above 1, else dropless); "megablocks" /
+    # "contrastors" are aliases
     moe_impl: str = "auto"
     moe_normalize_expert_weights: bool = False
     expert_choice_router: bool = False
@@ -430,14 +431,16 @@ class TransformsConfig(_Base):
 
 @dataclass(kw_only=True)
 class ParallelArgs(_Base):
-    """Device layout, one process per GPU (`torchrun --nproc-per-node=N`):
-    `data` is the number of ranks on the data axis, -1 for the world size;
-    any other value must equal the world size. Each rank reads its rows of
-    every global batch (`batch_size` stays global) and the gradients are
-    summed over the ranks. `shard_optimizer_state` keeps the Adam moments
-    of leaves with at least `opt_state_shard_min_size` elements (and a
-    leading dim divisible by `data`) on their owner rank. `tensor` and
-    `expert` above 1 raise (ROADMAP Queue 1, item 5)."""
+    """Device layout, one process per GPU (`torchrun --nproc-per-node=N`),
+    the mesh data x expert x tensor = N (`parallel/mesh.py`); `data` = -1
+    means N / (expert * tensor). Each data rank reads its rows of every
+    global batch (`batch_size` stays global; its expert and tensor peers
+    read the same rows) and the gradients are summed over the data axis.
+    `tensor` splits attention heads and MLP hidden columns (Megatron's
+    column and row splits) and `expert` the MoE experts
+    (`parallel/sharding.py`). `shard_optimizer_state` keeps the Adam
+    moments of leaves with at least `opt_state_shard_min_size` elements
+    (and a leading dim divisible by `data`) on their owner data rank."""
 
     data: int = -1  # -1 = the world size
     tensor: int = 1

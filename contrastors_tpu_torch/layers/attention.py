@@ -17,6 +17,14 @@ JAX's quirk), and attention runs unmasked through `attention_core`. With
 `rotary_head_dim` (open_lm's `rotary_old`) the table is H rows long and q
 and k are rotated over the head index instead of the position, as in JAX.
 
+Under the tensor axis (`tp`, set by `parallel/sharding.py:shard_module`)
+a rank runs its H/t heads and Hkv/t kv heads: Wqkv is a column split that
+holds this rank's heads of q, of k and of v, `attention_core` gets
+[B, S, H/t, D] views (so the flash kernels run unchanged on fewer heads),
+and out_proj is a row split. The rotary over heads takes the table rows of
+this rank's heads, and the attention dropout draws the mask of all H heads
+and keeps this rank's, so that a split run draws the one-rank run's noise.
+
 The MAP head (`MultiHeadAttentionPooling`) is one learned latent query
 cross-attending over the sequence through the plain `sdpa` on purpose (one
 query row, as JAX's `impl="sdpa"`), then hidden + mlp(norm(attn)) taken at
@@ -35,6 +43,16 @@ from contrastors_tpu_torch.layers.norms import make_norm
 from contrastors_tpu_torch.layers.rotary import apply_rope_cat_prefixed, apply_rotary, rotary_cos_sin
 from contrastors_tpu_torch.ops import attention_core
 from contrastors_tpu_torch.ops.dropout import active, need_generator
+from contrastors_tpu_torch.parallel.mesh import AxisPart
+
+
+def local_heads(config, tp: Optional[AxisPart]) -> Tuple[Tuple[int, int, int], int]:
+    """((H, Hkv, D) of this rank, the index of its first head): the whole
+    layer's with no tensor split."""
+    H, Hkv, D = config.n_head, config.num_heads_kv, config.head_dim
+    if tp is None:
+        return (H, Hkv, D), 0
+    return (H // tp.size, Hkv // tp.size, D), tp.rank * (H // tp.size)
 
 
 class MultiHeadAttention(nn.Module):
@@ -48,6 +66,7 @@ class MultiHeadAttention(nn.Module):
         self.Wqkv = Dense(config.n_embd, D * (H + 2 * Hkv), bias=config.qkv_proj_bias, **kw)
         self.out_proj = Dense(H * D, config.n_embd, bias=config.qkv_proj_bias, **kw)
         self._tables: Dict[Tuple[int, str], Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.tp: Optional[AxisPart] = None  # the tensor axis, when the heads are split
 
     def _rotary_tables(self, length: int, device: torch.device):
         key = (length, str(device))
@@ -78,7 +97,7 @@ class MultiHeadAttention(nn.Module):
         if dropout_p:
             need_generator(dropout_generator, dropout_p, "attention dropout")
         B, S, _ = hidden_states.shape
-        H, Hkv, D = cfg.n_head, cfg.num_heads_kv, cfg.head_dim
+        (H, Hkv, D), h0 = local_heads(cfg, self.tp)
         qkv = self.Wqkv(hidden_states)
         q, k, v = torch.split(qkv, [H * D, Hkv * D, Hkv * D], dim=-1)
         q, k, v = q.view(B, S, H, D), k.view(B, S, Hkv, D), v.view(B, S, Hkv, D)
@@ -86,9 +105,10 @@ class MultiHeadAttention(nn.Module):
         rotary_kw = {}
         if cfg.rotary_emb_dim > 0:
             # DynamicNTK scaling engages only past the trained context
-            cos, sin = self._rotary_tables(H if cfg.rotary_head_dim else S, q.device)
+            cos, sin = self._rotary_tables(cfg.n_head if cfg.rotary_head_dim else S, q.device)
             if cfg.rotary_head_dim:
                 # open_lm's quirk: the head index is the rotary position
+                cos, sin = cos[h0:h0 + H], sin[h0:h0 + H]
                 q = apply_rotary(q.transpose(1, 2), cos, sin, cfg.rotary_emb_interleaved).transpose(1, 2)
                 k = apply_rotary(k.transpose(1, 2), cos, sin, cfg.rotary_emb_interleaved).transpose(1, 2)
             elif cfg.fused_rotary:
@@ -115,6 +135,7 @@ class MultiHeadAttention(nn.Module):
             softmax_scale=1.0 / (D**0.5),
             dropout_p=dropout_p,
             dropout_generator=dropout_generator if dropout_p else None,
+            dropout_heads=(h0, cfg.n_head) if self.tp is not None else None,
             **rotary_kw,
         )
         return self.out_proj(out.reshape(B, S, H * D))
@@ -134,11 +155,12 @@ class AttentionPooling(nn.Module):
         self.Wq = Dense(config.n_embd, config.n_embd, bias=config.qkv_proj_bias, **kw)
         self.Wkv = Dense(config.n_embd, 2 * Hkv * D, bias=config.qkv_proj_bias, **kw)
         self.out_proj = Dense(H * D, config.n_embd, bias=config.qkv_proj_bias, **kw)
+        self.tp: Optional[AxisPart] = None  # the tensor axis, when the heads are split
 
     def forward(self, kv_states: torch.Tensor, attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.config
         B = kv_states.shape[0]
-        H, Hkv, D = cfg.n_head, cfg.num_heads_kv, cfg.head_dim
+        (H, Hkv, D), _ = local_heads(cfg, self.tp)
         q = self.Wq(self.latent.to(self.Wq.compute_dtype).expand(B, 1, cfg.n_embd))
         k, v = self.Wkv(kv_states).chunk(2, dim=-1)
         out = attention_core(q.reshape(B, 1, H, D), k.reshape(B, -1, Hkv, D), v.reshape(B, -1, Hkv, D),

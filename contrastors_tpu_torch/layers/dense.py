@@ -13,11 +13,24 @@ bf16, see PERF.md); the embedding table is looked up first and only the
 gathered rows are cast. Parameter names (`weight`, `bias`) and shapes are
 nn.Linear's and nn.Embedding's, so state dicts and `convert.flax_to_torch`
 are unaffected.
+
+Under the tensor axis (`parallel/sharding.py:shard_module`) a Dense is
+Megatron's column or row split over its `group` and holds its slice:
+  - "column": this rank's output features (weight rows, bias entries); the
+    input passes `copy_to_group`, so the replicated input's gradient is the
+    sum over the peers;
+  - "row": this rank's input features (weight columns) of an input that is
+    already split; the partial products are summed by `reduce_from_group`
+    and the whole bias is added once, after the sum.
 """
+
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from contrastors_tpu_torch.parallel.collectives import copy_to_group, reduce_from_group
 
 
 class Dense(nn.Linear):
@@ -25,11 +38,22 @@ class Dense(nn.Linear):
                  dtype=torch.float32, device=None):
         super().__init__(in_features, out_features, bias=bias, dtype=torch.float32, device=device)
         self.compute_dtype = dtype
+        self.split: Optional[str] = None  # "column" or "row" under the tensor axis
+        self.group: Optional[Any] = None
+
+    def local(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        """x times this rank's weight (and bias), with no collective."""
+        dt = self.compute_dtype
+        b = None if self.bias is None or not bias else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        if self.split == "column":
+            return self.local(copy_to_group(x, self.group))
+        if self.split == "row":
+            y = reduce_from_group(self.local(x, bias=False), self.group)
+            return y if self.bias is None else y + self.bias.to(y.dtype)
+        return self.local(x)
 
 
 class Embed(nn.Embedding):

@@ -3,9 +3,19 @@
 Parameter names (fc1/fc2, fc11/fc12) match the JAX modules so that
 `convert.flax_to_torch` maps them one to one. Weights are stored in fp32
 and cast to the compute dtype where they are used (layers/dense.py).
+
+Under the tensor axis (`parallel/sharding.py:shard_module`) fc1 / fc11 /
+fc12 are column splits and fc2 a row split (`layers/dense.py`): a rank
+computes its columns of the hidden width, and fc2 sums the peers' partial
+outputs. A gated MLP passes its input through `copy_to_group` once for
+both fc11 and fc12. EVA02's `norm` (`norm_mlp`) normalises over the hidden
+width that is now split: the rank's columns are gathered to the whole
+width, normalised with the whole (replicated) weight and bias, and this
+rank's columns taken again, so the statistics and the norm's gradients are
+the one-rank run's.
 """
 
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 from torch import nn
@@ -14,6 +24,7 @@ from contrastors_tpu_torch._device import resolve_device
 from contrastors_tpu_torch.layers.activations import ACT2FN, is_gated
 from contrastors_tpu_torch.layers.dense import Dense
 from contrastors_tpu_torch.layers.norms import LayerNorm
+from contrastors_tpu_torch.parallel.collectives import copy_to_group, gather_from_group, scatter_to_group
 
 
 def round_hidden(in_features: int, hidden_features: Optional[int], multiple_of: int = 256) -> int:
@@ -54,11 +65,14 @@ class GatedMLP(nn.Module):
         self.fc12 = Dense(config.n_embd, hidden, bias=config.mlp_fc1_bias, **kw)
         self.fc2 = Dense(hidden, config.n_embd, bias=config.mlp_fc2_bias, **kw)
         self.norm = LayerNorm(hidden, eps=config.layer_norm_epsilon, device=kw["device"]) if config.norm_mlp else None
+        self.tp: Optional[Any] = None  # the tensor axis (an AxisPart), when the hidden width is split
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.fc11(x) * self.act(self.fc12(x))
+        group = None if self.tp is None else self.tp.group
+        x = copy_to_group(x, group)
+        y = self.fc11.local(x) * self.act(self.fc12.local(x))
         if self.norm is not None:
-            y = self.norm(y)
+            y = scatter_to_group(self.norm(gather_from_group(y, group)), group)
         return self.fc2(y)
 
 

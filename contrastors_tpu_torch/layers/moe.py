@@ -35,12 +35,30 @@ is per token, so groups do not change it.
 Optional shared experts (Dense layers on every token) blend in by
 assignment count, then the output bias. Nothing is read back to the host.
 
+The expert and tensor axes (`parallel/sharding.py:shard_module`): the
+router and routing are replicated. Every peer of an expert group holds the
+same tokens and computes the same top-k and [E, C] tables, so the experts
+need no all-to-all: a rank runs its E/e local experts (`ep`), with F/t of
+their hidden width under the tensor axis (`tp`), and the partial outputs
+are summed by `reduce_from_group` over both groups. The tokens and the
+combine weights enter the local experts through `copy_to_group`, so that
+the gradients of x and of the router are whole. The capacity and expert
+choice dispatches take the table rows of the local experts; the dropless
+one lays out only the local experts' assignments (the others go to a last
+group past the local ones, whose blocks are inactive: gmm writes 0 there)
+and runs gmm / tgmm on [E/e, ...] weights with the local group sizes. The
+output bias is added once, after the sum; the shared experts are
+replicated. Every collective is called on every peer in the same order,
+also by a rank whose local experts took no rows.
+
 Parameters keep the JAX names and shapes so that `convert.flax_to_torch`
 maps them one to one: `router` [D, E], `w_up`/`w_gate` [E, D, F] and
 `w_down` [E, F, D] (`w_in` for an ungated activation), `bias` [D], and the
 `shared_*` Dense layers. They are stored in fp32 and cast to the compute
 dtype where used, as `layers/dense.py` does.
 """
+
+from typing import Any, Optional
 
 import torch
 from torch import nn
@@ -49,6 +67,7 @@ from contrastors_tpu_torch._device import resolve_device
 from contrastors_tpu_torch.layers.activations import ACT2FN, is_gated
 from contrastors_tpu_torch.layers.dense import Dense
 from contrastors_tpu_torch.ops.grouped_matmul import aligned_group_layout, block_experts, gmm
+from contrastors_tpu_torch.parallel.collectives import copy_to_group, reduce_from_group
 
 
 class MoEMLP(nn.Module):
@@ -87,6 +106,21 @@ class MoEMLP(nn.Module):
             self.shared_gate = Dense(D, hid, **kw)
             self.shared_down = Dense(hid, D, **kw)
         self.bias = nn.Parameter(torch.zeros(D, device=device))
+        # the tensor and expert axes (AxisParts), when the experts are split
+        self.tp: Optional[Any] = None
+        self.ep: Optional[Any] = None
+
+    @property
+    def _groups(self):
+        """The groups over which the local experts' outputs are partial."""
+        return tuple(a.group for a in (self.tp, self.ep) if a is not None)
+
+    def _local_experts(self):
+        """(first local expert, number of local experts)."""
+        if self.ep is None:
+            return 0, self.num_routed
+        n = self.num_routed // self.ep.size
+        return self.ep.rank * n, n
 
     def route(self, probs, valid):
         """Token-choice routing of the router probabilities [N, E]: (top-k
@@ -129,12 +163,20 @@ class MoEMLP(nn.Module):
     def _dropless(self, x, top_w, top_e):
         N, D = x.shape
         k = self.top_k
+        lo, n_local = self._local_experts()
+        flat_e = top_e.reshape(-1)
         token_of = torch.arange(N, device=x.device).repeat_interleave(k)
+        if self.ep is not None:
+            # other ranks' assignments: a last group past the local ones,
+            # gathering the zero row, in blocks that gmm leaves inactive
+            mine = (flat_e >= lo) & (flat_e < lo + n_local)
+            flat_e = torch.where(mine, flat_e - lo, n_local)
+            token_of = torch.where(mine, token_of, N)
         dest, group_sizes, P, src = aligned_group_layout(
-            top_e.reshape(-1), self.num_routed, self.block_m, src_of=token_of, sentinel=N
+            flat_e, n_local + (self.ep is not None), self.block_m, src_of=token_of, sentinel=N
         )
         x_pad = torch.cat([x.to(self.dtype), x.new_zeros((1, D), dtype=self.dtype)])
-        y = self._experts(x_pad[src], group_sizes)
+        y = self._experts(x_pad[src], group_sizes[:n_local])
         y_assign = y[dest].reshape(N, k, D)
         return (y_assign * top_w[..., None].to(y_assign.dtype)).sum(dim=1)
 
@@ -168,7 +210,8 @@ class MoEMLP(nn.Module):
         w = torch.zeros((E, G * C + 1), dtype=torch.float32, device=x.device)
         w = w.index_put((flat_e, col), torch.where(ok, top_w.reshape(-1).float(), 0.0))[:, :G * C]
         x_pad = torch.cat([x.to(self.dtype), x.new_zeros((1, D), dtype=self.dtype)])
-        return self._combine(x_pad, idx, w, N + 1)[:N]
+        lo, n_local = self._local_experts()
+        return self._combine(x_pad, idx[lo:lo + n_local], w[lo:lo + n_local], N + 1)[:N]
 
     def _expert_choice(self, x, probs, valid, groups):
         """Each expert's top C tokens of each group of n, by score."""
@@ -182,7 +225,8 @@ class MoEMLP(nn.Module):
         g, idx = g[..., :C], idx[..., :C] + (torch.arange(G, device=x.device) * n)[:, None, None]
         idx = idx.transpose(0, 1).reshape(E, G * C)
         g = g.transpose(0, 1).reshape(E, G * C) * valid.reshape(-1)[idx].to(g.dtype)  # picked pads: 0
-        return self._combine(x.to(self.dtype), idx, g, N)
+        lo, n_local = self._local_experts()
+        return self._combine(x.to(self.dtype), idx[lo:lo + n_local], g[lo:lo + n_local], N)
 
     def forward(self, hidden_states: torch.Tensor, attention_mask=None, groups: int = 1):
         """Returns (output [B, S, D] in hidden_states.dtype, masked router
@@ -201,14 +245,21 @@ class MoEMLP(nn.Module):
             valid = torch.ones((N, 1), dtype=torch.bool, device=x.device)
             logits_masked = logits
         probs = torch.softmax(logits, dim=-1)
+        split = self._groups
+        # the local experts' region: replicated tensors enter by copy_to_group
+        # and its partial outputs leave by reduce_from_group (identities
+        # without a split)
+        xe = copy_to_group(x, split)
         if self.config.expert_choice_router:
-            out = self._expert_choice(x, probs, valid, groups)
+            out = self._expert_choice(xe, copy_to_group(probs, split), valid, groups)
         else:
             top_w, top_e = self.route(probs, valid)  # [N, k]
+            top_w = copy_to_group(top_w, split)
             if self.config.moe_impl == "capacity":
-                out = self._capacity(x, top_w, top_e, valid, groups)
+                out = self._capacity(xe, top_w, top_e, valid, groups)
             else:
-                out = self._dropless(x, top_w, top_e)
+                out = self._dropless(xe, top_w, top_e)
+        out = reduce_from_group(out, split)
 
         if self.num_shared > 0:
             shared = self.shared_down(self.shared_up(x) * self.act(self.shared_gate(x)))

@@ -3,7 +3,7 @@
 Counterpart of `contrastors_tpu/ops/__init__.py`.
 """
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -58,6 +58,7 @@ def attention_core(
     softmax_scale: Optional[float] = None,
     dropout_p: float = 0.0,
     dropout_generator: Optional[torch.Generator] = None,
+    dropout_heads: Optional[Tuple[int, int]] = None,
     rotary_cos: Optional[torch.Tensor] = None,
     rotary_sin: Optional[torch.Tensor] = None,
     rotary_interleaved: bool = False,
@@ -80,7 +81,9 @@ def attention_core(
     row's keys all valid and its k scaled (`_DeadRows`), with no host sync.
     The JAX `block_q`/`block_kv`/`flash_min_seq` arguments have no
     counterpart here, and `dropout_generator` (a torch.Generator) stands for
-    `dropout_rng`. Otherwise the plain `sdpa` runs, on any device.
+    `dropout_rng`. Otherwise the plain `sdpa` runs, on any device;
+    `dropout_heads` = (first head, all heads) of a tensor rank's heads
+    draws the mask of all heads and keeps this rank's (`sdpa`).
 
     rotary_cos/rotary_sin make this the single rotary application point: the
     flash path rotates q/k inside the kernels (their fused-rotary variants),
@@ -126,4 +129,5 @@ def attention_core(
         softmax_scale=softmax_scale,
         dropout_p=dropout_p,
         dropout_generator=dropout_generator,
+        dropout_heads=dropout_heads,
     )

@@ -123,17 +123,26 @@ def keep_mask(shape: Sequence[int], keep: float, generator, device) -> torch.Ten
 
 
 def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator], training: bool = True,
-            mask_shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+            mask_shape: Optional[Sequence[int]] = None,
+            mask_part: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """x with each element (or each slice of `mask_shape`, broadcast over x:
     drop-path draws one per sample) zeroed with probability p and the rest
-    divided by 1 - p."""
+    divided by 1 - p. mask_part = (dim, start, whole): x is the slice
+    [start, start + x.shape[dim]) along dim of a tensor `whole` long there;
+    the mask is drawn for the whole and sliced (a tensor rank's heads)."""
     if not active(p, training):
         return x
     need_generator(generator, p)
     if p >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - p
-    mask = keep_mask(x.shape if mask_shape is None else mask_shape, keep, generator, x.device)
+    shape = list(x.shape if mask_shape is None else mask_shape)
+    if mask_part is not None:
+        dim, start, whole = mask_part
+        n, shape[dim] = shape[dim], whole
+        mask = keep_mask(shape, keep, generator, x.device).narrow(dim, start, n)
+    else:
+        mask = keep_mask(shape, keep, generator, x.device)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -12,7 +12,7 @@ Conventions:
     equal nonzero segments
 """
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -74,12 +74,15 @@ def sdpa(
     softmax_scale: Optional[float] = None,
     dropout_p: float = 0.0,
     dropout_generator: Optional[torch.Generator] = None,
+    dropout_heads: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Returns [B, S, H, D] in q.dtype. Softmax in fp32; probabilities are
     cast to v.dtype before the PV product, as on the JAX side. Attention
     dropout is drawn only from `dropout_generator` (JAX's `dropout_rng`),
     by `ops/dropout.py:dropout` on the fp32 probabilities: without a
-    generator, dropout_p has no effect."""
+    generator, dropout_p has no effect. dropout_heads = (h0, all): q holds
+    heads [h0, h0 + H) of `all`, and the mask is drawn for all of them and
+    sliced, so that a tensor rank draws the whole layer's noise."""
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     if softmax_scale is None:
@@ -96,6 +99,7 @@ def sdpa(
         logits = logits + bias
     probs = torch.softmax(logits, dim=-1)
     if dropout_generator is not None:  # JAX: only with a dropout_rng
-        probs = dropout(probs, dropout_p, dropout_generator)
+        probs = dropout(probs, dropout_p, dropout_generator,
+                        mask_part=None if dropout_heads is None else (1, *dropout_heads))
     out = torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v)
     return out.to(q.dtype)

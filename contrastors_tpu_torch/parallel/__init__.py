@@ -1,6 +1,8 @@
-"""Data parallelism, one process per GPU: the mesh record, batch placement,
-the differentiable all-gather and the gradient all-reduce, and optimizer-
-state sharding. Counterpart of `contrastors_tpu/parallel/`."""
+"""The mesh (data x expert x tensor), one process per GPU: the mesh record
+and its groups, batch placement, the differentiable all-gather and the
+gradient all-reduce, Megatron's copy / reduce functions, the tensor and
+expert splits of the model, and optimizer-state sharding over the data
+axis. Counterpart of `contrastors_tpu/parallel/`."""
 
 from contrastors_tpu_torch.parallel.collectives import (  # noqa: F401
     all_gather_rows,

@@ -1,61 +1,147 @@
-"""The data-parallel layout of a run, and batch placement.
+"""The device layout of a run (data x expert x tensor), and batch placement.
 
 Counterpart of `contrastors_tpu/parallel/mesh.py`. JAX builds a
-`jax.sharding.Mesh` over the devices of one process and lets GSPMD (or
-`shard_map`) split a global batch over its "data" axis. The port runs one
-process per GPU instead, as the reference does (`torchrun`, one rank a
-card), so the mesh is a small record of the process group: the data axis
-is the world size and each rank holds its own rows. JAX's `shard_map` has
-no counterpart: a rank's code is already the per-device body, and the
-collectives it would insert are explicit calls (`parallel/collectives.py`).
+`jax.sharding.Mesh` over the devices of one process, shaped
+(data, expert, tensor), and lets GSPMD (or `shard_map`) split the global
+batch over "data" and the parameters over "expert" and "tensor"
+(`parallel/sharding.py`). The port runs one process per GPU instead, as the
+reference does (`torchrun`, one rank a card), so the mesh is a small record
+of the process group: the global ranks are laid out as JAX lays out its
+devices (`np.asarray(devices).reshape(data, expert, tensor)`: tensor is the
+fastest-varying coordinate), and each axis has a process group, built by
+`torch.distributed.new_group` in the same order on every rank:
 
-The tensor and expert axes are not ported (ROADMAP Queue 1, item 5): a mesh
-that asks for them raises NotImplementedError.
+  - the data group: the ranks that share this rank's (expert, tensor)
+    coordinate. They hold different rows of the global batch; gradients and
+    metrics are summed over it. With no expert or tensor axis it is the
+    default group.
+  - the expert group: the ranks that share (data, tensor). They hold the
+    same rows and different experts of every MoE layer.
+  - the tensor group: the ranks that share (data, expert). They hold the
+    same rows and different heads and hidden columns of every split layer
+    (Megatron's column and row splits).
+
+An axis of size 1 has no group (None), and every collective over None is
+the identity. JAX's `shard_map` has no counterpart: a rank's code is
+already the per-device body, and the collectives GSPMD would insert are
+explicit calls (`parallel/collectives.py`).
 """
 
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from contrastors_tpu_torch.utils import dist as dist_utils
 
-UNPORTED_AXES = "ROADMAP Queue 1, item 5"
+
+@dataclass(frozen=True)
+class AxisPart:
+    """This rank's part of a split axis: the axis' group, its size and this
+    rank's index on it."""
+
+    group: Any
+    size: int
+    rank: int
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """data: ranks on the data axis (the world size); rank: this process's
-    index on it. expert and tensor are 1 (the only sizes the port runs)."""
+    """data, expert, tensor: the axes' sizes. rank: this process's
+    coordinate on the data axis (which rows of a global batch it reads);
+    expert_rank, tensor_rank: its coordinates on the other two;
+    global_rank: its rank in the process group. data_group, expert_group,
+    tensor_group: the axes' process groups (module docstring)."""
 
     data: int = 1
     expert: int = 1
     tensor: int = 1
     rank: int = 0
+    expert_rank: int = 0
+    tensor_rank: int = 0
+    global_rank: int = 0
+    data_group: Optional[Any] = None
+    expert_group: Optional[Any] = None
+    tensor_group: Optional[Any] = None
 
     @property
     def group(self) -> Optional[Any]:
-        """The process group of the data axis (the default group), or None
-        for a lone process: the losses' and grad cache's `group`."""
-        return dist.group.WORLD if dist_utils.is_initialized() else None
+        """The data axis' group: the losses', grad cache's and the gradient
+        all-reduce's `group`."""
+        return self.data_group
+
+    @property
+    def layout(self) -> Tuple[int, int, int]:
+        return (self.data, self.expert, self.tensor)
+
+    @property
+    def leads_data_rank(self) -> bool:
+        """True for the one rank of each data coordinate that writes what
+        belongs to the rows (the data cursor): (expert, tensor) = (0, 0)."""
+        return self.expert_rank == 0 and self.tensor_rank == 0
+
+    @property
+    def tensor_part(self) -> Optional[AxisPart]:
+        return AxisPart(self.tensor_group, self.tensor, self.tensor_rank) if self.tensor > 1 else None
+
+    @property
+    def expert_part(self) -> Optional[AxisPart]:
+        return AxisPart(self.expert_group, self.expert, self.expert_rank) if self.expert > 1 else None
+
+
+def _layout_error(data: int, expert: int, tensor: int, world: int) -> ValueError:
+    if expert == 1 and tensor == 1:
+        return ValueError(
+            f"parallel_args.data={data} but the process group has {world} rank(s): the port runs one "
+            f"process per device of the data axis (launch with torchrun --nproc-per-node={data})")
+    need = f"{data * expert * tensor}" if data != -1 else f"a multiple of {expert * tensor}"
+    return ValueError(
+        f"parallel_args (data, expert, tensor) = ({data}, {expert}, {tensor}) needs {need} rank(s) but the "
+        f"process group has {world}: the port runs one process per device of the mesh (launch with "
+        f"torchrun --nproc-per-node=data*expert*tensor)")
 
 
 def make_mesh(data: int = -1, tensor: int = 1, expert: int = 1) -> Mesh:
-    """The mesh of this process group: data = -1 means the world size, and
-    any other data must equal it."""
-    if tensor != 1 or expert != 1:
-        raise NotImplementedError(
-            f"parallel_args tensor={tensor} expert={expert}: the port has the data axis only; tensor and "
-            f"expert parallelism are not ported ({UNPORTED_AXES})")
+    """The mesh of this process group: data * expert * tensor must equal
+    the world size; data = -1 means world / (expert * tensor)."""
     world = dist_utils.world()
+    if tensor < 1 or expert < 1 or world % (tensor * expert):
+        raise _layout_error(data, expert, tensor, world)
     if data == -1:
-        data = world
-    if data != world:
-        raise ValueError(
-            f"parallel_args.data={data} but the process group has {world} rank(s): the port runs one "
-            f"process per device of the data axis (launch with torchrun --nproc-per-node={data})")
-    return Mesh(data=data, rank=dist_utils.rank())
+        data = world // (tensor * expert)
+    if data * expert * tensor != world:
+        raise _layout_error(data, expert, tensor, world)
+    g = dist_utils.rank()
+    d, e, t = g // (expert * tensor), (g // tensor) % expert, g % tensor
+    if not dist_utils.is_initialized():
+        return Mesh(data=data, expert=expert, tensor=tensor)
+    if expert == 1 and tensor == 1:
+        return Mesh(data=data, rank=d, global_rank=g, data_group=dist.group.WORLD)
+
+    def rank_of(dd, ee, tt):
+        return (dd * expert + ee) * tensor + tt
+
+    def groups(size, members) -> Optional[Any]:
+        """One group per fixed coordinate of the other two axes, created in
+        the same order on every rank; this rank's, or None for size 1."""
+        if size == 1:
+            return None
+        mine = None
+        for ranks in members:
+            pg = dist.new_group(ranks)
+            if g in ranks:
+                mine = pg
+        return mine
+
+    data_group = groups(data, [[rank_of(dd, ee, tt) for dd in range(data)]
+                               for ee in range(expert) for tt in range(tensor)])
+    expert_group = groups(expert, [[rank_of(dd, ee, tt) for ee in range(expert)]
+                                   for dd in range(data) for tt in range(tensor)])
+    tensor_group = groups(tensor, [[rank_of(dd, ee, tt) for tt in range(tensor)]
+                                   for dd in range(data) for ee in range(expert)])
+    return Mesh(data=data, expert=expert, tensor=tensor, rank=d, expert_rank=e, tensor_rank=t,
+                global_rank=g, data_group=data_group, expert_group=expert_group, tensor_group=tensor_group)
 
 
 def data_axis_size(mesh: Mesh) -> int:
@@ -72,7 +158,8 @@ def divisor_chunk(chunk: int, rows: int) -> int:
 
 
 def local_rows(n: int, mesh: Mesh) -> slice:
-    """This rank's rows of a global batch of n rows."""
+    """This rank's rows of a global batch of n rows (by its data
+    coordinate: its expert and tensor peers read the same rows)."""
     if n % mesh.data:
         raise ValueError(f"a global batch of {n} rows does not divide over {mesh.data} ranks")
     per = n // mesh.data
@@ -94,11 +181,18 @@ def shard_batch(batch: Dict[str, Any], mesh: Mesh, device, is_global: bool = Fal
 
 @torch.no_grad()
 def replicate(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
-    """Every parameter and buffer of module broadcast from rank 0, in place
-    (a no-op for one rank)."""
-    if mesh.data > 1:
+    """Every parameter and buffer of the whole module broadcast from global
+    rank 0 over the world, in place, one flat buffer per dtype (a no-op for
+    one process). Call it before `parallel/sharding.py:shard_module`."""
+    if dist_utils.world() > 1:
+        by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
         for t in list(module.parameters()) + list(module.buffers()):
-            dist.broadcast(t.data, src=0)
+            by_dtype.setdefault(t.dtype, []).append(t.data)
+        for tensors in by_dtype.values():
+            flat = torch.cat([t.reshape(-1) for t in tensors])
+            dist.broadcast(flat, src=0)
+            torch._foreach_copy_(tensors, [v.view_as(t) for v, t in zip(flat.split([t.numel() for t in tensors]),
+                                                                       tensors)])
     return module
 
 

@@ -4,8 +4,8 @@
         [--dtype=bf16] [--device=cuda] [--key=value overrides]
 
 Trains on the card by default, which must be present; `--device cpu` runs
-the plain PyTorch path. Data-parallel, launch one process per card as the
-reference does:
+the plain PyTorch path. On several cards, launch one process per card as
+the reference does:
 
     torchrun --nproc-per-node=N -m contrastors_tpu_torch.train --config=...
 
@@ -13,7 +13,11 @@ Each rank joins the process group before its trainer is built
 (`utils/dist.py:maybe_initialize_distributed`, JAX's `train.py:55-60`),
 with NCCL on the cards ($CONTRASTORS_DIST_BACKEND=gloo for gloo, which is
 the CPU's backend), and `--device cuda` means the rank's own card,
-`cuda:LOCAL_RANK`. `parallel_args.data` is -1 or the world size.
+`cuda:LOCAL_RANK`. The config's `parallel_args: {data: d, expert: e,
+tensor: t}` lays the N ranks out as JAX's mesh (d * e * t = N, data -1 for
+N / (e * t)): the data axis splits the batch, the expert axis the MoE
+experts and the tensor axis the attention heads and MLP columns
+(`parallel/mesh.py`, `parallel/sharding.py`).
 """
 
 import argparse

@@ -11,24 +11,37 @@ gradient trees) and the optimizer applies their mean on the N-th.
 `grad_norm` is the global norm of that mean before the clip, reported on the
 update's micro-step only, as in JAX.
 
-Data parallelism (`parallel_args.data`, JAX's mesh at `:55-135`): one
-process per GPU under `torchrun`, each rank on its own card
-(`utils/dist.py:maybe_initialize_distributed` sets it) with its own rows
-of every global batch. The rank's loss is its share of the global one
-(the shares add up over the ranks to JAX's loss on the global batch), its
-gradients are summed over the ranks once per applied update, after the
-last micro-step, in one all-reduce (`parallel/collectives.py`), so the clip
-and `grad_norm` see the global gradient, and the step's metrics are
-reduced over the ranks on the device ("loss" and "router_aux" summed, the
-rest averaged). The parameters are broadcast from rank 0 after the model is
-built, and their checksums compared. With `shard_optimizer_state` the
-Adam moments of large leaves live on their owner rank
-(`parallel/sharding.py`). Rank 0 alone writes the tracker, the model, the
-scheduler and step.txt; each rank writes its data cursor, and its
-optimizer shard when the state is sharded; a load waits for the writes in
-flight and for every rank. Eval metrics are averaged over the ranks
-(`process_allmean`). The tensor and expert axes raise
-NotImplementedError (ROADMAP Queue 1, item 5).
+The mesh (`parallel_args` data x expert x tensor, JAX's mesh at
+`:55-135`; `parallel/mesh.py`): one process per GPU under `torchrun`, each
+rank on its own card (`utils/dist.py:maybe_initialize_distributed` sets
+it). The data axis: each data rank holds its own rows of every global
+batch, and its expert and tensor peers hold the same rows. The rank's loss
+is its share of the global one (the shares add up over the data ranks to
+JAX's loss on the global batch), its gradients are summed over the data
+group once per applied update, after the last micro-step, in one
+all-reduce (`parallel/collectives.py`), so the clip and `grad_norm` see
+the global gradient, and the step's metrics are reduced over the data
+group on the device ("loss" and "router_aux" summed, the rest averaged);
+the step generator folds in the data rank only, so expert and tensor peers
+draw the same noise. The tensor and expert axes split the model
+(`parallel/sharding.py`): the whole model is built, broadcast from global
+rank 0 over the world and its checksums compared, then sliced for this
+rank in place (`shard_module`): Megatron's column and row splits over the
+tensor group, the local experts over the expert group. Nothing is summed
+over those groups in the step (their peers hold the same rows); the
+Megatron functions inside the layers make each rank's gradients of its
+shards and of the replicated parameters whole, and `grad_norm` counts each
+parameter once (`utils/optim.py:global_norm`). With
+`shard_optimizer_state` the Adam moments of large leaves live on their
+owner rank of the data group. Global rank 0 alone writes the tracker, the
+model, the scheduler and step.txt; the model and EMA in state.pt are the
+whole tensors (gathered), with the keys of a one-rank run, so export, eval
+and a resume at any layout read them. Each data rank's (expert, tensor) =
+(0, 0) peer writes its data cursor; each rank writes its optimizer state
+when it is its own (sharded over the data group, or of split parameters),
+in a file whose name carries the layout, and a resume at another layout
+raises. A load waits for the writes in flight and for every rank. Eval
+metrics are averaged over the ranks (`process_allmean`).
 
 `BaseTrainer` (`:53-460`) owns a run: seeding, tokenizer, data, model,
 AdamW with its learning-rate schedule, EMA weights, checkpoints, logging,
@@ -53,7 +66,8 @@ in-train eval and the loop. What differs from JAX, and why:
     prefetch thread collates and pins the batch, the loop issues its copy
     to the device without waiting, and metrics stay on the device until
     the tracker fetches them.
-  - moe_impl "auto" resolves to "dropless" (no expert axis).
+  - moe_impl "auto" resolves as JAX's does: "capacity" when the expert
+    axis is above 1, else "dropless".
   - The step is built after the first batch's `transform_host_batch`, as
     JAX builds it (`:321-325,368-376`), so that `packed_auto` can turn
     packing off before the step reads the flag.
@@ -74,7 +88,16 @@ from contrastors_tpu_torch.config import Config
 from contrastors_tpu_torch.ops.dropout import step_generator
 from contrastors_tpu_torch.parallel.collectives import all_reduce_grads, group_rank, group_size, reduce_metrics
 from contrastors_tpu_torch.parallel.mesh import fingerprint, make_mesh, replicate, shard_batch
-from contrastors_tpu_torch.parallel.sharding import ShardedAdamW, optimizer_params, shard_optimizer_state
+from contrastors_tpu_torch.parallel.sharding import (
+    ShardedAdamW,
+    gather_state_dict,
+    gather_tensors,
+    optimizer_params,
+    param_splits,
+    shard_module,
+    shard_optimizer_state,
+    shard_state_dict,
+)
 from contrastors_tpu_torch.utils import dist as dist_utils
 from contrastors_tpu_torch.utils.logging import Tracker
 from contrastors_tpu_torch.utils.optim import AdamW, lr_scheduler, make_optimizer, make_schedule
@@ -207,25 +230,31 @@ class BaseTrainer(ABC):
 
         pa = config.parallel_args
         self.mesh = make_mesh(pa.data, pa.tensor, pa.expert)
-        # the data axis' group: None for a lone process; at world size 1 in
-        # a process group the collectives run on the one rank
+        # the data axis' group: None for a lone process or a data axis of 1
+        # beside other axes; at world size 1 in a process group the
+        # collectives run on the one rank
         self.group = self.mesh.group
-        self.is_main = self.mesh.rank == 0
+        self.is_main = self.mesh.global_rank == 0
         batch = getattr(config.data_args, "batch_size", None)
         if batch and batch % self.mesh.data:
             raise ValueError(f"data_args.batch_size={batch} (the global batch) does not divide over "
                              f"{self.mesh.data} ranks")
+        # moe_impl="auto": dropless (the grouped-matmul kernels) with no
+        # expert axis, capacity under it, as JAX resolves it
         for margs_ in (config.model_args, config.text_model_args, config.vision_model_args,
                        config.tower_model_args):
             if margs_ is not None and margs_.moe_impl == "auto":
-                margs_.moe_impl = "dropless"
+                margs_.moe_impl = "capacity" if self.mesh.expert > 1 else "dropless"
+                if margs_.num_experts:
+                    dist_utils.rank0_print(f"[moe] moe_impl=auto -> {margs_.moe_impl} "
+                                           f"(expert axis = {self.mesh.expert})")
 
         self.tokenizer = self.get_tokenizer()
         self.dataloader, self.steps_per_epoch = self.get_dataloaders()
         self.total_steps = ta.num_train_steps or (ta.num_epochs * self.steps_per_epoch)
 
         self.model = self.get_model()
-        self._replicate_model()
+        self._place_model()
         warmup = ta.warmup_steps or (int(self.total_steps * ta.warmup_pct) if ta.warmup_pct else 0)
         self.schedule = make_schedule(ta.schedule_type, ta.learning_rate, self.total_steps, warmup,
                                       ta.cooldown_steps)
@@ -277,23 +306,32 @@ class BaseTrainer(ABC):
         if ta.checkpoint:
             self.load_state(ta.checkpoint)
 
-    def _replicate_model(self):
-        """Broadcast every parameter and buffer from rank 0. Each rank built
-        the model from the same seed, so their checksums should agree
+    def placed_modules(self) -> Dict[str, torch.nn.Module]:
+        """The modules that are broadcast and split over the mesh: the
+        model, and any other module the step runs (the distill teacher)."""
+        return {"model": self.model}
+
+    def _place_model(self):
+        """Broadcast every parameter and buffer of the whole modules from
+        global rank 0, then slice them for this rank (`shard_module`). Each
+        rank built them from the same seed, so their checksums should agree
         before (`init_replicas_agreed`); after the broadcast they must."""
         self.init_replicas_agreed = True
-        if self.mesh.data == 1:
-            return
-        tensors = lambda: list(self.model.parameters()) + list(self.model.buffers())  # noqa: E731
-        before = dist_utils.gather_objects(fingerprint(tensors()))
-        replicate(self.model, self.mesh)
-        after = dist_utils.gather_objects(fingerprint(tensors()))
-        self.init_replicas_agreed = len(set(before)) == 1
-        if len(set(after)) != 1:
-            raise RuntimeError(f"the replicas' parameters differ after the broadcast from rank 0: {after}")
-        if not self.init_replicas_agreed:
-            dist_utils.rank0_print(f"[trainer] the ranks built different initial parameters {before}; "
-                                   "rank 0's were broadcast")
+        modules = list(self.placed_modules().values())
+        if dist_utils.world() > 1:
+            tensors = lambda: [t for m in modules for t in list(m.parameters()) + list(m.buffers())]  # noqa: E731
+            before = dist_utils.gather_objects(fingerprint(tensors()))
+            for m in modules:
+                replicate(m, self.mesh)
+            after = dist_utils.gather_objects(fingerprint(tensors()))
+            self.init_replicas_agreed = len(set(before)) == 1
+            if len(set(after)) != 1:
+                raise RuntimeError(f"the replicas' parameters differ after the broadcast from rank 0: {after}")
+            if not self.init_replicas_agreed:
+                dist_utils.rank0_print(f"[trainer] the ranks built different initial parameters {before}; "
+                                       "rank 0's were broadcast")
+        for m in modules:
+            shard_module(m, self.mesh)
 
     def log(self, metrics: Dict[str, Any], step: int):
         """Log on rank 0 (the only tracker)."""
@@ -347,14 +385,27 @@ class BaseTrainer(ABC):
 
     # -- checkpoints -----------------------------------------------------------
     def _state(self) -> Dict[str, Any]:
-        state = {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
-                 "scheduler": self.scheduler.state_dict(), "generator": self.generator.get_state()}
+        """The checkpoint: the model and EMA as whole tensors (a collective
+        over the mesh's model groups: every rank calls it)."""
+        state = {"model": gather_state_dict(self.model, self.mesh), "optimizer": self.optimizer.state_dict(),
+                 "scheduler": self.scheduler.state_dict(), "generator": self.generator.get_state(),
+                 "layout": list(self.mesh.layout)}
         if self.ema_params is not None:
-            state["ema"] = self.ema_params
+            state["ema"] = gather_tensors(self.ema_params, param_splits(self.model), self.mesh)
         return state
 
+    def _optimizer_per_rank(self) -> bool:
+        """True when each rank's optimizer state is its own: sharded over
+        the data group, or of the split parameters of an expert or tensor
+        axis."""
+        return isinstance(self.optimizer, ShardedAdamW) or self.mesh.expert * self.mesh.tensor > 1
+
     def _optimizer_shard_path(self, path: str) -> str:
-        return os.path.join(path, f"optimizer_rank_{self.mesh.rank}_of_{self.mesh.data}.pt")
+        m = self.mesh
+        if m.expert == m.tensor == 1:
+            return os.path.join(path, f"optimizer_rank_{m.rank}_of_{m.data}.pt")
+        return os.path.join(path, f"optimizer_rank_{m.rank}.{m.expert_rank}.{m.tensor_rank}"
+                                  f"_of_{m.data}x{m.expert}x{m.tensor}.pt")
 
     def save_state(self, out_dir: str, step: int):
         path = os.path.abspath(os.path.join(out_dir, f"step_{step}"))
@@ -362,7 +413,7 @@ class BaseTrainer(ABC):
         state_path = os.path.join(path, "state.pt")
         wait_pending_saves()  # at most one write in flight
         state = self._state()
-        if isinstance(self.optimizer, ShardedAdamW):
+        if self._optimizer_per_rank():
             # each rank writes the moments it owns
             torch.save(_to_host(state.pop("optimizer")), self._optimizer_shard_path(path))
         if self.is_main:
@@ -371,8 +422,8 @@ class BaseTrainer(ABC):
                 _write_async(state_path, state)
             else:
                 torch.save(state, state_path)
-        if hasattr(self.dataloader, "save_state"):
-            self.dataloader.save_state(path)  # each rank its own cursor
+        if hasattr(self.dataloader, "save_state") and self.mesh.leads_data_rank:
+            self.dataloader.save_state(path)  # each data rank its own cursor
         if self.is_main:
             with open(os.path.join(path, "step.txt"), "w") as f:
                 f.write(str(step))
@@ -386,22 +437,26 @@ class BaseTrainer(ABC):
         wait_pending_saves(state_path)  # a just-written checkpoint may still be in flight
         dist_utils.barrier()  # ... on every rank
         state = torch.load(state_path, map_location="cpu", weights_only=True)
-        self.model.load_state_dict(state["model"])
-        if isinstance(self.optimizer, ShardedAdamW):
-            shard = self._optimizer_shard_path(path)
-            if not os.path.exists(shard):
-                raise ValueError(f"{path} holds no optimizer shard for rank {self.mesh.rank} of "
-                                 f"{self.mesh.data}: resume a sharded run with the same data axis")
+        splits = param_splits(self.model)
+        self.model.load_state_dict(shard_state_dict(state["model"], self.mesh, splits))
+        layout, saved = tuple(self.mesh.layout), tuple(state.get("layout", (self.mesh.data, 1, 1)))
+        per_rank, shard = self._optimizer_per_rank(), self._optimizer_shard_path(path)
+        if per_rank != ("optimizer" not in state) or (per_rank and (saved != layout or not os.path.exists(shard))):
+            def kind(p):
+                return " with per-rank optimizer state" if p else ""
+
+            raise ValueError(
+                f"{path} was written at (data, expert, tensor) = {saved}{kind('optimizer' not in state)}; this "
+                f"run is at {layout}{kind(per_rank)}: the optimizer state resumes only at the same layout and "
+                "shard_optimizer_state")
+        if per_rank:
             self.optimizer.load_state_dict(torch.load(shard, map_location="cpu", weights_only=True))
-        elif "optimizer" not in state:
-            raise ValueError(f"{path} was written with a sharded optimizer state: resume it with the same "
-                             "data axis and shard_optimizer_state")
         else:
             self.optimizer.load_state_dict(state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
         self.generator.set_state(state["generator"])
         if self.ema_params is not None:
-            for n, v in state["ema"].items():
+            for n, v in shard_state_dict(state["ema"], self.mesh, splits).items():
                 self.ema_params[n].copy_(v)
         if hasattr(self.dataloader, "load_state"):
             self.dataloader.load_state(path)
@@ -524,7 +579,7 @@ class BaseTrainer(ABC):
             profiler.stop()
             trace_dir = os.path.join(ta.output_dir or ".", "trace")
             os.makedirs(trace_dir, exist_ok=True)
-            name = "trace.json" if self.mesh.data == 1 else f"trace_rank_{self.mesh.rank}.json"
+            name = "trace.json" if dist_utils.world() == 1 else f"trace_rank_{self.mesh.global_rank}.json"
             profiler.export_chrome_trace(os.path.join(trace_dir, name))
             print(f"[trainer] profile written to {trace_dir}")
         if ta.output_dir:

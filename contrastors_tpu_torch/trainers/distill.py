@@ -21,7 +21,8 @@ Counterpart of `contrastors_tpu/trainers/distill.py:DistillTrainer`, a
 Data-parallel, the loss is JAX's on the global batch: every rank gathers
 the four embedding matrices (the student's differentiably) and computes the
 whole loss; the step backpropagates it divided by the world size, so the
-summed gradients are its gradients.
+summed gradients are its gradients. Under the tensor and expert axes the
+teacher is broadcast and split like the student (`placed_modules`).
 """
 
 from typing import Callable, Dict
@@ -62,6 +63,10 @@ class DistillTrainer(TextTextTrainer):
                 self.biencoder.trunk.state_dict(), self.teacher.trunk.state_dict(), layer_stride=stride))
         self.logit_scale = LogitScale(margs.logit_scale, trainable=False, device=self.device)
         return torch.nn.ModuleDict({"model": self.biencoder, "logit_scale": self.logit_scale})
+
+    def placed_modules(self) -> Dict[str, torch.nn.Module]:
+        # the teacher runs in the step: broadcast and split like the student
+        return {"model": self.model, "teacher": self.teacher}
 
     def make_train_step(self) -> Callable[[Batch, torch.Generator], Dict[str, torch.Tensor]]:
         ta = self.config.train_args

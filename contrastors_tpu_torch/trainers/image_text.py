@@ -49,6 +49,8 @@ from contrastors_tpu_torch.losses import clip_loss_symmetric
 from contrastors_tpu_torch.models.dual_encoder import DualEncoder
 from contrastors_tpu_torch.ops.dropout import noise_seed, step_generator
 from contrastors_tpu_torch.parallel.mesh import divisor_chunk
+from contrastors_tpu_torch.parallel.sharding import gather_state_dict
+from contrastors_tpu_torch.utils import dist as dist_utils
 from contrastors_tpu_torch.trainers.base import BaseTrainer, make_standard_train_step
 
 Batch = Dict[str, torch.Tensor]
@@ -267,12 +269,15 @@ class ImageTextTrainer(BaseTrainer):
     def save_vision_tower(self, out_dir: str) -> str:
         """The vision tower alone, for export, in the port's checkpoint
         format: out_dir/vision_tower/state.pt ({"model": the vision
-        BiEncoder's state dict}) beside its trunk_config.json. Returns the
-        directory."""
+        BiEncoder's state dict, whole tensors under a split mesh: every rank
+        calls it, global rank 0 writes}) beside its trunk_config.json.
+        Returns the directory."""
         path = os.path.abspath(os.path.join(out_dir, "vision_tower"))
-        os.makedirs(path, exist_ok=True)
-        state = {k: v.detach().to("cpu", copy=True) for k, v in self.dual.vision.state_dict().items()}
-        torch.save({"model": state}, os.path.join(path, "state.pt"))
-        with open(os.path.join(path, "trunk_config.json"), "w") as f:
-            f.write(self.trunk_config.to_json())
+        state = {k: v.to("cpu", copy=True) for k, v in gather_state_dict(self.dual.vision, self.mesh).items()}
+        if self.is_main:
+            os.makedirs(path, exist_ok=True)
+            torch.save({"model": state}, os.path.join(path, "state.pt"))
+            with open(os.path.join(path, "trunk_config.json"), "w") as f:
+                f.write(self.trunk_config.to_json())
+        dist_utils.barrier()
         return path

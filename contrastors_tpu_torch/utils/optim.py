@@ -25,9 +25,11 @@ same learning rate at every update.
 """
 
 import math
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
+
+from contrastors_tpu_torch.parallel.collectives import all_reduce_sum, average_replica_grads
 
 NamedParams = Iterable[Tuple[str, torch.nn.Parameter]]
 
@@ -99,18 +101,43 @@ def lr_scheduler(optimizer: torch.optim.Optimizer,
     return torch.optim.lr_scheduler.LambdaLR(optimizer, lambda step: schedule(step) / base)
 
 
-def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient, in fp32 (optax.global_norm)."""
-    sq = [g.float().square().sum() for g in grads]
-    if not sq:
+def global_norm(grads: Iterable[torch.Tensor], split_groups: Optional[Sequence[Tuple]] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient, in fp32 (optax.global_norm).
+
+    Under the tensor and expert axes a rank holds only its shard of a split
+    parameter: `split_groups[i]` names the process groups over which
+    grads[i] is split (() for a whole one). Each parameter counts once: the
+    sums of squares of the split gradients are summed over the groups that
+    split them (one all-reduce per kind of split), the whole ones' are
+    taken as they are (every peer holds the same), and only then the square
+    root."""
+    grads = list(grads)
+    if not grads:
         return torch.zeros(())
-    return torch.sqrt(torch.stack(sq).sum())
+    buckets: Dict[Tuple[int, ...], Tuple[Tuple, List[torch.Tensor]]] = {}
+    for g, groups in zip(grads, split_groups or [()] * len(grads)):
+        buckets.setdefault(tuple(id(x) for x in groups), (tuple(groups), []))[1].append(g.float().square().sum())
+    parts = []
+    for groups, sq in buckets.values():
+        s = torch.stack(sq).sum()
+        for group in groups:
+            s = all_reduce_sum(s, group)
+        parts.append(s)
+    return torch.sqrt(torch.stack(parts).sum())
+
+
+def split_groups_of(params: Iterable[torch.Tensor]) -> List[Tuple]:
+    """The groups that split each parameter (`parallel/sharding.py` sets
+    `split_groups` on the parameters it slices; () for a whole one)."""
+    return [getattr(p, "split_groups", ()) for p in params]
 
 
 class AdamW(torch.optim.AdamW):
     """torch.optim.AdamW preceded by optax's global-norm clip. `grad_norm`
     holds the global norm of the gradients of the last step, before the
-    clip."""
+    clip. On a mesh with model axes the gradients of parameters held whole
+    on several peers are first averaged over them
+    (`parallel/collectives.py:average_replica_grads`)."""
 
     def __init__(self, params, max_grad_norm: Optional[float] = None, **kwargs):
         super().__init__(params, **kwargs)
@@ -119,8 +146,10 @@ class AdamW(torch.optim.AdamW):
 
     @torch.no_grad()
     def step(self, closure=None):
-        grads = [p.grad for group in self.param_groups for p in group["params"] if p.grad is not None]
-        self.grad_norm = global_norm(grads)
+        params = [p for group in self.param_groups for p in group["params"] if p.grad is not None]
+        average_replica_grads(params)
+        grads = [p.grad for p in params]
+        self.grad_norm = global_norm(grads, split_groups_of(params))
         if self.max_grad_norm is not None and self.max_grad_norm > 0 and grads:
             torch._foreach_mul_(grads, (self.max_grad_norm / self.grad_norm).clamp(max=1.0))
         return super().step(closure)

@@ -37,6 +37,7 @@ ranks' results. Held:
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -290,8 +291,10 @@ def test_mesh_refuses_what_the_process_group_cannot_run():
         shard_batch({"x": np.ones((5, 2))}, rank1, "cpu", is_global=True)
     with pytest.raises(ValueError, match="parallel_args.data=2 but the process group has 1 rank"):
         make_mesh(data=2)
-    for kw in (dict(tensor=2), dict(expert=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 5"):
+    # a tensor or expert axis the lone process cannot hold: the layout against the world size
+    for kw, layout in ((dict(tensor=2), "(-1, 1, 2)"), (dict(expert=2), "(-1, 2, 1)")):
+        with pytest.raises(ValueError, match=re.escape(f"parallel_args (data, expert, tensor) = {layout} needs a "
+                                                       "multiple of 2 rank(s) but the process group has 1")):
             make_mesh(**kw)
 
 

@@ -21,6 +21,7 @@ retrieval eval at step 8, which the tests below read.
 
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -271,8 +272,8 @@ def test_registry_names_the_roadmap_item_of_each_unported_trainer():
 def test_trainer_refuses_what_it_cannot_run(files, tmp_path, case):
     """A grad-cache step with accumulation raises ValueError, as JAX's
     trainer does; a data axis of 2 in a lone process (no process group of
-    world 2) raises ValueError naming the mismatch; the tensor and expert
-    axes raise NotImplementedError naming their ROADMAP item."""
+    world 2) raises ValueError naming the mismatch; so does a tensor or
+    expert axis of 2 there, naming the layout against the world size."""
     raw = raw_config(files, str(tmp_path / "run"), "grad_cache")
     if case == "grad_cache_with_accumulation":
         raw["train_args"]["gradient_accumulation_steps"] = 2
@@ -287,7 +288,9 @@ def test_trainer_refuses_what_it_cannot_run(files, tmp_path, case):
             ttrain.run(Config.from_dict(raw), "fp32", "cpu")
         return
     raw["parallel_args"] = {case.split("_")[0]: 2}
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
+    layout = "(-1, 1, 2)" if case == "tensor_axis" else "(-1, 2, 1)"
+    with pytest.raises(ValueError, match=re.escape(f"parallel_args (data, expert, tensor) = {layout} needs a "
+                                                   "multiple of 2 rank(s) but the process group has 1")):
         ttrain.run(Config.from_dict(raw), "fp32", "cpu")
 
 
