@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only {moe_kernels,moe,flash_fwd,flash_bwd,dense,trainer,mlm_trainer,vision,families,
-                                  inference,distributed,knobs,parallel}
+                                  inference,distributed,knobs,parallel,scripts}
                              [--tree DIR]
 
 The second form runs phases 1, 2 and 9 (moe_kernels), or 1, 2 and 9-12
@@ -19,6 +19,7 @@ checks of 3 and 4 and 19, or (families) 1, 2, the families' two shapes'
 checks of 3 and 4 and 20, or (inference) 1, 2, the long-context case's
 check of 3 and 21, or (distributed) 1, 2 and 22, or (knobs) 1, 2, the packed step's
 cases of 3, 4 and 13, and 23, or (parallel) 1, 2, the local shapes' cases of 3 and 4 and 24,
+or (scripts) 1, 2, the ViT shape's cases of 3 and 4 and 25,
 on this checkout's package or on the one under DIR (another checkout, e.g. the parent commit
 unpacked by `git archive`), so that two versions can be timed in turns on
 one card.
@@ -119,12 +120,12 @@ second layer: 6 MoE layers, ~435M parameters):
      kernels' and the attention's share of it; a tgmm writing expert e's
      gradient into expert e+1 must fall outside. Read beside it, not
      bounded (moe_grad_margin_reading): grad cache against the standard
-     step by layer, with the router aux off and at 0.001, and by chunk (the
-     chunk's embeddings, cotangent and gradient contribution against the
-     standard step's for the same rows).
- 12. moe_timing: MoE encode texts/s, step ms (median of 3), one profiled
-     step with gmm and tgmm as their own groups and its device-to-host
-     copies counted.
+     step by layer, with the router aux off (the readings with the aux on,
+     by chunk and in fp32 were cut for the 900 s budget).
+ 12. moe_timing: MoE encode texts/s, step ms (median of 2); with --only moe
+     one profiled step with gmm and tgmm as their own groups and its
+     device-to-host copies counted (the full run skips the profile since
+     phase 25, for the 900 s budget).
 The fused-rotary kernels (q and k rotated inside the flash kernels) and the
 MLM pretraining step:
  13. fused_kernel_check (after phase 4): the fused forward, dq and dk/dv
@@ -161,12 +162,12 @@ The trainer entry point (after phase 7):
  17. trainer: configs/train/contrastive_pretrain.yaml (PRETRAIN_RECIPE) with
      the overrides of `trainer_overrides` (a local config.json of
      nomic-bert-2048 with random weights, 512 pairs of local synthetic
-     data, 8 steps, warmup 2, log and save every 4, the retrieval eval at
-     step 8, every query chunk direct) through train.run and the
-     TextTextTrainer with the stand-in tokenizer, in bf16: per step 780 /
-     396 / 396 flash launches (the bare step's), the loss at step 8 below
-     step 1's, the logged lr on make_schedule, a second trainer resumed
-     from step_4 logging steps 5-8 within 2e-3 relative, the eval logged,
+     data, 6 steps (8 before phase 25), warmup 2, log and save every 3, the
+     retrieval eval at step 6, every query chunk direct) through train.run
+     and the TextTextTrainer with the stand-in tokenizer, in bf16: per step
+     780 / 396 / 396 flash launches (the bare step's), the loss at step 6
+     below step 1's, the logged lr on make_schedule, a second trainer
+     resumed from step_3 logging steps 4-6 within 2e-3 relative, the eval logged,
      and no more synchronising calls per quiet loop step (sync debug mode)
      than the bare step makes. Timed against the bare step in turns (bare,
      loop, bare, resumed loop): the loop's median ms per quiet step, its
@@ -243,7 +244,7 @@ The families of configs/train/ no earlier phase drives (after phase 19):
      shapes timed: forward, dq and dk/dv beside bounds over the live pairs
      only and SDPA with the equivalent boolean mask.
 The inference side (after phase 20), at full width with seeded weights:
- 21. inference_*: the encode CLI's function (scripts/encode.py) on 4096
+ 21. inference_*: the encode CLI's function (scripts/encode.py) on 2048
      texts at 256 x 512 into a .npy (12 flash launches a batch, the rows
      bit for bit Encoder.encode's, --matryoshka_dim 256 --binarize the
      packed signs of the first 256 dims, cosine >= 0.999 against fp32
@@ -364,6 +365,46 @@ The tensor and expert axes (after phase 23):
      local shapes (B=512 S=32 and B=16 S=256, H=6, cases of phases 3 and 4)
      and gmm / tgmm on a local layout of 4 experts (reruns bit-identical),
      timed beside their bounds, plain versions and the library.
+     parallel_data_routing: the MoE model (4 layers, fp32, sdpa, seed
+     weights) with the capacity dispatch and with expert choice at
+     capacity factor 1.0, on two data ranks (2 x 1 x 1) against one rank
+     on the whole batch (16 x 128 tokens with padding): the port's
+     standard step (lr 0) and the mesh Encoder (32 texts, batches of 16).
+     Gates: every MoE call's routing (the capacity dispatch's dropped
+     (token, expert) assignments, expert choice's picks), united over the
+     ranks, the one-rank run's; something dropped (a top-k choice without
+     a slot; a (token, expert) pair not picked); the same run routed per
+     rank (the dispatch before it routed over the data axis) routes
+     otherwise; loss within 2e-3, the
+     gradient at cosine >= 0.995, serving embeddings at >= 0.9999.
+     parallel_resume: the MoE recipe (capacity; the model cut to 2 layers,
+     MoE on layer 1) saved at 1 x 1 x 2 after step 2 of 3, resumed at 1 x 2 x 1 (the two ranks, after the save) and
+     1 x 1 x 1 (this process); the dense recipe saved at 2 x 1 x 1 with
+     shard_optimizer_state (cut to 2 layers), resumed without it. Gates: step 3 within 2e-3
+     of the uninterrupted run's loss, every rank's restored optimizer state
+     (gathered whole) the saved one by checksum, the optimizer of the
+     resumed layout.
+The last modules (after phase 24):
+ 25. scripts_datacomp: eval/datacomp.py's zero-shot, grouped (fairness)
+     and retrieval tasks and the aggregate on EVA02-B/16 with MAP pooling
+     and nomic-bert-2048's text tower at full width (bf16, seed weights),
+     fed decoded 224 x 224 images of 4 colour classes in memory (the
+     card's machine has no Pillow) and the stand-in tokenizer at 77
+     tokens. Gates: metrics finite in [0, 1]; flash forward launches 12 a
+     tower batch, predicted from the tasks' batches (120); an image batch's
+     and a text batch's embeddings at cosine >= 0.999 against the towers
+     in fp32 on sdpa. scripts_train_to_signal and
+     scripts_vision_train_to_signal: scripts/train_to_signal.py (320 steps
+     of 128 pairs) and scripts/vision_train_to_signal.py (400 steps of 64
+     images, grad cache at chunk 16) at their defaults in fp32, from the
+     worlds they build (JAX's files and weights, made without transformers
+     or Pillow), gated on JAX's bars: nDCG@10 above init and above 0.9;
+     zero-shot top-1 above init and >= 0.5; their learning curves printed;
+     0 flash launches (head dim 16: sdpa). scripts_ablate_vision:
+     scripts/ablate_vision.py's split of the LiT grad-cache step (EVA02-B/16,
+     chunk 32, batch 512, bf16) into patch embedding, LayerNorm, rotary,
+     attention (the flash kernels), SwiGLU with its post-LN, a block, MAP
+     pooling, the loss and the optimizer, CUDA-event times.
 Kernel times (ms) are CUDA-event times of calls made on an idle card, so a
 short kernel's time holds the host's enqueue; phases 8 and 9 give beside
 them the device's work alone (device_ms: each call queued behind a device
@@ -1007,8 +1048,9 @@ def kernel_group(name):
 
 
 def moe_training(dev, card, agreement=True):
-    """Phases moe_train_step, moe_train_timing, moe_train_profile and (with
-    agreement) moe_train_grad_agreement. Returns the launches of one step."""
+    """Phases moe_train_step, moe_train_timing, and with agreement
+    moe_train_grad_agreement, else moe_train_profile. Returns the launches
+    of one step."""
     import gc
 
     import torch
@@ -1054,7 +1096,7 @@ def moe_training(dev, card, agreement=True):
         raise AssertionError("MoE train step: launch counts, finiteness, falling loss or router aux failed")
 
     host_ms, enqueue_ms = [], []
-    for _ in range(GATE_STEPS):
+    for _ in range(2):  # 3 runs before phase 25, for the 900 s budget
         t0 = time.perf_counter()
         step(qb, db, train_gen)
         enqueue_ms.append((time.perf_counter() - t0) * 1e3)
@@ -1065,11 +1107,12 @@ def moe_training(dev, card, agreement=True):
          step_ms=step_ms, step_ms_min=min(host_ms), step_ms_max=max(host_ms),
          enqueue_ms=float(np.median(enqueue_ms)), pairs_per_s=PAIRS / step_ms * 1e3,
          tokens_per_s=PAIRS * (Q_LEN + D_LEN) / step_ms * 1e3)
-    emit(phase="moe_train_profile", card=card, gpu_state=gpu_state(),
-         **profile_step(lambda: step(qb, db, train_gen), step_ms),
-         note="one profiled step: busy time of its kernels (idle share against the unprofiled median "
-              "step_ms); device_to_host_copies counts the step's device-to-host memcpys (host syncs); "
-              "item_calls counts Tensor.item, including those on CPU tensors (AdamW's step counters)")
+    if not agreement:  # (--only moe; the full run skips it for the 900 s budget since phase 25)
+        emit(phase="moe_train_profile", card=card, gpu_state=gpu_state(),
+             **profile_step(lambda: step(qb, db, train_gen), step_ms),
+             note="one profiled step: busy time of its kernels (idle share against the unprofiled median "
+                  "step_ms); device_to_host_copies counts the step's device-to-host memcpys (host syncs); "
+                  "item_calls counts Tensor.item, including those on CPU tensors (AdamW's step counters)")
     del model, scale, opt, step, qb, db
     gc.collect()
     torch.cuda.empty_cache()
@@ -1097,69 +1140,6 @@ def per_group_rel_l2(got, ref):
         y = torch.cat([ref[n].flatten().double() for n in names])
         out[g] = (x - y).norm().item() / max(y.norm().item(), 1e-300)
     return out
-
-
-def moe_chunk_reading(dev, sq, sd):
-    """The grad-cache margin chunk by chunk (MOE_CHUNK rows, both towers):
-    for each chunk, the relative L2 distance of its pass-1 embeddings and of
-    its loss cotangent from the standard step's rows, and of the gradient it
-    contributes (<embedding, cotangent> backpropagated through its own
-    forward) from the one the standard step's whole-tower forward gives the
-    same rows, overall and by layer. Router aux off: the embedding part."""
-    import gc
-
-    import torch
-
-    from contrastors_tpu_torch.losses import clip_loss
-    from contrastors_tpu_torch.trainers.text_text import encode_batch
-
-    model, scale, _ = train_modules("flash", dev, lr=0.0, max_grad_norm=None, moe=True)
-    n = 64 // MOE_CHUNK
-
-    def rows(b, i):
-        return {k: v[i * MOE_CHUNK:(i + 1) * MOE_CHUNK] for k, v in b.items()}
-
-    def cotangents(embs):
-        leaves = [e.detach().float().requires_grad_() for e in embs]
-        clip_loss(*leaves, scale)[0].backward()
-        return [x.grad for x in leaves]
-
-    with torch.no_grad():
-        gc_emb = [torch.cat([encode_batch(model, rows(b, i))["embedding"] for i in range(n)]) for b in (sq, sd)]
-        std_emb = [encode_batch(model, b)["embedding"] for b in (sq, sd)]
-    gc_cot, std_cot = cotangents(gc_emb), cotangents(std_emb)
-
-    def grads():
-        out = {name: p.grad.float().clone() for name, p in model.named_parameters() if p.grad is not None}
-        model.zero_grad(set_to_none=True)
-        return out
-
-    def rel(a, b):
-        return ((a.float() - b.float()).norm() / b.float().norm()).item()
-
-    reading = {}
-    for t, (tower, b) in enumerate((("query", sq), ("document", sd))):
-        model.zero_grad(set_to_none=True)
-        std_out = encode_batch(model, b)["embedding"]
-        for i in range(n):
-            sl = slice(i * MOE_CHUNK, (i + 1) * MOE_CHUNK)
-            (std_out[sl] * std_cot[t][sl].to(std_out.dtype)).sum().backward(retain_graph=i + 1 < n)
-            g_std = grads()
-            out = encode_batch(model, rows(b, i))["embedding"]
-            (out * gc_cot[t][sl].to(out.dtype)).sum().backward()
-            g_gc = grads()
-            reading[f"{tower}_chunk{i}"] = dict(
-                embedding_rel_l2=rel(gc_emb[t][sl], std_emb[t][sl]), cotangent_rel_l2=rel(gc_cot[t][sl],
-                                                                                         std_cot[t][sl]),
-                gradient=compare_grads(g_gc, g_std), gradient_by_layer=per_group_rel_l2(g_gc, g_std))
-            del g_std, g_gc, out
-        del std_out
-        gc.collect()
-        torch.cuda.empty_cache()
-    del model, scale
-    gc.collect()
-    torch.cuda.empty_cache()
-    return reading
 
 
 def moe_grad_agreement(dev):
@@ -1196,36 +1176,13 @@ def moe_grad_agreement(dev):
             gc_in_std_order = standard_order(kernel_choices, 64 // MOE_CHUNK)
         gc.collect()
         torch.cuda.empty_cache()
-    # the margin's reading by layer, router aux off (the runs above) and on
-    # (the benchmark's 0.001: grad cache sums one aux per chunk, the standard
-    # step one per tower), and by chunk (read, not bounded)
+    # the margin's reading by layer, router aux off (the runs above; the
+    # readings with the aux on, in fp32 and by chunk, are cut
+    # for the 900 s budget: PERF.md keeps their numbers)
     by_layer = dict(aux_0=per_group_rel_l2(grads["gc"], grads["std"]))
-    aux_grads = {}
-    for label, grad_cache in (("gc", True), ("std", False)):
-        aux_grads[label] = step_grads("flash", grad_cache, dev, sq, sd, moe=True, router_aux_coef=MOE_AUX)
-        gc.collect()
-        torch.cuda.empty_cache()
-    by_layer[f"aux_{MOE_AUX:g}"] = dict(per_group_rel_l2(aux_grads["gc"], aux_grads["std"]),
-                                        whole=compare_grads(aux_grads["gc"], aux_grads["std"]))
-    # the same pair computed in fp32 (sdpa and the plain grouped matmul: the
-    # kernels take bf16), aux off: a bf16 weight gradient is rounded once per
-    # chunk in grad cache and once per batch in the standard step
-    with plain_grouped_matmul():
-        for label, grad_cache in (("gc", True), ("std", False)):
-            aux_grads[label] = step_grads("sdpa", grad_cache, dev, sq, sd, moe=True, dtype=torch.float32)
-            gc.collect()
-            torch.cuda.empty_cache()
-    by_layer["aux_0_fp32_compute"] = dict(per_group_rel_l2(aux_grads["gc"], aux_grads["std"]),
-                                          whole=compare_grads(aux_grads["gc"], aux_grads["std"]))
-    del aux_grads
-    gc.collect()
-    torch.cuda.empty_cache()
     emit(phase="moe_grad_margin_reading", pairs=64, chunk=MOE_CHUNK, gc_vs_standard_by_layer=by_layer,
-         gc_vs_standard_by_chunk=moe_chunk_reading(dev, sq, sd),
          note="relative L2 of the grad-cache step's gradients against the standard step's, by layer (each "
-              "routing on its own), with the router aux off and on, and aux off with fp32 compute; by chunk: the chunk's pass-1 embeddings, "
-              "its cotangent and the gradient it contributes against the standard step's for the same rows "
-              "(aux off); read, not bounded")
+              "routing on its own), with the router aux off; read, not bounded")
     bounds = dict(gc_vs_std_min_cosine=0.9999, gc_vs_std_max_rel_l2=0.01, kernels_vs_plain_min_cosine=0.999,
                   own_routing_min_cosine=0.995)
     flipped, routed = differing_choices(gc_in_std_order, std_choices)
@@ -2356,9 +2313,9 @@ def dense_training(dev, card, agreement=True):
         raise AssertionError("train step: launch counts, finiteness or falling loss failed")
     launches_train = steps[0]["launches"]
 
-    # the step's time on the host clock
+    # the step's time on the host clock (3 runs; 5 before phase 25, for the 900 s budget)
     host_ms, enqueue_ms = [], []
-    for _ in range(5):
+    for _ in range(3):
         t0 = time.perf_counter()
         step(qb, db, train_gen)
         enqueue_ms.append((time.perf_counter() - t0) * 1e3)  # step() returned
@@ -2458,7 +2415,7 @@ NOMIC_BERT_2048_CONFIG = {
     "rotary_emb_scale_base": None, "type_vocab_size": 2, "use_rms_norm": False, "vocab_size": 30528,
 }
 
-TRAIN_STEPS, SAVE_EVERY = 8, 4
+TRAIN_STEPS, SAVE_EVERY = 6, 3  # 8, 4 before phase 25, for the 900 s budget
 
 
 def trainer_overrides(model_dir, pairs, eval_dir, out_dir):
@@ -2676,7 +2633,7 @@ def trainer_phase(dev, card, bare_busy_ms=None):
         if not remat:  # the replay adds forward launches
             bare_launches = read_counts()
     model.trunk.remat = False
-    bare_ms, bare_syncs = bare_step_timing(step, qb, db, gen, runs=2)
+    bare_ms, bare_syncs = bare_step_timing(step, qb, db, gen, runs=1)
     busy_ms = bare_busy_ms or profile_step(lambda: step(qb, db, gen), float(np.median(bare_ms)))["device_busy_ms"]
 
     # the loop, uninterrupted
@@ -2686,7 +2643,7 @@ def trainer_phase(dev, card, bare_busy_ms=None):
     gc.collect()
 
     # the bare step again, then a loop resumed from step_4
-    bare_ms_2, bare_syncs_2 = bare_step_timing(step, qb, db, gen, runs=2)
+    bare_ms_2, bare_syncs_2 = bare_step_timing(step, qb, db, gen, runs=1)
     del model, scale, opt, step, qb, db
     gc.collect()
     torch.cuda.empty_cache()
@@ -2745,7 +2702,7 @@ def trainer_phase(dev, card, bare_busy_ms=None):
          loop_syncs_per_step=[r["iteration_syncs"] for r in rows], bare_syncs_per_step=bare_syncs + bare_syncs_2,
          sync_examples=sorted(set(syncs))[:8], run_seconds=seconds, resumed_run_seconds=seconds_b,
          note="loop_ms: median host time from one step's start to the next over the steps that neither log, "
-              "save nor evaluate (steps 2, 3, 5, 6, 7); bare: the step alone on hand-built batches, "
+              "save nor evaluate (after step 1); bare: the step alone on hand-built batches, "
               "synchronized after each call; idle shares take the device busy ms of one profiled bare step "
               "(phase 7's in the full run; the loop runs the same kernels); syncs: calls that torch's sync "
               "debug mode reports")
@@ -3585,42 +3542,6 @@ def lit_step_grads(trainer, batch, rolled_replay=False):
             del trainer.pixels
 
 
-def lit_fp32_agreement(dual, batch):
-    """Grad cache (chunk LIT_GC_CHUNK) against the standard step's gradients
-    for a copy of `dual` computing in fp32 with sdpa (the flash kernels take
-    bf16 only), on `batch` (device tensors, uint8 pixels)."""
-    import torch
-
-    from contrastors_tpu_torch.grad_cache import grad_cache_loss_and_grads
-    from contrastors_tpu_torch.losses import clip_loss_symmetric
-    from contrastors_tpu_torch.models import DualEncoder
-
-    t, v = dual.text, dual.vision
-    ref_dual = DualEncoder(t.config.replace(attn_impl="sdpa"), v.config.replace(attn_impl="sdpa"), text_hamming=True,
-                           dtype=torch.float32, device=batch["input_ids"].device, remat=True)
-    ref_dual.load_state_dict(dual.state_dict())
-    for p in ref_dual.text.parameters():
-        p.requires_grad_(False)
-    px = normalised(batch["pixel_values"])
-
-    def grads():
-        out = {n: p.grad.clone() for n, p in ref_dual.named_parameters() if p.grad is not None}
-        ref_dual.zero_grad(set_to_none=True)
-        return out
-
-    ref_dual(batch["input_ids"], batch["attention_mask"], px)["loss"].backward()
-    standard = grads()
-    grad_cache_loss_and_grads(
-        ref_dual, {"pixel_values": px}, {k: batch[k] for k in ("input_ids", "attention_mask")},
-        lambda m, b, g: {"embedding": m.encode_image(b["pixel_values"])},
-        lambda m, b, g: {"embedding": m.encode_text(b["input_ids"], b["attention_mask"])},
-        clip_loss_symmetric, chunk_size=LIT_GC_CHUNK, d_trainable=False, extra_params=ref_dual.logit_scale)
-    cached = grads()
-    del ref_dual
-    torch.cuda.empty_cache()
-    return flat_agreement(cached, standard)
-
-
 def flat_agreement(got, ref):
     """Cosine and relative L2 of all gradients together, beside the worst tensor's."""
     import torch
@@ -3645,9 +3566,8 @@ def vision_phase(dev, card):
     the 8000 prompts, 12 per image batch) and finite accuracies; then grad
     cache against the standard step on one batch of 512 (cosine >= 0.9999,
     relative L2 <= 0.01, all gradients together), a planted rolled replay
-    outside both bounds; read beside it, the same on uniform-noise images,
-    in bf16 and in fp32. One standard step is profiled (busy time by
-    kernel group). Returns the launches and timings."""
+    outside both bounds. One standard step is profiled (busy time by kernel
+    group). Returns the launches and timings."""
     import gc
     import shutil
     import tempfile
@@ -3656,7 +3576,7 @@ def vision_phase(dev, card):
 
     root = tempfile.mkdtemp(prefix="chip_smoke_vision_")
     try:
-        text_dir, tok, batches, gc_batches, noise_batch, evals = lit_inputs(root)
+        text_dir, tok, batches, gc_batches, _, evals = lit_inputs(root)
         text_cfg, vis_cfg = lit_configs()
         L = vis_cfg.n_layer
         n_chunks = LIT_GC_BATCH // LIT_GC_CHUNK
@@ -3739,16 +3659,9 @@ def vision_phase(dev, card):
         emit(phase="lit_grad_agreement", batch=LIT_BATCH, chunk=LIT_GC_CHUNK, sound=sound, rolled_replay=fault,
              bounds=dict(cosine=0.9999, rel_l2=0.01), ok=checks["grad_cache_vs_standard"]
              and checks["rolled_replay_outside"])
-        # read beside it, not bounded: the same two steps on uniform-noise
-        # images, in bf16 through the trainers and in fp32 (sdpa) outside them
-        noise = {k: torch.from_numpy(v).to(dev) for k, v in noise_batch.items()}
-        noise_bf16 = flat_agreement(lit_step_grads(gcache, noise), lit_step_grads(std, noise))
-        noise_fp32 = lit_fp32_agreement(std.dual, noise)
-        emit(phase="lit_grad_margin_reading", batch=LIT_BATCH, chunk=LIT_GC_CHUNK, noise_images_bf16=noise_bf16,
-             noise_images_fp32_sdpa=noise_fp32, note="grad cache against the standard step on uniform-noise "
-             "images: the trainers' bf16 steps, and both computed in fp32 with sdpa on the same weights")
-        out["grad_agreement"] = dict(sound=sound, rolled_replay=fault, noise_images_bf16=noise_bf16,
-                                     noise_images_fp32_sdpa=noise_fp32)
+        # (the uniform-noise images' reading is cut for the 900 s
+        # budget: ROADMAP keeps its diagnosis)
+        out["grad_agreement"] = dict(sound=sound, rolled_replay=fault)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit(phase="vision_trainer", card=card, checks=checks, ok=all(checks.values()))
@@ -4213,7 +4126,7 @@ VIT_BASE_CONFIG = {
     "patch_size": 16, "num_channels": 3, "layer_norm_eps": 1e-12, "qkv_bias": True,
     "hidden_dropout_prob": 0.0, "attention_probs_dropout_prob": 0.0,
 }
-INFER_TEXTS, INFER_BATCH, INFER_SEQ = 4096, 256, 512
+INFER_TEXTS, INFER_BATCH, INFER_SEQ = 2048, 256, 512  # 4096 texts before phase 25, for the 900 s budget
 LONG_SEQ, LONG_BATCH, LONG_NTK, LONG_DOCS, LONG_QUERIES = 8192, 8, 2.0, 64, 16
 HEADS_B, HEADS_S = 256, 128
 
@@ -4224,7 +4137,7 @@ def min_row_cosine(a, b):
 
 
 def encode_cli_check(dev, card, model, tok, root):
-    """The encode CLI's function (`scripts/encode.py:encode_texts`) on 4096
+    """The encode CLI's function (`scripts/encode.py:encode_texts`) on 2048
     texts at batch 256 / seq_len 512 into a .npy: 12 flash launches per
     batch, the rows bit for bit those of `Encoder.encode`, --matryoshka_dim
     256 --binarize the packed signs of the first 256 dims, cosine >= 0.999
@@ -5626,10 +5539,11 @@ def knobs_packed(dev, card):
         emb_cos_fault = float(torch.nn.functional.cosine_similarity(emb_fault, emb[("padded", "query")])
                               [rows_whole["query"]].min())
 
-        # the steps' gradients and times in turns: padded, packed, packed, padded
+        # the steps' gradients and times: padded, then packed (in turns padded,
+        # packed, packed, padded before phase 25, cut for the 900 s budget)
         gen = torch.Generator().manual_seed(0)
         grads, ms, launches = {}, dict(padded=[], packed=[]), None
-        for form in ("padded", "packed", "packed", "padded"):
+        for form in ("padded", "packed"):
             reset_counts()
             _, t = timed_call(lambda: steps[form](batches[(form, "query")], batches[(form, "document")], gen))
             ms[form].append(t)
@@ -5719,11 +5633,11 @@ def capacity_reading(into):
 
     orig = MoEMLP._capacity_slots
 
-    def read(self, top_e, valid, groups):
-        C, pos, ok = orig(self, top_e, valid, groups)
+    def read(self, top_e, valid, groups, dp):
+        out = orig(self, top_e, valid, groups, dp)
         live = valid.sum() * self.top_k
-        into.append((live - ok.sum(), live))
-        return C, pos, ok
+        into.append((live - out[-1].sum(), live))
+        return out
 
     MoEMLP._capacity_slots = read
     try:
@@ -5888,7 +5802,8 @@ def knobs_embed_parallel(dev, card, m=4):
     forward against m = 1, on the vision recipe's grad-cache step (LiT,
     LIT_GC_BATCH images, chunk LIT_GC_CHUNK) and on the dense text step
     (phase 7's geometry), gradients from one step each (lr 0), pass-1 ms
-    and step ms in turns (1, m, m, 1)."""
+    and step ms, m = 1 then m (in turns (1, m, m, 1) before phase 25, cut
+    for the 900 s budget)."""
     import gc
     import tempfile
 
@@ -5902,7 +5817,7 @@ def knobs_embed_parallel(dev, card, m=4):
     def compare(name, run):
         """run(mm) -> gradients of one step with embed_parallel mm."""
         grads, pass1, step_ms = {}, {1: [], m: []}, {1: [], m: []}
-        for mm in (1, m, m, 1):
+        for mm in (1, m):
             clock = {}
             with phase_clock(clock):
                 g, t = timed_call(lambda: run(mm))
@@ -5953,7 +5868,7 @@ def knobs_embed_parallel(dev, card, m=4):
          checks=checks, ok=ok,
          note="gradients of one grad-cache step (lr 0, all parameters together) with pass 1 embedding m chunks "
               "to a forward against m = 1; ms: host clock to a synchronize (pass1_ms from grad_cache.py's "
-              "pass-1 range, the card synchronized at its ends), m = 1 and m in turns (1, m, m, 1); the LiT "
+              "pass-1 range, the card synchronized at its ends), m = 1 then m; the LiT "
               "step's optimizer update is stubbed")
     if not ok:
         raise AssertionError(f"knobs embed_parallel: a check failed: {checks}")
@@ -6007,7 +5922,7 @@ def par_recipe(paths, layout, moe_impl=None):
     `layout`, and with moe_impl the MoE model (nomic-bert-2048 at
     PAR_MOE_LAYERS layers, `paths["moe_dir"]`; 8 experts, top-2, MoE on every
     second layer, router aux MOE_AUX)."""
-    recipe = dist_pretrain_recipe({k: v for k, v in paths.items() if k != "moe_dir"}, 1)
+    recipe = dist_pretrain_recipe({k: paths[k] for k in ("model_dir", "pairs", "eval_dir", "out_dir")}, 1)
     recipe["train_args"].update(num_train_steps=PAR_STEPS, log_lr_every=PAR_STEPS, chunk_size=CHUNK)
     recipe["data_args"]["batch_size"] = PAR_PAIRS
     d, e, t = layout
@@ -6270,6 +6185,343 @@ DIST_CASES.update({cell: (lambda spec, dev, rank, cell=cell: par_case(spec, dev,
 DIST_CASES["parallel_layer_faults"] = par_case_layer_faults
 
 
+# the data-axis routing cell: the MoE model at PAR_MOE_LAYERS layers in fp32 (routing then
+# depends on the tokens alone, not on a batch's bf16 rounding), the capacity and expert-choice
+# dispatch at a factor that drops, a global batch of PAR_ROUTE_B x PAR_ROUTE_S tokens with
+# padding, two data ranks against one rank on the whole batch
+PAR_ROUTES, PAR_ROUTE_FACTOR, PAR_ROUTE_B, PAR_ROUTE_S = ("capacity", "expert_choice"), 1.0, 16, 128
+PAR_ROUTE_LAYERS = 4  # MoE on layers 1 and 3
+PAR_ROUTE_TEXTS, PAR_ROUTE_ENC_BATCH = 32, 16
+PAR_SERVING_COSINE = 0.9999  # fp32 both sides: only the batch's reassociation differs
+# the resume cells: (layout, MoE dispatch or None, shard_optimizer_state, the cell whose step-2
+# checkpoint it resumes or None for a saving run); PAR_RESUME_STEPS steps, saved every 2, on
+# nomic-bert-2048 cut to PAR_RESUME_LAYERS layers (the MoE one with MoE on layer 1)
+PAR_RESUME_STEPS, PAR_RESUME_LAYERS = 3, 2
+PAR_RESUME = {
+    "parallel_resume_save_tp": ((1, 1, 2), "capacity", False, None),
+    "parallel_resume_save_zero": ((2, 1, 1), None, True, None),
+    "parallel_resume_expert": ((1, 2, 1), "capacity", False, "parallel_resume_save_tp"),
+    "parallel_resume_one_rank": ((1, 1, 1), "capacity", False, "parallel_resume_save_tp"),
+    "parallel_resume_data": ((2, 1, 1), None, False, "parallel_resume_save_zero"),
+}
+
+
+def route_model(dev, route, state=None):
+    """The MoE BiEncoder of the data-axis cell (PAR_ROUTE_LAYERS layers,
+    fp32, sdpa) with the capacity
+    dispatch or expert choice at PAR_ROUTE_FACTOR; `state` its weights (else
+    the seed weights)."""
+    import torch
+
+    from contrastors_tpu_torch.models import BiEncoder
+
+    cfg = moe_config("sdpa", n_layer=PAR_ROUTE_LAYERS, moe_impl="capacity", moe_capacity_factor=PAR_ROUTE_FACTOR,
+                     expert_choice_router=route == "expert_choice")
+    model = BiEncoder(cfg, pooling="mean", dtype=torch.float32, device=dev)
+    if state is None:
+        return seed_weights(model, "par_route")
+    model.load_state_dict(state)
+    return model
+
+
+def route_inputs():
+    """The cell's global batch (ids, mask, fixed loss weights, numpy) and
+    serving texts, from a seed."""
+    rng = np.random.default_rng(31)
+    ids = rng.integers(1000, 30000, size=(PAR_ROUTE_B, PAR_ROUTE_S))
+    lens = rng.integers(PAR_ROUTE_S // 2, PAR_ROUTE_S + 1, size=PAR_ROUTE_B)
+    mask = (np.arange(PAR_ROUTE_S)[None] < lens[:, None]).astype(np.int64)
+    w = rng.normal(size=(PAR_ROUTE_B, NOMIC_BERT_2048_CONFIG["n_embd"])).astype(np.float32)
+    return ids, mask, w, make_texts(rng, PAR_ROUTE_TEXTS, 8, 120)
+
+
+@contextlib.contextmanager
+def moe_decisions(into):
+    """Every MoE layer call's routing inside, as a sorted list of global
+    (token * E + expert) into `into`: the capacity dispatch's dropped
+    assignments of valid tokens, expert choice's picks of valid tokens (the
+    global token index is the data rank's offset plus the local one)."""
+    import torch
+
+    from contrastors_tpu_torch.layers import moe as M
+
+    forward, slots, combine = M.MoEMLP.forward, M.MoEMLP._capacity_slots, M.MoEMLP._combine
+
+    def seen_forward(self, hidden, attention_mask=None, groups=1):
+        n = hidden.shape[0] * hidden.shape[1]
+        dp = self.dp if groups == 1 and not M._LOCAL_ROUTING[0] else None
+        valid = (torch.ones(n, dtype=torch.bool, device=hidden.device) if attention_mask is None
+                 else attention_mask.reshape(-1).bool())
+        self._seen = (dp.rank * n if dp is not None else 0, valid)
+        return forward(self, hidden, attention_mask, groups)
+
+    def seen_slots(self, top_e, valid, groups, dp):
+        out = slots(self, top_e, valid, groups, dp)
+        offset, _ = self._seen
+        k, E = self.top_k, self.num_routed
+        token = torch.arange(valid.shape[0], device=valid.device).repeat_interleave(k)
+        dropped = valid.reshape(-1).repeat_interleave(k) & ~out[-1].reshape(-1)
+        into.append(sorted(((token[dropped] + offset) * E + top_e.reshape(-1)[dropped]).tolist()))
+        return out
+
+    def seen_combine(self, x_rows, idx, weights, n_out):
+        if self.config.expert_choice_router:
+            offset, valid = self._seen
+            lo, n_local = self._local_experts()
+            n = valid.shape[0]
+            expert = torch.arange(lo, lo + n_local, device=idx.device)[:, None].expand_as(idx)
+            live = torch.cat([valid, valid.new_zeros(1)])[idx.clamp(max=n)] & (idx < n)
+            into.append(sorted(((idx[live] + offset) * self.num_routed + expert[live]).tolist()))
+        return combine(self, x_rows, idx, weights, n_out)
+
+    M.MoEMLP.forward, M.MoEMLP._capacity_slots, M.MoEMLP._combine = seen_forward, seen_slots, seen_combine
+    try:
+        yield into
+    finally:
+        M.MoEMLP.forward, M.MoEMLP._capacity_slots, M.MoEMLP._combine = forward, slots, combine
+
+
+def route_run(model, dev, mesh):
+    """The cell's two forms on this rank's rows: the port's standard step
+    (`make_standard_train_step`, lr 0, no clip) on mean(emb . w), and the
+    Encoder (its mesh form on a data axis) on the serving texts. Returns
+    (the global loss, the whole gradients on the host, the step's routing,
+    the serving embeddings, the serving routing)."""
+    import torch
+
+    from contrastors_tpu_torch.eval.encoder import Encoder
+    from contrastors_tpu_torch.eval.stub_tokenizer import StubTokenizer
+    from contrastors_tpu_torch.parallel.mesh import local_rows
+    from contrastors_tpu_torch.trainers.base import make_standard_train_step
+    from contrastors_tpu_torch.utils.optim import make_optimizer
+
+    ids, mask, w, texts = route_inputs()
+    rows = local_rows(PAR_ROUTE_B, mesh)
+    batch = {k: torch.from_numpy(v[rows]).to(dev) for k, v in (("ids", ids), ("mask", mask), ("w", w))}
+
+    def loss_fn(b, generator):
+        emb = model(b["ids"], b["mask"])["embedding"]
+        return (emb * b["w"]).sum(-1).mean(), {}
+
+    opt = make_optimizer(model.named_parameters(), 0.0, max_grad_norm=None)
+    step = make_standard_train_step(loss_fn, opt, group=mesh.group)
+    with moe_decisions([]) as step_routing:
+        loss = float(step(batch)["loss"])
+    grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters() if p.grad is not None}
+    enc = Encoder(model, StubTokenizer(NOMIC_BERT_2048_CONFIG["vocab_size"]), seq_len=PAR_ROUTE_S,
+                  batch_size=PAR_ROUTE_ENC_BATCH, query_prefix=None, document_prefix=None, mesh=mesh)
+    with moe_decisions([]) as serve_routing:
+        emb = enc.encode(texts)
+    return loss, grads, step_routing, emb, serve_routing
+
+
+def par_case_data_routing(spec, dev, rank):
+    """The data-axis cell on this rank (data 2): each route's loss, its
+    routing (as the step and the Encoder route it, and, as the planted
+    fault, routed per rank), and on rank 0 the gradient's and the serving
+    embeddings' agreement with the one-rank run's."""
+    import torch
+
+    from contrastors_tpu_torch.layers.moe import local_routing
+    from contrastors_tpu_torch.parallel import make_mesh
+    from contrastors_tpu_torch.parallel.sharding import shard_module
+
+    mesh = make_mesh(data=2)
+    state = torch.load(spec["route"]["state"], map_location="cpu", weights_only=True)
+    out = {}
+    for route in PAR_ROUTES:
+        model = route_model(dev, route, state)
+        shard_module(model, mesh)
+        loss, grads, routing, emb, serve = route_run(model, dev, mesh)
+        with local_routing():
+            fault = route_run(model, dev, mesh)
+        res = dict(loss=loss, routing=routing, serve_routing=serve, fault_routing=fault[2],
+                   fault_serve_routing=fault[4])
+        if rank == 0:
+            ref = torch.load(spec["route"][route], map_location="cpu", weights_only=False)
+            _, _, res["grad_cosine_all"] = tensor_cosines(grads, ref["grads"])
+            res["serve_min_cosine"] = min_row_cosine(emb, ref["emb"])
+            res["fault_serve_min_cosine"] = min_row_cosine(fault[3], ref["emb"])
+        out[route] = res
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def resume_recipe(spec, cell):
+    """The recipe of a resume cell: the cut pretrain recipe (the MoE one
+    with its dispatch fixed) on PAR_RESUME_LAYERS layers at the cell's
+    layout, PAR_RESUME_STEPS steps with a log every step; a saving cell checkpoints every 2 steps into the
+    cell's directory, a resuming one starts from its source cell's step 2
+    and writes nothing."""
+    layout, impl, shard, source = PAR_RESUME[cell]
+    recipe = par_recipe(spec["paths"], layout, impl)
+    recipe["model_args"]["model_name"] = spec["paths"]["resume_moe_dir" if impl else "resume_dense_dir"]
+    recipe["train_args"].update(num_train_steps=PAR_RESUME_STEPS, log_lr_every=1)
+    recipe["parallel_args"]["shard_optimizer_state"] = shard
+    if source is None:
+        recipe["train_args"].update(save_every=2, output_dir=os.path.join(spec["resume_root"], cell))
+    else:
+        recipe["train_args"]["checkpoint"] = os.path.join(spec["resume_root"], source, "step_2")
+    return recipe
+
+
+def moments_fingerprint(whole):
+    """A float64 checksum of a whole optimizer state's tensors (moments and
+    step counters), in the state's order, on the host."""
+    from contrastors_tpu_torch.parallel.mesh import fingerprint
+
+    tensors = [v for i in sorted(whole["state"]) for k, v in sorted(whole["state"][i].items())
+               if hasattr(v, "detach")]
+    return fingerprint(t.detach().cpu() for t in tensors)
+
+
+def resume_class(base):
+    """base that saves at step 2 alone, reads the whole optimizer state it
+    saves there (`saved_fingerprint`) and, after a resume, the one it
+    restored (`restored_fingerprint`); every rank takes part in the
+    gathers."""
+    from contrastors_tpu_torch.parallel.sharding import whole_optimizer_state
+
+    class Resumed(base):
+        saved_fingerprint = None
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.restored_fingerprint = (moments_fingerprint(whole_optimizer_state(self.optimizer, self.mesh))
+                                         if self.config.train_args.checkpoint else None)
+
+        def _state(self):
+            state = super()._state()
+            if self.step == 2:
+                self.saved_fingerprint = moments_fingerprint(state["optimizer"])
+            return state
+
+        def save_state(self, out_dir, step):
+            if step == 2:  # the checkpoint the resumes read; not the run's last one
+                super().save_state(out_dir, step)
+
+    return Resumed
+
+
+def par_case_resume(spec, dev, rank, cell):
+    """One resume cell on this rank (or in the script's process): the steps'
+    losses and the optimizer it resumed."""
+    import torch
+
+    trainer, rows, seconds, _, _ = run_chip_trainer(resume_recipe(spec, cell), dev,
+                                                    resume_class(chip_trainer_class()))
+    out = dict(cell=cell, steps=[r["step"] for r in rows], losses=[r["loss"] for r in rows],
+               optimizer=type(trainer.optimizer).__name__, restored_fingerprint=trainer.restored_fingerprint,
+               saved_fingerprint=trainer.saved_fingerprint, seconds=seconds)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+DIST_CASES["parallel_data_routing"] = par_case_data_routing
+DIST_CASES.update({cell: (lambda spec, dev, rank, cell=cell: par_case_resume(spec, dev, rank, cell))
+                   for cell in PAR_RESUME})
+
+
+def data_routing_reference(dev, root):
+    """The data-axis cell on one rank, in this process: the seed weights
+    (written for the ranks), and each route's loss, routing, gradient and
+    serving embeddings (written for rank 0)."""
+    import gc
+
+    import torch
+
+    from contrastors_tpu_torch.parallel.mesh import Mesh
+
+    paths = dict(state=os.path.join(root, "route_state.pt"))
+    torch.save(route_model(dev, "capacity").state_dict(), paths["state"])
+    state = torch.load(paths["state"], map_location="cpu", weights_only=True)
+    refs = {}
+    for route in PAR_ROUTES:
+        model = route_model(dev, route, state)
+        loss, grads, routing, emb, serve = route_run(model, dev, Mesh())
+        paths[route] = os.path.join(root, f"route_ref_{route}.pt")
+        torch.save(dict(grads=grads, emb=emb), paths[route])
+        refs[route] = dict(loss=loss, routing=routing, serve_routing=serve,
+                           dropped_share=dropped_share(route, routing, int(route_inputs()[1].sum())))
+        del model, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths, refs
+
+
+def dropped_share(route, routing, valid):
+    """The step's share of (valid token, expert) assignments that routing
+    left out, over its MoE layers: the capacity dispatch's top-k choices
+    without a slot (its routing lists them), or the (token, expert) pairs
+    that expert choice did not pick (its routing lists the picks)."""
+    E = moe_config().num_experts
+    if route == "capacity":
+        return sum(map(len, routing)) / (2 * valid * len(routing))
+    return 1.0 - sum(map(len, routing)) / (E * valid * len(routing))
+
+
+def data_routing_gates(results, refs):
+    """The cell's gates: per route, the two ranks' routing (each call's
+    union over the ranks) the one-rank run's in both forms, the per-rank
+    fault's not; the loss within PAR_LOSS_RTOL, the gradient at cosine >=
+    PAR_MOE_GRAD_COSINE_ALL, the serving embeddings at >= PAR_SERVING_COSINE,
+    the fault's below."""
+    def union(ranks, key):
+        return [sorted(set().union(*(r[key][i] for r in ranks))) for i in range(len(ranks[0][key]))]
+
+    out, checks = {}, {}
+    for route in PAR_ROUTES:
+        ranks, ref = [r[route] for r in results], refs[route]
+        step, serve = union(ranks, "routing"), union(ranks, "serve_routing")
+        fault, fault_serve = union(ranks, "fault_routing"), union(ranks, "fault_serve_routing")
+        loss_rel = abs(ranks[0]["loss"] - ref["loss"]) / abs(ref["loss"])
+        out[route] = dict(loss=ranks[0]["loss"], reference_loss=ref["loss"], loss_rel=loss_rel,
+                          grad_cosine_all=ranks[0]["grad_cosine_all"], serve_min_cosine=ranks[0]["serve_min_cosine"],
+                          fault_serve_min_cosine=ranks[0]["fault_serve_min_cosine"],
+                          dropped_share=ref["dropped_share"], calls=len(step), serving_calls=len(serve),
+                          differing_calls=sum(a != b for a, b in zip(step, ref["routing"])),
+                          fault_differing_calls=sum(a != b for a, b in zip(fault, ref["routing"])))
+        checks.update({
+            f"{route}_step_routing_equal": step == ref["routing"],
+            f"{route}_serving_routing_equal": serve == ref["serve_routing"],
+            f"{route}_drops": ref["dropped_share"] > 0,
+            f"{route}_per_rank_fault_differs": fault != ref["routing"] and fault_serve != ref["serve_routing"],
+            f"{route}_loss_within": loss_rel <= PAR_LOSS_RTOL,
+            f"{route}_grad_within": ranks[0]["grad_cosine_all"] >= PAR_MOE_GRAD_COSINE_ALL,
+            f"{route}_serving_within": ranks[0]["serve_min_cosine"] >= PAR_SERVING_COSINE,
+            f"{route}_ranks_agree": all(r["loss"] == ranks[0]["loss"] for r in ranks),
+        })
+    return out, checks
+
+
+def resume_gates(cells):
+    """Each resumed cell: its steps (3 on) each within PAR_LOSS_RTOL of its
+    source run's loss, every rank's restored optimizer state (gathered whole)
+    the one its source saved at step 2 (checksum), and the optimizer it
+    resumed into the cell's (ZeRO-2 moments or not)."""
+    out, checks = {}, {}
+    for cell, (layout, impl, shard, source) in PAR_RESUME.items():
+        if source is None:
+            continue
+        ranks, base = cells[cell], cells[source][0]
+        rel = rel_diffs(ranks[0]["losses"], base["losses"][2:])
+        out[cell] = dict(layout=layout, source=source, losses=ranks[0]["losses"], uninterrupted=base["losses"][2:],
+                         loss_rel=rel, optimizer=ranks[0]["optimizer"], source_optimizer=base["optimizer"],
+                         restored_fingerprints=[r["restored_fingerprint"] for r in ranks],
+                         saved_fingerprint=base["saved_fingerprint"])
+        checks.update({
+            f"{cell}_steps": all(r["steps"] == list(range(3, PAR_RESUME_STEPS + 1)) for r in ranks),
+            f"{cell}_losses_within": max(rel) <= PAR_LOSS_RTOL,
+            f"{cell}_state_restored": all(r["restored_fingerprint"] == base["saved_fingerprint"] is not None
+                                          for r in ranks),
+            f"{cell}_optimizer": all(r["optimizer"] == "AdamW" for r in ranks)
+            and cells[source][0]["optimizer"] == ("ShardedAdamW" if PAR_RESUME[source][2] else "AdamW"),
+        })
+    return out, checks
+
+
 def parallel_phase(dev, card, gen):
     """Phase 24 (module docstring): the tensor and expert axes on ranks that
     share the card. Returns the launches and shapes of the cells' rank steps
@@ -6285,6 +6537,11 @@ def parallel_phase(dev, card, gen):
     os.makedirs(paths["moe_dir"])
     with open(os.path.join(paths["moe_dir"], "config.json"), "w") as f:
         json.dump(dict(NOMIC_BERT_2048_CONFIG, n_layer=PAR_MOE_LAYERS), f)
+    for key in ("resume_dense_dir", "resume_moe_dir"):
+        paths[key] = os.path.join(root, key)
+        os.makedirs(paths[key])
+        with open(os.path.join(paths[key], "config.json"), "w") as f:
+            json.dump(dict(NOMIC_BERT_2048_CONFIG, n_layer=PAR_RESUME_LAYERS), f)
     t_phase = time.perf_counter()
 
     # one rank, this process: the reference losses and parameter updates
@@ -6304,14 +6561,45 @@ def parallel_phase(dev, card, gen):
     gc.collect()
     torch.cuda.empty_cache()
 
+    # the data-axis cell's one-rank run on the whole batch
+    route_paths, route_refs = data_routing_reference(dev, root)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    resume_root = os.path.join(root, "resume")
     spec = dict(backend="gloo", device="cuda:0" if dev.type == "cuda" else "cpu", paths=paths,
-                refs={k: v["path"] for k, v in refs.items()},
-                cases=["parallel_tensor", "parallel_layer_faults", "parallel_expert", "parallel_expert_dropless"])
+                refs={k: v["path"] for k, v in refs.items()}, route=route_paths, resume_root=resume_root,
+                cases=["parallel_tensor", "parallel_layer_faults", "parallel_expert", "parallel_expert_dropless",
+                       "parallel_data_routing", "parallel_resume_save_tp", "parallel_resume_save_zero",
+                       "parallel_resume_expert", "parallel_resume_data"])
     t0 = time.perf_counter()
     two = launch_ranks(spec, root, "gloo_two_ranks", 2)
     four = launch_ranks(dict(spec, cases=["parallel_expert_tensor"]), root, "gloo_four_ranks", 4)
     ranks_seconds = time.perf_counter() - t0
     results = dict(two, **four)
+
+    # the 1 x 1 x 2 checkpoint resumed on one rank here (the two ranks resumed theirs in the launch)
+    t0 = time.perf_counter()
+    resumes = {cell: results[cell] for cell in PAR_RESUME if cell != "parallel_resume_one_rank"}
+    resumes["parallel_resume_one_rank"] = [par_case_resume(spec, dev, 0, "parallel_resume_one_rank")]
+    resume_seconds = time.perf_counter() - t0
+    routing, routing_checks = data_routing_gates(results["parallel_data_routing"], route_refs)
+    resumed, resume_checks = resume_gates(resumes)
+    ok_new = all(routing_checks.values()) and all(resume_checks.values())
+    emit(phase="parallel_data_routing", card=card, backend="gloo", layout=[2, 1, 1], dtype="fp32",
+         factor=PAR_ROUTE_FACTOR, batch=[PAR_ROUTE_B, PAR_ROUTE_S], serving_texts=PAR_ROUTE_TEXTS,
+         moe_layers=PAR_ROUTE_LAYERS // 2, bounds=dict(loss_rtol=PAR_LOSS_RTOL, grad_cosine_all=PAR_MOE_GRAD_COSINE_ALL,
+                                                     serving_cosine=PAR_SERVING_COSINE),
+         routes=routing, checks=routing_checks, ok=all(routing_checks.values()))
+    emit(phase="parallel_resume", card=card, backend="gloo", steps=PAR_RESUME_STEPS, save_every=2,
+         cells={cell: dict(layout=PAR_RESUME[cell][0], moe_impl=PAR_RESUME[cell][1],
+                           shard_optimizer_state=PAR_RESUME[cell][2], losses=resumes[cell][0]["losses"],
+                           seconds=[r["seconds"] for r in resumes[cell]]) for cell in PAR_RESUME},
+         resumed=resumed, checks=resume_checks, one_rank_seconds=resume_seconds,
+         ok=all(resume_checks.values()))
+    if not ok_new:
+        raise AssertionError(f"parallel: a data-axis routing or resume check failed: {routing_checks} "
+                             f"{resume_checks}")
 
     def gates(cell):
         res = results[cell]
@@ -6422,10 +6710,173 @@ def parallel_phase(dev, card, gen):
     gmm_errs, gmm_rows = moe_kernels(dev, card, PAR_GMM_LAYOUTS, E=4, kn=PAR_GMM_KN)
     emit(phase="parallel_phase_seconds", seconds=time.perf_counter() - t_phase)
     tensor, dropless = results["parallel_tensor"][0], results["parallel_expert_dropless"][0]
-    return dict(tensor_launches=tensor["launches"][-1], expert_dropless_launches=dropless["launches"][-1],
+    return dict(routing=routing, resumed=resumed,
+                tensor_launches=tensor["launches"][-1], expert_dropless_launches=dropless["launches"][-1],
                 expert_launches=results["parallel_expert"][0]["launches"][-1],
                 expert_tensor_launches=results["parallel_expert_tensor"][0]["launches"][-1],
                 fwd=fwd_rows, bwd=bwd_rows, gmm=gmm_rows, gmm_errs=gmm_errs)
+
+
+# phase 25: DataComp's tasks at full width on in-memory images (DC_CLASSES colours, each image
+# its colour plus noise), the two train-to-signal scripts at their defaults, ablate_vision
+DC_CLASSES = ("red", "green", "blue", "yellow")
+DC_COLOURS = ((220, 40, 40), (40, 200, 40), (50, 70, 230), (230, 220, 40))
+DC_PER_CLASS, DC_GROUPS, DC_PAIRS, DC_BATCH, DC_TEXT_LEN = 32, ("north", "south"), 128, 64, 77
+ABLATE_CHUNK, ABLATE_BATCH, ABLATE_ITERS = 32, 512, 10
+
+
+def datacomp_images(rng, n, classes):
+    """n uint8 [n, 224, 224, 3] images, each its class's colour plus noise."""
+    labels = rng.integers(0, len(classes), size=n)
+    colour = np.asarray(DC_COLOURS)[labels][:, None, None, :].astype(np.int16)
+    px = colour + rng.integers(-40, 41, size=(n, VIT_IMG, VIT_IMG, 3), dtype=np.int16)
+    return np.clip(px, 0, 255).astype(np.uint8), labels
+
+
+def datacomp_check(dev, card):
+    """Phase 25a, scripts_datacomp: eval/datacomp.py's zero-shot, grouped
+    and retrieval tasks and their aggregate, on EVA02-B/16 with MAP pooling
+    and nomic-bert-2048's text tower at full width (bf16, seed weights), fed
+    images already decoded (`samples=`; the card's machine has no Pillow)
+    and texts through the stand-in tokenizer at 77 tokens. Gates: every
+    metric finite in [0, 1]; flash forward launches 12 a tower batch, as
+    predicted from the batches the tasks make; an image batch's and a text
+    batch's embeddings at cosine >= SERVING_COSINE against the towers in fp32
+    on sdpa."""
+    import torch
+
+    from contrastors_tpu_torch.eval import datacomp
+    from contrastors_tpu_torch.eval.stub_tokenizer import StubTokenizer
+    from contrastors_tpu_torch.eval.zero_shot import PROMPT_TEMPLATES
+    from contrastors_tpu_torch.models import BiEncoder
+
+    text_cfg, vit_cfg = lit_configs("flash")
+    text = seed_weights(BiEncoder(text_cfg, pooling="mean", dtype=torch.bfloat16, device=dev), "dense").eval()
+    vision = seed_weights(BiEncoder(vit_cfg, trunk_type="vision", pooling="map", dtype=torch.bfloat16,
+                                    device=dev), "eva02_map").eval()
+    tok = StubTokenizer(text_cfg.vocab_size)
+    encode_image, encode_text = datacomp.make_encoders(text, vision, tok, DC_TEXT_LEN)
+    rng = np.random.default_rng(25)
+
+    def chw(px_u8):
+        return normalised(torch.from_numpy(px_u8).to(dev).permute(0, 3, 1, 2)).cpu().numpy()
+
+    imgs, labels = datacomp_images(rng, DC_PER_CLASS * len(DC_CLASSES), DC_CLASSES)
+    g_imgs, g_labels = datacomp_images(rng, DC_PER_CLASS * len(DC_CLASSES), DC_CLASSES)
+    groups = rng.choice(DC_GROUPS, size=len(g_labels))
+    r_imgs, r_labels = datacomp_images(rng, DC_PAIRS, DC_CLASSES)
+    captions = [f"a photo of a {DC_CLASSES[c]} square {i}" for i, c in enumerate(r_labels)]
+    px, g_px, r_px = chw(imgs), chw(g_imgs), chw(r_imgs)
+    reset_counts()
+    t0 = time.perf_counter()
+    results = dict(
+        zeroshot=datacomp.zeroshot_classification_task(
+            encode_image, encode_text, None, list(DC_CLASSES), batch_size=DC_BATCH, samples=zip(px, labels)),
+        fairness=datacomp.grouped_zeroshot_task(
+            encode_image, encode_text, None, list(DC_CLASSES), batch_size=DC_BATCH,
+            samples=zip(g_px, g_labels, groups)),
+        retrieval=datacomp.retrieval_task(encode_image, encode_text, None, batch_size=DC_BATCH,
+                                          samples=list(zip(r_px, captions))),
+    )
+    results["aggregate"] = datacomp.aggregate(results)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    prompts = len(DC_CLASSES) * len(PROMPT_TEMPLATES)
+    image_batches = 2 * -(-len(labels) // DC_BATCH) + -(-DC_PAIRS // DC_BATCH)
+    text_batches = 2 * -(-prompts // 256) + -(-DC_PAIRS // DC_BATCH)
+    predicted = expect(fwd=vit_cfg.n_layer * image_batches + text_cfg.n_layer * text_batches)
+    # the towers against fp32 sdpa on one batch each
+    text32, vit32 = lit_configs("sdpa")
+    ref_text = BiEncoder(text32, pooling="mean", dtype=torch.float32, device=dev).eval()
+    ref_text.load_state_dict(text.state_dict())
+    ref_vision = BiEncoder(vit32, trunk_type="vision", pooling="map", dtype=torch.float32, device=dev).eval()
+    ref_vision.load_state_dict(vision.state_dict())
+    ref_image, ref_caption = datacomp.make_encoders(ref_text, ref_vision, tok, DC_TEXT_LEN)
+    cos_image = min_row_cosine(encode_image(px[:DC_BATCH]), ref_image(px[:DC_BATCH]))
+    cos_text = min_row_cosine(encode_text(captions[:DC_BATCH]), ref_caption(captions[:DC_BATCH]))
+    values = [v for r in results.values() for v in r.values()]
+    checks = dict(metrics_in_range=all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in values),
+                  aggregate=set(results["aggregate"]) == {"zeroshot_acc1", "worst_group_acc1", "retrieval_R@1"},
+                  launches=launches == predicted,
+                  image_cosine=cos_image >= SERVING_COSINE, text_cosine=cos_text >= SERVING_COSINE)
+    ok = all(checks.values())
+    emit(phase="scripts_datacomp", card=card, gpu_state=gpu_state(), vision=EVA02 + " (MAP pooling)",
+         text="nomic-bert-2048", dtype="bf16", weights="seed", images=dict(zeroshot=len(labels),
+                                                                             fairness=len(g_labels),
+                                                                             retrieval=DC_PAIRS),
+         results=results, launches=launches, predicted_launches=predicted, image_batches=image_batches,
+         text_batches=text_batches, seconds=seconds, min_cosine_image=cos_image, min_cosine_text=cos_text,
+         threshold=SERVING_COSINE, checks=checks, ok=ok)
+    if not ok:
+        raise AssertionError(f"scripts datacomp: a check failed: {checks}")
+    del text, vision, ref_text, ref_vision
+    torch.cuda.empty_cache()
+    return launches
+
+
+def signal_runs(dev, card):
+    """Phase 25b, scripts_train_to_signal and scripts_vision_train_to_signal:
+    each script's run at its defaults (320 steps of 128 pairs; 400 of 64
+    images, grad cache at chunk 16) on the card in fp32, from the world the
+    script builds (JAX's, draw for draw and weight for weight, without
+    transformers or Pillow), gated on the script's own bars (JAX's):
+    nDCG@10 above its value at init and above 0.9; zero-shot top-1 above its
+    value at init and >= 0.5. Their models' head dim is 16, so attention
+    runs the plain sdpa: 0 flash launches, predicted and counted."""
+    import torch
+
+    from contrastors_tpu_torch.scripts import train_to_signal, vision_train_to_signal
+
+    out = {}
+    for name, script in (("train_to_signal", train_to_signal), ("vision_train_to_signal", vision_train_to_signal)):
+        reset_counts()
+        t0 = time.perf_counter()
+        result = script.run(device=dev, log=lambda *a: None)
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        try:
+            script.check(result)
+            bars = True
+        except AssertionError as e:
+            bars = str(e)
+        checks = dict(bars=bars is True, launches=launches == expect(),
+                      losses_finite=bool(np.isfinite([x for _, x in result["loss_curve"]]).all()))
+        emit(phase=f"scripts_{name}", card=card, gpu_state=gpu_state(), seconds=seconds, launches=launches,
+             **{k: v for k, v in result.items()}, checks=checks, failed_bar=None if bars is True else bars,
+             ok=all(checks.values()))
+        if not all(checks.values()):
+            raise AssertionError(f"scripts {name}: a check failed: {checks} {bars}")
+        out[name] = result
+        torch.cuda.empty_cache()
+    return out
+
+
+def ablate_vision_split(dev, card):
+    """Phase 25c, scripts_ablate_vision: scripts/ablate_vision.py's split of
+    the LiT grad-cache step (EVA02-B/16, chunk 32, batch 512, bf16) into its
+    pieces, CUDA-event times; flash launches counted (they time the
+    kernels, outside any main path)."""
+    from contrastors_tpu_torch.scripts import ablate_vision
+
+    reset_counts()
+    result = ablate_vision.ablate(dev, ABLATE_CHUNK, ABLATE_BATCH, ABLATE_ITERS)
+    launches = read_counts()
+    ok = all(np.isfinite(p["step_ms"]) and p["step_ms"] > 0 for p in result["pieces"].values()) and launches["fwd"] > 0
+    emit(phase="scripts_ablate_vision", card=card, gpu_state=gpu_state(), launches=launches, **result, ok=ok)
+    if not ok:
+        raise AssertionError("scripts ablate_vision: a piece's time is not finite, or no flash launch")
+    return result
+
+
+def scripts_phase(dev, card):
+    """Phase 25: DataComp, the train-to-signal runs and the vision ablation.
+    Returns DataComp's flash launches."""
+    t0 = time.perf_counter()
+    launches = datacomp_check(dev, card)
+    signal_runs(dev, card)
+    ablate_vision_split(dev, card)
+    emit(phase="scripts_phase_seconds", seconds=time.perf_counter() - t0)
+    return launches
 
 
 def finish(card, summary):
@@ -6447,7 +6898,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Drive the PyTorch / CUDA port on one NVIDIA GPU.")
     ap.add_argument("--only", choices=["moe_kernels", "moe", "flash_fwd", "flash_bwd", "dense", "trainer",
                                        "mlm_trainer", "vision", "families", "inference", "distributed", "knobs",
-                                       "parallel"],
+                                       "parallel", "scripts"],
                     help="run only the card, build and grouped-matmul phases (9), or (moe) also MoE "
                          "serving and the MoE step's timing and profile (10-12, no gradient agreement); "
                          "flash_fwd: the card, build, the forward checks (3, 13), the forward timing (6), "
@@ -6462,7 +6913,8 @@ def main(argv=None):
                          "checks and phase 20; inference: the card, build, the long-context case's forward "
                          "check and phase 21; distributed: the card, build and phase 22; knobs: the card, "
                          "build and phase 23; parallel: the card, build, the local shapes' kernel checks of 3 "
-                         "and 4 and phase 24")
+                         "and 4 and phase 24; scripts: the card, build, the ViT shape's checks of 3 and 4 and "
+                         "phase 25")
     ap.add_argument("--tree", help="with --only: the root of another checkout whose contrastors_tpu_torch "
                                    "package is built and timed (an earlier commit, for old against new)")
     ap.add_argument("--dist-worker", metavar="SPEC", help=argparse.SUPPRESS)  # one rank of phase 22
@@ -6508,7 +6960,8 @@ def main(argv=None):
     libs = dict(moe_kernels=("gmm",), flash_fwd=("flash_fwd", "flash_bwd"), flash_bwd=("flash_fwd", "flash_bwd"),
                 dense=("flash_fwd", "flash_bwd"), trainer=("flash_fwd", "flash_bwd"),
                 mlm_trainer=("flash_fwd", "flash_bwd"), vision=("flash_fwd", "flash_bwd"),
-                inference=("flash_fwd", "flash_bwd"), distributed=("flash_fwd", "flash_bwd")).get(
+                inference=("flash_fwd", "flash_bwd"), distributed=("flash_fwd", "flash_bwd"),
+                scripts=("flash_fwd", "flash_bwd")).get(
         args.only, _build.LIBRARIES)
     with ThreadPoolExecutor(len(libs)) as pool:
         paths = dict(zip(libs, pool.map(_build.build, libs)))
@@ -6565,6 +7018,11 @@ def main(argv=None):
             summary["knobs_launches_per_step"] = knobs_phase(dev, card)
             summary["max_abs_err"] = dict(fwd=max(o_errs.values()), **{g: max(e.values()) for g, e in grad_errs.items()},
                                           fused=fused_errs)
+        elif args.only == "scripts":
+            o_errs = forward_checks(dev, gen, VIT_CASES)
+            grad_errs = backward_checks(dev, gen, VIT_CASES)
+            summary["datacomp_launches"] = scripts_phase(dev, card)
+            summary["max_abs_err"] = dict(fwd=max(o_errs.values()), **{g: max(e.values()) for g, e in grad_errs.items()})
         elif args.only == "inference":
             o_errs = forward_checks(dev, gen, LONGCTX_CASES)
             summary["inference"] = inference_phase(dev, card, gen)
@@ -6725,8 +7183,12 @@ def main(argv=None):
     # 23. the training step's last single-card knobs: packing, capacity and expert-choice MoE, embed_parallel
     knobs = knobs_phase(dev, card)
 
-    # 24. the tensor and expert axes: two and four ranks on the card (gloo), the kernels at the local shapes
+    # 24. the tensor and expert axes: two and four ranks on the card (gloo), the kernels at the local shapes;
+    # the MoE dispatch routed over a data axis, the optimizer state resumed at other layouts
     par = parallel_phase(dev, card, gen)
+
+    # 25. DataComp at full width, the train-to-signal scripts, the vision ablation
+    scripts_launches = scripts_phase(dev, card)
 
     main = timings["b256_s512"]
 
@@ -6901,6 +7363,7 @@ def main(argv=None):
             families=family_entry("fwd"),
             inference=inference_entry("fwd"),
             parallel=parallel_entry("fwd"),
+            datacomp_launches=scripts_launches["fwd"],
             timings={label: {k: row[k] for k in ("ms", "device_ms", "enqueue_us", "plain_ms", "bound_ms",
                                                  "library_ms", "library_device_ms")}
                      for label, row in timings.items()},

@@ -163,12 +163,17 @@ class ImageTextDataset:
             )
         return mine
 
+    def shard_samples(self, url: str) -> Iterator[Dict[str, Any]]:
+        """A shard's samples ({"image", "text"}) in their order: the tar's
+        (a subclass may hold them in memory)."""
+        return iter_tar_samples(url)
+
     def _samples(self) -> Iterator[Dict[str, Any]]:
         buf: List[Dict[str, Any]] = []
         rng = random.Random(self.seed + 1 + self.shared_epoch.epoch)
         for url in self._shard_order():
             try:
-                it = iter_tar_samples(url)
+                it = self.shard_samples(url)
             except Exception as e:  # noqa: BLE001
                 log_and_continue(e)
                 continue

@@ -2,8 +2,10 @@
 `contrastors_tpu/data/indexing.py`: counts.json (rows per shard) and
 offsets.json.gz (row -> (start, end) byte range in the DECOMPRESSED
 stream) for a bucket of gzip JSONL shards, and the key rules both sides
-use to look shards up. The index is built with Python's gzip (the JAX
-package may use its C++ data plane; the files are the same)."""
+use to look shards up. The index is built by the C++ data plane
+(`native/`, thread-parallel inflate and index) where it builds, else with
+Python's gzip, shard by shard where the plane fails on one; the files are
+the same."""
 
 import gzip
 import json
@@ -50,11 +52,15 @@ def index_shard(path: str) -> Dict[str, List[int]]:
 def build_bucket_index(bucket_dir: str, pattern_suffix: str = ".jsonl.gz"):
     """Writes counts.json and offsets.json.gz next to the shards, keyed by
     `norm_shard_key`, and returns the counts."""
+    from contrastors_tpu_torch.native import index_many
+
     shards = sorted(f for f in os.listdir(bucket_dir) if f.endswith(pattern_suffix))
+    fulls = [os.path.join(bucket_dir, s) for s in shards]
+    native = index_many(fulls) or [None] * len(fulls)
     counts, offsets = {}, {}
-    for shard in shards:
-        full = os.path.join(bucket_dir, shard)
-        off = index_shard(full)
+    for full, off in zip(fulls, native):
+        if off is None:
+            off = index_shard(full)
         key = norm_shard_key(full)
         counts[key] = len(off)
         offsets[key] = off

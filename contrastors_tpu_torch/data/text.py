@@ -385,7 +385,11 @@ class StreamingShardDataset:
     def _get_stream(self, url: str):
         if url not in self._streams:
             if _is_local(url):
-                self._streams[url] = gzip.open(_local(url), "rb")
+                # local shards: the C++ data plane's inflate with forward
+                # seeks (native/), else Python's gzip
+                from contrastors_tpu_torch.native import get_lib, NativeGzipStream
+
+                self._streams[url] = NativeGzipStream(_local(url)) if get_lib() else gzip.open(_local(url), "rb")
             else:
                 import fsspec
 

@@ -6,9 +6,13 @@ and center crop, or the ResizeMaxSize letterbox; then the OpenAI mean/std
 normalisation to fp32 CHW, or raw uint8 CHW when the trainer normalises on
 the device. The same code as JAX's, so the same image gives the same
 pixels bit for bit. PIL is imported inside the functions that use it: the
-trainer's data hook can feed pixels without it.
+trainer's data hook can feed pixels without it, and the train crop also
+takes an `ArrayImage`, a decoded image held in memory, whose resize is
+Pillow's bicubic resampling written in numpy, so that a host without Pillow
+crops as one with it does.
 """
 
+import functools
 import math
 import random
 from typing import Callable, Optional, Tuple, Union
@@ -17,6 +21,99 @@ import numpy as np
 
 OPENAI_MEAN = (0.48145466, 0.4578275, 0.40821073)
 OPENAI_STD = (0.26862954, 0.26130258, 0.27577711)
+BICUBIC = 3  # PIL.Image.Resampling.BICUBIC, as a number: the train crop imports no PIL
+_PRECISION_BITS = 22  # Pillow's fixed point for 8-bit resampling (libImaging/Resample.c)
+
+
+def _bicubic_filter(x: float) -> float:
+    a = -0.5
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+@functools.lru_cache(maxsize=4096)
+def _resample_weights(in_size: int, in0: float, in1: float, out_size: int) -> np.ndarray:
+    """Pillow's precompute_coeffs and normalize_coeffs_8bpc for the bicubic
+    filter, as a dense [out_size, in_size] matrix of 22-bit fixed-point
+    weights (0 outside each output pixel's span)."""
+    scale = float(np.float32(in1) - np.float32(in0)) / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ss = 1.0 / filterscale
+    dense = np.zeros((out_size, in_size), np.int64)
+    for xx in range(out_size):
+        center = float(in0) + (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = [_bicubic_filter((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        ww = 0.0
+        for v in w:
+            ww += v
+        k = np.asarray([v / ww if ww != 0.0 else v for v in w]) * (1 << _PRECISION_BITS)
+        dense[xx, xmin:xmin + xmax] = np.trunc(np.where(k < 0, k - 0.5, k + 0.5))
+    return dense
+
+
+def _resample_pass(img: np.ndarray, weights: np.ndarray, axis: int) -> np.ndarray:
+    """One of Pillow's passes over axis (1: horizontal, 0: vertical) of a
+    uint8 [H, W, C] image: a rounded fixed-point sum, clipped to uint8."""
+    src = np.moveaxis(img, axis, 0).astype(np.int64)
+    acc = np.tensordot(weights, src, axes=1) + (1 << (_PRECISION_BITS - 1))
+    out = np.where(acc <= 0, 0, np.where(acc >= 1 << (_PRECISION_BITS + 8), 255, acc >> _PRECISION_BITS))
+    return np.moveaxis(out.astype(np.uint8), 0, axis)
+
+
+class ArrayImage:
+    """A decoded RGB image held in memory (uint8 [H, W, 3]) with the part of
+    PIL's Image interface that the crops use: `size`, `crop` (inside the
+    image), `resize` (bicubic, with a box: Pillow's resampling of 8-bit
+    images, the fixed-point coefficients, a horizontal pass over the rows the
+    vertical one reads, then the vertical pass, each rounded and clipped to
+    uint8, bit for bit), `convert("RGB")` and `np.asarray`."""
+
+    def __init__(self, array: np.ndarray):
+        self.array = np.asarray(array, np.uint8)
+
+    @property
+    def size(self) -> Tuple[int, int]:
+        return self.array.shape[1], self.array.shape[0]
+
+    def crop(self, box) -> "ArrayImage":
+        left, top, right, bottom = box
+        if left < 0 or top < 0 or right > self.size[0] or bottom > self.size[1]:
+            raise ValueError(f"crop box {box} outside the {self.size} image")
+        return ArrayImage(self.array[top:bottom, left:right].copy())
+
+    def convert(self, mode: str) -> "ArrayImage":
+        if mode != "RGB":
+            raise ValueError(f"ArrayImage holds RGB, not {mode}")
+        return self
+
+    def __array__(self, dtype=None, copy=None):
+        return self.array if dtype is None else self.array.astype(dtype)
+
+    def resize(self, size: Tuple[int, int], resample: int = BICUBIC, box=None) -> "ArrayImage":
+        if resample != BICUBIC:
+            raise ValueError("ArrayImage resizes with BICUBIC only")
+        (w, h), (W, H) = self.size, size
+        box = tuple(box) if box is not None else (0, 0, w, h)
+        if (w, h) == (W, H) and box == (0, 0, w, h):
+            return ArrayImage(self.array.copy())
+        weights_v = _resample_weights(h, box[1], box[3], H)
+        img = self.array
+        if W != w or box[0] or box[2] != W:
+            # the horizontal pass over the rows the vertical one reads
+            rows = np.flatnonzero(weights_v.any(axis=0))
+            first, last = int(rows[0]), int(rows[-1]) + 1
+            img = _resample_pass(img[first:last], _resample_weights(w, box[0], box[2], W), axis=1)
+            weights_v = weights_v[:, first:last]
+        if H != h or box[1] or box[3] != H:
+            img = _resample_pass(img, weights_v, axis=0)
+        return ArrayImage(img)
 
 
 def _to_chw(img: "PIL.Image.Image", mean, std) -> np.ndarray:
@@ -38,8 +135,6 @@ def random_resized_crop(
     ratio: Tuple[float, float] = (3 / 4, 4 / 3),
     rng: Optional[random.Random] = None,
 ) -> "PIL.Image.Image":
-    from PIL import Image
-
     rng = rng or random
     w, h = img.size
     area = w * h
@@ -52,18 +147,16 @@ def random_resized_crop(
         if 0 < cw <= w and 0 < ch <= h:
             x = rng.randint(0, w - cw)
             y = rng.randint(0, h - ch)
-            return img.resize((size, size), Image.BICUBIC, box=(x, y, x + cw, y + ch))
+            return img.resize((size, size), BICUBIC, box=(x, y, x + cw, y + ch))
     # fallback: center crop
     return center_crop_resize(img, size)
 
 
 def center_crop_resize(img: "PIL.Image.Image", size: int) -> "PIL.Image.Image":
-    from PIL import Image
-
     w, h = img.size
     short = min(w, h)
     scale = size / short
-    img = img.resize((max(size, int(round(w * scale))), max(size, int(round(h * scale)))), Image.BICUBIC)
+    img = img.resize((max(size, int(round(w * scale))), max(size, int(round(h * scale)))), BICUBIC)
     w, h = img.size
     left = (w - size) // 2
     top = (h - size) // 2

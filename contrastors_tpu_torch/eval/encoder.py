@@ -12,7 +12,9 @@ its parameters live on. With a `mesh` of more than one rank (JAX's `mesh`
 form, `:41-80`) every rank calls `encode` with the same texts, encodes its
 share of each batch's rows (the batch padded to a multiple of the ranks
 with copies of its last row) and the rows are gathered, so each rank gets
-the one-rank result, row for row, in the original order.
+the one-rank result, row for row, in the original order. Its MoE layers
+route over the whole batch, every rank's share together, as JAX's GSPMD
+forward does (`layers/moe.py`, the data axis).
 """
 
 import contextlib
@@ -82,6 +84,10 @@ class Encoder:
     ):
         self.module = module
         self.mesh = mesh if mesh is not None and mesh.data > 1 else None
+        if self.mesh is not None:
+            from contrastors_tpu_torch.layers.moe import route_over_data
+
+            route_over_data(module, self.mesh.data_part)
         self.device = next(module.parameters()).device
         self.tokenizer = tokenizer
         self.seq_len = seq_len

@@ -8,9 +8,10 @@ up to the first [SEP] and 1 after it. The special ids default to
 bert-base-uncased's (pad 0, [CLS] 101, [SEP] 102, [MASK] 103); XLM-R's are
 pad 1, <s> 0, </s> 2, <mask> 250001. Like bert-base-uncased's tokenizer it
 has no EOS token, and it pads on the right, so `TokenizeCollator` takes it
-with add_eos off.
+with add_eos off. `VocabTokenizer` is the same stand-in over a word list.
 """
 
+import re
 import zlib
 
 import numpy as np
@@ -69,3 +70,25 @@ class StubTokenizer:
         if types is not None:
             out["token_type_ids"] = list(types)
         return out
+
+
+class VocabTokenizer(StubTokenizer):
+    """The stand-in over a word list: a word's id is its index in `vocab`
+    (unknown words [UNK]), the special ids are those of [PAD], [CLS],
+    [SEP] and [MASK] in it, and text splits into lower-cased words and
+    single punctuation marks. Over a vocab.txt whose entries are whole
+    words (the train-to-signal scripts' worlds) it gives the ids that
+    `BertTokenizerFast(vocab_file=...)` gives: [CLS] words [SEP]."""
+
+    def __init__(self, vocab):
+        self.vocab = list(vocab)
+        self.index = {w: i for i, w in enumerate(self.vocab)}
+        self.unk_token_id = self.index["[UNK]"]
+        super().__init__(len(self.vocab), pad_token_id=self.index["[PAD]"], cls_token_id=self.index["[CLS]"],
+                         sep_token_id=self.index["[SEP]"], mask_token_id=self.index["[MASK]"])
+
+    def _words(self, text):
+        return [self.index.get(w, self.unk_token_id) for w in re.findall(r"\w+|[^\w\s]", text.lower())]
+
+    def _ids(self, text, max_length):
+        return [self.cls_token_id] + self._words(text)[:max(max_length - 2, 0)] + [self.sep_token_id]

@@ -53,6 +53,11 @@ What differs from the JAX function, and why:
     capacity and expert-choice dispatches' C is the chunk's). The
     embeddings are then those of m = 1 in any mode; on the CPU in fp32,
     bit for bit (the tests). Pass 2 and the direct chunks are unchanged.
+MoE routing: the function runs inside `layers/moe.py:local_routing()`, so a
+chunk routes over its own tokens, as in JAX's shard_map form, and in its
+GSPMD form (an expert or tensor axis), whose chunks of chunk_size rows of
+the global batch are the ranks' chunks when chunk_size divides a rank's
+rows.
 MoE router aux (router_aux_coef != 0, an encoder that returns
 "router_aux"): pass 2 backpropagates <emb, cot> + coef * aux for each
 chunk. The direct part then runs one forward per chunk, with the cached
@@ -71,6 +76,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from contrastors_tpu_torch.layers.moe import local_routing
 from contrastors_tpu_torch.ops.dropout import GeneratorGroup
 from contrastors_tpu_torch.parallel.collectives import all_reduce_grads, group_rank, group_size, reduce_metrics
 
@@ -94,6 +100,7 @@ def _slice(batch: Batch, lo: int, hi: int) -> Batch:
     return {k: v[lo:hi] for k, v in batch.items()}
 
 
+@local_routing()
 def grad_cache_loss_and_grads(
     params: Any,
     q_batch: Batch,

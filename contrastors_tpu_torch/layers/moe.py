@@ -32,6 +32,28 @@ would: grad cache's pass 1 embeds several chunks per forward
 (`embed_parallel`), where JAX vmaps the encoder over them. Dropless routing
 is per token, so groups do not change it.
 
+The data axis (`dp`, set by `parallel/sharding.py:shard_module` and by the
+`Encoder`'s mesh form): JAX's standard step and its mesh `Encoder` run
+under GSPMD, where the layer sees the global batch, so its C and its
+queues are those of every data rank's tokens together, in rank order (data
+rank 0's rows first, as `all_gather_rows` orders them). With `dp` set the
+capacity and expert-choice dispatches route over that global batch:
+  - token choice: C from the global N (every data rank holds N tokens, one
+    padded length, as JAX's global batch has), and an assignment's place in
+    its expert's queue is its place among this rank's assignments plus the
+    counts of the lower data ranks' assignments to that expert (one
+    all-gather of E integers over the data group);
+  - expert choice: the scores are gathered over the data group (detached:
+    selection has no gradient), each expert takes its top C of all of
+    them (equal scores to the lower global token index), and each rank
+    combines the picks among its own tokens, with weights read from its own
+    probabilities, so the gradient stays local.
+The tables are this rank's columns only ([E, min(C, N)]). The expert peers
+of a data rank hold the same tokens, so the gather runs over the data group
+alone. Grad cache routes each chunk on its own, as JAX's shard_map form
+does, and in its GSPMD form a global chunk of chunk_size rows is one rank's
+chunk (`grad_cache.py`): it runs its passes inside `local_routing()`.
+
 Optional shared experts (Dense layers on every token) blend in by
 assignment count, then the output bias. Nothing is read back to the host.
 
@@ -58,6 +80,7 @@ maps them one to one: `router` [D, E], `w_up`/`w_gate` [E, D, F] and
 dtype where used, as `layers/dense.py` does.
 """
 
+import contextlib
 from typing import Any, Optional
 
 import torch
@@ -67,7 +90,31 @@ from contrastors_tpu_torch._device import resolve_device
 from contrastors_tpu_torch.layers.activations import ACT2FN, is_gated
 from contrastors_tpu_torch.layers.dense import Dense
 from contrastors_tpu_torch.ops.grouped_matmul import aligned_group_layout, block_experts, gmm
-from contrastors_tpu_torch.parallel.collectives import copy_to_group, reduce_from_group
+from contrastors_tpu_torch.parallel.collectives import all_gather_rows, copy_to_group, reduce_from_group
+
+# > 0 inside `local_routing()`: a process-wide count, not a thread-local
+# one, because the autograd engine replays activation checkpoints on its
+# own threads
+_LOCAL_ROUTING = [0]
+
+
+@contextlib.contextmanager
+def local_routing():
+    """Every MoE layer routes over the tokens of its own call, whatever its
+    `dp` (grad cache's chunks)."""
+    _LOCAL_ROUTING[0] += 1
+    try:
+        yield
+    finally:
+        _LOCAL_ROUTING[0] -= 1
+
+
+def route_over_data(module: nn.Module, part) -> None:
+    """Set the data axis (an `AxisPart`, or None) over which every MoE
+    layer of module routes."""
+    for m in module.modules():
+        if isinstance(m, MoEMLP):
+            m.dp = part
 
 
 class MoEMLP(nn.Module):
@@ -109,6 +156,8 @@ class MoEMLP(nn.Module):
         # the tensor and expert axes (AxisParts), when the experts are split
         self.tp: Optional[Any] = None
         self.ep: Optional[Any] = None
+        # the data axis over which routing runs (module docstring)
+        self.dp: Optional[Any] = None
 
     @property
     def _groups(self):
@@ -180,46 +229,58 @@ class MoEMLP(nn.Module):
         y_assign = y[dest].reshape(N, k, D)
         return (y_assign * top_w[..., None].to(y_assign.dtype)).sum(dim=1)
 
-    def _capacity_slots(self, top_e, valid, groups):
-        """(C, pos, ok) of token choice with C slots an expert in each group
-        of n tokens: pos [G, n*k] is each assignment's rank in its expert's
-        queue, ok whether it is a valid token's and takes a slot."""
+    def _capacity_slots(self, top_e, valid, groups, dp):
+        """(width, col, ok) of token choice with C slots an expert in each
+        group of n tokens, or in the global batch over dp: col [G, n*k] is
+        each assignment's column in this rank's [E, G * width] table (its
+        place in its expert's queue, less the lower data ranks' count;
+        width = min(C, n)), ok whether it is a valid token's and takes a
+        slot."""
         N = valid.shape[0]
         E, k, G = self.num_routed, self.top_k, groups
         n = N // G
-        C = min(int(max(self.capacity_factor * n * k / max(E, 1), k)), n)
         experts = torch.arange(E, device=valid.device)
         onehot = (top_e.reshape(G, n * k)[..., None] == experts).long()  # [G, n*k, E]
-        pos = ((onehot.cumsum(dim=1) - onehot) * onehot).sum(dim=-1)
+        col = ((onehot.cumsum(dim=1) - onehot) * onehot).sum(dim=-1)
+        pos, n_route = col, n
+        if dp is not None:
+            counts = all_gather_rows(onehot.sum(dim=1), dp.group)  # [W, E], rank order
+            below = counts[:dp.rank].sum(dim=0)
+            pos, n_route = col + (onehot * below).sum(dim=-1), n * dp.size
+        C = min(int(max(self.capacity_factor * n_route * k / max(E, 1), k)), n_route)
         ok = (pos < C) & valid.reshape(G, n, 1).expand(G, n, k).reshape(G, n * k)
-        return C, pos, ok
+        return min(C, n), col, ok
 
-    def _capacity(self, x, top_w, top_e, valid, groups):
+    def _capacity(self, x, top_w, top_e, valid, groups, dp):
         """Token choice through the [E, C] tables; the table's columns are
         the groups' slots side by side."""
         N, D = x.shape
         E, k, G = self.num_routed, self.top_k, groups
-        C, pos, ok = self._capacity_slots(top_e, valid, groups)
-        offset = (torch.arange(G, device=x.device) * C)[:, None]
-        col = torch.where(ok, pos + offset, G * C).reshape(-1)  # G*C: the dropped column
+        width, col, ok = self._capacity_slots(top_e, valid, groups, dp)
+        offset = (torch.arange(G, device=x.device) * width)[:, None]
+        col = torch.where(ok, col + offset, G * width).reshape(-1)  # G*width: the dropped column
         ok = ok.reshape(-1)
         flat_e = top_e.reshape(-1)
         token_of = torch.arange(N, device=x.device).repeat_interleave(k)
-        idx = torch.full((E, G * C + 1), N, dtype=torch.long, device=x.device)
-        idx = idx.index_put((flat_e, col), torch.where(ok, token_of, N))[:, :G * C]
-        w = torch.zeros((E, G * C + 1), dtype=torch.float32, device=x.device)
-        w = w.index_put((flat_e, col), torch.where(ok, top_w.reshape(-1).float(), 0.0))[:, :G * C]
+        idx = torch.full((E, G * width + 1), N, dtype=torch.long, device=x.device)
+        idx = idx.index_put((flat_e, col), torch.where(ok, token_of, N))[:, :G * width]
+        w = torch.zeros((E, G * width + 1), dtype=torch.float32, device=x.device)
+        w = w.index_put((flat_e, col), torch.where(ok, top_w.reshape(-1).float(), 0.0))[:, :G * width]
         x_pad = torch.cat([x.to(self.dtype), x.new_zeros((1, D), dtype=self.dtype)])
         lo, n_local = self._local_experts()
         return self._combine(x_pad, idx[lo:lo + n_local], w[lo:lo + n_local], N + 1)[:N]
 
-    def _expert_choice(self, x, probs, valid, groups):
-        """Each expert's top C tokens of each group of n, by score."""
+    def _expert_choice(self, x, probs, valid, groups, dp):
+        """Each expert's top C tokens of each group of n, or of the global
+        batch over dp, by score."""
         N, D = x.shape
         E, k, G = self.num_routed, self.top_k, groups
         n = N // G
+        scores = torch.where(valid, probs, 0.0)
+        if dp is not None:
+            return self._expert_choice_global(x, scores, valid, dp)
         C = min(int(max(self.capacity_factor * n * k / max(E, 1), 1)), n)
-        scores = torch.where(valid, probs, 0.0).reshape(G, n, E).transpose(1, 2)  # [G, E, n]
+        scores = scores.reshape(G, n, E).transpose(1, 2)  # [G, E, n]
         # stable: equal scores go to the lower token index, as JAX's top_k
         g, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
         g, idx = g[..., :C], idx[..., :C] + (torch.arange(G, device=x.device) * n)[:, None, None]
@@ -227,6 +288,29 @@ class MoEMLP(nn.Module):
         g = g.transpose(0, 1).reshape(E, G * C) * valid.reshape(-1)[idx].to(g.dtype)  # picked pads: 0
         lo, n_local = self._local_experts()
         return self._combine(x.to(self.dtype), idx[lo:lo + n_local], g[lo:lo + n_local], N)
+
+    def _expert_choice_global(self, x, scores, valid, dp):
+        """Expert choice over every data rank's tokens (module docstring):
+        this rank's picks in an [E, min(C, N)] table (sentinel N, weight
+        0), weighted by its own scores."""
+        N, D = x.shape
+        E, k = self.num_routed, self.top_k
+        n_route = N * dp.size
+        C = min(int(max(self.capacity_factor * n_route * k / max(E, 1), 1)), n_route)
+        every = all_gather_rows(scores.detach(), dp.group)  # [W*N, E], rank order
+        _, picked = torch.sort(every.t(), dim=-1, descending=True, stable=True)
+        picked = picked[:, :C] - dp.rank * N  # [E, C], this rank's tokens in [0, N)
+        mine = (picked >= 0) & (picked < N)
+        width = min(C, N)
+        col = torch.where(mine, mine.long().cumsum(dim=-1) - 1, width)
+        experts = torch.arange(E, device=x.device)[:, None].expand(E, C)
+        idx = torch.full((E, width + 1), N, dtype=torch.long, device=x.device)
+        idx = idx.index_put((experts, col), torch.where(mine, picked, N))[:, :width]
+        pad = lambda t: torch.cat([t, t.new_zeros((1,) + t.shape[1:])])  # noqa: E731
+        g = pad(scores)[idx, experts[:, :width]] * pad(valid.reshape(-1, 1))[idx, 0].to(scores.dtype)
+        x_pad = torch.cat([x.to(self.dtype), x.new_zeros((1, D), dtype=self.dtype)])
+        lo, n_local = self._local_experts()
+        return self._combine(x_pad, idx[lo:lo + n_local], g[lo:lo + n_local], N + 1)[:N]
 
     def forward(self, hidden_states: torch.Tensor, attention_mask=None, groups: int = 1):
         """Returns (output [B, S, D] in hidden_states.dtype, masked router
@@ -246,17 +330,20 @@ class MoEMLP(nn.Module):
             logits_masked = logits
         probs = torch.softmax(logits, dim=-1)
         split = self._groups
+        # routing over the data axis: the standard step's and the mesh
+        # Encoder's global batch; never for grad cache's chunks
+        dp = self.dp if groups == 1 and not _LOCAL_ROUTING[0] else None
         # the local experts' region: replicated tensors enter by copy_to_group
         # and its partial outputs leave by reduce_from_group (identities
         # without a split)
         xe = copy_to_group(x, split)
         if self.config.expert_choice_router:
-            out = self._expert_choice(xe, copy_to_group(probs, split), valid, groups)
+            out = self._expert_choice(xe, copy_to_group(probs, split), valid, groups, dp)
         else:
             top_w, top_e = self.route(probs, valid)  # [N, k]
             top_w = copy_to_group(top_w, split)
             if self.config.moe_impl == "capacity":
-                out = self._capacity(xe, top_w, top_e, valid, groups)
+                out = self._capacity(xe, top_w, top_e, valid, groups, dp)
             else:
                 out = self._dropless(xe, top_w, top_e)
         out = reduce_from_group(out, split)

@@ -82,6 +82,10 @@ class Mesh:
         return self.expert_rank == 0 and self.tensor_rank == 0
 
     @property
+    def data_part(self) -> Optional[AxisPart]:
+        return AxisPart(self.data_group, self.data, self.rank) if self.data > 1 else None
+
+    @property
     def tensor_part(self) -> Optional[AxisPart]:
         return AxisPart(self.tensor_group, self.tensor, self.tensor_rank) if self.tensor > 1 else None
 

@@ -23,7 +23,8 @@ heads divide (n_head and num_heads_kv by the tensor axis) and stays whole
 otherwise, where JAX would split the flat dim whenever it divides.
 
 `shard_module(model, mesh)` slices a whole, replicated model for this rank
-in place, tells its layers their groups and each parameter the model
+in place, tells its layers their groups (a MoE layer also the data axis,
+over which it routes: `layers/moe.py`) and each parameter the model
 groups that hold it whole (`replica_groups`, over which the optimizer
 averages its gradient: `parallel/collectives.py:average_replica_grads`); `shard_state_dict` slices a
 whole state dict (a checkpoint, `convert.flax_to_torch`'s output) for this
@@ -42,6 +43,17 @@ all-gathered over the data group, one flat buffer per dtype. Elementwise
 AdamW on a block of rows gives those rows' values of the whole-tensor
 update, and the clip's global norm is taken over the whole gradients, so
 the parameters equal the replicated run's exactly.
+
+`whole_optimizer_state` is the optimizer's state dict with every moment
+whole: a sharded leaf's rows gathered over the data group, then a split
+parameter's parts over the groups that split it, as `gather_state_dict`
+takes the model. `load_whole_optimizer_state` is its inverse at any
+(expert, tensor) layout and with or without `shard_optimizer_state`: each
+moment is cut to this rank's part of its parameter, then to its block of
+rows. The state is keyed by the parameters' order, which is the same at
+every layout (the whole model's `named_parameters`). The step counters and
+every moment come back bit for bit, as JAX's orbax restores its train state
+onto the current shardings (`contrastors_tpu/trainers/base.py:297-310`).
 """
 
 from dataclasses import dataclass
@@ -204,8 +216,9 @@ def shard_module(model: nn.Module, mesh: Mesh) -> Dict[str, Split]:
     from contrastors_tpu_torch.layers.attention import AttentionPooling, MultiHeadAttention
     from contrastors_tpu_torch.layers.dense import Dense
     from contrastors_tpu_torch.layers.mlp import GatedMLP
-    from contrastors_tpu_torch.layers.moe import MoEMLP
+    from contrastors_tpu_torch.layers.moe import MoEMLP, route_over_data
 
+    route_over_data(model, mesh.data_part)
     plan = split_plan(model, mesh)
     for prefix, m in model.named_modules():
         pre = prefix + "." if prefix else ""
@@ -307,6 +320,55 @@ class ShardedAdamW(AdamW):
                 if r != rank:
                     rows = [p.detach().chunk(data)[r] for p in params]
                     torch._foreach_copy_(rows, [v.view_as(t) for v, t in zip(flat.split(sizes), rows)])
+
+
+def _moment(v) -> bool:
+    """A per-element state tensor (Adam's moments; not the 0-d step)."""
+    return torch.is_tensor(v) and v.ndim > 0
+
+
+@torch.no_grad()
+def whole_optimizer_state(optimizer: torch.optim.Optimizer, mesh: Mesh) -> Dict:
+    """The optimizer's state dict with whole moments (module docstring): a
+    collective over the data and model groups, so every rank calls it; every
+    rank gets the same."""
+    sd = optimizer.state_dict()
+    params = optimizer_params(optimizer)
+    sharded = getattr(optimizer, "sharded", [False] * len(params))
+    state = {}
+    for i, st in sorted(sd["state"].items()):
+        split = getattr(params[i], "mesh_split", None)
+        out = {}
+        for k, v in st.items():
+            if _moment(v):
+                if sharded[i]:
+                    v = torch.cat(_all_gather(v, mesh.group))
+                if split is not None:
+                    v = whole_tensor(v, split, mesh)
+            out[k] = v
+        state[i] = out
+    return {"state": state, "param_groups": sd["param_groups"]}
+
+
+@torch.no_grad()
+def load_whole_optimizer_state(optimizer: torch.optim.Optimizer, whole: Dict, mesh: Mesh) -> None:
+    """Load `whole_optimizer_state`'s output into this rank's optimizer, at
+    this rank's part of each parameter and its block of rows."""
+    params = optimizer_params(optimizer)
+    sharded = getattr(optimizer, "sharded", [False] * len(params))
+    state = {}
+    for i, st in whole["state"].items():
+        split = getattr(params[i], "mesh_split", None)
+        out = {}
+        for k, v in st.items():
+            if _moment(v):
+                if split is not None:
+                    v = local_part(v, split, mesh)
+                if sharded[i]:
+                    v = v.chunk(mesh.data)[mesh.rank].clone()
+            out[k] = v
+        state[i] = out
+    optimizer.load_state_dict({"state": state, "param_groups": whole["param_groups"]})
 
 
 def shard_optimizer_state(optimizer: AdamW, mesh: Mesh, min_size: int = 2**16) -> AdamW:

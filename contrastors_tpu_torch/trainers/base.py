@@ -34,13 +34,15 @@ shards and of the replicated parameters whole, and `grad_norm` counts each
 parameter once (`utils/optim.py:global_norm`). With
 `shard_optimizer_state` the Adam moments of large leaves live on their
 owner rank of the data group. Global rank 0 alone writes the tracker, the
-model, the scheduler and step.txt; the model and EMA in state.pt are the
-whole tensors (gathered), with the keys of a one-rank run, so export, eval
-and a resume at any layout read them. Each data rank's (expert, tensor) =
-(0, 0) peer writes its data cursor; each rank writes its optimizer state
-when it is its own (sharded over the data group, or of split parameters),
-in a file whose name carries the layout, and a resume at another layout
-raises. A load waits for the writes in flight and for every rank. Eval
+model, the optimizer state, the scheduler and step.txt; the model, the
+Adam moments and the EMA in state.pt are the whole tensors (gathered:
+`parallel/sharding.py:whole_optimizer_state`), with the keys of a one-rank
+run, so export, eval and a resume at any expert and tensor layout, with or
+without `shard_optimizer_state`, read them, as JAX's orbax restores the
+train state onto the current shardings. Each data rank's (expert, tensor) =
+(0, 0) peer writes its data cursor, so a resume at another data axis
+raises, naming both layouts. A load waits for the writes in flight and for
+every rank. Eval
 metrics are averaged over the ranks (`process_allmean`).
 
 `BaseTrainer` (`:53-460`) owns a run: seeding, tokenizer, data, model,
@@ -89,14 +91,15 @@ from contrastors_tpu_torch.ops.dropout import step_generator
 from contrastors_tpu_torch.parallel.collectives import all_reduce_grads, group_rank, group_size, reduce_metrics
 from contrastors_tpu_torch.parallel.mesh import fingerprint, make_mesh, replicate, shard_batch
 from contrastors_tpu_torch.parallel.sharding import (
-    ShardedAdamW,
     gather_state_dict,
     gather_tensors,
+    load_whole_optimizer_state,
     optimizer_params,
     param_splits,
     shard_module,
     shard_optimizer_state,
     shard_state_dict,
+    whole_optimizer_state,
 )
 from contrastors_tpu_torch.utils import dist as dist_utils
 from contrastors_tpu_torch.utils.logging import Tracker
@@ -385,27 +388,16 @@ class BaseTrainer(ABC):
 
     # -- checkpoints -----------------------------------------------------------
     def _state(self) -> Dict[str, Any]:
-        """The checkpoint: the model and EMA as whole tensors (a collective
-        over the mesh's model groups: every rank calls it)."""
-        state = {"model": gather_state_dict(self.model, self.mesh), "optimizer": self.optimizer.state_dict(),
+        """The checkpoint: the model, its optimizer state and the EMA as
+        whole tensors (a collective over the mesh's groups: every rank
+        calls it)."""
+        state = {"model": gather_state_dict(self.model, self.mesh),
+                 "optimizer": whole_optimizer_state(self.optimizer, self.mesh),
                  "scheduler": self.scheduler.state_dict(), "generator": self.generator.get_state(),
                  "layout": list(self.mesh.layout)}
         if self.ema_params is not None:
             state["ema"] = gather_tensors(self.ema_params, param_splits(self.model), self.mesh)
         return state
-
-    def _optimizer_per_rank(self) -> bool:
-        """True when each rank's optimizer state is its own: sharded over
-        the data group, or of the split parameters of an expert or tensor
-        axis."""
-        return isinstance(self.optimizer, ShardedAdamW) or self.mesh.expert * self.mesh.tensor > 1
-
-    def _optimizer_shard_path(self, path: str) -> str:
-        m = self.mesh
-        if m.expert == m.tensor == 1:
-            return os.path.join(path, f"optimizer_rank_{m.rank}_of_{m.data}.pt")
-        return os.path.join(path, f"optimizer_rank_{m.rank}.{m.expert_rank}.{m.tensor_rank}"
-                                  f"_of_{m.data}x{m.expert}x{m.tensor}.pt")
 
     def save_state(self, out_dir: str, step: int):
         path = os.path.abspath(os.path.join(out_dir, f"step_{step}"))
@@ -413,9 +405,6 @@ class BaseTrainer(ABC):
         state_path = os.path.join(path, "state.pt")
         wait_pending_saves()  # at most one write in flight
         state = self._state()
-        if self._optimizer_per_rank():
-            # each rank writes the moments it owns
-            torch.save(_to_host(state.pop("optimizer")), self._optimizer_shard_path(path))
         if self.is_main:
             state = _to_host(state)
             if self.config.train_args.async_checkpointing:
@@ -437,22 +426,15 @@ class BaseTrainer(ABC):
         wait_pending_saves(state_path)  # a just-written checkpoint may still be in flight
         dist_utils.barrier()  # ... on every rank
         state = torch.load(state_path, map_location="cpu", weights_only=True)
+        layout, saved = tuple(self.mesh.layout), tuple(state.get("layout", (self.mesh.data, 1, 1)))
+        if saved[0] != layout[0]:
+            raise ValueError(
+                f"{path} was written at (data, expert, tensor) = {saved}; this run is at {layout}: a "
+                "checkpoint resumes at the same data axis (the data cursors are per data rank), at any "
+                "expert and tensor axes")
         splits = param_splits(self.model)
         self.model.load_state_dict(shard_state_dict(state["model"], self.mesh, splits))
-        layout, saved = tuple(self.mesh.layout), tuple(state.get("layout", (self.mesh.data, 1, 1)))
-        per_rank, shard = self._optimizer_per_rank(), self._optimizer_shard_path(path)
-        if per_rank != ("optimizer" not in state) or (per_rank and (saved != layout or not os.path.exists(shard))):
-            def kind(p):
-                return " with per-rank optimizer state" if p else ""
-
-            raise ValueError(
-                f"{path} was written at (data, expert, tensor) = {saved}{kind('optimizer' not in state)}; this "
-                f"run is at {layout}{kind(per_rank)}: the optimizer state resumes only at the same layout and "
-                "shard_optimizer_state")
-        if per_rank:
-            self.optimizer.load_state_dict(torch.load(shard, map_location="cpu", weights_only=True))
-        else:
-            self.optimizer.load_state_dict(state["optimizer"])
+        load_whole_optimizer_state(self.optimizer, state["optimizer"], self.mesh)
         self.scheduler.load_state_dict(state["scheduler"])
         self.generator.set_state(state["generator"])
         if self.ema_params is not None:

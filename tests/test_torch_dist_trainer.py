@@ -197,9 +197,14 @@ def test_sharded_optimizer_state_equals_the_replicated_run(runs):
     for a, b in zip(sharded, replicated):
         for n, v in a["params"].items():
             assert torch.equal(v, b["params"][n]), n
-    files = sharded[0]["files"][f"step_{C.STEPS}"]
-    assert "optimizer_rank_0_of_2.pt" in files and "optimizer_rank_1_of_2.pt" in files
-    assert not any(f.startswith("optimizer") for f in replicated[0]["files"][f"step_{C.STEPS}"])
+    # the checkpoint holds the whole moments, gathered over the ranks: the
+    # sharded run's equal the replicated run's bit for bit
+    for run in (sharded, replicated):
+        assert not any(f.startswith("optimizer") for f in run[0]["files"][f"step_{C.STEPS}"])
+    a, b = sharded[0]["optimizer"]["state"], replicated[0]["optimizer"]["state"]
+    assert a.keys() == b.keys() and a
+    for i in a:
+        assert a[i].keys() == b[i].keys() and all(torch.equal(a[i][k], b[i][k]) for k in a[i]), i
 
 
 def test_two_rank_resume_is_bit_identical(runs):
@@ -219,7 +224,6 @@ def test_rank_zero_alone_logs_and_writes_the_state(runs):
     ranks = runs["ranks"]["text_std"]
     assert [r["tracker"] for r in ranks] == [True, False]
     assert ranks[0]["files"]["step_2"] == sorted(["rank_0_local_cursor.json", "rank_1_local_cursor.json",
-                                                  "optimizer_rank_0_of_2.pt", "optimizer_rank_1_of_2.pt",
                                                   "state.pt", "step.txt", "trunk_config.json"])
 
 

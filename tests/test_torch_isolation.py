@@ -228,3 +228,36 @@ def test_torch_distributed_is_imported_only_by_the_parallel_modules():
                    if any(n == "torch.distributed" or n.startswith("torch.distributed.")
                           for n in _imported_names(p)))
     assert users == sorted(DISTRIBUTED_MODULES), users
+
+
+def test_last_slice_modules_exist_and_entry_points_default_to_cuda(tmp_path):
+    """DataComp, the signal scripts, the vision ablation, the data tools and
+    the native data plane are port modules (the import-run test above loads
+    each without JAX, PyYAML, transformers or Pillow); the package data ships
+    their YAML, JSON and C++ source; the entry points that compute with torch
+    run on the card unless told otherwise."""
+    modules = {m.name for m in pkgutil.walk_packages([str(PORT)], prefix="contrastors_tpu_torch.")}
+    for m in ("eval.datacomp", "scripts.train_to_signal", "scripts.vision_train_to_signal", "scripts.ablate_vision",
+              "scripts.pretokenize", "scripts.pretokenize_pairs", "scripts.shard_tools", "scripts.build_index",
+              "scripts.tokenizer_compare", "native"):
+        assert "contrastors_tpu_torch." + m in modules, m
+    for data in ("eval/datacomp_tasklist.yml", "eval/zeroshot_classnames.json", "native/dataplane.cpp"):
+        assert (PORT / data).exists(), data
+    toml = (ROOT / "pyproject.toml").read_text()
+    assert '"contrastors_tpu_torch.eval" = ["datacomp_tasklist.yml", "zeroshot_classnames.json"]' in toml
+    assert '"contrastors_tpu_torch.native" = ["dataplane.cpp"]' in toml
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from contrastors_tpu_torch.eval import datacomp
+    from contrastors_tpu_torch.scripts import ablate_vision, train_to_signal, vision_train_to_signal
+
+    model_dir = _tiny_config_dir(tmp_path)
+    tasks = tmp_path / "tasks.yaml"
+    tasks.write_text("tasks: []\n")
+    for call in (lambda: datacomp.main(["--text_model", model_dir, "--vision_model", model_dir,
+                                        "--tasks", str(tasks)]),
+                 lambda: train_to_signal.main(["--steps", "1"]),
+                 lambda: vision_train_to_signal.main(["--steps", "1"]),
+                 lambda: ablate_vision.main([])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

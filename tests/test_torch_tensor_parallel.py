@@ -29,9 +29,19 @@ computes JAX's side while they run. Held:
     steps within rtol 1e-4, and the parameters after them within 1e-3 per
     tensor, 1e-4 together (the key biases left out: their exact gradient is
     0, ROADMAP Queue 3);
-  - a checkpoint written at 1 x 1 x 2 holds the whole tensors (model and
-    EMA) and loads into a one-rank model bit for bit, and its per-rank
-    optimizer state refuses a resume at another layout, naming both;
+  - a checkpoint written at 1 x 1 x 2 holds the whole tensors (model,
+    Adam moments and EMA) and loads into a one-rank model bit for bit, and
+    a one-rank run resumes from it; a checkpoint written at another data
+    axis is refused, naming both layouts;
+  - the optimizer state resumes at any (expert, tensor) layout and across
+    `shard_optimizer_state` (ROADMAP Queue 1 item 1): the MoE recipe
+    saved at 1 x 1 x 2 resumes at 1 x 1 x 1 (in the test process) and at
+    1 x 2 x 1, and saved at 2 x 1 x 2 with ZeRO-2 moments resumes at
+    2 x 1 x 1 without them (a second launch, after the first's
+    checkpoints). Each resumed optimizer's whole state reads back the saved
+    one bit for bit, and the resumed step's loss and grad norm are the
+    uninterrupted run's within rtol 1e-5, its parameters within atol 1e-5
+    / rtol 1e-4 (the key biases left out);
   - remat's replay repeats the split forward's collectives: its gradients
     are remat-off's bit for bit.
 """
@@ -287,8 +297,25 @@ def runs(tmp_path_factory):
         jt.train()
     finally:
         ranks = collect_layouts(started)
+    # the resumes of the first launch's checkpoints: two layouts of ranks,
+    # and one rank in this process meanwhile
+    saves = {name: os.path.join(ranks[name]["trainer_resume_save"][0]["out"], "step_2") for name in LAYOUTS}
+
+    def prepare_resume(workdir):
+        with open(os.path.join(workdir, "files.json"), "w") as f:
+            json.dump(files, f)
+        data = C.layout(workdir)[0]  # 2 x 1 x 1 resumes the ZeRO-2 run, 1 x 2 x 1 the 1 x 1 x 2 one
+        with open(os.path.join(workdir, "resume_from.json"), "w") as f:
+            json.dump(saves["tp" if data > 1 else "tp2"], f)
+
+    resumes = launch_layouts(tmp, {"resume_expert": C.RESUME_EXPERT, "resume_data": C.RESUME_DATA}, prepare_resume)
+    try:
+        one_rank = C.resume_run(0, C.resume_raw(files, str(tmp / "resumed_one_rank"), (1, 1, 1), False, saves["tp2"]))
+    finally:
+        ranks.update(collect_layouts(resumes))
+    ranks["resume_one_rank"] = {"trainer_resumed": [one_rank]}
     return dict(ranks=ranks, jax=jax_side, jax_trainer=jt, jax_metrics=TC.read_metrics(jax_out), start=start,
-                files=files, tmp=tmp)
+                files=files, tmp=tmp, saves=saves)
 
 
 @pytest.mark.parametrize("name", list(LAYOUTS))
@@ -359,20 +386,57 @@ def test_checkpoint_at_1x1x2_loads_into_one_rank_and_refuses_another_layout(runs
     ranks = runs["ranks"]["tp2"]["trainer_ckpt"]
     out = ranks[0]["out"]
     step = os.path.join(out, f"step_{C.STEPS}")
-    assert sorted(os.listdir(step)) == sorted(["optimizer_rank_0.0.0_of_1x1x2.pt", "optimizer_rank_0.0.1_of_1x1x2.pt",
-                                                "rank_0_local_cursor.json", "state.pt", "step.txt",
+    assert sorted(os.listdir(step)) == sorted(["rank_0_local_cursor.json", "state.pt", "step.txt",
                                                 "trunk_config.json"])
     state = torch.load(os.path.join(step, "state.pt"), weights_only=True)
-    assert state["layout"] == [1, 1, 2] and "optimizer" not in state
+    assert state["layout"] == [1, 1, 2]
     raw = C.trainer_raw(runs["files"], "ckpt", str(runs["tmp"] / "one_rank_ckpt"))
     one = TRAINER_REGISTRY["encoder"](Config.from_dict(raw), "fp32", "cpu")
     one.model.load_state_dict(state["model"], strict=True)  # the keys and shapes of a one-rank run
-    # the EMA weights whole too, with the one-rank model's names and shapes
+    # the EMA weights and the Adam moments whole too, with the one-rank
+    # model's names and shapes (the optimizer's state in its parameters' order)
     assert {n: v.shape for n, v in state["ema"].items()} == {n: p.shape for n, p in one.model.named_parameters()}
+    order = [p for g in one.optimizer.param_groups for p in g["params"]]
+    moments = state["optimizer"]["state"]
+    assert moments and all(moments[i]["exp_avg"].shape == order[i].shape == moments[i]["exp_avg_sq"].shape
+                           for i in moments)
     for n, v in one.model.state_dict().items():
         assert torch.equal(v, ranks[0]["params"][n]) and torch.equal(v, state["model"][n]), n
-    raw["train_args"]["checkpoint"] = step
-    with pytest.raises(ValueError, match=r"written at \(data, expert, tensor\) = \(1, 1, 2\) with per-rank "
-                                         r"optimizer state; this run is at \(1, 1, 1\)"):
-        ttrain.run(Config.from_dict(raw), "fp32", "cpu")
+    # one rank resumes the 1 x 1 x 2 run at step 2 and takes its step 3
+    raw["train_args"]["checkpoint"] = os.path.join(out, "step_2")
+    resumed = ttrain.run(Config.from_dict(raw), "fp32", "cpu")
+    got, want = TC.read_metrics(raw["train_args"]["output_dir"]), TC.read_metrics(out)
+    assert [m["step"] for m in got] == [C.STEPS]
+    np.testing.assert_allclose([got[0]["loss"], got[0]["grad_norm"]], [want[-1]["loss"], want[-1]["grad_norm"]],
+                               rtol=1e-5)
+    for n, v in resumed.model.state_dict().items():
+        np.testing.assert_allclose(_without_key_bias(n, v).numpy(), _without_key_bias(n, ranks[0]["params"][n]).numpy(),
+                                   atol=1e-5, rtol=1e-4, err_msg=n)
+    # a checkpoint of another data axis: the data cursors are per data rank
+    raw["train_args"]["checkpoint"] = runs["saves"]["tp"]
+    with pytest.raises(ValueError, match=r"written at \(data, expert, tensor\) = \(2, 1, 2\); this run is at "
+                                         r"\(1, 1, 1\)"):
+        ttrain.run(Config.from_dict(C.resume_raw(runs["files"], str(runs["tmp"] / "refused"), (1, 1, 1), False,
+                                                 runs["saves"]["tp"])), "fp32", "cpu")
 
+
+RESUMES = {"1x1x2_at_1x1x1": ("tp2", "resume_one_rank"), "1x1x2_at_1x2x1": ("tp2", "resume_expert"),
+           "2x1x2_sharded_at_2x1x1": ("tp", "resume_data")}
+
+
+@pytest.mark.parametrize("case", list(RESUMES))
+def test_optimizer_state_resumes_at_another_layout(runs, case):
+    saved_at, resumed_at = RESUMES[case]
+    whole, resumed = runs["ranks"][saved_at]["trainer_resume_save"], runs["ranks"][resumed_at]["trainer_resumed"]
+    assert all(r["restored"] for r in resumed)  # the saved whole moments and step counters, bit for bit
+    assert {r["optimizer"] for r in whole} == {"ShardedAdamW" if saved_at == "tp" else "AdamW"}
+    assert {r["optimizer"] for r in resumed} == {"AdamW"}
+    got, want = resumed[0]["metrics"], whole[0]["metrics"]
+    assert [m["step"] for m in got] == [C.STEPS] and want[-1]["step"] == C.STEPS
+    for key in ("loss", "grad_norm", "router_aux"):
+        np.testing.assert_allclose(got[0][key], want[-1][key], rtol=1e-5, err_msg=key)
+    for r in resumed:
+        for n, v in r["params"].items():
+            np.testing.assert_allclose(_without_key_bias(n, v).numpy(),
+                                       _without_key_bias(n, whole[0]["params"][n]).numpy(), atol=1e-5, rtol=1e-4,
+                                       err_msg=n)

@@ -153,6 +153,9 @@ def run_case(case, workdir, world, rank):
         result["metrics"] = read_metrics(out)
         result["files"] = {d: sorted(os.listdir(os.path.join(out, d)))
                            for d in os.listdir(out) if d.startswith("step_")}
+        last = os.path.join(out, f"step_{STEPS}", "state.pt")
+        if os.path.exists(last):
+            result["optimizer"] = torch.load(last, weights_only=True)["optimizer"]
     return result
 
 

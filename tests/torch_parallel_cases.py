@@ -392,6 +392,69 @@ def trainer_moe(rank, world, workdir):
     return _trainer_run(workdir, rank, "moe", raw)
 
 
+def resume_raw(files, out_dir, layout_, shard, checkpoint=None):
+    """The MoE recipe (capacity dispatch at factor 2: nothing drops) at
+    layout_, saving at step 2, with or without shard_optimizer_state;
+    resumed from `checkpoint` when given."""
+    d, e, t = layout_
+    raw = trainer_raw(files, "moe", out_dir, dict(data=d, tensor=t, expert=e, shard_optimizer_state=shard))
+    raw["model_args"]["moe_impl"] = "capacity"
+    raw["train_args"]["save_every"] = 2
+    if checkpoint is not None:
+        raw["train_args"]["checkpoint"] = checkpoint
+    return raw
+
+
+def same_state(a, b) -> bool:
+    """Two whole optimizer states equal bit for bit."""
+    return a["state"].keys() == b["state"].keys() and all(
+        a["state"][i].keys() == b["state"][i].keys()
+        and all(torch.equal(a["state"][i][k], b["state"][i][k]) for k in a["state"][i]) for i in a["state"])
+
+
+def resume_run(rank, raw):
+    """Train raw's run; with a checkpoint, first read back the optimizer
+    state it resumed (whole) against the saved one. Returns the whole
+    parameters, the optimizer's class, that reading and (rank 0) the
+    metrics."""
+    import torch_dist_trainer_cases as TC
+    from contrastors_tpu_torch.config import Config
+    from contrastors_tpu_torch.parallel.sharding import whole_optimizer_state
+    from contrastors_tpu_torch.trainers import TRAINER_REGISTRY
+
+    random.seed(rank)
+    trainer = TRAINER_REGISTRY["encoder"](Config.from_dict(raw), "fp32", "cpu")
+    ckpt = raw["train_args"].get("checkpoint")
+    restored = None
+    if ckpt is not None:
+        saved = torch.load(os.path.join(ckpt, "state.pt"), weights_only=True)["optimizer"]
+        restored = same_state(saved, whole_optimizer_state(trainer.optimizer, trainer.mesh))
+    trainer.train()
+    out = raw["train_args"]["output_dir"]
+    result = {"params": gather_state_dict(trainer.model, trainer.mesh), "optimizer": type(trainer.optimizer).__name__,
+              "restored": restored, "out": out}
+    if rank == 0:
+        result["metrics"] = TC.read_metrics(out)
+    return result
+
+
+def trainer_resume_save(rank, world, workdir):
+    """The uninterrupted run of resume_raw at this layout, ZeRO-2 moments
+    with a data axis: the checkpoint that the resume cases read."""
+    lay = layout(workdir)
+    name = "resume_zero" if lay[0] > 1 else "resume_layout"
+    return resume_run(rank, resume_raw(_files(workdir), os.path.join(workdir, "runs", name), lay, lay[0] > 1))
+
+
+def trainer_resumed(rank, world, workdir):
+    """A resume from <workdir>/resume_from.json's checkpoint at this
+    layout, without shard_optimizer_state."""
+    with open(os.path.join(workdir, "resume_from.json")) as f:
+        ckpt = json.load(f)
+    return resume_run(rank, resume_raw(_files(workdir), os.path.join(workdir, "runs", "resumed"), layout(workdir),
+                                       False, ckpt))
+
+
 def at(layouts, fn):
     """fn at the given layouts, None at the others."""
     def case(rank, world, workdir):
@@ -400,6 +463,10 @@ def at(layouts, fn):
 
 
 TP, TP2, EP, EPTP = (2, 1, 2), (1, 1, 2), (2, 2, 1), (1, 2, 2)
+# the resume cases' layouts (ROADMAP Queue 1 item 1): 1 x 1 x 2 resumed at
+# 1 x 1 x 1 (the test process) and 1 x 2 x 1; 2 x 1 x 2 with ZeRO-2
+# resumed at 2 x 1 x 1 without it
+RESUME_EXPERT, RESUME_DATA = (1, 2, 1), (2, 1, 1)
 CASES = {
     "tp_bert": at((TP, TP2), tp_bert),
     "tp_faults": at((TP2,), tp_faults),
@@ -413,4 +480,6 @@ CASES = {
     "ep_tp_moe": at((EPTP,), ep_tp_moe),
     "round_trip": at((EPTP,), round_trip),
     "trainer_moe": at((EPTP,), trainer_moe),
+    "trainer_resume_save": at((TP, TP2), trainer_resume_save),
+    "trainer_resumed": at((RESUME_EXPERT, RESUME_DATA), trainer_resumed),
 }
