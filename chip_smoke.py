@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only {moe_kernels,moe,flash_fwd,flash_bwd,dense,trainer,mlm_trainer,vision,families,
-                                  inference,distributed,knobs,parallel,scripts}
+                                  inference,distributed,knobs,parallel,scripts,coverage}
                              [--tree DIR]
 
 The second form runs phases 1, 2 and 9 (moe_kernels), or 1, 2 and 9-12
@@ -19,15 +19,16 @@ checks of 3 and 4 and 19, or (families) 1, 2, the families' two shapes'
 checks of 3 and 4 and 20, or (inference) 1, 2, the long-context case's
 check of 3 and 21, or (distributed) 1, 2 and 22, or (knobs) 1, 2, the packed step's
 cases of 3, 4 and 13, and 23, or (parallel) 1, 2, the local shapes' cases of 3 and 4 and 24,
-or (scripts) 1, 2, the ViT shape's cases of 3 and 4 and 25,
+or (scripts) 1, 2, the ViT shape's cases of 3 and 4 and 25, or (coverage) 1, 2 and 26,
 on this checkout's package or on the one under DIR (another checkout, e.g. the parent commit
 unpacked by `git archive`), so that two versions can be timed in turns on
 one card.
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions; TF32 off.
-  2. build: nvcc builds csrc/flash_fwd.cu, csrc/flash_bwd.cu and
-     csrc/gmm.cu for sm_90a from this checkout, all at once.
+  2. build: nvcc builds csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/gmm.cu,
+     csrc/flash_generic.cu and csrc/gmm_generic.cu for sm_90a from this
+     checkout, all at once.
   3. kernel_check: the flash-forward kernel against its plain PyTorch version
      on the card in bf16 (padding with a fully masked row, ragged and sub-tile
      lengths, the multi-tile regime at 4096/8192, causal S != T, window,
@@ -53,7 +54,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
      of the two runs has its own launch count, set to 0 just before it, which
      must equal n_layer x its batches; embeddings must be finite, unit-norm
      and agree with the same weights under attn_impl="sdpa".
-  6. timing: encode throughput at 256 x 512, and the forward kernel's time
+  6. timing: the forward kernel's time (encode throughput at 256 x 512
+     left the full run in phase 26)
      (ms, device_ms, enqueue us) beside its bound, its plain version and
      torch's scaled_dot_product_attention (a yardstick only; the port never
      calls it) the same three ways, at B=256 S=512, B=16 S=4096, the
@@ -77,7 +79,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
      against attn_impl="sdpa"'s, per tensor; two faulty steps (the backward
      kernels given O = 0, so delta = 0; pass 2 replaying each document chunk
      with its rows rotated) must fall outside those bounds.
-  8. train_timing and kernel_timing_bwd: step time, pairs/s and tokens/s;
+  8. train_timing (with --only dense; the full run skips it since phase
+     26) and kernel_timing_bwd: step time, pairs/s and tokens/s;
      one profiled step split into its phases (the profiler ranges of
      grad_cache.py and the trainer); the whole backward and each backward
      kernel at the main-path shapes (B=512 S=32, B=16 S=256, and the MLM
@@ -112,20 +115,19 @@ second layer: 6 MoE layers, ~435M parameters):
      step 768 / 384 / 384 flash fwd / dq / dk-dv launches, 1728 gmm and
      576 tgmm; losses finite and falling, each chunk's aux near top_k = 2.
      At 64 pairs with aux 0: grad cache against the standard step (with
-     the tokens the two route differently, and read beside it with the
-     standard step replaying the grad-cache run's choices) and the
-     kernels against sdpa with the plain grouped matmul (replaying the
-     kernel run's expert choices), per tensor; the same comparison with
-     each run routing on its own, at three data seeds, beside the gmm
-     kernels' and the attention's share of it; a tgmm writing expert e's
+     the tokens the two route differently) and the kernels against sdpa
+     with the plain grouped matmul (replaying the kernel run's expert
+     choices), per tensor; the same comparison with each run routing on
+     its own, at three data seeds; a tgmm writing expert e's
      gradient into expert e+1 must fall outside. Read beside it, not
      bounded (moe_grad_margin_reading): grad cache against the standard
      step by layer, with the router aux off (the readings with the aux on,
      by chunk and in fp32 were cut for the 900 s budget).
- 12. moe_timing: MoE encode texts/s, step ms (median of 2); with --only moe
-     one profiled step with gmm and tgmm as their own groups and its
-     device-to-host copies counted (the full run skips the profile since
-     phase 25, for the 900 s budget).
+ 12. moe_timing (with --only moe; the full run skips the profile since
+     phase 25, MoE encode texts/s and the step's ms since phase 26): MoE
+     encode texts/s, the step's ms (median of 2) and one profiled step with
+     gmm and tgmm as their own groups and its device-to-host copies
+     counted.
 The fused-rotary kernels (q and k rotated inside the flash kernels) and the
 MLM pretraining step:
  13. fused_kernel_check (after phase 4): the fused forward, dq and dk/dv
@@ -142,7 +144,8 @@ MLM pretraining step:
      fall outside.
  14. fused_encode (after phase 6): the encode batch of 256 x 512 with
      fused_rotary=True, 12 fused launches, cosine >= 0.999 against the
-     outside rotation; both models' forward timed in turns.
+     outside rotation; with --only flash_fwd both models' forward timed in
+     turns.
  15. fused_kernel_timing and rotary_ablation (after the forward timing):
      each fused kernel at the MLM shape beside its bound, the unfused kernel
      on pre-rotated q/k, the plain versions and the nearest library
@@ -162,18 +165,19 @@ The trainer entry point (after phase 7):
  17. trainer: configs/train/contrastive_pretrain.yaml (PRETRAIN_RECIPE) with
      the overrides of `trainer_overrides` (a local config.json of
      nomic-bert-2048 with random weights, 512 pairs of local synthetic
-     data, 6 steps (8 before phase 25), warmup 2, log and save every 3, the
-     retrieval eval at step 6, every query chunk direct) through train.run
-     and the TextTextTrainer with the stand-in tokenizer, in bf16: per step
-     780 / 396 / 396 flash launches (the bare step's), the loss at step 6
-     below step 1's, the logged lr on make_schedule, a second trainer
-     resumed from step_3 logging steps 4-6 within 2e-3 relative, the eval logged,
-     and no more synchronising calls per quiet loop step (sync debug mode)
-     than the bare step makes. Timed against the bare step in turns (bare,
-     loop, bare, resumed loop): the loop's median ms per quiet step, its
-     idle share, the time it waits on the prefetch queue, and one
-     grad-cache step's peak memory with and without activation
-     checkpointing.
+     data, 4 steps (8 before phase 25, 6 before phase 26), warmup 2, log
+     and save every 2, the retrieval eval at step 4, every query chunk
+     direct) through train.run and the TextTextTrainer with the stand-in
+     tokenizer, in bf16: per step 780 / 396 / 396 flash launches (the bare
+     step's), the loss at step 4 below step 1's, the logged lr on
+     make_schedule, a second trainer resumed from step_2 logging steps 3-4
+     within 2e-3 relative, the eval logged, and no more synchronising calls
+     per quiet loop step (sync debug mode) than the bare step makes. Beside
+     the bare step: the loop's median ms per quiet step, the time it waits
+     on the prefetch queue, and one grad-cache step's peak memory; with
+     --only trainer timed in turns (bare, loop, bare, resumed loop) with the
+     idle shares of a profiled bare step, and the peak memory with
+     activation checkpointing too.
 The BERT pretraining and fine-tuning family (after phase 16):
  18. mlm_trainer, mmlm_trainer, glue_trainer and dropout_checks:
      configs/train/mlm.yaml, mmlm.yaml and glue.yaml through the port's
@@ -237,8 +241,8 @@ The families of configs/train/ no earlier phase drives (after phase 19):
      MLP bit for bit after the load), distill.yaml (student layer i the
      teacher's layer 2i bit for bit after the init, the teacher unchanged
      after the steps) and contrastive_finetune_decoder.yaml, each cut in
-     batch, steps, warmup and data (`FAMILIES`; one in-memory batch
-     repeated), in bf16: launches per step as the code predicts them
+     batch, steps (4; 6 before phase 26), warmup and data (`FAMILIES`; one
+     in-memory batch repeated), in bf16: launches per step as the code predicts them
      (flash, and gmm / tgmm for the MoE), the loss falling, 0 synchronising
      calls per quiet step, step ms and peak memory. Then the two new
      shapes timed: forward, dq and dk/dv beside bounds over the live pairs
@@ -320,9 +324,10 @@ The training step's last single-card knobs (after phase 12):
      lognormal lengths) at factor E / k = 4 (C = N, nothing can drop) at
      cosine >= 0.999 against dropless, 0 gmm launches; the dropped share at
      the default factor 2.0 recorded. The MoE benchmark step (phase 11's
-     geometry) with the capacity dispatch, in turns with dropless on the
-     same weights: 768 / 384 / 384 flash launches and 0 gmm and tgmm a
-     step, the loss falling over 2 steps; then expert choice: every table
+     geometry) with the capacity dispatch on the dropless model's seed
+     weights (its turns with the dropless step cut in phase 26): 768 / 384
+     / 384 flash launches and 0 gmm and tgmm a step, the loss falling over
+     2 steps; then expert choice: every table
      [8, C] with C distinct tokens an expert (C = 512 / 4096 for a query /
      document chunk), 0 gmm, the loss falling over 2 steps.
      knobs_embed_parallel: grad cache's pass 1 with 4 chunks to a forward
@@ -405,6 +410,46 @@ The last modules (after phase 24):
      chunk 32, batch 512, bf16) into patch embedding, LayerNorm, rotary,
      attention (the flash kernels), SwiGLU with its post-LN, a block, MAP
      pooling, the loss and the optimizer, CUDA-event times.
+The kernels at every dtype and head dim the Pallas kernels take (after
+phase 25):
+ 26. coverage_kernel_check, coverage_kernel_check_gmm: the generic kernels
+     (csrc/flash_generic.cu: forward, dq, dk/dv; csrc/gmm_generic.cu: gmm,
+     tgmm) against their plain versions: flash in fp32 at D = 64, 80, 88,
+     128, 256 and bf16 at D = 80, 88, 256, each with a padding mask (an
+     empty row), causal (S=200 against T=300), window 128, segment ids,
+     GQA (Hkv = H / 4) and fused partial rotary; gmm, dlhs and tgmm through
+     the public gmm in fp32 at K 768, N 3072 and bf16 at K 200, N 360 on the
+     MoE document chunk's layout; fp32 within 1e-4 * max |ref| (LSE within
+     1e-4), bf16 at the Hopper kernels' error model, every launch on the
+     generic kernels, reruns bit-identical. coverage_kernel_shapes: the
+     generic forward, dq and dk/dv at the main path's own shapes (the fp32
+     steps' document chunk, fp32 B=16 S=256 H=12 D=64, with its backward;
+     the fp32 encode batch, 256 x 512; pythia-1b's serving batch, bf16
+     64 x 128 H=8 D=256, causal and padded; pythia-1b's step documents,
+     bf16 128 x 128, causal and padded, with its backward), and for their
+     time at ViT-H/14's and ViT-g/14's bf16 64 x 257 (D 80, 88): one
+     launch each on the generic kernels, at the same bars as the variants,
+     then timed beside the bound, the plain version and SDPA.
+     coverage_fp32_pretrain:
+     configs/train/contrastive_pretrain.yaml through read_config and
+     train.run at --dtype fp32 (512 pairs, chunk 16, 3 steps): 780 / 396 /
+     396 generic launches a step and no Hopper launch, the loss falling,
+     the first step's gradient at cosine >= 0.9999 against the same step on
+     sdpa in fp32. coverage_fp32_encode: the encode CLI's function at
+     --dtype fp32 (256 x 512): 12 generic launches, no sdpa call, cosine >=
+     0.99999 against fp32 sdpa. coverage_fp32_moe:
+     contrastive_finetune_moe.yaml in fp32 (batch 16, 3 steps): generic
+     gmm / tgmm launches as predicted, none of gmm.cu's, no sdpa call, the
+     loss falling. pythia_1b_serving, pythia_1b_training:
+     EleutherAI/pythia-1b's config.json (16 x 2048, 8 heads of 256,
+     rotary_pct 0.25) with seeded weights: serving 64 x 128 with last
+     pooling (16 generic launches, no sdpa call, cosine >= 0.999 against
+     the same weights on fp32 sdpa) and 3 steps of
+     contrastive_finetune_decoder.yaml at batch 16 in bf16 (32 / 32 / 32
+     generic launches a step, no sdpa call). coverage_kernel_timing: gmm /
+     tgmm at the fp32 MoE document chunk beside the bound at fp32's rate,
+     the plain version and the library (torch._grouped_mm or a per-expert
+     matmul loop).
 Kernel times (ms) are CUDA-event times of calls made on an idle card, so a
 short kernel's time holds the host's enqueue; phases 8 and 9 give beside
 them the device's work alone (device_ms: each call queued behind a device
@@ -431,6 +476,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (the generic kernels' fp32 FMAs)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 
@@ -470,10 +516,15 @@ def ptxas_usage(log):
     """{kernel<D>: "R registers, S bytes spilled, M bytes static smem"} from
     nvcc -Xptxas=-v output (dynamic shared memory is set at the launch)."""
     usage, fn = {}, None
+    elem = {"f": "fp32", "13__nv_bfloat16": "bf16"}
     for line in log.splitlines():
+        g = re.search(r"\d(fwd|dq|dkv|t?gmm)_kernelI(f|13__nv_bfloat16)(?:Li(\d+)ELi(\d+)E)?", line)
         m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv))_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?"
                       r"|(t?gmm_kernel)(?:ILb([01])E)?", line)
-        if m and m.group(1):  # <D[, consumer warpgroups][, rotary]>
+        if g:  # the generic kernels: <dtype[, head-dim bucket, kv tile rows]>
+            dims = f", {g.group(3)}, {g.group(4)}" if g.group(3) else ""
+            fn, spill = f"{g.group(1)}_kernel<{elem[g.group(2)]}{dims}>", "?"
+        elif m and m.group(1):  # <D[, consumer warpgroups][, rotary]>
             groups = f", {m.group(3)} warpgroups" if m.group(3) else ""
             rotary = ", rotary" if m.group(4) == "1" else ""
             fn, spill = f"{m.group(1)}_kernel<{m.group(2)}{groups}{rotary}>", "?"
@@ -544,48 +595,53 @@ def _live_rows(B, S, lens, all_rows):
     return (B * S if all_rows else int(sum(min(n, S) for n in lens))), int(sum(lens))
 
 
-def attention_bound(B, S, T, H, Hkv, D, lens=None, causal=False, window=0, all_rows=False):
+def attention_bound(B, S, T, H, Hkv, D, lens=None, causal=False, window=0, all_rows=False, elem=2,
+                    peak=PEAK_BF16_FLOPS):
     """Least time for the forward on this card: the larger of the tensor-core
     time for the live (row, key) pairs these inputs need (`live_pairs`:
     every pair without lens, a padding mask's keys of length lens, and with
     them its rows unless all_rows; the causal or window band) and the time
     to read q at live rows, k and v at live keys and the ids (with lens),
-    and to write O and LSE once."""
+    and to write O and LSE once. elem: bytes per element; peak: the rate
+    of the operands' type (fp32: PEAK_FP32_FLOPS)."""
     live_q, live_kv = _live_rows(B, S, lens, all_rows)
     live_kv = B * T if live_kv is None else live_kv
     pairs = live_pairs([T] * B if lens is None else lens, S, T, causal, window, all_rows=all_rows or lens is None)
     flops = 4.0 * D * H * pairs
-    nbytes = 2 * (live_q * H * D + B * S * H * D + 2 * live_kv * Hkv * D) + 4 * B * H * S
+    nbytes = elem * (live_q * H * D + B * S * H * D + 2 * live_kv * Hkv * D) + 4 * B * H * S
     if lens is not None:
         nbytes += 4 * (B * S + B * T)
-    return _bound(flops, nbytes)
+    return _bound(flops, nbytes, peak)
 
 
-def _bound(flops, nbytes):
-    bound_s = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)
-    return bound_s * 1e3, "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes", flops, nbytes
+def _bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    bound_s = max(flops / peak, nbytes / PEAK_BYTES)
+    return bound_s * 1e3, "operations" if flops / peak >= nbytes / PEAK_BYTES else "bytes", flops, nbytes
 
 
-def backward_bound(kernel, B, S, T, H, Hkv, D, lens=None, causal=False, window=0, all_rows=False):
+def backward_bound(kernel, B, S, T, H, Hkv, D, lens=None, causal=False, window=0, all_rows=False, elem=2,
+                   peak=PEAK_BF16_FLOPS):
     """Least time for one backward kernel on this card, over the live (row,
     key) pairs (as `attention_bound`): dq runs 3 products (q k^T, dO v^T,
     ds k), dk/dv 4 (q k^T, dO v^T, p^T dO, ds^T q), each 2*D FLOP per pair
     and q head. Bytes are what each kernel must move once: dq reads q, dO,
     O and LSE at live query rows, k and v at live keys (and the ids) and
     writes dq and delta; dk/dv reads q, dO, LSE and delta at live query
-    rows, k and v at live keys (and the ids) and writes dk and dv."""
+    rows, k and v at live keys (and the ids) and writes dk and dv. elem and
+    peak as `attention_bound`'s."""
     live_q, live_kv = _live_rows(B, S, lens, all_rows)
     live_kv = B * T if live_kv is None else live_kv
-    kv = 2 * 2 * live_kv * Hkv * D
+    kv = elem * 2 * live_kv * Hkv * D
     if kernel == "dq":
-        products, nbytes = 3, kv + 2 * 3 * live_q * H * D + 4 * H * live_q + 2 * B * S * H * D + 4 * B * H * S
+        products = 3
+        nbytes = kv + elem * 3 * live_q * H * D + 4 * H * live_q + elem * B * S * H * D + 4 * B * H * S
     else:
-        products, nbytes = 4, kv + 2 * 2 * live_q * H * D + 8 * H * live_q + 4 * B * T * Hkv * D
+        products, nbytes = 4, kv + elem * 2 * live_q * H * D + 8 * H * live_q + elem * 2 * B * T * Hkv * D
     pairs = live_pairs([T] * B if lens is None else lens, S, T, causal, window, all_rows=all_rows or lens is None)
     flops = products * 2.0 * D * H * pairs
     if lens is not None:
         nbytes += 4 * (B * S + B * T)
-    return _bound(flops, nbytes)
+    return _bound(flops, nbytes, peak)
 
 
 # the JAX headline step's geometry (bench.py: build_headline_step and its batches)
@@ -791,7 +847,11 @@ def shared_routing(decisions, replay):
 COUNTERS = dict(fwd=("fa", "launches"), dq=("fa", "launches_bwd_dq"), dkv=("fa", "launches_bwd_dkv"),
                 fwd_rot=("fa", "launches_rot"), dq_rot=("fa", "launches_bwd_dq_rot"),
                 dkv_rot=("fa", "launches_bwd_dkv_rot"), gmm=("gm", "launches_gmm"),
-                tgmm=("gm", "launches_tgmm"))
+                tgmm=("gm", "launches_tgmm"), gen_fwd=("fa", "launches_generic"),
+                gen_dq=("fa", "launches_generic_dq"), gen_dkv=("fa", "launches_generic_dkv"),
+                gen_gmm=("gm", "launches_gmm_generic"), gen_tgmm=("gm", "launches_tgmm_generic"))
+# the generic kernels' counter of each Hopper kernel's (csrc/flash_generic.cu, gmm_generic.cu)
+GENERIC = dict(fwd="gen_fwd", dq="gen_dq", dkv="gen_dkv", gmm="gen_gmm", tgmm="gen_tgmm")
 
 
 def _counter_modules():
@@ -812,8 +872,11 @@ def read_counts():
     return {name: getattr(mods[mod], attr) for name, (mod, attr) in COUNTERS.items()}
 
 
-def expect(**counts):
-    """Expected counts: the ones given, every other counter 0."""
+def expect(generic=False, **counts):
+    """Expected counts: the ones given, every other counter 0; with generic,
+    the given Hopper kernels' counts go to their generic kernels' counters."""
+    if generic:
+        counts = {GENERIC[k]: v for k, v in counts.items()}
     return dict(dict.fromkeys(COUNTERS, 0), **counts)
 
 
@@ -844,16 +907,17 @@ def moe_layout(dev, A, E=8, seed=0):
 MOE_LAYOUTS = (("doc_chunk", 32 * 256 * 2), ("query_chunk", 32 * 32 * 2), ("encode", 256 * 512 * 2))
 
 
-def gmm_operands(dev, P, K, N, pad, seed, E=8):
-    """Random bf16 lhs [P, K], rhs [E, K, N] and dout [P, N], with lhs and
-    dout zero on padding rows, as the MoE layer's gather and its gradient
-    leave them."""
+def gmm_operands(dev, P, K, N, pad, seed, E=8, dtype=None):
+    """Random lhs [P, K], rhs [E, K, N] and dout [P, N] (bf16 unless
+    `dtype`), with lhs and dout zero on padding rows, as the MoE layer's
+    gather and its gradient leave them."""
     import torch
 
+    dt = dtype or torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(seed)
-    lhs = torch.randn(P, K, generator=gen, device=dev).bfloat16().masked_fill(pad[:, None], 0)
-    rhs = torch.randn(E, K, N, generator=gen, device=dev).bfloat16()
-    dout = torch.randn(P, N, generator=gen, device=dev).bfloat16().masked_fill(pad[:, None], 0)
+    lhs = torch.randn(P, K, generator=gen, device=dev).to(dt).masked_fill(pad[:, None], 0)
+    rhs = torch.randn(E, K, N, generator=gen, device=dev).to(dt)
+    dout = torch.randn(P, N, generator=gen, device=dev).to(dt).masked_fill(pad[:, None], 0)
     return lhs, rhs, dout
 
 
@@ -884,9 +948,10 @@ def standard_order(decisions, chunks):
     return joined
 
 
-def moe_serving(dev, card, tok, rng, gen):
-    """Phases moe_main_path, moe_sdpa_agreement and moe_encode_throughput.
-    Returns (launches of the encode run, its batches)."""
+def moe_serving(dev, card, tok, rng, gen, timing=True):
+    """Phases moe_main_path, moe_sdpa_agreement and, with timing (--only
+    moe), moe_encode_throughput. Returns (launches of the encode run, its
+    batches)."""
     import torch
 
     from contrastors_tpu_torch.eval.encoder import Encoder
@@ -934,6 +999,10 @@ def moe_serving(dev, card, tok, rng, gen):
     if not ok:
         raise AssertionError("MoE embeddings: kernels and sdpa + plain grouped matmul disagree")
     del model_ref, ref, kernel_choices, ref_choices
+    if not timing:
+        del model, enc
+        torch.cuda.empty_cache()
+        return launches, batches
 
     texts_512 = make_texts(rng, 256, 512, 512, lognormal=False)
     enc.query_prefix = enc.document_prefix = None
@@ -1048,9 +1117,9 @@ def kernel_group(name):
 
 
 def moe_training(dev, card, agreement=True):
-    """Phases moe_train_step, moe_train_timing, and with agreement
-    moe_train_grad_agreement, else moe_train_profile. Returns the launches
-    of one step."""
+    """Phases moe_train_step, and with agreement moe_train_grad_agreement
+    (the full run), else moe_train_timing and moe_train_profile (--only
+    moe). Returns the launches of one step."""
     import gc
 
     import torch
@@ -1095,6 +1164,12 @@ def moe_training(dev, card, agreement=True):
     if not ok:
         raise AssertionError("MoE train step: launch counts, finiteness, falling loss or router aux failed")
 
+    if agreement:  # the full run: no timing since phase 26 (the step bench owns it)
+        del model, scale, opt, step, qb, db
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_grad_agreement(dev)
+        return launches
     host_ms, enqueue_ms = [], []
     for _ in range(2):  # 3 runs before phase 25, for the 900 s budget
         t0 = time.perf_counter()
@@ -1107,17 +1182,14 @@ def moe_training(dev, card, agreement=True):
          step_ms=step_ms, step_ms_min=min(host_ms), step_ms_max=max(host_ms),
          enqueue_ms=float(np.median(enqueue_ms)), pairs_per_s=PAIRS / step_ms * 1e3,
          tokens_per_s=PAIRS * (Q_LEN + D_LEN) / step_ms * 1e3)
-    if not agreement:  # (--only moe; the full run skips it for the 900 s budget since phase 25)
-        emit(phase="moe_train_profile", card=card, gpu_state=gpu_state(),
-             **profile_step(lambda: step(qb, db, train_gen), step_ms),
-             note="one profiled step: busy time of its kernels (idle share against the unprofiled median "
-                  "step_ms); device_to_host_copies counts the step's device-to-host memcpys (host syncs); "
-                  "item_calls counts Tensor.item, including those on CPU tensors (AdamW's step counters)")
+    emit(phase="moe_train_profile", card=card, gpu_state=gpu_state(),
+         **profile_step(lambda: step(qb, db, train_gen), step_ms),
+         note="one profiled step: busy time of its kernels (idle share against the unprofiled median "
+              "step_ms); device_to_host_copies counts the step's device-to-host memcpys (host syncs); "
+              "item_calls counts Tensor.item, including those on CPU tensors (AdamW's step counters)")
     del model, scale, opt, step, qb, db
     gc.collect()
     torch.cuda.empty_cache()
-    if agreement:
-        moe_grad_agreement(dev)
     return launches
 
 
@@ -1153,18 +1225,16 @@ def moe_grad_agreement(dev):
     # fault that the bounds must reject. The sdpa run replays the kernel
     # run's expert choices (shared_routing), so the two differ only in
     # arithmetic; the same comparison with each run routing on its own is
-    # bounded apart, at three data seeds, beside its two halves (the gmm
-    # kernels alone, flash on both sides; the attention alone, the plain
-    # grouped matmul on both sides), with the tokens each switch reroutes.
-    # The grad-cache run and the standard step each route on their own; the
-    # tokens they route differently are counted, and a third reading has the
-    # standard step replay the grad-cache run's choices (read, not bounded).
+    # bounded apart, at three data seeds, with the tokens the switch
+    # reroutes. The grad-cache run and the standard step each route on their
+    # own; the tokens they route differently are counted. (The unbounded
+    # readings of the standard step replaying the grad-cache run's choices
+    # and of the own-routing comparison's two halves were cut in phase 26.)
     sq, sd = token_batches(64, dev, seed=1)
     grads, kernel_choices, std_choices, gc_in_std_order = {}, [], [], []
     runs = (  # label, attention, grad cache, what the run is given
         ("gc", "flash", True, lambda: shared_routing(kernel_choices, replay=False)),
         ("std", "flash", False, lambda: shared_routing(std_choices, replay=False)),
-        ("std_shared", "flash", False, lambda: shared_routing(list(gc_in_std_order), replay=True)),
         ("sdpa_plain", "sdpa", True, lambda: shared_routing(list(kernel_choices), replay=True)),
         ("tgmm_roll", "flash", True, lambda: planted_fault("tgmm_roll")),
     )
@@ -1188,7 +1258,6 @@ def moe_grad_agreement(dev):
     flipped, routed = differing_choices(gc_in_std_order, std_choices)
     gc_vs_std = dict(compare_grads(grads["gc"], grads["std"]), tokens_routed=routed,
                      tokens_routed_differently=flipped)
-    gc_vs_std_shared = compare_grads(grads["gc"], grads["std_shared"])
     kernels_vs_plain = compare_grads(grads["gc"], grads["sdpa_plain"])
     fault = compare_grads(grads["tgmm_roll"], grads["sdpa_plain"])
     del grads
@@ -1199,8 +1268,7 @@ def moe_grad_agreement(dev):
     for seed in (1, 2, 3):
         wq, wd = token_batches(64, dev, seed=seed)
         wg, choices = {}, {}
-        for label, impl, plain in (("kernels", "flash", False), ("flash_plain_gmm", "flash", True),
-                                   ("sdpa_plain_gmm", "sdpa", True)):
+        for label, impl, plain in (("kernels", "flash", False), ("sdpa_plain_gmm", "sdpa", True)):
             choices[label] = []
             with shared_routing(choices[label], replay=False), \
                     plain_grouped_matmul() if plain else contextlib.nullcontext():
@@ -1208,9 +1276,7 @@ def moe_grad_agreement(dev):
             gc.collect()
             torch.cuda.empty_cache()
         reading = {}
-        for name, a, b in (("kernels_vs_sdpa_plain_gmm", "kernels", "sdpa_plain_gmm"),
-                           ("gmm_kernels_alone", "kernels", "flash_plain_gmm"),
-                           ("attention_alone", "flash_plain_gmm", "sdpa_plain_gmm")):
+        for name, a, b in (("kernels_vs_sdpa_plain_gmm", "kernels", "sdpa_plain_gmm"),):
             flipped, routed = differing_choices(choices[a], choices[b])
             reading[name] = dict(compare_grads(wg[a], wg[b]), tokens_routed=routed,
                                  tokens_routed_differently=flipped)
@@ -1229,32 +1295,30 @@ def moe_grad_agreement(dev):
           and all(r["margin"] >= 0 for r in own_routing.values())
           and not within(fault, bounds["own_routing_min_cosine"]))
     emit(phase="moe_train_grad_agreement", pairs=64, chunk=MOE_CHUNK, router_aux_coef=0.0,
-         gc_vs_standard=gc_vs_std, gc_vs_standard_shared_routing=gc_vs_std_shared,
-         kernels_vs_sdpa_plain_gmm=kernels_vs_plain,
+         gc_vs_standard=gc_vs_std, kernels_vs_sdpa_plain_gmm=kernels_vs_plain,
          own_routing=own_routing, planted_fault=dict(tgmm_roll_vs_sdpa_plain_gmm=fault), bounds=bounds,
          note="gc_vs_standard: each step routes on its own (tokens_routed_differently counts the "
-              "tokens whose expert pair differs); gc_vs_standard_shared_routing: the standard step "
-              "replays the grad-cache run's choices (read, not bounded); "
-              "kernels_vs_sdpa_plain_gmm replays the kernel run's expert choices; own_routing: each run "
-              "routes on its own (kernels_vs_sdpa_plain_gmm bounded by own_routing_min_cosine; its halves "
-              "read, not bounded); tokens counted once per MoE layer when valid", ok=ok)
+              "tokens whose expert pair differs); kernels_vs_sdpa_plain_gmm replays the kernel run's expert "
+              "choices; own_routing: each run routes on its own (kernels_vs_sdpa_plain_gmm bounded by "
+              "own_routing_min_cosine); tokens counted once per MoE layer when valid", ok=ok)
     if not ok:
         raise AssertionError("MoE train step gradients: a sound step is outside its bounds, "
                              "or the planted fault is inside them")
 
 
-def gmm_bound(kernel, rows, P, K, N, nonempty, E=8):
+def gmm_bound(kernel, rows, P, K, N, nonempty, E=8, elem=2, peak=PEAK_BF16_FLOPS):
     """Least time on this card: 2*K*N FLOP per active (padded) row, against
-    the bf16 bytes each kernel must move once. gmm reads the active rows of
-    lhs and the panels of the experts that own rows, and writes all P rows
-    of out (inactive blocks as 0); tgmm reads the active rows of lhs and
-    dout and writes all E panels (an empty expert's as 0)."""
+    the bytes (elem per element: 2 for bf16) each kernel must move once.
+    gmm reads the active rows of lhs and the panels of the experts that own
+    rows, and writes all P rows of out (inactive blocks as 0); tgmm reads
+    the active rows of lhs and dout and writes all E panels (an empty
+    expert's as 0)."""
     flops = 2.0 * rows * K * N
     if kernel == "gmm":
-        nbytes = 2 * (rows * K + nonempty * K * N + P * N)
+        nbytes = elem * (rows * K + nonempty * K * N + P * N)
     else:
-        nbytes = 2 * (rows * (K + N) + E * K * N)
-    return _bound(flops, nbytes)
+        nbytes = elem * (rows * (K + N) + E * K * N)
+    return _bound(flops, nbytes, peak)
 
 
 def library_grouped_mm(kernel, lhs, rhs_or_dout, gs):
@@ -1841,7 +1905,7 @@ def fused_kernel_timing(dev, card, gen):
     args = (False, 0, 0, 1.0 / D**0.5)
     out, lse = fa._launch_kernel(q, k, v, None, None, rot, *args)
     dout = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
-    inputs = fa.prepare_backward(q, k, v, out, lse, dout, None, None)
+    inputs = fa.prepare_backward(q, k, v, out, lse, dout, None, None, rot)
     inputs_r = fa.prepare_backward(qr, kr, v, out, lse, dout, None, None)
     ms = dict(
         fwd=median_ms(lambda: fa._launch_kernel(q, k, v, None, None, rot, *args)),
@@ -2056,7 +2120,7 @@ def backward_timing(dev, card, gen, per_kernel=True, shapes=BWD_TIMING_SHAPES, H
         if per_kernel:
             qk, kk, rot = fa._rotary(q, k, kw.get("rotary_cos"), kw.get("rotary_sin"), False, None)
             seg_q, seg_kv = fa.merge_segments(B, S, S, mask, None, None, dev)
-            inputs = fa.prepare_backward(qk, kk, v, out, lse, dout, seg_q, seg_kv)
+            inputs = fa.prepare_backward(qk, kk, v, out, lse, dout, seg_q, seg_kv, rot)
             args = (False, 0, 0, 1.0 / D**0.5)
             launchers = dict(dq=lambda: fa.launch_bwd_dq(*inputs, *args, rot=rot),
                              dkv=lambda: fa.launch_bwd_dkv(*inputs, *args, rot=rot))
@@ -2271,11 +2335,12 @@ def mlm_grad_agreement(dev):
     torch.cuda.empty_cache()
 
 
-def dense_training(dev, card, agreement=True):
-    """Phases train_step, train_timing, train_profile and (with agreement)
-    train_grad_agreement: the dense GradCache step at full width. Returns
-    the launches of one step and its timing (host-clock step ms, busy ms by
-    kernel group from the profiled step)."""
+def dense_training(dev, card, agreement=True, timing=True):
+    """Phases train_step, with timing train_timing and train_profile, and
+    with agreement train_grad_agreement: the dense GradCache step at full
+    width. Returns the launches of one step and its timing (host-clock step
+    ms, busy ms by kernel group from the profiled step), None without
+    timing (the full run, since phase 26: the step bench owns timing)."""
     import gc
 
     import torch
@@ -2312,6 +2377,13 @@ def dense_training(dev, card, agreement=True):
     if not train_ok:
         raise AssertionError("train step: launch counts, finiteness or falling loss failed")
     launches_train = steps[0]["launches"]
+    if not timing:
+        del t_model, t_scale, t_opt, step, qb, db
+        gc.collect()
+        torch.cuda.empty_cache()
+        if agreement:
+            dense_grad_agreement(dev)
+        return launches_train, None
 
     # the step's time on the host clock (3 runs; 5 before phase 25, for the 900 s budget)
     host_ms, enqueue_ms = [], []
@@ -2342,12 +2414,19 @@ def dense_training(dev, card, agreement=True):
                   pairs_per_s=PAIRS / step_ms * 1e3, enqueue_ms=float(np.median(enqueue_ms)),
                   device_busy_ms=profile["device_busy_ms"], idle_share=profile["idle_share_of_step"],
                   busy_by_group={g: v["ms"] for g, v in profile["by_group"].items()})
-    if not agreement:
-        return launches_train, timing
+    if agreement:
+        dense_grad_agreement(dev)
+    return launches_train, timing
 
-    # grad-cache grads against the standard step's, and flash against sdpa,
-    # at 64 pairs with the same weights; then two planted faults, which the
-    # bounds must reject
+
+def dense_grad_agreement(dev):
+    """Phase train_grad_agreement: grad-cache grads against the standard
+    step's, and flash against sdpa, at 64 pairs with the same weights; then
+    two planted faults, which the bounds must reject."""
+    import gc
+
+    import torch
+
     sq, sd = token_batches(64, dev, seed=1)
     grads = {}
     for label, impl, grad_cache, fault in (("gc", "flash", True, None), ("std", "flash", False, None),
@@ -2381,7 +2460,6 @@ def dense_training(dev, card, agreement=True):
     del grads
     gc.collect()
     torch.cuda.empty_cache()
-    return launches_train, timing
 
 
 # configs/train/contrastive_pretrain.yaml, the recipe the trainer phase runs
@@ -2415,7 +2493,7 @@ NOMIC_BERT_2048_CONFIG = {
     "rotary_emb_scale_base": None, "type_vocab_size": 2, "use_rms_norm": False, "vocab_size": 30528,
 }
 
-TRAIN_STEPS, SAVE_EVERY = 6, 3  # 8, 4 before phase 25, for the 900 s budget
+TRAIN_STEPS, SAVE_EVERY = 4, 2  # 8, 4 before phase 25 and 6, 3 before phase 26, for the script's budget
 
 
 def trainer_overrides(model_dir, pairs, eval_dir, out_dir):
@@ -2541,9 +2619,10 @@ def chip_trainer_class(base=None, tokenizer=None, splits=None):
     return ChipTrainer
 
 
-def run_chip_trainer(recipe, dev, cls=None):
-    """One trainer run of the recipe on dev, its sync log kept; returns
-    (trainer, per-step rows, seconds, launches over the whole run)."""
+def run_chip_trainer(recipe, dev, cls=None, dtype="bf16"):
+    """One trainer run of the recipe on dev in `dtype` (the CLI's --dtype),
+    its sync log kept; returns (trainer, per-step rows, seconds, launches
+    over the whole run)."""
     from contrastors_tpu_torch.config import Config
     from contrastors_tpu_torch.train import run
 
@@ -2552,7 +2631,7 @@ def run_chip_trainer(recipe, dev, cls=None):
     t0 = time.perf_counter()
     with sync_log() as syncs:
         cls.syncs = syncs
-        trainer = run(Config.from_dict(recipe), "bf16", dev, trainer_cls=cls)
+        trainer = run(Config.from_dict(recipe), dtype, dev, trainer_cls=cls)
         t_end, n_end = time.perf_counter(), len(syncs)
     launches = read_counts()
     rows = trainer.record
@@ -2582,14 +2661,15 @@ def bare_step_timing(step, qb, db, gen, runs=3):
     return ms, syncs
 
 
-def trainer_phase(dev, card, bare_busy_ms=None):
+def trainer_phase(dev, card, bare_busy_ms=None, timing=True):
     """Phase trainer: the port's contrastive trainer entry point
     (train.run -> TextTextTrainer -> BaseTrainer.train) on the pretrain
     recipe at full width, against the bare GradCache step of the same
     geometry, in turns: bare, loop, bare, resumed loop. The idle shares
-    take bare_busy_ms, the device busy ms of one profiled bare step (phase
-    7's, in the full run), or profile one here. Returns the launches of one
-    loop step."""
+    take bare_busy_ms, the device busy ms of one profiled bare step, or
+    profile one here. Without timing (the full run, since phase 26) one bare
+    run gives the synchronising calls' bar and no idle share is read.
+    Returns the launches of one loop step."""
     import gc
     import tempfile
 
@@ -2619,22 +2699,30 @@ def trainer_phase(dev, card, bare_busy_ms=None):
     step = make_train_step(model, scale, opt, grad_cache=True, chunk_size=CHUNK, direct_chunks_q=-1)
     qb, db = token_batches(PAIRS, dev)
     gen = torch.Generator().manual_seed(0)
-    for _ in range(2):
+    for _ in range(2 if timing else 1):
         step(qb, db, gen)
     torch.cuda.synchronize()
     peak_gb = {}
-    for remat in (False, True):
-        model.trunk.remat = remat
+    if timing:
+        for remat in (False, True):
+            model.trunk.remat = remat
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            step(qb, db, gen)
+            torch.cuda.synchronize()
+            peak_gb["remat" if remat else "no_remat"] = torch.cuda.max_memory_allocated() / 2**30
+            if not remat:  # the replay adds forward launches
+                bare_launches = read_counts()
+        model.trunk.remat = False
+        bare_ms, bare_syncs = bare_step_timing(step, qb, db, gen, runs=1)
+    else:  # one warm step gives the launches, the synchronising calls and the peak memory
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        step(qb, db, gen)
-        torch.cuda.synchronize()
-        peak_gb["remat" if remat else "no_remat"] = torch.cuda.max_memory_allocated() / 2**30
-        if not remat:  # the replay adds forward launches
-            bare_launches = read_counts()
-    model.trunk.remat = False
-    bare_ms, bare_syncs = bare_step_timing(step, qb, db, gen, runs=1)
-    busy_ms = bare_busy_ms or profile_step(lambda: step(qb, db, gen), float(np.median(bare_ms)))["device_busy_ms"]
+        bare_ms, bare_syncs = bare_step_timing(step, qb, db, gen, runs=1)
+        bare_launches = read_counts()
+        peak_gb["no_remat"] = torch.cuda.max_memory_allocated() / 2**30
+    busy_ms = (bare_busy_ms or profile_step(lambda: step(qb, db, gen), float(np.median(bare_ms)))["device_busy_ms"]
+               if timing else None)
 
     # the loop, uninterrupted
     trainer, rows, seconds, run_launches, syncs = run_chip_trainer(recipe, dev)
@@ -2642,8 +2730,8 @@ def trainer_phase(dev, card, bare_busy_ms=None):
     del trainer
     gc.collect()
 
-    # the bare step again, then a loop resumed from step_4
-    bare_ms_2, bare_syncs_2 = bare_step_timing(step, qb, db, gen, runs=1)
+    # the bare step again, then a loop resumed from step SAVE_EVERY
+    bare_ms_2, bare_syncs_2 = bare_step_timing(step, qb, db, gen, runs=1) if timing else ([], [])
     del model, scale, opt, step, qb, db
     gc.collect()
     torch.cuda.empty_cache()
@@ -2695,8 +2783,9 @@ def trainer_phase(dev, card, bare_busy_ms=None):
          resumed_loop_ms_runs=[r["iteration_ms"] for r in rows_b],
          bare_step_ms=float(np.median(bare_ms + bare_ms_2)), bare_step_ms_turns=[bare_ms, bare_ms_2],
          loop_minus_bare_ms=loop_ms - float(np.median(bare_ms + bare_ms_2)),
-         bare_device_busy_ms=busy_ms, bare_idle_share=1.0 - busy_ms / float(np.median(bare_ms + bare_ms_2)),
-         loop_idle_share=1.0 - busy_ms / loop_ms,
+         bare_device_busy_ms=busy_ms,
+         bare_idle_share=1.0 - busy_ms / float(np.median(bare_ms + bare_ms_2)) if busy_ms else None,
+         loop_idle_share=1.0 - busy_ms / loop_ms if busy_ms else None,
          prefetch_wait_ms_per_step=wait_s * 1e3 / len(rows), resumed_prefetch_wait_ms_per_step=wait_b * 1e3 / len(rows_b),
          loop_syncs_per_quiet_step=[r["iteration_syncs"] for r in quiet],
          loop_syncs_per_step=[r["iteration_syncs"] for r in rows], bare_syncs_per_step=bare_syncs + bare_syncs_2,
@@ -3199,12 +3288,13 @@ def mlm_trainer_phase(dev, card, mlm_step_ms=None):
     return out
 
 
-def fused_encode(dev, card, model, tok, texts, e):
+def fused_encode(dev, card, model, tok, texts, e, timing=True):
     """Phase fused_encode: the encode batch (256 texts of 512 tokens) through
     a BiEncoder with fused_rotary=True and the weights of `model` (rotary
     outside), whose embeddings of the same texts are e: 12 fused launches,
-    cosine >= 0.999; then both models' forward at 256 x 512 timed in turns
-    (CUDA events). Returns the launch counts."""
+    cosine >= 0.999; then, with timing (--only flash_fwd), both models'
+    forward at 256 x 512 timed in turns (CUDA events). Returns the launch
+    counts."""
     import torch
 
     from contrastors_tpu_torch.eval.encoder import Encoder
@@ -3226,7 +3316,7 @@ def fused_encode(dev, card, model, tok, texts, e):
     fwd_ms = dict(fused=[], outside=[])
     with torch.inference_mode():
         runs = (("fused", model_f), ("outside", model))
-        for i in range(4):
+        for i in range(4 if timing else 0):
             for label, m in runs if i % 2 == 0 else runs[::-1]:
                 fwd_ms[label].append(median_ms(lambda: m(ids, full, normalize=False), runs=3, warmup=1))
     ok = (launches == expect(fwd_rot=cfg.n_layer) and e_f.shape == e.shape
@@ -3234,7 +3324,7 @@ def fused_encode(dev, card, model, tok, texts, e):
     emit(phase="fused_encode", card=card, batch=256, seq_len=512, launches=launches,
          expected_launches=expect(fwd_rot=cfg.n_layer), min_cosine_vs_outside=float(cos_f.min()),
          mean_cosine_vs_outside=float(cos_f.mean()), threshold=0.999,
-         forward_ms={k: float(np.median(v)) for k, v in fwd_ms.items()}, forward_ms_runs=fwd_ms, ok=ok,
+         forward_ms={k: float(np.median(v)) for k, v in fwd_ms.items() if v}, forward_ms_runs=fwd_ms, ok=ok,
          note="forward_ms: the model's forward at 256 x 512, fused and outside rotation in turns")
     if not ok:
         raise AssertionError("fused-rotary encode: launch counts or agreement with the outside rotation failed")
@@ -3639,15 +3729,8 @@ def vision_phase(dev, card):
             trainers[name] = trainer
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
 
-        # one profiled standard step: device busy time by kernel group, idle share
         std, gcache = trainers["standard"], trainers["grad_cache"]
         batch = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
-        step = std.make_train_step()
-        step(batch, torch.Generator().manual_seed(1))
-        prof = profile_step(lambda: step(batch, torch.Generator().manual_seed(2)), out["standard"]["quiet_step_ms"],
-                            phases=STD_PHASES)
-        emit(phase="lit_profile", card=card, gpu_state=gpu_state(), batch=LIT_BATCH, **prof)
-        out["standard"]["profile"] = {k: prof[k] for k in ("device_busy_ms", "idle_share_of_step", "by_group")}
 
         # grad cache against the standard step, on one batch of 512 and the same weights
         gcache.dual.load_state_dict(std.dual.state_dict())
@@ -3704,7 +3787,7 @@ PYTHIA_160M_CONFIG = {
     "max_position_embeddings": 2048, "initializer_range": 0.02, "tie_word_embeddings": False,
     "bos_token_id": 0, "eos_token_id": 0,
 }
-FAMILY_STEPS, FAMILY_LOG_EVERY = 6, 3
+FAMILY_STEPS, FAMILY_LOG_EVERY = 4, 3  # 6 steps before phase 26
 # per family: (recipe, batch as run, the recipe's batch, negatives, query / document tokens)
 FAMILIES = {
     "modernbert": ("contrastive_finetune_modernbert", 8, 256, 7, 512, 512),
@@ -3756,10 +3839,12 @@ def _hf_shapes(family, cfg):
     return shapes
 
 
-def write_family_checkpoint(path, family, cfg, seed, weights=True):
+def write_family_checkpoint(path, family, cfg, seed, weights=True, dtype=None, device=None):
     """config.json and, with weights, pytorch_model.bin (torch.save) of
     seeded random weights under the HF names: N(0, 0.02) matrices and
-    embeddings, norm scales 1, biases 0. Returns the state dict written."""
+    embeddings, norm scales 1, biases 0; drawn on `device` (default the
+    CPU) and stored in `dtype` (default fp32). Returns the state dict
+    written."""
     import torch
 
     os.makedirs(path)
@@ -3767,15 +3852,16 @@ def write_family_checkpoint(path, family, cfg, seed, weights=True):
         json.dump(cfg, f)
     if not weights:
         return None
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    dtype = dtype or torch.float32
     sd = {}
     for name, shape in _hf_shapes(family, cfg).items():
         if name.endswith("bias"):
-            sd[name] = torch.zeros(shape)
+            sd[name] = torch.zeros(shape, dtype=dtype)
         elif len(shape) == 1:
-            sd[name] = torch.ones(shape)
+            sd[name] = torch.ones(shape, dtype=dtype)
         else:
-            sd[name] = torch.randn(shape, generator=gen) * 0.02
+            sd[name] = (torch.randn(shape, generator=gen, device=device or "cpu") * 0.02).to(dtype).cpu()
     torch.save(sd, os.path.join(path, "pytorch_model.bin"))
     return sd
 
@@ -3824,48 +3910,58 @@ def family_recipe(family, model_dir, out_dir, teacher_dir=None):
     return raw
 
 
-def family_serving(dev, card, family, model_dir, seq_len, pooling):
+def family_serving(dev, card, family, model_dir, seq_len, pooling, n_texts=256, generic=False):
     """`load_biencoder` of the family's checkpoint (bf16, attn_impl flash)
-    encodes 256 texts of random lengths padded to seq_len, one batch,
-    through the port's Encoder: n_layer flash
-    forwards a batch, finite unit-norm embeddings, cosine >= 0.999 against
-    the same checkpoint under attn_impl="sdpa" in fp32; texts/s."""
+    encodes n_texts texts of random lengths padded to seq_len, one batch,
+    through the port's Encoder: n_layer flash forwards a batch (on the
+    generic kernel with `generic`, and then no sdpa call in that batch),
+    finite unit-norm embeddings, cosine >= 0.999 against the same weights
+    under attn_impl="sdpa" in fp32; texts/s."""
+    import dataclasses
+
     import torch
 
     from contrastors_tpu_torch.config import ModelArgs
     from contrastors_tpu_torch.eval.encoder import Encoder
     from contrastors_tpu_torch.eval.stub_tokenizer import StubTokenizer
+    from contrastors_tpu_torch.models import BiEncoder
     from contrastors_tpu_torch.models.auto import load_biencoder
 
     args = dict(model_type="encoder", model_name=model_dir, pooling=pooling, pretrained=True, attn_impl="flash")
     model, cfg = load_biencoder(ModelArgs.from_dict(args), dtype=torch.bfloat16, device=dev)
     tok = StubTokenizer(cfg.vocab_size)
-    texts = make_texts(np.random.default_rng(7), 256, 8, seq_len - 2, lognormal=False)
+    texts = make_texts(np.random.default_rng(7), n_texts, 8, seq_len - 2, lognormal=False)
 
     def encoder(m):
-        enc = Encoder(m.eval(), tok, seq_len=seq_len, batch_size=256, bucketed=False)
+        enc = Encoder(m.eval(), tok, seq_len=seq_len, batch_size=n_texts, bucketed=False)
         enc.query_prefix = enc.document_prefix = None
         return enc
 
     enc = encoder(model)
+    sdpa_calls = {}
     reset_counts()
-    emb = enc.encode(texts)
+    with counted_sdpa(sdpa_calls):
+        emb = enc.encode(texts)
     launches = read_counts()
-    ref_model, _ = load_biencoder(ModelArgs.from_dict(dict(args, attn_impl="sdpa")), dtype=torch.float32,
-                                  device=dev)
+    # the reference: the same weights (not read again from the checkpoint) on sdpa, in fp32
+    ref_model = BiEncoder(dataclasses.replace(cfg, attn_impl="sdpa"), trunk_type=model.trunk_type, pooling=pooling,
+                          dtype=torch.float32, device=dev)
+    ref_model.load_state_dict(model.state_dict())
     ref = encoder(ref_model).encode(texts)
     del ref_model
     cos = float((emb * ref).sum(-1).min())
     times = []
-    for _ in range(4):
+    for _ in range(2):  # a warm-up and one timed encode (3 before phase 26)
         t0 = time.perf_counter()
         enc.encode(texts)
         times.append((time.perf_counter() - t0) * 1e3)
     norms = np.linalg.norm(emb, axis=-1)
-    ok = (launches == expect(fwd=cfg.n_layer) and emb.shape == (256, cfg.n_embd) and bool(np.isfinite(emb).all())
-          and float(np.abs(norms - 1).max()) < 1e-2 and cos >= SERVING_COSINE)
-    row = dict(texts=256, seq_len=seq_len, pooling=pooling, launches_per_batch=launches, min_cosine_vs_sdpa_fp32=cos,
-               encode_ms=float(np.median(times[1:])), texts_per_s=256 / float(np.median(times[1:])) * 1e3)
+    ok = (launches == expect(generic, fwd=cfg.n_layer) and emb.shape == (n_texts, cfg.n_embd)
+          and bool(np.isfinite(emb).all()) and float(np.abs(norms - 1).max()) < 1e-2 and cos >= SERVING_COSINE
+          and (not generic or sdpa_calls["calls"] == 0))
+    row = dict(texts=n_texts, seq_len=seq_len, pooling=pooling, launches_per_batch=launches,
+               sdpa_calls=sdpa_calls["calls"], min_cosine_vs_sdpa_fp32=cos,
+               encode_ms=float(np.median(times[1:])), texts_per_s=n_texts / float(np.median(times[1:])) * 1e3)
     emit(phase=f"{family}_serving", card=card, gpu_state=gpu_state(),
          params=sum(p.numel() for p in model.parameters()), n_layer=cfg.n_layer, **row, threshold=SERVING_COSINE,
          ok=ok)
@@ -3876,15 +3972,18 @@ def family_serving(dev, card, family, model_dir, seq_len, pooling):
     return row
 
 
-def family_training(dev, card, family, model_dir, teacher_dir=None, dense_sd=None):
-    """The family's recipe through train.run (`family_recipe`), one
-    in-memory batch repeated: flash (and gmm / tgmm) launches per step as
-    predicted, finite losses, the mean of the last two below that of the
-    first two, 0 synchronising calls per quiet step; with dense_sd (the
-    upcycled MoE) every expert of an MoE layer the dense MLP bit for bit
-    after the load; distill: student layer i the teacher's layer 2i bit
-    for bit after the init, and the teacher unchanged by the steps. Returns
-    the row."""
+def family_training(dev, card, family, model_dir, teacher_dir=None, dense_sd=None, dtype="bf16", generic=False,
+                    steps=None, batch=None, phase=None):
+    """The family's recipe through train.run (`family_recipe`) in `dtype`,
+    one in-memory batch repeated: flash (and gmm / tgmm) launches per step
+    as predicted (on the generic kernels with `generic`), finite losses, the
+    mean of the last two below that of the first two, 0 synchronising calls
+    per quiet step; with dense_sd (the upcycled MoE) every expert of an MoE
+    layer the dense MLP bit for bit after the load; distill: student layer i
+    the teacher's layer 2i bit for bit after the init, and the teacher
+    unchanged by the steps. With `generic`, no sdpa call in the run either.
+    steps and batch: FAMILY_STEPS and FAMILIES' unless given. Returns the
+    row."""
     import gc
     import shutil
     import tempfile
@@ -3895,10 +3994,14 @@ def family_training(dev, card, family, model_dir, teacher_dir=None, dense_sd=Non
     from contrastors_tpu_torch.models.nomic_bert import _layer_is_moe
     from contrastors_tpu_torch.trainers import DistillTrainer, TextTextTrainer
 
-    name, batch, recipe_batch, negatives, q_len, d_len = FAMILIES[family]
+    name, family_batch_size, recipe_batch, negatives, q_len, d_len = FAMILIES[family]
+    batch = batch or family_batch_size
     out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{family}_")
     raw = family_recipe(family, model_dir, out_dir, teacher_dir)
-    vocab = {"modernbert": MODERNBERT_BASE_CONFIG, "pythia": PYTHIA_160M_CONFIG}.get(
+    raw["data_args"]["batch_size"] = batch
+    if steps:
+        raw["train_args"]["num_train_steps"] = steps
+    vocab = {"modernbert": MODERNBERT_BASE_CONFIG, "pythia": PYTHIA_160M_CONFIG, "pythia_1b": PYTHIA_1B_CONFIG}.get(
         family, NOMIC_BERT_2048_CONFIG)
     vocab = vocab.get("vocab_size")
     host = [family_batch(np.random.default_rng(11), vocab, batch, negatives, q_len, d_len)]
@@ -3935,8 +4038,10 @@ def family_training(dev, card, family, model_dir, teacher_dir=None, dense_sd=Non
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     allocated_before_gb = torch.cuda.memory_allocated() / 2**30
+    sdpa_calls = {}
     try:
-        trainer, rows, seconds, launches, syncs = run_chip_trainer(raw, dev, FamilyTrainer)
+        with counted_sdpa(sdpa_calls):
+            trainer, rows, seconds, launches, syncs = run_chip_trainer(raw, dev, FamilyTrainer, dtype)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -3944,11 +4049,11 @@ def family_training(dev, card, family, model_dir, teacher_dir=None, dense_sd=Non
     L = cfg.n_layer
     if family == "moe":
         n_moe = sum(1 for i in range(L) if _layer_is_moe(cfg, i))
-        predicted = expect(fwd=2 * L, dq=2 * L, dkv=2 * L, gmm=2 * 6 * n_moe, tgmm=2 * 3 * n_moe)
+        predicted = expect(generic, fwd=2 * L, dq=2 * L, dkv=2 * L, gmm=2 * 6 * n_moe, tgmm=2 * 3 * n_moe)
     elif family == "distill":
-        predicted = expect(fwd=2 * L + 2 * len(trainer.teacher.trunk.layers), dq=2 * L, dkv=2 * L)
+        predicted = expect(generic, fwd=2 * L + 2 * len(trainer.teacher.trunk.layers), dq=2 * L, dkv=2 * L)
     else:
-        predicted = expect(fwd=2 * L, dq=2 * L, dkv=2 * L)
+        predicted = expect(generic, fwd=2 * L, dq=2 * L, dkv=2 * L)
     noisy = {s for s in range(1, len(rows) + 1) if s % FAMILY_LOG_EVERY == 0} | {len(rows)}
     quiet = quiet_rows(rows, noisy)
     losses = [r["loss"] for r in rows]
@@ -3956,23 +4061,26 @@ def family_training(dev, card, family, model_dir, teacher_dir=None, dense_sd=Non
         launches=all(r["launches"] == predicted for r in rows), finite=bool(np.isfinite(losses).all()),
         loss_falls=float(np.mean(losses[-2:])) < float(np.mean(losses[:2])),
         no_sync_per_quiet_step=bool(quiet) and all(r["iteration_syncs"] == 0 for r in quiet))
+    if generic:
+        checks["no_sdpa_call"] = sdpa_calls["calls"] == 0
     if family == "distill":
         checks["teacher_unchanged"] = all(torch.equal(v, trainer.teacher_start[k])
                                           for k, v in trainer.teacher.state_dict().items())
-    row = dict(recipe=f"configs/train/{name}.yaml", n_layer=L, launches_per_step=rows[0]["launches"],
+    row = dict(recipe=f"configs/train/{name}.yaml", dtype=dtype, n_layer=L, launches_per_step=rows[0]["launches"],
+               sdpa_calls=sdpa_calls["calls"],
                predicted_per_step=predicted, losses=losses, peak_gb=peak_gb,
                allocated_before_gb=allocated_before_gb, seconds=seconds,
                step_ms=float(np.median([r["iteration_ms"] for r in quiet])) if quiet else None,
                syncs_per_quiet_step=[r["iteration_syncs"] for r in quiet],
                cuts=dict(batch=f"{recipe_batch} -> {batch}", negatives=negatives,
-                         tokens=f"query {q_len} / document {d_len}", steps=FAMILY_STEPS,
+                         tokens=f"query {q_len} / document {d_len}", steps=len(rows),
                          warmup=f"{raw['train_args']['warmup_steps']} (recipe: see its yaml)",
                          data="one in-memory batch of stand-in token ids, repeated", tokenizer="StubTokenizer",
                          weights="seeded random, written under the HF names"),
                params=sum(p.numel() for p in trainer.biencoder.parameters()))
     if family == "distill":
         row["teacher_params"] = sum(p.numel() for p in trainer.teacher.parameters())
-    emit(phase=f"{family}_training", card=card, gpu_state=gpu_state(), **row, checks=checks,
+    emit(phase=phase or f"{family}_training", card=card, gpu_state=gpu_state(), **row, checks=checks,
          first_syncs=syncs[:3], ok=all(checks.values()))
     del trainer
     gc.collect()
@@ -4162,7 +4270,7 @@ def encode_cli_check(dev, card, model, tok, root):
     bits = encode_texts(model, tok, texts, matryoshka_dim=256, binarize=True, **args)
     dims = min(256, embs.shape[1])
     times = []
-    for _ in range(3):
+    for _ in range(1):  # 3 runs before phase 26
         t0 = time.perf_counter()
         encode_texts(model, tok, texts, **args)
         times.append(time.perf_counter() - t0)
@@ -5743,18 +5851,17 @@ def knobs_moe(dev, card):
                                direct_chunks_d=0, router_aux_coef=MOE_AUX)
         return model, step
 
-    runs = {}
     train_gen = torch.Generator().manual_seed(0)
-    models = dict(capacity=trained(moe_impl="capacity"), dropless=trained())
-    # in turns: the first call of each warms it up; capacity's 2 losses
-    for name in ("capacity", "dropless", "capacity", "dropless"):
+    model, step = trained(moe_impl="capacity")
+    # 2 steps, the first a warm-up for step_ms (the dropless step's turns beside it were cut in phase 26)
+    cap = dict(losses=[], ms=[], launches=[])
+    for _ in range(2):
         reset_counts()
-        m, t = timed_call(lambda: models[name][1](qb, db, train_gen))
-        r = runs.setdefault(name, dict(losses=[], ms=[], launches=[]))
-        r["losses"].append(m["loss"].item())
-        r["ms"].append(t)
-        r["launches"].append(read_counts())
-    del models
+        m, t = timed_call(lambda: step(qb, db, train_gen))
+        cap["losses"].append(m["loss"].item())
+        cap["ms"].append(t)
+        cap["launches"].append(read_counts())
+    del model, step
     gc.collect()
     torch.cuda.empty_cache()
     ec_model, ec_step = trained(expert_choice_router=True)
@@ -5773,7 +5880,6 @@ def knobs_moe(dev, card):
     tables = [(shape, distinct.tolist()) for shape, distinct in tables]
     ec_ok = bool(tables) and all(shape[0] == E and shape[1] in c_of.values() and all(d == shape[1] for d in distinct)
                                  for shape, distinct in tables)
-    cap = runs["capacity"]
     checks = dict(
         capacity_launches=all(x == expected for x in cap["launches"]),
         capacity_no_gmm=all(x["gmm"] == 0 and x["tgmm"] == 0 for x in cap["launches"] + ec["launches"]),
@@ -5784,14 +5890,14 @@ def knobs_moe(dev, card):
     )
     ok = all(checks.values())
     emit(phase="knobs_moe_step", card=card, gpu_state=gpu_state(), pairs=PAIRS, chunk=MOE_CHUNK,
-         router_aux_coef=MOE_AUX, expected_launches=expected, capacity=cap, dropless=runs["dropless"],
+         router_aux_coef=MOE_AUX, expected_launches=expected, capacity=cap,
          expert_choice=ec, expert_choice_tables=dict(n=len(tables), c_per_chunk=c_of,
                                                      shapes=sorted({shape for shape, _ in tables})),
-         step_ms=dict(capacity=cap["ms"][1], dropless=runs["dropless"]["ms"][1]),
+         step_ms=dict(capacity=cap["ms"][1]),
          checks=checks, ok=ok,
-         note="the MoE benchmark step (phase 11's geometry) with moe_impl capacity (factor 2.0) and dropless on "
-              "the same seed weights, in turns (capacity, dropless, capacity, dropless; the first call of each "
-              "a warm-up, left out of step_ms), then expert choice; step ms to a synchronize")
+         note="the MoE benchmark step (phase 11's geometry) with moe_impl capacity (factor 2.0) on the dropless "
+              "model's seed weights (2 steps, the first a warm-up, left out of step_ms), then expert choice; "
+              "step ms to a synchronize")
     if not ok:
         raise AssertionError(f"knobs MoE step: a check failed: {checks}")
     return cap["launches"][0]
@@ -6879,6 +6985,611 @@ def scripts_phase(dev, card):
     return launches
 
 
+# -- phase 26: the kernels at every dtype and head dim the Pallas kernels take --
+
+# EleutherAI/pythia-1b's config.json: 16 layers of 2048, 8 heads of 256
+PYTHIA_1B_CONFIG = {
+    "model_type": "gpt_neox", "architectures": ["GPTNeoXForCausalLM"], "vocab_size": 50304, "hidden_size": 2048,
+    "num_hidden_layers": 16, "num_attention_heads": 8, "intermediate_size": 8192, "hidden_act": "gelu",
+    "rotary_pct": 0.25, "rotary_emb_base": 10000, "use_parallel_residual": True, "layer_norm_eps": 1e-5,
+    "max_position_embeddings": 2048, "initializer_range": 0.02, "tie_word_embeddings": False,
+    "bos_token_id": 0, "eos_token_id": 0,
+}
+# the decoder recipe at pythia-1b: batch 128 -> 16 (7 negatives: 144 rows of
+# 128 tokens a step; the recipe runs no grad cache, and 1B parameters' AdamW
+# state and activations at 64 would not leave the card room)
+FAMILIES["pythia_1b"] = ("contrastive_finetune_decoder", 16, 128, 7, 128, 128)
+COVERAGE_STEPS = 3  # steps of the fp32 recipes and of pythia-1b's
+# the MoE recipe in fp32: batch 256 -> 16; phase 20's 32 runs out of the
+# card's 80 GB once the dropless layers' saved activations are fp32
+COVERAGE_MOE_BATCH = 16
+COVERAGE_SERVING_TEXTS = 256  # the fp32 encode CLI's texts (one batch of 256 at 512 tokens)
+COVERAGE_GRAD_COSINE = 0.9999  # the fp32 step's first gradient, flash against sdpa
+COVERAGE_SERVING_COSINE = 0.99999  # fp32 embeddings, flash against sdpa (both fp32)
+# the generic kernels' checks: (dtype, head dim) in each mask variant
+COVERAGE_DIMS = (("fp32", 64), ("fp32", 80), ("fp32", 88), ("fp32", 128), ("fp32", 256),
+                 ("bf16", 80), ("bf16", 88), ("bf16", 256))
+COVERAGE_VARIANTS = ("pad", "causal", "window128", "segments", "gqa", "rotary")
+# (dtype, layout, K, N): the document chunk's layout at the dense MoE widths, and odd widths
+COVERAGE_GMM = (("fp32", "doc_chunk", 768, 3072), ("bf16", "doc_chunk", 200, 360))
+
+
+def _torch_dtype(name):
+    import torch
+
+    return dict(fp32=torch.float32, bf16=torch.bfloat16)[name]
+
+
+@contextlib.contextmanager
+def counted_sdpa(into):
+    """Calls of the plain attention (`ops/sdpa.py:sdpa`, as attention_core
+    and the module itself reach it) inside, into `into["calls"]`."""
+    import contrastors_tpu_torch.ops as ops
+
+    module = sys.modules["contrastors_tpu_torch.ops.sdpa"]  # ops' __init__ binds the name to the function
+    orig = module.sdpa
+    into["calls"] = 0
+
+    @functools.wraps(orig)
+    def counted(*args, **kwargs):
+        into["calls"] += 1
+        return orig(*args, **kwargs)
+
+    ops.sdpa = module.sdpa = counted
+    try:
+        yield into
+    finally:
+        ops.sdpa = module.sdpa = orig
+
+
+def coverage_case(gen, dev, dtype, D, variant):
+    """q, k, v, dO and the keyword arguments of one generic-kernel case:
+    pad (batch rows whole, ragged and empty), causal (S=200 against T=300,
+    bottom-right), window128 (and a padding mask), segments (three
+    segments, then padding), gqa (Hkv = H / 4, and a padding mask) and
+    rotary (fused partial rotary over a quarter of the head, NeoX, GPT-J
+    pairs at D = 88, and a padding mask)."""
+    import torch
+
+    from contrastors_tpu_torch.layers.rotary import rotary_cos_sin
+
+    B, S, H = 3, 300, 8
+    dt = _torch_dtype(dtype)
+    Sq, T = (200, S) if variant == "causal" else (S, S)
+    Hkv = H // 4 if variant == "gqa" else H
+    q = torch.randn(B, Sq, H, D, generator=gen, device=dev).to(dt)
+    k, v = (torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(dt) for _ in range(2))
+    dout = torch.randn(B, Sq, H, D, generator=gen, device=dev).to(dt)
+    kw = dict(causal=variant == "causal", window=128 if variant == "window128" else 0)
+    if variant in ("pad", "window128", "gqa", "rotary"):
+        lens = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
+        lens[0] = T
+        if variant == "pad":
+            lens[-1] = 0
+        kw["attention_mask"] = (torch.arange(T, device=dev)[None] < lens[:, None]).int()
+    if variant == "segments":
+        seg = torch.zeros(B, S, dtype=torch.int32, device=dev)
+        seg[:, :100], seg[:, 100:200], seg[:, 200:260] = 1, 2, 3
+        kw["segment_ids"] = seg
+    if variant == "rotary":
+        rot_dim = D // 4 // 2 * 2
+        kw["rotary_cos"], kw["rotary_sin"] = rotary_cos_sin(S, rot_dim, device=dev)
+        kw["rotary_interleaved"] = D == 88
+    return q, k, v, dout, kw
+
+
+def generic_flash_errors(dtype, out, ref_out, lse, ref_lse, grads=(), refs=()):
+    """The generic flash kernels' errors against their plain versions: ({o,
+    dq, dk, dv: error over its bar}, LSE max abs error, whether the LSE is
+    within its bar, {fwd, dq, dkv: max abs error}). fp32: max |out - ref| /
+    (FP32_REL * max |ref|), the LSE within FP32_LSE_ATOL; bf16: the Hopper
+    kernels' error model (`output_error_ratio`, `grad_error_ratio`), the LSE
+    within LSE_ATOL. grads and refs: (dq, dk, dv) or empty."""
+    from contrastors_tpu_torch.ops import flash_attention as fa
+
+    names = ("dq", "dk", "dv")[:len(grads)]
+    if dtype == "fp32":
+        over = dict(o=fa.max_rel_error(out, ref_out) / fa.FP32_REL,
+                    **{n: fa.max_rel_error(g, r) / fa.FP32_REL for g, r, n in zip(grads, refs, names)})
+    else:
+        over = dict(o=fa.output_error_ratio(out, ref_out),
+                    **{n: fa.grad_error_ratio(g, r, n) for g, r, n in zip(grads, refs, names)})
+    lse_err = (lse - ref_lse).abs().max().item()
+    lse_ok = lse_err <= (fa.FP32_LSE_ATOL if dtype == "fp32" else fa.LSE_ATOL)
+    diffs = [(a.float() - b.float()).abs().max().item() for a, b in zip((out, *grads), (ref_out, *refs))]
+    abs_err = dict(fwd=diffs[0])
+    if grads:
+        abs_err.update(dq=diffs[1], dkv=max(diffs[2:]))
+    return over, lse_err, lse_ok, abs_err
+
+
+def generic_flash_bar(dtype):
+    from contrastors_tpu_torch.ops import flash_attention as fa
+
+    if dtype == "fp32":
+        return "max|out - ref| <= %g * max|ref|, LSE within %g" % (fa.FP32_REL, fa.FP32_LSE_ATOL)
+    return "output_error_ratio / grad_error_ratio <= 1, LSE within %g" % fa.LSE_ATOL
+
+
+def coverage_kernel_checks(dev, gen):
+    """Phase coverage_kernel_check: the generic forward, dq and dk/dv
+    (csrc/flash_generic.cu) against their plain versions in every
+    (dtype, head dim) of COVERAGE_DIMS and mask variant of
+    COVERAGE_VARIANTS, each routed to the generic kernels (their launch
+    counts, and none of the Hopper kernels') and bit-identical on a second
+    run. fp32: max |out - ref| <= FP32_REL * max |ref| for O, dq, dk and dv,
+    the LSE within FP32_LSE_ATOL; bf16: the Hopper kernels' error model
+    (`output_error_ratio`, `grad_error_ratio` <= 1, the LSE within
+    LSE_ATOL); dq exactly 0 on the empty row. Returns ({kernel: worst error
+    over its bar}, {kernel: max abs error})."""
+    import torch
+
+    from contrastors_tpu_torch.ops import flash_attention as fa
+
+    worst, abs_err = dict(fwd=0.0, dq=0.0, dkv=0.0), dict(fwd=0.0, dq=0.0, dkv=0.0)
+    for dtype, D in COVERAGE_DIMS:
+        for variant in COVERAGE_VARIANTS:
+            q, k, v, dout, kw = coverage_case(gen, dev, dtype, D, variant)
+            reset_counts()
+            out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            again = fa.flash_attention_fwd(q, k, v, **kw)
+            grads = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+            grads_again = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+            refs = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw)
+            over, lse_err, lse_ok, errs = generic_flash_errors(dtype, out, ref_out, lse, ref_lse, grads, refs)
+            deterministic = (torch.equal(out, again[0]) and torch.equal(lse, again[1])
+                             and all(torch.equal(a, b) for a, b in zip(grads, grads_again)))
+            finite = all(bool(torch.isfinite(x.float()).all()) for x in (out, *grads))
+            routed = launches == expect(True, fwd=2, dq=2, dkv=2)
+            ok = max(over.values()) <= 1.0 and lse_ok and deterministic and finite and routed
+            if variant == "pad":
+                ok = ok and bool((grads[0][-1] == 0).all()) and bool((out[-1] == 0).all())
+            worst["fwd"] = max(worst["fwd"], over["o"])
+            worst["dq"] = max(worst["dq"], over["dq"])
+            worst["dkv"] = max(worst["dkv"], over["dk"], over["dv"])
+            for kname, d in errs.items():
+                abs_err[kname] = max(abs_err[kname], d)
+            emit(phase="coverage_kernel_check", dtype=dtype, D=D, variant=variant, q=list(q.shape),
+                 k=list(k.shape), err_over_bar=over, lse_max_abs_err=lse_err, bar=generic_flash_bar(dtype),
+                 launches={n: c for n, c in launches.items() if c}, deterministic=deterministic, ok=ok)
+            if not ok:
+                raise AssertionError(f"generic flash kernels: {dtype} D={D} {variant} failed its bars, its route "
+                                     f"or its determinism")
+            del q, k, v, dout, out, lse, again, grads, grads_again, ref_out, ref_lse, refs
+    torch.cuda.empty_cache()
+    return worst, abs_err
+
+
+def coverage_gmm_checks(dev):
+    """Phase coverage_kernel_check_gmm: the generic gmm, dlhs (gmm on the
+    rhs.transpose(1, 2) view) and tgmm (csrc/gmm_generic.cu) against their
+    plain versions on the MoE document chunk's layout (an empty expert, one
+    of exactly 128 rows, inactive trailing blocks) at the COVERAGE_GMM
+    widths and dtypes, through the public `gmm` and its autograd backward:
+    routed to the generic kernels (2 gmm + 1 tgmm launches), padding rows
+    and the empty expert exactly 0, bit-identical on a second run; fp32
+    within FP32_REL * max |ref|, bf16 at `error_ratio` <= 1. Returns
+    ({kernel: worst error over its bar}, {kernel: max abs error},
+    {(dtype, K, N): operands} for the timing, {(dtype, K, N): (errors over
+    their bars, max abs errors)})."""
+    import torch
+
+    from contrastors_tpu_torch.ops import grouped_matmul as gm
+
+    worst, abs_err, operands, cases = dict(gmm=0.0, tgmm=0.0), dict(gmm=0.0, tgmm=0.0), {}, {}
+    for dtype, layout, K, N in COVERAGE_GMM:
+        gs, P, pad, blk_e, act = moe_layout(dev, dict(MOE_LAYOUTS)[layout], seed=1)
+        lhs, rhs, dout = gmm_operands(dev, P, K, N, pad, seed=K + 2, dtype=_torch_dtype(dtype))
+
+        def run():
+            leaves = [lhs.detach().requires_grad_(), rhs.detach().requires_grad_()]
+            out = gm.gmm(*leaves, gs)
+            return (out, *torch.autograd.grad(out, leaves, dout))
+
+        reset_counts()
+        got = run()
+        again = run()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        refs = (gm.gmm_reference(lhs, rhs, gs), gm.gmm_reference(dout, rhs.transpose(1, 2), gs),
+                gm.tgmm_reference(lhs, dout, gs))
+        if dtype == "fp32":
+            over = {n: gm.max_rel_error(g, r) / gm.FP32_REL for g, r, n in zip(got, refs, ("gmm", "dlhs", "tgmm"))}
+        else:
+            over = {n: gm.error_ratio(g, r) for g, r, n in zip(got, refs, ("gmm", "dlhs", "tgmm"))}
+        zero = (bool((got[0][pad] == 0).all()) and bool((got[1][int(gs.sum()):] == 0).all())
+                and all(bool((got[2][e] == 0).all()) for e in range(gs.shape[0]) if int(gs[e]) == 0))
+        deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+        routed = launches == expect(True, gmm=4, tgmm=2)
+        ok = max(over.values()) <= 1.0 and zero and deterministic and routed and all(
+            bool(torch.isfinite(x.float()).all()) for x in got)
+        worst["gmm"] = max(worst["gmm"], over["gmm"], over["dlhs"])
+        worst["tgmm"] = max(worst["tgmm"], over["tgmm"])
+        diffs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, refs)]
+        case_abs = dict(gmm=max(diffs[0], diffs[1]), tgmm=diffs[2])
+        for kname, d in case_abs.items():
+            abs_err[kname] = max(abs_err[kname], d)
+        cases[(dtype, K, N)] = (dict(gmm=max(over["gmm"], over["dlhs"]), tgmm=over["tgmm"]), case_abs)
+        emit(phase="coverage_kernel_check_gmm", dtype=dtype, layout=layout, P=P, K=K, N=N,
+             group_sizes=gs.tolist(), err_over_bar=over, padding_and_empty_expert_zero=zero,
+             deterministic=deterministic, launches={n: c for n, c in launches.items() if c},
+             bar=("max|out - ref| <= %g * max|ref|" % gm.FP32_REL if dtype == "fp32"
+                  else "%g*|ref| + %g*max|ref|" % (gm.REL, gm.ABS_FRAC)), ok=ok)
+        if not ok:
+            raise AssertionError(f"generic grouped-matmul kernels: {dtype} K={K} N={N} failed its bars, its route "
+                                 f"or its determinism")
+        operands[(dtype, K, N)] = (lhs, rhs, dout, gs, P, blk_e, act)
+        del got, again, refs
+    torch.cuda.empty_cache()
+    return worst, abs_err, operands, cases
+
+
+# the generic flash kernels at the shapes the main path gives them, each
+# held against its plain version and timed: (label, B, S, H, D, dtype, mask
+# form, shortest row, with the backward). The fp32 pretrain and MoE steps'
+# document chunk (the steps' all-ones mask); the fp32 encode CLI's batch (a
+# padding mask, passed as it is at 512 keys); pythia-1b's serving batch and
+# its step's document call (causal, the padding mask in the dispatch's form
+# below 512 keys: query ids 1, the mask as kv ids; rows as long as the
+# texts' and the documents'). Then, for their time, two bf16 shapes that ran
+# SDPA before the generic kernels took them: ViT-H/14 (16 heads of 80) and
+# ViT-g/14 (16 of 88) at 64 x 257, unmasked.
+COVERAGE_FLASH_SHAPES = (("fp32_doc_chunk", 16, 256, 12, 64, "fp32", "ones", 256, True),
+                         ("fp32_encode", INFER_BATCH, INFER_SEQ, 12, 64, "fp32", "mask", 8, False),
+                         ("pythia1b_serving_bf16", 64, 128, 8, 256, "bf16", "dispatch", 8, False),
+                         ("pythia1b_step_docs_bf16", 128, 128, 8, 256, "bf16", "dispatch", 32, True),
+                         ("vith14_bf16", 64, 257, 16, 80, "bf16", "none", 257, False),
+                         ("vitg14_bf16", 64, 257, 16, 88, "bf16", "none", 257, False))
+COVERAGE_PATH_SHAPES = 4  # the first four are on phase 26's path
+
+
+def coverage_flash_inputs(gen, dev, B, S, H, D, dtype, form, lo):
+    """q, k, v, dO, the entry points' keyword arguments, the row lengths
+    (None: every row full) and SDPA's boolean mask (None: none) of one of
+    COVERAGE_FLASH_SHAPES."""
+    import torch
+
+    q, k, v, dout = (torch.randn(B, S, H, D, generator=gen, device=dev).to(_torch_dtype(dtype)) for _ in range(4))
+    if form in ("ones", "none"):
+        kw = dict(attention_mask=torch.ones(B, S, dtype=torch.int32, device=dev)) if form == "ones" else {}
+        return q, k, v, dout, kw, None, None
+    lens = torch.randint(lo, S + 1, (B,), generator=gen, device=dev)
+    lens[0] = S
+    mask = (torch.arange(S, device=dev)[None] < lens[:, None]).int()
+    keep = mask.bool()[:, None, None, :]
+    if form == "mask":
+        kw = dict(attention_mask=mask)
+    else:
+        kw = dict(causal=True, segment_ids=torch.ones(B, S, dtype=torch.int32, device=dev), kv_segment_ids=mask)
+        keep = keep & torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    return q, k, v, dout, kw, lens.tolist(), keep
+
+
+def coverage_flash_shapes(dev, card, gen):
+    """Phase coverage_kernel_shapes: the generic forward, dq and dk/dv at
+    COVERAGE_FLASH_SHAPES through the public entry points (one launch each
+    and none of the Hopper kernels'), held against their plain versions on
+    the same inputs at the bars of `generic_flash_errors`, then timed: ms
+    and device_ms beside the bound (at the operands' type: PEAK_FP32_FLOPS
+    for fp32), the plain version's ms and SDPA's (for dq and dk/dv, forward
+    + backward minus forward; both time a whole backward). Returns {label:
+    {kernel: row}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from contrastors_tpu_torch.ops import flash_attention as fa
+
+    rows = {}
+    for label, B, S, H, D, dtype, form, lo, backward in COVERAGE_FLASH_SHAPES:
+        q, k, v, dout, kw, lens, keep = coverage_flash_inputs(gen, dev, B, S, H, D, dtype, form, lo)
+        reset_counts()
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        grads = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw) if backward else ()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+        refs = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw) if backward else ()
+        over, lse_err, lse_ok, abs_err = generic_flash_errors(dtype, out, ref_out, lse, ref_lse, grads, refs)
+        routed = launches == (expect(True, fwd=1, dq=1, dkv=1) if backward else expect(True, fwd=1))
+        finite = all(bool(torch.isfinite(x.float()).all()) for x in (out, *grads))
+        ok = max(over.values()) <= 1.0 and lse_ok and routed and finite
+        del ref_out, ref_lse, refs, grads
+        elem, peak = (4, PEAK_FP32_FLOPS) if dtype == "fp32" else (2, PEAK_BF16_FLOPS)
+        band = dict(causal=True, all_rows=True) if form == "dispatch" else {}
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
+
+        b_ms, b_by, flops, nbytes = attention_bound(B, S, S, H, H, D, lens, elem=elem, peak=peak, **band)
+        run = lambda: fa.flash_attention_fwd(q, k, v, **kw)  # noqa: E731
+        row = dict(fwd=dict(ms=median_ms(run), device_ms=median_ms(run, queued=True), bound_ms=b_ms, bound_by=b_by,
+                            flops=flops, bytes=nbytes,
+                            plain_ms=median_ms(lambda: fa.flash_attention_reference(q, k, v, **kw), runs=3, warmup=1),
+                            library_ms=median_ms(sdpa), library_device_ms=median_ms(sdpa, queued=True),
+                            err_over_bar=over["o"], max_abs_err=abs_err["fwd"]))
+        if backward:
+            seg_q, seg_kv = fa.merge_segments(B, S, S, kw.get("attention_mask"), kw.get("segment_ids"),
+                                              kw.get("kv_segment_ids"), dev)
+            inputs = fa.prepare_backward(q, k, v, out, lse, dout, seg_q, seg_kv)
+            args = (kw.get("causal", False), 0, 0, 1.0 / D**0.5)
+            launchers = dict(dq=lambda: fa.launch_bwd_dq(*inputs, *args),
+                             dkv=lambda: fa.launch_bwd_dkv(*inputs, *args))
+            launchers["dq"]()  # delta for dk/dv
+            dot = dout.transpose(1, 2)
+
+            def sdpa_fwd_bwd():
+                return torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+            plain_bwd = median_ms(lambda: fa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw),
+                                  runs=3, warmup=1)
+            lib_bwd = median_ms(sdpa_fwd_bwd) - row["fwd"]["library_ms"]
+            lib_bwd_dev = median_ms(sdpa_fwd_bwd, queued=True) - row["fwd"]["library_device_ms"]
+            for kname, launch in launchers.items():
+                k_ms, k_by, k_flops, k_bytes = backward_bound(kname, B, S, S, H, H, D, lens, elem=elem, peak=peak,
+                                                              **band)
+                row[kname] = dict(ms=median_ms(launch), device_ms=median_ms(launch, queued=True), bound_ms=k_ms,
+                                  bound_by=k_by, flops=k_flops, bytes=k_bytes, plain_ms=plain_bwd,
+                                  library_ms=lib_bwd, library_device_ms=lib_bwd_dev,
+                                  err_over_bar=over["dq"] if kname == "dq" else max(over["dk"], over["dv"]),
+                                  max_abs_err=abs_err[kname])
+        rows[label] = row
+        emit(phase="coverage_kernel_shapes", card=card, gpu_state=gpu_state(), shape=label, dtype=dtype, B=B, S=S,
+             H=H, D=D, form=form, on_path=label in {c[0] for c in COVERAGE_FLASH_SHAPES[:COVERAGE_PATH_SHAPES]},
+             err_over_bar=over, lse_max_abs_err=lse_err, bar=generic_flash_bar(dtype),
+             launches={n: c for n, c in launches.items() if c}, **row,
+             note="fwd: flash_attention_fwd (the generic forward); dq, dkv: the kernels alone, their plain_ms and "
+                  "library_ms whole backwards (the library's: SDPA forward + backward minus forward)", ok=ok)
+        if not ok:
+            raise AssertionError(f"generic flash kernels at {label}: bars, route or finiteness failed")
+        del q, k, v, dout, out, lse, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def coverage_gmm_timing(card, operands):
+    """Phase coverage_kernel_timing: the generic gmm and tgmm at the fp32
+    MoE step's document chunk (K 768, N 3072): ms and device_ms beside the
+    bound at fp32's rate, the plain version's ms and the library's
+    (torch._grouped_mm or a per-expert torch.matmul loop). Returns {kernel:
+    row}."""
+    from contrastors_tpu_torch.ops import grouped_matmul as gm
+
+    lhs, rhs, dout, gs, P, blk_e, act = operands
+    active_rows, nonempty = int(gs.sum()), int((gs > 0).sum())
+    rows = {}
+    for kname, run, plain, lib in (
+            ("gmm", lambda: gm.launch_gmm(lhs, rhs, blk_e, act), lambda: gm._gmm_plain(lhs, rhs, blk_e, act, 128),
+             ("gmm", lhs, rhs)),
+            ("tgmm", lambda: gm.launch_tgmm(lhs, dout, gs), lambda: gm.tgmm_reference(lhs, dout, gs, 128),
+             ("tgmm", lhs, dout))):
+        lib_fn, lib_label = library_grouped_mm(*lib, gs)
+        b_ms, b_by, flops, nbytes = gmm_bound(kname, active_rows, P, 768, 3072, nonempty, elem=4,
+                                              peak=PEAK_FP32_FLOPS)
+        rows[kname] = dict(ms=median_ms(run), device_ms=median_ms(run, queued=True), bound_ms=b_ms, bound_by=b_by,
+                           flops=flops, bytes=nbytes, plain_ms=median_ms(plain, runs=3, warmup=1),
+                           library_ms=median_ms(lib_fn, runs=5, warmup=2),
+                           library_device_ms=median_ms(lib_fn, queued=True), library=lib_label)
+        emit(phase="coverage_kernel_timing", card=card, gpu_state=gpu_state(), kernel=kname, dtype="fp32",
+             layout="doc_chunk", P=P, active_rows=active_rows, K=768, N=3072, **rows[kname])
+    return rows
+
+
+def coverage_pretrain_fp32(dev, card, root):
+    """configs/train/contrastive_pretrain.yaml through the port's read_config
+    and train.run at --dtype fp32 (nomic-bert-2048 at full width, random
+    weights; cut as phase 17 cuts it: 512 pairs, chunk 16, every query chunk
+    direct, in-memory pairs; COVERAGE_STEPS steps, warmup 2, no checkpoint,
+    no eval). Gates: per step the generic kernels' launches as the bare step
+    makes them (the Hopper kernels' count in phase 17) and none of the
+    Hopper kernels'; losses finite, the last below the first; the first
+    step's gradient at cosine >= COVERAGE_GRAD_COSINE against the same step
+    on attn_impl="sdpa" in fp32 (one step of the same recipe). Returns the
+    row."""
+    import gc
+
+    import torch
+
+    from contrastors_tpu_torch.read import read_config
+
+    paths = write_trainer_inputs(os.path.join(root, "pretrain"))
+    raw = read_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "train",
+                                   "contrastive_pretrain.yaml")).to_dict()
+    raw["train_args"].update(num_train_steps=COVERAGE_STEPS, warmup_steps=2, save_every=0, log_lr_every=COVERAGE_STEPS,
+                             output_dir="", grad_cache_direct_chunks_q=-1, chunk_size=CHUNK)
+    raw["model_args"].update(model_name=paths["model_dir"], pretrained=False)
+    raw["data_args"].update(batch_size=PAIRS, input_shards=paths["pairs"], streaming=False)
+    n_layer = NOMIC_BERT_2048_CONFIG["n_layer"]
+    expected = expect(True, fwd=n_layer * (1 + 2 * PAIRS // CHUNK), dq=n_layer * (1 + PAIRS // CHUNK),
+                      dkv=n_layer * (1 + PAIRS // CHUNK))
+    cls = first_grads_class(chip_trainer_class())
+    trainer, rows, seconds, launches, _ = run_chip_trainer(raw, dev, cls, "fp32")
+    flash_grads = trainer.first_grads
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    sdpa_raw = json.loads(json.dumps(raw))
+    sdpa_raw["train_args"]["num_train_steps"] = 1
+    sdpa_raw["model_args"]["attn_impl"] = "sdpa"
+    trainer, sdpa_rows, _, sdpa_launches, _ = run_chip_trainer(sdpa_raw, dev, cls, "fp32")
+    sdpa_grads = trainer.first_grads
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    names = sorted(sdpa_grads)
+    x = torch.cat([flash_grads[n].flatten().double() for n in names])
+    y = torch.cat([sdpa_grads[n].flatten().double() for n in names])
+    cosine = (x @ y).item() / (x.norm() * y.norm()).item()
+    per_tensor = compare_grads(flash_grads, sdpa_grads)
+    losses = [r["loss"] for r in rows]
+    checks = dict(launches_per_step=all(r["launches"] == expected for r in rows),
+                  finite=bool(np.isfinite(losses).all()), loss_falls=losses[-1] < losses[0],
+                  first_step_loss_equals_sdpa_run=abs(sdpa_rows[0]["loss"] - losses[0]) <= 1e-4 * abs(losses[0]),
+                  sdpa_run_no_flash=sdpa_launches == expect(),
+                  first_grad_cosine=cosine >= COVERAGE_GRAD_COSINE)
+    row = dict(recipe="configs/train/contrastive_pretrain.yaml", dtype="fp32", pairs=PAIRS, chunk=CHUNK,
+               steps=COVERAGE_STEPS, expected_launches=expected, launches_per_step=[r["launches"] for r in rows],
+               losses=losses, sdpa_first_loss=sdpa_rows[0]["loss"], first_grad_cosine=cosine,
+               first_grad_per_tensor=per_tensor, step_ms=[r["iteration_ms"] for r in rows], seconds=seconds)
+    emit(phase="coverage_fp32_pretrain", card=card, gpu_state=gpu_state(), **row, threshold=COVERAGE_GRAD_COSINE,
+         checks=checks, ok=all(checks.values()))
+    if not all(checks.values()):
+        raise AssertionError(f"fp32 pretrain: {[k for k, v in checks.items() if not v]} failed")
+    return row
+
+
+def coverage_encode_fp32(dev, card, root):
+    """The encode CLI's function at --dtype fp32: `load_encoder_model(dir,
+    "mean", "fp32")` (as scripts/encode.py:main loads the checkpoint) and
+    `encode_texts` on COVERAGE_SERVING_TEXTS texts at 256 x 512 from
+    seeded nomic-bert-2048 weights: 12 generic forward launches a batch and
+    none of the Hopper kernels', no sdpa call, finite unit-norm rows at
+    cosine >= COVERAGE_SERVING_COSINE against the same checkpoint under
+    attn_impl="sdpa" in fp32. Returns the row."""
+    import torch
+
+    from contrastors_tpu_torch.config import ModelArgs
+    from contrastors_tpu_torch.eval.encoder import Encoder, load_encoder_model
+    from contrastors_tpu_torch.eval.stub_tokenizer import StubTokenizer
+    from contrastors_tpu_torch.models.auto import load_biencoder
+    from contrastors_tpu_torch.scripts.encode import encode_texts
+
+    model_dir = os.path.join(root, "nomic-bert-2048-fp32")
+    write_family_checkpoint(model_dir, "nomic", NOMIC_BERT_2048_CONFIG, seed=26)
+    model, cfg = load_encoder_model(model_dir, "mean", "fp32", dev)
+    tok = StubTokenizer(cfg.vocab_size)
+    texts = make_texts(np.random.default_rng(26), COVERAGE_SERVING_TEXTS, 8, INFER_SEQ - 1)
+    args = dict(seq_len=INFER_SEQ, batch_size=INFER_BATCH)
+    sdpa_calls = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    with counted_sdpa(sdpa_calls):
+        embs = encode_texts(model, tok, texts, **args)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    del model
+    ref_model, _ = load_biencoder(ModelArgs.from_dict(dict(model_type="encoder", model_name=model_dir,
+                                                           pooling="mean", attn_impl="sdpa")),
+                                  dtype=torch.float32, device=dev)
+    ref = Encoder(ref_model.eval(), tok, **args).encode(texts)
+    del ref_model
+    torch.cuda.empty_cache()
+    batches = -(-COVERAGE_SERVING_TEXTS // INFER_BATCH)
+    cos = min_row_cosine(embs, ref)
+    norms = np.linalg.norm(embs, axis=-1)
+    ok = (launches == expect(True, fwd=cfg.n_layer * batches) and sdpa_calls["calls"] == 0
+          and embs.shape == (COVERAGE_SERVING_TEXTS, cfg.n_embd) and bool(np.isfinite(embs).all())
+          and float(np.abs(norms - 1).max()) < 1e-4 and cos >= COVERAGE_SERVING_COSINE)
+    row = dict(texts=COVERAGE_SERVING_TEXTS, batch=INFER_BATCH, seq_len=INFER_SEQ, dtype="fp32", batches=batches,
+               launches=launches, sdpa_calls=sdpa_calls["calls"], min_cosine_vs_sdpa_fp32=cos,
+               encode_s=seconds, texts_per_s=COVERAGE_SERVING_TEXTS / seconds)
+    emit(phase="coverage_fp32_encode", card=card, gpu_state=gpu_state(), **row,
+         threshold=COVERAGE_SERVING_COSINE, ok=ok)
+    if not ok:
+        raise AssertionError("fp32 encode: launches, sdpa calls, norms or agreement with sdpa failed")
+    return row
+
+
+def coverage_phase(dev, card, gen):
+    """Phase 26: the paths the generic kernels open, at full width through
+    the normal entry points, after their kernel checks (the mask variants,
+    then the main path's own shapes, timed): (a) the pretrain recipe and the
+    encode CLI at fp32, (b) the MoE recipe at fp32
+    (contrastive_finetune_moe.yaml on nomic-bert-2048 upcycled to 8
+    experts, cut as phase 20 cuts it, COVERAGE_STEPS steps: the generic gmm
+    / tgmm, no gmm.cu launch), (c) pythia-1b (head dim 256) serving 64 x
+    128 with last pooling and 3 steps of contrastive_finetune_decoder.yaml
+    in bf16, with no sdpa call on the flash path. Then gmm / tgmm timed.
+    Returns the rows."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    out = dict(zip(("err_over_bar", "max_abs_err"), coverage_kernel_checks(dev, gen)))
+    gmm_over, gmm_abs, operands, out["gmm_cases"] = coverage_gmm_checks(dev)
+    out["err_over_bar"].update(gmm_over)
+    out["max_abs_err"].update(gmm_abs)
+    out["flash_shapes"] = coverage_flash_shapes(dev, card, gen)
+    root = tempfile.mkdtemp(prefix="chip_smoke_coverage_")
+    try:
+        out["fp32_pretrain"] = coverage_pretrain_fp32(dev, card, root)
+        out["fp32_encode"] = coverage_encode_fp32(dev, card, root)
+        dense_dir = os.path.join(root, "nomic-bert-2048")
+        dense_sd = write_family_checkpoint(dense_dir, "nomic", NOMIC_BERT_2048_CONFIG, seed=21)
+        out["fp32_moe"] = family_training(dev, card, "moe", dense_dir, dense_sd=dense_sd, dtype="fp32", generic=True,
+                                          steps=COVERAGE_STEPS, batch=COVERAGE_MOE_BATCH, phase="coverage_fp32_moe")
+        del dense_sd
+        shutil.rmtree(dense_dir)
+        py_dir = os.path.join(root, "pythia-1b")
+        # 1B weights: drawn on the card and stored in bf16, which halves the file the three loads read
+        write_family_checkpoint(py_dir, "pythia", PYTHIA_1B_CONFIG, seed=27, dtype=torch.bfloat16, device=dev)
+        out["pythia_1b_serving"] = family_serving(dev, card, "pythia_1b", py_dir, 128, "last", n_texts=64,
+                                                  generic=True)
+        out["pythia_1b_training"] = family_training(dev, card, "pythia_1b", py_dir, generic=True,
+                                                    steps=COVERAGE_STEPS)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["gmm_timing"] = coverage_gmm_timing(card, operands[("fp32", 768, 3072)])
+    del operands
+    emit(phase="coverage", card=card, ok=True, err_over_bar=out["err_over_bar"], max_abs_err=out["max_abs_err"],
+         launches={k: v.get("launches_per_step", v.get("launches_per_batch", v.get("launches")))
+                   for k, v in out.items() if k.startswith(("fp32_", "pythia_1b_"))})
+    return out
+
+
+def generic_entries(coverage):
+    """The kernels line's rows of the five generic kernels (phase 26):
+    launches per step of the fp32 pretrain step (flash) and of the fp32 MoE
+    step (gmm, tgmm), with pythia-1b's beside them; timing, max_abs_err and
+    err_over_bar at the fp32 step's shapes, the worst of the main path's
+    shapes as max_abs_err and err_over_bar, each shape's row under
+    `shapes`, and the mask-variant checks' worst as coverage_*."""
+    pick = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")
+    shapes = coverage["flash_shapes"]
+    on_path = [c[0] for c in COVERAGE_FLASH_SHAPES[:COVERAGE_PATH_SHAPES]]
+    rows = []
+    for kname, name, source, replaces in (
+            ("fwd", "flash_generic_fwd", "flash_generic.cu", ["contrastors_tpu/ops/flash_attention.py:225",
+                                                               "contrastors_tpu/ops/flash_attention.py:115"]),
+            ("dq", "flash_generic_dq", "flash_generic.cu", ["contrastors_tpu/ops/flash_attention.py:422"]),
+            ("dkv", "flash_generic_dkv", "flash_generic.cu", ["contrastors_tpu/ops/flash_attention.py:512"]),
+            ("gmm", "gmm_generic", "gmm_generic.cu", ["contrastors_tpu/ops/grouped_matmul.py:75"]),
+            ("tgmm", "tgmm_generic", "gmm_generic.cu", ["contrastors_tpu/ops/grouped_matmul.py:125"])):
+        counter = GENERIC[kname]
+        if kname in ("gmm", "tgmm"):
+            row = coverage["gmm_timing"][kname]
+            over, abs_err = (d[kname] for d in coverage["gmm_cases"][("fp32", 768, 3072)])
+            launches = coverage["fp32_moe"]["launches_per_step"][counter]
+            extra = dict(shape="fp32, the MoE document chunk's layout (16384 assignments, 8 experts), K=768 N=3072",
+                         library=row["library"])
+        else:
+            row = shapes["fp32_doc_chunk"][kname]
+            path = [shapes[label][kname] for label in on_path if kname in shapes[label]]
+            over, abs_err = max(r["err_over_bar"] for r in path), max(r["max_abs_err"] for r in path)
+            launches = coverage["fp32_pretrain"]["launches_per_step"][0][counter]
+            extra = dict(shape="fp32 B=16 S=T=256 H=12 D=64, the steps' all-ones mask (the fp32 pretrain step's "
+                               "document chunk)",
+                         pythia_1b_launches_per_step=coverage["pythia_1b_training"]["launches_per_step"][counter],
+                         shapes={label: {k: r[kname][k] for k in pick + ("err_over_bar", "max_abs_err")}
+                                 for label, r in shapes.items() if kname in r})
+            if kname == "fwd":
+                extra.update(fp32_encode_launches=coverage["fp32_encode"]["launches"][counter],
+                             pythia_1b_serving_launches=coverage["pythia_1b_serving"]["launches_per_batch"][counter])
+            else:
+                extra["note"] = "plain_ms and library_ms time a whole backward (dq, dk and dv)"
+        rows.append(dict(name=name, route="cuda", source=f"contrastors_tpu_torch/ops/csrc/{source}",
+                         replaces=replaces[0], also_replaces=replaces[1:], launches=launches,
+                         fp32_moe_launches_per_step=coverage["fp32_moe"]["launches_per_step"][counter],
+                         max_abs_err=abs_err, err_over_bar=over,
+                         coverage_max_abs_err=coverage["max_abs_err"][kname],
+                         coverage_err_over_bar=coverage["err_over_bar"][kname], **{k: row[k] for k in pick}, **extra))
+    return rows
+
+
 def finish(card, summary):
     """The run's ending: the command_time line, the card's line, the summary
     and the last line, these three as the contract gives them, without t."""
@@ -6898,7 +7609,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Drive the PyTorch / CUDA port on one NVIDIA GPU.")
     ap.add_argument("--only", choices=["moe_kernels", "moe", "flash_fwd", "flash_bwd", "dense", "trainer",
                                        "mlm_trainer", "vision", "families", "inference", "distributed", "knobs",
-                                       "parallel", "scripts"],
+                                       "parallel", "scripts", "coverage"],
                     help="run only the card, build and grouped-matmul phases (9), or (moe) also MoE "
                          "serving and the MoE step's timing and profile (10-12, no gradient agreement); "
                          "flash_fwd: the card, build, the forward checks (3, 13), the forward timing (6), "
@@ -6914,7 +7625,8 @@ def main(argv=None):
                          "check and phase 21; distributed: the card, build and phase 22; knobs: the card, "
                          "build and phase 23; parallel: the card, build, the local shapes' kernel checks of 3 "
                          "and 4 and phase 24; scripts: the card, build, the ViT shape's checks of 3 and 4 and "
-                         "phase 25")
+                         "phase 25; coverage: the card, build and phase 26 (the generic kernels' checks, the fp32 "
+                         "recipes and pythia-1b, the generic kernels' timing)")
     ap.add_argument("--tree", help="with --only: the root of another checkout whose contrastors_tpu_torch "
                                    "package is built and timed (an earlier commit, for old against new)")
     ap.add_argument("--dist-worker", metavar="SPEC", help=argparse.SUPPRESS)  # one rank of phase 22
@@ -7018,6 +7730,9 @@ def main(argv=None):
             summary["knobs_launches_per_step"] = knobs_phase(dev, card)
             summary["max_abs_err"] = dict(fwd=max(o_errs.values()), **{g: max(e.values()) for g, e in grad_errs.items()},
                                           fused=fused_errs)
+        elif args.only == "coverage":
+            coverage = coverage_phase(dev, card, gen)
+            summary["kernels"] = generic_entries(coverage)
         elif args.only == "scripts":
             o_errs = forward_checks(dev, gen, VIT_CASES)
             grad_errs = backward_checks(dev, gen, VIT_CASES)
@@ -7116,27 +7831,14 @@ def main(argv=None):
     del model_sdpa, model_sdpa_long, model_long, enc_long
     torch.cuda.empty_cache()
 
-    # 6. timing
+    # 6. the encode batch of 256 x 512 (its throughput is timed by the step bench since phase 26)
     texts_512 = make_texts(rng, 256, 512, 512, lognormal=False)
     enc.query_prefix = enc.document_prefix = None
-    host_ms = []
-    for i in range(8):
-        t0 = time.perf_counter()
-        e = enc.encode(texts_512)
-        if i >= 2:
-            host_ms.append((time.perf_counter() - t0) * 1e3)
+    e = enc.encode(texts_512)
     assert e.shape == (256, cfg.n_embd) and np.isfinite(e).all()
-    ids = torch.randint(1000, 30000, (256, 512), generator=gen, device=dev)
-    full = torch.ones(256, 512, dtype=torch.int64, device=dev)
-    with torch.inference_mode():
-        fwd_ms = median_ms(lambda: model(ids, full, normalize=False), runs=7)
-    enc_ms = float(np.median(host_ms))
-    emit(phase="encode_throughput", card=card, gpu_state=gpu_state(), batch=256, seq_len=512, encode_ms=enc_ms,
-         texts_per_s=256 / enc_ms * 1e3, tokens_per_s=256 * 512 / enc_ms * 1e3,
-         forward_ms=fwd_ms, forward_tokens_per_s=256 * 512 / fwd_ms * 1e3)
 
     # 14. fused-rotary encode: the same weights and texts with fused_rotary=True
-    launches_fused_enc = fused_encode(dev, card, model, tok, texts_512, e)
+    launches_fused_enc = fused_encode(dev, card, model, tok, texts_512, e, timing=False)
     del model, enc
     torch.cuda.empty_cache()
 
@@ -7150,10 +7852,10 @@ def main(argv=None):
     # 7. training at full width: the text GradCache step, after the dead-row
     # dispatch it runs through
     dead_row_check(dev, gen)
-    launches_train, dense_timing = dense_training(dev, card)
+    launches_train, _ = dense_training(dev, card, timing=False)
 
     # 17. the trainer entry point on the pretrain recipe, against the bare step
-    launches_trainer = trainer_phase(dev, card, bare_busy_ms=dense_timing["device_busy_ms"])
+    launches_trainer = trainer_phase(dev, card, timing=False)
 
     # 8. the backward kernels at the main-path shapes
     bwd_timings = backward_timing(dev, card, gen)
@@ -7177,7 +7879,7 @@ def main(argv=None):
     dist_launches = distributed_phase(dev, card)
 
     # 10-12. the dropless MoE path: serving and training
-    moe_enc_launches, moe_batches = moe_serving(dev, card, tok, rng, gen)
+    moe_enc_launches, moe_batches = moe_serving(dev, card, tok, rng, gen, timing=False)
     moe_train_launches = moe_training(dev, card)
 
     # 23. the training step's last single-card knobs: packing, capacity and expert-choice MoE, embed_parallel
@@ -7189,6 +7891,9 @@ def main(argv=None):
 
     # 25. DataComp at full width, the train-to-signal scripts, the vision ablation
     scripts_launches = scripts_phase(dev, card)
+
+    # 26. the generic kernels: fp32 training and serving, pythia-1b's head dim 256, gmm at any width
+    coverage = coverage_phase(dev, card, gen)
 
     main = timings["b256_s512"]
 
@@ -7381,7 +8086,7 @@ def main(argv=None):
              encode_launches=launches_fused_enc["fwd_rot"]),
         fused_entry("dq", "contrastors_tpu/ops/flash_attention.py:422", []),
         fused_entry("dkv", "contrastors_tpu/ops/flash_attention.py:512", []),
-    ]))
+    ] + generic_entries(coverage)))
 
 
 if __name__ == "__main__":

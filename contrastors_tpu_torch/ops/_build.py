@@ -75,6 +75,30 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # lhs, dout, group_sizes, out, M, K, N, E, lhs and dout row strides, stream
         "tgmm_bf16": ([_P] * 4 + [_I] * 4 + [_L] * 2 + [_P], _I),
     },
+    # the kernels for every other dtype and width (fp32 or bf16, dtype 0 / 1
+    # first), with the arguments of the Hopper kernels above
+    "flash_generic": {
+        "flash_generic_fwd": (
+            [_I] + [_P] * 7 + [_I] * 6 + [_L] * 9 + [_I] * 3 + [ctypes.c_float] + _ROTARY + [_P],
+            _I,
+        ),
+        "flash_generic_dq": (
+            [_I] + [_P] * 10 + [_I] * 6 + [_L] * 15 + [_I] * 3 + [ctypes.c_float] * 2 + _ROTARY + [_P],
+            _I,
+        ),
+        "flash_generic_dkv": (
+            [_I] + [_P] * 10 + [_I] * 6 + [_L] * 12 + [_I] * 3 + [ctypes.c_float] * 2 + _ROTARY + [_P],
+            _I,
+        ),
+    },
+    "gmm_generic": {
+        # dtype, lhs, rhs, blk_e, act, out, M, K, N, E, block_m, lhs row
+        # stride, rhs strides (expert, k, n), stream
+        "gmm_generic": ([_I] + [_P] * 5 + [_I] * 5 + [_L] * 4 + [_P], _I),
+        # dtype, lhs, dout, group_sizes, out, M, K, N, E, lhs and dout row
+        # strides, stream
+        "tgmm_generic": ([_I] + [_P] * 4 + [_I] * 4 + [_L] * 2 + [_P], _I),
+    },
 }
 # every library, in the order chip_smoke.py builds them (all at once)
 LIBRARIES = tuple(SIGNATURES)

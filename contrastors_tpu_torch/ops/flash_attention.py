@@ -42,6 +42,16 @@ in JAX). The plain versions follow the same arithmetic: rotate, then the
 plain forward; the plain backward on the rotated operands in fp32, the
 adjoint, then the cast.
 
+Routing (`flash_route`, from dtype, shape and strides alone): bf16 at a head
+dim of 64 or 128 with TMA-aligned operands (and a rotary dim that is a
+multiple of 16) goes to the Hopper kernels above; every other input the
+Pallas kernels take (fp32 or bf16, D % 8 == 0, D <= 256) goes to the three
+generic kernels of `csrc/flash_generic.cu` (`flash_generic_fwd`,
+`flash_generic_dq`, `flash_generic_dkv`: fp32 FMAs over shared-memory
+tiles, the same semantics, rotary a run-time choice). A head dim above 256
+raises. `flash_shape_ok` is JAX's rule: what it refuses (D < 64, D % 8 != 0)
+runs the plain `sdpa` in `attention_core`, as in JAX.
+
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor to the
 kernels, or the call raises. The call is a `torch.autograd.Function` whose
 backward runs the backward kernels (or, on a CPU tensor, their plain
@@ -60,7 +70,16 @@ from contrastors_tpu_torch.ops._build import load_library, ptr, stream
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634  # log2(e)
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128)  # the Hopper kernels' (bf16 only)
+GENERIC_MAX_HEAD_DIM = 256  # the generic kernels' limit: their tiles of D + 1 floats fill shared memory
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # the generic kernels' dtype argument
+# fp32 bars of the generic kernels against their plain versions (both
+# compute in fp32; only the order of sums and exp2's rounding differ):
+# max |out - ref| <= FP32_REL * max |ref| for O, dq, dk and dv, and the LSE
+# within FP32_LSE_ATOL
+FP32_REL = 1e-4
+FP32_LSE_ATOL = 1e-4
 # How far the kernel's bf16 O may lie from its plain version's, per element:
 # O_REL * |ref| (the two fp32 values may round to neighbouring bf16 values,
 # one ulp <= 2^-7 |x|) plus O_ABS_FRAC * max |ref| over the call (summation
@@ -88,6 +107,9 @@ launches_bwd_dkv = 0
 launches_rot = 0  # their fused-rotary variants
 launches_bwd_dq_rot = 0
 launches_bwd_dkv_rot = 0
+launches_generic = 0  # flash_generic_fwd, with or without rotary
+launches_generic_dq = 0
+launches_generic_dkv = 0
 
 
 class RotaryTables(NamedTuple):
@@ -102,9 +124,55 @@ class RotaryTables(NamedTuple):
 
 
 def flash_shape_ok(q: torch.Tensor, k: torch.Tensor) -> bool:
-    """Shapes the kernel takes: q heads an integer multiple of kv heads and
-    a head dim of 64 or 128."""
-    return q.shape[2] % k.shape[2] == 0 and q.shape[3] in KERNEL_HEAD_DIMS
+    """Shapes attention_core sends to the flash path, JAX's rule
+    (`contrastors_tpu/ops/flash_attention.py:62-68`): q heads an integer
+    multiple of kv heads and a head dim that is a multiple of 8, at least
+    64. A head dim above GENERIC_MAX_HEAD_DIM passes here and then raises
+    (`check_head_dim`)."""
+    return q.shape[2] % k.shape[2] == 0 and q.shape[3] % 8 == 0 and q.shape[3] >= 64
+
+
+def check_head_dim(D: int) -> None:
+    if D > GENERIC_MAX_HEAD_DIM:
+        raise ValueError(f"flash attention takes a head_dim of at most {GENERIC_MAX_HEAD_DIM} (the generic "
+                         f"kernels' limit, csrc/flash_generic.cu), got {D}")
+
+
+def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tensor, rot_dim: int = 0) -> str:
+    """The kernel that takes these operands on the card, from their dtype,
+    shape and strides alone: "hopper" (csrc/flash_fwd.cu, flash_bwd.cu) for
+    bf16 at a head dim in KERNEL_HEAD_DIMS with TMA-aligned operands
+    (`_aligned`) and a rotary dim (0: none) that is a multiple of 16, else
+    "generic" (csrc/flash_generic.cu). `more` are the backward's dO and O,
+    of q's shape. Raises TypeError / ValueError for what neither takes:
+    another dtype or mixed dtypes, a head dim that is not a multiple of 8 or
+    above GENERIC_MAX_HEAD_DIM, q heads not a multiple of kv heads."""
+    B, S, H, D = q.shape
+    xs = (q, k, v) + more
+    if q.dtype not in KERNEL_DTYPES or any(x.dtype != q.dtype for x in xs):
+        raise TypeError(f"flash kernels take float32 or bfloat16 operands of one dtype, got "
+                        f"{[x.dtype for x in xs]}")
+    check_head_dim(D)
+    if D % 8 or k.shape[3] != D or v.shape[3] != D:
+        raise ValueError(f"flash kernels take one head_dim, a multiple of 8, for q, k and v, got "
+                         f"{D}, {k.shape[3]}, {v.shape[3]}")
+    Hkv = k.shape[2]
+    if (Hkv == 0 or H % Hkv != 0 or v.shape[:3] != k.shape[:3] or k.shape[0] != B
+            or any(x.shape != q.shape for x in more)):
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if rot_dim % 2 or rot_dim > D:
+        raise ValueError(f"flash kernels take an even rotary dim of at most head_dim {D}, got {rot_dim}")
+    if (q.dtype == torch.bfloat16 and D in KERNEL_HEAD_DIMS and rot_dim % 16 == 0
+            and all(_aligned(x) for x in xs)):
+        return "hopper"
+    return "generic"
+
+
+def max_rel_error(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |out - ref| / max |ref|: the fp32 bar of the generic kernels is
+    this <= FP32_REL."""
+    out, ref = out.float(), ref.float()
+    return ((out - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
 
 
 def output_error_ratio(out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -258,17 +326,9 @@ def _reference_backward(q, k, v, out, lse, dout, seg_q, seg_kv, rot, *args):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_kernel_inputs(q, k, v):
-    B, S, H, D = q.shape
-    Hkv = k.shape[2]
-    if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
-        raise TypeError(f"flash kernel takes bfloat16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if D not in KERNEL_HEAD_DIMS or k.shape[3] != D or v.shape[3] != D:
-        raise ValueError(f"flash kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {D}")
-    if H % Hkv != 0 or v.shape[:3] != k.shape[:3] or k.shape[0] != B:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k and v must be on one device")
+def _check_devices(*xs):
+    if len({x.device for x in xs}) != 1:
+        raise ValueError("the flash kernels' operands must be on one device")
 
 
 def _aligned(x):
@@ -287,15 +347,16 @@ def _kernel_ids(seg_q, seg_kv, device):
 
 def _rot_args(rot, q, k):
     """The kernels' C rotary arguments (cos, sin, batch stride, rot_dim / 2,
-    interleaved); a NULL cos selects the variant without rotary."""
+    interleaved); a NULL cos selects the variant without rotary. The rotary
+    dim itself is checked by `flash_route` (a multiple of 16 selects the
+    Hopper kernels, any even one the generic kernels)."""
     if rot is None:
         return ptr(None), ptr(None), 0, 0, 0
     B, S, _, D = q.shape
     if k.shape[1] != S:
         raise ValueError(f"the fused-rotary kernels need S == T, got {S} and {k.shape[1]}")
-    if rot.rot_dim % 16 or not 0 < rot.rot_dim <= D:
-        raise ValueError(f"the fused-rotary kernels take a rotary dim that is a multiple of 16 "
-                         f"and at most head_dim {D}, got {rot.rot_dim}")
+    if not 0 < rot.rot_dim <= D:
+        raise ValueError(f"the fused-rotary kernels take a rotary dim of at most head_dim {D}, got {rot.rot_dim}")
     rows = -(-S // KERNEL_TILE) * KERNEL_TILE
     for t in (rot.cos, rot.sin):
         if (t.dtype != torch.float32 or not t.is_contiguous() or t.device != q.device
@@ -307,28 +368,41 @@ def _rot_args(rot, q, k):
     return ptr(rot.cos), ptr(rot.sin), sb, rot.rot_dim // 2, int(rot.interleaved)
 
 
+def _rot_dim(rot):
+    return 0 if rot is None else rot.rot_dim
+
+
 def _launch_kernel(q, k, v, seg_q, seg_kv, rot, causal, causal_offset, window, softmax_scale):
-    """Launch csrc/flash_fwd.cu (its fused-rotary variant when rot is given)
-    on the current stream. Returns (O, LSE)."""
-    global launches, launches_rot
-    _check_kernel_inputs(q, k, v)
+    """Launch the forward kernel the operands route to (`flash_route`) on
+    the current stream: csrc/flash_fwd.cu (its fused-rotary variant when rot
+    is given) or flash_generic_fwd of csrc/flash_generic.cu. Returns (O,
+    LSE)."""
+    global launches, launches_rot, launches_generic
+    _check_devices(q, k, v)
+    q, k, v = (x if _aligned(x) else x.contiguous() for x in (q, k, v))
+    route = flash_route(q, k, v, rot_dim=_rot_dim(rot))
     rot_args = _rot_args(rot, q, k)
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
-    q, k, v = (x if _aligned(x) else x.contiguous() for x in (q, k, v))
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     seg_q, seg_kv = _kernel_ids(seg_q, seg_kv, q.device)
-    err = load_library("flash_fwd").flash_fwd_bf16(
+    args = (
         ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), ptr(seg_q), ptr(seg_kv),
         B, S, T, H, Hkv, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         int(causal), int(causal_offset), int(window),
         ctypes.c_float(softmax_scale * LOG2E), *rot_args, stream(q),
     )
+    if route == "hopper":
+        err = load_library("flash_fwd").flash_fwd_bf16(*args)
+    else:
+        err = load_library("flash_generic").flash_generic_fwd(_DTYPE_CODE[q.dtype], *args)
     if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
-    if rot is None:
+        raise RuntimeError(f"flash forward ({route}) kernel launch failed: CUDA error {err}")
+    if route == "generic":
+        launches_generic += 1
+    elif rot is None:
         launches += 1
     else:
         launches_rot += 1
@@ -350,74 +424,91 @@ def _bwd_call(q, k, v, dout, causal, causal_offset, window, softmax_scale, rot, 
     )
 
 
-def launch_bwd_dq(q, k, v, dout, out, lse, delta, seg_q, seg_kv, causal, causal_offset, window,
+def launch_bwd_dq(q, k, v, dout, out, lse, delta, seg_q, seg_kv, route, causal, causal_offset, window,
                   softmax_scale, rot=None):
-    """Launch flash_bwd_dq of csrc/flash_bwd.cu (its fused-rotary variant
-    when rot is given) on prepared inputs (as `prepare_backward` prepares
-    them: aligned bf16 q/k/v/dout/out, contiguous fp32 lse and the delta
-    buffer [B, H, S], contiguous int32 ids or None). Writes delta =
+    """Launch the dq kernel of `route`: flash_bwd_dq of csrc/flash_bwd.cu
+    (its fused-rotary variant when rot is given) or flash_generic_dq of
+    csrc/flash_generic.cu, on prepared inputs (as `prepare_backward`
+    prepares them, given the same rot: q/k/v/dout/out of one dtype with a
+    unit stride over D, contiguous fp32 lse and the delta buffer [B, H, S],
+    contiguous int32 ids or None, and the route). Writes delta =
     rowsum(dO * O) into `delta`, for `launch_bwd_dkv`. Returns dq."""
-    global launches_bwd_dq, launches_bwd_dq_rot
+    global launches_bwd_dq, launches_bwd_dq_rot, launches_generic_dq
     B, S, H, D = q.shape
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    err = load_library("flash_bwd").flash_bwd_dq_bf16(
+    args = (
         ptr(q), ptr(k), ptr(v), ptr(dout), ptr(out), ptr(lse), ptr(delta), ptr(dq),
         ptr(seg_q), ptr(seg_kv),
         *_bwd_call(q, k, v, dout, causal, causal_offset, window, softmax_scale, rot, out),
     )
+    if route == "hopper":
+        err = load_library("flash_bwd").flash_bwd_dq_bf16(*args)
+    else:
+        err = load_library("flash_generic").flash_generic_dq(_DTYPE_CODE[q.dtype], *args)
     if err != 0:
-        raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {err}")
-    if rot is None:
+        raise RuntimeError(f"flash dq ({route}) kernel launch failed: CUDA error {err}")
+    if route == "generic":
+        launches_generic_dq += 1
+    elif rot is None:
         launches_bwd_dq += 1
     else:
         launches_bwd_dq_rot += 1
     return dq
 
 
-def launch_bwd_dkv(q, k, v, dout, out, lse, delta, seg_q, seg_kv, causal, causal_offset, window,
+def launch_bwd_dkv(q, k, v, dout, out, lse, delta, seg_q, seg_kv, route, causal, causal_offset, window,
                    softmax_scale, rot=None):
-    """Launch flash_bwd_dkv of csrc/flash_bwd.cu (its fused-rotary variant
-    when rot is given) on prepared inputs (see `launch_bwd_dq`, which must
-    have written delta first, on the same stream; out is not read).
-    Returns (dk, dv)."""
-    global launches_bwd_dkv, launches_bwd_dkv_rot
+    """Launch the dk/dv kernel of `route`: flash_bwd_dkv of
+    csrc/flash_bwd.cu (its fused-rotary variant when rot is given) or
+    flash_generic_dkv of csrc/flash_generic.cu, on prepared inputs (see
+    `launch_bwd_dq`, which must have written delta first, on the same
+    stream; out is not read). Returns (dk, dv)."""
+    global launches_bwd_dkv, launches_bwd_dkv_rot, launches_generic_dkv
     B, T, Hkv, D = k.shape
     dk = torch.empty((B, T, Hkv, D), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, T, Hkv, D), dtype=v.dtype, device=v.device)
-    err = load_library("flash_bwd").flash_bwd_dkv_bf16(
+    args = (
         ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), ptr(dk), ptr(dv),
         ptr(seg_q), ptr(seg_kv),
         *_bwd_call(q, k, v, dout, causal, causal_offset, window, softmax_scale, rot),
     )
+    if route == "hopper":
+        err = load_library("flash_bwd").flash_bwd_dkv_bf16(*args)
+    else:
+        err = load_library("flash_generic").flash_generic_dkv(_DTYPE_CODE[q.dtype], *args)
     if err != 0:
-        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
-    if rot is None:
+        raise RuntimeError(f"flash dk/dv ({route}) kernel launch failed: CUDA error {err}")
+    if route == "generic":
+        launches_generic_dkv += 1
+    elif rot is None:
         launches_bwd_dkv += 1
     else:
         launches_bwd_dkv_rot += 1
     return dk, dv
 
 
-def prepare_backward(q, k, v, out, lse, dout, seg_q, seg_kv):
+def prepare_backward(q, k, v, out, lse, dout, seg_q, seg_kv, rot=None):
     """Check and lay out the backward kernels' inputs, with no elementwise
-    work: delta = rowsum(dO * O) is computed by the dq kernel into the
-    [B, H, S] fp32 buffer allocated here. Returns (q, k, v, dout, out, lse,
-    delta, seg_q, seg_kv) for the two launchers."""
-    _check_kernel_inputs(q, k, v)
+    work, and route them once (`flash_route`, with rot's rotary dim): delta
+    = rowsum(dO * O) is computed by the dq kernel into the [B, H, S] fp32
+    buffer allocated here. Returns (q, k, v, dout, out, lse, delta, seg_q,
+    seg_kv, route) for the two launchers."""
+    _check_devices(q, k, v)
     for name, x in (("dout", dout), ("out", out)):
-        if x.dtype != torch.bfloat16 or x.shape != q.shape or x.device != q.device:
-            raise ValueError(f"{name} must be bfloat16 {tuple(q.shape)} on {q.device}, "
+        if x.dtype != q.dtype or x.shape != q.shape or x.device != q.device:
+            raise ValueError(f"{name} must be {q.dtype} {tuple(q.shape)} on {q.device}, "
                              f"got {x.dtype} {tuple(x.shape)} on {x.device}")
     q, k, v, dout, out = (x if _aligned(x) else x.contiguous() for x in (q, k, v, dout, out))
+    route = flash_route(q, k, v, dout, out, rot_dim=_rot_dim(rot))  # raises for what no kernel takes
     B, S, H, _ = q.shape
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lse = lse.to(torch.float32).contiguous()
-    return (q, k, v, dout, out, lse, delta, *_kernel_ids(seg_q, seg_kv, q.device))
+    return (q, k, v, dout, out, lse, delta, *_kernel_ids(seg_q, seg_kv, q.device), route)
 
 
 def _launch_backward(q, k, v, out, lse, dout, seg_q, seg_kv, rot, *args):
     """Both backward kernels on the current stream. Returns (dq, dk, dv)."""
-    inputs = prepare_backward(q, k, v, out, lse, dout, seg_q, seg_kv)
+    inputs = prepare_backward(q, k, v, out, lse, dout, seg_q, seg_kv, rot)
     dq = launch_bwd_dq(*inputs, *args, rot=rot)
     return (dq, *launch_bwd_dkv(*inputs, *args, rot=rot))
 
@@ -445,6 +536,7 @@ class _FlashForward(torch.autograd.Function):
 
 def _prepare(q, k, attention_mask, segment_ids, kv_segment_ids, causal, softmax_scale):
     B, S, _, D = q.shape
+    check_head_dim(D)  # on every device, the plain versions' too
     T = k.shape[1]
     seg_q, seg_kv = merge_segments(B, S, T, attention_mask, segment_ids, kv_segment_ids, q.device)
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
@@ -494,7 +586,8 @@ def flash_attention_fwd(
     on a CUDA tensor, the plain version on a CPU tensor. rotary_cos/sin
     ([L >= S, rot_dim/2] fp32, layers/rotary.py conventions) select the
     fused-rotary variants; rotary_position_ids [B, S] gathers per-row
-    positions (packed rows)."""
+    positions (packed rows). A head dim above GENERIC_MAX_HEAD_DIM raises on
+    every device."""
     q, k, rot = _rotary(q, k, rotary_cos, rotary_sin, rotary_interleaved, rotary_position_ids)
     seg_q, seg_kv, offset, scale = _prepare(
         q, k, attention_mask, segment_ids, kv_segment_ids, causal, softmax_scale

@@ -18,6 +18,11 @@ for `_tgmm_kernel`): TMA loads into a ring of shared-memory stages guarded
 by mbarriers, products by wgmma. They take bf16 operands, accumulate in
 fp32 and write bf16, with block_m = 128 and K, N multiples of 64. tgmm's
 blocks take the experts largest first, all tiles of one expert together.
+Every other input the Pallas kernels take (fp32, or any K and N; block_m a
+multiple of 64) goes to `csrc/gmm_generic.cu` (`gmm_generic`,
+`tgmm_generic`: a register-blocked fp32-FMA product over shared-memory
+tiles, the same block -> expert table and zero rules), as
+`grouped_matmul_route` decides from dtype, shape and strides.
 
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor to the
 kernel, or the call raises. The plain versions compute what the Pallas
@@ -35,18 +40,23 @@ import torch
 
 from contrastors_tpu_torch._device import on_device
 from contrastors_tpu_torch.ops._build import load_library, ptr, stream
-from contrastors_tpu_torch.ops.flash_attention import O_ABS_FRAC, O_REL, output_error_ratio
+from contrastors_tpu_torch.ops.flash_attention import (_DTYPE_CODE, FP32_REL, KERNEL_DTYPES, O_ABS_FRAC, O_REL,
+                                                       max_rel_error, output_error_ratio)
 
 # How far a kernel's bf16 result may lie from its plain version's, per
 # element: REL * |ref| (both round an fp32 sum to bf16; they may land on
 # neighbouring values, one ulp <= 2^-7 |x|) plus ABS_FRAC * max |ref| over
 # the call (summation order). The flash forward's rule: `error_ratio` <= 1.
 REL, ABS_FRAC, error_ratio = O_REL, O_ABS_FRAC, output_error_ratio
-KERNEL_BLOCK_M = 128
+# fp32 (the generic kernels): max |out - ref| <= FP32_REL * max |ref| (`max_rel_error`, imported above)
+KERNEL_BLOCK_M = 128  # the Hopper kernels'; the generic ones take any multiple of GENERIC_BLOCK_M
+GENERIC_BLOCK_M = 64
 
 # kernel launches made by this process (read and reset by chip_smoke.py)
 launches_gmm = 0
 launches_tgmm = 0
+launches_gmm_generic = 0
+launches_tgmm_generic = 0
 
 
 def block_experts(group_sizes: torch.Tensor, num_blocks: int, block_m: int
@@ -160,65 +170,104 @@ def _rhs_ok(rhs):
     return unit and se % 8 == 0 and rhs.data_ptr() % 16 == 0
 
 
-def _check(name, block_m, *tensors):
-    if block_m != KERNEL_BLOCK_M:
-        raise ValueError(f"{name} kernel takes block_m={KERNEL_BLOCK_M}, got {block_m}")
-    if any(x.dtype != torch.bfloat16 for x in tensors):
-        raise TypeError(f"{name} kernel takes bfloat16 operands, got {[x.dtype for x in tensors]}")
-    if len({x.device for x in tensors}) != 1:
-        raise ValueError(f"{name}: operands must be on one device")
+def _hopper_widths(lhs, other, block_m):
+    # what csrc/gmm.cu computes, layouts aside: bf16, K and N multiples of 64, 128-row blocks
+    return (lhs.dtype == other.dtype == torch.bfloat16 and lhs.shape[1] % 64 == 0 and other.shape[-1] % 64 == 0
+            and block_m == KERNEL_BLOCK_M)
+
+
+def grouped_matmul_route(lhs: torch.Tensor, other: torch.Tensor, block_m: int = KERNEL_BLOCK_M) -> str:
+    """The kernel that takes gmm's operands (lhs [M, K], rhs [E, K, N]) or
+    tgmm's (lhs [M, K], dout [M, N]) on the card, from their dtype, shape
+    and strides alone: "hopper" (csrc/gmm.cu) for bf16 with K and N
+    multiples of 64, block_m 128 and TMA-aligned operands (`_aligned_rows`,
+    `_rhs_ok`), else "generic" (csrc/gmm_generic.cu). Raises TypeError /
+    ValueError for what neither takes: another dtype or mixed dtypes, a
+    block_m that is not a multiple of GENERIC_BLOCK_M, M not a multiple of
+    block_m, or widths that do not match."""
+    if lhs.dtype not in KERNEL_DTYPES or other.dtype != lhs.dtype:
+        raise TypeError(f"grouped matmul kernels take float32 or bfloat16 operands of one dtype, got "
+                        f"{lhs.dtype} and {other.dtype}")
+    M, K = lhs.shape
+    if block_m <= 0 or block_m % GENERIC_BLOCK_M or M % block_m:
+        raise ValueError(f"grouped matmul kernels take block_m a multiple of {GENERIC_BLOCK_M} and M a multiple "
+                         f"of block_m, got block_m={block_m}, M={M}")
+    if (other.dim() == 3 and other.shape[1] != K) or (other.dim() == 2 and other.shape[0] != M):
+        raise ValueError(f"grouped matmul operands do not match: lhs {tuple(lhs.shape)} and "
+                         f"{tuple(other.shape)}")
+    aligned = _aligned_rows(lhs) and (_rhs_ok(other) if other.dim() == 3 else _aligned_rows(other))
+    return "hopper" if _hopper_widths(lhs, other, block_m) and aligned else "generic"
+
+
+def _prepared(lhs, other, block_m):
+    """lhs and rhs / dout, each copied where it is not TMA-aligned (the
+    layout csrc/gmm.cu reads; a copy also gives the generic kernels the unit
+    stride over the last dim of lhs and dout they read), and the route of
+    what results."""
+    if len({lhs.device, other.device}) != 1:
+        raise ValueError("grouped matmul operands must be on one device")
+    lhs = lhs if _aligned_rows(lhs) else lhs.contiguous()
+    other = other if (_rhs_ok(other) if other.dim() == 3 else _aligned_rows(other)) else other.contiguous()
+    return lhs, other, grouped_matmul_route(lhs, other, block_m)
 
 
 def launch_gmm(lhs, rhs, blk_e, act, block_m=KERNEL_BLOCK_M):
-    """Launch gmm_bf16 of csrc/gmm.cu on the current stream: lhs [M, K], rhs
-    [E, K, N] with unit stride over N or over K (other layouts are copied
-    first), blk_e/act int32 [M / 128]. Returns out [M, N] bf16."""
-    global launches_gmm
-    _check("gmm", block_m, lhs, rhs)
+    """Launch the gmm kernel the operands route to (`grouped_matmul_route`)
+    on the current stream: gmm_bf16 of csrc/gmm.cu (rhs with unit stride
+    over N or over K; other layouts are copied first) or gmm_generic of
+    csrc/gmm_generic.cu; lhs [M, K], rhs [E, K, N], blk_e/act int32
+    [M / block_m]. Returns out [M, N] in lhs's dtype."""
+    global launches_gmm, launches_gmm_generic
+    if rhs.dim() != 3:
+        raise ValueError(f"gmm takes rhs [E, K, N], got {tuple(rhs.shape)}")
+    lhs, rhs, route = _prepared(lhs, rhs, block_m)
     M, K = lhs.shape
-    E, K2, N = rhs.shape
-    if K2 != K or M % block_m or K % 64 or N % 64:
-        raise ValueError(f"gmm kernel takes M % 128 == 0 and K, N multiples of 64, got "
-                         f"lhs {tuple(lhs.shape)} rhs {tuple(rhs.shape)}")
-    lhs = lhs if _aligned_rows(lhs) else lhs.contiguous()
-    rhs = rhs if _rhs_ok(rhs) else rhs.contiguous()
+    E, _, N = rhs.shape
     blk_e = blk_e.to(device=lhs.device, dtype=torch.int32).contiguous()
     act = act.to(device=lhs.device, dtype=torch.int32).contiguous()
     out = torch.empty((M, N), dtype=lhs.dtype, device=lhs.device)
-    err = load_library("gmm").gmm_bf16(
-        ptr(lhs), ptr(rhs), ptr(blk_e), ptr(act), ptr(out), M, K, N, E,
-        lhs.stride(0), *rhs.stride(), stream(lhs),
-    )
+    args = (ptr(lhs), ptr(rhs), ptr(blk_e), ptr(act), ptr(out), M, K, N, E)
+    if route == "hopper":
+        err = load_library("gmm").gmm_bf16(*args, lhs.stride(0), *rhs.stride(), stream(lhs))
+    else:
+        err = load_library("gmm_generic").gmm_generic(_DTYPE_CODE[lhs.dtype], *args, block_m, lhs.stride(0),
+                                                      *rhs.stride(), stream(lhs))
     if err != 0:
-        raise RuntimeError(f"gmm kernel launch failed: CUDA error {err}")
-    launches_gmm += 1
+        raise RuntimeError(f"gmm ({route}) kernel launch failed: CUDA error {err}")
+    if route == "hopper":
+        launches_gmm += 1
+    else:
+        launches_gmm_generic += 1
     return out
 
 
 def launch_tgmm(lhs, dout, group_sizes, block_m=KERNEL_BLOCK_M):
-    """Launch tgmm_bf16 of csrc/gmm.cu on the current stream: lhs [M, K],
-    dout [M, N], group_sizes int32 [E] (128-aligned, summing to at most M).
-    Returns [E, K, N] bf16, zeros for an expert with no rows. One kernel
-    launch; the kernel orders the experts itself, from group_sizes."""
-    global launches_tgmm
-    _check("tgmm", block_m, lhs, dout)
+    """Launch the tgmm kernel the operands route to (`grouped_matmul_route`)
+    on the current stream: tgmm_bf16 of csrc/gmm.cu or tgmm_generic of
+    csrc/gmm_generic.cu; lhs [M, K], dout [M, N], group_sizes int32 [E]
+    (block_m-aligned, summing to at most M). Returns [E, K, N] in lhs's
+    dtype, zeros for an expert with no rows. One kernel launch; the Hopper
+    kernel orders the experts itself, from group_sizes."""
+    global launches_tgmm, launches_tgmm_generic
+    if dout.dim() != 2:
+        raise ValueError(f"tgmm takes dout [M, N], got {tuple(dout.shape)}")
+    lhs, dout, route = _prepared(lhs, dout, block_m)
     M, K = lhs.shape
     N = dout.shape[1]
-    if dout.shape[0] != M or M % block_m or K % 64 or N % 64:
-        raise ValueError(f"tgmm kernel takes M % 128 == 0 and K, N multiples of 64, got "
-                         f"lhs {tuple(lhs.shape)} dout {tuple(dout.shape)}")
-    lhs = lhs if _aligned_rows(lhs) else lhs.contiguous()
-    dout = dout if _aligned_rows(dout) else dout.contiguous()
     gs = group_sizes.to(device=lhs.device, dtype=torch.int32).contiguous()
     E = gs.shape[0]
     out = torch.empty((E, K, N), dtype=lhs.dtype, device=lhs.device)
-    err = load_library("gmm").tgmm_bf16(
-        ptr(lhs), ptr(dout), ptr(gs), ptr(out), M, K, N, E,
-        lhs.stride(0), dout.stride(0), stream(lhs),
-    )
+    args = (ptr(lhs), ptr(dout), ptr(gs), ptr(out), M, K, N, E, lhs.stride(0), dout.stride(0), stream(lhs))
+    if route == "hopper":
+        err = load_library("gmm").tgmm_bf16(*args)
+    else:
+        err = load_library("gmm_generic").tgmm_generic(_DTYPE_CODE[lhs.dtype], *args)
     if err != 0:
-        raise RuntimeError(f"tgmm kernel launch failed: CUDA error {err}")
-    launches_tgmm += 1
+        raise RuntimeError(f"tgmm ({route}) kernel launch failed: CUDA error {err}")
+    if route == "hopper":
+        launches_tgmm += 1
+    else:
+        launches_tgmm_generic += 1
     return out
 
 

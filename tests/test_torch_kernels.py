@@ -13,7 +13,10 @@ gmm and tgmm per element within REL * |ref| + ABS_FRAC * max |ref|
 (`grouped_matmul.error_ratio` <= 1), with padding rows and empty experts
 exactly 0. The fused-rotary variants are held to their plain versions by
 the same rules, and with negated sin tables in the backward (the wrong
-adjoint) they must fall outside them.
+adjoint) they must fall outside them. The generic kernels (fp32, and bf16
+at other head dims and widths) are held to the plain versions in fp32 by
+max |out - ref| <= FP32_REL * max |ref| (`max_rel_error`), in bf16 by the
+rules above.
 """
 
 import pytest
@@ -204,17 +207,76 @@ def test_fused_rotary_backward_rejects_the_wrong_adjoint(cuda):
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(cuda):
-    q = torch.randn(1, 16, 2, 96, device=cuda).bfloat16()
-    with pytest.raises(ValueError, match="head_dim"):
+    """What no flash kernel takes raises: a head dim above 256 (on every
+    device), one that is not a multiple of 8, fp16. What only the generic
+    kernels take (bf16 at D = 96, fp32, a rotary dim of 24) runs there and
+    agrees with the plain version."""
+    q = torch.randn(1, 16, 2, 264, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="at most 256"):
         tfa.flash_attention(q, q, q)
-    q = torch.randn(1, 16, 2, 64, device=cuda)
-    with pytest.raises(TypeError, match="bfloat16"):
+    q = torch.randn(1, 16, 2, 20, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tfa.flash_attention(q, q, q)
+    q = torch.randn(1, 16, 2, 64, device=cuda).half()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
         tfa.flash_attention(q, q, q)
     from contrastors_tpu_torch.layers.rotary import rotary_cos_sin
 
     cos, sin = rotary_cos_sin(16, 24, device=cuda)  # rot_dim 24: not a multiple of 16
-    with pytest.raises(ValueError, match="multiple of 16"):
-        tfa.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(), rotary_cos=cos, rotary_sin=sin)
+    for q, kw in ((torch.randn(1, 16, 2, 96, device=cuda).bfloat16(), {}),
+                  (torch.randn(1, 16, 2, 64, device=cuda), {}),
+                  (torch.randn(1, 16, 2, 64, device=cuda).bfloat16(), dict(rotary_cos=cos, rotary_sin=sin))):
+        before = tfa.launches_generic
+        out = tfa.flash_attention(q, q, q, **kw)
+        torch.cuda.synchronize()
+        assert tfa.launches_generic == before + 1
+        ref, _ = tfa.flash_attention_reference(q, q, q, **kw)
+        if q.dtype == torch.float32:
+            assert tfa.max_rel_error(out, ref) <= tfa.FP32_REL
+        else:
+            assert tfa.output_error_ratio(out, ref) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [("fp32", 64), ("fp32", 80), ("fp32", 256), ("bf16", 88), ("bf16", 256)])
+@pytest.mark.parametrize("variant", ["pad", "causal", "segments", "gqa", "rotary"])
+def test_generic_kernels_match_plain_versions_on_card(cuda, dtype, D, variant):
+    """The generic forward, dq and dk/dv (csrc/flash_generic.cu) against the
+    plain versions: fp32 within FP32_REL * max |ref| (LSE within
+    FP32_LSE_ATOL), bf16 at the Hopper kernels' error model."""
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    dt = torch.float32 if dtype == "fp32" else torch.bfloat16
+    B, S, H = 2, 200, 4
+    T = 300 if variant == "causal" else S
+    Hkv = 1 if variant == "gqa" else H
+    q, dout = (torch.randn(B, S, H, D, generator=gen, device=cuda).to(dt) for _ in range(2))
+    k, v = (torch.randn(B, T, Hkv, D, generator=gen, device=cuda).to(dt) for _ in range(2))
+    kw = dict(causal=variant == "causal")
+    if variant in ("pad", "gqa", "rotary"):
+        kw["attention_mask"] = (torch.arange(T, device=cuda)[None] < torch.tensor([[T], [77]], device=cuda)).int()
+    if variant == "segments":
+        kw["segment_ids"] = (torch.arange(S, device=cuda)[None].expand(B, S) // 70 + 1).int() % 3
+    if variant == "rotary":
+        from contrastors_tpu_torch.layers.rotary import rotary_cos_sin
+
+        kw["rotary_cos"], kw["rotary_sin"] = rotary_cos_sin(S, D // 4 // 2 * 2, device=cuda)
+    before = (tfa.launches_generic, tfa.launches_generic_dq, tfa.launches_generic_dkv)
+    out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    grads = tfa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert (tfa.launches_generic, tfa.launches_generic_dq, tfa.launches_generic_dkv) == tuple(b + 1 for b in before)
+    ref, ref_lse = tfa.flash_attention_reference(q, k, v, **kw)
+    refs = tfa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw)
+    if dt == torch.float32:
+        assert tfa.max_rel_error(out, ref) <= tfa.FP32_REL
+        assert (lse - ref_lse).abs().max().item() <= tfa.FP32_LSE_ATOL
+        for g, r in zip(grads, refs):
+            assert tfa.max_rel_error(g, r) <= tfa.FP32_REL
+    else:
+        assert tfa.output_error_ratio(out, ref) <= 1.0
+        assert (lse - ref_lse).abs().max().item() <= tfa.LSE_ATOL
+        for g, r, name in zip(grads, refs, ("dq", "dk", "dv")):
+            assert tfa.grad_error_ratio(g, r, name) <= 1.0, name
 
 
 def _moe_layout(cuda, A, E=8):
@@ -293,10 +355,25 @@ def test_gmm_kernels_match_plain_versions_on_card(cuda, layout, K, N):
 
 @pytest.mark.cuda
 def test_gmm_kernel_refuses_what_it_does_not_take(cuda):
+    """What no grouped-matmul kernel takes raises (fp16, mixed dtypes, a
+    block_m that is not a multiple of 64); what only the generic kernels take
+    (K = 96, fp32) runs there and agrees with the plain version."""
     lhs = torch.randn(256, 96, device=cuda).bfloat16()
     rhs = torch.randn(2, 96, 128, device=cuda).bfloat16()
     gs = torch.tensor([128, 0], dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="multiples of 64"):
-        tgm.gmm(lhs, rhs, gs)
-    with pytest.raises(TypeError, match="bfloat16"):
-        tgm.gmm(lhs.float()[:, :64], rhs.float()[:, :64], gs)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tgm.gmm(lhs.half(), rhs.half(), gs)
+    with pytest.raises(TypeError, match="one dtype"):
+        tgm.gmm(lhs.float(), rhs, gs)
+    with pytest.raises(ValueError, match="block_m"):
+        tgm.gmm(lhs[:192], rhs, torch.tensor([96, 0], dtype=torch.int32, device=cuda), block_m=96)
+    for a, b in ((lhs, rhs), (lhs.float(), rhs.float())):
+        before = tgm.launches_gmm_generic
+        out = tgm.gmm(a, b, gs)
+        torch.cuda.synchronize()
+        assert tgm.launches_gmm_generic == before + 1
+        ref = tgm.gmm_reference(a, b, gs)
+        if a.dtype == torch.float32:
+            assert tgm.max_rel_error(out, ref) <= tgm.FP32_REL
+        else:
+            assert tgm.error_ratio(out, ref) <= 1.0
