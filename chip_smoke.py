@@ -414,22 +414,24 @@ The kernels at every dtype and head dim the Pallas kernels take (after
 phase 25):
  26. coverage_kernel_check, coverage_kernel_check_gmm: the generic kernels
      (csrc/flash_generic.cu: forward, dq, dk/dv; csrc/gmm_generic.cu: gmm,
-     tgmm) against their plain versions: flash in fp32 at D = 64, 80, 88,
-     128, 256 and bf16 at D = 80, 88, 256, each with a padding mask (an
-     empty row), causal (S=200 against T=300), window 128, segment ids,
-     GQA (Hkv = H / 4) and fused partial rotary; gmm, dlhs and tgmm through
-     the public gmm in fp32 at K 768, N 3072 and bf16 at K 200, N 360 on the
-     MoE document chunk's layout; fp32 within 1e-4 * max |ref| (LSE within
-     1e-4), bf16 at the Hopper kernels' error model, every launch on the
-     generic kernels, reruns bit-identical. coverage_kernel_shapes: the
-     generic forward, dq and dk/dv at the main path's own shapes (the fp32
-     steps' document chunk, fp32 B=16 S=256 H=12 D=64, with its backward;
-     the fp32 encode batch, 256 x 512; pythia-1b's serving batch, bf16
-     64 x 128 H=8 D=256, causal and padded; pythia-1b's step documents,
-     bf16 128 x 128, causal and padded, with its backward), and for their
-     time at ViT-H/14's and ViT-g/14's bf16 64 x 257 (D 80, 88): one
-     launch each on the generic kernels, at the same bars as the variants,
-     then timed beside the bound, the plain version and SDPA.
+     tgmm) against their plain versions: flash in fp32 at D = 64, 80, 88, 128,
+     256 and bf16 at D = 80, 88, 256 and at 64 on misaligned operands (the
+     bf16 forward and dk/dv on the tensor cores), each with a padding mask (an
+     empty row), causal (S=200 against T=300), window 128, segment ids, GQA
+     (Hkv = H / 4) and fused partial rotary; gmm, dlhs and tgmm through the
+     public gmm in fp32 at K 768, N 3072 and bf16 at K 200, N 360 on the MoE
+     document chunk's layout; fp32 within 1e-4 * max |ref| (LSE within 1e-4),
+     bf16 at the Hopper kernels' error model, every launch on the generic
+     kernels, reruns bit-identical, each row with a digest of its outputs (two
+     trees' rows compare bit for bit). coverage_kernel_shapes: the generic
+     forward, dq and dk/dv at the main path's own shapes (the fp32 steps'
+     document chunk, fp32 B=16 S=256 H=12 D=64, with its backward; the fp32
+     encode batch, 256 x 512; pythia-1b's serving batch, bf16 64 x 128 H=8
+     D=256, causal and padded; pythia-1b's step documents, bf16 128 x 128,
+     causal and padded, with its backward), and for their time at ViT-H/14's
+     and ViT-g/14's bf16 64 x 257 (D 80, 88), with the backward: one launch
+     each on the generic kernels, at the same bars as the variants, then timed
+     beside the bound, the plain version and SDPA.
      coverage_fp32_pretrain:
      configs/train/contrastive_pretrain.yaml through read_config and
      train.run at --dtype fp32 (512 pairs, chunk 16, 3 steps): 780 / 396 /
@@ -463,6 +465,7 @@ non-zero without a CUDA device.
 
 import contextlib
 import functools
+import hashlib
 import io
 import json
 import os
@@ -7006,9 +7009,11 @@ COVERAGE_MOE_BATCH = 16
 COVERAGE_SERVING_TEXTS = 256  # the fp32 encode CLI's texts (one batch of 256 at 512 tokens)
 COVERAGE_GRAD_COSINE = 0.9999  # the fp32 step's first gradient, flash against sdpa
 COVERAGE_SERVING_COSINE = 0.99999  # fp32 embeddings, flash against sdpa (both fp32)
-# the generic kernels' checks: (dtype, head dim) in each mask variant
+# the generic kernels' checks: (dtype, head dim) in each mask variant; "64u":
+# bf16 at D = 64 on misaligned operands (`misaligned`), which only the
+# generic kernels take, staged through registers
 COVERAGE_DIMS = (("fp32", 64), ("fp32", 80), ("fp32", 88), ("fp32", 128), ("fp32", 256),
-                 ("bf16", 80), ("bf16", 88), ("bf16", 256))
+                 ("bf16", 80), ("bf16", 88), ("bf16", 256), ("bf16", "64u"))
 COVERAGE_VARIANTS = ("pad", "causal", "window128", "segments", "gqa", "rotary")
 # (dtype, layout, K, N): the document chunk's layout at the dense MoE widths, and odd widths
 COVERAGE_GMM = (("fp32", "doc_chunk", 768, 3072), ("bf16", "doc_chunk", 200, 360))
@@ -7040,6 +7045,26 @@ def counted_sdpa(into):
         yield into
     finally:
         ops.sdpa = module.sdpa = orig
+
+
+def digest(*xs):
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes: equal
+    digests in two runs (trees) mean bit-identical outputs."""
+    import torch
+
+    h = hashlib.sha256()
+    for x in xs:
+        h.update(x.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def misaligned(x):
+    """x's values in contiguous storage whose base is 2 bytes past a 16-byte
+    boundary: no TMA map and no 16-byte copy takes it."""
+    flat = x.new_empty(x.numel() + 8)
+    y = flat[1:1 + x.numel()].view(x.shape)
+    y.copy_(x)
+    return y
 
 
 def coverage_case(gen, dev, dtype, D, variant):
@@ -7127,9 +7152,12 @@ def coverage_kernel_checks(dev, gen):
     from contrastors_tpu_torch.ops import flash_attention as fa
 
     worst, abs_err = dict(fwd=0.0, dq=0.0, dkv=0.0), dict(fwd=0.0, dq=0.0, dkv=0.0)
-    for dtype, D in COVERAGE_DIMS:
+    for dtype, dim in COVERAGE_DIMS:
+        D = int(str(dim).rstrip("u"))
         for variant in COVERAGE_VARIANTS:
             q, k, v, dout, kw = coverage_case(gen, dev, dtype, D, variant)
+            if str(dim).endswith("u"):
+                q, k, v, dout = (misaligned(x) for x in (q, k, v, dout))
             reset_counts()
             out, lse = fa.flash_attention_fwd(q, k, v, **kw)
             again = fa.flash_attention_fwd(q, k, v, **kw)
@@ -7152,11 +7180,12 @@ def coverage_kernel_checks(dev, gen):
             worst["dkv"] = max(worst["dkv"], over["dk"], over["dv"])
             for kname, d in errs.items():
                 abs_err[kname] = max(abs_err[kname], d)
-            emit(phase="coverage_kernel_check", dtype=dtype, D=D, variant=variant, q=list(q.shape),
+            emit(phase="coverage_kernel_check", dtype=dtype, D=dim, variant=variant, q=list(q.shape),
                  k=list(k.shape), err_over_bar=over, lse_max_abs_err=lse_err, bar=generic_flash_bar(dtype),
+                 digest=dict(fwd=digest(out, lse), dq=digest(grads[0]), dkv=digest(*grads[1:])),
                  launches={n: c for n, c in launches.items() if c}, deterministic=deterministic, ok=ok)
             if not ok:
-                raise AssertionError(f"generic flash kernels: {dtype} D={D} {variant} failed its bars, its route "
+                raise AssertionError(f"generic flash kernels: {dtype} D={dim} {variant} failed its bars, its route "
                                      f"or its determinism")
             del q, k, v, dout, out, lse, again, grads, grads_again, ref_out, ref_lse, refs
     torch.cuda.empty_cache()
@@ -7236,13 +7265,13 @@ def coverage_gmm_checks(dev):
 # below 512 keys: query ids 1, the mask as kv ids; rows as long as the
 # texts' and the documents'). Then, for their time, two bf16 shapes that ran
 # SDPA before the generic kernels took them: ViT-H/14 (16 heads of 80) and
-# ViT-g/14 (16 of 88) at 64 x 257, unmasked.
+# ViT-g/14 (16 of 88) at 64 x 257, unmasked, forward and backward.
 COVERAGE_FLASH_SHAPES = (("fp32_doc_chunk", 16, 256, 12, 64, "fp32", "ones", 256, True),
                          ("fp32_encode", INFER_BATCH, INFER_SEQ, 12, 64, "fp32", "mask", 8, False),
                          ("pythia1b_serving_bf16", 64, 128, 8, 256, "bf16", "dispatch", 8, False),
                          ("pythia1b_step_docs_bf16", 128, 128, 8, 256, "bf16", "dispatch", 32, True),
-                         ("vith14_bf16", 64, 257, 16, 80, "bf16", "none", 257, False),
-                         ("vitg14_bf16", 64, 257, 16, 88, "bf16", "none", 257, False))
+                         ("vith14_bf16", 64, 257, 16, 80, "bf16", "none", 257, True),
+                         ("vitg14_bf16", 64, 257, 16, 88, "bf16", "none", 257, True))
 COVERAGE_PATH_SHAPES = 4  # the first four are on phase 26's path
 
 
@@ -7293,6 +7322,7 @@ def coverage_flash_shapes(dev, card, gen):
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
         refs = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw) if backward else ()
         over, lse_err, lse_ok, abs_err = generic_flash_errors(dtype, out, ref_out, lse, ref_lse, grads, refs)
+        digests = dict(fwd=digest(out, lse), **(dict(dq=digest(grads[0]), dkv=digest(*grads[1:])) if grads else {}))
         routed = launches == (expect(True, fwd=1, dq=1, dkv=1) if backward else expect(True, fwd=1))
         finite = all(bool(torch.isfinite(x.float()).all()) for x in (out, *grads))
         ok = max(over.values()) <= 1.0 and lse_ok and routed and finite
@@ -7339,7 +7369,7 @@ def coverage_flash_shapes(dev, card, gen):
         rows[label] = row
         emit(phase="coverage_kernel_shapes", card=card, gpu_state=gpu_state(), shape=label, dtype=dtype, B=B, S=S,
              H=H, D=D, form=form, on_path=label in {c[0] for c in COVERAGE_FLASH_SHAPES[:COVERAGE_PATH_SHAPES]},
-             err_over_bar=over, lse_max_abs_err=lse_err, bar=generic_flash_bar(dtype),
+             err_over_bar=over, lse_max_abs_err=lse_err, bar=generic_flash_bar(dtype), digest=digests,
              launches={n: c for n, c in launches.items() if c}, **row,
              note="fwd: flash_attention_fwd (the generic forward); dq, dkv: the kernels alone, their plain_ms and "
                   "library_ms whole backwards (the library's: SDPA forward + backward minus forward)", ok=ok)

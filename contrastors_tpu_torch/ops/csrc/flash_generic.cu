@@ -22,7 +22,8 @@
 //   - backward: delta = rowsum(dO * O) in fp32 (by dq, which writes it for
 //     dk/dv); p = exp2(s*c - lse), 0 on rows whose LSE is -1e30;
 //     ds = ((dp - delta) * p) * softmax_scale cast to T; dq = ds k,
-//     dk = ds^T q, dv = p^T dO with p in fp32; GQA sums dk/dv over the q
+//     dk = ds^T q, dv = p^T dO with p in fp32 (in bf16 on the bf16 tensor-core
+//     dk/dv, within the error model's dv bar); GQA sums dk/dv over the q
 //     heads of each kv head (q head h reads kv head h / (H / Hkv));
 //   - masks: segments (valid iff seg_q == seg_kv != 0), bottom-right causal
 //     (row + causal_offset >= col), window (|row - col| <= window / 2);
@@ -30,30 +31,31 @@
 //     each product and the sum rounded apart, then cast to T), and the
 //     adjoint applied to the fp32 dq and dk before their cast.
 //
-// What bounds it on an H100: the products. In fp32 there is no tensor-core
-// rate that keeps the plain version's precision (single-pass TF32 keeps ~10
-// bits), so the products are fp32 FMAs: 67 TFLOP/s at most, against 4*S*T*D
-// FLOP per (batch, head) on 8*S*D bytes (fp32, S == T), i.e. T/4 FLOP per
-// byte: operations bound above T ~ 80. bf16 runs the same FMAs on operands
-// widened on load (their products are exact in fp32), so it is far from the
-// tensor cores' 989 TFLOP/s: these kernels are for coverage, and the Hopper
-// kernels keep the shapes the main path runs.
+// What bounds the fp32 kernels on an H100: the products. In fp32 there is
+// no tensor-core rate that keeps the plain version's precision (single-pass
+// TF32 keeps ~10 bits), so the products are fp32 FMAs: 67 TFLOP/s at most,
+// against 4*S*T*D FLOP per (batch, head) on 8*S*D bytes (fp32, S == T), i.e.
+// T/4 FLOP per byte: operations bound above T ~ 80. bf16 dq runs the same
+// FMAs on operands widened on load (their products are exact in fp32). The
+// bf16 forward and dk/dv run on the tensor cores instead (fwd_tc_kernel,
+// dkv_tc_kernel below, with their own note).
 //
-// Design, one simple form for the three kernels: a block of 256 threads owns
-// a tile of 64 query rows (forward, dq) or of BK kv rows (dk/dv) of one
-// (batch, head) and walks the other side's tiles through shared memory,
-// every operand widened to fp32 in rows of D + 1 floats (an odd stride, so
-// that a warp's 16 columns of a product fall in 16 banks). Each product is
-// C[i][j] += sum_k A(i, k) B(k, j) over shared memory (`tile_fma`), thread
-// (rg, cg) = (tid / 16, tid % 16) owning rows rg + 16 ii and columns
-// cg + 16 jj: A's reads are broadcasts, B's conflict-free. The accumulators
-// of the output tile stay in registers across the walk; p and ds go through
-// shared memory between the two products of a step. Rows past S or T are
-// zero in shared memory and masked. Dead kv tiles under causal or window
-// masking are skipped. The head dim is bucketed (64, 128, 256) as a template
-// parameter, which sizes the register tiles; D itself is a run-time value.
-// Every output element has one owner and a fixed order of sums: no atomics,
-// and two runs on the same inputs are bit-identical.
+// Design of the fp32 kernels and of dq, one simple form for the three: a
+// block of 256 threads owns a tile of 64 query rows (forward, dq) or of BK
+// kv rows (dk/dv) of one (batch, head) and walks the other side's tiles
+// through shared memory, every operand widened to fp32 in rows of D + 1
+// floats (an odd stride, so that a warp's 16 columns of a product fall in 16
+// banks). Each product is C[i][j] += sum_k A(i, k) B(k, j) over shared
+// memory (`tile_fma`), thread (rg, cg) = (tid / 16, tid % 16) owning rows
+// rg + 16 ii and columns cg + 16 jj: A's reads are broadcasts, B's
+// conflict-free. The accumulators of the output tile stay in registers
+// across the walk; p and ds go through shared memory between the two
+// products of a step. Rows past S or T are zero in shared memory and masked.
+// Dead kv tiles under causal or window masking are skipped. The head dim is
+// bucketed (64, 128, 256) as a template parameter, which sizes the register
+// tiles; D itself is a run-time value. Every output element has one owner
+// and a fixed order of sums: no atomics, and two runs on the same inputs are
+// bit-identical.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,6 +108,7 @@ struct Args {
   int causal, causal_offset, w2;  // w2 = window / 2, or -1 without a window
   float c, scale;
   Rot rot;
+  int vec;  // every bf16 operand's rows are 16-byte aligned: the tensor-core kernels copy them by cp.async
 };
 
 __device__ __forceinline__ bool valid(const Args& a, int r, int col, int sq, int skv) {
@@ -536,27 +539,583 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Args a) {
   }
 }
 
+// ---- bf16 on the tensor cores: the forward and dk/dv ---------------------------
+//
+// The bf16 instantiations of the forward and of dk/dv. They replace, for bf16,
+// the Pallas kernels named at the top of this file: the forward
+// _fwd_kernel_single (:225) / _fwd_kernel (:115), call :396, with fused_rot
+// (_rot_block :76); dk/dv _bwd_dkv_kernel (:512), call :700, adjoint
+// :600-604. The fp32 instantiations of fwd_kernel and dkv_kernel and dq_kernel
+// in both dtypes keep the design above.
+//
+// What bounds them on an H100: bytes at the main path's shapes (64 x 257 at
+// D 80 / 88, pythia-1b's 128-token rows at D 256: a few hundred FLOP per byte
+// at most, under the card's ~295), then the softmax's exp2 and masking in
+// registers, which a tensor core does not run. The fp32-FMA design above
+// reaches neither: its products run at 67 TFLOP/s on operands widened to fp32.
+//
+// What the design does about it (FlashAttention-2's shape on mma.sync):
+//   - operands stay bf16 in shared memory, each tile zero-padded from D to
+//     its bucket's width DMAX (64, 96, 128, 192, 256: a template parameter,
+//     so that every loop over D unrolls at compile time) in rows of DMAX + 8
+//     elements: an odd multiple of 16 bytes, so the eight rows an ldmatrix
+//     reads fall in eight distinct 16-byte bank groups;
+//   - tiles arrive by cp.async, 16 bytes a thread, while the previous product
+//     runs; an operand whose address or strides are not 16-byte aligned
+//     (a.vec == 0), or a q / k tile that is rotated on load, is staged through
+//     registers instead (rotation in fp32, rounded to bf16 as the plain
+//     version rounds);
+//   - products are mma.sync.m16n8k16 (bf16 in, fp32 accumulate), operands by
+//     ldmatrix (.trans for the [k][n] tiles);
+//   - forward: 4 warps, 16 query rows each, 64 rows a block; S = Q K^T, the
+//     online softmax in registers, p cast to bf16 against the running max and
+//     fed to P V straight from the accumulator registers. At D <= 128 two
+//     K / V stages: the next tile's copies run under this tile's work; above,
+//     where two stages would leave one block a SM, one K and one V buffer:
+//     V's copy runs under Q K^T, the next K's under P V;
+//   - dk/dv: 8 warps own 64 kv rows of one (batch, kv head) and walk the
+//     64-row q tiles of every q head of the group, double-buffered. Warp (w %
+//     4, w / 4) computes a 16 x 32 block of S and dP, recomputes p from the
+//     LSE and writes p and ds as bf16 to shared memory; then warp (w % 4,
+//     w / 4) accumulates dV += P^T dO and dK += dS^T Q for 16 kv rows and
+//     every other 16 columns of D in fp32 registers (at D = 256, 128 a
+//     thread). The rotary adjoint goes through shared memory, as above.
+// Dead kv tiles (forward) and q tiles (dk/dv) are skipped; a tile is masked
+// element by element only where a mask can cut it. Every output element has
+// one owner and a fixed order of sums: no atomics, bit-identical reruns.
+
+typedef __nv_bfloat16 bf16;
+constexpr int kTc = 64;             // rows of every bf16 tile
+constexpr int kFwdTcThreads = 128;  // 4 warps x 16 query rows
+constexpr int kDkvTcThreads = 256;  // 8 warps
+constexpr int kPld = kTc + 8;       // row stride of the p / ds tiles (elements)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// lane addresses of the ldmatrix.x4 forms (row, column offsets in a tile):
+// the A fragment of a row-major 16 x 16 block; two B fragments (16 rows of
+// n) of an [n][k] tile; two B fragments (16 columns of n) of a [k][n] tile
+// (.trans); the A fragment of the transpose of a [k][m] tile (.trans)
+__device__ __forceinline__ int a_row(int lane) { return lane & 15; }
+__device__ __forceinline__ int a_col(int lane) { return (lane >> 4) << 3; }
+__device__ __forceinline__ int bn_row(int lane) { return (lane & 7) + ((lane >> 4) << 3); }
+__device__ __forceinline__ int bn_col(int lane) { return ((lane >> 3) & 1) << 3; }
+__device__ __forceinline__ int bk_row(int lane) { return (lane & 7) + (((lane >> 3) & 1) << 3); }
+__device__ __forceinline__ int bk_col(int lane) { return (lane >> 4) << 3; }
+
+// kTc rows row0 .. of one (batch, head) of x (row stride ss) into dst (row
+// stride ld elements), columns [0, D); rows past n_valid are zero. By
+// cp.async when `async` (16-byte aligned rows), else staged through
+// registers, rotated (q, k) as the plain version rotates when `rotate`.
+template <int NT, int DMAX>
+__device__ __forceinline__ void tile_load(bf16* dst, int ld, const bf16* base, int64_t ss, int row0, int n_valid,
+                                          int D, bool async, bool rotate, const Rot& rot, int b) {
+  if (async && !rotate) {
+    constexpr int SLOTS = DMAX / 8;  // 16-byte slots of a row, D / 8 of them used
+#pragma unroll
+    for (int it = 0; it < kTc * SLOTS / NT; ++it) {
+      const int idx = threadIdx.x + it * NT, r = idx / SLOTS, c = idx % SLOTS, pos = row0 + r;
+      if (c < (D >> 3)) {
+        const bool ok = pos < n_valid;
+        cp_async16(smem_addr(dst + r * ld + c * 8), ok ? base + int64_t(pos) * ss + c * 8 : base, ok);
+      }
+    }
+    return;
+  }
+  for (int idx = threadIdx.x; idx < kTc * D; idx += NT) {
+    const int r = idx / D, d = idx - r * D, pos = row0 + r;
+    float x = 0.f;
+    if (pos < n_valid) {
+      const bf16* row = base + pos * ss;
+      x = __bfloat162float(row[d]);
+      if (rotate && d < 2 * rot.half) {
+        const int64_t t = b * rot.sb + int64_t(pos) * D + d;
+        const float xp = rot_sign(d, rot) * __bfloat162float(row[partner(d, rot)]);
+        x = __fadd_rn(__fmul_rn(x, rot.cos[t]), __fmul_rn(xp, rot.sin[t]));
+      }
+    }
+    dst[r * ld + d] = __float2bfloat16_rn(x);
+  }
+}
+
+// zero columns [D, DMAX) of `n_tiles` consecutive kTc-row tiles of row
+// stride DMAX + 8; no load writes them
+template <int NT, int DMAX>
+__device__ __forceinline__ void zero_pad_columns(bf16* tiles, int n_tiles, int D) {
+  const int pad = (DMAX - D) >> 3;  // 16-byte chunks a row
+  for (int idx = threadIdx.x; idx < n_tiles * kTc * pad; idx += NT) {
+    const int r = idx / pad, c = idx - r * pad;
+    *reinterpret_cast<uint4*>(tiles + r * (DMAX + 8) + D + c * 8) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// whether rows [r0, r0 + kTc) against columns [c0, c0 + kTc) need the
+// element-wise mask: segments, columns past T, or a causal / window edge
+// crossing the tile (rows past S are dropped or carry a -1e30 LSE)
+__device__ __forceinline__ bool tile_masked(const Args& a, int r0, int c0) {
+  const int r1 = r0 + kTc - 1, c1 = c0 + kTc - 1;
+  return a.seg_q != nullptr || c1 >= a.T || (a.causal && c1 > r0 + a.causal_offset) ||
+         (a.w2 >= 0 && (c0 < r1 - a.w2 || c1 > r0 + a.w2));
+}
+
+// K / V stages of the forward: two (the next tile's copies run under the
+// whole of this tile's work) where they fit beside 2-3 blocks a SM; one at
+// D > 128, where V's copy runs under Q K^T and the next K's under P V
+template <int DMAX>
+constexpr int kFwdStages = DMAX > 128 ? 1 : 2;
+
+template <int DMAX>
+size_t fwd_tc_bytes() {
+  return size_t(1 + 2 * kFwdStages<DMAX>) * kTc * (DMAX + 8) * sizeof(bf16) +
+         (1 + kFwdStages<DMAX>) * kTc * sizeof(int);
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kFwdTcThreads, DMAX > 96 ? 2 : 3) fwd_tc_kernel(Args a) {
+  constexpr int NT = DMAX / 8, KS = DMAX / 16, ST = kFwdStages<DMAX>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int ld = DMAX + 8;
+  const int D = a.D;
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [kTc][ld]; after the walk, O in bf16
+  bf16* sK = sQ + kTc * ld;                       // [ST][kTc][ld]
+  bf16* sV = sK + ST * kTc * ld;                  // [ST][kTc][ld]
+  int* sq = reinterpret_cast<int*>(sV + ST * kTc * ld);  // [kTc]
+  int* skv = sq + kTc;                                   // [ST][kTc]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int n_qt = (a.S + kTc - 1) / kTc;
+  const int qt = blockIdx.x % n_qt, h = (blockIdx.x / n_qt) % a.H, b = blockIdx.x / (n_qt * a.H);
+  const int hk = h / (a.H / a.Hkv), q0 = qt * kTc;
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  const bool rot = a.rot.cos != nullptr, vec = a.vec != 0;
+  auto load_k = [&](int c, int st) {
+    tile_load<kFwdTcThreads, DMAX>(sK + st * kTc * ld, ld, kb, a.k_ss, c, a.T, D, vec, rot, a.rot, b);
+    if (a.seg_kv != nullptr && tid < kTc)
+      skv[st * kTc + tid] = c + tid < a.T ? a.seg_kv[int64_t(b) * a.T + c + tid] : 0;
+  };
+  auto load_v = [&](int c, int st) {
+    tile_load<kFwdTcThreads, DMAX>(sV + st * kTc * ld, ld, vb, a.v_ss, c, a.T, D, vec, false, a.rot, b);
+  };
+
+  zero_pad_columns<kFwdTcThreads, DMAX>(sQ, 1 + 2 * ST, D);
+  tile_load<kFwdTcThreads, DMAX>(sQ, ld, qb, a.q_ss, q0, a.S, D, vec, rot, a.rot, b);
+  if (a.seg_q != nullptr && tid < kTc) sq[tid] = q0 + tid < a.S ? a.seg_q[int64_t(b) * a.S + q0 + tid] : 0;
+  int lo, hi;
+  kv_range(a, q0, min(q0 + kTc, a.S) - 1, lo, hi);
+  const int first = lo / kTc * kTc;
+  if (first < hi) {
+    load_k(first, 0);
+    if (ST == 2) load_v(first, 0);
+  }
+  cp_commit();
+
+  float o[NT][4], m[2], l[2];
+  const float floor_m = -1e20f / a.c;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  m[0] = m[1] = floor_m;
+  l[0] = l[1] = 0.f;
+  const int rl0 = warp * 16 + g;  // this thread's rows rl0 and rl0 + 8 of the tile
+  const uint32_t q_addr = smem_addr(sQ + (warp * 16 + a_row(lane)) * ld + a_col(lane));
+  const uint32_t k_addr = smem_addr(sK + bn_row(lane) * ld + bn_col(lane));
+  const uint32_t v_addr = smem_addr(sV + bk_row(lane) * ld + bk_col(lane));
+  constexpr uint32_t stage_bytes = kTc * ld * 2;
+  uint32_t pa[4][4];  // p in bf16 as the A fragments of P V, kv 16 kk .. 16 kk + 15
+
+  // S = Q K^T of the tile at c0 in stage st, masked, the online softmax, p into pa
+  auto scores = [&](int c0, int st) {
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4];
+      ldsm4(qa, q_addr + kk * 32);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t kf[4];
+        ldsm4(kf, k_addr + st * stage_bytes + (np * 16 * ld + kk * 16) * 2);
+        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
+      }
+    }
+    if (tile_masked(a, q0, c0)) {
+      const int* skv_t = skv + st * kTc;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rl = rl0 + (e >> 1) * 8, cl = j * 8 + 2 * t4 + (e & 1);
+          if (!valid(a, q0 + rl, c0 + cl, a.seg_q ? sq[rl] : 0, a.seg_kv ? skv_t[cl] : 0)) s[j][e] = kNegInf;
+        }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[hr], mx);
+      const float mc = __fmul_rn(m_new, a.c), alpha = exp2f(__fmul_rn(m[hr], a.c) - mc);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
+          s[j][e] = exp2f(__fmul_rn(s[j][e], a.c) - mc);
+          sum += s[j][e];
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[hr] = l[hr] * alpha + sum;
+      m[hr] = m_new;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        o[n][2 * hr] *= alpha;
+        o[n][2 * hr + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+  };
+  // O += P V with V in stage st
+  auto pv = [&](int st) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t vf[4];
+        ldsm4_t(vf, v_addr + st * stage_bytes + (kk * 16 * ld + np * 16) * 2);
+        mma_bf16(o[2 * np], pa[kk], vf[0], vf[1]);
+        mma_bf16(o[2 * np + 1], pa[kk], vf[2], vf[3]);
+      }
+  };
+
+  if (ST == 2) {
+    for (int c0 = first, st = 0; c0 < hi; c0 += kTc, st ^= 1) {
+      if (c0 + kTc < hi) {
+        load_k(c0 + kTc, st ^ 1);
+        load_v(c0 + kTc, st ^ 1);
+        cp_commit();
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncthreads();  // stage st (and Q) landed
+      scores(c0, st);
+      pv(st);
+      __syncthreads();  // every warp is done with stage st before it is refilled
+    }
+  } else {
+    for (int c0 = first; c0 < hi; c0 += kTc) {
+      cp_wait<0>();
+      __syncthreads();  // K (and Q) landed; every warp is done with V
+      load_v(c0, 0);
+      cp_commit();
+      scores(c0, 0);
+      cp_wait<0>();
+      __syncthreads();  // V landed; every warp is done with K and skv
+      if (c0 + kTc < hi) load_k(c0 + kTc, 0);
+      cp_commit();
+      pv(0);
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();  // no copy into sQ is in flight (a block with no live kv tile)
+  // O = acc / l (0 on dead rows) into this warp's own rows of sQ, then 16-byte stores
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int rl = rl0 + hr * 8, r = q0 + rl;
+    const bool dead = l[hr] == 0.f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<uint32_t*>(sQ + rl * ld + n * 8 + 2 * t4) =
+          dead ? 0u : pack_bf16(o[n][2 * hr] / l[hr], o[n][2 * hr + 1] / l[hr]);
+    if (t4 == 0 && r < a.S)
+      a.lse[(int64_t(b) * a.H + h) * a.S + r] = dead ? kNegInf : __fmul_rn(m[hr], a.c) + log2f(l[hr]);
+  }
+  __syncwarp();
+  bf16* out = static_cast<bf16*>(a.out);
+  const int chunks = D >> 3;
+  for (int idx = lane; idx < 16 * chunks; idx += 32) {
+    const int rl = warp * 16 + idx / chunks, c = idx % chunks, r = q0 + rl;
+    if (r < a.S)
+      *reinterpret_cast<uint4*>(out + ((int64_t(b) * a.S + r) * a.H + h) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(sQ + rl * ld + c * 8);
+  }
+}
+
+template <int DMAX>
+size_t dkv_tc_bytes() {
+  return size_t(6) * kTc * (DMAX + 8) * sizeof(bf16) + size_t(2) * kTc * kPld * sizeof(bf16) + 7 * kTc * sizeof(float);
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kDkvTcThreads, DMAX > 128 ? 1 : 2) dkv_tc_kernel(Args a) {
+  constexpr int KS = DMAX / 16, NP = DMAX / 32;  // k-steps over D; 16-column pairs of D a warp owns
+  static_assert(DMAX % 32 == 0, "the two column halves of phase 2 own DMAX / 32 pairs each");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int ld = DMAX + 8;
+  const int D = a.D;
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // [kTc][ld]
+  bf16* sV = sK + kTc * ld;
+  bf16* sQ = sV + kTc * ld;     // [2][kTc][ld]; after the walk, dk in fp32 (rotary)
+  bf16* sdO = sQ + 2 * kTc * ld;  // [2][kTc][ld]
+  bf16* sP = sdO + 2 * kTc * ld;  // [kTc][kPld]: p in bf16, [q][kv]
+  bf16* sdS = sP + kTc * kPld;    // [kTc][kPld]: ds in bf16
+  float* slse = reinterpret_cast<float*>(sdS + kTc * kPld);  // [2][kTc]
+  float* sdelta = slse + 2 * kTc;                            // [2][kTc]
+  int* sq = reinterpret_cast<int*>(sdelta + 2 * kTc);        // [2][kTc]
+  int* skv = sq + 2 * kTc;                                   // [kTc]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int n_kt = (a.T + kTc - 1) / kTc;
+  const int kt = blockIdx.x % n_kt, hk = (blockIdx.x / n_kt) % a.Hkv, b = blockIdx.x / (n_kt * a.Hkv);
+  const int gq = a.H / a.Hkv, c0 = kt * kTc;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  const bool rot = a.rot.cos != nullptr, vec = a.vec != 0;
+
+  zero_pad_columns<kDkvTcThreads, DMAX>(sK, 6, D);
+  tile_load<kDkvTcThreads, DMAX>(sK, ld, kb, a.k_ss, c0, a.T, D, vec, rot, a.rot, b);
+  tile_load<kDkvTcThreads, DMAX>(sV, ld, vb, a.v_ss, c0, a.T, D, vec, false, a.rot, b);
+  if (a.seg_kv != nullptr && tid < kTc) skv[tid] = c0 + tid < a.T ? a.seg_kv[int64_t(b) * a.T + c0 + tid] : 0;
+  cp_commit();
+  int lo, hi;
+  q_range(a, c0, min(c0 + kTc, a.T) - 1, lo, hi);
+  const int rt0 = lo / kTc, n_rt = hi > lo ? (hi - 1) / kTc - rt0 + 1 : 0, items = gq * n_rt;
+  // item i: q head hk * gq + i / n_rt, query rows (rt0 + i % n_rt) * kTc ..
+  auto issue = [&](int i, int buf) {
+    const int h = hk * gq + i / n_rt, r0 = (rt0 + i % n_rt) * kTc;
+    const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+    const bf16* dob = static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh;
+    tile_load<kDkvTcThreads, DMAX>(sQ + buf * kTc * ld, ld, qb, a.q_ss, r0, a.S, D, vec, rot, a.rot, b);
+    tile_load<kDkvTcThreads, DMAX>(sdO + buf * kTc * ld, ld, dob, a.do_ss, r0, a.S, D, vec, false, a.rot, b);
+    if (tid < kTc) {
+      const int r = r0 + tid;
+      const int64_t stat = (int64_t(b) * a.H + h) * a.S + r;
+      slse[buf * kTc + tid] = r < a.S ? a.lse[stat] : kNegInf;
+      sdelta[buf * kTc + tid] = r < a.S ? a.delta[stat] : 0.f;
+      if (a.seg_q != nullptr) sq[buf * kTc + tid] = r < a.S ? a.seg_q[int64_t(b) * a.S + r] : 0;
+    }
+    cp_commit();
+  };
+  if (items > 0) issue(0, 0);
+
+  float dk[NP][2][4], dv[NP][2][4];
+#pragma unroll
+  for (int i = 0; i < NP; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[i][j][e] = dv[i][j][e] = 0.f;
+  // phase 1: warp (wr, wc) = (warp % 4, warp / 4) computes S and dP at query
+  // rows 16 wr .., kv columns 32 wc ..; phase 2: warp (kr, dc) = (warp % 4,
+  // warp / 4) accumulates kv rows 16 kr .. at the 16-column pairs dc, dc + 2, ..
+  const int wr = warp & 3, wc = warp >> 2;
+  const uint32_t k_addr = smem_addr(sK + (wc * 32 + bn_row(lane)) * ld + bn_col(lane));
+  const uint32_t v_addr = smem_addr(sV + (wc * 32 + bn_row(lane)) * ld + bn_col(lane));
+  const uint32_t pt_off = ((bk_col(lane) + (lane & 7)) * kPld + wr * 16 + bn_col(lane)) * 2;
+  for (int it = 0; it < items; ++it) {
+    const int buf = it & 1, r0 = (rt0 + it % n_rt) * kTc;
+    if (it + 1 < items) {
+      __syncthreads();  // every warp is done with buffer buf ^ 1 (item it - 1)
+      issue(it + 1, buf ^ 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // item it landed; every warp is done with sP and sdS
+    const bf16* q_t = sQ + buf * kTc * ld;
+    const bf16* do_t = sdO + buf * kTc * ld;
+    {
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      const uint32_t q_addr = smem_addr(q_t + (wr * 16 + a_row(lane)) * ld + a_col(lane));
+      const uint32_t do_addr = smem_addr(do_t + (wr * 16 + a_row(lane)) * ld + a_col(lane));
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t qa[4], da[4];
+        ldsm4(qa, q_addr + kk * 32);
+        ldsm4(da, do_addr + kk * 32);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t kf[4], vf[4];
+          ldsm4(kf, k_addr + (np * 16 * ld + kk * 16) * 2);
+          ldsm4(vf, v_addr + (np * 16 * ld + kk * 16) * 2);
+          mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+          mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
+          mma_bf16(dp[2 * np], da, vf[0], vf[1]);
+          mma_bf16(dp[2 * np + 1], da, vf[2], vf[3]);
+        }
+      }
+      const bool masked = tile_masked(a, r0, c0);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int rl = wr * 16 + g + hr * 8;
+        const float lse = slse[buf * kTc + rl], delta = sdelta[buf * kTc + rl];
+        const bool live = lse > kNegInf / 2;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float p[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cl = wc * 32 + j * 8 + 2 * t4 + e;
+            const bool ok = live && (!masked || valid(a, r0 + rl, c0 + cl, a.seg_q ? sq[buf * kTc + rl] : 0,
+                                                      a.seg_kv ? skv[cl] : 0));
+            p[e] = ok ? exp2f(__fmul_rn(s[j][2 * hr + e], a.c) - lse) : 0.f;
+            ds[e] = __fmul_rn(__fmul_rn(dp[j][2 * hr + e] - delta, p[e]), a.scale);
+          }
+          const int off = rl * kPld + wc * 32 + j * 8 + 2 * t4;
+          *reinterpret_cast<uint32_t*>(sP + off) = pack_bf16(p[0], p[1]);
+          *reinterpret_cast<uint32_t*>(sdS + off) = pack_bf16(ds[0], ds[1]);
+        }
+      }
+    }
+    __syncthreads();  // p and ds are whole
+    {
+      const int dc = wc;
+      const uint32_t p_addr = smem_addr(sP) + pt_off, ds_addr = smem_addr(sdS) + pt_off;
+      const uint32_t do_addr = smem_addr(do_t + bk_row(lane) * ld + bk_col(lane));
+      const uint32_t q_addr = smem_addr(q_t + bk_row(lane) * ld + bk_col(lane));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t pa[4], sa[4];
+        ldsm4_t(pa, p_addr + kk * 16 * kPld * 2);
+        ldsm4_t(sa, ds_addr + kk * 16 * kPld * 2);
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          const int pi = 2 * i + dc;
+          uint32_t of[4], qf[4];
+          ldsm4_t(of, do_addr + (kk * 16 * ld + pi * 16) * 2);
+          ldsm4_t(qf, q_addr + (kk * 16 * ld + pi * 16) * 2);
+          mma_bf16(dv[i][0], pa, of[0], of[1]);
+          mma_bf16(dv[i][1], pa, of[2], of[3]);
+          mma_bf16(dk[i][0], sa, qf[0], qf[1]);
+          mma_bf16(dk[i][1], sa, qf[2], qf[3]);
+        }
+      }
+    }
+  }
+  cp_wait<0>();  // K and V, where no item waited for them
+  const int64_t row_stride = int64_t(a.Hkv) * D;
+  const int64_t base = (int64_t(b) * a.T * a.Hkv + hk) * D;
+  bf16* dk_out = static_cast<bf16*>(a.dk) + base;
+  bf16* dv_out = static_cast<bf16*>(a.dv) + base;
+  const int kr = warp & 3, dc = warp >> 2;
+  float* dk32 = reinterpret_cast<float*>(sQ);  // [kTc][D + 1] fp32 dk for the adjoint
+  if (rot) __syncthreads();  // every warp is done with sQ and sdO
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int cl = kr * 16 + g + hr * 8, c = c0 + cl;
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int d = (2 * i + dc) * 16 + j * 8 + 2 * t4;
+        if (d < D) {
+          if (c < a.T) {
+            *reinterpret_cast<uint32_t*>(dv_out + c * row_stride + d) =
+                pack_bf16(dv[i][j][2 * hr], dv[i][j][2 * hr + 1]);
+            if (!rot)
+              *reinterpret_cast<uint32_t*>(dk_out + c * row_stride + d) =
+                  pack_bf16(dk[i][j][2 * hr], dk[i][j][2 * hr + 1]);
+          }
+          if (rot) {
+            dk32[cl * (D + 1) + d] = dk[i][j][2 * hr];
+            dk32[cl * (D + 1) + d + 1] = dk[i][j][2 * hr + 1];
+          }
+        }
+      }
+  }
+  if (rot) {
+    __syncthreads();
+    store_adjoint<bf16>(dk_out, row_stride, dk32, c0, kTc, a.T, D, a.rot, b);
+  }
+}
+
 // ---- launches ------------------------------------------------------------------
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t floats, int blocks, const Args& a, cudaStream_t s) {
-  const int bytes = int(floats * sizeof(float));
+cudaError_t launch(Kernel kernel, size_t smem, int blocks, int threads, const Args& a, cudaStream_t s) {
+  const int bytes = int(smem);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
   if (blocks == 0) return cudaSuccess;
-  kernel<<<blocks, kThreads, bytes, s>>>(a);
+  kernel<<<blocks, threads, bytes, s>>>(a);
   return cudaGetLastError();
 }
 
 // kv tile rows by head-dim bucket: 32 at D > 128, where 64 would not leave
 // the dq and dk/dv kernels' tiles in shared memory
+template <int DMAX>
+constexpr int kKvTile = DMAX > 128 ? 32 : 64;
+
 template <typename T, int DMAX>
 cudaError_t run(int which, const Args& a, cudaStream_t s) {
-  constexpr int BK = DMAX > 128 ? 32 : 64;
+  constexpr int BK = kKvTile<DMAX>;
   const int n_qt = (a.S + kBQ - 1) / kBQ, n_kt = (a.T + BK - 1) / BK;
-  if (which == 0) return launch(fwd_kernel<T, DMAX, BK>, FwdSmem<DMAX, BK>::floats(a.D), n_qt * a.H * a.B, a, s);
-  if (which == 1) return launch(dq_kernel<T, DMAX, BK>, DqSmem<DMAX, BK>::floats(a.D), n_qt * a.H * a.B, a, s);
-  return launch(dkv_kernel<T, DMAX, BK>, DkvSmem<DMAX, BK>::floats(a.D), n_kt * a.Hkv * a.B, a, s);
+  constexpr size_t F = sizeof(float);
+  if (which == 0)
+    return launch(fwd_kernel<T, DMAX, BK>, FwdSmem<DMAX, BK>::floats(a.D) * F, n_qt * a.H * a.B, kThreads, a, s);
+  if (which == 1)
+    return launch(dq_kernel<T, DMAX, BK>, DqSmem<DMAX, BK>::floats(a.D) * F, n_qt * a.H * a.B, kThreads, a, s);
+  return launch(dkv_kernel<T, DMAX, BK>, DkvSmem<DMAX, BK>::floats(a.D) * F, n_kt * a.Hkv * a.B, kThreads, a, s);
+}
+
+// bf16: dq as in fp32; the forward and dk/dv on the tensor cores
+template <int DMAX>
+cudaError_t run_dq_bf16(const Args& a, cudaStream_t s) {
+  constexpr int BK = kKvTile<DMAX>;
+  return launch(dq_kernel<bf16, DMAX, BK>, DqSmem<DMAX, BK>::floats(a.D) * sizeof(float),
+                (a.S + kBQ - 1) / kBQ * a.H * a.B, kThreads, a, s);
+}
+template <int DMAX>
+cudaError_t run_tc(int which, const Args& a, cudaStream_t s) {
+  if (which == 0)
+    return launch(fwd_tc_kernel<DMAX>, fwd_tc_bytes<DMAX>(), (a.S + kTc - 1) / kTc * a.H * a.B, kFwdTcThreads, a, s);
+  return launch(dkv_tc_kernel<DMAX>, dkv_tc_bytes<DMAX>(), (a.T + kTc - 1) / kTc * a.Hkv * a.B, kDkvTcThreads, a, s);
 }
 
 template <typename T>
@@ -564,6 +1123,25 @@ cudaError_t run_dtype(int which, const Args& a, cudaStream_t s) {
   if (a.D <= 64) return run<T, 64>(which, a, s);
   if (a.D <= 128) return run<T, 128>(which, a, s);
   return run<T, 256>(which, a, s);
+}
+// bf16: dq in the buckets above; the tensor-core kernels' tiles are DMAX
+// wide (zero past D), so that their loops unroll at compile time
+template <>
+cudaError_t run_dtype<bf16>(int which, const Args& a, cudaStream_t s) {
+  if (which == 1) {
+    if (a.D <= 64) return run_dq_bf16<64>(a, s);
+    return a.D <= 128 ? run_dq_bf16<128>(a, s) : run_dq_bf16<256>(a, s);
+  }
+  if (a.D <= 64) return run_tc<64>(which, a, s);
+  if (a.D <= 96) return run_tc<96>(which, a, s);
+  if (a.D <= 128) return run_tc<128>(which, a, s);
+  if (a.D <= 192) return run_tc<192>(which, a, s);
+  return run_tc<256>(which, a, s);
+}
+
+// a base pointer and (batch, sequence, head) strides that keep every row 16-byte aligned
+bool rows_aligned(const void* p, int64_t sb, int64_t ss, int64_t sh) {
+  return p != nullptr && reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 8 == 0 && ss % 8 == 0 && sh % 8 == 0;
 }
 
 int dispatch(int dtype, int which, Args& a, int window, const void* rot_cos, const void* rot_sin, int64_t rot_sb,
@@ -573,6 +1151,9 @@ int dispatch(int dtype, int which, Args& a, int window, const void* rot_cos, con
     return int(cudaErrorInvalidValue);
   if (a.B == 0 || a.S == 0 || a.H == 0) return int(cudaSuccess);
   a.w2 = window > 0 ? window / 2 : -1;
+  a.vec = rows_aligned(a.q, a.q_sb, a.q_ss, a.q_sh) && rows_aligned(a.k, a.k_sb, a.k_ss, a.k_sh) &&
+          rows_aligned(a.v, a.v_sb, a.v_ss, a.v_sh) &&
+          (which != 2 || rows_aligned(a.dout, a.do_sb, a.do_ss, a.do_sh));
   a.rot = Rot{static_cast<const float*>(rot_cos), static_cast<const float*>(rot_sin), rot_sb, rot_half,
               rot_interleaved};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

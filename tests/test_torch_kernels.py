@@ -279,6 +279,80 @@ def test_generic_kernels_match_plain_versions_on_card(cuda, dtype, D, variant):
             assert tfa.grad_error_ratio(g, r, name) <= 1.0, name
 
 
+def _misaligned(x):
+    """x's values in contiguous storage whose base is 2 bytes past a 16-byte
+    boundary: no TMA map and no 16-byte copy takes it, so it routes to the
+    generic kernels, which stage its rows through registers."""
+    flat = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    y = flat[1:1 + x.numel()].view(x.shape)
+    y.copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16 != 0
+    return y
+
+
+# head dims of the bf16 tensor-core forward and dk/dv: "u" misaligned
+# operands (the only way D 64 / 128 reach them without rotary)
+TC_HEAD_DIMS = ("64u", 80, 88, 96, "128u", 200, 256)
+TC_VARIANTS = ("pad", "causal", "window128", "segments", "gqa", "rotary_halves", "rotary_pairs")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,variant", [(d, v) for d in TC_HEAD_DIMS for v in TC_VARIANTS]
+                         + [("128", "rotary_halves"), ("128", "rotary_pairs")])
+def test_bf16_tensor_core_kernels_match_plain_versions_on_card(cuda, head_dim, variant):
+    """The bf16 forward and dk/dv on the tensor cores (and the generic dq
+    beside them) against the plain versions at the Hopper kernels' error
+    model (`output_error_ratio`, `grad_error_ratio` <= 1, the LSE within
+    LSE_ATOL), routed to the generic kernels, and bit-identical on a second
+    run. Variants: a padding mask with an empty batch row, causal with S=200
+    against T=300 (offset 100), window 128 with a padding mask, three
+    segments then padding, GQA (H 8, Hkv 2), and rotary as NeoX halves and
+    as GPT-J pairs (rotary dim 8 at D = 128, aligned: only the generic
+    kernels take it; else a quarter of D, rounded to even)."""
+    D = int(str(head_dim).rstrip("u"))
+    gen = torch.Generator(device=cuda).manual_seed(D + len(variant))
+    B, S, H = 3, 200, 8
+    T = 300 if variant == "causal" else S
+    Hkv = 2 if variant == "gqa" else H
+    q, dout = (torch.randn(B, S, H, D, generator=gen, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, T, Hkv, D, generator=gen, device=cuda).bfloat16() for _ in range(2))
+    if str(head_dim).endswith("u"):
+        q, k, v, dout = (_misaligned(x) for x in (q, k, v, dout))
+    kw = dict(causal=variant == "causal", window=128 if variant == "window128" else 0)
+    if variant in ("pad", "window128", "gqa", "rotary_halves", "rotary_pairs"):
+        lens = torch.tensor([T, T // 2 + 3, 0 if variant == "pad" else 17], device=cuda)
+        kw["attention_mask"] = (torch.arange(T, device=cuda)[None] < lens[:, None]).int()
+    if variant == "segments":
+        seg = torch.zeros(B, S, dtype=torch.int32, device=cuda)
+        seg[:, :70], seg[:, 70:140], seg[:, 140:180] = 1, 2, 3
+        kw["segment_ids"] = seg
+    if variant.startswith("rotary"):
+        from contrastors_tpu_torch.layers.rotary import rotary_cos_sin
+
+        rot_dim = 8 if D == 128 else max(2, D // 4 // 2 * 2)
+        kw["rotary_cos"], kw["rotary_sin"] = rotary_cos_sin(S, rot_dim, device=cuda)
+        kw["rotary_interleaved"] = variant == "rotary_pairs"
+    counters = ("launches_generic", "launches_generic_dq", "launches_generic_dkv")
+    before = [getattr(tfa, c) for c in counters]
+    out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    again = tfa.flash_attention_fwd(q, k, v, **kw)
+    grads = tfa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    grads_again = tfa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert [getattr(tfa, c) - b for c, b in zip(counters, before)] == [2, 2, 2]
+    ref, ref_lse = tfa.flash_attention_reference(q, k, v, **kw)
+    refs = tfa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw)
+    assert tfa.output_error_ratio(out, ref) <= 1.0
+    assert (lse - ref_lse).abs().max().item() <= tfa.LSE_ATOL
+    for g, r, name in zip(grads, refs, ("dq", "dk", "dv")):
+        assert tfa.grad_error_ratio(g, r, name) <= 1.0, name
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    for a, b, name in zip(grads, grads_again, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), name
+    if variant == "pad":
+        assert bool((out[-1] == 0).all()) and bool((grads[0][-1] == 0).all())
+
+
 def _moe_layout(cuda, A, E=8):
     """aligned_group_layout of A skewed assignments: expert 2 gets none,
     expert 5 exactly 128, so one group is empty, one needs no padding, and
