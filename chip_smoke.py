@@ -7244,6 +7244,7 @@ def coverage_gmm_checks(dev):
         cases[(dtype, K, N)] = (dict(gmm=max(over["gmm"], over["dlhs"]), tgmm=over["tgmm"]), case_abs)
         emit(phase="coverage_kernel_check_gmm", dtype=dtype, layout=layout, P=P, K=K, N=N,
              group_sizes=gs.tolist(), err_over_bar=over, padding_and_empty_expert_zero=zero,
+             digest={n: digest(x) for n, x in zip(("gmm", "dlhs", "tgmm"), got)},
              deterministic=deterministic, launches={n: c for n, c in launches.items() if c},
              bar=("max|out - ref| <= %g * max|ref|" % gm.FP32_REL if dtype == "fp32"
                   else "%g*|ref| + %g*max|ref|" % (gm.REL, gm.ABS_FRAC)), ok=ok)
@@ -7381,30 +7382,34 @@ def coverage_flash_shapes(dev, card, gen):
 
 
 def coverage_gmm_timing(card, operands):
-    """Phase coverage_kernel_timing: the generic gmm and tgmm at the fp32
-    MoE step's document chunk (K 768, N 3072): ms and device_ms beside the
-    bound at fp32's rate, the plain version's ms and the library's
-    (torch._grouped_mm or a per-expert torch.matmul loop). Returns {kernel:
-    row}."""
+    """Phase coverage_kernel_timing: the generic gmm, dlhs (gmm on the
+    rhs.transpose(1, 2) view: K 3072, N 768, rhs rows with unit stride over
+    K) and tgmm at the fp32 MoE step's document chunk (K 768, N 3072): ms
+    and device_ms beside the bound at fp32's rate, the plain version's ms
+    and the library's (torch._grouped_mm or a per-expert torch.matmul
+    loop). Returns {kernel: row}."""
     from contrastors_tpu_torch.ops import grouped_matmul as gm
 
     lhs, rhs, dout, gs, P, blk_e, act = operands
+    rhs_t = rhs.transpose(1, 2)
     active_rows, nonempty = int(gs.sum()), int((gs > 0).sum())
     rows = {}
-    for kname, run, plain, lib in (
+    for kname, run, plain, lib, (K, N) in (
             ("gmm", lambda: gm.launch_gmm(lhs, rhs, blk_e, act), lambda: gm._gmm_plain(lhs, rhs, blk_e, act, 128),
-             ("gmm", lhs, rhs)),
+             ("gmm", lhs, rhs), rhs.shape[1:]),
+            ("dlhs", lambda: gm.launch_gmm(dout, rhs_t, blk_e, act),
+             lambda: gm._gmm_plain(dout, rhs_t, blk_e, act, 128), ("gmm", dout, rhs_t), rhs_t.shape[1:]),
             ("tgmm", lambda: gm.launch_tgmm(lhs, dout, gs), lambda: gm.tgmm_reference(lhs, dout, gs, 128),
-             ("tgmm", lhs, dout))):
+             ("tgmm", lhs, dout), rhs.shape[1:])):
         lib_fn, lib_label = library_grouped_mm(*lib, gs)
-        b_ms, b_by, flops, nbytes = gmm_bound(kname, active_rows, P, 768, 3072, nonempty, elem=4,
-                                              peak=PEAK_FP32_FLOPS)
+        b_ms, b_by, flops, nbytes = gmm_bound("tgmm" if kname == "tgmm" else "gmm", active_rows, P, K, N, nonempty,
+                                              elem=4, peak=PEAK_FP32_FLOPS)
         rows[kname] = dict(ms=median_ms(run), device_ms=median_ms(run, queued=True), bound_ms=b_ms, bound_by=b_by,
                            flops=flops, bytes=nbytes, plain_ms=median_ms(plain, runs=3, warmup=1),
                            library_ms=median_ms(lib_fn, runs=5, warmup=2),
                            library_device_ms=median_ms(lib_fn, queued=True), library=lib_label)
         emit(phase="coverage_kernel_timing", card=card, gpu_state=gpu_state(), kernel=kname, dtype="fp32",
-             layout="doc_chunk", P=P, active_rows=active_rows, K=768, N=3072, **rows[kname])
+             layout="doc_chunk", P=P, active_rows=active_rows, K=K, N=N, **rows[kname])
     return rows
 
 
@@ -7582,13 +7587,22 @@ def generic_entries(coverage):
     shapes = coverage["flash_shapes"]
     on_path = [c[0] for c in COVERAGE_FLASH_SHAPES[:COVERAGE_PATH_SHAPES]]
     rows = []
-    for kname, name, source, replaces in (
+    for kname, name, source, replaces, design in (
             ("fwd", "flash_generic_fwd", "flash_generic.cu", ["contrastors_tpu/ops/flash_attention.py:225",
-                                                               "contrastors_tpu/ops/flash_attention.py:115"]),
-            ("dq", "flash_generic_dq", "flash_generic.cu", ["contrastors_tpu/ops/flash_attention.py:422"]),
-            ("dkv", "flash_generic_dkv", "flash_generic.cu", ["contrastors_tpu/ops/flash_attention.py:512"]),
-            ("gmm", "gmm_generic", "gmm_generic.cu", ["contrastors_tpu/ops/grouped_matmul.py:75"]),
-            ("tgmm", "tgmm_generic", "gmm_generic.cu", ["contrastors_tpu/ops/grouped_matmul.py:125"])):
+                                                               "contrastors_tpu/ops/flash_attention.py:115"],
+             dict(fp32="fwd_kernel<float, DMAX, BK> (fp32 FMAs)",
+                  bf16="fwd_tc_kernel<DMAX> (mma.sync tensor cores)")),
+            ("dq", "flash_generic_dq", "flash_generic.cu", ["contrastors_tpu/ops/flash_attention.py:422"],
+             dict(fp32="dq_kernel<float, DMAX, BK> (fp32 FMAs)",
+                  bf16="dq_tc_kernel<DMAX> (mma.sync tensor cores)")),
+            ("dkv", "flash_generic_dkv", "flash_generic.cu", ["contrastors_tpu/ops/flash_attention.py:512"],
+             dict(fp32="dkv_kernel<float, DMAX, BK> (fp32 FMAs)",
+                  bf16="dkv_tc_kernel<DMAX> (mma.sync tensor cores)")),
+            ("gmm", "gmm_generic", "gmm_generic.cu", ["contrastors_tpu/ops/grouped_matmul.py:75"],
+             dict(both="gmm_kernel<T, BM, KN> (128-row tiles where block_m allows, 8 x 8 accumulators a thread, "
+                       "two pipelined stages)")),
+            ("tgmm", "tgmm_generic", "gmm_generic.cu", ["contrastors_tpu/ops/grouped_matmul.py:125"],
+             dict(both="tgmm_kernel<T> (64 x 128 tiles, one stage)"))):
         counter = GENERIC[kname]
         if kname in ("gmm", "tgmm"):
             row = coverage["gmm_timing"][kname]
@@ -7596,6 +7610,10 @@ def generic_entries(coverage):
             launches = coverage["fp32_moe"]["launches_per_step"][counter]
             extra = dict(shape="fp32, the MoE document chunk's layout (16384 assignments, 8 experts), K=768 N=3072",
                          library=row["library"])
+            if kname == "gmm":
+                dlhs = coverage["gmm_timing"]["dlhs"]
+                extra["dlhs"] = dict(shape="dlhs: gmm on rhs.transpose(1, 2), K=3072 N=768", library=dlhs["library"],
+                                     **{k: dlhs[k] for k in pick})
         else:
             row = shapes["fp32_doc_chunk"][kname]
             path = [shapes[label][kname] for label in on_path if kname in shapes[label]]
@@ -7612,7 +7630,7 @@ def generic_entries(coverage):
             else:
                 extra["note"] = "plain_ms and library_ms time a whole backward (dq, dk and dv)"
         rows.append(dict(name=name, route="cuda", source=f"contrastors_tpu_torch/ops/csrc/{source}",
-                         replaces=replaces[0], also_replaces=replaces[1:], launches=launches,
+                         replaces=replaces[0], also_replaces=replaces[1:], design=design, launches=launches,
                          fp32_moe_launches_per_step=coverage["fp32_moe"]["launches_per_step"][counter],
                          max_abs_err=abs_err, err_over_bar=over,
                          coverage_max_abs_err=coverage["max_abs_err"][kname],

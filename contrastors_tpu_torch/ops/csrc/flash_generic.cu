@@ -35,12 +35,11 @@
 // no tensor-core rate that keeps the plain version's precision (single-pass
 // TF32 keeps ~10 bits), so the products are fp32 FMAs: 67 TFLOP/s at most,
 // against 4*S*T*D FLOP per (batch, head) on 8*S*D bytes (fp32, S == T), i.e.
-// T/4 FLOP per byte: operations bound above T ~ 80. bf16 dq runs the same
-// FMAs on operands widened on load (their products are exact in fp32). The
-// bf16 forward and dk/dv run on the tensor cores instead (fwd_tc_kernel,
-// dkv_tc_kernel below, with their own note).
+// T/4 FLOP per byte: operations bound above T ~ 80. The bf16 forward, dq and
+// dk/dv run on the tensor cores instead (fwd_tc_kernel, dq_tc_kernel,
+// dkv_tc_kernel below, with their own notes).
 //
-// Design of the fp32 kernels and of dq, one simple form for the three: a
+// Design of the fp32 kernels, one simple form for the three: a
 // block of 256 threads owns a tile of 64 query rows (forward, dq) or of BK
 // kv rows (dk/dv) of one (batch, head) and walks the other side's tiles
 // through shared memory, every operand widened to fp32 in rows of D + 1
@@ -76,10 +75,8 @@ struct Elem<float> {
   static __device__ __forceinline__ float round(float x) { return x; }
 };
 template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+struct Elem<__nv_bfloat16> {  // bf16 reaches only store_adjoint: the bf16 kernels are the tensor-core ones
   static __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-  static __device__ __forceinline__ float round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 };
 
 struct Rot {
@@ -172,11 +169,11 @@ __device__ __forceinline__ float group_sum(float x) {
 // The adjoint of the rotation on an fp32 tile g[r * (D + 1) + d] of rows at
 // sequence positions row0 + r, cast to T and stored at out + pos * ss: g * cos
 // + rot^T(g * sin), rounded as the plain version rounds (rot^T = -rot).
-template <typename T>
+template <typename T, int NT = kThreads>
 __device__ void store_adjoint(T* out, int64_t ss, const float* g, int row0, int rows, int n_valid, int D,
                               const Rot& rot, int b) {
   const int ld = D + 1;
-  for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < rows * D; idx += NT) {
     const int r = idx / D, d = idx - r * D, pos = row0 + r;
     if (pos >= n_valid) continue;
     float x = g[r * ld + d];
@@ -545,8 +542,8 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Args a) {
 // the Pallas kernels named at the top of this file: the forward
 // _fwd_kernel_single (:225) / _fwd_kernel (:115), call :396, with fused_rot
 // (_rot_block :76); dk/dv _bwd_dkv_kernel (:512), call :700, adjoint
-// :600-604. The fp32 instantiations of fwd_kernel and dkv_kernel and dq_kernel
-// in both dtypes keep the design above.
+// :600-604. The fp32 instantiations of fwd_kernel, dq_kernel and dkv_kernel
+// keep the design above; bf16 dq has its own kernel and note further down.
 //
 // What bounds them on an H100: bytes at the main path's shapes (64 x 257 at
 // D 80 / 88, pythia-1b's 128-token rows at D 256: a few hundred FLOP per byte
@@ -635,17 +632,18 @@ __device__ __forceinline__ int bn_col(int lane) { return ((lane >> 3) & 1) << 3;
 __device__ __forceinline__ int bk_row(int lane) { return (lane & 7) + (((lane >> 3) & 1) << 3); }
 __device__ __forceinline__ int bk_col(int lane) { return (lane >> 4) << 3; }
 
-// kTc rows row0 .. of one (batch, head) of x (row stride ss) into dst (row
+// ROWS rows row0 .. of one (batch, head) of x (row stride ss) into dst (row
 // stride ld elements), columns [0, D); rows past n_valid are zero. By
 // cp.async when `async` (16-byte aligned rows), else staged through
 // registers, rotated (q, k) as the plain version rotates when `rotate`.
-template <int NT, int DMAX>
+template <int NT, int DMAX, int ROWS = kTc>
 __device__ __forceinline__ void tile_load(bf16* dst, int ld, const bf16* base, int64_t ss, int row0, int n_valid,
                                           int D, bool async, bool rotate, const Rot& rot, int b) {
   if (async && !rotate) {
     constexpr int SLOTS = DMAX / 8;  // 16-byte slots of a row, D / 8 of them used
+    static_assert(ROWS * SLOTS % NT == 0, "every thread issues the same number of copies");
 #pragma unroll
-    for (int it = 0; it < kTc * SLOTS / NT; ++it) {
+    for (int it = 0; it < ROWS * SLOTS / NT; ++it) {
       const int idx = threadIdx.x + it * NT, r = idx / SLOTS, c = idx % SLOTS, pos = row0 + r;
       if (c < (D >> 3)) {
         const bool ok = pos < n_valid;
@@ -654,7 +652,7 @@ __device__ __forceinline__ void tile_load(bf16* dst, int ld, const bf16* base, i
     }
     return;
   }
-  for (int idx = threadIdx.x; idx < kTc * D; idx += NT) {
+  for (int idx = threadIdx.x; idx < ROWS * D; idx += NT) {
     const int r = idx / D, d = idx - r * D, pos = row0 + r;
     float x = 0.f;
     if (pos < n_valid) {
@@ -681,11 +679,11 @@ __device__ __forceinline__ void zero_pad_columns(bf16* tiles, int n_tiles, int D
   }
 }
 
-// whether rows [r0, r0 + kTc) against columns [c0, c0 + kTc) need the
+// whether rows [r0, r0 + kTc) against columns [c0, c0 + cols) need the
 // element-wise mask: segments, columns past T, or a causal / window edge
 // crossing the tile (rows past S are dropped or carry a -1e30 LSE)
-__device__ __forceinline__ bool tile_masked(const Args& a, int r0, int c0) {
-  const int r1 = r0 + kTc - 1, c1 = c0 + kTc - 1;
+__device__ __forceinline__ bool tile_masked(const Args& a, int r0, int c0, int cols = kTc) {
+  const int r1 = r0 + kTc - 1, c1 = c0 + cols - 1;
   return a.seg_q != nullptr || c1 >= a.T || (a.causal && c1 > r0 + a.causal_offset) ||
          (a.w2 >= 0 && (c0 < r1 - a.w2 || c1 > r0 + a.w2));
 }
@@ -1075,6 +1073,272 @@ __global__ void __launch_bounds__(kDkvTcThreads, DMAX > 128 ? 1 : 2) dkv_tc_kern
   }
 }
 
+// ---- bf16 on the tensor cores: dq (and delta) ----------------------------------
+//
+// dq_tc_kernel<DMAX> takes the bf16 inputs of flash_generic_dq (dq_kernel is
+// instantiated for fp32 only). It replaces, for them, _bwd_dq_kernel
+// (contrastors_tpu/ops/flash_attention.py:422, call :640) with fused_rot
+// (_rot_block :76, adjoint _rot_adjoint :87).
+//
+// What bounds it on an H100: bytes at the main path's shapes (q, dO, O, k
+// and v read once, dq written once, against 6*S*T*D FLOP per (batch, head):
+// at S = T = 128..257 a few hundred FLOP per byte, under the card's ~295),
+// then the exp2 and masking of p in registers. dq_kernel's design, which
+// ran the three products as fp32 FMAs on operands widened in shared memory,
+// took about 10x SDPA's whole backward.
+//
+// What the design does about it (fwd_tc_kernel's loop, with dP beside S):
+//   - 4 warps own 64 query rows of one (batch, head), 16 rows each; Q and dO
+//     stay bf16 in shared memory, zero-padded to DMAX, and the K / V tiles of
+//     kv_range arrive by cp.async (staged through registers where a row is
+//     misaligned or rotated);
+//   - per kv tile, S = Q K^T and dP = dO V^T on mma.sync.m16n8k16; p and
+//     ds = ((dp - delta) * p) * scale in registers, ds rounded to bf16 and fed
+//     to dQ += dS K as A fragments straight from the accumulator layout, K the
+//     B operand by ldmatrix.trans: dS never goes through shared memory;
+//   - registers: dQ is 16 x DMAX fp32 a warp (128 floats a thread at D = 256),
+//     so a kv tile is 32 rows (S and dP 16 floats a thread each): at DMAX >
+//     128 in one stage, which keeps two blocks a SM, V's next copy under
+//     Q K^T and K's under dP of the next tile; at DMAX <= 128 in two stages,
+//     the next tile's copies under this tile's products, three blocks a SM
+//     (64-row tiles left two, at 224-240 registers, and ran ViT's 64 x 257
+//     at D 80 / 88 1.43x as long);
+//   - delta = rowsum(dO * O) in fp32 first, summed in dq_kernel's order (16
+//     partial sums over d = lane (mod 16), then group_sum), from O copied into
+//     a K / V buffer that the first kv tile does not use; written for dk/dv;
+//   - the rotary adjoint runs on the fp32 dq through shared memory, as in
+//     dkv_tc_kernel. An empty row's p is 0, so its dq is 0.
+// Every dq element has one owner and a fixed order of sums: no atomics,
+// bit-identical reruns.
+
+constexpr int kDqTcThreads = 128;  // 4 warps x 16 query rows
+constexpr int kDqKv = 32;  // kv rows of a walked tile
+template <int DMAX>
+constexpr int kDqStages = DMAX > 128 ? 1 : 2;
+template <int DMAX>
+constexpr int kDqBlocks = DMAX > 128 ? 2 : 3;  // blocks a SM the registers must allow
+
+template <int DMAX>
+size_t dq_tc_bytes() {
+  constexpr int kv = kDqStages<DMAX> * kDqKv;
+  return size_t(2 * kTc + 2 * kv) * (DMAX + 8) * sizeof(bf16) + kTc * sizeof(float) + (kTc + kv) * sizeof(int);
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kDqTcThreads, kDqBlocks<DMAX>) dq_tc_kernel(Args a) {
+  constexpr int KS = DMAX / 16, NT = DMAX / 8, BKV = kDqKv, ST = kDqStages<DMAX>, SJ = BKV / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int ld = DMAX + 8;
+  const int D = a.D;
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [kTc][ld]; after the walk, dq (fp32 for the adjoint)
+  bf16* sdO = sQ + kTc * ld;                      // [kTc][ld]
+  bf16* sK = sdO + kTc * ld;                      // [ST][K, V][BKV][ld]: stage st's K, then its V
+  bf16* sV = sK + BKV * ld;
+  float* sdelta = reinterpret_cast<float*>(sK + 2 * ST * BKV * ld);  // [kTc]
+  int* sq = reinterpret_cast<int*>(sdelta + kTc);                    // [kTc]
+  int* skv = sq + kTc;                                               // [ST][BKV]
+  bf16* sO = sK + (ST - 1) * 2 * BKV * ld;  // [kTc][ld]: O for delta, in a stage the first kv tile does not use
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int n_qt = (a.S + kTc - 1) / kTc;
+  const int qt = blockIdx.x % n_qt, h = (blockIdx.x / n_qt) % a.H, b = blockIdx.x / (n_qt * a.H);
+  const int hk = h / (a.H / a.Hkv), q0 = qt * kTc;
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const bf16* ob = static_cast<const bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
+  const bf16* dob = static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  const bool rot = a.rot.cos != nullptr, vec = a.vec != 0;
+  const int64_t stat0 = (int64_t(b) * a.H + h) * a.S;
+  auto load_k = [&](int c, int st) {
+    tile_load<kDqTcThreads, DMAX, BKV>(sK + st * 2 * BKV * ld, ld, kb, a.k_ss, c, a.T, D, vec, rot, a.rot, b);
+    if (a.seg_kv != nullptr && tid < BKV)
+      skv[st * BKV + tid] = c + tid < a.T ? a.seg_kv[int64_t(b) * a.T + c + tid] : 0;
+  };
+  auto load_v = [&](int c, int st) {
+    tile_load<kDqTcThreads, DMAX, BKV>(sV + st * 2 * BKV * ld, ld, vb, a.v_ss, c, a.T, D, vec, false, a.rot, b);
+  };
+
+  zero_pad_columns<kDqTcThreads, DMAX>(sQ, 2 + 2 * ST * BKV / kTc, D);
+  tile_load<kDqTcThreads, DMAX>(sQ, ld, qb, a.q_ss, q0, a.S, D, vec, rot, a.rot, b);
+  tile_load<kDqTcThreads, DMAX>(sdO, ld, dob, a.do_ss, q0, a.S, D, vec, false, a.rot, b);
+  tile_load<kDqTcThreads, DMAX>(sO, ld, ob, a.o_ss, q0, a.S, D, vec, false, a.rot, b);
+  if (a.seg_q != nullptr && tid < kTc) sq[tid] = q0 + tid < a.S ? a.seg_q[int64_t(b) * a.S + q0 + tid] : 0;
+  cp_commit();
+  int lo, hi;
+  kv_range(a, q0, min(q0 + kTc, a.S) - 1, lo, hi);
+  const int first = lo / BKV * BKV;
+  if (ST == 2 && first < hi) {
+    load_k(first, 0);
+    load_v(first, 0);
+  }
+  cp_commit();
+  cp_wait<1>();
+  __syncthreads();  // Q, dO and O landed
+  {
+    // delta: half-warp `half` of this warp sums rows warp * 16 + 2 i + half
+    const int half = lane >> 4, cg = lane & 15;
+    for (int i = 0; i < 8; ++i) {
+      const int rl = warp * 16 + 2 * i + half, r = q0 + rl;
+      float part = 0.f;
+      if (r < a.S)
+        for (int d = cg; d < D; d += 16)
+          part += __bfloat162float(sdO[rl * ld + d]) * __bfloat162float(sO[rl * ld + d]);
+      const float delta = group_sum(part);
+      if (cg == 0) {
+        sdelta[rl] = delta;
+        if (r < a.S) a.delta[stat0 + r] = delta;
+      }
+    }
+  }
+  __syncthreads();  // every warp is done with O, and sdelta is whole
+  if (ST == 1) {    // the first tile's V, then its K, a copy group each
+    if (first < hi) load_v(first, 0);
+    cp_commit();
+    if (first < hi) load_k(first, 0);
+    cp_commit();
+  }
+
+  const int rl0 = warp * 16 + g;  // this thread's rows rl0 and rl0 + 8 of the tile
+  float lse[2], dl[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = q0 + rl0 + hr * 8;
+    lse[hr] = r < a.S ? a.lse[stat0 + r] : kNegInf;
+    dl[hr] = sdelta[rl0 + hr * 8];
+  }
+  float dq[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  const uint32_t q_addr = smem_addr(sQ + (warp * 16 + a_row(lane)) * ld + a_col(lane));
+  const uint32_t do_addr = smem_addr(sdO + (warp * 16 + a_row(lane)) * ld + a_col(lane));
+  const uint32_t k_addr = smem_addr(sK + bn_row(lane) * ld + bn_col(lane));   // K as [n][k], for S
+  const uint32_t v_addr = smem_addr(sV + bn_row(lane) * ld + bn_col(lane));   // V as [n][k], for dP
+  const uint32_t kt_addr = smem_addr(sK + bk_row(lane) * ld + bk_col(lane));  // K as [k][n], for dQ
+  constexpr uint32_t stage_bytes = 2 * BKV * ld * 2;
+
+  // acc (the warp's 16 rows x BKV kv columns) = X Y^T: X's rows at x_addr, the tile Y at y_addr
+  auto product = [&](float(&acc)[SJ][4], uint32_t x_addr, uint32_t y_addr) {
+#pragma unroll
+    for (int j = 0; j < SJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t xa[4];
+      ldsm4(xa, x_addr + kk * 32);
+#pragma unroll
+      for (int np = 0; np < SJ / 2; ++np) {
+        uint32_t yf[4];
+        ldsm4(yf, y_addr + (np * 16 * ld + kk * 16) * 2);
+        mma_bf16(acc[2 * np], xa, yf[0], yf[1]);
+        mma_bf16(acc[2 * np + 1], xa, yf[2], yf[3]);
+      }
+    }
+  };
+  // s (S of the tile at c0, K in stage st) becomes ds; then dQ += dS K
+  auto ds_dq = [&](float(&s)[SJ][4], const float(&dp)[SJ][4], int c0, int st) {
+    const bool masked = tile_masked(a, q0, c0, BKV);
+    const int* skv_t = skv + st * BKV;
+#pragma unroll
+    for (int j = 0; j < SJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hr = e >> 1, rl = rl0 + hr * 8, cl = j * 8 + 2 * t4 + (e & 1);
+        const bool ok = lse[hr] > kNegInf / 2 &&
+                        (!masked || valid(a, q0 + rl, c0 + cl, a.seg_q ? sq[rl] : 0, a.seg_kv ? skv_t[cl] : 0));
+        const float p = ok ? exp2f(__fmul_rn(s[j][e], a.c) - lse[hr]) : 0.f;
+        s[j][e] = __fmul_rn(__fmul_rn(dp[j][e] - dl[hr], p), a.scale);
+      }
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t kf[4];
+        ldsm4_t(kf, kt_addr + st * stage_bytes + (kk * 16 * ld + np * 16) * 2);
+        mma_bf16(dq[2 * np], pa, kf[0], kf[1]);
+        mma_bf16(dq[2 * np + 1], pa, kf[2], kf[3]);
+      }
+    }
+  };
+
+  if (ST == 2) {
+    for (int c0 = first, st = 0; c0 < hi; c0 += BKV, st ^= 1) {
+      if (c0 + BKV < hi) {
+        __syncthreads();  // every warp is done with stage st ^ 1 (O, before the second tile)
+        load_k(c0 + BKV, st ^ 1);
+        load_v(c0 + BKV, st ^ 1);
+        cp_commit();
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncthreads();  // stage st landed
+      float s[SJ][4], dp[SJ][4];
+      product(dp, do_addr, v_addr + st * stage_bytes);
+      product(s, q_addr, k_addr + st * stage_bytes);
+      ds_dq(s, dp, c0, st);
+    }
+  } else {
+    for (int c0 = first; c0 < hi; c0 += BKV) {
+      const bool next = c0 + BKV < hi;
+      cp_wait<1>();
+      __syncthreads();  // V landed
+      float s[SJ][4], dp[SJ][4];
+      product(dp, do_addr, v_addr);
+      __syncthreads();  // every warp is done with V
+      if (next) load_v(c0 + BKV, 0);
+      cp_commit();
+      cp_wait<1>();
+      __syncthreads();  // K landed
+      product(s, q_addr, k_addr);
+      ds_dq(s, dp, c0, 0);
+      __syncthreads();  // every warp is done with K and skv
+      if (next) load_k(c0 + BKV, 0);
+      cp_commit();
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();  // every warp is done with every tile, and no copy is in flight
+  bf16* out = static_cast<bf16*>(a.dq) + (int64_t(b) * a.S * a.H + h) * D;
+  const int64_t row_stride = int64_t(a.H) * D;
+  if (rot) {
+    float* dq32 = reinterpret_cast<float*>(smem_raw);  // [kTc][D + 1]
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int rl = rl0 + hr * 8;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int d = n * 8 + 2 * t4;
+        if (d < D) {
+          dq32[rl * (D + 1) + d] = dq[n][2 * hr];
+          dq32[rl * (D + 1) + d + 1] = dq[n][2 * hr + 1];
+        }
+      }
+    }
+    __syncthreads();
+    store_adjoint<bf16, kDqTcThreads>(out, row_stride, dq32, q0, kTc, a.S, D, a.rot, b);
+    return;
+  }
+  // dq in bf16 into this warp's own rows of sQ, then 16-byte stores
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int rl = rl0 + hr * 8;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<uint32_t*>(sQ + rl * ld + n * 8 + 2 * t4) = pack_bf16(dq[n][2 * hr], dq[n][2 * hr + 1]);
+  }
+  __syncwarp();
+  const int chunks = D >> 3;
+  for (int idx = lane; idx < 16 * chunks; idx += 32) {
+    const int rl = warp * 16 + idx / chunks, c = idx % chunks, r = q0 + rl;
+    if (r < a.S)
+      *reinterpret_cast<uint4*>(out + r * row_stride + c * 8) = *reinterpret_cast<const uint4*>(sQ + rl * ld + c * 8);
+  }
+}
+
 // ---- launches ------------------------------------------------------------------
 
 template <typename Kernel>
@@ -1104,17 +1368,13 @@ cudaError_t run(int which, const Args& a, cudaStream_t s) {
   return launch(dkv_kernel<T, DMAX, BK>, DkvSmem<DMAX, BK>::floats(a.D) * F, n_kt * a.Hkv * a.B, kThreads, a, s);
 }
 
-// bf16: dq as in fp32; the forward and dk/dv on the tensor cores
-template <int DMAX>
-cudaError_t run_dq_bf16(const Args& a, cudaStream_t s) {
-  constexpr int BK = kKvTile<DMAX>;
-  return launch(dq_kernel<bf16, DMAX, BK>, DqSmem<DMAX, BK>::floats(a.D) * sizeof(float),
-                (a.S + kBQ - 1) / kBQ * a.H * a.B, kThreads, a, s);
-}
+// bf16: the three kernels on the tensor cores
 template <int DMAX>
 cudaError_t run_tc(int which, const Args& a, cudaStream_t s) {
   if (which == 0)
     return launch(fwd_tc_kernel<DMAX>, fwd_tc_bytes<DMAX>(), (a.S + kTc - 1) / kTc * a.H * a.B, kFwdTcThreads, a, s);
+  if (which == 1)
+    return launch(dq_tc_kernel<DMAX>, dq_tc_bytes<DMAX>(), (a.S + kTc - 1) / kTc * a.H * a.B, kDqTcThreads, a, s);
   return launch(dkv_tc_kernel<DMAX>, dkv_tc_bytes<DMAX>(), (a.T + kTc - 1) / kTc * a.Hkv * a.B, kDkvTcThreads, a, s);
 }
 
@@ -1124,14 +1384,10 @@ cudaError_t run_dtype(int which, const Args& a, cudaStream_t s) {
   if (a.D <= 128) return run<T, 128>(which, a, s);
   return run<T, 256>(which, a, s);
 }
-// bf16: dq in the buckets above; the tensor-core kernels' tiles are DMAX
-// wide (zero past D), so that their loops unroll at compile time
+// bf16: the tensor-core kernels' tiles are DMAX wide (zero past D), so that
+// their loops unroll at compile time
 template <>
 cudaError_t run_dtype<bf16>(int which, const Args& a, cudaStream_t s) {
-  if (which == 1) {
-    if (a.D <= 64) return run_dq_bf16<64>(a, s);
-    return a.D <= 128 ? run_dq_bf16<128>(a, s) : run_dq_bf16<256>(a, s);
-  }
   if (a.D <= 64) return run_tc<64>(which, a, s);
   if (a.D <= 96) return run_tc<96>(which, a, s);
   if (a.D <= 128) return run_tc<128>(which, a, s);
@@ -1153,7 +1409,8 @@ int dispatch(int dtype, int which, Args& a, int window, const void* rot_cos, con
   a.w2 = window > 0 ? window / 2 : -1;
   a.vec = rows_aligned(a.q, a.q_sb, a.q_ss, a.q_sh) && rows_aligned(a.k, a.k_sb, a.k_ss, a.k_sh) &&
           rows_aligned(a.v, a.v_sb, a.v_ss, a.v_sh) &&
-          (which != 2 || rows_aligned(a.dout, a.do_sb, a.do_ss, a.do_sh));
+          (which == 0 || rows_aligned(a.dout, a.do_sb, a.do_ss, a.do_sh)) &&
+          (which != 1 || rows_aligned(a.o, a.o_sb, a.o_ss, a.o_sh));
   a.rot = Rot{static_cast<const float*>(rot_cos), static_cast<const float*>(rot_sin), rot_sb, rot_half,
               rot_interleaved};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -48,11 +48,10 @@ multiple of 16) goes to the Hopper kernels above; every other input the
 Pallas kernels take (fp32 or bf16, D % 8 == 0, D <= 256) goes to the three
 generic kernels of `csrc/flash_generic.cu` (`flash_generic_fwd`,
 `flash_generic_dq`, `flash_generic_dkv`, the same semantics, rotary a
-run-time choice: fp32 FMAs over shared-memory tiles for fp32 and for the
-bf16 dq; the bf16 forward and dk/dv on the tensor cores, mma.sync over
-bf16 tiles that arrive by cp.async, or through registers where a row is
-not 16-byte aligned or is rotated on load). A head dim above 256
-raises. `flash_shape_ok` is JAX's rule: what it refuses (D < 64, D % 8 != 0)
+run-time choice: fp32 FMAs over shared-memory tiles for fp32; the bf16
+forward, dq and dk/dv on the tensor cores, mma.sync over bf16 tiles that
+arrive by cp.async, or through registers where a row is not 16-byte
+aligned or is rotated on load). A head dim above 256 raises. `flash_shape_ok` is JAX's rule: what it refuses (D < 64, D % 8 != 0)
 runs the plain `sdpa` in `attention_core`, as in JAX.
 
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor to the

@@ -298,17 +298,19 @@ TC_VARIANTS = ("pad", "causal", "window128", "segments", "gqa", "rotary_halves",
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("head_dim,variant", [(d, v) for d in TC_HEAD_DIMS for v in TC_VARIANTS]
-                         + [("128", "rotary_halves"), ("128", "rotary_pairs")])
+                         + [("128", "rotary_halves"), ("128", "rotary_pairs")]
+                         + [(d, v) for d in (80, 256) for v in ("dout_misaligned", "out_misaligned")])
 def test_bf16_tensor_core_kernels_match_plain_versions_on_card(cuda, head_dim, variant):
-    """The bf16 forward and dk/dv on the tensor cores (and the generic dq
-    beside them) against the plain versions at the Hopper kernels' error
-    model (`output_error_ratio`, `grad_error_ratio` <= 1, the LSE within
-    LSE_ATOL), routed to the generic kernels, and bit-identical on a second
-    run. Variants: a padding mask with an empty batch row, causal with S=200
-    against T=300 (offset 100), window 128 with a padding mask, three
-    segments then padding, GQA (H 8, Hkv 2), and rotary as NeoX halves and
-    as GPT-J pairs (rotary dim 8 at D = 128, aligned: only the generic
-    kernels take it; else a quarter of D, rounded to even)."""
+    """The bf16 forward, dq and dk/dv on the tensor cores against the plain
+    versions at the Hopper kernels' error model (`output_error_ratio`,
+    `grad_error_ratio` <= 1, the LSE within LSE_ATOL), routed to the generic
+    kernels, and bit-identical on a second run. Variants: a padding mask with
+    an empty batch row, causal with S=200 against T=300 (offset 100), window
+    128 with a padding mask, three segments then padding, GQA (H 8, Hkv 2),
+    rotary as NeoX halves and as GPT-J pairs (rotary dim 8 at D = 128,
+    aligned: only the generic kernels take it; else a quarter of D, rounded
+    to even), and aligned q, k, v with only the backward's dO, or only its O,
+    misaligned (dq then stages every tile through registers)."""
     D = int(str(head_dim).rstrip("u"))
     gen = torch.Generator(device=cuda).manual_seed(D + len(variant))
     B, S, H = 3, 200, 8
@@ -318,6 +320,8 @@ def test_bf16_tensor_core_kernels_match_plain_versions_on_card(cuda, head_dim, v
     k, v = (torch.randn(B, T, Hkv, D, generator=gen, device=cuda).bfloat16() for _ in range(2))
     if str(head_dim).endswith("u"):
         q, k, v, dout = (_misaligned(x) for x in (q, k, v, dout))
+    if variant == "dout_misaligned":
+        dout = _misaligned(dout)
     kw = dict(causal=variant == "causal", window=128 if variant == "window128" else 0)
     if variant in ("pad", "window128", "gqa", "rotary_halves", "rotary_pairs"):
         lens = torch.tensor([T, T // 2 + 3, 0 if variant == "pad" else 17], device=cuda)
@@ -336,6 +340,8 @@ def test_bf16_tensor_core_kernels_match_plain_versions_on_card(cuda, head_dim, v
     before = [getattr(tfa, c) for c in counters]
     out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
     again = tfa.flash_attention_fwd(q, k, v, **kw)
+    if variant == "out_misaligned":
+        out = _misaligned(out)
     grads = tfa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
     grads_again = tfa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
     torch.cuda.synchronize()
@@ -425,6 +431,78 @@ def test_gmm_kernels_match_plain_versions_on_card(cuda, layout, K, N):
     assert tgm.error_ratio(drhs, tgm.tgmm_reference(lhs, dout, gs)) <= 1.0
     assert bool((out[pad] == 0).all()) and bool((dlhs[int(gs.sum()):] == 0).all())  # inactive blocks
     assert all(bool((drhs[e] == 0).all()) for e in range(8) if int(gs[e]) == 0)
+
+
+def _fp32_gmm_layout(cuda, layout, block_m, E=8):
+    """(group_sizes, P, padding rows) of a block_m-aligned layout: skewed
+    routing of 2048 assignments (expert 2 empty, expert 5 exactly block_m
+    rows, trailing inactive blocks), 1000 on one expert, or every expert
+    exactly 128 rows."""
+    gen = torch.Generator(device=cuda).manual_seed(block_m)
+    if layout == "one_expert":
+        flat_e = torch.full((1000,), 3, device=cuda)
+    elif layout == "all_128":
+        flat_e = torch.arange(E, device=cuda).repeat_interleave(128)
+        flat_e = flat_e[torch.randperm(E * 128, generator=gen, device=cuda)]
+    else:
+        p = torch.rand(E, generator=gen, device=cuda) ** 3 + 0.01
+        p[2], p[5] = 0.0, 0.0
+        flat_e = torch.cat([torch.multinomial(p, 2048 - block_m, replacement=True, generator=gen),
+                            torch.full((block_m,), 5, device=cuda)])
+        flat_e = flat_e[torch.randperm(2048, generator=gen, device=cuda)]
+    A = flat_e.shape[0]
+    _, gs, P, src = tgm.aligned_group_layout(flat_e, E, block_m, src_of=torch.arange(A, device=cuda), sentinel=A)
+    return gs, P, src == A
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,K,N,block_m", [
+    ("skewed", 768, 3072, 128), ("skewed", 3072, 768, 128), ("skewed", 200, 360, 128), ("skewed", 768, 192, 128),
+    ("skewed", 198, 366, 128), ("one_expert", 768, 3072, 128), ("all_128", 768, 3072, 128),
+    ("strided_lhs", 768, 3072, 128), ("misaligned", 200, 360, 128), ("skewed", 768, 3072, 64),
+    ("skewed", 200, 360, 64), ("strided_lhs", 200, 360, 64), ("one_expert", 3072, 768, 64),
+])
+def test_fp32_gmm_kernels_match_plain_versions_on_card(cuda, layout, K, N, block_m):
+    """fp32 autograd through the public gmm launches the generic gmm
+    (csrc/gmm_generic.cu) forward and for dlhs (on the rhs.transpose(1, 2)
+    view, or its copy where that view is not aligned), and tgmm once; each
+    within FP32_REL * max |ref| of its plain version, padding rows of the
+    output and dlhs, and an empty expert's drhs, exactly 0; a second run
+    bit-identical. Widths: the MoE layer's both ways, K 200 / N 360, N 192
+    (a tile past the last 64 columns), K 198 / N 366 (not multiples of 4);
+    block_m 128 (128-row tiles) and 64 (64-row tiles); an lhs whose row
+    stride exceeds K, and operands 4 bytes past a 16-byte boundary (no
+    vector load takes them)."""
+    gs, P, pad = _fp32_gmm_layout(cuda, "skewed" if layout in ("strided_lhs", "misaligned") else layout, block_m)
+    gen = torch.Generator(device=cuda).manual_seed(K + N)
+    lhs = torch.randn(P, K, generator=gen, device=cuda).masked_fill(pad[:, None], 0)
+    rhs = torch.randn(8, K, N, generator=gen, device=cuda)
+    dout = torch.randn(P, N, generator=gen, device=cuda).masked_fill(pad[:, None], 0)
+    if layout == "strided_lhs":  # the same values in rows of K + 64
+        base = torch.zeros(P, K + 64, device=cuda)
+        base[:, :K] = lhs
+        lhs = base[:, :K]
+    if layout == "misaligned":
+        lhs, rhs, dout = (_misaligned(x) for x in (lhs, rhs, dout))
+
+    def run():
+        leaves = [lhs.detach().requires_grad_(), rhs.detach().requires_grad_()]
+        out = tgm.gmm(*leaves, gs, block_m=block_m)
+        return (out, *torch.autograd.grad(out, leaves, dout))
+
+    before = (tgm.launches_gmm_generic, tgm.launches_tgmm_generic)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert (tgm.launches_gmm_generic - before[0], tgm.launches_tgmm_generic - before[1]) == (4, 2)
+    refs = (tgm.gmm_reference(lhs, rhs, gs, block_m), tgm.gmm_reference(dout, rhs.transpose(1, 2), gs, block_m),
+            tgm.tgmm_reference(lhs, dout, gs, block_m))
+    for g, r, name in zip(got, refs, ("gmm", "dlhs", "tgmm")):
+        assert tgm.max_rel_error(g, r) <= tgm.FP32_REL, name
+    out, dlhs, drhs = got
+    assert bool((out[pad] == 0).all()) and bool((dlhs[int(gs.sum()):] == 0).all())
+    assert all(bool((drhs[e] == 0).all()) for e in range(8) if int(gs[e]) == 0)
+    for a, b, name in zip(got, again, ("gmm", "dlhs", "tgmm")):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda

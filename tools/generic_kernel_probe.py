@@ -1,0 +1,91 @@
+#!/usr/bin/env python3
+"""Time the generic kernels' bf16 dq and dk/dv and fp32 gmm, dlhs and tgmm
+of one copy of the port's package on one card, for comparing variants of
+those kernels in turns.
+
+    python3 tools/generic_kernel_probe.py TREE
+
+TREE is the root of a directory holding a `contrastors_tpu_torch` package
+(this checkout's, a patched copy of it, or another commit unpacked by
+`git archive`); run it once per tree, in turns (a, b, b, a). It builds the
+tree's kernels, then reports device ms (each call queued behind a device
+sleep, the median of 10 after 3 warm-ups) of: `launch_bwd_dq` and
+`launch_bwd_dkv` at ViT-H/14's and ViT-g/14's 64 x 257 (16 heads of 80 /
+88, no mask) and at pythia-1b's step documents (128 x 128, 8 heads of
+256, causal, padded keys, the dispatch's form); `launch_gmm` at a
+uniformly routed document chunk (16384 assignments, 8 experts, block_m
+128, fp32, K 768, N 3072), on the rhs.transpose(1, 2) view (dlhs) and
+`launch_tgmm`; and gmm's and dlhs's max |out - ref| / max |ref| against
+the plain version. Prints one JSON object.
+"""
+
+import json
+import sys
+
+
+def device_ms(torch, fn, runs=10, warmup=3):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[runs // 2]
+
+
+def main(tree):
+    sys.path.insert(0, tree)
+    import torch
+
+    from contrastors_tpu_torch.ops import flash_attention as fa
+    from contrastors_tpu_torch.ops import grouped_matmul as gm
+
+    if not torch.cuda.is_available():
+        print("generic_kernel_probe: needs a CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"tree": tree, "device": torch.cuda.get_device_name(0)}
+    for label, B, S, H, D, causal in (("vith14", 64, 257, 16, 80, False), ("vitg14", 64, 257, 16, 88, False),
+                                      ("pythia_docs", 128, 128, 8, 256, True)):
+        q, k, v, dout = (torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16() for _ in range(4))
+        kw = {}
+        if causal:
+            lens = torch.randint(32, S + 1, (B,), generator=gen, device=dev)
+            mask = (torch.arange(S, device=dev)[None] < lens[:, None]).int()
+            kw = dict(causal=True, segment_ids=torch.ones(B, S, dtype=torch.int32, device=dev), kv_segment_ids=mask)
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        seg_q, seg_kv = fa.merge_segments(B, S, S, None, kw.get("segment_ids"), kw.get("kv_segment_ids"), dev)
+        inputs = fa.prepare_backward(q, k, v, o, lse, dout, seg_q, seg_kv)
+        args = (causal, 0, 0, 1.0 / D**0.5)
+        out[label] = dict(dq=device_ms(torch, lambda: fa.launch_bwd_dq(*inputs, *args)),
+                          dkv=device_ms(torch, lambda: fa.launch_bwd_dkv(*inputs, *args)))
+        del q, k, v, dout, o, lse, inputs
+    flat_e = torch.randint(0, 8, (16384,), generator=gen, device=dev)
+    _, gs, P = gm.aligned_group_layout(flat_e, 8, 128)
+    blk_e, act = gm.block_experts(gs, P // 128, 128)
+    lhs = torch.randn(P, 768, generator=gen, device=dev)
+    rhs = torch.randn(8, 768, 3072, generator=gen, device=dev)
+    dout = torch.randn(P, 3072, generator=gen, device=dev)
+    rhs_t = rhs.transpose(1, 2)
+    out["gmm"] = device_ms(torch, lambda: gm.launch_gmm(lhs, rhs, blk_e, act))
+    out["dlhs"] = device_ms(torch, lambda: gm.launch_gmm(dout, rhs_t, blk_e, act))
+    out["tgmm"] = device_ms(torch, lambda: gm.launch_tgmm(lhs, dout, gs))
+    out["gmm_rel_err"] = gm.max_rel_error(gm.launch_gmm(lhs, rhs, blk_e, act), gm._gmm_plain(lhs, rhs, blk_e, act, 128))
+    out["dlhs_rel_err"] = gm.max_rel_error(gm.launch_gmm(dout, rhs_t, blk_e, act),
+                                           gm._gmm_plain(dout, rhs_t, blk_e, act, 128))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        sys.exit(2)
+    sys.exit(main(sys.argv[1]))
