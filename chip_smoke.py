@@ -480,6 +480,9 @@ import numpy as np
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (the generic kernels' fp32 FMAs)
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 on the tensor cores
+# the fp32 flash forward's rate: 3xTF32, three TF32 products for each fp32 product
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 
@@ -606,7 +609,8 @@ def attention_bound(B, S, T, H, Hkv, D, lens=None, causal=False, window=0, all_r
     them its rows unless all_rows; the causal or window band) and the time
     to read q at live rows, k and v at live keys and the ids (with lens),
     and to write O and LSE once. elem: bytes per element; peak: the rate
-    of the operands' type (fp32: PEAK_FP32_FLOPS)."""
+    of the operands' type (fp32: PEAK_3XTF32_FLOPS, the generic forward's
+    3xTF32)."""
     live_q, live_kv = _live_rows(B, S, lens, all_rows)
     live_kv = B * T if live_kv is None else live_kv
     pairs = live_pairs([T] * B if lens is None else lens, S, T, causal, window, all_rows=all_rows or lens is None)
@@ -7303,8 +7307,10 @@ def coverage_flash_shapes(dev, card, gen):
     COVERAGE_FLASH_SHAPES through the public entry points (one launch each
     and none of the Hopper kernels'), held against their plain versions on
     the same inputs at the bars of `generic_flash_errors`, then timed: ms
-    and device_ms beside the bound (at the operands' type: PEAK_FP32_FLOPS
-    for fp32), the plain version's ms and SDPA's (for dq and dk/dv, forward
+    and device_ms beside the bound (at the rate of the operands' type and
+    the kernel's products: for fp32 the forward's 3xTF32, PEAK_3XTF32_FLOPS,
+    dq's and dk/dv's FMAs, PEAK_FP32_FLOPS; `bound_rate` names it), the
+    plain version's ms and SDPA's (for dq and dk/dv, forward
     + backward minus forward; both time a whole backward). Returns {label:
     {kernel: row}}."""
     import torch
@@ -7328,7 +7334,8 @@ def coverage_flash_shapes(dev, card, gen):
         finite = all(bool(torch.isfinite(x.float()).all()) for x in (out, *grads))
         ok = max(over.values()) <= 1.0 and lse_ok and routed and finite
         del ref_out, ref_lse, refs, grads
-        elem, peak = (4, PEAK_FP32_FLOPS) if dtype == "fp32" else (2, PEAK_BF16_FLOPS)
+        elem, peak = (4, PEAK_3XTF32_FLOPS) if dtype == "fp32" else (2, PEAK_BF16_FLOPS)
+        rate = "3xTF32: 495 / 3 TFLOP/s" if dtype == "fp32" else "bf16 tensor cores: 989 TFLOP/s"
         band = dict(causal=True, all_rows=True) if form == "dispatch" else {}
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
 
@@ -7338,7 +7345,7 @@ def coverage_flash_shapes(dev, card, gen):
         b_ms, b_by, flops, nbytes = attention_bound(B, S, S, H, H, D, lens, elem=elem, peak=peak, **band)
         run = lambda: fa.flash_attention_fwd(q, k, v, **kw)  # noqa: E731
         row = dict(fwd=dict(ms=median_ms(run), device_ms=median_ms(run, queued=True), bound_ms=b_ms, bound_by=b_by,
-                            flops=flops, bytes=nbytes,
+                            bound_rate=rate, flops=flops, bytes=nbytes,
                             plain_ms=median_ms(lambda: fa.flash_attention_reference(q, k, v, **kw), runs=3, warmup=1),
                             library_ms=median_ms(sdpa), library_device_ms=median_ms(sdpa, queued=True),
                             err_over_bar=over["o"], max_abs_err=abs_err["fwd"]))
@@ -7360,10 +7367,11 @@ def coverage_flash_shapes(dev, card, gen):
             lib_bwd = median_ms(sdpa_fwd_bwd) - row["fwd"]["library_ms"]
             lib_bwd_dev = median_ms(sdpa_fwd_bwd, queued=True) - row["fwd"]["library_device_ms"]
             for kname, launch in launchers.items():
-                k_ms, k_by, k_flops, k_bytes = backward_bound(kname, B, S, S, H, H, D, lens, elem=elem, peak=peak,
+                k_peak, k_rate = (PEAK_FP32_FLOPS, "fp32 FMAs: 67 TFLOP/s") if dtype == "fp32" else (peak, rate)
+                k_ms, k_by, k_flops, k_bytes = backward_bound(kname, B, S, S, H, H, D, lens, elem=elem, peak=k_peak,
                                                               **band)
                 row[kname] = dict(ms=median_ms(launch), device_ms=median_ms(launch, queued=True), bound_ms=k_ms,
-                                  bound_by=k_by, flops=k_flops, bytes=k_bytes, plain_ms=plain_bwd,
+                                  bound_by=k_by, bound_rate=k_rate, flops=k_flops, bytes=k_bytes, plain_ms=plain_bwd,
                                   library_ms=lib_bwd, library_device_ms=lib_bwd_dev,
                                   err_over_bar=over["dq"] if kname == "dq" else max(over["dk"], over["dv"]),
                                   max_abs_err=abs_err[kname])
@@ -7405,7 +7413,8 @@ def coverage_gmm_timing(card, operands):
         b_ms, b_by, flops, nbytes = gmm_bound("tgmm" if kname == "tgmm" else "gmm", active_rows, P, K, N, nonempty,
                                               elem=4, peak=PEAK_FP32_FLOPS)
         rows[kname] = dict(ms=median_ms(run), device_ms=median_ms(run, queued=True), bound_ms=b_ms, bound_by=b_by,
-                           flops=flops, bytes=nbytes, plain_ms=median_ms(plain, runs=3, warmup=1),
+                           bound_rate="fp32 FMAs: 67 TFLOP/s", flops=flops, bytes=nbytes,
+                           plain_ms=median_ms(plain, runs=3, warmup=1),
                            library_ms=median_ms(lib_fn, runs=5, warmup=2),
                            library_device_ms=median_ms(lib_fn, queued=True), library=lib_label)
         emit(phase="coverage_kernel_timing", card=card, gpu_state=gpu_state(), kernel=kname, dtype="fp32",
@@ -7583,14 +7592,14 @@ def generic_entries(coverage):
     err_over_bar at the fp32 step's shapes, the worst of the main path's
     shapes as max_abs_err and err_over_bar, each shape's row under
     `shapes`, and the mask-variant checks' worst as coverage_*."""
-    pick = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")
+    pick = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_rate", "library_ms", "library_device_ms")
     shapes = coverage["flash_shapes"]
     on_path = [c[0] for c in COVERAGE_FLASH_SHAPES[:COVERAGE_PATH_SHAPES]]
     rows = []
     for kname, name, source, replaces, design in (
             ("fwd", "flash_generic_fwd", "flash_generic.cu", ["contrastors_tpu/ops/flash_attention.py:225",
                                                                "contrastors_tpu/ops/flash_attention.py:115"],
-             dict(fp32="fwd_kernel<float, DMAX, BK> (fp32 FMAs)",
+             dict(fp32="fwd_tf32_kernel<DMAX> (3xTF32 on mma.sync tensor cores)",
                   bf16="fwd_tc_kernel<DMAX> (mma.sync tensor cores)")),
             ("dq", "flash_generic_dq", "flash_generic.cu", ["contrastors_tpu/ops/flash_attention.py:422"],
              dict(fp32="dq_kernel<float, DMAX, BK> (fp32 FMAs)",
@@ -7602,7 +7611,8 @@ def generic_entries(coverage):
              dict(both="gmm_kernel<T, BM, KN> (128-row tiles where block_m allows, 8 x 8 accumulators a thread, "
                        "two pipelined stages)")),
             ("tgmm", "tgmm_generic", "gmm_generic.cu", ["contrastors_tpu/ops/grouped_matmul.py:125"],
-             dict(both="tgmm_kernel<T> (64 x 128 tiles, one stage)"))):
+             dict(both="tgmm_kernel<T> (128 x 128 tiles, 8 x 8 accumulators a thread, two pipelined stages, "
+                       "experts largest first)"))):
         counter = GENERIC[kname]
         if kname in ("gmm", "tgmm"):
             row = coverage["gmm_timing"][kname]

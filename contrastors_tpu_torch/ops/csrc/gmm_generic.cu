@@ -17,20 +17,20 @@
 // What bounds them on an H100: the products. At the MoE layer's widths (K, N
 // = 768, 3072) a block of 128 rows does 2*128*K*N FLOP on (128*K + K*N +
 // 128*N) elements: hundreds of FLOP per byte, above the balance point of
-// either rate. fp32 has no tensor-core rate that keeps fp32 precision, so
-// the products are fp32 FMAs (67 TFLOP/s at most); bf16 runs the same FMAs
-// on operands widened on load, far from the tensor cores' rate: bf16 is here
-// for coverage, and gmm.cu keeps the shapes the main path runs.
+// either rate. Both run fp32 FMAs (67 TFLOP/s at most); bf16 runs the same
+// FMAs on operands widened on load, far from the tensor cores' rate: bf16 is
+// here for coverage, and gmm.cu keeps the shapes the main path runs. TF32 on
+// the tensor cores keeps only 10 mantissa bits; 3xTF32 (three TF32
+// products per fp32 product, as flash_generic.cu's fp32 forward runs them)
+// would keep about fp32's precision at 495 / 3 TFLOP/s, 2.5x the FMAs' rate,
+// and is not done here yet: torch._grouped_mm, the yardstick, runs full-fp32
+// products too.
 //
-// gmm has its own design and note below (gmm_kernel: 128-row tiles where
-// block_m allows, 8 x 8 accumulators a thread, two pipelined stages). tgmm
-// keeps the classic register-blocked product: a block of 256 threads
-// owns a 64 x 128 output tile (64 of K by 128 of N of one expert) and walks
-// the expert's rows in steps of 16 through shared memory, operands widened
-// to fp32 and zero past the edges; each thread keeps a 4 x 8 tile of
-// accumulators (rows ty*4 .. +3, columns tx*4 .. +3 and 64 + tx*4 .. +3) and
-// reads its operands as float4. Every output element has one owner and a
-// fixed order of sums: no atomics, runs are bit-identical.
+// Both kernels share one register-blocked, pipelined design and its notes
+// below: gmm_kernel<T, BM, KN> and tgmm_kernel<T>, 8 x 8 fp32 accumulators
+// a thread in 4-wide strips, two shared-memory stages with one barrier a
+// 16-deep step. Every output element has one owner and a fixed order of
+// sums: no atomics, runs are bit-identical.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,87 +40,15 @@
 
 namespace {
 
-constexpr int kThreads = 256, kTM = 64, kTN = 128, kTK = 16;
-constexpr int kPadM = kTM + 4, kPadN = kTN + 4;  // row strides that keep float4 alignment
-
-template <typename T>
-struct Elem;
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ float load(const float* p) { return *p; }
-  static __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-};
-template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-};
-
-// tgmm: acc[i][j] += sum_k As[k][ty*4 + i] * Bs[k][col(j)], col(j) = tx*4 + (j & 3) + 64 * (j >> 2)
-__device__ __forceinline__ void tile_fma(float (&acc)[4][8], float (*As)[kPadM], float (*Bs)[kPadN],
-                                         int tx, int ty) {
-#pragma unroll
-  for (int k = 0; k < kTK; ++k) {
-    const float4 x = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-    const float4 y0 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-    const float4 y1 = *reinterpret_cast<const float4*>(&Bs[k][64 + tx * 4]);
-    const float xs[4] = {x.x, x.y, x.z, x.w};
-    const float ys[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xs[i], ys[j], acc[i][j]);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store_tile(T* out, int64_t ld, const float (&acc)[4][8], int r0, int n_rows, int n0,
-                                           int N, int tx, int ty) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    if (r >= n_rows) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + tx * 4 + (j & 3) + 64 * (j >> 2);
-      if (n < N) Elem<T>::store(out + r * ld + n, acc[i][j]);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) tgmm_kernel(const T* lhs, const T* dout, const int* gs, T* out, int M,
-                                                        int K, int N, int64_t lda, int64_t ldd) {
-  __shared__ __align__(16) float As[kTK][kPadM];  // As[row][k]
-  __shared__ __align__(16) float Bs[kTK][kPadN];  // Bs[row][n]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int n0 = blockIdx.x * kTN, k0 = blockIdx.y * kTM, e = blockIdx.z;
-  int off = 0;
-  for (int i = 0; i < e; ++i) off += gs[i];
-  const int end = min(off + gs[e], M);
-  float acc[4][8] = {};
-  for (int r0 = off; r0 < end; r0 += kTK) {
-    for (int idx = tid; idx < kTK * kTM; idx += kThreads) {
-      const int rr = idx / kTM, kk = idx % kTM, r = r0 + rr, k = k0 + kk;
-      As[rr][kk] = r < end && k < K ? Elem<T>::load(lhs + r * lda + k) : 0.f;
-    }
-    for (int idx = tid; idx < kTK * kTN; idx += kThreads) {
-      const int rr = idx / kTN, j = idx % kTN, r = r0 + rr, n = n0 + j;
-      Bs[rr][j] = r < end && n < N ? Elem<T>::load(dout + r * ldd + n) : 0.f;
-    }
-    __syncthreads();
-    tile_fma(acc, As, Bs, tx, ty);
-    __syncthreads();
-  }
-  store_tile<T>(out + int64_t(e) * K * N, N, acc, k0, K, n0, N, tx, ty);
-}
+constexpr int kThreads = 256;
+constexpr int kBlockStep = 64;  // block_m granularity: a gmm block tile's least height
 
 // ---- gmm: register-blocked and pipelined ---------------------------------------
 //
 // gmm_kernel<T, BM, KN> is the kernel behind gmm_generic, in both dtypes: the
 // counterpart of _gmm_kernel (contrastors_tpu/ops/grouped_matmul.py:75, call
 // :109) and of the dlhs product of its custom VJP (_gmm_bwd, :206-218: gmm on
-// the rhs^T view). tgmm_kernel keeps the design in the note at the top.
+// the rhs^T view). tgmm_kernel, further down, reuses its machinery.
 //
 // What bounds it on an H100: the fp32 FMAs (67 TFLOP/s), at 2*K*N FLOP per
 // active row (hundreds of FLOP per byte at the MoE widths). The first design
@@ -164,22 +92,19 @@ struct GmmSmem {
   float rb[kGN][kGK + 4];    // fp32: the dlhs view's rhs rows of the next step as stored
 };
 
-__device__ __forceinline__ float4 vec_load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float4 vec_load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-// p[0], p[es], p[2 es], p[3 es] widened to fp32, zero from element n_ok on;
-// one vector load where `vec` (es == 1, aligned) and all four are in range
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* p, int64_t es, int n_ok, bool vec) {
-  if (vec && n_ok >= 4) return vec_load4(p);
+// bf16 p[0], p[es], p[2 es], p[3 es] widened to fp32, zero from element n_ok
+// on; one 8-byte load where `vec` (es == 1, aligned) and all four are in
+// range. (fp32 operands arrive by cp.async and take no register.)
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, int64_t es, int n_ok, bool vec) {
+  if (vec && n_ok >= 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
   float x[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) x[i] = i < n_ok ? Elem<T>::load(p + i * es) : 0.f;
+  for (int i = 0; i < 4; ++i) x[i] = i < n_ok ? __bfloat162float(p[i * es]) : 0.f;
   return make_float4(x[0], x[1], x[2], x[3]);
 }
 
@@ -469,6 +394,143 @@ cudaError_t run_gmm(const T* lhs, const T* rhs, const int* be, const int* ac, T*
   return launch_gmm<T, 64, false>(grid, s, lhs, rhs, be, ac, out, K, N, block_m, lda, se, sk, sn, vec_a, vec_b);
 }
 
+// ---- tgmm: register-blocked and pipelined --------------------------------------
+//
+// tgmm_kernel<T> is the kernel behind tgmm_generic, in both dtypes: the
+// counterpart of _tgmm_kernel (contrastors_tpu/ops/grouped_matmul.py:125,
+// call :170): drhs[e] = sum over e's rows r of lhs[r]^T dout[r], zeros for an
+// expert with no rows.
+//
+// What bounds it on an H100: the fp32 FMAs (67 TFLOP/s), at 2*K*N FLOP per
+// active row. The first design reached 31% of that: each thread's 4 x 8
+// tile read 12 floats from shared memory for 32 FMAs, one buffer left the
+// loads and the products in turns, operands arrived as scalar loads into
+// 64 x 128 tiles.
+//
+// What the design does about it (gmm_kernel's machinery):
+//   - a block of 256 threads owns a 128 (K) x 128 (N) tile of one expert's
+//     drhs, each thread 8 x 8 accumulators in 4-wide strips (`gmm_step`:
+//     64 FMAs for 16 floats read);
+//   - the contraction runs over the expert's rows, in steps of 16 through two
+//     shared-memory stages, one __syncthreads a step: the next step's copies
+//     are issued before this step's products and land under them. No
+//     transpose: lhs rows [r][k0, k0 + 128) are already a[step row][k] and
+//     dout rows b[step row][n], so fp32 operands go straight into the stage
+//     by cp.async (`RowsN::copy`), 16 bytes a chunk where rows are 16-byte
+//     aligned, else 4 bytes an element, zero-filled past the expert's last
+//     row and past K and N; bf16 is widened on load through registers
+//     (`RowsN::load`), as in gmm;
+//   - blocks take the experts largest first (each block finds its expert's
+//     rank from group_sizes; all tiles of an expert together), so that under
+//     skewed routing the hot expert's tiles, which walk the most rows, start
+//     first instead of setting the tail;
+//   - each output sums the expert's rows in order, one fmaf a row, the first
+//     design's order: its outputs, in both dtypes, are that design's bit for
+//     bit. An expert with no rows writes zeros.
+
+// The expert of rank `rank` when the experts are ordered by row count,
+// largest first, ties by index: the one with `rank` experts before it.
+__device__ __forceinline__ int expert_of_rank(const int* gs, int E, int rank, int* chosen) {
+  for (int e = threadIdx.x; e < E; e += kThreads) {
+    const int g = gs[e];
+    int before = 0;
+    for (int j = 0; j < E; ++j) {
+      const int h = gs[j];
+      before += h > g || (h == g && j < e);
+    }
+    if (before == rank) *chosen = e;
+  }
+  __syncthreads();
+  return *chosen;
+}
+
+// vec_a / vec_d: lhs / dout rows allow vector loads (and, for fp32, 16-byte cp.async)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) tgmm_kernel(const T* lhs, const T* dout, const int* gs, T* out, int M,
+                                                           int K, int N, int E, int64_t lda, int64_t ldd, int vec_a,
+                                                           int vec_d) {
+  __shared__ __align__(16) float sa[2][kGK][kGN + 4];  // lhs rows of a step: sa[stage][row][k]
+  __shared__ __align__(16) float sb[2][kGK][kGN + 4];  // dout rows of a step: sb[stage][row][n]
+  __shared__ int chosen;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int n_tiles = (N + kGN - 1) / kGN, tiles = n_tiles * ((K + kGN - 1) / kGN);
+  const int e = expert_of_rank(gs, E, blockIdx.x / tiles, &chosen), tile = blockIdx.x % tiles;
+  const int k0 = (tile / n_tiles) * kGN, n0 = (tile % n_tiles) * kGN;
+  int off = 0;
+  for (int i = 0; i < e; ++i) off += gs[i];
+  const int end = min(off + gs[e], M);
+  const int nk = end > off ? (end - off + kGK - 1) / kGK : 0;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  if constexpr (sizeof(T) == 4) {
+    // fp32: the step of rows r0 .. r0 + 15 by cp.async straight into stage st, no register holding it
+    auto issue = [&](int r0, int st) {
+      RowsN<T>::copy(sa[st], lhs, lda, r0, end, k0, K, vec_a);
+      RowsN<T>::copy(sb[st], dout, ldd, r0, end, n0, N, vec_d);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+    if (nk > 0) issue(off, 0);
+    for (int t = 0; t < nk; ++t) {
+      const int st = t & 1;
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();  // step t is whole in stage st; every thread is done with stage st ^ 1
+      if (t + 1 < nk) issue(off + (t + 1) * kGK, st ^ 1);
+      gmm_step<128>(acc, sa[st], sb[st], tx, ty);
+    }
+  } else {
+    // bf16: widened on load into registers before the products, written to the other stage after them
+    RowsN<T> la, lb;
+    auto fetch = [&](int r0) {
+      la.load(lhs, lda, r0, end, k0, K, vec_a);
+      lb.load(dout, ldd, r0, end, n0, N, vec_d);
+    };
+    auto place = [&](int st) {
+      la.store(sa[st]);
+      lb.store(sb[st]);
+    };
+    if (nk > 0) {
+      fetch(off);
+      place(0);
+      __syncthreads();
+    }
+    for (int t = 0; t < nk; ++t) {
+      const int st = t & 1;
+      const bool next = t + 1 < nk;
+      if (next) fetch(off + (t + 1) * kGK);  // stage st ^ 1 was last read before the previous barrier
+      gmm_step<128>(acc, sa[st], sb[st], tx, ty);
+      if (next) place(st ^ 1);
+      __syncthreads();
+    }
+  }
+  const bool vec_out = N % 4 == 0;  // every output row starts on a 4-element boundary
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int k = k0 + 64 * (i >> 2) + 4 * ty + (i & 3);
+    if (k >= K) continue;
+    T* row = out + (int64_t(e) * K + k) * N;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int n = n0 + 64 * s + 4 * tx;
+      const float x[4] = {acc[i][4 * s], acc[i][4 * s + 1], acc[i][4 * s + 2], acc[i][4 * s + 3]};
+      store4(row + n, x, N - n, vec_out);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t run_tgmm(const T* lhs, const T* dout, const int* gs, T* out, int M, int K, int N, int E, int64_t lda,
+                     int64_t ldd, cudaStream_t s) {
+  constexpr uintptr_t kVec = 4 * sizeof(T);  // bytes of a 4-element vector load
+  const int vec_a = reinterpret_cast<uintptr_t>(lhs) % kVec == 0 && lda % 4 == 0;
+  const int vec_d = reinterpret_cast<uintptr_t>(dout) % kVec == 0 && ldd % 4 == 0;
+  const dim3 grid(E * ((K + kGN - 1) / kGN) * ((N + kGN - 1) / kGN));
+  tgmm_kernel<T><<<grid, kThreads, 0, s>>>(lhs, dout, gs, out, M, K, N, E, lda, ldd, vec_a, vec_d);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 fp32, 1 bf16 (lhs, rhs and out alike). lhs [M, K] (row stride lda,
@@ -478,7 +540,7 @@ cudaError_t run_gmm(const T* lhs, const T* rhs, const int* be, const int* ac, T*
 extern "C" int gmm_generic(int dtype, const void* lhs, const void* rhs, const void* blk_e, const void* act, void* out,
                            int M, int K, int N, int E, int block_m, int64_t lda, int64_t se, int64_t sk, int64_t sn,
                            void* stream) {
-  if ((dtype != 0 && dtype != 1) || block_m <= 0 || block_m % kTM || M % block_m || K < 0 || N < 0 || E <= 0)
+  if ((dtype != 0 && dtype != 1) || block_m <= 0 || block_m % kBlockStep || M % block_m || K < 0 || N < 0 || E <= 0)
     return int(cudaErrorInvalidValue);
   if (M == 0 || N == 0) return int(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -498,15 +560,11 @@ extern "C" int tgmm_generic(int dtype, const void* lhs, const void* dout, const 
                             int K, int N, int E, int64_t lda, int64_t ldd, void* stream) {
   if ((dtype != 0 && dtype != 1) || M < 0 || K < 0 || N < 0 || E < 0) return int(cudaErrorInvalidValue);
   if (E == 0 || K == 0 || N == 0) return int(cudaSuccess);
-  const dim3 grid((N + kTN - 1) / kTN, (K + kTM - 1) / kTM, E);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* gs = static_cast<const int*>(group_sizes);
   if (dtype == 0)
-    tgmm_kernel<float><<<grid, kThreads, 0, s>>>(static_cast<const float*>(lhs), static_cast<const float*>(dout), gs,
-                                                 static_cast<float*>(out), M, K, N, lda, ldd);
-  else
-    tgmm_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(lhs), static_cast<const __nv_bfloat16*>(dout), gs,
-        static_cast<__nv_bfloat16*>(out), M, K, N, lda, ldd);
-  return int(cudaGetLastError());
+    return int(run_tgmm(static_cast<const float*>(lhs), static_cast<const float*>(dout), gs, static_cast<float*>(out),
+                        M, K, N, E, lda, ldd, s));
+  return int(run_tgmm(static_cast<const __nv_bfloat16*>(lhs), static_cast<const __nv_bfloat16*>(dout), gs,
+                      static_cast<__nv_bfloat16*>(out), M, K, N, E, lda, ldd, s));
 }

@@ -170,9 +170,30 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
+// Bind the current device's primary context to the calling thread. A driver
+// call such as cuTensorMapEncodeTiled needs a current context and fails
+// without one (CUDA_ERROR_INVALID_CONTEXT). The runtime binds its primary
+// context to a thread only at the thread's first runtime call that needs a
+// context, so a thread that has made none has no current context: PyTorch's
+// autograd device thread is one until it launches something, since its
+// set_device skips cudaSetDevice when the device is already current (device
+// 0), and a backward can begin with a tensor-map encode (gmm's dlhs in a
+// fresh process does). cudaSetDevice binds the primary context (CUDA 12);
+// it is called once per thread and device.
+inline cudaError_t bind_context() {
+  static thread_local int bound = -1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev != bound && (err = cudaSetDevice(dev)) == cudaSuccess) bound = dev;
+  return err;
+}
+
 // cuTensorMapEncodeTiled is a driver API function: reached through the
-// runtime's driver entry point, so the library links no -lcuda.
+// runtime's driver entry point, so the library links no -lcuda. The
+// encoder is returned with the device's context current on this thread
+// (`bind_context`); nullptr if either fails.
 inline EncodeTiled encode_tiled() {
+  if (bind_context() != cudaSuccess) return nullptr;
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;

@@ -48,11 +48,13 @@ multiple of 16) goes to the Hopper kernels above; every other input the
 Pallas kernels take (fp32 or bf16, D % 8 == 0, D <= 256) goes to the three
 generic kernels of `csrc/flash_generic.cu` (`flash_generic_fwd`,
 `flash_generic_dq`, `flash_generic_dkv`, the same semantics, rotary a
-run-time choice: fp32 FMAs over shared-memory tiles for fp32; the bf16
-forward, dq and dk/dv on the tensor cores, mma.sync over bf16 tiles that
-arrive by cp.async, or through registers where a row is not 16-byte
-aligned or is rotated on load). A head dim above 256 raises. `flash_shape_ok` is JAX's rule: what it refuses (D < 64, D % 8 != 0)
-runs the plain `sdpa` in `attention_core`, as in JAX.
+run-time choice: the fp32 forward on the tensor cores in 3xTF32 (three
+TF32 products for each fp32 product) and the fp32 dq and dk/dv on fp32 FMAs
+over shared-memory tiles; the bf16 forward, dq and dk/dv on the tensor
+cores; mma.sync over tiles that arrive by cp.async, or through registers
+where a row is not 16-byte aligned or is rotated on load). A head dim
+above 256 raises. `flash_shape_ok` is JAX's rule: what it refuses (D < 64,
+D % 8 != 0) runs the plain `sdpa` in `attention_core`, as in JAX.
 
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor to the
 kernels, or the call raises. The call is a `torch.autograd.Function` whose
@@ -77,7 +79,9 @@ GENERIC_MAX_HEAD_DIM = 256  # the generic kernels' limit: their tiles of D + 1 f
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # the generic kernels' dtype argument
 # fp32 bars of the generic kernels against their plain versions (both
-# compute in fp32; only the order of sums and exp2's rounding differ):
+# compute in fp32; the order of sums and exp2's rounding differ, and the
+# forward's products run in 3xTF32 on the tensor cores, about 2^-21 of each
+# product):
 # max |out - ref| <= FP32_REL * max |ref| for O, dq, dk and dv, and the LSE
 # within FP32_LSE_ATOL
 FP32_REL = 1e-4

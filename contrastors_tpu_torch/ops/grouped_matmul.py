@@ -22,7 +22,8 @@ Every other input the Pallas kernels take (fp32, or any K and N; block_m a
 multiple of 64) goes to `csrc/gmm_generic.cu` (`gmm_generic`,
 `tgmm_generic`: register-blocked fp32-FMA products over shared-memory
 tiles, the same block -> expert table and zero rules; gmm in 128-row tiles
-where block_m allows, two stages whose loads overlap the products), as
+where block_m allows, tgmm in 128 x 128 tiles with the experts largest
+first, both through two stages whose loads overlap the products), as
 `grouped_matmul_route` decides from dtype, shape and strides.
 
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor to the

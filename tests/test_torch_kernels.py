@@ -19,6 +19,11 @@ max |out - ref| <= FP32_REL * max |ref| (`max_rel_error`), in bf16 by the
 rules above.
 """
 
+import json
+import subprocess
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -242,8 +247,10 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("variant", ["pad", "causal", "segments", "gqa", "rotary"])
 def test_generic_kernels_match_plain_versions_on_card(cuda, dtype, D, variant):
     """The generic forward, dq and dk/dv (csrc/flash_generic.cu) against the
-    plain versions: fp32 within FP32_REL * max |ref| (LSE within
-    FP32_LSE_ATOL), bf16 at the Hopper kernels' error model."""
+    plain versions: fp32 (the forward in 3xTF32 on the tensor cores, dq and
+    dk/dv on fp32 FMAs) within FP32_REL * max |ref| (LSE within
+    FP32_LSE_ATOL), bf16 (the three on the tensor cores) at the Hopper
+    kernels' error model."""
     gen = torch.Generator(device=cuda).manual_seed(D)
     dt = torch.float32 if dtype == "fp32" else torch.bfloat16
     B, S, H = 2, 200, 4
@@ -296,28 +303,21 @@ TC_HEAD_DIMS = ("64u", 80, 88, 96, "128u", 200, 256)
 TC_VARIANTS = ("pad", "causal", "window128", "segments", "gqa", "rotary_halves", "rotary_pairs")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("head_dim,variant", [(d, v) for d in TC_HEAD_DIMS for v in TC_VARIANTS]
-                         + [("128", "rotary_halves"), ("128", "rotary_pairs")]
-                         + [(d, v) for d in (80, 256) for v in ("dout_misaligned", "out_misaligned")])
-def test_bf16_tensor_core_kernels_match_plain_versions_on_card(cuda, head_dim, variant):
-    """The bf16 forward, dq and dk/dv on the tensor cores against the plain
-    versions at the Hopper kernels' error model (`output_error_ratio`,
-    `grad_error_ratio` <= 1, the LSE within LSE_ATOL), routed to the generic
-    kernels, and bit-identical on a second run. Variants: a padding mask with
-    an empty batch row, causal with S=200 against T=300 (offset 100), window
+def _tensor_core_case(cuda, dtype, head_dim, variant):
+    """q, k, v, dO and the entry points' keyword arguments of one case of
+    the tensor-core kernels' tests (B 3, S 200, H 8): a padding mask with an
+    empty batch row, causal with S=200 against T=300 (offset 100), window
     128 with a padding mask, three segments then padding, GQA (H 8, Hkv 2),
-    rotary as NeoX halves and as GPT-J pairs (rotary dim 8 at D = 128,
-    aligned: only the generic kernels take it; else a quarter of D, rounded
-    to even), and aligned q, k, v with only the backward's dO, or only its O,
-    misaligned (dq then stages every tile through registers)."""
+    rotary as NeoX halves and as GPT-J pairs (rotary dim 8 at D = 128; else
+    a quarter of D, rounded to even), or only dO misaligned; a head dim
+    ending in "u" makes every operand misaligned."""
     D = int(str(head_dim).rstrip("u"))
     gen = torch.Generator(device=cuda).manual_seed(D + len(variant))
     B, S, H = 3, 200, 8
     T = 300 if variant == "causal" else S
     Hkv = 2 if variant == "gqa" else H
-    q, dout = (torch.randn(B, S, H, D, generator=gen, device=cuda).bfloat16() for _ in range(2))
-    k, v = (torch.randn(B, T, Hkv, D, generator=gen, device=cuda).bfloat16() for _ in range(2))
+    q, dout = (torch.randn(B, S, H, D, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, T, Hkv, D, generator=gen, device=cuda).to(dtype) for _ in range(2))
     if str(head_dim).endswith("u"):
         q, k, v, dout = (_misaligned(x) for x in (q, k, v, dout))
     if variant == "dout_misaligned":
@@ -336,6 +336,25 @@ def test_bf16_tensor_core_kernels_match_plain_versions_on_card(cuda, head_dim, v
         rot_dim = 8 if D == 128 else max(2, D // 4 // 2 * 2)
         kw["rotary_cos"], kw["rotary_sin"] = rotary_cos_sin(S, rot_dim, device=cuda)
         kw["rotary_interleaved"] = variant == "rotary_pairs"
+    return q, k, v, dout, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,variant", [(d, v) for d in TC_HEAD_DIMS for v in TC_VARIANTS]
+                         + [("128", "rotary_halves"), ("128", "rotary_pairs")]
+                         + [(d, v) for d in (80, 256) for v in ("dout_misaligned", "out_misaligned")])
+def test_bf16_tensor_core_kernels_match_plain_versions_on_card(cuda, head_dim, variant):
+    """The bf16 forward, dq and dk/dv on the tensor cores against the plain
+    versions at the Hopper kernels' error model (`output_error_ratio`,
+    `grad_error_ratio` <= 1, the LSE within LSE_ATOL), routed to the generic
+    kernels, and bit-identical on a second run. Variants: a padding mask with
+    an empty batch row, causal with S=200 against T=300 (offset 100), window
+    128 with a padding mask, three segments then padding, GQA (H 8, Hkv 2),
+    rotary as NeoX halves and as GPT-J pairs (rotary dim 8 at D = 128,
+    aligned: only the generic kernels take it; else a quarter of D, rounded
+    to even), and aligned q, k, v with only the backward's dO, or only its O,
+    misaligned (dq then stages every tile through registers)."""
+    q, k, v, dout, kw = _tensor_core_case(cuda, torch.bfloat16, head_dim, variant)
     counters = ("launches_generic", "launches_generic_dq", "launches_generic_dkv")
     before = [getattr(tfa, c) for c in counters]
     out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
@@ -357,6 +376,34 @@ def test_bf16_tensor_core_kernels_match_plain_versions_on_card(cuda, head_dim, v
         assert torch.equal(a, b), name
     if variant == "pad":
         assert bool((out[-1] == 0).all()) and bool((grads[0][-1] == 0).all())
+
+
+# head dims of the fp32 tensor-core (3xTF32) forward: "u" misaligned operands
+# (staged through registers instead of copied by cp.async)
+TF32_HEAD_DIMS = ("64", "64u", 80, 88, 128, 200, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,variant", [(d, v) for d in TF32_HEAD_DIMS for v in TC_VARIANTS])
+def test_fp32_tensor_core_forward_matches_plain_version_on_card(cuda, head_dim, variant):
+    """The fp32 forward on the tensor cores in 3xTF32 (csrc/flash_generic.cu:
+    fwd_tf32_kernel), routed to the generic kernels, against the plain
+    version: O within FP32_REL * max |ref|, the LSE within FP32_LSE_ATOL, at
+    D 64 (aligned and misaligned), 80, 88, 128, 200 and 256 in the variants
+    of `_tensor_core_case`; the padding mask's empty batch row has O exactly
+    0 and LSE -1e30; a second run is bit-identical."""
+    q, k, v, _, kw = _tensor_core_case(cuda, torch.float32, head_dim, variant)
+    before = tfa.launches_generic
+    out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    again = tfa.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tfa.launches_generic == before + 2
+    ref, ref_lse = tfa.flash_attention_reference(q, k, v, **kw)
+    assert tfa.max_rel_error(out, ref) <= tfa.FP32_REL
+    assert (lse - ref_lse).abs().max().item() <= tfa.FP32_LSE_ATOL
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    if variant == "pad":
+        assert bool((out[-1] == 0).all()) and bool((lse[-1] == tfa.NEG_INF).all())
 
 
 def _moe_layout(cuda, A, E=8):
@@ -433,6 +480,59 @@ def test_gmm_kernels_match_plain_versions_on_card(cuda, layout, K, N):
     assert all(bool((drhs[e] == 0).all()) for e in range(8) if int(gs[e]) == 0)
 
 
+# gmm forward and its autograd backward through the Hopper route
+# (csrc/gmm.cu), in a process that has made no other CUDA call: the
+# backward's dlhs is then the first CUDA call of autograd's device thread
+_FRESH_PROCESS_GMM = r"""
+import json
+import sys
+
+sys.path.insert(0, sys.argv[1])
+import torch
+
+from contrastors_tpu_torch.ops import grouped_matmul as tgm
+
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(0)
+p = torch.rand(8, generator=gen, device=dev) ** 3 + 0.01
+flat_e = torch.multinomial(p, 2048, replacement=True, generator=gen)
+_, gs, P, src = tgm.aligned_group_layout(flat_e, 8, 128, src_of=torch.arange(2048, device=dev), sentinel=2048)
+pad = src == 2048
+lhs = torch.randn(P, 768, generator=gen, device=dev).bfloat16().masked_fill(pad[:, None], 0)
+rhs = torch.randn(8, 768, 3072, generator=gen, device=dev).bfloat16()
+dout = torch.randn(P, 3072, generator=gen, device=dev).bfloat16()
+route = tgm.grouped_matmul_route(lhs, rhs), tgm.grouped_matmul_route(dout, rhs.transpose(1, 2))
+leaves = [lhs.detach().requires_grad_(), rhs.detach().requires_grad_()]
+out = tgm.gmm(*leaves, gs)
+dlhs, drhs = torch.autograd.grad(out, leaves, dout)
+torch.cuda.synchronize()
+print(json.dumps(dict(
+    route=route, launches=[tgm.launches_gmm, tgm.launches_tgmm],
+    gmm=tgm.error_ratio(out, tgm.gmm_reference(lhs, rhs, gs)),
+    dlhs=tgm.error_ratio(dlhs, tgm.gmm_reference(dout, rhs.transpose(1, 2), gs)),
+    tgmm=tgm.error_ratio(drhs, tgm.tgmm_reference(lhs, dout, gs)))))
+"""
+
+
+@pytest.mark.cuda
+def test_hopper_gmm_backward_runs_in_a_fresh_process_on_card(cuda):
+    """gmm forward and its autograd backward (dlhs on the transposed view,
+    and tgmm) through the Hopper kernels in a fresh process that imports only
+    the port: the dlhs launch is the first CUDA call on autograd's device
+    thread, where no context is current until `hopper_common.cuh:
+    bind_context` binds one (without it the tensor-map encode fails, CUDA
+    error 1). The process exits 0, launches gmm twice and tgmm once, and
+    each result is within the plain version's rule (`error_ratio` <= 1)."""
+    root = Path(__file__).resolve().parent.parent
+    proc = subprocess.run([sys.executable, "-c", _FRESH_PROCESS_GMM, str(root)], capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["route"] == ["hopper", "hopper"] and got["launches"] == [2, 1]
+    for name in ("gmm", "dlhs", "tgmm"):
+        assert got[name] <= 1.0, name
+
+
 def _fp32_gmm_layout(cuda, layout, block_m, E=8):
     """(group_sizes, P, padding rows) of a block_m-aligned layout: skewed
     routing of 2048 assignments (expert 2 empty, expert 5 exactly block_m
@@ -464,8 +564,10 @@ def _fp32_gmm_layout(cuda, layout, block_m, E=8):
 ])
 def test_fp32_gmm_kernels_match_plain_versions_on_card(cuda, layout, K, N, block_m):
     """fp32 autograd through the public gmm launches the generic gmm
-    (csrc/gmm_generic.cu) forward and for dlhs (on the rhs.transpose(1, 2)
-    view, or its copy where that view is not aligned), and tgmm once; each
+    (csrc/gmm_generic.cu: gmm_kernel, 128- or 64-row tiles) forward and for
+    dlhs (on the rhs.transpose(1, 2) view, or its copy where that view is
+    not aligned), and tgmm (tgmm_kernel: 128 x 128 tiles, the experts
+    largest first) once; each
     within FP32_REL * max |ref| of its plain version, padding rows of the
     output and dlhs, and an empty expert's drhs, exactly 0; a second run
     bit-identical. Widths: the MoE layer's both ways, K 200 / N 360, N 192

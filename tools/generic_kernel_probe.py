@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the generic kernels' bf16 dq and dk/dv and fp32 gmm, dlhs and tgmm
-of one copy of the port's package on one card, for comparing variants of
-those kernels in turns.
+"""Time the generic kernels' bf16 dq and dk/dv, fp32 forward and fp32 gmm,
+dlhs and tgmm of one copy of the port's package on one card, for comparing
+variants of those kernels in turns.
 
-    python3 tools/generic_kernel_probe.py TREE
+    python3 tools/generic_kernel_probe.py TREE [GROUPS]
 
 TREE is the root of a directory holding a `contrastors_tpu_torch` package
 (this checkout's, a patched copy of it, or another commit unpacked by
@@ -12,13 +12,25 @@ tree's kernels, then reports device ms (each call queued behind a device
 sleep, the median of 10 after 3 warm-ups) of: `launch_bwd_dq` and
 `launch_bwd_dkv` at ViT-H/14's and ViT-g/14's 64 x 257 (16 heads of 80 /
 88, no mask) and at pythia-1b's step documents (128 x 128, 8 heads of
-256, causal, padded keys, the dispatch's form); `launch_gmm` at a
-uniformly routed document chunk (16384 assignments, 8 experts, block_m
-128, fp32, K 768, N 3072), on the rhs.transpose(1, 2) view (dlhs) and
-`launch_tgmm`; and gmm's and dlhs's max |out - ref| / max |ref| against
-the plain version. Prints one JSON object.
+256, causal, padded keys, the dispatch's form); the fp32 `flash_attention_fwd`
+at the fp32 steps' document chunk (16 x 256, 12 heads of 64, all-ones
+mask) and the fp32 encode batch (256 x 512, padded rows of 8 to 512
+tokens), with its max |O - ref| / max |ref| against the plain version;
+`launch_gmm` at a uniformly routed document chunk (16384 assignments, 8
+experts, block_m 128, fp32, K 768, N 3072), on the rhs.transpose(1, 2) view
+(dlhs) and `launch_tgmm`, and tgmm on a skewed routing of the same chunk
+(expert e drawn with weight 2^-e); and gmm's and dlhs's max |out - ref| /
+max |ref| against the plain version. GROUPS, a comma-separated subset of
+"bwd" (the bf16 dq and dk/dv), "fwd" (the fp32 forward), "gmm" (gmm,
+dlhs, tgmm) and "hopper", limits the run to those (default: all but
+"hopper"). "hopper" adds, instead of times, the digests (the first 16 hex
+digits of the SHA-256 of the bytes) of the Hopper kernels' (csrc/gmm.cu)
+bf16 gmm, dlhs and tgmm at a uniformly routed document chunk (K 768, N
+3072): equal digests in two trees mean bit-identical outputs. Prints one
+JSON object.
 """
 
+import hashlib
 import json
 import sys
 
@@ -39,7 +51,47 @@ def device_ms(torch, fn, runs=10, warmup=3):
     return sorted(times)[runs // 2]
 
 
-def main(tree):
+def gmm_times(torch, gm, gen, dev, out):
+    """The fp32 gmm, dlhs and tgmm rows of `out` (the module's docstring)."""
+    flat_e = torch.randint(0, 8, (16384,), generator=gen, device=dev)
+    _, gs, P = gm.aligned_group_layout(flat_e, 8, 128)
+    blk_e, act = gm.block_experts(gs, P // 128, 128)
+    lhs = torch.randn(P, 768, generator=gen, device=dev)
+    rhs = torch.randn(8, 768, 3072, generator=gen, device=dev)
+    dout = torch.randn(P, 3072, generator=gen, device=dev)
+    rhs_t = rhs.transpose(1, 2)
+    out["gmm"] = device_ms(torch, lambda: gm.launch_gmm(lhs, rhs, blk_e, act))
+    out["dlhs"] = device_ms(torch, lambda: gm.launch_gmm(dout, rhs_t, blk_e, act))
+    out["tgmm"] = device_ms(torch, lambda: gm.launch_tgmm(lhs, dout, gs))
+    skew = torch.multinomial(2.0 ** -torch.arange(8.0, device=dev), 16384, replacement=True, generator=gen)
+    _, gs_skew, P_skew = gm.aligned_group_layout(skew, 8, 128)
+    lhs_s = torch.randn(P_skew, 768, generator=gen, device=dev)
+    dout_s = torch.randn(P_skew, 3072, generator=gen, device=dev)
+    out["tgmm_skewed"] = device_ms(torch, lambda: gm.launch_tgmm(lhs_s, dout_s, gs_skew))
+    out["gmm_rel_err"] = gm.max_rel_error(gm.launch_gmm(lhs, rhs, blk_e, act), gm._gmm_plain(lhs, rhs, blk_e, act, 128))
+    out["dlhs_rel_err"] = gm.max_rel_error(gm.launch_gmm(dout, rhs_t, blk_e, act),
+                                           gm._gmm_plain(dout, rhs_t, blk_e, act, 128))
+
+
+def hopper_digests(torch, gm, gen, dev, out):
+    """The "hopper" rows of `out` (the module's docstring)."""
+    flat_e = torch.randint(0, 8, (16384,), generator=gen, device=dev)
+    _, gs, P = gm.aligned_group_layout(flat_e, 8, 128)
+    blk_e, act = gm.block_experts(gs, P // 128, 128)
+    lhs = torch.randn(P, 768, generator=gen, device=dev).bfloat16()
+    rhs = torch.randn(8, 768, 3072, generator=gen, device=dev).bfloat16()
+    dout = torch.randn(P, 3072, generator=gen, device=dev).bfloat16()
+    before = (gm.launches_gmm, gm.launches_tgmm)
+    got = dict(gmm=gm.launch_gmm(lhs, rhs, blk_e, act), dlhs=gm.launch_gmm(dout, rhs.transpose(1, 2), blk_e, act),
+               tgmm=gm.launch_tgmm(lhs, dout, gs))
+    torch.cuda.synchronize()
+    if (gm.launches_gmm - before[0], gm.launches_tgmm - before[1]) != (2, 1):
+        raise RuntimeError("the operands did not route to the Hopper kernels")
+    out["hopper_digest"] = {name: hashlib.sha256(x.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+                            .hexdigest()[:16] for name, x in got.items()}
+
+
+def main(tree, groups=("bwd", "fwd", "gmm")):
     sys.path.insert(0, tree)
     import torch
 
@@ -52,8 +104,9 @@ def main(tree):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {"tree": tree, "device": torch.cuda.get_device_name(0)}
-    for label, B, S, H, D, causal in (("vith14", 64, 257, 16, 80, False), ("vitg14", 64, 257, 16, 88, False),
-                                      ("pythia_docs", 128, 128, 8, 256, True)):
+    bwd_shapes = (("vith14", 64, 257, 16, 80, False), ("vitg14", 64, 257, 16, 88, False),
+                  ("pythia_docs", 128, 128, 8, 256, True))
+    for label, B, S, H, D, causal in bwd_shapes if "bwd" in groups else ():
         q, k, v, dout = (torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16() for _ in range(4))
         kw = {}
         if causal:
@@ -67,25 +120,27 @@ def main(tree):
         out[label] = dict(dq=device_ms(torch, lambda: fa.launch_bwd_dq(*inputs, *args)),
                           dkv=device_ms(torch, lambda: fa.launch_bwd_dkv(*inputs, *args)))
         del q, k, v, dout, o, lse, inputs
-    flat_e = torch.randint(0, 8, (16384,), generator=gen, device=dev)
-    _, gs, P = gm.aligned_group_layout(flat_e, 8, 128)
-    blk_e, act = gm.block_experts(gs, P // 128, 128)
-    lhs = torch.randn(P, 768, generator=gen, device=dev)
-    rhs = torch.randn(8, 768, 3072, generator=gen, device=dev)
-    dout = torch.randn(P, 3072, generator=gen, device=dev)
-    rhs_t = rhs.transpose(1, 2)
-    out["gmm"] = device_ms(torch, lambda: gm.launch_gmm(lhs, rhs, blk_e, act))
-    out["dlhs"] = device_ms(torch, lambda: gm.launch_gmm(dout, rhs_t, blk_e, act))
-    out["tgmm"] = device_ms(torch, lambda: gm.launch_tgmm(lhs, dout, gs))
-    out["gmm_rel_err"] = gm.max_rel_error(gm.launch_gmm(lhs, rhs, blk_e, act), gm._gmm_plain(lhs, rhs, blk_e, act, 128))
-    out["dlhs_rel_err"] = gm.max_rel_error(gm.launch_gmm(dout, rhs_t, blk_e, act),
-                                           gm._gmm_plain(dout, rhs_t, blk_e, act, 128))
+    fwd_shapes = (("fp32_doc_chunk", 16, 256, 256), ("fp32_encode", 256, 512, 8))
+    for label, B, S, lo in fwd_shapes if "fwd" in groups else ():
+        q, k, v = (torch.randn(B, S, 12, 64, generator=gen, device=dev) for _ in range(3))
+        lens = torch.randint(lo, S + 1, (B,), generator=gen, device=dev)
+        lens[0] = S
+        kw = dict(attention_mask=(torch.arange(S, device=dev)[None] < lens[:, None]).int())
+        o, _ = fa.flash_attention_fwd(q, k, v, **kw)
+        ref, _ = fa.flash_attention_reference(q, k, v, **kw)
+        out[label] = dict(fwd=device_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, **kw)),
+                          fwd_rel_err=fa.max_rel_error(o, ref))
+        del q, k, v, o, ref
+    if "gmm" in groups:
+        gmm_times(torch, gm, gen, dev, out)
+    if "hopper" in groups:
+        hopper_digests(torch, gm, gen, dev, out)
     print(json.dumps(out), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 2:
+    if len(sys.argv) not in (2, 3):
         print(__doc__, file=sys.stderr)
         sys.exit(2)
-    sys.exit(main(sys.argv[1]))
+    sys.exit(main(sys.argv[1], *([tuple(sys.argv[2].split(","))] if len(sys.argv) == 3 else [])))
