@@ -27,8 +27,8 @@ one card.
 Phases, each printing one JSON line; any failure exits non-zero:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions; TF32 off.
   2. build: nvcc builds csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/gmm.cu,
-     csrc/flash_generic.cu and csrc/gmm_generic.cu for sm_90a from this
-     checkout, all at once.
+     csrc/flash_generic.cu, csrc/flash_tf32.cu and csrc/gmm_generic.cu for
+     sm_90a from this checkout, all at once.
   3. kernel_check: the flash-forward kernel against its plain PyTorch version
      on the card in bf16 (padding with a fully masked row, ragged and sub-tile
      lengths, the multi-tile regime at 4096/8192, causal S != T, window,
@@ -413,12 +413,13 @@ The last modules (after phase 24):
 The kernels at every dtype and head dim the Pallas kernels take (after
 phase 25):
  26. coverage_kernel_check, coverage_kernel_check_gmm: the generic kernels
-     (csrc/flash_generic.cu: forward, dq, dk/dv; csrc/gmm_generic.cu: gmm,
-     tgmm) against their plain versions: flash in fp32 at D = 64, 80, 88, 128,
-     256 and bf16 at D = 80, 88, 256 and at 64 on misaligned operands (the
-     bf16 forward and dk/dv on the tensor cores), each with a padding mask (an
-     empty row), causal (S=200 against T=300), window 128, segment ids, GQA
-     (Hkv = H / 4) and fused partial rotary; gmm, dlhs and tgmm through the
+     (csrc/flash_generic.cu in bf16, csrc/flash_tf32.cu in fp32: forward,
+     dq, dk/dv; csrc/gmm_generic.cu: gmm, tgmm) against their plain versions:
+     flash in fp32 at D = 64, 80, 88, 128, 256 and bf16 at D = 80, 88, 256
+     and at 64 on misaligned operands (all on the tensor cores), each with
+     a padding mask (an empty row), causal (S=200 against T=300), window
+     128, segment ids, GQA (Hkv = H / 4) and fused partial rotary; gmm,
+     dlhs and tgmm through the
      public gmm in fp32 at K 768, N 3072 and bf16 at K 200, N 360 on the MoE
      document chunk's layout; fp32 within 1e-4 * max |ref| (LSE within 1e-4),
      bf16 at the Hopper kernels' error model, every launch on the generic
@@ -479,9 +480,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
-PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (the generic kernels' fp32 FMAs)
+PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (the generic gmm and tgmm's fp32 FMAs)
 PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 on the tensor cores
-# the fp32 flash forward's rate: 3xTF32, three TF32 products for each fp32 product
+# the fp32 flash kernels' rate: 3xTF32, three TF32 products for each fp32 product
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
@@ -525,9 +526,12 @@ def ptxas_usage(log):
     elem = {"f": "fp32", "13__nv_bfloat16": "bf16"}
     for line in log.splitlines():
         g = re.search(r"\d(fwd|dq|dkv|t?gmm)_kernelI(f|13__nv_bfloat16)(?:Li(\d+)ELi(\d+)E)?", line)
+        tc = re.search(r"\d((?:fwd|dq|dkv)_(?:tc|tf32))_kernelILi(\d+)E", line)
         m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv))_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?"
                       r"|(t?gmm_kernel)(?:ILb([01])E)?", line)
-        if g:  # the generic kernels: <dtype[, head-dim bucket, kv tile rows]>
+        if tc:  # the generic flash kernels: <head-dim bucket>
+            fn, spill = f"{tc.group(1)}_kernel<{tc.group(2)}>", "?"
+        elif g:  # the generic gmm kernels: <dtype[, tile rows, ...]>
             dims = f", {g.group(3)}, {g.group(4)}" if g.group(3) else ""
             fn, spill = f"{g.group(1)}_kernel<{elem[g.group(2)]}{dims}>", "?"
         elif m and m.group(1):  # <D[, consumer warpgroups][, rotary]>
@@ -7142,8 +7146,8 @@ def generic_flash_bar(dtype):
 
 def coverage_kernel_checks(dev, gen):
     """Phase coverage_kernel_check: the generic forward, dq and dk/dv
-    (csrc/flash_generic.cu) against their plain versions in every
-    (dtype, head dim) of COVERAGE_DIMS and mask variant of
+    (csrc/flash_generic.cu, fp32: csrc/flash_tf32.cu) against their plain
+    versions in every (dtype, head dim) of COVERAGE_DIMS and mask variant of
     COVERAGE_VARIANTS, each routed to the generic kernels (their launch
     counts, and none of the Hopper kernels') and bit-identical on a second
     run. fp32: max |out - ref| <= FP32_REL * max |ref| for O, dq, dk and dv,
@@ -7308,9 +7312,8 @@ def coverage_flash_shapes(dev, card, gen):
     and none of the Hopper kernels'), held against their plain versions on
     the same inputs at the bars of `generic_flash_errors`, then timed: ms
     and device_ms beside the bound (at the rate of the operands' type and
-    the kernel's products: for fp32 the forward's 3xTF32, PEAK_3XTF32_FLOPS,
-    dq's and dk/dv's FMAs, PEAK_FP32_FLOPS; `bound_rate` names it), the
-    plain version's ms and SDPA's (for dq and dk/dv, forward
+    the kernel's products: for fp32 3xTF32's, PEAK_3XTF32_FLOPS; `bound_rate`
+    names it), the plain version's ms and SDPA's (for dq and dk/dv, forward
     + backward minus forward; both time a whole backward). Returns {label:
     {kernel: row}}."""
     import torch
@@ -7367,11 +7370,10 @@ def coverage_flash_shapes(dev, card, gen):
             lib_bwd = median_ms(sdpa_fwd_bwd) - row["fwd"]["library_ms"]
             lib_bwd_dev = median_ms(sdpa_fwd_bwd, queued=True) - row["fwd"]["library_device_ms"]
             for kname, launch in launchers.items():
-                k_peak, k_rate = (PEAK_FP32_FLOPS, "fp32 FMAs: 67 TFLOP/s") if dtype == "fp32" else (peak, rate)
-                k_ms, k_by, k_flops, k_bytes = backward_bound(kname, B, S, S, H, H, D, lens, elem=elem, peak=k_peak,
+                k_ms, k_by, k_flops, k_bytes = backward_bound(kname, B, S, S, H, H, D, lens, elem=elem, peak=peak,
                                                               **band)
                 row[kname] = dict(ms=median_ms(launch), device_ms=median_ms(launch, queued=True), bound_ms=k_ms,
-                                  bound_by=k_by, bound_rate=k_rate, flops=k_flops, bytes=k_bytes, plain_ms=plain_bwd,
+                                  bound_by=k_by, bound_rate=rate, flops=k_flops, bytes=k_bytes, plain_ms=plain_bwd,
                                   library_ms=lib_bwd, library_device_ms=lib_bwd_dev,
                                   err_over_bar=over["dq"] if kname == "dq" else max(over["dk"], over["dv"]),
                                   max_abs_err=abs_err[kname])
@@ -7597,15 +7599,15 @@ def generic_entries(coverage):
     on_path = [c[0] for c in COVERAGE_FLASH_SHAPES[:COVERAGE_PATH_SHAPES]]
     rows = []
     for kname, name, source, replaces, design in (
-            ("fwd", "flash_generic_fwd", "flash_generic.cu", ["contrastors_tpu/ops/flash_attention.py:225",
-                                                               "contrastors_tpu/ops/flash_attention.py:115"],
+            ("fwd", "flash_generic_fwd", "flash_tf32.cu", ["contrastors_tpu/ops/flash_attention.py:225",
+                                                            "contrastors_tpu/ops/flash_attention.py:115"],
              dict(fp32="fwd_tf32_kernel<DMAX> (3xTF32 on mma.sync tensor cores)",
                   bf16="fwd_tc_kernel<DMAX> (mma.sync tensor cores)")),
-            ("dq", "flash_generic_dq", "flash_generic.cu", ["contrastors_tpu/ops/flash_attention.py:422"],
-             dict(fp32="dq_kernel<float, DMAX, BK> (fp32 FMAs)",
+            ("dq", "flash_generic_dq", "flash_tf32.cu", ["contrastors_tpu/ops/flash_attention.py:422"],
+             dict(fp32="dq_tf32_kernel<DMAX> (3xTF32 on mma.sync tensor cores, dS fed from registers)",
                   bf16="dq_tc_kernel<DMAX> (mma.sync tensor cores)")),
-            ("dkv", "flash_generic_dkv", "flash_generic.cu", ["contrastors_tpu/ops/flash_attention.py:512"],
-             dict(fp32="dkv_kernel<float, DMAX, BK> (fp32 FMAs)",
+            ("dkv", "flash_generic_dkv", "flash_tf32.cu", ["contrastors_tpu/ops/flash_attention.py:512"],
+             dict(fp32="dkv_tf32_kernel<DMAX> (3xTF32 on mma.sync tensor cores, P^T and dS^T fed from registers)",
                   bf16="dkv_tc_kernel<DMAX> (mma.sync tensor cores)")),
             ("gmm", "gmm_generic", "gmm_generic.cu", ["contrastors_tpu/ops/grouped_matmul.py:75"],
              dict(both="gmm_kernel<T, BM, KN> (128-row tiles where block_m allows, 8 x 8 accumulators a thread, "
@@ -7630,7 +7632,7 @@ def generic_entries(coverage):
             over, abs_err = max(r["err_over_bar"] for r in path), max(r["max_abs_err"] for r in path)
             launches = coverage["fp32_pretrain"]["launches_per_step"][0][counter]
             extra = dict(shape="fp32 B=16 S=T=256 H=12 D=64, the steps' all-ones mask (the fp32 pretrain step's "
-                               "document chunk)",
+                               "document chunk)", bf16_source="contrastors_tpu_torch/ops/csrc/flash_generic.cu",
                          pythia_1b_launches_per_step=coverage["pythia_1b_training"]["launches_per_step"][counter],
                          shapes={label: {k: r[kname][k] for k in pick + ("err_over_bar", "max_abs_err")}
                                  for label, r in shapes.items() if kname in r})

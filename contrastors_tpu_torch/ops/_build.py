@@ -40,6 +40,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _ROTARY = [_P, _P, _L, _I, _I]  # the flash kernels' fused-rotary arguments
+# the flash kernels' forward, dq and dk/dv signatures (every flash library's)
+_FLASH_FWD = ([_P] * 7 + [_I] * 6 + [_L] * 9 + [_I] * 3 + [ctypes.c_float] + _ROTARY + [_P], _I)
+_FLASH_DQ = ([_P] * 10 + [_I] * 6 + [_L] * 15 + [_I] * 3 + [ctypes.c_float] * 2 + _ROTARY + [_P], _I)
+_FLASH_DKV = ([_P] * 10 + [_I] * 6 + [_L] * 12 + [_I] * 3 + [ctypes.c_float] * 2 + _ROTARY + [_P], _I)
 # C signature of each library's entry points: name -> (argtypes, restype)
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "flash_fwd": {
@@ -47,26 +51,17 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # q/k/v strides (batch, seq, head) x 3, causal, causal_offset,
         # window, c = softmax_scale * log2(e), rotary (cos, sin, batch
         # stride, rot_dim / 2, interleaved; NULL cos = no rotary), stream
-        "flash_fwd_bf16": (
-            [_P] * 7 + [_I] * 6 + [_L] * 9 + [_I] * 3 + [ctypes.c_float] + _ROTARY + [_P],
-            _I,
-        ),
+        "flash_fwd_bf16": _FLASH_FWD,
     },
     "flash_bwd": {
         # q, k, v, dout, o, lse, delta (written), dq, seg_q, seg_kv, B, S,
         # T, H, Hkv, D, q/k/v/o/dout strides (batch, seq, head) x 5, causal,
         # causal_offset, window, c = softmax_scale * log2(e),
         # softmax_scale, rotary, stream
-        "flash_bwd_dq_bf16": (
-            [_P] * 10 + [_I] * 6 + [_L] * 15 + [_I] * 3 + [ctypes.c_float] * 2 + _ROTARY + [_P],
-            _I,
-        ),
+        "flash_bwd_dq_bf16": _FLASH_DQ,
         # q, k, v, dout, lse, delta (read), dk, dv, seg_q, seg_kv, B, S, T,
         # H, Hkv, D, q/k/v/dout strides x 4, and the rest as above
-        "flash_bwd_dkv_bf16": (
-            [_P] * 10 + [_I] * 6 + [_L] * 12 + [_I] * 3 + [ctypes.c_float] * 2 + _ROTARY + [_P],
-            _I,
-        ),
+        "flash_bwd_dkv_bf16": _FLASH_DKV,
     },
     "gmm": {
         # lhs, rhs, blk_e, act, out, M, K, N, E, lhs row stride,
@@ -75,21 +70,17 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # lhs, dout, group_sizes, out, M, K, N, E, lhs and dout row strides, stream
         "tgmm_bf16": ([_P] * 4 + [_I] * 4 + [_L] * 2 + [_P], _I),
     },
-    # the kernels for every other dtype and width (fp32 or bf16, dtype 0 / 1
-    # first), with the arguments of the Hopper kernels above
+    # bf16 at the widths the Hopper kernels do not take (csrc/flash_generic.cu)
+    # and fp32 (csrc/flash_tf32.cu), with the arguments of the Hopper kernels
     "flash_generic": {
-        "flash_generic_fwd": (
-            [_I] + [_P] * 7 + [_I] * 6 + [_L] * 9 + [_I] * 3 + [ctypes.c_float] + _ROTARY + [_P],
-            _I,
-        ),
-        "flash_generic_dq": (
-            [_I] + [_P] * 10 + [_I] * 6 + [_L] * 15 + [_I] * 3 + [ctypes.c_float] * 2 + _ROTARY + [_P],
-            _I,
-        ),
-        "flash_generic_dkv": (
-            [_I] + [_P] * 10 + [_I] * 6 + [_L] * 12 + [_I] * 3 + [ctypes.c_float] * 2 + _ROTARY + [_P],
-            _I,
-        ),
+        "flash_generic_fwd": _FLASH_FWD,
+        "flash_generic_dq": _FLASH_DQ,
+        "flash_generic_dkv": _FLASH_DKV,
+    },
+    "flash_tf32": {
+        "flash_tf32_fwd": _FLASH_FWD,
+        "flash_tf32_dq": _FLASH_DQ,
+        "flash_tf32_dkv": _FLASH_DKV,
     },
     "gmm_generic": {
         # dtype, lhs, rhs, blk_e, act, out, M, K, N, E, block_m, lhs row

@@ -46,15 +46,15 @@ Routing (`flash_route`, from dtype, shape and strides alone): bf16 at a head
 dim of 64 or 128 with TMA-aligned operands (and a rotary dim that is a
 multiple of 16) goes to the Hopper kernels above; every other input the
 Pallas kernels take (fp32 or bf16, D % 8 == 0, D <= 256) goes to the three
-generic kernels of `csrc/flash_generic.cu` (`flash_generic_fwd`,
-`flash_generic_dq`, `flash_generic_dkv`, the same semantics, rotary a
-run-time choice: the fp32 forward on the tensor cores in 3xTF32 (three
-TF32 products for each fp32 product) and the fp32 dq and dk/dv on fp32 FMAs
-over shared-memory tiles; the bf16 forward, dq and dk/dv on the tensor
-cores; mma.sync over tiles that arrive by cp.async, or through registers
-where a row is not 16-byte aligned or is rotated on load). A head dim
-above 256 raises. `flash_shape_ok` is JAX's rule: what it refuses (D < 64,
-D % 8 != 0) runs the plain `sdpa` in `attention_core`, as in JAX.
+generic kernels, the same semantics, rotary a run-time choice: bf16 to
+`csrc/flash_generic.cu` (`flash_generic_fwd`, `flash_generic_dq`,
+`flash_generic_dkv`), fp32 to `csrc/flash_tf32.cu` (`flash_tf32_fwd`,
+`flash_tf32_dq`, `flash_tf32_dkv`: the tensor cores in 3xTF32, three TF32
+products for each fp32 product); all on mma.sync over tiles that arrive by
+cp.async, or through registers where a row is not 16-byte aligned or is
+rotated on load. A head dim above 256 raises. `flash_shape_ok` is JAX's
+rule: what it refuses (D < 64, D % 8 != 0) runs the plain `sdpa` in
+`attention_core`, as in JAX.
 
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor to the
 kernels, or the call raises. The call is a `torch.autograd.Function` whose
@@ -75,12 +75,12 @@ from contrastors_tpu_torch.ops._build import load_library, ptr, stream
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634  # log2(e)
 KERNEL_HEAD_DIMS = (64, 128)  # the Hopper kernels' (bf16 only)
-GENERIC_MAX_HEAD_DIM = 256  # the generic kernels' limit: their tiles of D + 1 floats fill shared memory
+GENERIC_MAX_HEAD_DIM = 256  # the generic kernels' limit: their fp32 tiles of D + 4 floats fill shared memory
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # the generic kernels' dtype argument
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # the generic grouped matmul's dtype argument
 # fp32 bars of the generic kernels against their plain versions (both
 # compute in fp32; the order of sums and exp2's rounding differ, and the
-# forward's products run in 3xTF32 on the tensor cores, about 2^-21 of each
+# kernels' products run in 3xTF32 on the tensor cores, about 2^-21 of each
 # product):
 # max |out - ref| <= FP32_REL * max |ref| for O, dq, dk and dv, and the LSE
 # within FP32_LSE_ATOL
@@ -113,7 +113,7 @@ launches_bwd_dkv = 0
 launches_rot = 0  # their fused-rotary variants
 launches_bwd_dq_rot = 0
 launches_bwd_dkv_rot = 0
-launches_generic = 0  # flash_generic_fwd, with or without rotary
+launches_generic = 0  # the generic forward (flash_generic_fwd, flash_tf32_fwd), with or without rotary
 launches_generic_dq = 0
 launches_generic_dkv = 0
 
@@ -141,7 +141,7 @@ def flash_shape_ok(q: torch.Tensor, k: torch.Tensor) -> bool:
 def check_head_dim(D: int) -> None:
     if D > GENERIC_MAX_HEAD_DIM:
         raise ValueError(f"flash attention takes a head_dim of at most {GENERIC_MAX_HEAD_DIM} (the generic "
-                         f"kernels' limit, csrc/flash_generic.cu), got {D}")
+                         f"kernels' limit, csrc/flash_generic.cu and flash_tf32.cu), got {D}")
 
 
 def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tensor, rot_dim: int = 0) -> str:
@@ -149,10 +149,11 @@ def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.
     shape and strides alone: "hopper" (csrc/flash_fwd.cu, flash_bwd.cu) for
     bf16 at a head dim in KERNEL_HEAD_DIMS with TMA-aligned operands
     (`_aligned`) and a rotary dim (0: none) that is a multiple of 16, else
-    "generic" (csrc/flash_generic.cu). `more` are the backward's dO and O,
-    of q's shape. Raises TypeError / ValueError for what neither takes:
-    another dtype or mixed dtypes, a head dim that is not a multiple of 8 or
-    above GENERIC_MAX_HEAD_DIM, q heads not a multiple of kv heads."""
+    "generic" (csrc/flash_generic.cu, fp32: csrc/flash_tf32.cu). `more` are
+    the backward's dO and O, of q's shape. Raises TypeError / ValueError for
+    what neither takes: another dtype or mixed dtypes, a head dim that is not
+    a multiple of 8 or above GENERIC_MAX_HEAD_DIM, q heads not a multiple of
+    kv heads."""
     B, S, H, D = q.shape
     xs = (q, k, v) + more
     if q.dtype not in KERNEL_DTYPES or any(x.dtype != q.dtype for x in xs):
@@ -378,11 +379,18 @@ def _rot_dim(rot):
     return 0 if rot is None else rot.rot_dim
 
 
+def _generic(dtype, kernel):
+    """The generic kernel `kernel` ("fwd", "dq" or "dkv") for operands of
+    dtype: csrc/flash_tf32.cu's for fp32, csrc/flash_generic.cu's for bf16."""
+    if dtype == torch.float32:
+        return getattr(load_library("flash_tf32"), f"flash_tf32_{kernel}")
+    return getattr(load_library("flash_generic"), f"flash_generic_{kernel}")
+
+
 def _launch_kernel(q, k, v, seg_q, seg_kv, rot, causal, causal_offset, window, softmax_scale):
     """Launch the forward kernel the operands route to (`flash_route`) on
     the current stream: csrc/flash_fwd.cu (its fused-rotary variant when rot
-    is given) or flash_generic_fwd of csrc/flash_generic.cu. Returns (O,
-    LSE)."""
+    is given) or the generic forward (`_generic`). Returns (O, LSE)."""
     global launches, launches_rot, launches_generic
     _check_devices(q, k, v)
     q, k, v = (x if _aligned(x) else x.contiguous() for x in (q, k, v))
@@ -403,7 +411,7 @@ def _launch_kernel(q, k, v, seg_q, seg_kv, rot, causal, causal_offset, window, s
     if route == "hopper":
         err = load_library("flash_fwd").flash_fwd_bf16(*args)
     else:
-        err = load_library("flash_generic").flash_generic_fwd(_DTYPE_CODE[q.dtype], *args)
+        err = _generic(q.dtype, "fwd")(*args)
     if err != 0:
         raise RuntimeError(f"flash forward ({route}) kernel launch failed: CUDA error {err}")
     if route == "generic":
@@ -433,8 +441,8 @@ def _bwd_call(q, k, v, dout, causal, causal_offset, window, softmax_scale, rot, 
 def launch_bwd_dq(q, k, v, dout, out, lse, delta, seg_q, seg_kv, route, causal, causal_offset, window,
                   softmax_scale, rot=None):
     """Launch the dq kernel of `route`: flash_bwd_dq of csrc/flash_bwd.cu
-    (its fused-rotary variant when rot is given) or flash_generic_dq of
-    csrc/flash_generic.cu, on prepared inputs (as `prepare_backward`
+    (its fused-rotary variant when rot is given) or the generic dq
+    (`_generic`), on prepared inputs (as `prepare_backward`
     prepares them, given the same rot: q/k/v/dout/out of one dtype with a
     unit stride over D, contiguous fp32 lse and the delta buffer [B, H, S],
     contiguous int32 ids or None, and the route). Writes delta =
@@ -450,7 +458,7 @@ def launch_bwd_dq(q, k, v, dout, out, lse, delta, seg_q, seg_kv, route, causal, 
     if route == "hopper":
         err = load_library("flash_bwd").flash_bwd_dq_bf16(*args)
     else:
-        err = load_library("flash_generic").flash_generic_dq(_DTYPE_CODE[q.dtype], *args)
+        err = _generic(q.dtype, "dq")(*args)
     if err != 0:
         raise RuntimeError(f"flash dq ({route}) kernel launch failed: CUDA error {err}")
     if route == "generic":
@@ -465,8 +473,8 @@ def launch_bwd_dq(q, k, v, dout, out, lse, delta, seg_q, seg_kv, route, causal, 
 def launch_bwd_dkv(q, k, v, dout, out, lse, delta, seg_q, seg_kv, route, causal, causal_offset, window,
                    softmax_scale, rot=None):
     """Launch the dk/dv kernel of `route`: flash_bwd_dkv of
-    csrc/flash_bwd.cu (its fused-rotary variant when rot is given) or
-    flash_generic_dkv of csrc/flash_generic.cu, on prepared inputs (see
+    csrc/flash_bwd.cu (its fused-rotary variant when rot is given) or the
+    generic dk/dv (`_generic`), on prepared inputs (see
     `launch_bwd_dq`, which must have written delta first, on the same
     stream; out is not read). Returns (dk, dv)."""
     global launches_bwd_dkv, launches_bwd_dkv_rot, launches_generic_dkv
@@ -481,7 +489,7 @@ def launch_bwd_dkv(q, k, v, dout, out, lse, delta, seg_q, seg_kv, route, causal,
     if route == "hopper":
         err = load_library("flash_bwd").flash_bwd_dkv_bf16(*args)
     else:
-        err = load_library("flash_generic").flash_generic_dkv(_DTYPE_CODE[q.dtype], *args)
+        err = _generic(q.dtype, "dkv")(*args)
     if err != 0:
         raise RuntimeError(f"flash dk/dv ({route}) kernel launch failed: CUDA error {err}")
     if route == "generic":

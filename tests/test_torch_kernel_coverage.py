@@ -4,7 +4,7 @@ The port routes each flash and grouped-matmul call on the card by dtype,
 shape and strides (`flash_route`, `grouped_matmul_route`): bf16 at the
 Hopper kernels' shapes to csrc/flash_fwd.cu, flash_bwd.cu and gmm.cu, every
 other input JAX takes (fp32; head dims other than 64 and 128; any K and N)
-to the generic kernels (csrc/flash_generic.cu, gmm_generic.cu). Here, on
+to the generic kernels (csrc/flash_generic.cu, flash_tf32.cu, gmm_generic.cu). Here, on
 the CPU, where the wrappers run the kernels' plain versions:
 
   (i) the two routing functions over a grid of dtype x head dim (or K, N)

@@ -246,9 +246,9 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("dtype,D", [("fp32", 64), ("fp32", 80), ("fp32", 256), ("bf16", 88), ("bf16", 256)])
 @pytest.mark.parametrize("variant", ["pad", "causal", "segments", "gqa", "rotary"])
 def test_generic_kernels_match_plain_versions_on_card(cuda, dtype, D, variant):
-    """The generic forward, dq and dk/dv (csrc/flash_generic.cu) against the
-    plain versions: fp32 (the forward in 3xTF32 on the tensor cores, dq and
-    dk/dv on fp32 FMAs) within FP32_REL * max |ref| (LSE within
+    """The generic forward, dq and dk/dv (csrc/flash_generic.cu, fp32:
+    csrc/flash_tf32.cu) against the plain versions: fp32 (the three in 3xTF32
+    on the tensor cores) within FP32_REL * max |ref| (LSE within
     FP32_LSE_ATOL), bf16 (the three on the tensor cores) at the Hopper
     kernels' error model."""
     gen = torch.Generator(device=cuda).manual_seed(D)
@@ -378,7 +378,7 @@ def test_bf16_tensor_core_kernels_match_plain_versions_on_card(cuda, head_dim, v
         assert bool((out[-1] == 0).all()) and bool((grads[0][-1] == 0).all())
 
 
-# head dims of the fp32 tensor-core (3xTF32) forward: "u" misaligned operands
+# head dims of the fp32 tensor-core (3xTF32) kernels: "u" misaligned operands
 # (staged through registers instead of copied by cp.async)
 TF32_HEAD_DIMS = ("64", "64u", 80, 88, 128, 200, 256)
 
@@ -386,7 +386,7 @@ TF32_HEAD_DIMS = ("64", "64u", 80, 88, 128, 200, 256)
 @pytest.mark.cuda
 @pytest.mark.parametrize("head_dim,variant", [(d, v) for d in TF32_HEAD_DIMS for v in TC_VARIANTS])
 def test_fp32_tensor_core_forward_matches_plain_version_on_card(cuda, head_dim, variant):
-    """The fp32 forward on the tensor cores in 3xTF32 (csrc/flash_generic.cu:
+    """The fp32 forward on the tensor cores in 3xTF32 (csrc/flash_tf32.cu:
     fwd_tf32_kernel), routed to the generic kernels, against the plain
     version: O within FP32_REL * max |ref|, the LSE within FP32_LSE_ATOL, at
     D 64 (aligned and misaligned), 80, 88, 128, 200 and 256 in the variants
@@ -404,6 +404,37 @@ def test_fp32_tensor_core_forward_matches_plain_version_on_card(cuda, head_dim, 
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
     if variant == "pad":
         assert bool((out[-1] == 0).all()) and bool((lse[-1] == tfa.NEG_INF).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,variant", [(d, v) for d in TF32_HEAD_DIMS for v in TC_VARIANTS]
+                         + [(d, v) for d in (80, 256) for v in ("dout_misaligned", "out_misaligned")])
+def test_fp32_tensor_core_backward_matches_plain_version_on_card(cuda, head_dim, variant):
+    """The fp32 dq and dk/dv on the tensor cores in 3xTF32 (csrc/flash_tf32.cu:
+    dq_tf32_kernel, dkv_tf32_kernel), routed to the generic kernels, against
+    the plain version: dq, dk and dv within FP32_REL * max |ref|, at D 64
+    (aligned and misaligned), 80, 88, 128, 200 and 256 in the variants of
+    `_tensor_core_case`, and at D 80 and 256 with only dO, or only O,
+    misaligned (their tiles then staged through registers); the padding
+    mask's empty batch row has dq, dk and dv exactly 0; a second run is
+    bit-identical."""
+    q, k, v, dout, kw = _tensor_core_case(cuda, torch.float32, head_dim, variant)
+    counters = ("launches_generic_dq", "launches_generic_dkv")
+    out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    if variant == "out_misaligned":
+        out = _misaligned(out)
+    before = [getattr(tfa, c) for c in counters]
+    grads = tfa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    grads_again = tfa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert [getattr(tfa, c) - b for c, b in zip(counters, before)] == [2, 2]
+    refs = tfa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw)
+    for g, r, name in zip(grads, refs, ("dq", "dk", "dv")):
+        assert tfa.max_rel_error(g, r) <= tfa.FP32_REL, name
+    for a, b, name in zip(grads, grads_again, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), name
+    if variant == "pad":
+        assert all(bool((g[-1] == 0).all()) for g in grads)
 
 
 def _moe_layout(cuda, A, E=8):

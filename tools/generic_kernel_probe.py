@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the generic kernels' bf16 dq and dk/dv, fp32 forward and fp32 gmm,
-dlhs and tgmm of one copy of the port's package on one card, for comparing
-variants of those kernels in turns.
+"""Time the generic kernels' bf16 dq and dk/dv, fp32 forward, fp32 dq and
+dk/dv and fp32 gmm, dlhs and tgmm of one copy of the port's package on one
+card, for comparing variants of those kernels in turns.
 
     python3 tools/generic_kernel_probe.py TREE [GROUPS]
 
@@ -16,14 +16,19 @@ sleep, the median of 10 after 3 warm-ups) of: `launch_bwd_dq` and
 at the fp32 steps' document chunk (16 x 256, 12 heads of 64, all-ones
 mask) and the fp32 encode batch (256 x 512, padded rows of 8 to 512
 tokens), with its max |O - ref| / max |ref| against the plain version;
-`launch_gmm` at a uniformly routed document chunk (16384 assignments, 8
+the fp32 `launch_bwd_dq` and `launch_bwd_dkv` at the fp32 document chunk
+(all-ones mask), at 64 x 128, 8 heads of 256, causal with padded keys (the
+dispatch's form), and at D 128 and 256 in two of `chip_smoke.py`'s
+coverage cases (3 x 300, 8 heads: a padding mask with an empty row;
+causal, 200 rows against 300 keys), with the max |x - ref| / max |ref| of
+dq, dk and dv against the plain backward; `launch_gmm` at a uniformly routed document chunk (16384 assignments, 8
 experts, block_m 128, fp32, K 768, N 3072), on the rhs.transpose(1, 2) view
 (dlhs) and `launch_tgmm`, and tgmm on a skewed routing of the same chunk
 (expert e drawn with weight 2^-e); and gmm's and dlhs's max |out - ref| /
 max |ref| against the plain version. GROUPS, a comma-separated subset of
-"bwd" (the bf16 dq and dk/dv), "fwd" (the fp32 forward), "gmm" (gmm,
-dlhs, tgmm) and "hopper", limits the run to those (default: all but
-"hopper"). "hopper" adds, instead of times, the digests (the first 16 hex
+"bwd" (the bf16 dq and dk/dv), "fwd" (the fp32 forward), "fp32bwd" (the
+fp32 dq and dk/dv), "gmm" (gmm, dlhs, tgmm) and "hopper", limits the run to
+those (default: all but "hopper"). "hopper" adds, instead of times, the digests (the first 16 hex
 digits of the SHA-256 of the bytes) of the Hopper kernels' (csrc/gmm.cu)
 bf16 gmm, dlhs and tgmm at a uniformly routed document chunk (K 768, N
 3072): equal digests in two trees mean bit-identical outputs. Prints one
@@ -91,7 +96,55 @@ def hopper_digests(torch, gm, gen, dev, out):
                             .hexdigest()[:16] for name, x in got.items()}
 
 
-def main(tree, groups=("bwd", "fwd", "gmm")):
+def backward_inputs(torch, fa, gen, dev, B, S, H, D, dtype, form, T=None):
+    """q, k, v, dO of one backward shape (S query rows, T = S keys unless
+    given), the forward's O and LSE, the prepared inputs of the two launchers
+    and their options. form: "none" (no mask), "ones" (an all-ones padding
+    mask), "pad" (a padding mask, the first batch row whole and the last
+    empty), "causal" (bottom-right) or "dispatch" (causal, every row live,
+    keys padded to 32..S)."""
+    T = S if T is None else T
+    q, dout = (torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, T, H, D, generator=gen, device=dev).to(dtype) for _ in range(2))
+    kw = dict(causal=form == "causal")
+    if form == "pad":
+        lens = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
+        lens[0], lens[-1] = T, 0
+        kw["attention_mask"] = (torch.arange(T, device=dev)[None] < lens[:, None]).int()
+    elif form == "dispatch":
+        lens = torch.randint(32, S + 1, (B,), generator=gen, device=dev)
+        mask = (torch.arange(S, device=dev)[None] < lens[:, None]).int()
+        kw = dict(causal=True, segment_ids=torch.ones(B, S, dtype=torch.int32, device=dev), kv_segment_ids=mask)
+    elif form == "ones":
+        kw["attention_mask"] = torch.ones(B, S, dtype=torch.int32, device=dev)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    seg_q, seg_kv = fa.merge_segments(B, S, T, kw.get("attention_mask"), kw.get("segment_ids"),
+                                      kw.get("kv_segment_ids"), dev)
+    inputs = fa.prepare_backward(q, k, v, o, lse, dout, seg_q, seg_kv)
+    return (q, k, v, dout, o, lse, kw), inputs, (kw["causal"], T - S, 0, 1.0 / D**0.5)
+
+
+def fp32_backward_times(torch, fa, gen, dev, out):
+    """The "fp32bwd" rows of `out` (the module's docstring)."""
+    for label, B, S, T, H, D, form in (("fp32_bwd_doc_chunk", 16, 256, 256, 12, 64, "ones"),
+                                       ("fp32_bwd_d256_docs", 64, 128, 128, 8, 256, "dispatch"),
+                                       ("fp32_bwd_d128_pad", 3, 300, 300, 8, 128, "pad"),
+                                       ("fp32_bwd_d128_causal", 3, 200, 300, 8, 128, "causal"),
+                                       ("fp32_bwd_d256_pad", 3, 300, 300, 8, 256, "pad"),
+                                       ("fp32_bwd_d256_causal", 3, 200, 300, 8, 256, "causal")):
+        (q, k, v, dout, o, lse, kw), inputs, args = backward_inputs(torch, fa, gen, dev, B, S, H, D, torch.float32,
+                                                                    form, T)
+        dq = fa.launch_bwd_dq(*inputs, *args)
+        dk, dv = fa.launch_bwd_dkv(*inputs, *args)
+        refs = fa.flash_attention_backward_reference(q, k, v, o, lse, dout, **kw)
+        out[label] = dict(dq=device_ms(torch, lambda: fa.launch_bwd_dq(*inputs, *args)),
+                          dkv=device_ms(torch, lambda: fa.launch_bwd_dkv(*inputs, *args)),
+                          rel_err={n: fa.max_rel_error(x, r)
+                                   for n, x, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs)})
+        del q, k, v, dout, o, lse, inputs, dq, dk, dv, refs
+
+
+def main(tree, groups=("bwd", "fwd", "fp32bwd", "gmm")):
     sys.path.insert(0, tree)
     import torch
 
@@ -104,22 +157,13 @@ def main(tree, groups=("bwd", "fwd", "gmm")):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {"tree": tree, "device": torch.cuda.get_device_name(0)}
-    bwd_shapes = (("vith14", 64, 257, 16, 80, False), ("vitg14", 64, 257, 16, 88, False),
-                  ("pythia_docs", 128, 128, 8, 256, True))
-    for label, B, S, H, D, causal in bwd_shapes if "bwd" in groups else ():
-        q, k, v, dout = (torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16() for _ in range(4))
-        kw = {}
-        if causal:
-            lens = torch.randint(32, S + 1, (B,), generator=gen, device=dev)
-            mask = (torch.arange(S, device=dev)[None] < lens[:, None]).int()
-            kw = dict(causal=True, segment_ids=torch.ones(B, S, dtype=torch.int32, device=dev), kv_segment_ids=mask)
-        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
-        seg_q, seg_kv = fa.merge_segments(B, S, S, None, kw.get("segment_ids"), kw.get("kv_segment_ids"), dev)
-        inputs = fa.prepare_backward(q, k, v, o, lse, dout, seg_q, seg_kv)
-        args = (causal, 0, 0, 1.0 / D**0.5)
+    bwd_shapes = (("vith14", 64, 257, 16, 80, "none"), ("vitg14", 64, 257, 16, 88, "none"),
+                  ("pythia_docs", 128, 128, 8, 256, "dispatch"))
+    for label, B, S, H, D, form in bwd_shapes if "bwd" in groups else ():
+        _, inputs, args = backward_inputs(torch, fa, gen, dev, B, S, H, D, torch.bfloat16, form)
         out[label] = dict(dq=device_ms(torch, lambda: fa.launch_bwd_dq(*inputs, *args)),
                           dkv=device_ms(torch, lambda: fa.launch_bwd_dkv(*inputs, *args)))
-        del q, k, v, dout, o, lse, inputs
+        del inputs
     fwd_shapes = (("fp32_doc_chunk", 16, 256, 256), ("fp32_encode", 256, 512, 8))
     for label, B, S, lo in fwd_shapes if "fwd" in groups else ():
         q, k, v = (torch.randn(B, S, 12, 64, generator=gen, device=dev) for _ in range(3))
@@ -131,6 +175,8 @@ def main(tree, groups=("bwd", "fwd", "gmm")):
         out[label] = dict(fwd=device_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, **kw)),
                           fwd_rel_err=fa.max_rel_error(o, ref))
         del q, k, v, o, ref
+    if "fp32bwd" in groups:
+        fp32_backward_times(torch, fa, gen, dev, out)
     if "gmm" in groups:
         gmm_times(torch, gm, gen, dev, out)
     if "hopper" in groups:
