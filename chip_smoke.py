@@ -527,9 +527,13 @@ def ptxas_usage(log):
     for line in log.splitlines():
         g = re.search(r"\d(fwd|dq|dkv|t?gmm)_kernelI(f|13__nv_bfloat16)(?:Li(\d+)ELi(\d+)E)?", line)
         tc = re.search(r"\d((?:fwd|dq|dkv)_(?:tc|tf32))_kernelILi(\d+)E", line)
+        wide = re.search(r"\d(wide_kernel|wide_adjoint_kernel)I(f|13__nv_bfloat16)E?(?:Li(\d)E)?", line)
         m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv))_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?"
                       r"|(t?gmm_kernel)(?:ILb([01])E)?", line)
-        if tc:  # the generic flash kernels: <head-dim bucket>
+        if wide:  # the wide flash kernels (csrc/flash_wide.cu): <dtype[, fwd / dq / dkv]>
+            which = f", {('fwd', 'dq', 'dkv')[int(wide.group(3))]}" if wide.group(3) else ""
+            fn, spill = f"{wide.group(1)}<{elem[wide.group(2)]}{which}>", "?"
+        elif tc:  # the generic flash kernels: <head-dim bucket>
             fn, spill = f"{tc.group(1)}_kernel<{tc.group(2)}>", "?"
         elif g:  # the generic gmm kernels: <dtype[, tile rows, ...]>
             dims = f", {g.group(3)}, {g.group(4)}" if g.group(3) else ""
@@ -860,9 +864,13 @@ COUNTERS = dict(fwd=("fa", "launches"), dq=("fa", "launches_bwd_dq"), dkv=("fa",
                 dkv_rot=("fa", "launches_bwd_dkv_rot"), gmm=("gm", "launches_gmm"),
                 tgmm=("gm", "launches_tgmm"), gen_fwd=("fa", "launches_generic"),
                 gen_dq=("fa", "launches_generic_dq"), gen_dkv=("fa", "launches_generic_dkv"),
-                gen_gmm=("gm", "launches_gmm_generic"), gen_tgmm=("gm", "launches_tgmm_generic"))
+                gen_gmm=("gm", "launches_gmm_generic"), gen_tgmm=("gm", "launches_tgmm_generic"),
+                wide_fwd=("fa", "launches_wide"), wide_dq=("fa", "launches_wide_dq"),
+                wide_dkv=("fa", "launches_wide_dkv"), wide_adjoint=("fa", "launches_wide_adjoint"))
 # the generic kernels' counter of each Hopper kernel's (csrc/flash_generic.cu, gmm_generic.cu)
 GENERIC = dict(fwd="gen_fwd", dq="gen_dq", dkv="gen_dkv", gmm="gen_gmm", tgmm="gen_tgmm")
+# the wide kernels' (csrc/flash_wide.cu, head dims above 256), and their rotary adjoint pass's
+WIDE = dict(fwd="wide_fwd", dq="wide_dq", dkv="wide_dkv", adjoint="wide_adjoint")
 
 
 def _counter_modules():
@@ -885,9 +893,11 @@ def read_counts():
 
 def expect(generic=False, **counts):
     """Expected counts: the ones given, every other counter 0; with generic,
-    the given Hopper kernels' counts go to their generic kernels' counters."""
+    the given Hopper kernels' counts go to their generic kernels' counters,
+    with generic="wide" to the wide kernels' (adjoint: their rotary adjoint
+    pass's)."""
     if generic:
-        counts = {GENERIC[k]: v for k, v in counts.items()}
+        counts = {(WIDE if generic == "wide" else GENERIC)[k]: v for k, v in counts.items()}
     return dict(dict.fromkeys(COUNTERS, 0), **counts)
 
 
@@ -3921,13 +3931,16 @@ def family_recipe(family, model_dir, out_dir, teacher_dir=None):
     return raw
 
 
-def family_serving(dev, card, family, model_dir, seq_len, pooling, n_texts=256, generic=False):
+def family_serving(dev, card, family, model_dir, seq_len, pooling, n_texts=256, generic=False, fp32_batch=False):
     """`load_biencoder` of the family's checkpoint (bf16, attn_impl flash)
     encodes n_texts texts of random lengths padded to seq_len, one batch,
     through the port's Encoder: n_layer flash forwards a batch (on the
-    generic kernel with `generic`, and then no sdpa call in that batch),
-    finite unit-norm embeddings, cosine >= 0.999 against the same weights
-    under attn_impl="sdpa" in fp32; texts/s."""
+    generic kernel with `generic`, the wide one with generic="wide", and
+    then no sdpa call in that batch), finite unit-norm embeddings, cosine >=
+    0.999 against the same weights under attn_impl="sdpa" in fp32; texts/s.
+    With fp32_batch the same weights at fp32 compute (copied on the card, as
+    the reference's are: the loader keeps fp32 parameters) encode the batch
+    too, under the same gates (the row's `fp32`)."""
     import dataclasses
 
     import torch
@@ -3948,31 +3961,45 @@ def family_serving(dev, card, family, model_dir, seq_len, pooling, n_texts=256, 
         enc.query_prefix = enc.document_prefix = None
         return enc
 
-    enc = encoder(model)
-    sdpa_calls = {}
-    reset_counts()
-    with counted_sdpa(sdpa_calls):
-        emb = enc.encode(texts)
-    launches = read_counts()
+    def serve(enc):
+        """One encode of the batch with its launches and sdpa calls counted,
+        and its gates (`ref`: the fp32 sdpa embeddings). Returns (row, ok)."""
+        calls = {}
+        reset_counts()
+        t0 = time.perf_counter()
+        with counted_sdpa(calls):
+            emb = enc.encode(texts)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()
+        cos = float((emb * ref).sum(-1).min())
+        norms = np.linalg.norm(emb, axis=-1)
+        ok = (launches == expect(generic, fwd=cfg.n_layer) and emb.shape == (n_texts, cfg.n_embd)
+              and bool(np.isfinite(emb).all()) and float(np.abs(norms - 1).max()) < 1e-2 and cos >= SERVING_COSINE
+              and (not generic or calls["calls"] == 0))
+        return dict(launches_per_batch=launches, sdpa_calls=calls["calls"], min_cosine_vs_sdpa_fp32=cos,
+                    counted_encode_ms=ms), ok
+
     # the reference: the same weights (not read again from the checkpoint) on sdpa, in fp32
     ref_model = BiEncoder(dataclasses.replace(cfg, attn_impl="sdpa"), trunk_type=model.trunk_type, pooling=pooling,
                           dtype=torch.float32, device=dev)
     ref_model.load_state_dict(model.state_dict())
     ref = encoder(ref_model).encode(texts)
     del ref_model
-    cos = float((emb * ref).sum(-1).min())
+    enc = encoder(model)
+    row, ok = serve(enc)
     times = []
     for _ in range(2):  # a warm-up and one timed encode (3 before phase 26)
         t0 = time.perf_counter()
         enc.encode(texts)
         times.append((time.perf_counter() - t0) * 1e3)
-    norms = np.linalg.norm(emb, axis=-1)
-    ok = (launches == expect(generic, fwd=cfg.n_layer) and emb.shape == (n_texts, cfg.n_embd)
-          and bool(np.isfinite(emb).all()) and float(np.abs(norms - 1).max()) < 1e-2 and cos >= SERVING_COSINE
-          and (not generic or sdpa_calls["calls"] == 0))
-    row = dict(texts=n_texts, seq_len=seq_len, pooling=pooling, launches_per_batch=launches,
-               sdpa_calls=sdpa_calls["calls"], min_cosine_vs_sdpa_fp32=cos,
-               encode_ms=float(np.median(times[1:])), texts_per_s=n_texts / float(np.median(times[1:])) * 1e3)
+    row = dict(texts=n_texts, seq_len=seq_len, pooling=pooling, **row, encode_ms=float(np.median(times[1:])),
+               texts_per_s=n_texts / float(np.median(times[1:])) * 1e3)
+    if fp32_batch:
+        model32 = BiEncoder(cfg, trunk_type=model.trunk_type, pooling=pooling, dtype=torch.float32, device=dev)
+        model32.load_state_dict(model.state_dict())
+        row["fp32"], ok32 = serve(encoder(model32))
+        ok = ok and ok32
+        del model32
     emit(phase=f"{family}_serving", card=card, gpu_state=gpu_state(),
          params=sum(p.numel() for p in model.parameters()), n_layer=cfg.n_layer, **row, threshold=SERVING_COSINE,
          ok=ok)
@@ -3984,7 +4011,7 @@ def family_serving(dev, card, family, model_dir, seq_len, pooling, n_texts=256, 
 
 
 def family_training(dev, card, family, model_dir, teacher_dir=None, dense_sd=None, dtype="bf16", generic=False,
-                    steps=None, batch=None, phase=None):
+                    steps=None, batch=None, phase=None, checkpoint=True):
     """The family's recipe through train.run (`family_recipe`) in `dtype`,
     one in-memory batch repeated: flash (and gmm / tgmm) launches per step
     as predicted (on the generic kernels with `generic`), finite losses, the
@@ -3993,8 +4020,9 @@ def family_training(dev, card, family, model_dir, teacher_dir=None, dense_sd=Non
     layer the dense MLP bit for bit after the load; distill: student layer i
     the teacher's layer 2i bit for bit after the init, and the teacher
     unchanged by the steps. With `generic`, no sdpa call in the run either.
-    steps and batch: FAMILY_STEPS and FAMILIES' unless given. Returns the
-    row."""
+    steps and batch: FAMILY_STEPS and FAMILIES' unless given; without
+    `checkpoint` the run writes no final checkpoint (output_dir ""). Returns
+    the row."""
     import gc
     import shutil
     import tempfile
@@ -4012,8 +4040,10 @@ def family_training(dev, card, family, model_dir, teacher_dir=None, dense_sd=Non
     raw["data_args"]["batch_size"] = batch
     if steps:
         raw["train_args"]["num_train_steps"] = steps
-    vocab = {"modernbert": MODERNBERT_BASE_CONFIG, "pythia": PYTHIA_160M_CONFIG, "pythia_1b": PYTHIA_1B_CONFIG}.get(
-        family, NOMIC_BERT_2048_CONFIG)
+    if not checkpoint:
+        raw["train_args"]["output_dir"] = ""
+    vocab = {"modernbert": MODERNBERT_BASE_CONFIG, "pythia": PYTHIA_160M_CONFIG, "pythia_1b": PYTHIA_1B_CONFIG,
+             "pythia_1b_wide": PYTHIA_1B_WIDE_CONFIG}.get(family, NOMIC_BERT_2048_CONFIG)
     vocab = vocab.get("vocab_size")
     host = [family_batch(np.random.default_rng(11), vocab, batch, negatives, q_len, d_len)]
     base = DistillTrainer if family == "distill" else TextTextTrainer
@@ -4087,7 +4117,8 @@ def family_training(dev, card, family, model_dir, teacher_dir=None, dense_sd=Non
                          tokens=f"query {q_len} / document {d_len}", steps=len(rows),
                          warmup=f"{raw['train_args']['warmup_steps']} (recipe: see its yaml)",
                          data="one in-memory batch of stand-in token ids, repeated", tokenizer="StubTokenizer",
-                         weights="seeded random, written under the HF names"),
+                         weights="seeded random, written under the HF names",
+                         final_checkpoint="written" if checkpoint else "none (output_dir \"\")"),
                params=sum(p.numel() for p in trainer.biencoder.parameters()))
     if family == "distill":
         row["teacher_params"] = sum(p.numel() for p in trainer.teacher.parameters())
@@ -7010,6 +7041,11 @@ PYTHIA_1B_CONFIG = {
 # 128 tokens a step; the recipe runs no grad cache, and 1B parameters' AdamW
 # state and activations at 64 would not leave the card room)
 FAMILIES["pythia_1b"] = ("contrastive_finetune_decoder", 16, 128, 7, 128, 128)
+# pythia-1b's width and weights read as 4 heads of 512 (head dim above 256:
+# the wide kernels). GPT-NeoX packs its fused qkv per head, so the same
+# weight file is a checkpoint at 4 heads; rotary_pct 0.25 rotates 128 of 512
+PYTHIA_1B_WIDE_CONFIG = dict(PYTHIA_1B_CONFIG, num_attention_heads=4)
+FAMILIES["pythia_1b_wide"] = FAMILIES["pythia_1b"]
 COVERAGE_STEPS = 3  # steps of the fp32 recipes and of pythia-1b's
 # the MoE recipe in fp32: batch 256 -> 16; phase 20's 32 runs out of the
 # card's 80 GB once the dropless layers' saved activations are fp32
@@ -7017,12 +7053,20 @@ COVERAGE_MOE_BATCH = 16
 COVERAGE_SERVING_TEXTS = 256  # the fp32 encode CLI's texts (one batch of 256 at 512 tokens)
 COVERAGE_GRAD_COSINE = 0.9999  # the fp32 step's first gradient, flash against sdpa
 COVERAGE_SERVING_COSINE = 0.99999  # fp32 embeddings, flash against sdpa (both fp32)
-# the generic kernels' checks: (dtype, head dim) in each mask variant; "64u":
-# bf16 at D = 64 on misaligned operands (`misaligned`), which only the
-# generic kernels take, staged through registers
+# the generic kernels' checks, then the wide kernels' (D > 256): (dtype, head
+# dim) in each mask variant; "64u": bf16 at D = 64 on misaligned operands
+# (`misaligned`), which only the generic kernels take, staged through
+# registers; "512u": the wide kernels on misaligned operands
 COVERAGE_DIMS = (("fp32", 64), ("fp32", 80), ("fp32", 88), ("fp32", 128), ("fp32", 256),
-                 ("bf16", 80), ("bf16", 88), ("bf16", 256), ("bf16", "64u"))
+                 ("bf16", 80), ("bf16", 88), ("bf16", 256), ("bf16", "64u"),
+                 ("fp32", 320), ("fp32", 512), ("bf16", 320), ("bf16", 512), ("bf16", "512u"))
 COVERAGE_VARIANTS = ("pad", "causal", "window128", "segments", "gqa", "rotary")
+# at D = 512 also NeoX rotary over the whole head dim: its adjoint pairs
+# columns of two of the wide kernels' output slices
+COVERAGE_WIDE_VARIANTS = {512: ("rotary_full",)}
+# the wide kernels' inputs (checks and shapes) come from a generator of their
+# own, so that the earlier rows' draws, and their digests, stay as they were
+COVERAGE_WIDE_SEED = 22
 # (dtype, layout, K, N): the document chunk's layout at the dense MoE widths, and odd widths
 COVERAGE_GMM = (("fp32", "doc_chunk", 768, 3072), ("bf16", "doc_chunk", 200, 360))
 
@@ -7079,9 +7123,10 @@ def coverage_case(gen, dev, dtype, D, variant):
     """q, k, v, dO and the keyword arguments of one generic-kernel case:
     pad (batch rows whole, ragged and empty), causal (S=200 against T=300,
     bottom-right), window128 (and a padding mask), segments (three
-    segments, then padding), gqa (Hkv = H / 4, and a padding mask) and
-    rotary (fused partial rotary over a quarter of the head, NeoX, GPT-J
-    pairs at D = 88, and a padding mask)."""
+    segments, then padding), gqa (Hkv = H / 4, and a padding mask), rotary
+    (fused partial rotary over a quarter of the head, NeoX, GPT-J pairs at
+    D = 88, and a padding mask) and rotary_full (fused NeoX rotary over the
+    whole head, and a padding mask)."""
     import torch
 
     from contrastors_tpu_torch.layers.rotary import rotary_cos_sin
@@ -7094,7 +7139,7 @@ def coverage_case(gen, dev, dtype, D, variant):
     k, v = (torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(dt) for _ in range(2))
     dout = torch.randn(B, Sq, H, D, generator=gen, device=dev).to(dt)
     kw = dict(causal=variant == "causal", window=128 if variant == "window128" else 0)
-    if variant in ("pad", "window128", "gqa", "rotary"):
+    if variant in ("pad", "window128", "gqa", "rotary", "rotary_full"):
         lens = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
         lens[0] = T
         if variant == "pad":
@@ -7104,8 +7149,8 @@ def coverage_case(gen, dev, dtype, D, variant):
         seg = torch.zeros(B, S, dtype=torch.int32, device=dev)
         seg[:, :100], seg[:, 100:200], seg[:, 200:260] = 1, 2, 3
         kw["segment_ids"] = seg
-    if variant == "rotary":
-        rot_dim = D // 4 // 2 * 2
+    if variant.startswith("rotary"):
+        rot_dim = D if variant == "rotary_full" else D // 4 // 2 * 2
         kw["rotary_cos"], kw["rotary_sin"] = rotary_cos_sin(S, rot_dim, device=dev)
         kw["rotary_interleaved"] = D == 88
     return q, k, v, dout, kw
@@ -7146,24 +7191,31 @@ def generic_flash_bar(dtype):
 
 def coverage_kernel_checks(dev, gen):
     """Phase coverage_kernel_check: the generic forward, dq and dk/dv
-    (csrc/flash_generic.cu, fp32: csrc/flash_tf32.cu) against their plain
-    versions in every (dtype, head dim) of COVERAGE_DIMS and mask variant of
-    COVERAGE_VARIANTS, each routed to the generic kernels (their launch
-    counts, and none of the Hopper kernels') and bit-identical on a second
-    run. fp32: max |out - ref| <= FP32_REL * max |ref| for O, dq, dk and dv,
-    the LSE within FP32_LSE_ATOL; bf16: the Hopper kernels' error model
-    (`output_error_ratio`, `grad_error_ratio` <= 1, the LSE within
-    LSE_ATOL); dq exactly 0 on the empty row. Returns ({kernel: worst error
-    over its bar}, {kernel: max abs error})."""
+    (csrc/flash_generic.cu, fp32: csrc/flash_tf32.cu) and above head dim 256
+    the wide ones (csrc/flash_wide.cu) against their plain versions in every
+    (dtype, head dim) of COVERAGE_DIMS and mask variant of
+    COVERAGE_VARIANTS (and COVERAGE_WIDE_VARIANTS), each routed to its
+    kernels (their launch counts, the wide rotary adjoint pass's once for dq
+    and once for dk a backward, and no other kernel's) and bit-identical on
+    a second run. fp32: max |out - ref| <= FP32_REL * max |ref| for O, dq,
+    dk and dv, the LSE within FP32_LSE_ATOL; bf16: the Hopper kernels' error
+    model (`output_error_ratio`, `grad_error_ratio` <= 1, the LSE within
+    LSE_ATOL); dq exactly 0 on the empty row. The wide kernels' inputs come
+    from a generator of their own (COVERAGE_WIDE_SEED). Returns ({kernel:
+    worst error over its bar}, {kernel: max abs error}), kernels fwd, dq,
+    dkv and wide_fwd, wide_dq, wide_dkv."""
     import torch
 
     from contrastors_tpu_torch.ops import flash_attention as fa
 
-    worst, abs_err = dict(fwd=0.0, dq=0.0, dkv=0.0), dict(fwd=0.0, dq=0.0, dkv=0.0)
+    names = ("fwd", "dq", "dkv", "wide_fwd", "wide_dq", "wide_dkv")
+    worst, abs_err = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
+    wide_gen = torch.Generator(device=dev).manual_seed(COVERAGE_WIDE_SEED)
     for dtype, dim in COVERAGE_DIMS:
         D = int(str(dim).rstrip("u"))
-        for variant in COVERAGE_VARIANTS:
-            q, k, v, dout, kw = coverage_case(gen, dev, dtype, D, variant)
+        wide = D > fa.GENERIC_MAX_HEAD_DIM
+        for variant in COVERAGE_VARIANTS + COVERAGE_WIDE_VARIANTS.get(D, ()):
+            q, k, v, dout, kw = coverage_case(wide_gen if wide else gen, dev, dtype, D, variant)
             if str(dim).endswith("u"):
                 q, k, v, dout = (misaligned(x) for x in (q, k, v, dout))
             reset_counts()
@@ -7179,15 +7231,19 @@ def coverage_kernel_checks(dev, gen):
             deterministic = (torch.equal(out, again[0]) and torch.equal(lse, again[1])
                              and all(torch.equal(a, b) for a, b in zip(grads, grads_again)))
             finite = all(bool(torch.isfinite(x.float()).all()) for x in (out, *grads))
-            routed = launches == expect(True, fwd=2, dq=2, dkv=2)
+            if wide:
+                routed = launches == expect("wide", fwd=2, dq=2, dkv=2, adjoint=4 if "rotary_cos" in kw else 0)
+            else:
+                routed = launches == expect(True, fwd=2, dq=2, dkv=2)
             ok = max(over.values()) <= 1.0 and lse_ok and deterministic and finite and routed
             if variant == "pad":
                 ok = ok and bool((grads[0][-1] == 0).all()) and bool((out[-1] == 0).all())
-            worst["fwd"] = max(worst["fwd"], over["o"])
-            worst["dq"] = max(worst["dq"], over["dq"])
-            worst["dkv"] = max(worst["dkv"], over["dk"], over["dv"])
+            pre = "wide_" if wide else ""
+            worst[pre + "fwd"] = max(worst[pre + "fwd"], over["o"])
+            worst[pre + "dq"] = max(worst[pre + "dq"], over["dq"])
+            worst[pre + "dkv"] = max(worst[pre + "dkv"], over["dk"], over["dv"])
             for kname, d in errs.items():
-                abs_err[kname] = max(abs_err[kname], d)
+                abs_err[pre + kname] = max(abs_err[pre + kname], d)
             emit(phase="coverage_kernel_check", dtype=dtype, D=dim, variant=variant, q=list(q.shape),
                  k=list(k.shape), err_over_bar=over, lse_max_abs_err=lse_err, bar=generic_flash_bar(dtype),
                  digest=dict(fwd=digest(out, lse), dq=digest(grads[0]), dkv=digest(*grads[1:])),
@@ -7274,14 +7330,21 @@ def coverage_gmm_checks(dev):
 # below 512 keys: query ids 1, the mask as kv ids; rows as long as the
 # texts' and the documents'). Then, for their time, two bf16 shapes that ran
 # SDPA before the generic kernels took them: ViT-H/14 (16 heads of 80) and
-# ViT-g/14 (16 of 88) at 64 x 257, unmasked, forward and backward.
+# ViT-g/14 (16 of 88) at 64 x 257, unmasked, forward and backward. Then the
+# wide kernels on pythia-1b at 4 heads of 512 (PYTHIA_1B_WIDE_CONFIG): its
+# serving batch and step documents in bf16, and the step documents in fp32.
 COVERAGE_FLASH_SHAPES = (("fp32_doc_chunk", 16, 256, 12, 64, "fp32", "ones", 256, True),
                          ("fp32_encode", INFER_BATCH, INFER_SEQ, 12, 64, "fp32", "mask", 8, False),
                          ("pythia1b_serving_bf16", 64, 128, 8, 256, "bf16", "dispatch", 8, False),
                          ("pythia1b_step_docs_bf16", 128, 128, 8, 256, "bf16", "dispatch", 32, True),
                          ("vith14_bf16", 64, 257, 16, 80, "bf16", "none", 257, True),
-                         ("vitg14_bf16", 64, 257, 16, 88, "bf16", "none", 257, True))
-COVERAGE_PATH_SHAPES = 4  # the first four are on phase 26's path
+                         ("vitg14_bf16", 64, 257, 16, 88, "bf16", "none", 257, True),
+                         ("pythia1b_wide_serving_bf16", 64, 128, 4, 512, "bf16", "dispatch", 8, False),
+                         ("pythia1b_wide_step_docs_bf16", 128, 128, 4, 512, "bf16", "dispatch", 32, True),
+                         ("pythia1b_wide_step_docs_fp32", 128, 128, 4, 512, "fp32", "dispatch", 32, True))
+# the rows on phase 26's path
+COVERAGE_PATH_SHAPES = ("fp32_doc_chunk", "fp32_encode", "pythia1b_serving_bf16", "pythia1b_step_docs_bf16",
+                        "pythia1b_wide_serving_bf16", "pythia1b_wide_step_docs_bf16", "pythia1b_wide_step_docs_fp32")
 
 
 def coverage_flash_inputs(gen, dev, B, S, H, D, dtype, form, lo):
@@ -7306,24 +7369,51 @@ def coverage_flash_inputs(gen, dev, B, S, H, D, dtype, form, lo):
     return q, k, v, dout, kw, lens.tolist(), keep
 
 
+def sdpa_kernels(fn):
+    """The device kernels one call of fn (an SDPA call) launches, by name
+    (torch.profiler), and the SDPA backend they name: "flash", "efficient"
+    (fmha / cutlass), "cudnn" or "math"; ([], "not measured") where the
+    profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) > 0
+                    and not e.key.startswith(("aten::", "cuda", "Memcpy", "Memset"))})
+    low = " ".join(names).lower()
+    backend = ("not measured" if not names else "cudnn" if "cudnn" in low else "flash" if "flash" in low
+               else "efficient" if "fmha" in low or "cutlass" in low or "efficient" in low else "math")
+    return names, backend
+
+
 def coverage_flash_shapes(dev, card, gen):
-    """Phase coverage_kernel_shapes: the generic forward, dq and dk/dv at
-    COVERAGE_FLASH_SHAPES through the public entry points (one launch each
-    and none of the Hopper kernels'), held against their plain versions on
-    the same inputs at the bars of `generic_flash_errors`, then timed: ms
-    and device_ms beside the bound (at the rate of the operands' type and
-    the kernel's products: for fp32 3xTF32's, PEAK_3XTF32_FLOPS; `bound_rate`
-    names it), the plain version's ms and SDPA's (for dq and dk/dv, forward
-    + backward minus forward; both time a whole backward). Returns {label:
-    {kernel: row}}."""
+    """Phase coverage_kernel_shapes: the generic forward, dq and dk/dv (the
+    wide ones above head dim 256) at COVERAGE_FLASH_SHAPES through the
+    public entry points (one launch each and none of another kernel's), held
+    against their plain versions on the same inputs at the bars of
+    `generic_flash_errors`, then timed: ms and device_ms beside the bound
+    (at the rate of the operands' type and the kernel's products: for fp32
+    3xTF32's, PEAK_3XTF32_FLOPS; `bound_rate` names it), the plain version's
+    ms and SDPA's (for dq and dk/dv, forward + backward minus forward; both
+    time a whole backward), and above head dim 256 the kernels SDPA
+    launched. The wide rows draw from a generator of their own
+    (COVERAGE_WIDE_SEED). Returns {label: {kernel: row}}."""
     import torch
     import torch.nn.functional as F
 
     from contrastors_tpu_torch.ops import flash_attention as fa
 
     rows = {}
+    wide_gen = torch.Generator(device=dev).manual_seed(COVERAGE_WIDE_SEED + 1)
     for label, B, S, H, D, dtype, form, lo, backward in COVERAGE_FLASH_SHAPES:
-        q, k, v, dout, kw, lens, keep = coverage_flash_inputs(gen, dev, B, S, H, D, dtype, form, lo)
+        route = "wide" if D > fa.GENERIC_MAX_HEAD_DIM else True
+        q, k, v, dout, kw, lens, keep = coverage_flash_inputs(wide_gen if route == "wide" else gen, dev, B, S, H, D,
+                                                              dtype, form, lo)
         reset_counts()
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
         grads = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw) if backward else ()
@@ -7333,7 +7423,7 @@ def coverage_flash_shapes(dev, card, gen):
         refs = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw) if backward else ()
         over, lse_err, lse_ok, abs_err = generic_flash_errors(dtype, out, ref_out, lse, ref_lse, grads, refs)
         digests = dict(fwd=digest(out, lse), **(dict(dq=digest(grads[0]), dkv=digest(*grads[1:])) if grads else {}))
-        routed = launches == (expect(True, fwd=1, dq=1, dkv=1) if backward else expect(True, fwd=1))
+        routed = launches == (expect(route, fwd=1, dq=1, dkv=1) if backward else expect(route, fwd=1))
         finite = all(bool(torch.isfinite(x.float()).all()) for x in (out, *grads))
         ok = max(over.values()) <= 1.0 and lse_ok and routed and finite
         del ref_out, ref_lse, refs, grads
@@ -7377,12 +7467,14 @@ def coverage_flash_shapes(dev, card, gen):
                                   library_ms=lib_bwd, library_device_ms=lib_bwd_dev,
                                   err_over_bar=over["dq"] if kname == "dq" else max(over["dk"], over["dv"]),
                                   max_abs_err=abs_err[kname])
+        if route == "wide":
+            row["fwd"]["library_kernels"], row["fwd"]["library_backend"] = sdpa_kernels(sdpa)
         rows[label] = row
         emit(phase="coverage_kernel_shapes", card=card, gpu_state=gpu_state(), shape=label, dtype=dtype, B=B, S=S,
-             H=H, D=D, form=form, on_path=label in {c[0] for c in COVERAGE_FLASH_SHAPES[:COVERAGE_PATH_SHAPES]},
+             H=H, D=D, form=form, on_path=label in COVERAGE_PATH_SHAPES,
              err_over_bar=over, lse_max_abs_err=lse_err, bar=generic_flash_bar(dtype), digest=digests,
              launches={n: c for n, c in launches.items() if c}, **row,
-             note="fwd: flash_attention_fwd (the generic forward); dq, dkv: the kernels alone, their plain_ms and "
+             note="fwd: flash_attention_fwd (the generic or wide forward); dq, dkv: the kernels alone, their plain_ms and "
                   "library_ms whole backwards (the library's: SDPA forward + backward minus forward)", ok=ok)
         if not ok:
             raise AssertionError(f"generic flash kernels at {label}: bars, route or finiteness failed")
@@ -7548,7 +7640,11 @@ def coverage_phase(dev, card, gen):
     experts, cut as phase 20 cuts it, COVERAGE_STEPS steps: the generic gmm
     / tgmm, no gmm.cu launch), (c) pythia-1b (head dim 256) serving 64 x
     128 with last pooling and 3 steps of contrastive_finetune_decoder.yaml
-    in bf16, with no sdpa call on the flash path. Then gmm / tgmm timed.
+    in bf16, with no sdpa call on the flash path, (d) the same weights read
+    as 4 heads of 512 (PYTHIA_1B_WIDE_CONFIG: the wide kernels) serving 64 x
+    128 in bf16 and, on the same weights, in fp32, and 3 steps of the same
+    recipe in bf16, with no sdpa call on the flash path. Then gmm / tgmm
+    timed.
     Returns the rows."""
     import shutil
     import tempfile
@@ -7575,8 +7671,16 @@ def coverage_phase(dev, card, gen):
         write_family_checkpoint(py_dir, "pythia", PYTHIA_1B_CONFIG, seed=27, dtype=torch.bfloat16, device=dev)
         out["pythia_1b_serving"] = family_serving(dev, card, "pythia_1b", py_dir, 128, "last", n_texts=64,
                                                   generic=True)
+        # no final checkpoint (a 1B model and its AdamW state) that nothing reads, as in the pretrain run
         out["pythia_1b_training"] = family_training(dev, card, "pythia_1b", py_dir, generic=True,
-                                                    steps=COVERAGE_STEPS)
+                                                    steps=COVERAGE_STEPS, checkpoint=False)
+        # the same weights read as 4 heads of 512: the wide kernels on the path, bf16 and fp32
+        with open(os.path.join(py_dir, "config.json"), "w") as f:
+            json.dump(PYTHIA_1B_WIDE_CONFIG, f)
+        out["pythia_1b_wide_serving"] = family_serving(dev, card, "pythia_1b_wide", py_dir, 128, "last", n_texts=64,
+                                                       generic="wide", fp32_batch=True)
+        out["pythia_1b_wide_training"] = family_training(dev, card, "pythia_1b_wide", py_dir, generic="wide",
+                                                         steps=COVERAGE_STEPS, checkpoint=False)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out["gmm_timing"] = coverage_gmm_timing(card, operands[("fp32", 768, 3072)])
@@ -7588,15 +7692,18 @@ def coverage_phase(dev, card, gen):
 
 
 def generic_entries(coverage):
-    """The kernels line's rows of the five generic kernels (phase 26):
-    launches per step of the fp32 pretrain step (flash) and of the fp32 MoE
-    step (gmm, tgmm), with pythia-1b's beside them; timing, max_abs_err and
-    err_over_bar at the fp32 step's shapes, the worst of the main path's
-    shapes as max_abs_err and err_over_bar, each shape's row under
-    `shapes`, and the mask-variant checks' worst as coverage_*."""
+    """The kernels line's rows of the five generic kernels and the three
+    wide ones (phase 26): launches per step of the fp32 pretrain step
+    (generic flash), of the fp32 MoE step (gmm, tgmm) and of pythia-1b's
+    step at 4 heads of 512 (wide), with pythia-1b's beside them; timing at
+    the fp32 step's shapes (wide: pythia-1b's step documents at 4 heads of
+    512 in bf16), the worst of the main path's shapes as max_abs_err and
+    err_over_bar, each shape's row under `shapes`, and the mask-variant
+    checks' worst as coverage_*."""
     pick = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_rate", "library_ms", "library_device_ms")
     shapes = coverage["flash_shapes"]
-    on_path = [c[0] for c in COVERAGE_FLASH_SHAPES[:COVERAGE_PATH_SHAPES]]
+    wide_labels = [label for label in COVERAGE_PATH_SHAPES if label.startswith("pythia1b_wide")]
+    on_path = [label for label in COVERAGE_PATH_SHAPES if label not in wide_labels]
     rows = []
     for kname, name, source, replaces, design in (
             ("fwd", "flash_generic_fwd", "flash_tf32.cu", ["contrastors_tpu/ops/flash_attention.py:225",
@@ -7635,7 +7742,7 @@ def generic_entries(coverage):
                                "document chunk)", bf16_source="contrastors_tpu_torch/ops/csrc/flash_generic.cu",
                          pythia_1b_launches_per_step=coverage["pythia_1b_training"]["launches_per_step"][counter],
                          shapes={label: {k: r[kname][k] for k in pick + ("err_over_bar", "max_abs_err")}
-                                 for label, r in shapes.items() if kname in r})
+                                 for label, r in shapes.items() if kname in r and label not in wide_labels})
             if kname == "fwd":
                 extra.update(fp32_encode_launches=coverage["fp32_encode"]["launches"][counter],
                              pythia_1b_serving_launches=coverage["pythia_1b_serving"]["launches_per_batch"][counter])
@@ -7647,6 +7754,28 @@ def generic_entries(coverage):
                          max_abs_err=abs_err, err_over_bar=over,
                          coverage_max_abs_err=coverage["max_abs_err"][kname],
                          coverage_err_over_bar=coverage["err_over_bar"][kname], **{k: row[k] for k in pick}, **extra))
+    training, serving = coverage["pythia_1b_wide_training"], coverage["pythia_1b_wide_serving"]
+    for kname, replaces in (("fwd", ["contrastors_tpu/ops/flash_attention.py:225",
+                                     "contrastors_tpu/ops/flash_attention.py:115"]),
+                            ("dq", ["contrastors_tpu/ops/flash_attention.py:422"]),
+                            ("dkv", ["contrastors_tpu/ops/flash_attention.py:512"])):
+        row = shapes["pythia1b_wide_step_docs_bf16"][kname]
+        path = [shapes[label][kname] for label in wide_labels if kname in shapes[label]]
+        extra = dict(serving_launches_per_batch=serving["launches_per_batch"][WIDE["fwd"]]) if kname == "fwd" else dict(
+            note="plain_ms and library_ms time a whole backward (dq, dk and dv)")
+        rows.append(dict(name=f"flash_wide_{kname}", route="cuda", source="contrastors_tpu_torch/ops/csrc/flash_wide.cu",
+                         replaces=replaces[0], also_replaces=replaces[1:],
+                         design="wide_kernel<T, WHICH> (head dims above 256: output column slices across blocks, the "
+                                "products over D streamed in 64-column chunks; bf16 mma.sync m16n8k16, fp32 3xTF32 on "
+                                "m16n8k8)",
+                         launches=training["launches_per_step"][WIDE[kname]],
+                         max_abs_err=max(r["max_abs_err"] for r in path), err_over_bar=max(r["err_over_bar"] for r in path),
+                         coverage_max_abs_err=coverage["max_abs_err"]["wide_" + kname],
+                         coverage_err_over_bar=coverage["err_over_bar"]["wide_" + kname], **{k: row[k] for k in pick},
+                         shape="bf16 B=128 S=T=128 H=4 D=512, causal, the dispatch's padding form (pythia-1b's step "
+                               "documents at 4 heads of 512)",
+                         shapes={label: {k: shapes[label][kname][k] for k in pick + ("err_over_bar", "max_abs_err")}
+                                 for label in wide_labels if kname in shapes[label]}, **extra))
     return rows
 
 

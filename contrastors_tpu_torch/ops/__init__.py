@@ -69,10 +69,10 @@ def attention_core(
     impl="flash" (or "flash_always") goes to `flash_attention` whenever
     there is no attention dropout and `flash_shape_ok` holds (JAX's rule:
     q heads a multiple of kv heads, a head dim that is a multiple of 8 and
-    at least 64; above 256 the call raises): on a CUDA tensor the Hopper
-    kernels (bf16 at a head dim of 64 or 128) or the generic kernels (fp32,
-    and bf16 at the other head dims), as `flash_route` decides; the plain
-    version on a CPU tensor. Unlike the
+    at least 64, with no upper bound): on a CUDA tensor the Hopper kernels
+    (bf16 at a head dim of 64 or 128), the generic kernels (fp32, and bf16
+    at the other head dims, up to 256) or the wide kernels (above 256), as
+    `flash_route` decides; the plain version on a CPU tensor. Unlike the
     JAX package there is no minimum-length gate (JAX's `flash_min_seq=512`
     came from TPU v5e measurements); every length goes to the kernel, and
     whether a gate returns is for H100 measurements to decide. Below JAX's

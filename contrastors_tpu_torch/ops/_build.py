@@ -82,6 +82,15 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_tf32_dq": _FLASH_DQ,
         "flash_tf32_dkv": _FLASH_DKV,
     },
+    # both dtypes at head dims above 256 (csrc/flash_wide.cu), with the
+    # arguments of the Hopper kernels; with rotary their dq and dk are fp32
+    # before the adjoint, which flash_wide_adjoint_* applies: g, out, B, L,
+    # H (or Hkv), D, rotary, stream
+    "flash_wide": {
+        **{f"flash_wide_{kernel}_{dt}": sig for dt in ("bf16", "f32")
+           for kernel, sig in (("fwd", _FLASH_FWD), ("dq", _FLASH_DQ), ("dkv", _FLASH_DKV))},
+        **{f"flash_wide_adjoint_{dt}": ([_P] * 2 + [_I] * 4 + _ROTARY + [_P], _I) for dt in ("bf16", "f32")},
+    },
     "gmm_generic": {
         # dtype, lhs, rhs, blk_e, act, out, M, K, N, E, block_m, lhs row
         # stride, rhs strides (expert, k, n), stream

@@ -79,39 +79,6 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-// lane addresses of the ldmatrix.x4 forms (row, column offsets in a tile):
-// the A fragment of a row-major 16 x 16 block; two B fragments (16 rows of
-// n) of an [n][k] tile; two B fragments (16 columns of n) of a [k][n] tile
-// (.trans); the A fragment of the transpose of a [k][m] tile (.trans)
-__device__ __forceinline__ int a_row(int lane) { return lane & 15; }
-__device__ __forceinline__ int a_col(int lane) { return (lane >> 4) << 3; }
-__device__ __forceinline__ int bn_row(int lane) { return (lane & 7) + ((lane >> 4) << 3); }
-__device__ __forceinline__ int bn_col(int lane) { return ((lane >> 3) & 1) << 3; }
-__device__ __forceinline__ int bk_row(int lane) { return (lane & 7) + (((lane >> 3) & 1) << 3); }
-__device__ __forceinline__ int bk_col(int lane) { return (lane >> 4) << 3; }
-
 // ROWS rows row0 .. of one (batch, head) of x (row stride ss) into dst (row
 // stride ld elements), columns [0, D); rows past n_valid are zero. By
 // cp.async when `async` (16-byte aligned rows), else staged through
@@ -826,7 +793,7 @@ cudaError_t run_tc(int which, const Args& a, cudaStream_t s) {
 int dispatch(int which, Args& a, int window, const void* rot_cos, const void* rot_sin, int64_t rot_sb, int rot_half,
              int rot_interleaved, void* stream) {
   bool empty = false;
-  const cudaError_t e = prepare(8, which, a, window, rot_cos, rot_sin, rot_sb, rot_half, rot_interleaved, empty);
+  const cudaError_t e = prepare(8, which, a, window, rot_cos, rot_sin, rot_sb, rot_half, rot_interleaved, empty, 256);
   if (e != cudaSuccess || empty) return int(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.D <= 64) return int(run_tc<64>(which, a, s));

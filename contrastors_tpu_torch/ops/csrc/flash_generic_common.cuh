@@ -1,7 +1,8 @@
 // What the generic flash kernels share: flash_generic.cu (bf16 at every head
-// dim the Hopper kernels do not take) and flash_tf32.cu (fp32). The arguments,
-// the masks, the rotary on load and its adjoint before the store, the kv / q
-// ranges that a block can see, and the asynchronous copies.
+// dim up to 256 the Hopper kernels do not take), flash_tf32.cu (fp32 up to
+// 256) and flash_wide.cu (both dtypes above 256). The arguments, the masks,
+// the rotary on load and its adjoint before the store, the kv / q ranges that
+// a block can see, the asynchronous copies and the tensor-core helpers.
 //
 // Semantics, those of the plain versions in ops/flash_attention.py:
 //   - s = q k^T in fp32, unscaled; c = softmax_scale * log2(e); the row max
@@ -161,13 +162,14 @@ bool rows_aligned(const void* p, int64_t sb, int64_t ss, int64_t sh, int per16) 
          sh % per16 == 0;
 }
 
-// Checks what every generic kernel takes (D % 8 == 0 up to 256, Hkv dividing
-// H, a rotary dim within D) and completes a: the window, whether every row is
-// 16-byte aligned (per16 elements make 16 bytes), the rotary tables. `empty`:
-// nothing to launch. which: 0 forward, 1 dq, 2 dk/dv.
+// Checks what every generic kernel takes (D % 8 == 0 up to max_d, no limit
+// where max_d is 0; Hkv dividing H, a rotary dim within D) and completes a:
+// the window, whether every row is 16-byte aligned (per16 elements make 16
+// bytes), the rotary tables. `empty`: nothing to launch. which: 0 forward, 1
+// dq, 2 dk/dv.
 cudaError_t prepare(int per16, int which, Args& a, int window, const void* rot_cos, const void* rot_sin,
-                    int64_t rot_sb, int rot_half, int rot_interleaved, bool& empty) {
-  if (a.Hkv <= 0 || a.H % a.Hkv != 0 || a.D % 8 != 0 || a.D < 8 || a.D > 256 ||
+                    int64_t rot_sb, int rot_half, int rot_interleaved, bool& empty, int max_d) {
+  if (a.Hkv <= 0 || a.H % a.Hkv != 0 || a.D % 8 != 0 || a.D < 8 || (max_d > 0 && a.D > max_d) ||
       (rot_cos != nullptr && (rot_half <= 0 || 2 * rot_half > a.D)))
     return cudaErrorInvalidValue;
   empty = a.B == 0 || a.S == 0 || a.H == 0;
@@ -182,6 +184,132 @@ cudaError_t prepare(int per16, int which, Args& a, int window, const void* rot_c
 }
 
 }  // namespace
+
+// ---- tensor-core helpers (mma.sync), for every file that includes this ----------
+// Outside the anonymous namespace: each library uses a subset, and an unused
+// function of internal linkage would draw a compiler warning.
+
+// ldmatrix: four 8 x 8 b16 matrices, and their transposes
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// lane addresses of the ldmatrix.x4 forms (row, column offsets in a tile):
+// the A fragment of a row-major 16 x 16 block; two B fragments (16 rows of
+// n) of an [n][k] tile; two B fragments (16 columns of n) of a [k][n] tile
+// (.trans); the A fragment of the transpose of a [k][m] tile (.trans)
+__device__ __forceinline__ int a_row(int lane) { return lane & 15; }
+__device__ __forceinline__ int a_col(int lane) { return (lane >> 4) << 3; }
+__device__ __forceinline__ int bn_row(int lane) { return (lane & 7) + ((lane >> 4) << 3); }
+__device__ __forceinline__ int bn_col(int lane) { return ((lane >> 3) & 1) << 3; }
+__device__ __forceinline__ int bk_row(int lane) { return (lane & 7) + (((lane >> 3) & 1) << 3); }
+__device__ __forceinline__ int bk_col(int lane) { return (lane >> 4) << 3; }
+
+// d += a b: a 16 x 8 (row), b 8 x 8 (col), tf32 in, fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d[m][i0 + i] += a[m] b[i] for M x G accumulators in 3xTF32 (a = ab + as,
+// b = bb + bs): small a big b, then big a small b, then big a big b, each
+// pass over all M x G (i < live), so that no product waits on the one before
+template <int M, int N, int G>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[M][N][4], int i0, const uint32_t (&ab)[M][4],
+                                           const uint32_t (&as)[M][4], const uint32_t (&bb)[G][2],
+                                           const uint32_t (&bs)[G][2], int live) {
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+      if (i < live) mma_tf32(d[m][i0 + i], as[m], bb[i][0], bb[i][1]);
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+      if (i < live) mma_tf32(d[m][i0 + i], ab[m], bs[i][0], bs[i][1]);
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+      if (i < live) mma_tf32(d[m][i0 + i], ab[m], bb[i][0], bb[i][1]);
+}
+
+// The 3xTF32 split of the fp32 backward and wide kernels, in 3 instructions
+// where flash_tf32.cu's split_tf32 takes 5: big is x's bits plus half a TF32
+// ulp, which mma.sync truncates to TF32's 19 bits, so that the product reads
+// rna_tf32(x); small = x - rna_tf32(x), exact, which mma.sync truncates in
+// turn (within 2^-10 of small, against 2^-11 rounded)
+__device__ __forceinline__ void split_tf32_fast(float x, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(x) + 0x1000u;
+  small = __float_as_uint(x - __uint_as_float(big & 0xffffe000u));
+}
+
+// the A fragment (big, small) of one k step of a 16-row m tile of an fp32
+// tile: x at the thread's row g, column t (row g + 8 at x + 8 ld)
+__device__ __forceinline__ void a_frag(const float* x, int ld, uint32_t (&ab)[4], uint32_t (&as)[4]) {
+  split_tf32_fast(x[0], ab[0], as[0]);
+  split_tf32_fast(x[8 * ld], ab[1], as[1]);
+  split_tf32_fast(x[4], ab[2], as[2]);
+  split_tf32_fast(x[8 * ld + 4], ab[3], as[3]);
+}
+
+// out[m][n] += C W in 3xTF32: C the accumulators c[m][j] of an X W^T (MT m
+// tiles x SJ k steps of 8 walked rows: columns 2t, 2t + 1 are the k slots t,
+// t + 4), W the walked tile over `cols` columns (wk: its row 2t, column g; at
+// most NC n tiles); C's fragments split once for the n tiles, W's once for
+// the MT m tiles
+template <int MT, int SJ, int NC>
+__device__ __forceinline__ void product_cw(float (&out)[MT][NC][4], const float (&c)[MT][SJ][4], const float* wk,
+                                           int ld, int cols) {
+  constexpr int GP = 4;
+  static_assert(NC % GP == 0, "n tiles go GP at a time");
+#pragma unroll
+  for (int j = 0; j < SJ; ++j) {
+    uint32_t ab[MT][4], as[MT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      split_tf32_fast(c[m][j][0], ab[m][0], as[m][0]);
+      split_tf32_fast(c[m][j][2], ab[m][1], as[m][1]);
+      split_tf32_fast(c[m][j][1], ab[m][2], as[m][2]);
+      split_tf32_fast(c[m][j][3], ab[m][3], as[m][3]);
+    }
+    const float* wj = wk + 8 * j * ld;
+#pragma unroll
+    for (int n0 = 0; n0 < NC; n0 += GP) {
+      if (n0 * 8 >= cols) break;
+      const int live = min(GP, (cols >> 3) - n0);
+      uint32_t bb[GP][2], bs[GP][2];
+#pragma unroll
+      for (int i = 0; i < GP; ++i)
+        if (i < live) {
+          split_tf32_fast(wj[(n0 + i) * 8], bb[i][0], bs[i][0]);
+          split_tf32_fast(wj[ld + (n0 + i) * 8], bb[i][1], bs[i][1]);
+        }
+      mma_3xtf32<MT, NC, GP>(out, n0, ab, as, bb, bs, live);
+    }
+  }
+}
 
 // The C entry points' argument lists, and the Args they fill. dtype-free: each
 // library takes one element type. Outputs are contiguous [B, S, H, D] (O, dq),

@@ -114,38 +114,6 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& sma
   big = rna_tf32(x);
   small = rna_tf32(x - __uint_as_float(big));
 }
-// d += a b: a 16 x 8 (row), b 8 x 8 (col), tf32 in, fp32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// d[m][i0 + i] += a[m] b[i] for M x G accumulators in 3xTF32 (a = ab + as,
-// b = bb + bs): small a big b, then big a small b, then big a big b, each
-// pass over all M x G (i < live), so that no product waits on the one before
-template <int M, int N, int G>
-__device__ __forceinline__ void mma_3xtf32(float (&d)[M][N][4], int i0, const uint32_t (&ab)[M][4],
-                                           const uint32_t (&as)[M][4], const uint32_t (&bb)[G][2],
-                                           const uint32_t (&bs)[G][2], int live) {
-#pragma unroll
-  for (int m = 0; m < M; ++m)
-#pragma unroll
-    for (int i = 0; i < G; ++i)
-      if (i < live) mma_tf32(d[m][i0 + i], as[m], bb[i][0], bb[i][1]);
-#pragma unroll
-  for (int m = 0; m < M; ++m)
-#pragma unroll
-    for (int i = 0; i < G; ++i)
-      if (i < live) mma_tf32(d[m][i0 + i], ab[m], bs[i][0], bs[i][1]);
-#pragma unroll
-  for (int m = 0; m < M; ++m)
-#pragma unroll
-    for (int i = 0; i < G; ++i)
-      if (i < live) mma_tf32(d[m][i0 + i], ab[m], bb[i][0], bb[i][1]);
-}
-
 // ROWS fp32 rows row0 .. of one (batch, head) of x (row stride ss) into dst
 // (row stride ld floats), columns [0, D); rows past n_valid are zero. By
 // 16-byte cp.async when `async`, else staged through registers, rotated
@@ -456,15 +424,6 @@ __global__ void __launch_bounds__(kFwdF32Threads, kTf32Blocks<DMAX>) fwd_tf32_ke
 // interleaved in one loop, and walked tiles split once on arrival into big
 // and small planes (two blocks a SM, twice the shared-memory reads).
 
-// The backward's split, in 3 instructions where split_tf32 takes 5: big is x's
-// bits plus half a TF32 ulp, which mma.sync truncates to TF32's 19 bits, so
-// that the product reads rna_tf32(x); small = x - rna_tf32(x), exact, which
-// mma.sync truncates in turn (within 2^-10 of small, against 2^-11 rounded)
-__device__ __forceinline__ void split_tf32_fast(float x, uint32_t& big, uint32_t& small) {
-  big = __float_as_uint(x) + 0x1000u;
-  small = __float_as_uint(x - __uint_as_float(big & 0xffffe000u));
-}
-
 constexpr int kBwdF32Threads = 128;  // 4 warps (dk/dv: 4 for each column group)
 constexpr int kBwdF32Rows = 64;      // fixed rows of a block: 16 a warp
 constexpr int kBwdF32Walk = 32;      // rows of a walked tile
@@ -481,15 +440,6 @@ constexpr int kDkvF32Groups = DMAX > 128 ? 2 : 1;  // dk/dv's column groups: war
 size_t bwd_tf32_bytes(int D, int fixed, int walked, int stats) {
   return size_t(2 * fixed + 2 * walked) * (D + 4) * sizeof(float) + stats * sizeof(float) +
          (fixed + walked + 4) * sizeof(int);
-}
-
-// the A fragment (big, small) of one k step of a 16-row m tile of an fp32
-// tile: x at the thread's row g, column t (row g + 8 at x + 8 ld)
-__device__ __forceinline__ void a_frag(const float* x, int ld, uint32_t (&ab)[4], uint32_t (&as)[4]) {
-  split_tf32_fast(x[0], ab[0], as[0]);
-  split_tf32_fast(x[8 * ld], ab[1], as[1]);
-  split_tf32_fast(x[4], ab[2], as[2]);
-  split_tf32_fast(x[8 * ld + 4], ab[3], as[3]);
 }
 
 // acc[m][j] = X W^T over D columns: X the warp's MT m tiles (xf: the thread's
@@ -524,42 +474,6 @@ __device__ __forceinline__ void product_nt(float (&acc)[MT][SJ][4], const float*
         split_tf32_fast(wr[4], bb[i][1], bs[i][1]);
       }
       mma_3xtf32<MT, SJ, GS>(acc, j0, ab, as, bb, bs, GS);
-    }
-  }
-}
-
-// out[m][n] += C W: C the accumulators c[m][j] of X W^T (MT m tiles x SJ k
-// steps of 8 walked rows: columns 2t, 2t + 1 are the k slots t, t + 4), W the
-// walked tile over `cols` columns (wk: its row 2t, column g; at most NC n
-// tiles); C's fragments split once for the n tiles, W's once for the MT m tiles
-template <int MT, int SJ, int NC>
-__device__ __forceinline__ void product_cw(float (&out)[MT][NC][4], const float (&c)[MT][SJ][4], const float* wk,
-                                           int ld, int cols) {
-  constexpr int GP = 4;
-  static_assert(NC % GP == 0, "n tiles go GP at a time");
-#pragma unroll
-  for (int j = 0; j < SJ; ++j) {
-    uint32_t ab[MT][4], as[MT][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      split_tf32_fast(c[m][j][0], ab[m][0], as[m][0]);
-      split_tf32_fast(c[m][j][2], ab[m][1], as[m][1]);
-      split_tf32_fast(c[m][j][1], ab[m][2], as[m][2]);
-      split_tf32_fast(c[m][j][3], ab[m][3], as[m][3]);
-    }
-    const float* wj = wk + 8 * j * ld;
-#pragma unroll
-    for (int n0 = 0; n0 < NC; n0 += GP) {
-      if (n0 * 8 >= cols) break;
-      const int live = min(GP, (cols >> 3) - n0);
-      uint32_t bb[GP][2], bs[GP][2];
-#pragma unroll
-      for (int i = 0; i < GP; ++i)
-        if (i < live) {
-          split_tf32_fast(wj[(n0 + i) * 8], bb[i][0], bs[i][0]);
-          split_tf32_fast(wj[ld + (n0 + i) * 8], bb[i][1], bs[i][1]);
-        }
-      mma_3xtf32<MT, NC, GP>(out, n0, ab, as, bb, bs, live);
     }
   }
 }
@@ -993,7 +907,7 @@ cudaError_t run_bwd_tf32(int which, const Args& a, cudaStream_t s) {
 int dispatch(int which, Args& a, int window, const void* rot_cos, const void* rot_sin, int64_t rot_sb, int rot_half,
              int rot_interleaved, void* stream) {
   bool empty = false;
-  const cudaError_t e = prepare(4, which, a, window, rot_cos, rot_sin, rot_sb, rot_half, rot_interleaved, empty);
+  const cudaError_t e = prepare(4, which, a, window, rot_cos, rot_sin, rot_sb, rot_half, rot_interleaved, empty, 256);
   if (e != cudaSuccess || empty) return int(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (which == 0) {

@@ -42,18 +42,26 @@ in JAX). The plain versions follow the same arithmetic: rotate, then the
 plain forward; the plain backward on the rotated operands in fp32, the
 adjoint, then the cast.
 
-Routing (`flash_route`, from dtype, shape and strides alone): bf16 at a head
-dim of 64 or 128 with TMA-aligned operands (and a rotary dim that is a
-multiple of 16) goes to the Hopper kernels above; every other input the
-Pallas kernels take (fp32 or bf16, D % 8 == 0, D <= 256) goes to the three
-generic kernels, the same semantics, rotary a run-time choice: bf16 to
-`csrc/flash_generic.cu` (`flash_generic_fwd`, `flash_generic_dq`,
-`flash_generic_dkv`), fp32 to `csrc/flash_tf32.cu` (`flash_tf32_fwd`,
-`flash_tf32_dq`, `flash_tf32_dkv`: the tensor cores in 3xTF32, three TF32
-products for each fp32 product); all on mma.sync over tiles that arrive by
-cp.async, or through registers where a row is not 16-byte aligned or is
-rotated on load. A head dim above 256 raises. `flash_shape_ok` is JAX's
-rule: what it refuses (D < 64, D % 8 != 0) runs the plain `sdpa` in
+Routing (`flash_route`, from dtype, shape and strides alone), over every
+input the Pallas kernels take (fp32 or bf16, D % 8 == 0, any head dim), the
+same semantics everywhere, rotary a run-time choice:
+  - "hopper": bf16 at a head dim of 64 or 128 with TMA-aligned operands (and
+    a rotary dim that is a multiple of 16), the kernels above;
+  - "generic": every other input up to D = 256 (GENERIC_MAX_HEAD_DIM): bf16
+    to `csrc/flash_generic.cu` (`flash_generic_fwd`, `flash_generic_dq`,
+    `flash_generic_dkv`), fp32 to `csrc/flash_tf32.cu` (`flash_tf32_fwd`,
+    `flash_tf32_dq`, `flash_tf32_dkv`: the tensor cores in 3xTF32, three
+    TF32 products for each fp32 product);
+  - "wide": D > 256 in either dtype, `csrc/flash_wide.cu`
+    (`flash_wide_{fwd,dq,dkv}_{bf16,f32}`): the output's columns split into
+    slices across blocks and the products over D streamed in 64-column
+    (bf16) or 32-column (fp32) chunks, so that no tile or accumulator grows
+    with D. With rotary their dq
+    and dk come out in fp32 before the adjoint, which `flash_wide_adjoint_*`
+    applies with the cast (`launches_wide_adjoint`).
+All run on mma.sync over tiles that arrive by cp.async, or through registers
+where a row is not 16-byte aligned or is rotated on load. `flash_shape_ok`
+is JAX's rule: what it refuses (D < 64, D % 8 != 0) runs the plain `sdpa` in
 `attention_core`, as in JAX.
 
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor to the
@@ -75,7 +83,7 @@ from contrastors_tpu_torch.ops._build import load_library, ptr, stream
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634  # log2(e)
 KERNEL_HEAD_DIMS = (64, 128)  # the Hopper kernels' (bf16 only)
-GENERIC_MAX_HEAD_DIM = 256  # the generic kernels' limit: their fp32 tiles of D + 4 floats fill shared memory
+GENERIC_MAX_HEAD_DIM = 256  # the generic kernels' largest head dim (their fp32 tiles fill shared memory); above: wide
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # the generic grouped matmul's dtype argument
 # fp32 bars of the generic kernels against their plain versions (both
@@ -116,6 +124,10 @@ launches_bwd_dkv_rot = 0
 launches_generic = 0  # the generic forward (flash_generic_fwd, flash_tf32_fwd), with or without rotary
 launches_generic_dq = 0
 launches_generic_dkv = 0
+launches_wide = 0  # the wide forward (flash_wide_fwd_*, D > 256), with or without rotary
+launches_wide_dq = 0
+launches_wide_dkv = 0
+launches_wide_adjoint = 0  # the rotary adjoint pass of the wide dq and dk/dv (rotary only)
 
 
 class RotaryTables(NamedTuple):
@@ -133,33 +145,26 @@ def flash_shape_ok(q: torch.Tensor, k: torch.Tensor) -> bool:
     """Shapes attention_core sends to the flash path, JAX's rule
     (`contrastors_tpu/ops/flash_attention.py:62-68`): q heads an integer
     multiple of kv heads and a head dim that is a multiple of 8, at least
-    64. A head dim above GENERIC_MAX_HEAD_DIM passes here and then raises
-    (`check_head_dim`)."""
+    64, with no upper bound."""
     return q.shape[2] % k.shape[2] == 0 and q.shape[3] % 8 == 0 and q.shape[3] >= 64
-
-
-def check_head_dim(D: int) -> None:
-    if D > GENERIC_MAX_HEAD_DIM:
-        raise ValueError(f"flash attention takes a head_dim of at most {GENERIC_MAX_HEAD_DIM} (the generic "
-                         f"kernels' limit, csrc/flash_generic.cu and flash_tf32.cu), got {D}")
 
 
 def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tensor, rot_dim: int = 0) -> str:
     """The kernel that takes these operands on the card, from their dtype,
     shape and strides alone: "hopper" (csrc/flash_fwd.cu, flash_bwd.cu) for
     bf16 at a head dim in KERNEL_HEAD_DIMS with TMA-aligned operands
-    (`_aligned`) and a rotary dim (0: none) that is a multiple of 16, else
-    "generic" (csrc/flash_generic.cu, fp32: csrc/flash_tf32.cu). `more` are
-    the backward's dO and O, of q's shape. Raises TypeError / ValueError for
-    what neither takes: another dtype or mixed dtypes, a head dim that is not
-    a multiple of 8 or above GENERIC_MAX_HEAD_DIM, q heads not a multiple of
+    (`_aligned`) and a rotary dim (0: none) that is a multiple of 16;
+    "generic" (csrc/flash_generic.cu, fp32: csrc/flash_tf32.cu) for every
+    other head dim up to GENERIC_MAX_HEAD_DIM; "wide" (csrc/flash_wide.cu)
+    above it. `more` are the backward's dO and O, of q's shape. Raises
+    TypeError / ValueError for what no kernel takes: another dtype or mixed
+    dtypes, a head dim that is not a multiple of 8, q heads not a multiple of
     kv heads."""
     B, S, H, D = q.shape
     xs = (q, k, v) + more
     if q.dtype not in KERNEL_DTYPES or any(x.dtype != q.dtype for x in xs):
         raise TypeError(f"flash kernels take float32 or bfloat16 operands of one dtype, got "
                         f"{[x.dtype for x in xs]}")
-    check_head_dim(D)
     if D % 8 or k.shape[3] != D or v.shape[3] != D:
         raise ValueError(f"flash kernels take one head_dim, a multiple of 8, for q, k and v, got "
                          f"{D}, {k.shape[3]}, {v.shape[3]}")
@@ -172,7 +177,7 @@ def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.
     if (q.dtype == torch.bfloat16 and D in KERNEL_HEAD_DIMS and rot_dim % 16 == 0
             and all(_aligned(x) for x in xs)):
         return "hopper"
-    return "generic"
+    return "generic" if D <= GENERIC_MAX_HEAD_DIM else "wide"
 
 
 def max_rel_error(out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -379,19 +384,52 @@ def _rot_dim(rot):
     return 0 if rot is None else rot.rot_dim
 
 
-def _generic(dtype, kernel):
-    """The generic kernel `kernel` ("fwd", "dq" or "dkv") for operands of
-    dtype: csrc/flash_tf32.cu's for fp32, csrc/flash_generic.cu's for bf16."""
+def _entry(route, dtype, kernel):
+    """The C entry point of `kernel` ("fwd", "dq", "dkv"; "adjoint" for
+    "wide") on `route` for operands of dtype: csrc/flash_fwd.cu's or
+    flash_bwd.cu's (hopper, bf16); csrc/flash_tf32.cu's for fp32 and
+    csrc/flash_generic.cu's for bf16 (generic); csrc/flash_wide.cu's
+    (wide)."""
+    if route == "hopper":
+        if kernel == "fwd":
+            return load_library("flash_fwd").flash_fwd_bf16
+        return getattr(load_library("flash_bwd"), f"flash_bwd_{kernel}_bf16")
+    if route == "wide":
+        return getattr(load_library("flash_wide"), f"flash_wide_{kernel}_{'f32' if dtype == torch.float32 else 'bf16'}")
     if dtype == torch.float32:
         return getattr(load_library("flash_tf32"), f"flash_tf32_{kernel}")
     return getattr(load_library("flash_generic"), f"flash_generic_{kernel}")
 
 
+def _wide_adjoint(g, out, rot):
+    """The rotary adjoint pass of the wide dq and dk/dv: g, their fp32
+    gradient before the adjoint, into out (contiguous, q's or k's dtype).
+    Returns out."""
+    global launches_wide_adjoint
+    B, L, Hx, D = g.shape
+    err = _entry("wide", out.dtype, "adjoint")(ptr(g), ptr(out), B, L, Hx, D, *_rot_args(rot, g, g), stream(g))
+    if err != 0:
+        raise RuntimeError(f"flash wide rotary adjoint launch failed: CUDA error {err}")
+    launches_wide_adjoint += 1
+    return out
+
+
+def _count(route, rot, kernel):
+    """One more launch on the counter of `kernel` ("fwd", "dq", "dkv") on
+    `route`; on the Hopper kernels, their fused-rotary variant's with rot."""
+    if route == "hopper":
+        name = dict(fwd="launches", dq="launches_bwd_dq", dkv="launches_bwd_dkv")[kernel]
+        name += "" if rot is None else "_rot"
+    else:
+        name = f"launches_{route}" + ("" if kernel == "fwd" else f"_{kernel}")
+    globals()[name] += 1
+
+
 def _launch_kernel(q, k, v, seg_q, seg_kv, rot, causal, causal_offset, window, softmax_scale):
     """Launch the forward kernel the operands route to (`flash_route`) on
     the current stream: csrc/flash_fwd.cu (its fused-rotary variant when rot
-    is given) or the generic forward (`_generic`). Returns (O, LSE)."""
-    global launches, launches_rot, launches_generic
+    is given), the generic or the wide forward (`_entry`). Returns (O,
+    LSE)."""
     _check_devices(q, k, v)
     q, k, v = (x if _aligned(x) else x.contiguous() for x in (q, k, v))
     route = flash_route(q, k, v, rot_dim=_rot_dim(rot))
@@ -408,18 +446,10 @@ def _launch_kernel(q, k, v, seg_q, seg_kv, rot, causal, causal_offset, window, s
         int(causal), int(causal_offset), int(window),
         ctypes.c_float(softmax_scale * LOG2E), *rot_args, stream(q),
     )
-    if route == "hopper":
-        err = load_library("flash_fwd").flash_fwd_bf16(*args)
-    else:
-        err = _generic(q.dtype, "fwd")(*args)
+    err = _entry(route, q.dtype, "fwd")(*args)
     if err != 0:
         raise RuntimeError(f"flash forward ({route}) kernel launch failed: CUDA error {err}")
-    if route == "generic":
-        launches_generic += 1
-    elif rot is None:
-        launches += 1
-    else:
-        launches_rot += 1
+    _count(route, rot, "fwd")
     return out, lse
 
 
@@ -441,64 +471,50 @@ def _bwd_call(q, k, v, dout, causal, causal_offset, window, softmax_scale, rot, 
 def launch_bwd_dq(q, k, v, dout, out, lse, delta, seg_q, seg_kv, route, causal, causal_offset, window,
                   softmax_scale, rot=None):
     """Launch the dq kernel of `route`: flash_bwd_dq of csrc/flash_bwd.cu
-    (its fused-rotary variant when rot is given) or the generic dq
-    (`_generic`), on prepared inputs (as `prepare_backward`
-    prepares them, given the same rot: q/k/v/dout/out of one dtype with a
-    unit stride over D, contiguous fp32 lse and the delta buffer [B, H, S],
-    contiguous int32 ids or None, and the route). Writes delta =
-    rowsum(dO * O) into `delta`, for `launch_bwd_dkv`. Returns dq."""
-    global launches_bwd_dq, launches_bwd_dq_rot, launches_generic_dq
+    (its fused-rotary variant when rot is given), the generic or the wide dq
+    (`_entry`), on prepared inputs (as `prepare_backward` prepares them,
+    given the same rot: q/k/v/dout/out of one dtype with a unit stride over
+    D, contiguous fp32 lse and the delta buffer [B, H, S], contiguous int32
+    ids or None, and the route). Writes delta = rowsum(dO * O) into `delta`,
+    for `launch_bwd_dkv`. The wide dq with rot writes an fp32 dq before the
+    adjoint, which `_wide_adjoint` finishes. Returns dq."""
     B, S, H, D = q.shape
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    pre = dq if route != "wide" or rot is None else torch.empty(dq.shape, dtype=torch.float32, device=q.device)
     args = (
-        ptr(q), ptr(k), ptr(v), ptr(dout), ptr(out), ptr(lse), ptr(delta), ptr(dq),
+        ptr(q), ptr(k), ptr(v), ptr(dout), ptr(out), ptr(lse), ptr(delta), ptr(pre),
         ptr(seg_q), ptr(seg_kv),
         *_bwd_call(q, k, v, dout, causal, causal_offset, window, softmax_scale, rot, out),
     )
-    if route == "hopper":
-        err = load_library("flash_bwd").flash_bwd_dq_bf16(*args)
-    else:
-        err = _generic(q.dtype, "dq")(*args)
+    err = _entry(route, q.dtype, "dq")(*args)
     if err != 0:
         raise RuntimeError(f"flash dq ({route}) kernel launch failed: CUDA error {err}")
-    if route == "generic":
-        launches_generic_dq += 1
-    elif rot is None:
-        launches_bwd_dq += 1
-    else:
-        launches_bwd_dq_rot += 1
-    return dq
+    _count(route, rot, "dq")
+    return dq if pre is dq else _wide_adjoint(pre, dq, rot)
 
 
 def launch_bwd_dkv(q, k, v, dout, out, lse, delta, seg_q, seg_kv, route, causal, causal_offset, window,
                    softmax_scale, rot=None):
     """Launch the dk/dv kernel of `route`: flash_bwd_dkv of
-    csrc/flash_bwd.cu (its fused-rotary variant when rot is given) or the
-    generic dk/dv (`_generic`), on prepared inputs (see
+    csrc/flash_bwd.cu (its fused-rotary variant when rot is given), the
+    generic or the wide dk/dv (`_entry`), on prepared inputs (see
     `launch_bwd_dq`, which must have written delta first, on the same
-    stream; out is not read). Returns (dk, dv)."""
-    global launches_bwd_dkv, launches_bwd_dkv_rot, launches_generic_dkv
+    stream; out is not read). The wide dk/dv with rot writes an fp32 dk
+    before the adjoint, which `_wide_adjoint` finishes. Returns (dk, dv)."""
     B, T, Hkv, D = k.shape
     dk = torch.empty((B, T, Hkv, D), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, T, Hkv, D), dtype=v.dtype, device=v.device)
+    pre = dk if route != "wide" or rot is None else torch.empty(dk.shape, dtype=torch.float32, device=k.device)
     args = (
-        ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), ptr(dk), ptr(dv),
+        ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), ptr(pre), ptr(dv),
         ptr(seg_q), ptr(seg_kv),
         *_bwd_call(q, k, v, dout, causal, causal_offset, window, softmax_scale, rot),
     )
-    if route == "hopper":
-        err = load_library("flash_bwd").flash_bwd_dkv_bf16(*args)
-    else:
-        err = _generic(q.dtype, "dkv")(*args)
+    err = _entry(route, q.dtype, "dkv")(*args)
     if err != 0:
         raise RuntimeError(f"flash dk/dv ({route}) kernel launch failed: CUDA error {err}")
-    if route == "generic":
-        launches_generic_dkv += 1
-    elif rot is None:
-        launches_bwd_dkv += 1
-    else:
-        launches_bwd_dkv_rot += 1
-    return dk, dv
+    _count(route, rot, "dkv")
+    return (dk if pre is dk else _wide_adjoint(pre, dk, rot)), dv
 
 
 def prepare_backward(q, k, v, out, lse, dout, seg_q, seg_kv, rot=None):
@@ -550,7 +566,6 @@ class _FlashForward(torch.autograd.Function):
 
 def _prepare(q, k, attention_mask, segment_ids, kv_segment_ids, causal, softmax_scale):
     B, S, _, D = q.shape
-    check_head_dim(D)  # on every device, the plain versions' too
     T = k.shape[1]
     seg_q, seg_kv = merge_segments(B, S, T, attention_mask, segment_ids, kv_segment_ids, q.device)
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
@@ -600,8 +615,7 @@ def flash_attention_fwd(
     on a CUDA tensor, the plain version on a CPU tensor. rotary_cos/sin
     ([L >= S, rot_dim/2] fp32, layers/rotary.py conventions) select the
     fused-rotary variants; rotary_position_ids [B, S] gathers per-row
-    positions (packed rows). A head dim above GENERIC_MAX_HEAD_DIM raises on
-    every device."""
+    positions (packed rows)."""
     q, k, rot = _rotary(q, k, rotary_cos, rotary_sin, rotary_interleaved, rotary_position_ids)
     seg_q, seg_kv, offset, scale = _prepare(
         q, k, attention_mask, segment_ids, kv_segment_ids, causal, softmax_scale

@@ -8,20 +8,24 @@ to the generic kernels (csrc/flash_generic.cu, flash_tf32.cu, gmm_generic.cu). H
 the CPU, where the wrappers run the kernels' plain versions:
 
   (i) the two routing functions over a grid of dtype x head dim (or K, N)
-      x alignment; attention_core(impl="flash") reaches sdpa exactly where
-      JAX's `flash_shape_ok` is false, and raises above head dim 256;
+      x alignment (above head dim 256: the wide kernels,
+      csrc/flash_wide.cu); attention_core(impl="flash") reaches sdpa
+      exactly where JAX's `flash_shape_ok` is false, at every head dim;
   (ii) attention_core(impl="flash") against JAX's Pallas kernels in
-      interpret mode, forward and q/k/v gradients, fp32 at D = 80, 88 and
-      256, with causal + padding, a window, segment ids, GQA and partial
-      fused rotary: atol 1e-5 (padded query rows, where attention_core
-      follows JAX's sdpa convention below kv 512, are left out of both);
+      interpret mode, forward and q/k/v gradients, fp32 at D = 80, 88, 256,
+      320 and 512, with causal + padding, a window, segment ids, GQA and
+      partial fused rotary, and at D = 512 NeoX rotary over the whole head
+      dim: atol 1e-5 (padded query rows, where attention_core follows JAX's
+      sdpa convention below kv 512, are left out of both);
   (iii) the port's gmm and its gradients against JAX's gmm (its ragged_dot
       path: K = 200, N = 360 are not multiples of 128) in fp32, atol 1e-4
       at sums of 200-360 products of unit normals;
-  (iv) a GPT-NeoX trunk with pythia-1b's head geometry (2 layers of 512, 2
-      heads of 256, rotary_pct 0.25) through both packages' loaders: the
-      last-pooled embeddings and the decoder recipe's clip loss gradient
-      (logit scale 50, one hard negative a query) in fp32 against JAX's.
+  (iv) GPT-NeoX trunks with pythia-1b's head geometry (2 layers of 512, 2
+      heads of 256, rotary_pct 0.25) and with its width read as heads of
+      512 (2 layers of 1024, 2 heads of 512) through both packages'
+      loaders: the last-pooled embeddings and the decoder recipe's clip loss
+      gradient (logit scale 50, one hard negative a query) in fp32 against
+      JAX's.
 The generic kernels themselves are held to these plain versions on the
 card by chip_smoke.py (phase 26, `--only coverage`).
 """
@@ -50,7 +54,7 @@ from contrastors_tpu_torch.ops import flash_attention as tfa
 from contrastors_tpu_torch.ops import grouped_matmul as tgm
 from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
-HEAD_DIMS = [8, 16, 32, 48, 56, 60, 64, 72, 80, 88, 96, 100, 128, 136, 192, 248, 256, 264, 320]
+HEAD_DIMS = [8, 16, 32, 48, 56, 60, 64, 72, 80, 88, 96, 100, 128, 136, 192, 248, 256, 264, 320, 512, 1024]
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
 
 
@@ -69,8 +73,9 @@ def _qkv(D, dtype, H=4, Hkv=4, aligned=True, S=16):
 def test_flash_route_over_dtype_head_dim_and_alignment(dtype, D):
     """bf16 at D in (64, 128) with aligned operands and a rotary dim that is
     a multiple of 16: the Hopper kernels; every other fp32 / bf16 operand
-    with D % 8 == 0 and D <= 256: the generic kernels; fp16, D % 8 != 0 and
-    D > 256 raise. attention_core's flash gate is JAX's `flash_shape_ok`."""
+    with D % 8 == 0: the generic kernels up to D = 256, the wide kernels
+    above; fp16 and D % 8 != 0 raise. attention_core's flash gate is JAX's
+    `flash_shape_ok`."""
     dt = DTYPES[dtype]
     for aligned in (True, False):
         for H, Hkv in ((4, 4), (4, 1)):
@@ -80,21 +85,18 @@ def test_flash_route_over_dtype_head_dim_and_alignment(dtype, D):
                 with pytest.raises(TypeError, match="float32 or bfloat16"):
                     tfa.flash_route(q, k, v)
                 continue
-            if D > tfa.GENERIC_MAX_HEAD_DIM:
-                with pytest.raises(ValueError, match="at most 256"):
-                    tfa.flash_route(q, k, v)
-                continue
             if D % 8:
                 with pytest.raises(ValueError, match="multiple of 8"):
                     tfa.flash_route(q, k, v)
                 continue
             hopper = dt == torch.bfloat16 and D in (64, 128) and aligned
-            assert tfa.flash_route(q, k, v) == ("hopper" if hopper else "generic")
-            assert tfa.flash_route(q, k, v, q, q) == ("hopper" if hopper else "generic")  # backward: dO, O
-            for rot_dim in (16, 24):  # a rotary dim that is not a multiple of 16 takes the generic kernels
+            other = "generic" if D <= 256 else "wide"
+            assert tfa.flash_route(q, k, v) == ("hopper" if hopper else other)
+            assert tfa.flash_route(q, k, v, q, q) == ("hopper" if hopper else other)  # backward: dO, O
+            for rot_dim in (16, 24, D):  # a rotary dim that is not a multiple of 16 takes the generic kernels
                 if rot_dim <= D:
                     assert tfa.flash_route(q, k, v, rot_dim=rot_dim) == (
-                        "hopper" if hopper and rot_dim % 16 == 0 else "generic")
+                        "hopper" if hopper and rot_dim % 16 == 0 else other)
     q, k, v = _qkv(D, torch.float32)
     with pytest.raises(TypeError, match="one dtype"):
         tfa.flash_route(q, k.bfloat16(), v)
@@ -103,19 +105,15 @@ def test_flash_route_over_dtype_head_dim_and_alignment(dtype, D):
 @pytest.mark.parametrize("D", HEAD_DIMS)
 def test_attention_core_reaches_sdpa_only_where_jax_does(D, monkeypatch):
     """impl="flash" without dropout: the flash path (the plain version of the
-    generic or Hopper kernels here) for every head dim JAX's rule takes, up
-    to 256; the plain sdpa exactly where JAX's `flash_shape_ok` is false;
-    above 256 the call raises, naming the limit."""
+    Hopper, generic or wide kernels here) for every head dim JAX's rule
+    takes, 512 and 1024 among them, within 1e-5 of sdpa; the plain sdpa
+    exactly where JAX's `flash_shape_ok` is false."""
     calls = []
     orig = tops.sdpa
     monkeypatch.setattr(tops, "sdpa", lambda *a, **kw: calls.append(1) or orig(*a, **kw))
     gen = torch.Generator().manual_seed(D)
     q, k, v = (torch.randn(2, 12, 4, D, generator=gen) for _ in range(3))
     jax_flash = bool(jfa.flash_shape_ok(q.numpy(), k.numpy()))
-    if jax_flash and D > tfa.GENERIC_MAX_HEAD_DIM:
-        with pytest.raises(ValueError, match="at most 256"):
-            attention_core(q, k, v, impl="flash", causal=True)
-        return
     out = attention_core(q, k, v, impl="flash", causal=True)
     assert len(calls) == (0 if jax_flash else 1)
     ref = attention_core(q, k, v, impl="sdpa", causal=True)
@@ -156,8 +154,12 @@ def test_grouped_matmul_route_over_dtype_width_and_alignment(dtype, block_m):
 
 # -- (ii) attention_core(impl="flash") against JAX's Pallas kernels ------------
 
-FLASH_DIMS = [80, 88, 256]
+FLASH_DIMS = [80, 88, 256, 320, 512]
 VARIANTS = ["causal_pad", "window", "segments", "gqa_pad", "rotary_pad"]
+# every variant at every head dim, and NeoX rotary over the whole head dim at
+# 512, where the rotary adjoint pairs columns of two of the wide kernels'
+# output slices
+FLASH_CASES = [(D, variant) for D in FLASH_DIMS for variant in VARIANTS] + [(512, "rotary_full")]
 
 
 def _attention_case(D, variant):
@@ -178,8 +180,8 @@ def _attention_case(D, variant):
         seg[:, :50], seg[:, 50:100], seg[1, 100:120] = 1, 2, 3
         kw["segment_ids"] = seg
         valid = seg > 0
-    if variant == "rotary_pad":
-        cos, sin = (np.array(t) for t in j_tables(S, D // 4 // 2 * 2))
+    if variant.startswith("rotary"):
+        cos, sin = (np.array(t) for t in j_tables(S, D if variant == "rotary_full" else D // 4 // 2 * 2))
         kw.update(rotary_cos=cos, rotary_sin=sin)
     do = do * valid[:, :, None, None]  # padded query rows: no gradient flows back on either side
     return q, k, v, do, kw, valid
@@ -195,13 +197,12 @@ def jax_attention():
     os.environ["CONTRASTORS_TPU_FLASH_INTERPRET"] = "1"
     try:
         runs = {}
-        for D in FLASH_DIMS:
-            for variant in VARIANTS:
-                q, k, v, do, kw, _ = _attention_case(D, variant)
-                j_kw = {n: (jnp.asarray(x) if isinstance(x, np.ndarray) else x) for n, x in kw.items()}
-                out, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(a, b, c, **j_kw, block_q=128, block_kv=128),
-                                   *(jnp.asarray(x) for x in (q, k, v)))
-                runs[(D, variant)] = [np.asarray(x) for x in (out, *vjp(jnp.asarray(do)))]
+        for D, variant in FLASH_CASES:
+            q, k, v, do, kw, _ = _attention_case(D, variant)
+            j_kw = {n: (jnp.asarray(x) if isinstance(x, np.ndarray) else x) for n, x in kw.items()}
+            out, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(a, b, c, **j_kw, block_q=128, block_kv=128),
+                               *(jnp.asarray(x) for x in (q, k, v)))
+            runs[(D, variant)] = [np.asarray(x) for x in (out, *vjp(jnp.asarray(do)))]
         return runs
     finally:
         if before is None:
@@ -210,8 +211,7 @@ def jax_attention():
             os.environ["CONTRASTORS_TPU_FLASH_INTERPRET"] = before
 
 
-@pytest.mark.parametrize("variant", VARIANTS)
-@pytest.mark.parametrize("D", FLASH_DIMS)
+@pytest.mark.parametrize("D,variant", FLASH_CASES)
 def test_attention_core_flash_matches_jax_kernels(jax_attention, D, variant):
     q, k, v, do, kw, valid = _attention_case(D, variant)
     j_out, *j_grads = jax_attention[(D, variant)]
@@ -250,12 +250,12 @@ def test_gmm_and_its_gradients_match_jax_ragged_dot():
 # -- (iv) pythia-1b's head geometry through both loaders ------------------------
 
 
-@pytest.fixture(scope="module")
-def pythia_1b_geometry(tmp_path_factory):
-    """A GPT-NeoX checkpoint (HF's GPTNeoXModel init, seed 0) at pythia-1b's
-    head geometry: 2 layers of 512, 2 heads of 256, rotary over 64 of them,
-    parallel residual; and JAX's and the port's last-pooled BiEncoder of it
-    (JAX on sdpa, as its dispatch runs below kv 512; the port on flash)."""
+def _neox_geometry(tmp_path_factory, hidden, heads):
+    """A GPT-NeoX checkpoint (HF's GPTNeoXModel init, seed 0) of 2 layers of
+    `hidden` in `heads` heads, rotary over a quarter of each head, parallel
+    residual; and JAX's and the port's last-pooled BiEncoder of it (JAX on
+    sdpa, as its dispatch runs below kv 512; the port on flash), with a
+    batch of queries and documents."""
     from safetensors.numpy import save_file
     from transformers import GPTNeoXConfig, GPTNeoXModel
 
@@ -263,11 +263,11 @@ def pythia_1b_geometry(tmp_path_factory):
     from contrastors_tpu.models.auto import load_biencoder as j_load_biencoder
 
     torch.manual_seed(0)
-    cfg = GPTNeoXConfig(vocab_size=128, hidden_size=512, num_hidden_layers=2, num_attention_heads=2,
-                        intermediate_size=2048, rotary_pct=0.25, use_parallel_residual=True, hidden_act="gelu",
+    cfg = GPTNeoXConfig(vocab_size=128, hidden_size=hidden, num_hidden_layers=2, num_attention_heads=heads,
+                        intermediate_size=4 * hidden, rotary_pct=0.25, use_parallel_residual=True, hidden_act="gelu",
                         max_position_embeddings=64, attention_dropout=0.0, hidden_dropout=0.0)
     sd = {k: v.numpy() for k, v in GPTNeoXModel(cfg).state_dict().items()}
-    path = tmp_path_factory.mktemp("pythia_1b_geometry") / "neox"
+    path = tmp_path_factory.mktemp(f"neox_{hidden}_{heads}") / "neox"
     path.mkdir()
     hf = cfg.to_dict()
     hf["model_type"] = "gpt_neox"
@@ -276,7 +276,7 @@ def pythia_1b_geometry(tmp_path_factory):
     args = dict(model_type="encoder", model_name=str(path), pooling="last", pretrained=True)
     jm, jparams, _ = j_load_biencoder(JModelArgs(**args, attn_impl="sdpa"))
     tm, tcfg = load_biencoder(ModelArgs.from_dict(dict(args, attn_impl="flash")), device="cpu")
-    assert tcfg.n_embd // tcfg.n_head == 256
+    assert tcfg.n_embd // tcfg.n_head == hidden // heads
     rng = np.random.default_rng(5)
     B, L = 3, 20
     batch = {}
@@ -288,8 +288,22 @@ def pythia_1b_geometry(tmp_path_factory):
     return jm, jparams, tm, batch
 
 
-def test_pythia_1b_geometry_embeddings_match_jax(pythia_1b_geometry):
-    jm, jparams, tm, batch = pythia_1b_geometry
+@pytest.fixture(scope="module")
+def pythia_1b_geometry(tmp_path_factory):
+    """pythia-1b's head geometry at 2 layers of 512: 2 heads of 256, rotary
+    over 64 of them (the generic kernels' plain versions)."""
+    return _neox_geometry(tmp_path_factory, 512, 2)
+
+
+@pytest.fixture(scope="module")
+def pythia_1b_wide_geometry(tmp_path_factory):
+    """pythia-1b's width read as heads of 512, at 2 layers of 1024: 2 heads
+    of 512, rotary over 128 of them (the wide kernels' plain versions)."""
+    return _neox_geometry(tmp_path_factory, 1024, 2)
+
+
+def _embeddings_match_jax(geometry):
+    jm, jparams, tm, batch = geometry
     embed = jax.jit(lambda p, ids, mask: jm.apply(p, input_ids=ids, attention_mask=mask)["embedding"])
     for ids, mask in batch.values():
         j_emb = np.asarray(embed(jparams, jnp.asarray(ids), jnp.asarray(mask)))
@@ -298,11 +312,8 @@ def test_pythia_1b_geometry_embeddings_match_jax(pythia_1b_geometry):
         np.testing.assert_allclose(t_emb, j_emb, atol=5e-5, rtol=1e-4)
 
 
-def test_pythia_1b_geometry_loss_gradient_matches_jax(pythia_1b_geometry):
-    """The decoder recipe's loss (clip, logit scale 50, the hard negatives of
-    configs/train/contrastive_finetune_decoder.yaml) and its gradient for
-    every parameter, through the flash path at head dim 256."""
-    jm, jparams, tm, batch = pythia_1b_geometry
+def _loss_gradient_matches_jax(geometry):
+    jm, jparams, tm, batch = geometry
     (qi, qm), (di, dm) = batch["q"], batch["d"]
 
     def j_loss(params):
@@ -323,3 +334,24 @@ def test_pythia_1b_geometry_loss_gradient_matches_jax(pythia_1b_geometry):
     for n in sorted(got):
         g, j = got[n].double(), torch.as_tensor(np.asarray(want[n])).double()
         assert float((g - j).norm()) <= 1e-4 * float(j.norm()) + 1e-7, n
+
+
+def test_pythia_1b_geometry_embeddings_match_jax(pythia_1b_geometry):
+    _embeddings_match_jax(pythia_1b_geometry)
+
+
+def test_pythia_1b_geometry_loss_gradient_matches_jax(pythia_1b_geometry):
+    """The decoder recipe's loss (clip, logit scale 50, the hard negatives of
+    configs/train/contrastive_finetune_decoder.yaml) and its gradient for
+    every parameter, through the flash path at head dim 256."""
+    _loss_gradient_matches_jax(pythia_1b_geometry)
+
+
+def test_pythia_1b_wide_geometry_embeddings_match_jax(pythia_1b_wide_geometry):
+    _embeddings_match_jax(pythia_1b_wide_geometry)
+
+
+def test_pythia_1b_wide_geometry_loss_gradient_matches_jax(pythia_1b_wide_geometry):
+    """The decoder recipe's loss and its gradient for every parameter, as
+    above, through the flash path at head dim 512."""
+    _loss_gradient_matches_jax(pythia_1b_wide_geometry)

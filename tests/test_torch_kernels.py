@@ -212,13 +212,17 @@ def test_fused_rotary_backward_rejects_the_wrong_adjoint(cuda):
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(cuda):
-    """What no flash kernel takes raises: a head dim above 256 (on every
-    device), one that is not a multiple of 8, fp16. What only the generic
-    kernels take (bf16 at D = 96, fp32, a rotary dim of 24) runs there and
-    agrees with the plain version."""
+    """What no flash kernel takes raises: a head dim that is not a multiple
+    of 8, fp16. A head dim above 256 runs on the wide kernels and agrees
+    with the plain version; what only the generic kernels take (bf16 at D =
+    96, fp32, a rotary dim of 24) runs there and agrees with the plain
+    version."""
     q = torch.randn(1, 16, 2, 264, device=cuda).bfloat16()
-    with pytest.raises(ValueError, match="at most 256"):
-        tfa.flash_attention(q, q, q)
+    before = tfa.launches_wide
+    out = tfa.flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert tfa.launches_wide == before + 1
+    assert tfa.output_error_ratio(out, tfa.flash_attention_reference(q, q, q)[0]) <= 1.0
     q = torch.randn(1, 16, 2, 20, device=cuda).bfloat16()
     with pytest.raises(ValueError, match="multiple of 8"):
         tfa.flash_attention(q, q, q)
@@ -309,8 +313,9 @@ def _tensor_core_case(cuda, dtype, head_dim, variant):
     empty batch row, causal with S=200 against T=300 (offset 100), window
     128 with a padding mask, three segments then padding, GQA (H 8, Hkv 2),
     rotary as NeoX halves and as GPT-J pairs (rotary dim 8 at D = 128; else
-    a quarter of D, rounded to even), or only dO misaligned; a head dim
-    ending in "u" makes every operand misaligned."""
+    a quarter of D, rounded to even) or NeoX over the whole head dim
+    (rotary_full), or only dO misaligned; a head dim ending in "u" makes
+    every operand misaligned."""
     D = int(str(head_dim).rstrip("u"))
     gen = torch.Generator(device=cuda).manual_seed(D + len(variant))
     B, S, H = 3, 200, 8
@@ -323,7 +328,7 @@ def _tensor_core_case(cuda, dtype, head_dim, variant):
     if variant == "dout_misaligned":
         dout = _misaligned(dout)
     kw = dict(causal=variant == "causal", window=128 if variant == "window128" else 0)
-    if variant in ("pad", "window128", "gqa", "rotary_halves", "rotary_pairs"):
+    if variant in ("pad", "window128", "gqa", "rotary_halves", "rotary_pairs", "rotary_full"):
         lens = torch.tensor([T, T // 2 + 3, 0 if variant == "pad" else 17], device=cuda)
         kw["attention_mask"] = (torch.arange(T, device=cuda)[None] < lens[:, None]).int()
     if variant == "segments":
@@ -333,7 +338,7 @@ def _tensor_core_case(cuda, dtype, head_dim, variant):
     if variant.startswith("rotary"):
         from contrastors_tpu_torch.layers.rotary import rotary_cos_sin
 
-        rot_dim = 8 if D == 128 else max(2, D // 4 // 2 * 2)
+        rot_dim = D if variant == "rotary_full" else 8 if D == 128 else max(2, D // 4 // 2 * 2)
         kw["rotary_cos"], kw["rotary_sin"] = rotary_cos_sin(S, rot_dim, device=cuda)
         kw["rotary_interleaved"] = variant == "rotary_pairs"
     return q, k, v, dout, kw
@@ -435,6 +440,60 @@ def test_fp32_tensor_core_backward_matches_plain_version_on_card(cuda, head_dim,
         assert torch.equal(a, b), name
     if variant == "pad":
         assert all(bool((g[-1] == 0).all()) for g in grads)
+
+
+# the wide kernels (D > 256): every head dim splits its output into column
+# slices and streams the products over D in 64-column chunks; 264 and 1024
+# end on a partial chunk and slice (264: 8 columns past 256), "512u"
+# misaligned operands
+WIDE_HEAD_DIMS = (264, 320, 512, 1024)
+WIDE_VARIANTS = TC_VARIANTS + ("rotary_full",)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,head_dim,variant", [(t, d, v) for t in ("fp32", "bf16") for d in WIDE_HEAD_DIMS
+                                                    for v in WIDE_VARIANTS]
+                         + [(t, "512u", v) for t in ("fp32", "bf16") for v in ("pad", "causal", "rotary_halves")])
+def test_wide_kernels_match_plain_versions_on_card(cuda, dtype, head_dim, variant):
+    """The wide forward, dq and dk/dv (csrc/flash_wide.cu) against the plain
+    versions at D 264, 320, 512 and 1024 in the variants of
+    `_tensor_core_case` and NeoX rotary over the whole head dim (whose
+    adjoint pairs columns of two slice blocks), and at D 512 on misaligned
+    operands: fp32 within FP32_REL * max |ref| (the LSE within
+    FP32_LSE_ATOL), bf16 at the Hopper kernels' error model. Every launch
+    lands on the wide counters (the rotary adjoint pass once for dq and once
+    for dk a backward) and none on the generic ones; a second run is
+    bit-identical; the padding mask's empty batch row has O and dq exactly
+    0."""
+    dt = torch.float32 if dtype == "fp32" else torch.bfloat16
+    q, k, v, dout, kw = _tensor_core_case(cuda, dt, head_dim, variant)
+    counters = ("launches_wide", "launches_wide_dq", "launches_wide_dkv", "launches_wide_adjoint",
+                "launches_generic", "launches_generic_dq", "launches_generic_dkv")
+    before = [getattr(tfa, c) for c in counters]
+    out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    again = tfa.flash_attention_fwd(q, k, v, **kw)
+    grads = tfa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    grads_again = tfa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    adjoint = 4 if "rotary_cos" in kw else 0
+    assert [getattr(tfa, c) - b for c, b in zip(counters, before)] == [2, 2, 2, adjoint, 0, 0, 0]
+    ref, ref_lse = tfa.flash_attention_reference(q, k, v, **kw)
+    refs = tfa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw)
+    if dt == torch.float32:
+        assert tfa.max_rel_error(out, ref) <= tfa.FP32_REL
+        assert (lse - ref_lse).abs().max().item() <= tfa.FP32_LSE_ATOL
+        for g, r, name in zip(grads, refs, ("dq", "dk", "dv")):
+            assert tfa.max_rel_error(g, r) <= tfa.FP32_REL, name
+    else:
+        assert tfa.output_error_ratio(out, ref) <= 1.0
+        assert (lse - ref_lse).abs().max().item() <= tfa.LSE_ATOL
+        for g, r, name in zip(grads, refs, ("dq", "dk", "dv")):
+            assert tfa.grad_error_ratio(g, r, name) <= 1.0, name
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    for a, b, name in zip(grads, grads_again, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), name
+    if variant == "pad":
+        assert bool((out[-1] == 0).all()) and bool((grads[0][-1] == 0).all())
 
 
 def _moe_layout(cuda, A, E=8):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Time the generic kernels' bf16 dq and dk/dv, fp32 forward, fp32 dq and
-dk/dv and fp32 gmm, dlhs and tgmm of one copy of the port's package on one
+dk/dv and fp32 gmm, dlhs and tgmm, and the wide kernels, of one copy of the port's package on one
 card, for comparing variants of those kernels in turns.
 
     python3 tools/generic_kernel_probe.py TREE [GROUPS]
@@ -25,10 +25,14 @@ dq, dk and dv against the plain backward; `launch_gmm` at a uniformly routed doc
 experts, block_m 128, fp32, K 768, N 3072), on the rhs.transpose(1, 2) view
 (dlhs) and `launch_tgmm`, and tgmm on a skewed routing of the same chunk
 (expert e drawn with weight 2^-e); and gmm's and dlhs's max |out - ref| /
-max |ref| against the plain version. GROUPS, a comma-separated subset of
-"bwd" (the bf16 dq and dk/dv), "fwd" (the fp32 forward), "fp32bwd" (the
-fp32 dq and dk/dv), "gmm" (gmm, dlhs, tgmm) and "hopper", limits the run to
-those (default: all but "hopper"). "hopper" adds, instead of times, the digests (the first 16 hex
+max |ref| against the plain version; the wide kernels (csrc/flash_wide.cu):
+`flash_attention_fwd`, `launch_bwd_dq` and `launch_bwd_dkv` at pythia-1b's
+step documents read as 4 heads of 512 (128 x 128, causal, the dispatch's
+form) in bf16 and fp32, with max |x - ref| / max |ref| of O, dq, dk and dv.
+GROUPS, a comma-separated subset of "bwd" (the bf16 dq and dk/dv), "fwd"
+(the fp32 forward), "fp32bwd" (the fp32 dq and dk/dv), "gmm" (gmm, dlhs,
+tgmm), "wide" and "hopper", limits the run to those (default: all but
+"hopper"). "hopper" adds, instead of times, the digests (the first 16 hex
 digits of the SHA-256 of the bytes) of the Hopper kernels' (csrc/gmm.cu)
 bf16 gmm, dlhs and tgmm at a uniformly routed document chunk (K 768, N
 3072): equal digests in two trees mean bit-identical outputs. Prints one
@@ -144,7 +148,24 @@ def fp32_backward_times(torch, fa, gen, dev, out):
         del q, k, v, dout, o, lse, inputs, dq, dk, dv, refs
 
 
-def main(tree, groups=("bwd", "fwd", "fp32bwd", "gmm")):
+def wide_times(torch, fa, gen, dev, out):
+    """The "wide" rows of `out` (the module's docstring)."""
+    for label, dtype in (("wide_docs_bf16", torch.bfloat16), ("wide_docs_fp32", torch.float32)):
+        (q, k, v, dout, o, lse, kw), inputs, args = backward_inputs(torch, fa, gen, dev, 128, 128, 4, 512, dtype,
+                                                                    "dispatch")
+        dq = fa.launch_bwd_dq(*inputs, *args)
+        dk, dv = fa.launch_bwd_dkv(*inputs, *args)
+        ref_o, _ = fa.flash_attention_reference(q, k, v, **kw)
+        refs = fa.flash_attention_backward_reference(q, k, v, o, lse, dout, **kw)
+        out[label] = dict(fwd=device_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, **kw)),
+                          dq=device_ms(torch, lambda: fa.launch_bwd_dq(*inputs, *args)),
+                          dkv=device_ms(torch, lambda: fa.launch_bwd_dkv(*inputs, *args)),
+                          rel_err={n: fa.max_rel_error(x, r)
+                                   for n, x, r in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv), (ref_o, *refs))})
+        del q, k, v, dout, o, lse, inputs, dq, dk, dv, ref_o, refs
+
+
+def main(tree, groups=("bwd", "fwd", "fp32bwd", "gmm", "wide")):
     sys.path.insert(0, tree)
     import torch
 
@@ -179,6 +200,8 @@ def main(tree, groups=("bwd", "fwd", "fp32bwd", "gmm")):
         fp32_backward_times(torch, fa, gen, dev, out)
     if "gmm" in groups:
         gmm_times(torch, gm, gen, dev, out)
+    if "wide" in groups:
+        wide_times(torch, fa, gen, dev, out)
     if "hopper" in groups:
         hopper_digests(torch, gm, gen, dev, out)
     print(json.dumps(out), flush=True)
