@@ -418,8 +418,12 @@ phase 25):
      flash in fp32 at D = 64, 80, 88, 128, 256 and bf16 at D = 80, 88, 256
      and at 64 on misaligned operands (all on the tensor cores), each with
      a padding mask (an empty row), causal (S=200 against T=300), window
-     128, segment ids, GQA (Hkv = H / 4) and fused partial rotary; gmm,
-     dlhs and tgmm through the
+     128, segment ids, GQA (Hkv = H / 4) and fused partial rotary; the wide
+     kernels (csrc/flash_wide.cu) in the same variants at fp32 D = 320, 512,
+     1024 (the dq and dk/dv's 8-block clusters), 1032 (past the clusters'
+     reach: the streamed dq and dk/dv) and bf16 D = 320, 512, 1032 and 512
+     on misaligned operands, at 512 also with NeoX rotary over the whole
+     head; gmm, dlhs and tgmm through the
      public gmm in fp32 at K 768, N 3072 and bf16 at K 200, N 360 on the MoE
      document chunk's layout; fp32 within 1e-4 * max |ref| (LSE within 1e-4),
      bf16 at the Hopper kernels' error model, every launch on the generic
@@ -527,7 +531,7 @@ def ptxas_usage(log):
     for line in log.splitlines():
         g = re.search(r"\d(fwd|dq|dkv|t?gmm)_kernelI(f|13__nv_bfloat16)(?:Li(\d+)ELi(\d+)E)?", line)
         tc = re.search(r"\d((?:fwd|dq|dkv)_(?:tc|tf32))_kernelILi(\d+)E", line)
-        wide = re.search(r"\d(wide_kernel|wide_adjoint_kernel)I(f|13__nv_bfloat16)E?(?:Li(\d)E)?", line)
+        wide = re.search(r"\d(wide_kernel|wide_cluster_kernel|wide_adjoint_kernel)I(f|13__nv_bfloat16)E?(?:Li(\d)E)?", line)
         m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv))_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?"
                       r"|(t?gmm_kernel)(?:ILb([01])E)?", line)
         if wide:  # the wide flash kernels (csrc/flash_wide.cu): <dtype[, fwd / dq / dkv]>
@@ -871,6 +875,14 @@ COUNTERS = dict(fwd=("fa", "launches"), dq=("fa", "launches_bwd_dq"), dkv=("fa",
 GENERIC = dict(fwd="gen_fwd", dq="gen_dq", dkv="gen_dkv", gmm="gen_gmm", tgmm="gen_tgmm")
 # the wide kernels' (csrc/flash_wide.cu, head dims above 256), and their rotary adjoint pass's
 WIDE = dict(fwd="wide_fwd", dq="wide_dq", dkv="wide_dkv", adjoint="wide_adjoint")
+# their designs, for the kernels line
+_WIDE_CLUSTER = ("wide_cluster_kernel<T, {w}> (256 < D <= 1024: a thread-block cluster of ceil(D / 128) blocks per "
+                 "64 fixed rows, each block's share of S and dP over its own 128-column slice summed across the "
+                 "cluster through distributed shared memory in rank order; above 1024 wide_kernel<T, {w}>; bf16 "
+                 "mma.sync m16n8k16, fp32 3xTF32 on m16n8k8)")
+WIDE_DESIGN = dict(fwd="wide_kernel<T, 0> (head dims above 256: output column slices across blocks, the products "
+                       "over D streamed in 64-column chunks; bf16 mma.sync m16n8k16, fp32 3xTF32 on m16n8k8)",
+                   dq=_WIDE_CLUSTER.format(w=1), dkv=_WIDE_CLUSTER.format(w=2))
 
 
 def _counter_modules():
@@ -7056,10 +7068,13 @@ COVERAGE_SERVING_COSINE = 0.99999  # fp32 embeddings, flash against sdpa (both f
 # the generic kernels' checks, then the wide kernels' (D > 256): (dtype, head
 # dim) in each mask variant; "64u": bf16 at D = 64 on misaligned operands
 # (`misaligned`), which only the generic kernels take, staged through
-# registers; "512u": the wide kernels on misaligned operands
+# registers; "512u": the wide kernels on misaligned operands; fp32 1024: the
+# dq and dk/dv's largest cluster (8 blocks, the tightest shared memory);
+# 1032: past the clusters' reach, the streamed dq and dk/dv
 COVERAGE_DIMS = (("fp32", 64), ("fp32", 80), ("fp32", 88), ("fp32", 128), ("fp32", 256),
                  ("bf16", 80), ("bf16", 88), ("bf16", 256), ("bf16", "64u"),
-                 ("fp32", 320), ("fp32", 512), ("bf16", 320), ("bf16", 512), ("bf16", "512u"))
+                 ("fp32", 320), ("fp32", 512), ("bf16", 320), ("bf16", 512), ("bf16", "512u"),
+                 ("fp32", 1024), ("fp32", 1032), ("bf16", 1032))
 COVERAGE_VARIANTS = ("pad", "causal", "window128", "segments", "gqa", "rotary")
 # at D = 512 also NeoX rotary over the whole head dim: its adjoint pairs
 # columns of two of the wide kernels' output slices
@@ -7765,9 +7780,7 @@ def generic_entries(coverage):
             note="plain_ms and library_ms time a whole backward (dq, dk and dv)")
         rows.append(dict(name=f"flash_wide_{kname}", route="cuda", source="contrastors_tpu_torch/ops/csrc/flash_wide.cu",
                          replaces=replaces[0], also_replaces=replaces[1:],
-                         design="wide_kernel<T, WHICH> (head dims above 256: output column slices across blocks, the "
-                                "products over D streamed in 64-column chunks; bf16 mma.sync m16n8k16, fp32 3xTF32 on "
-                                "m16n8k8)",
+                         design=WIDE_DESIGN[kname],
                          launches=training["launches_per_step"][WIDE[kname]],
                          max_abs_err=max(r["max_abs_err"] for r in path), err_over_bar=max(r["err_over_bar"] for r in path),
                          coverage_max_abs_err=coverage["max_abs_err"]["wide_" + kname],

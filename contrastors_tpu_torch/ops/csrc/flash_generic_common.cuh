@@ -145,14 +145,33 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// `cluster` > 1 launches thread-block clusters of that many consecutive
+// blocks (flash_wide.cu's backward); a refused launch returns its error
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, int blocks, int threads, const Args& a, cudaStream_t s) {
+cudaError_t launch(Kernel kernel, size_t smem, int blocks, int threads, const Args& a, cudaStream_t s,
+                   int cluster = 1) {
   const int bytes = int(smem);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
   if (blocks == 0) return cudaSuccess;
-  kernel<<<blocks, threads, bytes, s>>>(a);
-  return cudaGetLastError();
+  if (cluster == 1) {
+    kernel<<<blocks, threads, bytes, s>>>(a);
+    return cudaGetLastError();
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, a);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // a base pointer and (batch, sequence, head) strides that keep every row

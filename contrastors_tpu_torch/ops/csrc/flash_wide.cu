@@ -11,57 +11,86 @@
 //   flash_wide_dkv_{bf16,f32} - _bwd_dkv_kernel (:512), call :700,
 // with their fused_rot=True forms (_rot_block :76, _rot_adjoint :87) as a
 // run-time choice: a NULL cos table means no rotary. The Pallas kernels take
-// the whole head dim as the last dim of every block; here it does not fit.
+// the whole head dim as the last dim of every block; here it does not fit:
+// the DMAX-256 kernels keep each output row (O, dq, dk, dv) in registers and
+// their operand tiles whole in shared memory, and above 256 neither fits.
 //
-// What bounds them on an H100: bytes at the main path's shapes (pythia-1b's
-// width read as 4 heads of 512: 128-token rows, a few hundred FLOP per byte
-// of attention's own operands), so a design that recomputes products to keep
-// shared memory and registers within a block's share costs little there.
-// The DMAX-256 kernels keep each output row (O, dq, dk, dv) in registers and
-// their operand tiles whole in shared memory; at D > 256 neither fits.
-//
-// What the design does about it:
-//   - a grid axis over column slices of the output: a block owns 64 fixed
+// What every kernel here shares:
+//   - the output's columns in slices, one block each: a block owns 64 fixed
 //     rows (fwd / dq: query rows; dk/dv: kv rows) and the columns dv0 ..
-//     dv0 + cols of their output, at most kWideSlice (256 for O and dq, 128
-//     for dk and dv, which a warp holds both of); the slices of a head dim
-//     are of equal width, a multiple of 8 (D 320: 2 x 160);
-//   - the products whose contraction runs over the whole head dim (S = Q K^T;
-//     dP = dO V^T; dk/dv: S^T = K Q^T, dP^T = V dO^T) stream both operands
-//     through shared memory in chunks of 64 columns in bf16, 32 in fp32 (the
-//     last one partial, zero-filled past D), two stages: the next chunk's
-//     copies run under this one's products. Shared memory does not depend on
-//     D: 44-73 KB a block in bf16, 61-89 KB in fp32, so that two blocks share
-//     an SM (the registers, 234-255 a thread, allow no more). With 64-column
-//     fp32 chunks and a second slice buffer (119-172 KB, one block an SM) the
-//     fp32 kernels took 1.5-1.6x as long at pythia-1b's step documents read
-//     as 4 heads of 512 (tools/generic_kernel_probe.py, in turns);
-//   - every slice block of the same rows computes the same S (and dP) in the
-//     same order of sums, so m, l, the LSE and delta agree bit for bit across
-//     slices; slice 0 writes the LSE (forward) and delta (dq). Each dq block
-//     sums delta = rowsum(dO * O) over the whole D itself, before its walk;
-//   - each block loads only its slice of the operand of the second product
-//     (forward: V; dq: K; dk/dv: dO and Q) into one buffer, issued with the
-//     walked tile's second chunk, when every warp is done with the previous
-//     tile's (D > 256 makes two chunks at least);
-//   - 4 warps own 16 fixed rows each and walk tiles of 32 rows of the other
-//     side (fwd / dq: kv rows over kv_range; dk/dv: query rows over q_range,
-//     for every q head of the GQA group); the C W products (P V, dS K, P^T dO,
-//     dS^T Q) take p or ds straight from the accumulator registers;
+//     dv0 + cols of their output; the slices of a head dim are of equal
+//     width, a multiple of 8, but the last (D 320: 112, 112 and 96 in the
+//     clusters, 2 x 160 in the forward);
+//   - 4 warps own 16 fixed rows each and walk tiles of the other side (fwd /
+//     dq: kv rows over kv_range; dk/dv: query rows over q_range, for every q
+//     head of the GQA group); the C W products (P V, dS K, P^T dO, dS^T Q)
+//     take p or ds straight from the accumulator registers;
 //   - bf16: mma.sync.m16n8k16 (ldmatrix operands, tiles in rows of width + 8
 //     elements: an odd multiple of 16 bytes); fp32: 3xTF32 on
 //     mma.sync.m16n8k8 (flash_tf32.cu's note), tiles in rows of width + 4
 //     floats;
 //   - rows arrive by 16-byte cp.async where every operand's rows are 16-byte
 //     aligned (Args.vec), else staged through registers, as are rotated q / k
-//     chunks, whose partner column is read from device memory (it may lie in
-//     another chunk);
+//     tiles, whose partner column is read from device memory (it may lie in
+//     another slice);
 //   - the rotary adjoint on dq and dk needs g at the partner column, which
 //     for NeoX halves may lie in another slice block: with rotary the dq and
 //     dk/dv kernels store the fp32 gradient before its adjoint into a buffer
 //     of the caller's, and wide_adjoint_kernel (not a TPU kernel: the pass
 //     _rot_adjoint runs inside the Pallas kernels) applies store_adjoint's
 //     arithmetic and the cast.
+//
+// The forward (wide_kernel<T, 0>), and the backward past a cluster's reach
+// (wide_kernel<T, 1 / 2>, D > 1024): slices of at most 256 columns (O, dq)
+// or 128 (dk with dv, which a warp holds both of); every slice block
+// computes the whole S (and dP) itself, streaming both operands over D
+// through shared memory in chunks of 64 columns in bf16, 32 in fp32 (two
+// stages: the next chunk's copies run under this one's products), so that
+// m, l, the LSE and delta agree bit for bit across the slices; slice 0
+// writes the LSE (forward) and delta (dq), and each block loads its slice of
+// the second product's operand (V; K; dO and Q) once a walked tile. Shared
+// memory does not depend on D: 44-89 KB a block, two blocks an SM. The cost
+// is the recomputation: a row tile's blocks work through slices x products
+// over D, 2.5x the work of the products at D 512 in dk/dv, 1.67x in dq, and
+// time followed that count (tools/generic_kernel_probe.py).
+//
+// The backward at 256 < D <= 1024 (wide_cluster_kernel<T, WHICH>): one
+// thread-block cluster of n = ceil(D / 128) blocks (at most 8, the portable
+// size) for every (batch, head, 64 fixed rows), the block of rank r owning
+// slice r of the output's columns and of every operand's:
+//   - its slices of the fixed rows' operands (dq: Q and dO; dk/dv: K and V)
+//     stay in shared memory for the whole walk; for each walked tile it
+//     streams only the tile's slices (dq: K and V; dk/dv: Q and dO), two
+//     stages by cp.async, and the same slice feeds the block's share of S
+//     and dP and its C W products: every operand element is loaded once;
+//   - each block computes its share of S and dP (dk/dv: S^T, dP^T) over its
+//     own columns on the tensor cores and stores it, fp32, into its shared
+//     memory; after a cluster barrier (arrive.release / wait.acquire) every
+//     block reads all n shares through distributed shared memory (mapa +
+//     ld.shared::cluster) and sums them in rank order 0 .. n - 1, so every
+//     block of the cluster holds the same S and dP bit for bit, and p and ds
+//     follow as in the streamed design. A block overwrites its shares only
+//     after every peer has read them: two buffers in bf16 (a peer that reads
+//     tile i's shares has arrived at tile i + 1's barrier before this block
+//     writes tile i + 2's), one in fp32 (an arrival after the reads, waited
+//     on before the next write), which keeps two fp32 blocks an SM;
+//   - dq: each block sums its share of delta = rowsum(dO * O) over its
+//     columns (16-byte loads, two threads a row), the cluster adds the
+//     shares in rank order and rank 0 writes delta for dk/dv;
+//   - the walk range depends only on the fixed rows, so every block of a
+//     cluster takes the same barriers; each ends with a cluster barrier, so
+//     that none leaves while a peer may still read its shared memory;
+//   - walked tiles of 32 rows (bf16 dk/dv: 255 registers and 100 KB, two
+//     blocks an SM) or 16 (bf16 dq: 168 registers and 67 KB, three blocks
+//     an SM, 12% faster than 32 rows in turns; fp32: 107 KB, two blocks).
+// Past 8 blocks (D > 1024) the head dim takes the streamed design above, a
+// route by shape.
+//
+// What bounds them on an H100: latency. At the main path's shapes
+// (pythia-1b's width read as 4 heads of 512: 128-token rows, causal) a block
+// walks 2-4 tiles; each waits on its copies and, in the clusters, on its
+// peers' shares, with two or three 4-warp blocks an SM to cover the waits.
+// The backward reaches 0.17-0.21 of its byte bound, the forward 0.14-0.16.
 // Every output element has one owner and a fixed order of sums: no atomics,
 // bit-identical reruns.
 
@@ -97,16 +126,16 @@ template <>
 struct WideMma<bf16> {
   static constexpr int kChunk = 64;  // columns of a chunk of the products over D
   static constexpr int kPad = 8;     // row stride = width + 8 elements
-  // acc += X W^T over the chunk's first kcols columns (past them, zero up to
+  // acc += X W^T over the first kcols of KC columns (past them, zero up to
   // a multiple of 16): X the warp's 16 rows at x, W the walked tile at w
-  template <int SJ>
+  template <int SJ, int KC = kChunk>
   static __device__ __forceinline__ void product_nt(float (&acc)[SJ][4], const bf16* x, const bf16* w, int ld,
                                                     int kcols) {
     const int lane = threadIdx.x & 31;
     const uint32_t xa = smem_addr(x + a_row(lane) * ld + a_col(lane));
     const uint32_t wa = smem_addr(w + bn_row(lane) * ld + bn_col(lane));
 #pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk) {
+    for (int kk = 0; kk < KC / 16; ++kk) {
       if (kk * 16 >= kcols) break;
       uint32_t xf[4];
       ldsm4(xf, xa + kk * 32);
@@ -149,28 +178,29 @@ template <>
 struct WideMma<float> {
   static constexpr int kChunk = 32;  // half bf16's: two blocks an SM fit in shared memory
   static constexpr int kPad = 4;     // row stride = width + 4 floats: = 4 (mod 8), fragment reads in 32 banks
-  template <int SJ>
+  template <int SJ, int KC = kChunk>
   static __device__ __forceinline__ void product_nt(float (&acc)[SJ][4], const float* x, const float* w, int ld,
                                                     int kcols) {
+    constexpr int G = SJ < 4 ? SJ : 4;  // walked 8-row groups a pass
     const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
     const float* xf = x + g * ld + t4;
     const float* wf = w + g * ld + t4;
     auto& acc1 = reinterpret_cast<float(&)[1][SJ][4]>(acc);
 #pragma unroll
-    for (int kk = 0; kk < kChunk / 8; ++kk) {
+    for (int kk = 0; kk < KC / 8; ++kk) {
       if (kk * 8 >= kcols) break;
       uint32_t ab[1][4], as[1][4];
       a_frag(xf + kk * 8, ld, ab[0], as[0]);
 #pragma unroll
-      for (int j0 = 0; j0 < SJ; j0 += 4) {
-        uint32_t bb[4][2], bs[4][2];
+      for (int j0 = 0; j0 < SJ; j0 += G) {
+        uint32_t bb[G][2], bs[G][2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < G; ++i) {
           const float* wr = wf + (j0 + i) * 8 * ld + kk * 8;
           split_tf32_fast(wr[0], bb[i][0], bs[i][0]);
           split_tf32_fast(wr[4], bb[i][1], bs[i][1]);
         }
-        mma_3xtf32<1, SJ, 4>(acc1, j0, ab, as, bb, bs, 4);
+        mma_3xtf32<1, SJ, G>(acc1, j0, ab, as, bb, bs, G);
       }
     }
   }
@@ -185,18 +215,19 @@ struct WideMma<float> {
 
 // ROWS rows row0 .. of one (batch, head) of x (row stride ss), columns col0 ..
 // col0 + width (width <= COLS), into dst (row stride ld); zero in rows past
-// n_valid and in columns past D. By 16-byte cp.async when `async`, else
+// n_valid and in columns past D or lim. By 16-byte cp.async when `async`, else
 // staged through registers, rotated (q, k) as the plain version rotates when
 // `rotate`: the partner column is read from device memory.
 template <typename T, int ROWS, int COLS>
 __device__ __forceinline__ void wide_load(T* dst, int ld, const T* base, int64_t ss, int row0, int n_valid, int col0,
-                                          int width, int D, bool async, bool rotate, const Rot& rot, int b) {
+                                          int width, int D, bool async, bool rotate, const Rot& rot, int b,
+                                          int lim = 1 << 30) {
   if (async && !rotate) {
     constexpr int EPS = 16 / sizeof(T), SLOTS = COLS / EPS;  // elements of a 16-byte slot; slots of a row
     for (int idx = threadIdx.x; idx < ROWS * SLOTS; idx += kWideThreads) {
       const int r = idx / SLOTS, c = (idx - r * SLOTS) * EPS, pos = row0 + r, d = col0 + c;
       if (c >= width) continue;
-      const bool ok = pos < n_valid && d < D;
+      const bool ok = pos < n_valid && d < D && d < lim;
       cp_async16(smem_addr(dst + r * ld + c), ok ? base + int64_t(pos) * ss + d : base, ok);
     }
     return;
@@ -205,7 +236,7 @@ __device__ __forceinline__ void wide_load(T* dst, int ld, const T* base, int64_t
     const int r = idx / COLS, c = idx - r * COLS, pos = row0 + r, d = col0 + c;
     if (c >= width) continue;
     float x = 0.f;
-    if (pos < n_valid && d < D) {
+    if (pos < n_valid && d < D && d < lim) {
       const T* row = base + int64_t(pos) * ss;
       x = to_f32(row[d]);
       if (rotate && d < 2 * rot.half) {
@@ -222,6 +253,101 @@ template <int WHICH>
 constexpr int kWideProducts = WHICH == 0 ? 1 : 2;  // products over D a walked tile: S (and dP)
 template <int WHICH>
 constexpr int kWideOutputs = WHICH == 2 ? 2 : 1;  // outputs a block accumulates: O; dq; dv and dk
+
+// The backward's step from a walked tile's whole S and dP to what its C W
+// products take, for a warp's 16 fixed rows rw - rw % 16 .. of f0 and the
+// walked rows w0 .. w0 + 8 SJ, in the accumulators' layout.
+// dq: S and dP of query rows against kv rows -> dS (into s), from the fixed
+// rows' LSE and delta
+template <int SJ>
+__device__ __forceinline__ void tile_ds(float (&s)[SJ][4], const float (&dp)[SJ][4], const Args& a, int b, int f0,
+                                        int w0, int rw, const int (&fix_id)[2], const float (&lse)[2],
+                                        const float (&dl)[2]) {
+  const int t4 = threadIdx.x & 3;
+  const bool masked = tile_masked(a, f0, w0, 8 * SJ, false, kWideRows);
+#pragma unroll
+  for (int j = 0; j < SJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int hr = e >> 1, c = w0 + 8 * j + 2 * t4 + (e & 1);
+      const int skv = a.seg_kv != nullptr && c < a.T ? a.seg_kv[int64_t(b) * a.T + c] : 0;
+      const bool ok = lse[hr] > kNegInf / 2 && (!masked || valid(a, f0 + rw + 8 * hr, c, fix_id[hr], skv));
+      const float p = ok ? exp2f(__fmul_rn(s[j][e], a.c) - lse[hr]) : 0.f;
+      s[j][e] = __fmul_rn(__fmul_rn(dp[j][e] - dl[hr], p), a.scale);
+    }
+}
+
+// dk/dv: S^T and dP^T of kv rows against the query rows of q head h -> P^T
+// (into s) and dS^T (into dp), from the walked rows' LSE and delta
+template <int SJ>
+__device__ __forceinline__ void tile_p_ds(float (&s)[SJ][4], float (&dp)[SJ][4], const Args& a, int b, int h, int f0,
+                                          int w0, int rw, const int (&fix_id)[2]) {
+  const int t4 = threadIdx.x & 3;
+  const int64_t wstat = (int64_t(b) * a.H + h) * a.S;
+  const bool masked = tile_masked(a, w0, f0, kWideRows, false, 8 * SJ);
+#pragma unroll
+  for (int j = 0; j < SJ; ++j)
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int r = w0 + 8 * j + 2 * t4 + e2;  // the walked query row of columns e = e2 and e2 + 2
+      const bool in = r < a.S;
+      const float wl = in ? a.lse[wstat + r] : kNegInf, wd = in ? a.delta[wstat + r] : 0.f;
+      const int wid = a.seg_q != nullptr && in ? a.seg_q[int64_t(b) * a.S + r] : 0;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int e = 2 * hr + e2;
+        const bool ok = wl > kNegInf / 2 && (!masked || valid(a, r, f0 + rw + 8 * hr, wid, fix_id[hr]));
+        const float p = ok ? exp2f(__fmul_rn(s[j][e], a.c) - wl) : 0.f;
+        s[j][e] = p;
+        dp[j][e] = __fmul_rn(__fmul_rn(dp[j][e] - wd, p), a.scale);
+      }
+    }
+}
+
+// The backward's slice of its outputs, columns dv0 .. dv0 + cols, at this
+// thread's fixed rows f0 + rw and f0 + rw + 8; with rotary, dq and dk in fp32
+// before the adjoint (wide_adjoint_kernel).
+// dq of q head hh
+template <typename T, int NC>
+__device__ __forceinline__ void store_dq(const Args& a, const float (&dq)[NC][4], int b, int hh, int f0, int rw,
+                                         int dv0, int cols, bool rot) {
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = f0 + rw + 8 * hr;
+    if (r >= a.S) continue;
+    const int64_t at = ((int64_t(b) * a.S + r) * a.H + hh) * a.D + dv0 + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      if (n * 8 >= cols) break;
+      if (rot)
+        store2(static_cast<float*>(a.dq) + at + n * 8, dq[n][2 * hr], dq[n][2 * hr + 1]);
+      else
+        store2(static_cast<T*>(a.dq) + at + n * 8, dq[n][2 * hr], dq[n][2 * hr + 1]);
+    }
+  }
+}
+// dv and dk of kv head hk
+template <typename T, int NC>
+__device__ __forceinline__ void store_dkv(const Args& a, const float (&dv)[NC][4], const float (&dk)[NC][4], int b,
+                                          int hk, int f0, int rw, int dv0, int cols, bool rot) {
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = f0 + rw + 8 * hr;
+    if (r >= a.T) continue;
+    const int64_t at = ((int64_t(b) * a.T + r) * a.Hkv + hk) * a.D + dv0 + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      if (n * 8 >= cols) break;
+      store2(static_cast<T*>(a.dv) + at + n * 8, dv[n][2 * hr], dv[n][2 * hr + 1]);
+      if (rot)
+        store2(static_cast<float*>(a.dk) + at + n * 8, dk[n][2 * hr], dk[n][2 * hr + 1]);
+      else
+        store2(static_cast<T*>(a.dk) + at + n * 8, dk[n][2 * hr], dk[n][2 * hr + 1]);
+    }
+  }
+}
 
 template <typename T, int WHICH>
 size_t wide_bytes() {
@@ -410,80 +536,321 @@ __global__ void __launch_bounds__(kWideThreads) wide_kernel(Args a) {
       }
       M::template product_cw<SJ, NC>(out[0], s, ss, lds, cols);  // O += P V
     } else if constexpr (WHICH == 1) {
-      const bool masked = tile_masked(a, f0, w0, WK, false, FX);
-#pragma unroll
-      for (int j = 0; j < SJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int hr = e >> 1, c = w0 + 8 * j + 2 * t4 + (e & 1);
-          const int skv = a.seg_kv != nullptr && c < a.T ? a.seg_kv[int64_t(b) * a.T + c] : 0;
-          const bool ok = lse[hr] > kNegInf / 2 && (!masked || valid(a, f0 + rw + 8 * hr, c, fix_id[hr], skv));
-          const float p = ok ? exp2f(__fmul_rn(s[j][e], a.c) - lse[hr]) : 0.f;
-          s[j][e] = __fmul_rn(__fmul_rn(dp[j][e] - dl[hr], p), a.scale);
-        }
+      tile_ds<SJ>(s, dp, a, b, f0, w0, rw, fix_id, lse, dl);
       M::template product_cw<SJ, NC>(out[0], s, ss, lds, cols);  // dQ += dS K
     } else {
-      const int h = walk_head(it);
-      const int64_t wstat = (int64_t(b) * a.H + h) * a.S;
-      const bool masked = tile_masked(a, w0, f0, FX, false, WK);
-#pragma unroll
-      for (int j = 0; j < SJ; ++j)
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {
-          const int r = w0 + 8 * j + 2 * t4 + e2;  // the walked query row of columns e = e2 and e2 + 2
-          const bool in = r < a.S;
-          const float wl = in ? a.lse[wstat + r] : kNegInf, wd = in ? a.delta[wstat + r] : 0.f;
-          const int wid = a.seg_q != nullptr && in ? a.seg_q[int64_t(b) * a.S + r] : 0;
-#pragma unroll
-          for (int hr = 0; hr < 2; ++hr) {
-            const int e = 2 * hr + e2;
-            const bool ok = wl > kNegInf / 2 && (!masked || valid(a, r, f0 + rw + 8 * hr, wid, fix_id[hr]));
-            const float p = ok ? exp2f(__fmul_rn(s[j][e], a.c) - wl) : 0.f;
-            s[j][e] = p;
-            dp[j][e] = __fmul_rn(__fmul_rn(dp[j][e] - wd, p), a.scale);
-          }
-        }
+      tile_p_ds<SJ>(s, dp, a, b, walk_head(it), f0, w0, rw, fix_id);
       M::template product_cw<SJ, NC>(out[0], s, ss, lds, cols);              // dV += P^T dO
       M::template product_cw<SJ, NC>(out[NO - 1], dp, ss + WK * lds, lds, cols);  // dK += dS^T Q
     }
   }
   cp_wait<0>();  // no copy is in flight at exit (a block with nothing to walk)
 
-  // the slice of the outputs; with rotary, dq and dk in fp32 before the adjoint (wide_adjoint_kernel)
+  // the slice of the outputs
+  if constexpr (WHICH == 2) {
+    store_dkv<T, NC>(a, out[0], out[NO - 1], b, hk, f0, rw, dv0, cols, rot);
+  } else if constexpr (WHICH == 1) {
+    store_dq<T, NC>(a, out[0], b, hh, f0, rw, dv0, cols, rot);
+  } else {
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = f0 + rw + 8 * hr;
-    if (r >= n_fix) continue;
-    if constexpr (WHICH == 2) {
-      const int64_t at = ((int64_t(b) * a.T + r) * a.Hkv + hk) * D + dv0 + 2 * t4;
-#pragma unroll
-      for (int n = 0; n < NC; ++n) {
-        if (n * 8 >= cols) break;
-        store2(static_cast<T*>(a.dv) + at + n * 8, out[0][n][2 * hr], out[0][n][2 * hr + 1]);
-        if (rot)
-          store2(static_cast<float*>(a.dk) + at + n * 8, out[1][n][2 * hr], out[1][n][2 * hr + 1]);
-        else
-          store2(static_cast<T*>(a.dk) + at + n * 8, out[1][n][2 * hr], out[1][n][2 * hr + 1]);
-      }
-    } else {
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = f0 + rw + 8 * hr;
+      if (r >= n_fix) continue;
       const int64_t at = ((int64_t(b) * a.S + r) * a.H + hh) * D + dv0 + 2 * t4;
-      const bool dead = WHICH == 0 && l[hr] == 0.f;
-      const float inv = WHICH == 0 && !dead ? l[hr] : 1.f;
+      const bool dead = l[hr] == 0.f;
+      const float inv = !dead ? l[hr] : 1.f;
 #pragma unroll
       for (int n = 0; n < NC; ++n) {
         if (n * 8 >= cols) break;
         const float x = dead ? 0.f : out[0][n][2 * hr] / inv, y = dead ? 0.f : out[0][n][2 * hr + 1] / inv;
-        if (WHICH == 0)
-          store2(static_cast<T*>(a.out) + at + n * 8, x, y);
-        else if (rot)
-          store2(static_cast<float*>(a.dq) + at + n * 8, x, y);
-        else
-          store2(static_cast<T*>(a.dq) + at + n * 8, x, y);
+        store2(static_cast<T*>(a.out) + at + n * 8, x, y);
       }
-      if (WHICH == 0 && slice == 0 && t4 == 0)
-        a.lse[stat0 + r] = dead ? kNegInf : __fmul_rn(m_run[hr], a.c) + log2f(l[hr]);
+      if (slice == 0 && t4 == 0) a.lse[stat0 + r] = dead ? kNegInf : __fmul_rn(m_run[hr], a.c) + log2f(l[hr]);
     }
   }
+}
+
+// ---- the wide dq and dk/dv in thread-block clusters (256 < D <= 1024) ---------
+
+constexpr int kClusterSlice = 128;  // the widest output slice of a cluster block, and of its operands' slices
+constexpr int kClusterMax = 8;      // the portable cluster size: D up to 8 x 128
+
+// walked rows a tile and buffers of partial products (dq: WHICH 1, dk/dv: 2)
+template <typename T, int WHICH>
+struct ClusterCfg {  // bf16 dk/dv: 32-row tiles, two blocks an SM (255 registers)
+  static constexpr int kWalk = 32, kBufs = 2;
+};
+template <>
+struct ClusterCfg<bf16, 1> {  // bf16 dq: 16-row tiles, 67 KB, three blocks an SM (168 registers)
+  static constexpr int kWalk = 16, kBufs = 2;
+};
+template <int WHICH>
+struct ClusterCfg<float, WHICH> {  // 16-row tiles, one buffer: two blocks an SM in shared memory
+  static constexpr int kWalk = 16, kBufs = 1;
+};
+constexpr int kClusterStages = 2;  // stages of walked tiles: the next tile's copies run under this one's products
+
+template <typename T, int WHICH>
+size_t cluster_bytes() {
+  using C = ClusterCfg<T, WHICH>;
+  constexpr int ld = kClusterSlice + WideMma<T>::kPad;
+  return size_t(2 * kWideRows + kClusterStages * 2 * C::kWalk) * ld * sizeof(T) +
+         (size_t(C::kBufs) * 2 * kWideRows * C::kWalk + (WHICH == 1 ? kWideRows : 0)) * sizeof(float);
+}
+
+// 8 elements at p (16-byte aligned rows when vec) as fp32
+__device__ __forceinline__ void load8(const bf16* p, float (&x)[8], bool vec) {
+  if (vec) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    const bf16* h = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = __bfloat162float(h[e]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = __bfloat162float(p[e]);
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float (&x)[8], bool vec) {
+  if (vec) {
+    const float4 u = __ldg(reinterpret_cast<const float4*>(p)), w = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    x[0] = u.x, x[1] = u.y, x[2] = u.z, x[3] = u.w, x[4] = w.x, x[5] = w.y, x[6] = w.z, x[7] = w.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = p[e];
+  }
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return int(r);
+}
+// the cluster's barrier: this block's shared-memory writes before the arrival are seen by every
+// peer after its wait
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory"); }
+// p's shared-memory address in the cluster's block of rank r
+__device__ __forceinline__ uint32_t peer_addr(const float* p, int r) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_addr(p)), "r"(r));
+  return addr;
+}
+__device__ __forceinline__ float ld_peer(const float* p, int r) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(peer_addr(p, r)) : "memory");
+  return v;
+}
+__device__ __forceinline__ float4 ld_peer4(const float* p, int r) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(peer_addr(p, r))
+               : "memory");
+  return v;
+}
+
+// s and dp, a thread's accumulators, replaced by their sums over the cluster's
+// n blocks in rank order 0 .. n - 1; each block's share lies at ps / pd (in
+// every block the same offsets: slot j at + 128 j floats), so every block
+// gets the same bits
+template <int SJ>
+__device__ __forceinline__ void cluster_sum(float (&s)[SJ][4], float (&dp)[SJ][4], const float* ps, const float* pd,
+                                            int n) {
+#pragma unroll
+  for (int j = 0; j < SJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+  for (int r = 0; r < n; ++r) {
+    float4 vs[SJ], vd[SJ];
+#pragma unroll
+    for (int j = 0; j < SJ; ++j) {
+      vs[j] = ld_peer4(ps + 128 * j, r);
+      vd[j] = ld_peer4(pd + 128 * j, r);
+    }
+#pragma unroll
+    for (int j = 0; j < SJ; ++j) {
+      s[j][0] += vs[j].x, s[j][1] += vs[j].y, s[j][2] += vs[j].z, s[j][3] += vs[j].w;
+      dp[j][0] += vd[j].x, dp[j][1] += vd[j].y, dp[j][2] += vd[j].z, dp[j][3] += vd[j].w;
+    }
+  }
+}
+
+// The wide dq (WHICH 1) and dk/dv (2) for 256 < D <= 1024 in T (bf16 or
+// fp32): one cluster of n = ceil(D / 128) blocks per (batch, head, 64 fixed
+// rows); the block of rank r owns slice r of the output's columns and of every
+// operand's, and computes its share of S and dP (S^T, dP^T) over those columns
+// only; the cluster sums the shares through distributed shared memory.
+template <typename T, int WHICH>
+__global__ void __launch_bounds__(kWideThreads) wide_cluster_kernel(Args a) {
+  using M = WideMma<T>;
+  using C = ClusterCfg<T, WHICH>;
+  constexpr int W = kClusterSlice, NC = W / 8, FX = kWideRows, WK = C::kWalk, SJ = WK / 8;
+  constexpr int NO = kWideOutputs<WHICH>, ld = W + M::kPad;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sX = reinterpret_cast<T*>(smem_raw);  // [2][FX][ld]: the fixed rows' slices (dq: Q, dO; dk/dv: K, V)
+  T* sW = sX + 2 * FX * ld;                // [kClusterStages][2][WK][ld]: the walked tile's (dq: K, V; dk/dv: Q, dO)
+  // [kBufs][2 (S, dP)][4 warps][SJ][32 lanes][4]: the block's shares, in the accumulators' order
+  float* sP = reinterpret_cast<float*>(sW + kClusterStages * 2 * WK * ld);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int D = a.D, n = (D + W - 1) / W, slice_w = ((D + n - 1) / n + 7) / 8 * 8;
+  const int rank = cluster_rank(), rest = blockIdx.x / n;
+  const int dv0 = rank * slice_w, cols = min(slice_w, D - dv0), width = min(W, (cols + 15) & ~15);
+  const int lim = dv0 + cols;  // past it, the next block's columns: zero in this block's tiles
+  const int n_fix = WHICH == 2 ? a.T : a.S, heads = WHICH == 2 ? a.Hkv : a.H, gq = a.H / a.Hkv;
+  const int n_ft = (n_fix + FX - 1) / FX;
+  const int f0 = rest % n_ft * FX, hh = rest / n_ft % heads, b = rest / (n_ft * heads);
+  const int hk = WHICH == 2 ? hh : hh / gq;  // the kv head; the q head is hh (dq) or walk_head (dk/dv)
+  const bool rot = a.rot.cos != nullptr, vec = a.vec != 0;
+  const int rw = warp * 16 + g;  // this thread's fixed rows of the block: rw and rw + 8
+  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb;
+  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
+
+  // the walk, as in wide_kernel: the same in every block of the cluster, so all take the same barriers
+  int lo, hi;
+  if (WHICH == 2)
+    q_range(a, f0, min(f0 + FX, n_fix) - 1, lo, hi);
+  else
+    kv_range(a, f0, min(f0 + FX, n_fix) - 1, lo, hi);
+  const int n_wt = hi > lo ? (hi - lo + WK - 1) / WK : 0;
+  const int total = (WHICH == 2 ? gq : 1) * n_wt;
+  auto walk_head = [&](int it) { return WHICH == 2 ? hk * gq + it / n_wt : hh; };
+  auto walk_row0 = [&](int it) { return lo + it % n_wt * WK; };
+
+  // walked tile `it`: its slices into stage it % 2
+  auto issue = [&](int it) {
+    const int w0 = walk_row0(it);
+    T* ws = sW + (it & 1) * 2 * WK * ld;
+    if constexpr (WHICH == 2) {
+      const int h = walk_head(it);
+      const T* doh = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
+      wide_load<T, WK, W>(ws, ld, qb + h * a.q_sh, a.q_ss, w0, a.S, dv0, width, D, vec, rot, a.rot, b, lim);
+      wide_load<T, WK, W>(ws + WK * ld, ld, doh, a.do_ss, w0, a.S, dv0, width, D, vec, false, a.rot, b, lim);
+    } else {
+      wide_load<T, WK, W>(ws, ld, kb, a.k_ss, w0, a.T, dv0, width, D, vec, rot, a.rot, b, lim);
+      wide_load<T, WK, W>(ws + WK * ld, ld, vb, a.v_ss, w0, a.T, dv0, width, D, vec, false, a.rot, b, lim);
+    }
+  };
+  if constexpr (WHICH == 2) {
+    wide_load<T, FX, W>(sX, ld, kb, a.k_ss, f0, a.T, dv0, width, D, vec, rot, a.rot, b, lim);
+    wide_load<T, FX, W>(sX + FX * ld, ld, vb, a.v_ss, f0, a.T, dv0, width, D, vec, false, a.rot, b, lim);
+  } else {
+    const T* doh = static_cast<const T*>(a.dout) + b * a.do_sb + hh * a.do_sh;
+    wide_load<T, FX, W>(sX, ld, qb + hh * a.q_sh, a.q_ss, f0, a.S, dv0, width, D, vec, rot, a.rot, b, lim);
+    wide_load<T, FX, W>(sX + FX * ld, ld, doh, a.do_ss, f0, a.S, dv0, width, D, vec, false, a.rot, b, lim);
+  }
+  if (total > 0) issue(0);
+  cp_commit();
+
+  // the fixed rows' segment ids; dq: their LSE and delta
+  int fix_id[2] = {0, 0};
+  float lse[2] = {kNegInf, kNegInf}, dl[2] = {0.f, 0.f};
+  const int64_t stat0 = (int64_t(b) * a.H + hh) * a.S;  // dq: the LSE and delta of head hh
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = f0 + rw + 8 * hr;
+    if (a.seg_q != nullptr && r < n_fix)
+      fix_id[hr] = WHICH == 2 ? a.seg_kv[int64_t(b) * a.T + r] : a.seg_q[int64_t(b) * a.S + r];
+    if (WHICH == 1 && r < a.S) lse[hr] = a.lse[stat0 + r];
+  }
+  if constexpr (WHICH == 1) {
+    // delta = rowsum(dO * O): the block's share over its columns, two threads a row, each over every
+    // other 8 columns (16-byte loads where rows are aligned), then the cluster's sum in rank order;
+    // rank 0 writes it for dk/dv
+    const T* ob = static_cast<const T*>(a.o) + b * a.o_sb + hh * a.o_sh;
+    const T* doh = static_cast<const T*>(a.dout) + b * a.do_sb + hh * a.do_sh;
+    float* sD = sP + C::kBufs * 2 * FX * WK;  // [FX] the block's share
+    const int row = f0 + (threadIdx.x >> 1);
+    float part = 0.f;
+    if (row < a.S) {
+      const T* dor = doh + row * a.do_ss + dv0;
+      const T* orow = ob + row * a.o_ss + dv0;
+#pragma unroll
+      for (int i = 0; i < W / 16; ++i) {
+        const int c = 16 * i + 8 * (threadIdx.x & 1);
+        if (c < cols) {
+          float x[8], y[8];
+          load8(dor + c, x, vec);
+          load8(orow + c, y, vec);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) part += x[e] * y[e];
+        }
+      }
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if ((threadIdx.x & 1) == 0) sD[threadIdx.x >> 1] = part;
+    cluster_arrive();
+    cluster_wait();
+    for (int r = 0; r < n; ++r) {
+      dl[0] += ld_peer(sD + rw, r);
+      dl[1] += ld_peer(sD + rw + 8, r);
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+      if (rank == 0 && t4 == 0 && f0 + rw + 8 * hr < a.S) a.delta[stat0 + f0 + rw + 8 * hr] = dl[hr];
+  }
+
+  float out[NO][NC][4];
+#pragma unroll
+  for (int o = 0; o < NO; ++o)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) out[o][c][0] = out[o][c][1] = out[o][c][2] = out[o][c][3] = 0.f;
+  float s[SJ][4], dp[SJ][4];
+  bool pending = false;  // one buffer: this block's arrival after reading its peers' shares, not yet waited on
+  for (int it = 0; it < total; ++it) {
+    if (it + 1 < total) {
+      __syncthreads();  // every warp is done with stage (it + 1) % 2
+      issue(it + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // tile it's slices landed
+    const T* ws = sW + (it & 1) * 2 * WK * ld;
+#pragma unroll
+    for (int j = 0; j < SJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    // the block's shares of S = X W^T and dP over its columns (dk/dv: S^T = K Q^T, dP^T = V dO^T)
+    M::template product_nt<SJ, W>(s, sX + warp * 16 * ld, ws, ld, cols);
+    M::template product_nt<SJ, W>(dp, sX + (FX + warp * 16) * ld, ws + WK * ld, ld, cols);
+    float* ps = sP + (it % C::kBufs) * 2 * FX * WK + (warp * SJ * 32 + lane) * 4;
+    float* pd = ps + FX * WK;
+    if (pending) cluster_wait();  // every peer has read this buffer's last shares
+#pragma unroll
+    for (int j = 0; j < SJ; ++j) {
+      *reinterpret_cast<float4*>(ps + 128 * j) = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+      *reinterpret_cast<float4*>(pd + 128 * j) = make_float4(dp[j][0], dp[j][1], dp[j][2], dp[j][3]);
+    }
+    cluster_arrive();
+    cluster_wait();  // every block's shares of this tile are written
+    cluster_sum<SJ>(s, dp, ps, pd, n);
+    if constexpr (C::kBufs == 1) {
+      cluster_arrive();
+      pending = true;
+    }
+
+    // the tile's S and dP are whole: p and ds, then the C W products on the block's slices
+    const int w0 = walk_row0(it);
+    if constexpr (WHICH == 1) {
+      tile_ds<SJ>(s, dp, a, b, f0, w0, rw, fix_id, lse, dl);
+      M::template product_cw<SJ, NC>(out[0], s, ws, ld, cols);  // dQ += dS K
+    } else {
+      tile_p_ds<SJ>(s, dp, a, b, walk_head(it), f0, w0, rw, fix_id);
+      M::template product_cw<SJ, NC>(out[0], s, ws + WK * ld, ld, cols);  // dV += P^T dO
+      M::template product_cw<SJ, NC>(out[1], dp, ws, ld, cols);           // dK += dS^T Q
+    }
+  }
+  cp_wait<0>();  // no copy is in flight at exit (a block with nothing to walk)
+  // no block leaves while a peer may still read its shared memory
+  if (!pending) cluster_arrive();
+  cluster_wait();
+
+  if constexpr (WHICH == 2)
+    store_dkv<T, NC>(a, out[0], out[1], b, hk, f0, rw, dv0, cols, rot);
+  else
+    store_dq<T, NC>(a, out[0], b, hh, f0, rw, dv0, cols, rot);
 }
 
 // The rotary adjoint of the wide dq (dk) with rotary: g [B, L, Hx, D] fp32,
@@ -520,9 +887,15 @@ int wide_dispatch(int which, Args& a, int window, const void* rot_cos, const voi
   if (e != cudaSuccess || empty) return int(e);
   if (a.D <= 256) return int(cudaErrorInvalidValue);  // flash_generic.cu's and flash_tf32.cu's head dims
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int W = which == 2 ? kWideSlice<2> : kWideSlice<0>;
   const int rows = which == 2 ? a.T : a.S, heads = which == 2 ? a.Hkv : a.H;
-  const int blocks = (rows + kWideRows - 1) / kWideRows * heads * a.B * ((a.D + W - 1) / W);
+  const int tiles = (rows + kWideRows - 1) / kWideRows * heads * a.B;
+  const int n = (a.D + kClusterSlice - 1) / kClusterSlice;  // the backward's cluster size
+  if (which == 1 && n <= kClusterMax)
+    return int(launch(wide_cluster_kernel<T, 1>, cluster_bytes<T, 1>(), tiles * n, kWideThreads, a, s, n));
+  if (which == 2 && n <= kClusterMax)
+    return int(launch(wide_cluster_kernel<T, 2>, cluster_bytes<T, 2>(), tiles * n, kWideThreads, a, s, n));
+  const int W = which == 2 ? kWideSlice<2> : kWideSlice<0>;
+  const int blocks = tiles * ((a.D + W - 1) / W);
   if (which == 0) return int(launch(wide_kernel<T, 0>, wide_bytes<T, 0>(), blocks, kWideThreads, a, s));
   if (which == 1) return int(launch(wide_kernel<T, 1>, wide_bytes<T, 1>(), blocks, kWideThreads, a, s));
   return int(launch(wide_kernel<T, 2>, wide_bytes<T, 2>(), blocks, kWideThreads, a, s));

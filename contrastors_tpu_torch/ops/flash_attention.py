@@ -54,11 +54,13 @@ same semantics everywhere, rotary a run-time choice:
     TF32 products for each fp32 product);
   - "wide": D > 256 in either dtype, `csrc/flash_wide.cu`
     (`flash_wide_{fwd,dq,dkv}_{bf16,f32}`): the output's columns split into
-    slices across blocks and the products over D streamed in 64-column
-    (bf16) or 32-column (fp32) chunks, so that no tile or accumulator grows
-    with D. With rotary their dq
-    and dk come out in fp32 before the adjoint, which `flash_wide_adjoint_*`
-    applies with the cast (`launches_wide_adjoint`).
+    slices across blocks, so that no tile or accumulator grows with D. The
+    forward streams the products over D in 64-column (bf16) or 32-column
+    (fp32) chunks; up to D = 1024 the dq and dk/dv run as thread-block
+    clusters of 128-column slices whose blocks sum their shares of S and dP
+    through distributed shared memory, above it as the forward. With rotary
+    their dq and dk come out in fp32 before the adjoint, which
+    `flash_wide_adjoint_*` applies with the cast (`launches_wide_adjoint`).
 All run on mma.sync over tiles that arrive by cp.async, or through registers
 where a row is not 16-byte aligned or is rotated on load. `flash_shape_ok`
 is JAX's rule: what it refuses (D < 64, D % 8 != 0) runs the plain `sdpa` in

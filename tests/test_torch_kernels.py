@@ -443,10 +443,12 @@ def test_fp32_tensor_core_backward_matches_plain_version_on_card(cuda, head_dim,
 
 
 # the wide kernels (D > 256): every head dim splits its output into column
-# slices and streams the products over D in 64-column chunks; 264 and 1024
-# end on a partial chunk and slice (264: 8 columns past 256), "512u"
+# slices; the forward streams the products over D in 64-column chunks, the
+# dq and dk/dv run in clusters of ceil(D / 128) slice blocks up to D 1024
+# (264: slices of 88, a partial 16-column step), and past that reach (1032)
+# the dq and dk/dv stream their products over D as the forward does; "512u"
 # misaligned operands
-WIDE_HEAD_DIMS = (264, 320, 512, 1024)
+WIDE_HEAD_DIMS = (264, 320, 512, 1024, 1032)
 WIDE_VARIANTS = TC_VARIANTS + ("rotary_full",)
 
 
@@ -456,7 +458,7 @@ WIDE_VARIANTS = TC_VARIANTS + ("rotary_full",)
                          + [(t, "512u", v) for t in ("fp32", "bf16") for v in ("pad", "causal", "rotary_halves")])
 def test_wide_kernels_match_plain_versions_on_card(cuda, dtype, head_dim, variant):
     """The wide forward, dq and dk/dv (csrc/flash_wide.cu) against the plain
-    versions at D 264, 320, 512 and 1024 in the variants of
+    versions at D 264, 320, 512, 1024 and 1032 in the variants of
     `_tensor_core_case` and NeoX rotary over the whole head dim (whose
     adjoint pairs columns of two slice blocks), and at D 512 on misaligned
     operands: fp32 within FP32_REL * max |ref| (the LSE within
